@@ -1,0 +1,159 @@
+"""Rules of the torch port as a package: it never imports JAX or the JAX
+package, its entry points run on the card unless told otherwise, and its
+registry, names and configuration follow the JAX package's."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import monocular_depth_estimation_trt_tpu.registry as jreg
+from monocular_depth_estimation_trt_tpu import config as jconfig
+from monocular_depth_estimation_trt_tpu_torch import config as tconfig
+from monocular_depth_estimation_trt_tpu_torch import registry as treg
+from monocular_depth_estimation_trt_tpu_torch.utils.logging import log
+from monocular_depth_estimation_trt_tpu_torch.weights import store
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "monocular_depth_estimation_trt_tpu_torch")
+JAX_PKG = "monocular_depth_estimation_trt_tpu"
+FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "orbax")
+DA_FAMILY = ("bridge", "depth_anything_ac", "depth_anything_v2", "distill_any_depth", "dkt")
+
+
+def _forbidden(module: str) -> bool:
+    # the JAX package's name is a prefix of the port's: match it exactly
+    return (module.split(".")[0] in FORBIDDEN_ROOTS
+            or module == JAX_PKG or module.startswith(JAX_PKG + "."))
+
+
+def _port_sources():
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PORT):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(paths)
+
+
+def _imported_modules(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif (isinstance(node, ast.Call) and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)
+              and getattr(node.func, "attr", getattr(node.func, "id", None))
+              in ("import_module", "__import__")):
+            yield node.args[0].value
+
+
+def test_forbidden_matcher_tells_the_two_packages_apart():
+    assert _forbidden(JAX_PKG) and _forbidden(JAX_PKG + ".ops.resize")
+    assert _forbidden("jax.numpy") and _forbidden("flax.linen") and _forbidden("orbax")
+    assert not _forbidden(JAX_PKG + "_torch") and not _forbidden(JAX_PKG + "_torch.ops")
+    assert not _forbidden("jaxtyping_like") and not _forbidden("torch")
+
+
+def test_no_port_source_imports_jax_or_the_jax_package():
+    sources = _port_sources()
+    assert len(sources) > 15
+    bad = [(os.path.relpath(p, REPO), m) for p in sources
+           for m in _imported_modules(p) if _forbidden(m)]
+    assert bad == []
+
+
+def test_importing_every_port_module_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import monocular_depth_estimation_trt_tpu_torch as pkg\n"
+        "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "pkg.build_pipeline, pkg.list_models, pkg.ModelSpec\n"
+        f"bad = [k for k in sys.modules if k.split('.')[0] in {FORBIDDEN_ROOTS!r}\n"
+        f"       or k == {JAX_PKG!r} or k.startswith({JAX_PKG + '.'!r})]\n"
+        "assert not bad, bad\n"
+        "print(len([k for k in sys.modules if k.startswith(pkg.__name__)]))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) > 15
+
+
+def test_build_pipeline_defaults_to_the_card_and_raises_without_one():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable here")
+    with store.allow_random_weights(True):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            treg.build_pipeline("depth_anything_v2")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            treg.build_pipeline("depth_anything_v2", encoder="vits", device="cuda")
+    assert treg.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_registry_lists_the_da_family_with_the_jax_fidelity():
+    assert tuple(treg.list_models()) == DA_FAMILY
+    for name in DA_FAMILY:
+        assert treg.get_fidelity(name) == jreg.get_fidelity(name)
+    with pytest.raises(KeyError):
+        treg.build_pipeline("vggt")
+
+
+@pytest.mark.parametrize("name", DA_FAMILY)
+@pytest.mark.parametrize("kw", [
+    {},
+    {"encoder": "vitb", "precision": "fp16"},
+    {"metric": True, "dataset": "vkitti", "precision": "fp32"},
+    {"metric": True, "input_size": 364, "resize_mode": "lower_bound"},
+])
+def test_da_family_builds_with_the_jax_artifact_names(monkeypatch, name, kw):
+    """Both registries build without weights here: the JAX side skips its
+    param resolution, the port builds on the meta device."""
+    monkeypatch.setattr(jreg, "_params_for", lambda *a, **k: {})
+    monkeypatch.setattr(store, "resolve_weights", lambda *a, **k: None)
+    jpipe = jreg.build_pipeline(name, **kw)
+    tpipe = treg.build_pipeline(name, device="meta", **kw)
+    assert tpipe.spec == tconfig.ModelSpec(**jpipe.spec.to_dict())
+    assert tpipe.spec.artifact_name() == jpipe.spec.artifact_name()
+    assert tpipe.viz == jpipe.viz
+    model = tpipe.model
+    assert model.metric == bool(kw.get("metric", name == "dkt"))
+    expected_max = 80.0 if kw.get("dataset") == "vkitti" else 20.0
+    assert model.max_depth == expected_max
+
+
+def test_int8_is_refused_with_the_missing_kernel_named():
+    with pytest.raises(NotImplementedError, match="K4"):
+        treg.build_pipeline("depth_anything_v2", precision="int8", device="cpu")
+
+
+@pytest.mark.parametrize("fields", [
+    dict(model="depth_anything_v2", encoder="vits"),
+    dict(model="dkt", encoder="vitl", input_hw=(364, 518), precision="fp32",
+         metric=True, dataset="hypersim"),
+    dict(model="x", variant="normal", batch=4, extra=(("k", 3),), precision="fp16"),
+])
+def test_model_spec_and_config_match_jax(fields):
+    assert (tconfig.ModelSpec(**fields).artifact_name()
+            == jconfig.ModelSpec(**fields).artifact_name())
+    assert tconfig.IMAGENET_MEAN == jconfig.IMAGENET_MEAN
+    assert tconfig.IMAGENET_STD == jconfig.IMAGENET_STD
+    assert tconfig.BenchmarkConfig() == tconfig.BenchmarkConfig(
+        **jconfig.BenchmarkConfig().__dict__)
+    assert tconfig.compute_dtype("fp16") == tconfig.compute_dtype("bf16") == torch.bfloat16
+    assert tconfig.compute_dtype("fp32") == torch.float32
+    with pytest.raises(ValueError):
+        tconfig.ModelSpec(model="m", precision="fp8")
+
+
+def test_log_lines_carry_the_mdet_tag(capsys):
+    log("hello %d", 3)
+    log("careful", tag="WARN")
+    assert capsys.readouterr().out.splitlines()[-2:] == ["[MDET] hello 3", "[WARN] careful"]
