@@ -8,18 +8,25 @@ Phases, each printed as one JSON line; any failure exits non-zero:
 1. device: card name and power limit, torch/CUDA versions, ``nvcc --version``;
 2. build: compiles ``monocular_depth_estimation_trt_tpu_torch/csrc/*.cu``
    with nvcc into the package's ``_build/`` directory and loads it;
-3. kernel checks: each kernel's wrapper against its plain PyTorch version on
-   the card, at the main path's shapes and edge shapes, with timings of the
-   kernel, the plain version and one library call, and the card's bound;
+3. kernel checks: each kernel's wrapper (K1 packed-qkv attention, K2
+   (B, H, N, d) attention) against its plain PyTorch version on the card, at
+   the main paths' shapes and edge shapes, with timings of the kernel, the
+   plain version and one library call, and the card's bound;
 4. main path: ``build_pipeline("depth_anything_v2", encoder="vits")`` on the
    card with seeded random weights: two frames, a batch of two with the viz
    epilogue, the metric variant; the launch counts of every kernel are read
    over exactly this run; then the bf16 depth against the same pipeline with
    plain attention and against the fp32 path, and the fp32 pipeline on the
    card against the CPU;
-5. speed: ``DepthPipeline.benchmark((518, 518))`` for vits and vitl;
-6. profile: device time by kernel, device busy time and idle share of a
-   vits frame, from ``torch.profiler``.
+5. VGGT path: ``build_pipeline("vggt")`` at full size (ViT-L patch embed, 24
+   alternating blocks): one 480x640 frame with the viz epilogue, 4 views,
+   then 8 views, with the counts set to 0 just before and read just after;
+   then its bf16 outputs against plain attention and the fp32 path, and the
+   fp32 path on the card against the CPU;
+6. speed: ``DepthPipeline.benchmark((518, 518))`` for vits and vitl, and for
+   vggt at S=1 and (``benchmark_views``) S=4;
+7. profile: device time by kernel, device busy time and idle share of a
+   vits frame and of vggt forwards of 1 and 4 views, from ``torch.profiler``.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -44,8 +51,15 @@ FP32_TOL = 1e-4  # fp32: summation order only
 PATH_BF16_REL_TOL = 5e-2
 # Whole-path fp32 depth, card vs CPU: summation order only, TF32 off.
 PATH_FP32_REL_TOL = 1e-3
+# VGGT's confidence (1 + exp of a logit) turns the logit's absolute bf16
+# error into a relative one, and pose_enc has 9 values a view: there both
+# bf16 routes can pass 5e-2 on their own. The kernel route is held to at
+# most this multiple of the plain route's distance from fp32: it adds no
+# error beyond the bf16 rounding that the plain route already has.
+PATH_BF16_ROUTE_RATIO = 2.0
 
 SPEED_REPEATS = 3
+VGGT_BENCH = dict(warmup=3, iterations=20, latency_iterations=10)
 
 PEAK_BF16_OPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_FP32_OPS = 67e12  # H100 SXM fp32 outside the tensor cores
@@ -94,6 +108,19 @@ def attention_bound(b: int, n: int, h: int, d: int, itemsize: int, peak_ops: flo
     nbytes = float(b * n * 4 * h * d * itemsize)  # qkv read once, out written once
     t_ops, t_bytes = ops / peak_ops, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def rel(a, b) -> float:
+    """max |a - b| / max |b| (host arrays)."""
+    import numpy as np
+
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def mean_rel(a, b) -> float:
+    import numpy as np
+
+    return float(np.abs(a - b).mean() / np.abs(b).mean())
 
 
 def check_flash_attention_packed(fa, dev):
@@ -150,48 +177,228 @@ def check_flash_attention_packed(fa, dev):
     return records
 
 
-def profile_breakdown(pipe, frame, frames: int = 5, top: int = 12):
-    """Device time by kernel over ``frames`` forwards of a device-resident
-    frame, from ``torch.profiler``'s CUDA events; the busy time is the union
-    of the kernels' intervals, the wall time the host clock around the
-    loop (which the profiler itself slows)."""
+def check_flash_attention(fa, dev):
+    """K2 against its plain version at VGGT's shapes and edge shapes. The
+    frame shape is (B*S, 16, 1374, 64) at S=4; global attention is
+    (1, 16, S*1374, 64). "strided" reads q, k, v as views of one qkv
+    tensor, as the VGGT path does."""
+    import torch
+    import torch.nn.functional as F
+
+    shapes = [  # (label, B, H, N, d, dtype, strided)
+        ("frame_s4", 4, 16, 1374, 64, torch.bfloat16, False),
+        ("global_s4", 1, 16, 5496, 64, torch.bfloat16, False),
+        ("global_s8", 1, 16, 10992, 64, torch.bfloat16, False),
+        ("n1", 1, 16, 1, 64, torch.bfloat16, False),
+        ("n63", 2, 16, 63, 64, torch.bfloat16, False),
+        ("n65", 2, 16, 65, 64, torch.bfloat16, False),
+        ("d16_padded", 1, 16, 1374, 16, torch.bfloat16, False),
+        ("global_s4_strided", 1, 16, 5496, 64, torch.bfloat16, True),
+        ("frame_s1_fp32", 1, 16, 1374, 64, torch.float32, False),
+        ("n65_fp32", 2, 3, 65, 64, torch.float32, False),
+    ]
+    gen = torch.Generator().manual_seed(1)
+    records = []
+    for label, b, h, n, d, dtype, strided in shapes:
+        if strided:
+            qkv = torch.randn((b, n, 3, h, d), generator=gen).to(dev, dtype)
+            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        else:
+            q, k, v = (torch.randn((b, h, n, d), generator=gen).to(dev, dtype)
+                       for _ in range(3))
+        out = fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_reference(q, k, v)
+        err = (out.float() - ref.float()).abs().max().item()
+        del ref
+        tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
+        check(out.shape == (b, h, n, d), f"K2 {label}: shape {tuple(out.shape)}")
+        check(err <= tol, f"K2 {label}: max_abs_err {err} > {tol}")
+        # the kernel and the plain bf16 route against fp32 attention
+        exact = fa.flash_attention_reference(q.float(), k.float(), v.float())
+        kernel_vs_fp32 = (out.float() - exact).abs().max().item()
+        plain_route = fa.attention_reference(q, k, v)
+        plain_vs_fp32 = (plain_route.float() - exact).abs().max().item()
+        del exact, plain_route
+        peak = PEAK_BF16_OPS if dtype == torch.bfloat16 else PEAK_FP32_OPS
+        bound_ms, bound_by = attention_bound(b, n, h, d, q.element_size(), peak)
+        long = n > 4096
+        rec = {
+            "shape": label, "B": b, "H": h, "N": n, "d": d, "strided": strided,
+            "dtype": str(dtype).replace("torch.", ""),
+            "max_abs_err": err, "tolerance": tol,
+            "kernel_vs_fp32_err": kernel_vs_fp32,
+            "plain_attention_vs_fp32_err": plain_vs_fp32,
+            "kernel_ms": time_ms(lambda: fa.flash_attention(q, k, v),
+                                 iters=10 if long else 50),
+            "plain_ms": time_ms(lambda: fa.flash_attention_reference(q, k, v),
+                                iters=3 if long else 10, warmup=1 if long else 2),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v),
+                                  iters=10 if long else 50),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        emit({"phase": "kernel_check", "kernel": "flash_attention", **rec})
+        records.append(rec)
+        del q, k, v, out
+        torch.cuda.empty_cache()
+    return records
+
+
+def profile_breakdown(step, name: str, iters: int = 5, top: int = 12):
+    """Device time by kernel over ``iters`` calls of ``step`` (one forward of
+    device-resident input), from ``torch.profiler``'s CUDA events; the busy
+    time is the union of the kernels' intervals, the wall time the host clock
+    around the loop (which the profiler itself slows). Times are per call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    eng = pipe.engine_for(frame.shape[:2])
-    dev = torch.from_numpy(frame).to(pipe.device)
-    eng(dev)
+    step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(frames):
-            eng(dev)
+        for _ in range(iters):
+            step()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / frames
+        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
-    rec = {"phase": "profile", "model": pipe.spec.artifact_name(), "frames": frames,
-           "wall_ms_per_frame": wall_ms}
+    rec = {"phase": "profile", "model": name, "calls": iters, "wall_ms_per_call": wall_ms}
     if not spans:
         return {**rec, "device_time": "not measured (no CUDA events in the trace)"}
     busy_us, end = 0.0, float("-inf")
     by_name = {}
-    for s, e, name in spans:
+    for s, e, kname in spans:
         busy_us += max(0.0, e - max(s, end))
         end = max(end, e)
-        tot, cnt = by_name.get(name, (0.0, 0))
-        by_name[name] = (tot + (e - s), cnt + 1)
-    busy_ms = busy_us / 1e3 / frames
+        tot, cnt = by_name.get(kname, (0.0, 0))
+        by_name[kname] = (tot + (e - s), cnt + 1)
+    busy_ms = busy_us / 1e3 / iters
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    k1 = [v for k, v in by_name.items() if "attn_packed_kernel" in k]
+
+    def kernel_ms(entry: str) -> float:
+        return sum(v[0] for k, v in by_name.items() if entry in k) / 1e3 / iters
+
     return {**rec,
-            "device_busy_ms_per_frame": busy_ms,
+            "device_busy_ms_per_call": busy_ms,
             "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
-            "device_ops_per_frame": len(spans) / frames,
-            "k1_ms_per_frame": sum(v[0] for v in k1) / 1e3 / frames,
-            "top": [{"name": k[:90], "ms_per_frame": v[0] / 1e3 / frames,
-                     "per_frame": v[1] / frames} for k, v in ranked[:top]]}
+            "device_ops_per_call": len(spans) / iters,
+            "k1_ms_per_call": kernel_ms("attn_packed_kernel"),
+            "k2_ms_per_call": kernel_ms("attn_bhnd_kernel"),
+            "top": [{"name": k[:90], "ms_per_call": v[0] / 1e3 / iters,
+                     "per_call": v[1] / iters} for k, v in ranked[:top]]}
+
+
+def run_vggt_path(build_pipeline, fa, rng):
+    """The VGGT path with its own counts: set to 0 just before, read just
+    after. Returns the pipeline and the counts."""
+    import numpy as np
+    import torch
+
+    pipe = build_pipeline("vggt")
+    check(pipe.device.type == "cuda", f"vggt default device is {pipe.device}")
+    frame = rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)
+    views4 = rng.integers(0, 256, (4, 518, 518, 3), dtype=np.uint8)
+    views8 = rng.integers(0, 256, (8, 518, 518, 3), dtype=np.uint8)
+
+    fa.flash_attention_packed.launches = 0
+    fa.flash_attention.launches = 0
+    per_forward = {}
+    outs = {}
+    for key, run, arg in (("frame_480x640", lambda a: pipe(a, viz=True), frame),
+                          ("views_s4", pipe.multi_view, views4),
+                          ("views_s8", pipe.multi_view, views8)):
+        before = (fa.flash_attention_packed.launches, fa.flash_attention.launches)
+        outs[key] = run(arg)
+        per_forward[key] = [fa.flash_attention_packed.launches - before[0],
+                            fa.flash_attention.launches - before[1]]
+    torch.cuda.synchronize()
+    launches = {"flash_attention_packed": fa.flash_attention_packed.launches,
+                "flash_attention": fa.flash_attention.launches}
+
+    for key, got in per_forward.items():
+        check(got == [24, 48], f"vggt {key}: K1, K2 launches {got}, want [24, 48]")
+    check(launches == {"flash_attention_packed": 72, "flash_attention": 144},
+          f"launches on the vggt path {launches}")
+    one = outs["frame_480x640"]
+    want = {"depth": (480, 640), "depth_conf": (480, 640), "pose_enc": (9,),
+            "extrinsic": (3, 4), "focal_px": (), "viz": (480, 640, 3)}
+    check({k: v.shape for k, v in one.items()} == want,
+          f"vggt frame outputs {({k: v.shape for k, v in one.items()})}")
+    for key in ("depth", "depth_conf", "pose_enc", "extrinsic"):
+        check(bool(np.isfinite(one[key]).all()), f"vggt {key} not finite")
+    # fov goes through a relu: a random-weight fov of 0 gives an infinite focal
+    fov_h, focal = float(one["pose_enc"][7]), float(one["focal_px"])
+    check(focal > 0 and (np.isfinite(focal) or fov_h == 0.0),
+          f"vggt focal_px {focal} for fov_h {fov_h}")
+    d = one["depth"]
+    check(d.dtype == np.float32 and d.min() >= 1e-3 and d.max() <= 1e3,
+          f"vggt depth outside clamp {d.min()} {d.max()}")
+    check(d.max() > d.min(), "vggt depth is constant")
+    check(one["depth_conf"].min() >= 1.0, "vggt confidence below 1")
+    check(one["viz"].dtype == np.uint8, "vggt viz dtype")
+    for key, s in (("views_s4", 4), ("views_s8", 8)):
+        o = outs[key]
+        check(o["depth"].shape == (s, 518, 518) and o["depth_conf"].shape == (s, 518, 518)
+              and o["pose_enc"].shape == (s, 9), f"vggt {key} shapes")
+        check(all(bool(np.isfinite(v).all()) for v in o.values()), f"vggt {key} not finite")
+        check(o["depth"].max() > o["depth"].min(), f"vggt {key} depth is constant")
+    emit({"phase": "vggt_path", "model": pipe.spec.artifact_name(),
+          "forwards": list(per_forward), "launches_per_forward_k1_k2": per_forward,
+          "launches": launches,
+          "depth_range_480x640": [float(d.min()), float(d.max())],
+          "pose_enc_480x640": [float(x) for x in one["pose_enc"]],
+          "focal_px_480x640": float(one["focal_px"])})
+    return pipe, launches
+
+
+def vggt_parity(build_pipeline, pipe, frame):
+    """One 518x518 frame (S=1) on the same weights: the bf16 kernel route
+    against plain attention and against the fp32 card path, and the fp32
+    card path against the fp32 CPU path, on depth, confidence and pose."""
+    sd = {k: v.float().cpu() for k, v in pipe.model.state_dict().items()}
+    keys = ("depth", "depth_conf", "pose_enc")
+
+    def run(p):
+        out = p(frame)
+        return {k: out[k] for k in keys}
+
+    kernel = run(pipe)
+    plain = run(build_pipeline("vggt", attn_impl="xla", params=sd))
+    card32 = run(build_pipeline("vggt", precision="fp32", params=sd))
+    t0 = time.perf_counter()
+    cpu32 = run(build_pipeline("vggt", precision="fp32", params=sd, device="cpu"))
+    cpu_s = time.perf_counter() - t0
+    rec = {"phase": "vggt_parity", "frame": "518x518", "weights": "seed 0, bf16-rounded",
+           "cpu_fp32_seconds": cpu_s, "model_depth": "full (24 ViT + 24 alternating blocks)"}
+    for k in keys:
+        rec[k] = {
+            "bf16_kernel_vs_plain_attention_rel": rel(kernel[k], plain[k]),
+            "bf16_kernel_vs_plain_attention_mean_rel": mean_rel(kernel[k], plain[k]),
+            "bf16_kernel_route_vs_fp32_rel": rel(kernel[k], card32[k]),
+            "bf16_kernel_route_vs_fp32_mean_rel": mean_rel(kernel[k], card32[k]),
+            "bf16_plain_route_vs_fp32_rel": rel(plain[k], card32[k]),
+            "bf16_plain_route_vs_fp32_mean_rel": mean_rel(plain[k], card32[k]),
+            "fp32_card_vs_cpu_rel": rel(card32[k], cpu32[k]),
+        }
+    rec["bf16_tolerance_depth"] = PATH_BF16_REL_TOL
+    rec["bf16_route_ratio_conf_pose"] = PATH_BF16_ROUTE_RATIO
+    rec["fp32_tolerance"] = PATH_FP32_REL_TOL
+    emit(rec)
+    d = rec["depth"]
+    check(d["bf16_kernel_vs_plain_attention_rel"] < PATH_BF16_REL_TOL,
+          f"vggt bf16 depth kernel vs plain attention {d['bf16_kernel_vs_plain_attention_rel']}")
+    check(d["bf16_kernel_route_vs_fp32_rel"] < PATH_BF16_REL_TOL,
+          f"vggt bf16 depth kernel route vs fp32 {d['bf16_kernel_route_vs_fp32_rel']}")
+    for k in ("depth_conf", "pose_enc"):
+        r = rec[k]
+        check(r["bf16_kernel_route_vs_fp32_rel"]
+              <= PATH_BF16_ROUTE_RATIO * r["bf16_plain_route_vs_fp32_rel"],
+              f"vggt bf16 {k} kernel route vs fp32 {r['bf16_kernel_route_vs_fp32_rel']} > "
+              f"{PATH_BF16_ROUTE_RATIO} x plain route's {r['bf16_plain_route_vs_fp32_rel']}")
+    for k in keys:
+        check(rec[k]["fp32_card_vs_cpu_rel"] < PATH_FP32_REL_TOL,
+              f"vggt fp32 {k} card vs cpu {rec[k]['fp32_card_vs_cpu_rel']}")
 
 
 def parse_smi(line: str):
@@ -239,8 +446,9 @@ def main() -> None:
           "built": info.built, "library": os.path.relpath(info.path, REPO),
           "ptxas": ptxas})
 
-    # 3. kernel checks (their launches are not the main path's)
+    # 3. kernel checks (their launches are not the main paths')
     k1 = check_flash_attention_packed(fa, dev)
+    k2 = check_flash_attention(fa, dev)
 
     # 4. main path: every count set to 0 just before, read just after
     set_allow_random_weights(True)
@@ -253,6 +461,7 @@ def main() -> None:
     check(pipe.device.type == "cuda", f"default device is {pipe.device}")
 
     fa.flash_attention_packed.launches = 0
+    fa.flash_attention.launches = 0
     per_frame = []
     outs = {}
     for key, frame in (("a", frame_a), ("b", frame_b)):
@@ -264,12 +473,13 @@ def main() -> None:
     batch_launches = fa.flash_attention_packed.launches - before
     out_metric = metric(frame_a, viz=True)
     torch.cuda.synchronize()
-    launches = {"flash_attention_packed": fa.flash_attention_packed.launches}
+    launches = {"flash_attention_packed": fa.flash_attention_packed.launches,
+                "flash_attention": fa.flash_attention.launches}
 
     check(per_frame == [12, 12], f"K1 launches per vits frame {per_frame}, want 12")
     check(batch_launches == 12, f"K1 launches for a batch of 2: {batch_launches}")
-    check(launches["flash_attention_packed"] == 48,
-          f"K1 launches on the main path {launches}")
+    check(launches == {"flash_attention_packed": 48, "flash_attention": 0},
+          f"launches on the main path {launches}")
     for key, frame in (("a", frame_a), ("b", frame_b)):
         d, viz = outs[key]["depth"], outs[key]["viz"]
         check(d.shape == frame.shape[:2] and d.dtype == np.float32,
@@ -299,12 +509,6 @@ def main() -> None:
           "batch_vs_single_rel": batch_rel})
 
     # whole-path comparisons (outside the counted run)
-    def rel(a, b):
-        return float(np.abs(a - b).max() / np.abs(b).max())
-
-    def mean_rel(a, b):
-        return float(np.abs(a - b).mean() / np.abs(b).mean())
-
     plain = build_pipeline("depth_anything_v2", encoder="vits", attn_impl="xla")
     ref = plain(frame_b)["depth"]
     rel_bf16 = rel(outs["b"]["depth"], ref)
@@ -331,28 +535,11 @@ def main() -> None:
           "fp32_card_vs_cpu_rel": rel_fp32, "fp32_tolerance": PATH_FP32_REL_TOL})
     del plain, card32, cpu32, metric
 
-    # kernels line: the main-path shape's numbers, every shape in "shapes"
-    main = k1[0]
-    kernels = [{
-        "name": "flash_attention_packed",
-        "route": "cuda",
-        "source": "monocular_depth_estimation_trt_tpu_torch/csrc/flash_attention_packed.cu",
-        "replaces": "monocular_depth_estimation_trt_tpu/ops/pallas/flash_attention.py:272",
-        "replaces_function": "ops/pallas/flash_attention.py::_attn_kernel_packed",
-        "launches": launches["flash_attention_packed"],
-        "max_abs_err": max(r["max_abs_err"] for r in k1),
-        "ms": main["kernel_ms"],
-        "kernel_ms": main["kernel_ms"],
-        "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"],
-        "library_ms": main["library_ms"],
-        "library_call": "torch.nn.functional.scaled_dot_product_attention",
-        "at_shape": main["shape"],
-        "shapes": k1,
-    }]
+    # 5. the VGGT path (its own counted run), then its route comparisons
+    vggt, vggt_launches = run_vggt_path(build_pipeline, fa, rng)
+    vggt_parity(build_pipeline, vggt, frame_b)
 
-    # 5. speed (the counts are read above; benchmark launches are not counted)
+    # 6. speed (the counts are read above; benchmark launches are not counted)
     cfg = BenchmarkConfig(warmup=10, iterations=100, latency_iterations=50)
     for encoder in ("vits", "vitl"):
         p = pipe if encoder == "vits" else build_pipeline(
@@ -372,10 +559,66 @@ def main() -> None:
                   "includes": "H2D uint8 + forward + D2H depth",
                   "card": card, "power_limit": power_limit})
         del p
+    vcfg = BenchmarkConfig(**VGGT_BENCH)
+    for s in (1, 4):
+        for repeat in range(SPEED_REPEATS):
+            if s == 1:
+                rep = vggt.benchmark((518, 518), vcfg)
+                includes = "H2D uint8 + forward (S=1) + D2H depth"
+            else:
+                rep = vggt.benchmark_views(s, vcfg)
+                includes = f"forward of {s} device-resident uint8 views"
+            emit({"phase": "speed", "model": vggt.spec.artifact_name(), "views": s,
+                  "repeat": repeat, "fps_per_frame": rep.fps,
+                  "mean_ms_per_forward": rep.avg_ms,
+                  "p50_ms_per_forward": rep.percentile_ms(50),
+                  "p99_ms_per_forward": rep.percentile_ms(99),
+                  "iterations": rep.iterations, "includes": includes,
+                  "card": card, "power_limit": power_limit})
 
-    # 6. where the time of a vits frame goes on the card, after the speed
-    # phase so that the profiler cannot slow it (launches not counted)
-    emit(profile_breakdown(pipe, frame_b))
+    # 7. where the device time goes, after the speed phase so that the
+    # profiler cannot slow it (launches not counted)
+    eng = pipe.engine_for(frame_b.shape[:2])
+    dev_frame = torch.from_numpy(frame_b).to(dev)
+    emit(profile_breakdown(lambda: eng(dev_frame), pipe.spec.artifact_name()))
+    feng = vggt.engine_for(frame_b.shape[:2])
+    emit(profile_breakdown(lambda: feng(dev_frame), vggt.spec.artifact_name() + "_s1",
+                           iters=3))
+    views4 = torch.from_numpy(rng.integers(0, 256, (4, 518, 518, 3), dtype=np.uint8)).to(dev)
+    veng = vggt.views_engine(4)
+    emit(profile_breakdown(lambda: veng(views4), vggt.spec.artifact_name() + "_s4", iters=3))
+
+    # kernels line: the main shape's numbers, every shape in "shapes"; the
+    # launches of each path's counted run
+    def kernel_entry(name, source, replaces, function, records, main_shape):
+        main = next(r for r in records if r["shape"] == main_shape)
+        by_path = {"depth_anything_v2": launches[name], "vggt": vggt_launches[name]}
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": f"monocular_depth_estimation_trt_tpu_torch/csrc/{source}",
+            "replaces": f"monocular_depth_estimation_trt_tpu/ops/pallas/flash_attention.py:{replaces}",
+            "replaces_function": f"ops/pallas/flash_attention.py::{function}",
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": max(r["max_abs_err"] for r in records),
+            "ms": main["kernel_ms"],
+            "kernel_ms": main["kernel_ms"],
+            "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "library_call": "torch.nn.functional.scaled_dot_product_attention",
+            "at_shape": main["shape"],
+            "shapes": records,
+        }
+
+    kernels = [
+        kernel_entry("flash_attention_packed", "flash_attention_packed.cu", 272,
+                     "_attn_kernel_packed", k1, "vits_518"),
+        kernel_entry("flash_attention", "flash_attention.cu", 38, "_attn_kernel", k2,
+                     "global_s4"),
+    ]
 
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -5,7 +5,9 @@ resize layers (ConvTranspose2d k=s=4, k=s=2, identity, Conv 3x3 s=2) ->
 RefineNet-style fusion pyramid with bilinear ``align_corners=True``
 upsampling -> 2-conv output head. Module names follow the upstream DA-V2
 checkpoint (``projects.i``, ``resize_layers.i``, ``scratch.layer{i}_rn``,
-``scratch.refinenet{i}``, ``scratch.output_conv2.{0,2}``).
+``scratch.refinenet{i}``, ``scratch.output_conv2.{0,2}``); with
+``nested_scratch=False`` the fusion modules sit on the head itself
+(``layer{i}_rn``, ``refinenet{i}``, ...), the upstream VGGT layout.
 
 Tokens arrive as (B, N, D) and are reshaped to (B, ph, pw, D) before the
 permute to NCHW, as the JAX head does; the output is (B, H, W) float32
@@ -91,7 +93,7 @@ class DPTHead(nn.Module):
     def __init__(self, in_channels: int, features: int = 64,
                  out_channels: Sequence[int] = (48, 96, 192, 384),
                  patch_size: int = 14, final_act: str = "relu",
-                 num_outputs: int = 1):
+                 num_outputs: int = 1, nested_scratch: bool = True):
         super().__init__()
         if final_act not in ("relu", "sigmoid", "none"):
             raise ValueError(f"unknown final_act {final_act!r}")
@@ -106,12 +108,18 @@ class DPTHead(nn.Module):
             nn.Identity(),
             nn.Conv2d(oc[3], oc[3], 3, 2, 1),
         ])
-        self.scratch = _Scratch(oc, features, num_outputs)
+        self.nested_scratch = nested_scratch
+        scratch = _Scratch(oc, features, num_outputs)
+        if nested_scratch:
+            self.scratch = scratch
+        else:
+            for name, mod in scratch.named_children():
+                self.add_module(name, mod)
 
     def forward(self, features, patch_hw: Tuple[int, int]) -> torch.Tensor:
         ph, pw = patch_hw
         dtype = self.projects[0].weight.dtype
-        s = self.scratch
+        s = self.scratch if self.nested_scratch else self
         levels = []
         for i, feat in enumerate(features):
             tokens = feat[0] if isinstance(feat, (tuple, list)) else feat

@@ -10,35 +10,38 @@ Parameters are held in the compute dtype: the pipeline casts the whole
 module with ``.to(dtype)``. ``F.layer_norm`` takes its statistics in fp32 for
 bf16 inputs and returns bf16, as Flax's ``LayerNorm(dtype=bf16)`` does.
 
-Attention routes (``attn_impl``):
+Attention routes (``attn_impl``), the same on every device (on a CPU
+tensor each kernel wrapper runs its plain version):
 
 * ``"auto"`` / ``"packed"``: every non-rope attention goes through the
-  packed-qkv kernel K1 (``ops/cuda/flash_attention.py``), ViT-S included;
-  on a CPU tensor that wrapper runs its plain version.
+  packed-qkv kernel K1, ViT-S included;
+* ``"flash"``, and every rope attention whatever ``attn_impl`` other than
+  ``"xla"``: the ``(B, H, N, d)`` kernel K2, after the rotation of q and k.
+  The TPU's head-count and length gates are v5e findings and are not
+  carried over;
 * ``"xla"``: plain attention equal to the JAX package's
   ``attention_reference`` (the caller's explicit choice).
-* ``"flash"`` and rope need kernel K2, which is not ported yet.
+
+Both kernels are in ``ops/cuda/flash_attention.py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import List, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from monocular_depth_estimation_trt_tpu_torch.ops.cuda.flash_attention import (
     attention_reference,
+    flash_attention,
     flash_attention_packed,
 )
 from monocular_depth_estimation_trt_tpu_torch.ops.resize import resample_tensor
-
-_K2_MISSING = (
-    "kernel K2 (ops/pallas/flash_attention.py::_attn_kernel, the rope and "
-    "(B,H,N,d) attention path) is not ported to CUDA yet"
-)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,7 +56,7 @@ class ViTConfig:
     pretrain_img_size: int = 518
     layerscale_init: float = 1e-5
     qkv_bias: bool = True
-    # DINOv3-style 2D axial RoPE (needs kernel K2, not ported yet)
+    # DINOv3-style 2D axial RoPE on the patch tokens of every attention
     rope: bool = False
     rope_base: float = 100.0
     pos_embed: bool = True
@@ -78,12 +81,26 @@ def swiglu_hidden(dim: int, mlp_ratio: float = 4.0) -> int:
     return (int(h * 2 / 3) + 7) // 8 * 8
 
 
-def rope_2d_normalized(ph: int, pw: int, head_dim: int, base: float = 100.0):
-    raise NotImplementedError(f"rope attention: {_K2_MISSING}")
+def rope_2d_normalized(ph: int, pw: int, head_dim: int, base: float = 100.0,
+                       device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """2D axial RoPE tables over a patch grid with coordinates normalized to
+    [-1, 1] (the DINOv3 convention). Half the head dims rotate with y, half
+    with x. Returns fp32 (cos, sin), each (ph*pw, head_dim//2)."""
+    d4 = head_dim // 4
+    freqs = torch.tensor(base ** (-np.arange(d4) / d4), dtype=torch.float32, device=device)
+    ys = torch.arange(ph, dtype=torch.float32, device=device).repeat_interleave(pw)
+    xs = torch.arange(pw, dtype=torch.float32, device=device).repeat(ph)
+    ys = (ys + 0.5) / ph * 2 - 1
+    xs = (xs + 0.5) / pw * 2 - 1
+    ang = math.pi * torch.cat([ys[:, None] * freqs[None], xs[:, None] * freqs[None]], dim=-1)
+    return torch.cos(ang), torch.sin(ang)
 
 
-def _apply_rope(t: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
-    raise NotImplementedError(f"rope attention: {_K2_MISSING}")
+def _apply_rope(t: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """t: (..., d); rotate (even, odd) pairs by angles (cos, sin) that
+    broadcast against (..., d//2), e.g. (N, d//2) for t (..., N, d)."""
+    t1, t2 = t[..., 0::2], t[..., 1::2]
+    return torch.stack([t1 * cos - t2 * sin, t1 * sin + t2 * cos], dim=-1).reshape(t.shape)
 
 
 class Attention(nn.Module):
@@ -99,23 +116,26 @@ class Attention(nn.Module):
         self.proj = nn.Linear(dim, dim, bias=True)
 
     def forward(self, x: torch.Tensor, rope=None) -> torch.Tensor:
-        if rope is not None:
-            raise NotImplementedError(f"rope attention: {_K2_MISSING}")
-        if self.attn_impl == "flash":
-            raise NotImplementedError(f'attn_impl="flash": {_K2_MISSING}')
+        """``rope``: optional ((cos, sin), num_prefix), rotary tables for the
+        trailing patch tokens; the ``num_prefix`` leading tokens (cls and
+        registers) stay unrotated."""
         qkv = self.qkv(x)  # (B, N, 3*H*d): q | k | v, head-major
-        if self.attn_impl == "xla":
-            o = self._plain(qkv)
-        else:
-            o = flash_attention_packed(qkv, self.num_heads)
-        return self.proj(o)
-
-    def _plain(self, qkv: torch.Tensor) -> torch.Tensor:
+        if rope is None and self.attn_impl in ("auto", "packed"):
+            return self.proj(flash_attention_packed(qkv, self.num_heads))
         b, n, _ = qkv.shape
         head_dim = self.dim // self.num_heads
+        # (B, H, N, d) views of the qkv output
         q, k, v = qkv.view(b, n, 3, self.num_heads, head_dim).permute(2, 0, 3, 1, 4)
-        o = attention_reference(q, k, v)  # (B, H, N, d)
-        return o.transpose(1, 2).reshape(b, n, self.dim)
+        if rope is not None:
+            (cos, sin), prefix = rope
+            cos, sin = cos.to(q.dtype), sin.to(q.dtype)
+            q, k = (torch.cat([t[:, :, :prefix], _apply_rope(t[:, :, prefix:], cos, sin)],
+                              dim=2) for t in (q, k))
+        if self.attn_impl == "xla":
+            o = attention_reference(q, k, v)
+        else:
+            o = flash_attention(q, k, v)
+        return self.proj(o.transpose(1, 2).reshape(b, n, self.dim))
 
 
 class Mlp(nn.Module):
@@ -192,8 +212,6 @@ class DinoViT(nn.Module):
                  attn_impl: str = "auto", norm_out: bool = True,
                  raw_indices: Sequence[int] = ()):
         super().__init__()
-        if cfg.rope:
-            raise NotImplementedError(f"rope encoders: {_K2_MISSING}")
         c = cfg
         self.cfg = cfg
         self.out_indices = tuple(out_indices)
@@ -230,8 +248,13 @@ class DinoViT(nn.Module):
                 for i in (self.out_indices or (c.depth - 1,))]
         saved = {}
         prefix = 1 + c.num_register_tokens
+        rope = None
+        if c.rope:
+            tables = rope_2d_normalized(ph, pw, c.dim // c.num_heads, c.rope_base,
+                                        device=x.device)
+            rope = (tables, prefix)
         for i, blk in enumerate(self.blocks):
-            x = blk(x)
+            x = blk(x, rope=rope)
             if i in want:
                 use_norm = self.norm_out and i not in self.raw_indices
                 y = self.norm(x) if use_norm else x

@@ -2,8 +2,9 @@
 
 Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into one
 shared library with a plain C interface, under ``<package>/_build/``, and
-loaded with ``ctypes``. The library's name carries a hash of the sources and
-flags, so an edited source builds anew and an unchanged one loads at once.
+loaded with ``ctypes``. The library's name carries a hash of the sources,
+the headers they share (``csrc/*.cuh``) and the flags, so an edited source
+builds anew and an unchanged one loads at once.
 The build runs at the first kernel launch of a process, never at import.
 """
 
@@ -69,7 +70,8 @@ def _nvcc() -> str:
 
 def _digest(srcs) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in srcs:
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+    for path in [*srcs, *headers]:
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
@@ -117,10 +119,16 @@ def build_info() -> Optional[BuildInfo]:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    attn = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_float, ctypes.c_void_p)
-    for name in ("mdet_flash_attention_packed_bf16",
-                 "mdet_flash_attention_packed_f32"):
-        fn = getattr(lib, name)
-        fn.argtypes = attn
-        fn.restype = ctypes.c_int
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    signatures = {
+        # K1: qkv, out, batch, n, heads, scale, stream
+        "mdet_flash_attention_packed": (ptr, ptr, i32, i32, i32, ctypes.c_float, ptr),
+        # K2: q, k, v, out, 12 int64 strides, batch, heads, n, scale, stream
+        "mdet_flash_attention": (ptr, ptr, ptr, ptr, ctypes.POINTER(ctypes.c_int64),
+                                 i32, i32, i32, ctypes.c_float, ptr),
+    }
+    for stem, argtypes in signatures.items():
+        for suffix in ("_bf16", "_f32"):
+            fn = getattr(lib, stem + suffix)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int

@@ -1,30 +1,41 @@
-"""Attention straight from the packed qkv tensor (kernel K1).
+"""Fused attention kernels K1 and K2 (counterpart of
+``monocular_depth_estimation_trt_tpu/ops/pallas/flash_attention.py``).
 
-Counterpart of ``monocular_depth_estimation_trt_tpu/ops/pallas/flash_attention.py``
-(``flash_attention_packed`` / ``_attn_kernel_packed``): ``(B, N, 3*H*d)`` —
-the qkv matmul's output, q|k|v regions each ``H*d`` wide, head-major — to
-``(B, N, H*d)``, the proj matmul's input, with no per-head transposes in
-memory.
+* K1, :func:`flash_attention_packed` (``_attn_kernel_packed``): straight
+  from the qkv matmul's ``(B, N, 3*H*d)`` output — q|k|v regions each
+  ``H*d`` wide, head-major — to ``(B, N, H*d)``, the proj matmul's input,
+  with no per-head transposes in memory. CUDA source
+  ``csrc/flash_attention_packed.cu``.
+* K2, :func:`flash_attention` (``_attn_kernel``): ``(B, H, N, d)`` operands,
+  for the attentions that rotate q and k before attending (2D RoPE) and for
+  ``attn_impl="flash"``. CUDA source ``csrc/flash_attention.cu``.
 
-On a CUDA tensor :func:`flash_attention_packed` launches the hand-written
-kernel in ``csrc/flash_attention_packed.cu`` or raises; on a CPU tensor it
-runs :func:`flash_attention_packed_reference`, the plain PyTorch version
-with the same numerics. :func:`attention_reference` is the plain attention
-of the JAX package's ``attention_reference`` (the ``attn_impl="xla"`` route).
+Both share the tile loop of ``csrc/attention_tile.cuh``. On a CUDA tensor
+each wrapper launches its kernel or raises; on a CPU tensor it runs its
+plain PyTorch version (:func:`flash_attention_packed_reference`,
+:func:`flash_attention_reference`). :func:`attention_reference` is the
+plain attention of the JAX package's ``attention_reference`` (the
+``attn_impl="xla"`` route).
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
-HEAD_DIM = 64  # the kernel's one head width: every DINOv2 encoder
+HEAD_DIM = 64  # the kernels' one head width: every DINOv2 encoder and VGGT
 
 _C_FUNCS = {
     torch.bfloat16: "mdet_flash_attention_packed_bf16",
     torch.float32: "mdet_flash_attention_packed_f32",
+}
+_K2_C_FUNCS = {
+    torch.bfloat16: "mdet_flash_attention_bf16",
+    torch.float32: "mdet_flash_attention_f32",
 }
 
 
@@ -104,6 +115,95 @@ def flash_attention_packed_reference(
     o = torch.einsum("bhqk,bkhd->bhqd", e.to(qkv.dtype).float(), v.float())
     o = o / denom
     return o.transpose(1, 2).reshape(b, n, num_heads * head_dim).to(qkv.dtype)
+
+
+def _check_bhnd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be (B, H, N, d), got shape {tuple(t.shape)}")
+    if not q.shape == k.shape == v.shape:
+        raise ValueError(
+            f"q, k, v shapes differ: {tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
+    if q.dtype not in _K2_C_FUNCS or not q.dtype == k.dtype == v.dtype:
+        raise TypeError(
+            f"q, k, v must all be bfloat16 or all float32, got {q.dtype} {k.dtype} {v.dtype}")
+    if not 1 <= q.shape[-1] <= HEAD_DIM:
+        raise ValueError(
+            f"head_dim must be 1..{HEAD_DIM} (smaller is zero-padded to {HEAD_DIM}), "
+            f"got shape {tuple(q.shape)}")
+    if not q.device == k.device == v.device:
+        raise ValueError(f"q, k, v on different devices: {q.device} {k.device} {v.device}")
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    """Unit stride on d, and rows that load as 16-byte vectors."""
+    size = t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st * size % 16 == 0 for st in t.stride()[:3]))
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Non-causal multi-head attention, ``(B, H, N, d)`` -> ``(B, H, N, d)``.
+
+    bf16 or fp32, any B, H, N >= 1, d <= 64 (d < 64 is zero-padded, with
+    the scale of the unpadded d, as the JAX entry does). The operands may be
+    strided views (unit stride on d, 16-byte aligned rows). A CUDA tensor
+    launches the kernel on the current stream (counted in
+    ``flash_attention.launches``) and returns a ``(B, N, H, d)`` buffer seen
+    as ``(B, H, N, d)``, so that the reshape before the proj matmul is
+    free; a CPU tensor goes to the plain version."""
+    _check_bhnd(q, k, v)
+    b, h, n, d = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if d < HEAD_DIM:
+        q, k, v = (F.pad(t, (0, HEAD_DIM - d)) for t in (q, k, v))
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not _aligned(t):
+            raise ValueError(
+                f"{name} must have unit stride on d and 16-byte aligned rows, "
+                f"got strides {t.stride()}")
+    out = torch.empty((b, n, h, HEAD_DIM), dtype=q.dtype, device=q.device)
+    if out.numel():
+        from monocular_depth_estimation_trt_tpu_torch.ops.cuda._build import library
+
+        fn = getattr(library(), _K2_C_FUNCS[q.dtype])
+        strides = (ctypes.c_int64 * 12)(
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            out.stride(0), out.stride(2), out.stride(1))
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
+                     b, h, n, float(scale), stream)
+        if err:
+            raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
+        flash_attention.launches += 1
+    out = out.transpose(1, 2)
+    return out if d == HEAD_DIM else out[..., :d]
+
+
+flash_attention.launches = 0
+
+
+def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              scale: Optional[float] = None) -> torch.Tensor:
+    """Plain PyTorch version of K2 with the TPU kernel's numerics: fp32
+    scores of the operands times ``scale``, row max, ``exp``, division by
+    the row sum, P cast to the operand type, P.V accumulated in fp32, cast
+    to the output type. Nothing is padded here, so no key needs a mask.
+    The score matrix is updated in place to halve its memory at long N."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)).mul_(scale)
+    s = s.sub_(s.amax(dim=-1, keepdim=True)).exp_()
+    p = s.div_(s.sum(dim=-1, keepdim=True)).to(q.dtype)
+    del s
+    return torch.matmul(p.float(), v.float()).to(q.dtype)
 
 
 def attention_reference(

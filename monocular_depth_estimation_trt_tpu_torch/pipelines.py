@@ -8,7 +8,9 @@ in the role of the JAX package's compiled ``Engine``s.
 
 Public layouts follow the JAX package: uint8 ``(H, W, 3)`` in, depth
 ``(H, W)`` float32 out, viz ``(H, W, 3)`` uint8; ``batch_call`` adds a
-leading frame axis.
+leading frame axis. Other outputs of a forward (VGGT's confidence and
+camera) come back beside the depth. :class:`VGGTPipeline` adds the
+multi-view protocol.
 """
 
 from __future__ import annotations
@@ -120,6 +122,55 @@ class DepthPipeline:
 
         return benchmark(step, device=self.device, config=config,
                          name=self.spec.artifact_name())
+
+
+class VGGTPipeline(DepthPipeline):
+    """The single-image pipeline plus the multi-view (S-axis) protocol: one
+    forward over S views with cross-view global attention.
+
+    ``views_forward``: fn(views_u8 (S, H, W, 3) on ``device``) -> dict of
+    per-view outputs (depth and depth_conf (S, h, w), pose_enc (S, 9))."""
+
+    def __init__(self, spec: ModelSpec, forward: Callable, views_forward: Callable, *,
+                 device: torch.device, model: Optional[torch.nn.Module] = None,
+                 viz: str = "metric"):
+        super().__init__(spec, forward, device=device, model=model, viz=viz)
+        self._views_forward = views_forward
+
+    def _run_views(self, views: torch.Tensor):
+        with torch.inference_mode():
+            return self._views_forward(views)
+
+    def views_engine(self, s: int, src_hw: Optional[Tuple[int, int]] = None) -> Callable:
+        """The cached forward for ``s`` views of size ``src_hw`` (default the
+        model's input size)."""
+        src = tuple(src_hw or self.spec.input_hw)
+        name = f"{self.spec.artifact_name()}_views{s}_{src[0]}x{src[1]}"
+        if name not in self._engines:
+            self._engines[name] = self._run_views
+        return self._engines[name]
+
+    def multi_view(self, views_u8, *, device_out: bool = False) -> Dict[str, Any]:
+        """views_u8: (S, H, W, 3) RGB uint8 -> depth and depth_conf (S, 518,
+        518), pose_enc (S, 9), as host numpy (device tensors if
+        ``device_out``)."""
+        eng = self.views_engine(views_u8.shape[0], tuple(views_u8.shape[1:3]))
+        out = eng(self._to_device(views_u8))
+        return out if device_out else self._to_host(out)
+
+    def benchmark_views(self, s: int,
+                        config: Optional[BenchmarkConfig] = None) -> BenchmarkReport:
+        """Per-frame throughput of the S-view forward on device-resident
+        uint8 views (tokens scale with S; global attention is quadratic in
+        S·tokens)."""
+        eng = self.views_engine(s)
+        rng = np.random.default_rng(0)
+        views = self._to_device(
+            rng.integers(0, 255, (s, *self.spec.input_hw, 3), dtype=np.uint8))
+        rep = benchmark(lambda: eng(views), device=self.device, config=config,
+                        name=f"{self.spec.artifact_name()}_s{s}")
+        rep.frames_per_iteration = s
+        return rep
 
 
 def depth_forward_factory(

@@ -6,8 +6,9 @@
 
 Ported so far: the Depth Anything family (``depth_anything_v2``,
 ``distill_any_depth``, ``depth_anything_ac``, ``dkt``, ``bridge``), which
-shares one serving graph. Every factory takes ``device``; ``None`` means
-``"cuda"``, and a missing card is an error, never a quiet move to the CPU.
+shares one serving graph, and ``vggt``. Every factory takes ``device``;
+``None`` means ``"cuda"``, and a missing card is an error, never a quiet
+move to the CPU.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from monocular_depth_estimation_trt_tpu_torch.config import (
 )
 from monocular_depth_estimation_trt_tpu_torch.pipelines import (
     DepthPipeline,
+    VGGTPipeline,
     depth_forward_factory,
 )
 
@@ -77,6 +79,14 @@ def resolve_int8_precision(model_name: str, encoder: str, precision: str) -> str
             "not ported to CUDA yet; use bf16, fp16 or fp32"
         )
     return precision
+
+
+def _full_fp32(dtype: torch.dtype, device: torch.device) -> None:
+    """cuDNN fp32 convolutions default to TF32 (about 3 decimal digits);
+    precision="fp32" means full fp32, process-wide from here on."""
+    if dtype == torch.float32 and device.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
 
 
 # ---------------------------------------------------------------------------
@@ -135,11 +145,7 @@ def _build_da_family(
         dataset=dataset if metric else "",
     )
     dtype = compute_dtype(precision)
-    if dtype == torch.float32 and device.type == "cuda":
-        # cuDNN fp32 convolutions default to TF32 (about 3 decimal digits);
-        # precision="fp32" means full fp32, process-wide from here on.
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+    _full_fp32(dtype, device)
 
     model = DepthAnythingV2(encoder=encoder, metric=metric, max_depth=max_depth,
                             attn_impl=attn_impl, **(model_kw or {}))
@@ -194,3 +200,93 @@ def bridge(encoder: str = "vits", **kw) -> DepthPipeline:
     """BRIDGE: DA-V2-style DPT serving graph at 518^2 with the family's
     ``clamp(1e-3, 1e3)`` postprocess (reference ``later/BRIDGE/``)."""
     return _build_da_family("bridge", encoder, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Multi-view geometry transformers (reference VGGT/)
+# ---------------------------------------------------------------------------
+
+
+def _build_vggt(
+    model_name: str,
+    *,
+    input_size: int = 518,
+    precision: str = "bf16",
+    attn_impl: str = "auto",
+    params: Optional[Mapping[str, torch.Tensor]] = None,
+    vggt_cfg: Any = None,
+    with_camera: bool = True,
+    checkpoint: Optional[str] = None,
+    device=None,
+) -> VGGTPipeline:
+    """``params``: an upstream-named state dict (e.g. from
+    ``weights.from_jax.vggt_from_jax``); ``vggt_cfg``: a ``VGGTConfig``
+    override (tests)."""
+    from monocular_depth_estimation_trt_tpu_torch.config import compute_dtype
+    from monocular_depth_estimation_trt_tpu_torch.models.vggt import VGGT, VGGTConfig
+    from monocular_depth_estimation_trt_tpu_torch.ops.camera import (
+        extrinsics_from_quat_trans,
+        fov_to_focal,
+    )
+    from monocular_depth_estimation_trt_tpu_torch.ops.postprocess import upsample_depth
+    from monocular_depth_estimation_trt_tpu_torch.ops.preprocess import preprocess_pad_square
+    from monocular_depth_estimation_trt_tpu_torch.weights.store import resolve_weights
+
+    device = resolve_device(device)
+    cfg = vggt_cfg or VGGTConfig()
+    precision = resolve_int8_precision(model_name, cfg.encoder, precision)
+    spec = ModelSpec(
+        model=model_name, input_hw=(input_size, input_size), precision=precision,
+        metric=True,
+        # the depth-only and with-camera variants have different weights
+        variant="" if with_camera else "depth",
+    )
+    dtype = compute_dtype(precision)
+    _full_fp32(dtype, device)
+    model = VGGT(cfg, attn_impl, with_camera)
+    resolve_weights(model, spec.artifact_name(), checkpoint=checkpoint, state_dict=params)
+    model = model.to(device=device, dtype=dtype).eval()
+
+    def forward(img_u8: torch.Tensor, out_hw):
+        """Pad to square, S=1 through the model, crop the padding, resample
+        to the frame (reference ``VGGT/onnx2trt.py:80-110, 184-189``)."""
+        single = img_u8.dim() == 3
+        x = preprocess_pad_square(img_u8[None] if single else img_u8, input_size)
+        out = model(x[:, None])
+        h0, w0 = out_hw
+        side = max(h0, w0)
+        top = int(round((side - h0) / 2 / side * input_size))
+        left = int(round((side - w0) / 2 / side * input_size))
+        hh = max(int(round(h0 / side * input_size)), 1)
+        ww = max(int(round(w0 / side * input_size)), 1)
+        crop = (slice(None), 0, slice(top, top + hh), slice(left, left + ww))
+        result = {
+            "depth": upsample_depth(out["depth"][crop], out_hw, clamp=(1e-3, 1e3)),
+            "depth_conf": upsample_depth(out["depth_conf"][crop], out_hw, clamp=None),
+        }
+        if with_camera:
+            pose = out["pose_enc"][:, 0]  # (B, 9)
+            result["pose_enc"] = pose
+            result["extrinsic"] = extrinsics_from_quat_trans(pose[..., 3:7], pose[..., :3])
+            result["focal_px"] = fov_to_focal(torch.rad2deg(pose[..., 7]), input_size)
+        return {k: v[0] for k, v in result.items()} if single else result
+
+    def views_forward(views_u8: torch.Tensor):
+        out = model(preprocess_pad_square(views_u8, input_size)[None])
+        return {k: v[0] for k, v in out.items()}
+
+    return VGGTPipeline(spec, forward, views_forward, device=device, model=model,
+                        viz="metric")
+
+
+@register("vggt", fidelity="converter-verified")
+def vggt(input_size: int = 518, precision: str = "bf16", attn_impl: str = "auto",
+         params: Optional[Mapping[str, torch.Tensor]] = None, depth_only: bool = False,
+         checkpoint: Optional[str] = None, device=None,
+         vggt_cfg: Any = None) -> VGGTPipeline:
+    """VGGT-1B multi-view geometry transformer (reference ``VGGT/``):
+    aggregator + one 2-channel DPT depth head + iterative adaLN camera head,
+    single-image (``__call__``) or multi-view (``multi_view``)."""
+    return _build_vggt("vggt", input_size=input_size, precision=precision,
+                       attn_impl=attn_impl, params=params, vggt_cfg=vggt_cfg,
+                       with_camera=not depth_only, checkpoint=checkpoint, device=device)

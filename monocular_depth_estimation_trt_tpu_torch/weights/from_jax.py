@@ -1,8 +1,8 @@
 """JAX params tree -> the port's ``state_dict``.
 
 The exact inverse of the JAX package's ``weights/convert.py``
-(``convert_dinovit``, ``convert_dpt_head``), so that the parity tests can
-feed one set of weights to both packages:
+(``convert_dinovit``, ``convert_dpt_head``, ``convert_vggt``), so that the
+parity tests can feed one set of weights to both packages:
 
 * Dense kernel (in, out)                 -> Linear weight (out, in)
 * Conv kernel (kh, kw, in, out)          -> Conv2d weight (out, in, kh, kw)
@@ -75,8 +75,11 @@ def dinovit_from_jax(p: Mapping, prefix: str = "pretrained") -> Dict[str, torch.
     return out
 
 
-def dpt_head_from_jax(p: Mapping, prefix: str = "depth_head") -> Dict[str, torch.Tensor]:
-    """JAX ``DPTHead`` params -> ``DPTHead`` state-dict entries under ``prefix``.
+def dpt_head_from_jax(p: Mapping, prefix: str = "depth_head",
+                      nested_scratch: bool = True) -> Dict[str, torch.Tensor]:
+    """JAX ``DPTHead`` params -> ``DPTHead`` state-dict entries under
+    ``prefix``; ``nested_scratch=False`` for VGGT's layout, whose fusion
+    modules have no ``scratch.`` level.
 
     ``refinenet4`` has no skip input, so its ``resConfUnit1`` never runs and
     Flax's ``init`` creates no params for it; the upstream checkpoints carry
@@ -88,24 +91,76 @@ def dpt_head_from_jax(p: Mapping, prefix: str = "depth_head") -> Dict[str, torch
     _conv_transpose(p["resize_0"], _join(prefix, "resize_layers.0"), out)
     _conv_transpose(p["resize_1"], _join(prefix, "resize_layers.1"), out)
     _conv(p["resize_3"], _join(prefix, "resize_layers.3"), out)
-    sc = _join(prefix, "scratch")
+    sc = _join(prefix, "scratch") if nested_scratch else prefix
     for i in range(1, 5):
-        _conv(p[f"layer{i}_rn"], f"{sc}.layer{i}_rn", out)
+        _conv(p[f"layer{i}_rn"], _join(sc, f"layer{i}_rn"), out)
     for i in range(1, 5):
         rf = p[f"refinenet{i}"]
         for unit in ("resConfUnit1", "resConfUnit2"):
             for conv in ("conv1", "conv2"):
-                key = f"{sc}.refinenet{i}.{unit}.{conv}"
+                key = _join(sc, f"refinenet{i}.{unit}.{conv}")
                 if unit in rf:
                     _conv(rf[unit][conv], key, out)
                 else:  # the unused unit: zeros shaped like its twin
                     kh, kw, cin, cout = np.shape(rf["resConfUnit2"][conv]["kernel"])
                     out[f"{key}.weight"] = torch.zeros(cout, cin, kh, kw)
                     out[f"{key}.bias"] = torch.zeros(cout)
-        _conv(rf["out_conv"], f"{sc}.refinenet{i}.out_conv", out)
-    _conv(p["output_conv1"], f"{sc}.output_conv1", out)
-    _conv(p["output_conv2_0"], f"{sc}.output_conv2.0", out)
-    _conv(p["output_conv2_2"], f"{sc}.output_conv2.2", out)
+        _conv(rf["out_conv"], _join(sc, f"refinenet{i}.out_conv"), out)
+    _conv(p["output_conv1"], _join(sc, "output_conv1"), out)
+    _conv(p["output_conv2_0"], _join(sc, "output_conv2.0"), out)
+    _conv(p["output_conv2_2"], _join(sc, "output_conv2.2"), out)
+    return out
+
+
+def _block_from_jax(p: Mapping, prefix: str, out: Dict[str, torch.Tensor]) -> None:
+    """One pre-norm block: qkv/proj under ``attn`` (the aggregator's
+    blocks) or beside the norms (the camera trunk)."""
+    attn = p["attn"] if "attn" in p else p
+    attn_prefix = f"{prefix}.attn" if "attn" in p else prefix
+    _layernorm(p["norm1"], f"{prefix}.norm1", out)
+    _linear(attn["qkv"], f"{attn_prefix}.qkv", out)
+    _linear(attn["proj"], f"{attn_prefix}.proj", out)
+    out[f"{prefix}.ls1.gamma"] = _t(p["ls1"]["gamma"])
+    _layernorm(p["norm2"], f"{prefix}.norm2", out)
+    _linear(p["mlp"]["fc1"], f"{prefix}.mlp.fc1", out)
+    _linear(p["mlp"]["fc2"], f"{prefix}.mlp.fc2", out)
+    out[f"{prefix}.ls2.gamma"] = _t(p["ls2"]["gamma"])
+
+
+def vggt_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``VGGT`` params (``aggregator`` / ``depth_head`` / optional
+    ``camera_head``, optionally under a ``"params"`` key) -> the port's
+    ``VGGT.state_dict()`` in the upstream layout, fp32 CPU tensors. The
+    inverse of ``convert_vggt``; the camera trunk's flat Flax names
+    (``trunk_{i}_qkv``, ``trunk_{i}_ls1`` ...) become ``trunk.{i}.*``."""
+    if "params" in params:
+        params = params["params"]
+    if "point_head" in params:
+        raise ValueError("the point head is not ported (it comes with stream3r)")
+    agg = params["aggregator"]
+    out = dinovit_from_jax(agg["patch_embed"], "aggregator.patch_embed")
+    out["aggregator.camera_token"] = _t(agg["camera_token"])
+    out["aggregator.register_tokens"] = _t(agg["register_tokens"])
+    if "input_proj" in agg:
+        _linear(agg["input_proj"], "aggregator.input_proj", out)
+    depth = sum(1 for k in agg if k.startswith("frame_"))
+    for i in range(depth):
+        _block_from_jax(agg[f"frame_{i}"], f"aggregator.frame_blocks.{i}", out)
+        _block_from_jax(agg[f"global_{i}"], f"aggregator.global_blocks.{i}", out)
+    out.update(dpt_head_from_jax(params["depth_head"]["dpt"], "depth_head.dpt",
+                                 nested_scratch=False))
+    if "camera_head" in params:
+        cam = params["camera_head"]
+        _layernorm(cam["token_norm"], "camera_head.token_norm", out)
+        _linear(cam["embed_pose"], "camera_head.embed_pose", out)
+        _linear(cam["poseLN_modulation"], "camera_head.poseLN_modulation", out)
+        _linear(cam["pose_branch_fc1"], "camera_head.pose_branch.fc1", out)
+        _linear(cam["pose_branch_fc2"], "camera_head.pose_branch.fc2", out)
+        trunk_depth = sum(1 for k in cam if k.endswith("_norm1"))
+        for i in range(trunk_depth):
+            blk = {name: cam[f"trunk_{i}_{name}"]
+                   for name in ("norm1", "qkv", "proj", "ls1", "norm2", "mlp", "ls2")}
+            _block_from_jax(blk, f"camera_head.trunk.{i}", out)
     return out
 
 

@@ -99,8 +99,10 @@ def load_checkpoint(model: nn.Module, path_or_uri: str) -> None:
 def init_random_(model: nn.Module, seed: int = 0) -> None:
     """Deterministic random init from a seeded CPU ``torch.Generator``:
     lecun-normal weights and zero biases for Linear/Conv layers, identity
-    LayerNorms, normal(0.02) position table, zero class and register tokens
-    (the JAX modules' initializers). LayerScale gammas are set to
+    LayerNorms, normal(0.02) position table, zero class and register tokens,
+    normal(0.02) for the parameters a module lists in its ``normal_init``
+    (VGGT's camera and register tokens): the JAX modules' initializers.
+    LayerScale gammas are set to
     :data:`RANDOM_LAYERSCALE` rather than the untrained 1e-5, so that every
     attention and MLP branch moves the output, as in a trained DINOv2, and
     a whole-path comparison of two attention routes compares something."""
@@ -119,7 +121,7 @@ def init_random_(model: nn.Module, seed: int = 0) -> None:
             normal_(w, 1.0 / math.sqrt(fan_in))
             if mod.bias is not None:
                 mod.bias.zero_()
-        elif isinstance(mod, nn.LayerNorm):
+        elif isinstance(mod, nn.LayerNorm) and mod.elementwise_affine:
             mod.weight.fill_(1.0)
             mod.bias.zero_()
     for pname, p in model.named_parameters():
@@ -129,6 +131,9 @@ def init_random_(model: nn.Module, seed: int = 0) -> None:
             normal_(p, 0.02)
         elif pname.endswith(("cls_token", "register_tokens")):
             p.zero_()
+    for mod in model.modules():
+        for name in getattr(mod, "normal_init", ()):
+            normal_(getattr(mod, name), 0.02)
 
 
 def resolve_weights(model: nn.Module, name: str, *,

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from monocular_depth_estimation_trt_tpu_torch.models.vggt import VGGTConfig
 from monocular_depth_estimation_trt_tpu_torch.models.vit import ViTConfig
 from monocular_depth_estimation_trt_tpu_torch.ops.cuda import flash_attention as fa
 from monocular_depth_estimation_trt_tpu_torch.registry import build_pipeline
@@ -84,3 +85,73 @@ def test_pipeline_on_the_card_goes_through_k1(cuda, precision):
     rel = np.abs(out["depth"] - ref).max() / np.abs(ref).max()
     assert rel < (5e-2 if precision == "bf16" else 1e-3)
     assert out["viz"].shape == (48, 64, 3) and out["viz"].dtype == np.uint8
+
+
+def _bhnd(b, h, n, d, dtype, device, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn((b, h, n, d), generator=gen).to(device, dtype) for _ in range(3)]
+
+
+@pytest.mark.parametrize("b,h,n,d,dtype", [
+    (4, 16, 1374, 64, torch.bfloat16), (1, 16, 5496, 64, torch.bfloat16),
+    (1, 2, 1, 64, torch.bfloat16), (2, 3, 63, 64, torch.bfloat16),
+    (2, 3, 65, 64, torch.bfloat16), (2, 3, 130, 16, torch.bfloat16),
+    (1, 4, 300, 64, torch.float32), (2, 3, 65, 16, torch.float32),
+])
+def test_k2_matches_its_plain_version(cuda, b, h, n, d, dtype):
+    q, k, v = _bhnd(b, h, n, d, dtype, cuda)
+    before = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert out.shape == (b, h, n, d) and out.dtype == dtype and out.is_cuda
+    ref = fa.flash_attention_reference(q, k, v)
+    assert (out.float() - ref.float()).abs().max().item() < TOL[dtype]
+
+
+def test_k2_reads_strided_views_and_refuses_what_it_cannot_read(cuda):
+    gen = torch.Generator().manual_seed(1)
+    qkv = torch.randn((2, 100, 3, 4, D), generator=gen).to(cuda, torch.bfloat16)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # the VGGT layout
+    out = fa.flash_attention(q, k, v, scale=0.3)
+    ref = fa.flash_attention_reference(q, k, v, 0.3)
+    assert (out.float() - ref.float()).abs().max().item() < TOL[torch.bfloat16]
+    # the output is a (B, N, H, d) buffer: the reshape to the proj input is free
+    assert out.transpose(1, 2).is_contiguous()
+    d_strided = torch.zeros((2, 4, D, 100), device=cuda, dtype=torch.bfloat16).transpose(2, 3)
+    with pytest.raises(ValueError, match="stride"):
+        fa.flash_attention(d_strided, k, v)
+    flat = torch.zeros(1 + 2 * 4 * 100 * D, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention(flat[1:].view(2, 4, 100, D), k, v)
+    with pytest.raises(ValueError, match="head_dim"):
+        wide = torch.zeros((1, 2, 10, 128), device=cuda, dtype=torch.bfloat16)
+        fa.flash_attention(wide, wide, wide)
+
+
+@pytest.mark.parametrize("precision", ["bf16", "fp32"])
+def test_vggt_pipeline_on_the_card_goes_through_k1_and_k2(cuda, precision):
+    """A small VGGT (head_dim 64: 2 ViT blocks, 2 alternating blocks) on the
+    card: per forward, whatever S, one K1 launch per ViT block and two K2
+    launches per alternating block; the outputs against the CPU fp32 path."""
+    cfg = VGGTConfig(dim=128, depth=2, num_heads=2, head_layers=(0, 1, 0, 1),
+                     vit_config=ViTConfig(dim=128, depth=2, num_heads=2, pretrain_img_size=70),
+                     head_features=16, head_out_channels=(8, 16, 32, 32))
+    with allow_random_weights(True):
+        card = build_pipeline("vggt", precision=precision, input_size=70, vggt_cfg=cfg)
+        cpu = build_pipeline("vggt", precision="fp32", input_size=70, vggt_cfg=cfg,
+                             device="cpu")
+    rng = np.random.default_rng(0)
+    frame = rng.integers(0, 256, (48, 64, 3), dtype=np.uint8)
+    views = rng.integers(0, 256, (3, 70, 70, 3), dtype=np.uint8)
+    tol = 5e-2 if precision == "bf16" else 1e-3
+    for run, arg, ref in ((card, frame, cpu(frame)),
+                          (card.multi_view, views, cpu.multi_view(views))):
+        counts = (fa.flash_attention_packed.launches, fa.flash_attention.launches)
+        out = run(arg)
+        assert (fa.flash_attention_packed.launches - counts[0],
+                fa.flash_attention.launches - counts[1]) == (2, 4)
+        for key in ("depth", "depth_conf", "pose_enc"):
+            assert out[key].shape == ref[key].shape and np.isfinite(out[key]).all()
+            rel = np.abs(out[key] - ref[key]).max() / np.abs(ref[key]).max()
+            assert rel < tol, (key, rel)

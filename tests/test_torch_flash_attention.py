@@ -1,5 +1,6 @@
-"""Kernel K1 of the torch port (packed-qkv attention) against the JAX
-package's ``flash_attention_packed`` in Pallas interpret mode.
+"""Kernels K1 (packed-qkv attention) and K2 ((B, H, N, d) attention) of the
+torch port against the JAX package's ``flash_attention_packed`` and
+``flash_attention`` in Pallas interpret mode.
 
 On the CPU the port's wrapper runs its plain PyTorch version, which repeats
 the kernel's numerics; the CUDA kernel itself is compared with that plain
@@ -15,6 +16,7 @@ import jax.numpy as jnp
 
 from monocular_depth_estimation_trt_tpu.ops.pallas.flash_attention import (
     attention_reference as jax_attention_reference,
+    flash_attention as jax_flash_attention,
     flash_attention_packed as jax_flash_attention_packed,
 )
 from monocular_depth_estimation_trt_tpu_torch.ops.cuda import flash_attention as fa
@@ -100,3 +102,63 @@ def test_plain_k1_is_one_softmax_attention(rng):
     out = fa.flash_attention_packed_reference(torch.from_numpy(x), 2)
     np.testing.assert_allclose(out.numpy(), 0.5, rtol=1e-6)
 
+
+
+@pytest.mark.parametrize("n", [1, 65, 130, 300])
+@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_k2_matches_jax_kernel(rng, n, d, dtype):
+    """The JAX entry pads N to 128 with masked keys and d to 64 with zeros;
+    the port's plain version pads nothing."""
+    jdt, tdt, tol = DTYPES[dtype]
+    q, k, v = (rng.standard_normal((2, 3, n, d)).astype(np.float32) for _ in range(3))
+    ref = jax_flash_attention(*(jnp.asarray(t, jdt) for t in (q, k, v)), interpret=True)
+    out = fa.flash_attention(*(torch.from_numpy(t).to(tdt) for t in (q, k, v)))
+    assert out.shape == (2, 3, n, d) and out.dtype == tdt
+    err = np.max(np.abs(out.float().numpy() - np.asarray(ref, np.float32)))
+    assert err < tol, f"max abs err {err:.2e}"
+
+
+def test_plain_k2_takes_strided_views_and_a_scale(rng):
+    """q, k, v as views of one qkv tensor (the VGGT layout), any scale."""
+    b, n, h = 2, 90, 3
+    qkv = torch.from_numpy(rng.standard_normal((b, n, 3, h, D)).astype(np.float32))
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    out = fa.flash_attention(q, k, v, scale=0.3)
+    ref = fa.attention_reference(q.contiguous(), k.contiguous(), v.contiguous(), 0.3)
+    assert np.max(np.abs(out.numpy() - ref.numpy())) < 1e-5
+
+
+@pytest.mark.parametrize("shapes,dtypes,exc", [
+    ([(1, 2, 10, 80)] * 3, [torch.float32] * 3, ValueError),  # d > 64
+    ([(1, 2, 10, 128)] * 3, [torch.float32] * 3, ValueError),  # d = 128
+    ([(2, 10, 64)] * 3, [torch.float32] * 3, ValueError),  # no head axis
+    ([(1, 2, 10, 64), (1, 2, 11, 64), (1, 2, 10, 64)], [torch.float32] * 3, ValueError),
+    ([(1, 2, 10, 64)] * 3, [torch.float16] * 3, TypeError),
+    ([(1, 2, 10, 64)] * 3, [torch.float32, torch.bfloat16, torch.float32], TypeError),
+])
+def test_k2_wrapper_rejects_unsupported_inputs(shapes, dtypes, exc):
+    with pytest.raises(exc, match="head_dim|shape|float"):
+        fa.flash_attention(*(torch.zeros(s, dtype=t) for s, t in zip(shapes, dtypes)))
+
+
+def test_k2_wrapper_rejects_other_devices():
+    q = torch.zeros((1, 2, 10, 64), device="meta")
+    with pytest.raises(ValueError, match="device"):
+        fa.flash_attention(q, q, q)
+
+
+def test_cpu_tensor_never_touches_the_k2_launch_counter(rng):
+    before = fa.flash_attention.launches
+    q = torch.from_numpy(rng.standard_normal((1, 2, 70, 32)).astype(np.float32))
+    fa.flash_attention(q, q, q)
+    fa.flash_attention(q.to(torch.bfloat16), q.to(torch.bfloat16), q.to(torch.bfloat16))
+    assert fa.flash_attention.launches == before
+
+
+def test_plain_k2_is_one_softmax_attention(rng):
+    """Rows of P sum to 1: a constant V maps to itself, at any length."""
+    q, k = (torch.from_numpy(rng.standard_normal((1, 2, 500, D)).astype(np.float32) * 3)
+            for _ in range(2))
+    out = fa.flash_attention_reference(q, k, torch.full((1, 2, 500, D), 0.5))
+    np.testing.assert_allclose(out.numpy(), 0.5, rtol=1e-6)

@@ -22,6 +22,7 @@ PORT = os.path.join(REPO, "monocular_depth_estimation_trt_tpu_torch")
 JAX_PKG = "monocular_depth_estimation_trt_tpu"
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "orbax")
 DA_FAMILY = ("bridge", "depth_anything_ac", "depth_anything_v2", "distill_any_depth", "dkt")
+PORTED = tuple(sorted(DA_FAMILY + ("vggt",)))
 
 
 def _forbidden(module: str) -> bool:
@@ -95,15 +96,18 @@ def test_build_pipeline_defaults_to_the_card_and_raises_without_one():
             treg.build_pipeline("depth_anything_v2")
         with pytest.raises(RuntimeError, match="CUDA"):
             treg.build_pipeline("depth_anything_v2", encoder="vits", device="cuda")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            treg.build_pipeline("vggt")
     assert treg.resolve_device("cpu") == torch.device("cpu")
 
 
 def test_registry_lists_the_da_family_with_the_jax_fidelity():
-    assert tuple(treg.list_models()) == DA_FAMILY
-    for name in DA_FAMILY:
+    assert tuple(treg.list_models()) == PORTED
+    for name in PORTED:
         assert treg.get_fidelity(name) == jreg.get_fidelity(name)
+    assert treg.get_fidelity("vggt") == "converter-verified"
     with pytest.raises(KeyError):
-        treg.build_pipeline("vggt")
+        treg.build_pipeline("depth_pro")
 
 
 @pytest.mark.parametrize("name", DA_FAMILY)
@@ -129,9 +133,25 @@ def test_da_family_builds_with_the_jax_artifact_names(monkeypatch, name, kw):
     assert model.max_depth == expected_max
 
 
-def test_int8_is_refused_with_the_missing_kernel_named():
+@pytest.mark.parametrize("kw", [{}, {"depth_only": True}, {"precision": "fp32"},
+                                {"input_size": 364, "depth_only": True, "precision": "fp16"}])
+def test_vggt_builds_with_the_jax_artifact_names(monkeypatch, kw):
+    """The port builds the full-size VGGT on the meta device, no weights."""
+    monkeypatch.setattr(jreg, "_params_for", lambda *a, **k: {})
+    monkeypatch.setattr(store, "resolve_weights", lambda *a, **k: None)
+    jpipe = jreg.build_pipeline("vggt", **kw)
+    tpipe = treg.build_pipeline("vggt", device="meta", **kw)
+    assert tpipe.spec == tconfig.ModelSpec(**jpipe.spec.to_dict())
+    assert tpipe.spec.artifact_name() == jpipe.spec.artifact_name()
+    assert tpipe.viz == jpipe.viz == "metric"
+    assert hasattr(tpipe.model, "camera_head") == (not kw.get("depth_only", False))
+    assert callable(tpipe.multi_view) and callable(tpipe.benchmark_views)
+
+
+@pytest.mark.parametrize("name", ["depth_anything_v2", "vggt"])
+def test_int8_is_refused_with_the_missing_kernel_named(name):
     with pytest.raises(NotImplementedError, match="K4"):
-        treg.build_pipeline("depth_anything_v2", precision="int8", device="cpu")
+        treg.build_pipeline(name, precision="int8", device="cpu")
 
 
 @pytest.mark.parametrize("fields", [

@@ -144,16 +144,45 @@ def test_attention_plain_route_matches_jax(rng):
     assert rel_err(ours.numpy(), ref) < 1e-5
 
 
-def test_rope_and_flash_routes_name_the_missing_kernel():
-    with pytest.raises(NotImplementedError, match="K2"):
-        tvit.DinoViT(tvit.ViTConfig(dim=64, depth=1, num_heads=1, rope=True))
-    with pytest.raises(NotImplementedError, match="K2"):
-        tvit.rope_2d_normalized(4, 4, 64)
-    attn = tvit.Attention(128, 2, attn_impl="flash")
-    with pytest.raises(NotImplementedError, match="K2"):
-        attn(torch.zeros(1, 4, 128))
+def test_rope_and_flash_routes_name_the_missing_kernel(rng):
+    """Both routes used to raise for the missing kernel K2; they now go
+    through it (its plain version here): a DINOv3-style rope ViT (no
+    position table, 4 registers) on the default route, and a plain ViT with
+    ``attn_impl="flash"``, against the JAX package's plain route, fp32. An
+    unknown route still raises."""
+    x = rng.standard_normal((1, 84, 56, 3)).astype(np.float32) * 0.5
+    rope_cfg = dict(TINY, depth=2, rope=True, pos_embed=False, num_register_tokens=4)
+    for cfg_kw, port_impl in ((rope_cfg, "auto"), (dict(TINY, depth=2), "flash")):
+        jm = jvit.DinoViT(jvit.ViTConfig(**cfg_kw), out_indices=(0, 1), dtype=jnp.float32,
+                          attn_impl="xla")
+        params = random_params(jm, jnp.asarray(x), seed=4)
+        tm = tvit.DinoViT(tvit.ViTConfig(**cfg_kw), out_indices=(0, 1), attn_impl=port_impl)
+        tm.load_state_dict(dinovit_from_jax(params, prefix=""), strict=True)
+        before = fa.flash_attention.launches
+        _check_taps(tm.eval(), jm, params, x)
+        assert fa.flash_attention.launches == before  # CPU: the plain version
     with pytest.raises(ValueError):
         tvit.Attention(128, 2, attn_impl="sdpa")
+
+
+@pytest.mark.parametrize("grid,head_dim", [((6, 4), 32), ((37, 37), 64)])
+def test_rope_2d_normalized_matches_jax(grid, head_dim):
+    jcos, jsin = jvit.rope_2d_normalized(*grid, head_dim)
+    cos, sin = tvit.rope_2d_normalized(*grid, head_dim)
+    assert cos.shape == (grid[0] * grid[1], head_dim // 2) and cos.dtype == torch.float32
+    np.testing.assert_allclose(cos.numpy(), np.asarray(jcos), atol=1e-6)
+    np.testing.assert_allclose(sin.numpy(), np.asarray(jsin), atol=1e-6)
+
+
+def test_attention_flash_route_matches_jax_kernel(rng):
+    """``attn_impl="flash"`` at head_dim 64 on both sides: the JAX module runs
+    its Pallas K2 in interpret mode, the port K2's plain version."""
+    x = rng.standard_normal((1, 130, 128)).astype(np.float32)
+    jm, params, tm = _attention_pair("flash", jnp.float32, x)
+    ref = jm.apply({"params": params}, jnp.asarray(x))
+    with torch.no_grad():
+        ours = tm(torch.from_numpy(x))
+    assert rel_err(ours.numpy(), ref) < 1e-5
 
 
 def test_swiglu_hidden_and_configs_match_jax():

@@ -14,16 +14,22 @@ import monocular_depth_estimation_trt_tpu.models.vit as jvit
 from monocular_depth_estimation_trt_tpu.weights.convert import (
     convert_dinovit,
     convert_dpt_head,
+    convert_vggt,
 )
 from monocular_depth_estimation_trt_tpu_torch.models.depth_anything_v2 import (
     DepthAnythingV2,
 )
+from monocular_depth_estimation_trt_tpu_torch.models.vggt import VGGT, VGGTConfig
 from monocular_depth_estimation_trt_tpu_torch.models.vit import ViTConfig
 from monocular_depth_estimation_trt_tpu_torch.registry import build_pipeline
 from monocular_depth_estimation_trt_tpu_torch.weights import store
-from monocular_depth_estimation_trt_tpu_torch.weights.from_jax import state_dict_from_jax
+from monocular_depth_estimation_trt_tpu_torch.weights.from_jax import (
+    state_dict_from_jax,
+    vggt_from_jax,
+)
 
 from torch_mirror import TorchDepthAnythingV2
+from torch_mirror_vggt import TorchVGGT
 from torch_port_params import random_params
 
 torch.set_num_threads(1)
@@ -148,3 +154,54 @@ def test_checkpoint_from_a_local_path_and_the_hf_mirror(tmp_path, monkeypatch, r
         for bad in ("hf:org/repo/absent.pth", "hf:org/only", str(tmp_path / "absent.pth")):
             with pytest.raises(store.MissingCheckpointError):
                 store.resolve_checkpoint(bad)
+
+
+# tests/test_parity_vggt.py's tiny VGGT (ViT dim 48, aggregator dim 64: input_proj)
+TINY_VGGT = VGGTConfig(dim=64, depth=2, num_heads=4, head_layers=(0, 1, 0, 1),
+                       vit_config=ViTConfig(dim=48, depth=2, num_heads=2,
+                                            pretrain_img_size=70),
+                       head_features=16, head_out_channels=(8, 16, 32, 32))
+
+
+def test_vggt_state_dict_keys_and_shapes_equal_upstream_manifest():
+    with open(os.path.join(MANIFESTS, "vggt.json")) as f:
+        manifest = json.load(f)["keys"]
+    with torch.device("meta"):  # full size, about 1.2 B parameters, no memory
+        model = VGGT(VGGTConfig())
+    ours = {k: list(v.shape) for k, v in model.state_dict().items()}
+    assert len(ours) == len(manifest) == 1146
+    assert ours == manifest
+    assert sum(v.numel() for v in model.state_dict().values()) > 1.1e9
+
+
+def test_vggt_from_jax_inverts_the_jax_converter_exactly():
+    torch.manual_seed(21)
+    mirror = TorchVGGT(vit_dim=48, vit_depth=2, vit_heads=2, dim=64, depth=2, num_heads=4,
+                       head_layers=(0, 1, 0, 1), grid_hw=(5, 5))
+    with torch.no_grad():
+        for p in mirror.parameters():
+            p.add_(torch.randn_like(p) * 0.02)
+    sd = mirror.state_dict()
+    back = vggt_from_jax(convert_vggt(sd, vit_depth=2, depth=2))
+    assert sorted(back) == sorted(sd)
+    for k, v in sd.items():
+        assert back[k].dtype == torch.float32
+        assert torch.equal(back[k], v), k
+    model = VGGT(TINY_VGGT)
+    store.load_state_dict(model, back)  # strict
+    depth_only = VGGT(TINY_VGGT, with_camera=False)
+    store.load_state_dict(depth_only, vggt_from_jax(
+        convert_vggt(sd, vit_depth=2, depth=2, with_camera=False)))
+
+
+def test_init_random_draws_the_vggt_tokens_from_normal():
+    model = VGGT(TINY_VGGT)
+    store.init_random_(model, seed=0)
+    for name in ("camera_token", "register_tokens"):
+        t = getattr(model.aggregator, name).detach()
+        assert t.abs().min() > 0
+        assert 0.005 < float(t.std()) < 0.05
+    assert not model.aggregator.patch_embed.cls_token.detach().any()
+    assert model.camera_head.adaln_norm.weight is None  # no affine, left alone
+    gamma = float(model.camera_head.trunk[0].ls1.gamma.detach()[0])
+    assert gamma == pytest.approx(store.RANDOM_LAYERSCALE)
