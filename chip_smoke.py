@@ -21,8 +21,9 @@ Phases, each printed as one JSON line; any failure exits non-zero:
 5. VGGT path: ``build_pipeline("vggt")`` at full size (ViT-L patch embed, 24
    alternating blocks): one 480x640 frame with the viz epilogue, 4 views,
    then 8 views, with the counts set to 0 just before and read just after;
-   then its bf16 outputs against plain attention and the fp32 path, and the
-   fp32 path on the card against the CPU;
+   then its bf16 outputs against plain attention and the fp32 path for two
+   weight seeds and three frames, and the fp32 path on the card against the
+   CPU;
 6. speed: ``DepthPipeline.benchmark((518, 518))`` for vits and vitl, and for
    vggt at S=1 and (``benchmark_views``) S=4;
 7. profile: device time by kernel, device busy time and idle share of a
@@ -35,6 +36,7 @@ line ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -44,6 +46,13 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 BF16_TOL = 2e-2  # bf16 output mantissa (the JAX package's packed-kernel bar)
 FP32_TOL = 1e-4  # fp32: summation order only
+# K2 in bf16 against its plain version, in bf16 steps (ulps) at the largest
+# output: the two differ in when P is divided by the row sum, which moves
+# the fp32 value before the last cast by far less than a step, so they
+# round at most a step apart. 2e-2 would be the size of a typical output at
+# VGGT's global shapes (std about sqrt(e/N): 0.022 at N = 5496), where a
+# kernel that skipped a key tile would still pass.
+K2_BF16_ULPS = 4
 # Whole-path bf16 depth, kernel route vs plain attention route, as
 # max|a - b| / max|b|: both run every op in bf16 (3.9e-3 relative per
 # rounding) and the plain route also rounds the scores to bf16 before the
@@ -51,12 +60,20 @@ FP32_TOL = 1e-4  # fp32: summation order only
 PATH_BF16_REL_TOL = 5e-2
 # Whole-path fp32 depth, card vs CPU: summation order only, TF32 off.
 PATH_FP32_REL_TOL = 1e-3
-# VGGT's confidence (1 + exp of a logit) turns the logit's absolute bf16
-# error into a relative one, and pose_enc has 9 values a view: there both
-# bf16 routes can pass 5e-2 on their own. The kernel route is held to at
-# most this multiple of the plain route's distance from fp32: it adds no
-# error beyond the bf16 rounding that the plain route already has.
-PATH_BF16_ROUTE_RATIO = 2.0
+# VGGT, bf16 kernel route against the plain route, as max rel, at every
+# (weight seed, frame) of the comparison: about twice the largest of six
+# readings (2 seeds x 3 frames; PERF.md), far below the O(1) differences of
+# a wrong route. VGGT's 48 bf16 blocks drift further than DA-V2's 12: the
+# plain route alone reads up to 7.5e-2 from fp32 on depth. Confidence
+# (1 + exp of a logit) turns the logit's absolute bf16 error into a
+# relative one, and pose_enc has 9 values a view.
+PATH_BF16_VGGT_REL_TOL = {"depth": 1e-1, "depth_conf": 7.5e-2, "pose_enc": 1.5e-1}
+PARITY_WEIGHT_SEEDS = (0, 1)
+# ... and, averaged over the readings, the kernel route's distance from fp32
+# is at most this multiple of the plain route's: it adds no error beyond the
+# bf16 rounding that the plain route already has (readings 0.88 to 1.06; one
+# reading alone swings 0.3 to 2x on pose's 9 values).
+PATH_BF16_ROUTE_RATIO = 1.5
 
 SPEED_REPEATS = 3
 VGGT_BENCH = dict(warmup=3, iterations=20, latency_iterations=10)
@@ -108,6 +125,11 @@ def attention_bound(b: int, n: int, h: int, d: int, itemsize: int, peak_ops: flo
     nbytes = float(b * n * 4 * h * d * itemsize)  # qkv read once, out written once
     t_ops, t_bytes = ops / peak_ops, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def bf16_ulp(x: float) -> float:
+    """Spacing of bf16 numbers (8 significant bits) at magnitude ``x`` > 0."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
 
 
 def rel(a, b) -> float:
@@ -181,7 +203,9 @@ def check_flash_attention(fa, dev):
     """K2 against its plain version at VGGT's shapes and edge shapes. The
     frame shape is (B*S, 16, 1374, 64) at S=4; global attention is
     (1, 16, S*1374, 64). "strided" reads q, k, v as views of one qkv
-    tensor, as the VGGT path does."""
+    tensor, as the VGGT path does. In bf16 the bar is K2_BF16_ULPS steps at
+    the largest output (at most BF16_TOL), and the kernel must sit no
+    further from fp32 attention than the plain bf16 route does."""
     import torch
     import torch.nn.functional as F
 
@@ -206,27 +230,48 @@ def check_flash_attention(fa, dev):
         else:
             q, k, v = (torch.randn((b, h, n, d), generator=gen).to(dev, dtype)
                        for _ in range(3))
+        bf16 = dtype == torch.bfloat16
         out = fa.flash_attention(q, k, v)
         torch.cuda.synchronize()
-        ref = fa.flash_attention_reference(q, k, v)
-        err = (out.float() - ref.float()).abs().max().item()
-        del ref
-        tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
+        ref = fa.flash_attention_reference(q, k, v).float()
+        diff = (out.float() - ref).abs()
+        err, mean_err = diff.max().item(), diff.mean().item()
+        ref_max, ref_rms = ref.abs().max().item(), ref.square().mean().sqrt().item()
+        tol = min(BF16_TOL, K2_BF16_ULPS * bf16_ulp(ref_max)) if bf16 else FP32_TOL
         check(out.shape == (b, h, n, d), f"K2 {label}: shape {tuple(out.shape)}")
         check(err <= tol, f"K2 {label}: max_abs_err {err} > {tol}")
+        # the bar's power: the plain version with one key tile left out (what
+        # a kernel that skipped a tile computes) must fail it
+        dropped_tile_err = None
+        if n >= 2 * 64:
+            t0 = (n // 64 // 2) * 64
+            keep = torch.cat([torch.arange(t0), torch.arange(t0 + 64, n)]).to(dev)
+            skipped = fa.flash_attention_reference(q, k[:, :, keep], v[:, :, keep])
+            dropped_tile_err = (skipped.float() - ref).abs().max().item()
+            check(dropped_tile_err > tol,
+                  f"K2 {label}: a dropped key tile moves the output {dropped_tile_err} "
+                  f"<= the bar {tol}")
+            del skipped
+        del ref, diff
         # the kernel and the plain bf16 route against fp32 attention
         exact = fa.flash_attention_reference(q.float(), k.float(), v.float())
         kernel_vs_fp32 = (out.float() - exact).abs().max().item()
         plain_route = fa.attention_reference(q, k, v)
         plain_vs_fp32 = (plain_route.float() - exact).abs().max().item()
         del exact, plain_route
+        if bf16:  # the deferred division rounds P less than the bf16 route
+            check(kernel_vs_fp32 <= plain_vs_fp32,
+                  f"K2 {label}: kernel vs fp32 {kernel_vs_fp32} > plain bf16 attention "
+                  f"vs fp32 {plain_vs_fp32}")
         peak = PEAK_BF16_OPS if dtype == torch.bfloat16 else PEAK_FP32_OPS
         bound_ms, bound_by = attention_bound(b, n, h, d, q.element_size(), peak)
         long = n > 4096
         rec = {
             "shape": label, "B": b, "H": h, "N": n, "d": d, "strided": strided,
             "dtype": str(dtype).replace("torch.", ""),
-            "max_abs_err": err, "tolerance": tol,
+            "max_abs_err": err, "tolerance": tol, "mean_abs_err": mean_err,
+            "plain_max_abs": ref_max, "plain_rms": ref_rms,
+            "dropped_key_tile_err": dropped_tile_err,
             "kernel_vs_fp32_err": kernel_vs_fp32,
             "plain_attention_vs_fp32_err": plain_vs_fp32,
             "kernel_ms": time_ms(lambda: fa.flash_attention(q, k, v),
@@ -352,53 +397,105 @@ def run_vggt_path(build_pipeline, fa, rng):
     return pipe, launches
 
 
-def vggt_parity(build_pipeline, pipe, frame):
-    """One 518x518 frame (S=1) on the same weights: the bf16 kernel route
-    against plain attention and against the fp32 card path, and the fp32
-    card path against the fp32 CPU path, on depth, confidence and pose."""
-    sd = {k: v.float().cpu() for k, v in pipe.model.state_dict().items()}
+def parity_frames(rng):
+    """The frames of the VGGT route comparison: noise at 518x518 and at
+    480x640 (the crop path), and a smooth scene-like 518x518 frame."""
+    import numpy as np
+
+    y, x = np.mgrid[0:518, 0:518] / 517.0
+    smooth = np.stack([x, y, 0.5 + 0.5 * np.sin(6.0 * (x + y))], axis=-1)
+    smooth[(x - 0.6) ** 2 + (y - 0.4) ** 2 < 0.04] = (0.9, 0.2, 0.1)
+    return {"noise_518x518": rng.integers(0, 256, (518, 518, 3), dtype=np.uint8),
+            "noise_480x640": rng.integers(0, 256, (480, 640, 3), dtype=np.uint8),
+            "smooth_518x518": (smooth * 255).round().astype(np.uint8)}
+
+
+def vggt_parity(build_pipeline, pipe, frames):
+    """For each weight seed and frame (S=1), on weights rounded to bf16 and
+    shared by every route: the bf16 kernel route against plain attention
+    and against the fp32 card path, on depth, confidence and pose; and, for
+    seed 0 and the first frame, the fp32 card path against the fp32 CPU
+    path. Every reading is emitted before any is checked."""
+    import torch
+    from monocular_depth_estimation_trt_tpu_torch.models.vggt import VGGT
+    from monocular_depth_estimation_trt_tpu_torch.weights.store import init_random_
+
     keys = ("depth", "depth_conf", "pose_enc")
 
-    def run(p):
+    def run(p, frame):
         out = p(frame)
         return {k: out[k] for k in keys}
 
-    kernel = run(pipe)
-    plain = run(build_pipeline("vggt", attn_impl="xla", params=sd))
-    card32 = run(build_pipeline("vggt", precision="fp32", params=sd))
-    t0 = time.perf_counter()
-    cpu32 = run(build_pipeline("vggt", precision="fp32", params=sd, device="cpu"))
-    cpu_s = time.perf_counter() - t0
-    rec = {"phase": "vggt_parity", "frame": "518x518", "weights": "seed 0, bf16-rounded",
-           "cpu_fp32_seconds": cpu_s, "model_depth": "full (24 ViT + 24 alternating blocks)"}
+    readings, cpu_rec = [], None
+    for seed in PARITY_WEIGHT_SEEDS:
+        kernel_pipe = pipe
+        if seed != 0:  # the path's pipeline holds seed 0
+            model = VGGT()
+            init_random_(model, seed)
+            kernel_pipe = build_pipeline("vggt", params=model.state_dict())
+            del model
+        sd = {k: v.float().cpu() for k, v in kernel_pipe.model.state_dict().items()}
+        plain_pipe = build_pipeline("vggt", attn_impl="xla", params=sd)
+        card32_pipe = build_pipeline("vggt", precision="fp32", params=sd)
+        for name, frame in frames.items():
+            kernel, plain = run(kernel_pipe, frame), run(plain_pipe, frame)
+            card32 = run(card32_pipe, frame)
+            rec = {"phase": "vggt_parity", "weights_seed": seed, "frame": name}
+            for k in keys:
+                rec[k] = {
+                    "bf16_kernel_vs_plain_attention_rel": rel(kernel[k], plain[k]),
+                    "bf16_kernel_vs_plain_attention_mean_rel": mean_rel(kernel[k], plain[k]),
+                    "bf16_kernel_route_vs_fp32_rel": rel(kernel[k], card32[k]),
+                    "bf16_kernel_route_vs_fp32_mean_rel": mean_rel(kernel[k], card32[k]),
+                    "bf16_plain_route_vs_fp32_rel": rel(plain[k], card32[k]),
+                    "bf16_plain_route_vs_fp32_mean_rel": mean_rel(plain[k], card32[k]),
+                }
+            emit(rec)
+            readings.append(rec)
+            if cpu_rec is None:
+                t0 = time.perf_counter()
+                cpu32 = run(build_pipeline("vggt", precision="fp32", params=sd,
+                                           device="cpu"), frame)
+                cpu_rec = {"phase": "vggt_parity_cpu", "weights_seed": seed, "frame": name,
+                           "cpu_fp32_seconds": time.perf_counter() - t0,
+                           "model_depth": "full (24 ViT + 24 alternating blocks)",
+                           **{k: {"fp32_card_vs_cpu_rel": rel(card32[k], cpu32[k])}
+                              for k in keys}}
+                emit(cpu_rec)
+        del kernel_pipe, plain_pipe, card32_pipe, sd
+        torch.cuda.empty_cache()
+
+    def worst(k, metric):
+        return max(r[k][metric] for r in readings)
+
+    def average(k, metric):
+        return sum(r[k][metric] for r in readings) / len(readings)
+
+    ratio = {k: average(k, "bf16_kernel_route_vs_fp32_rel")
+             / average(k, "bf16_plain_route_vs_fp32_rel") for k in keys}
+    emit({"phase": "vggt_parity_summary", "readings": len(readings),
+          **{k: {"max_bf16_kernel_vs_plain_attention_rel":
+                 worst(k, "bf16_kernel_vs_plain_attention_rel"),
+                 "max_bf16_kernel_route_vs_fp32_rel": worst(k, "bf16_kernel_route_vs_fp32_rel"),
+                 "max_bf16_plain_route_vs_fp32_rel": worst(k, "bf16_plain_route_vs_fp32_rel"),
+                 "bf16_kernel_vs_plain_attention_tolerance": PATH_BF16_VGGT_REL_TOL[k],
+                 "kernel_over_plain_route_vs_fp32": ratio[k]}
+             for k in keys},
+          "bf16_route_ratio_tolerance": PATH_BF16_ROUTE_RATIO,
+          "fp32_tolerance": PATH_FP32_REL_TOL})
+    for r in readings:
+        at = f"seed {r['weights_seed']} {r['frame']}"
+        for k in keys:
+            got = r[k]["bf16_kernel_vs_plain_attention_rel"]
+            check(got < PATH_BF16_VGGT_REL_TOL[k],
+                  f"vggt bf16 {k} kernel vs plain attention {got} ({at})")
     for k in keys:
-        rec[k] = {
-            "bf16_kernel_vs_plain_attention_rel": rel(kernel[k], plain[k]),
-            "bf16_kernel_vs_plain_attention_mean_rel": mean_rel(kernel[k], plain[k]),
-            "bf16_kernel_route_vs_fp32_rel": rel(kernel[k], card32[k]),
-            "bf16_kernel_route_vs_fp32_mean_rel": mean_rel(kernel[k], card32[k]),
-            "bf16_plain_route_vs_fp32_rel": rel(plain[k], card32[k]),
-            "bf16_plain_route_vs_fp32_mean_rel": mean_rel(plain[k], card32[k]),
-            "fp32_card_vs_cpu_rel": rel(card32[k], cpu32[k]),
-        }
-    rec["bf16_tolerance_depth"] = PATH_BF16_REL_TOL
-    rec["bf16_route_ratio_conf_pose"] = PATH_BF16_ROUTE_RATIO
-    rec["fp32_tolerance"] = PATH_FP32_REL_TOL
-    emit(rec)
-    d = rec["depth"]
-    check(d["bf16_kernel_vs_plain_attention_rel"] < PATH_BF16_REL_TOL,
-          f"vggt bf16 depth kernel vs plain attention {d['bf16_kernel_vs_plain_attention_rel']}")
-    check(d["bf16_kernel_route_vs_fp32_rel"] < PATH_BF16_REL_TOL,
-          f"vggt bf16 depth kernel route vs fp32 {d['bf16_kernel_route_vs_fp32_rel']}")
-    for k in ("depth_conf", "pose_enc"):
-        r = rec[k]
-        check(r["bf16_kernel_route_vs_fp32_rel"]
-              <= PATH_BF16_ROUTE_RATIO * r["bf16_plain_route_vs_fp32_rel"],
-              f"vggt bf16 {k} kernel route vs fp32 {r['bf16_kernel_route_vs_fp32_rel']} > "
-              f"{PATH_BF16_ROUTE_RATIO} x plain route's {r['bf16_plain_route_vs_fp32_rel']}")
+        check(ratio[k] <= PATH_BF16_ROUTE_RATIO,
+              f"vggt bf16 {k}: kernel route {ratio[k]} x as far from fp32 as the plain "
+              f"route, over {len(readings)} readings")
     for k in keys:
-        check(rec[k]["fp32_card_vs_cpu_rel"] < PATH_FP32_REL_TOL,
-              f"vggt fp32 {k} card vs cpu {rec[k]['fp32_card_vs_cpu_rel']}")
+        got = cpu_rec[k]["fp32_card_vs_cpu_rel"]
+        check(got < PATH_FP32_REL_TOL, f"vggt fp32 {k} card vs cpu {got}")
 
 
 def parse_smi(line: str):
@@ -537,7 +634,7 @@ def main() -> None:
 
     # 5. the VGGT path (its own counted run), then its route comparisons
     vggt, vggt_launches = run_vggt_path(build_pipeline, fa, rng)
-    vggt_parity(build_pipeline, vggt, frame_b)
+    vggt_parity(build_pipeline, vggt, parity_frames(rng))
 
     # 6. speed (the counts are read above; benchmark launches are not counted)
     cfg = BenchmarkConfig(warmup=10, iterations=100, latency_iterations=50)

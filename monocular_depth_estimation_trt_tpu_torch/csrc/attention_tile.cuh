@@ -1,9 +1,10 @@
 // The attention tile loop shared by kernels K1 (flash_attention_packed.cu)
 // and K2 (flash_attention.cu): non-causal softmax(q k^T * scale) v for one
-// head of head_dim 64, with q, k, v and o each addressed through its own
-// (batch, head, token) strides and a unit stride along head_dim. K1 reads
-// the three regions of the packed qkv tensor and writes the proj input; K2
-// reads (B, H, N, d) views and writes (B, N, H, d).
+// head of head_dim 64, with a unit stride along head_dim. The loop is a
+// template on a layout that says where each head's rows of q, k, v and o
+// are: PackedLayout (K1) derives every stride from H and kD, as the packed
+// qkv tensor and the proj input fix them; StridedLayout (K2) reads each
+// operand's (batch, head, token) strides from the kernel's parameters.
 //
 // Numerics (both kernels): scores and softmax in fp32, the exponentials
 // cast to the operand type before P.V, fp32 accumulation, the division by
@@ -47,12 +48,41 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerWarp = kBlockQ / kWarps;  // 16
 constexpr int kLdF = kBlockK + 4;               // row stride (floats) of S and O
 
-// Where one attention problem lives: element pointers and strides (in
-// elements) along batch, head and token; head_dim has stride 1. Every
-// pointer and every stride times the element size is a multiple of 16
-// bytes (the wrappers check it), so rows load as 16-byte vectors.
+// A layout gives, for batch item b and head h, the first row of q, k, v and
+// o of that head (q_ptr .. o_ptr) and the element stride between rows
+// (q_row .. o_row); head_dim has stride 1. Every pointer and every row
+// stride times the element size is a multiple of 16 bytes (the wrappers
+// check it), so rows load as 16-byte vectors.
+
+// K1: q, k, v are the three H*64-wide regions of rows of the packed
+// (B, N, 3*H*64) qkv tensor; o is the (B, N, H*64) proj input.
 template <typename T>
-struct AttnArgs {
+struct PackedLayout {
+  const T* qkv;
+  T* out;
+  int n;
+  int heads;
+  float scale;
+
+  __device__ __forceinline__ int64_t hd() const { return static_cast<int64_t>(heads) * kD; }
+  __device__ __forceinline__ const T* q_ptr(int64_t b, int h) const {
+    return qkv + b * n * 3 * hd() + h * kD;
+  }
+  __device__ __forceinline__ const T* k_ptr(int64_t b, int h) const { return q_ptr(b, h) + hd(); }
+  __device__ __forceinline__ const T* v_ptr(int64_t b, int h) const {
+    return q_ptr(b, h) + 2 * hd();
+  }
+  __device__ __forceinline__ T* o_ptr(int64_t b, int h) const { return out + b * n * hd() + h * kD; }
+  __device__ __forceinline__ int64_t q_row() const { return 3 * hd(); }
+  __device__ __forceinline__ int64_t k_row() const { return 3 * hd(); }
+  __device__ __forceinline__ int64_t v_row() const { return 3 * hd(); }
+  __device__ __forceinline__ int64_t o_row() const { return hd(); }
+};
+
+// K2: each operand through its own (batch, head, token) strides, in
+// elements.
+template <typename T>
+struct StridedLayout {
   const T* q;
   const T* k;
   const T* v;
@@ -63,6 +93,15 @@ struct AttnArgs {
   int64_t o_b, o_h, o_n;
   int n;
   float scale;
+
+  __device__ __forceinline__ const T* q_ptr(int64_t b, int h) const { return q + b * q_b + h * q_h; }
+  __device__ __forceinline__ const T* k_ptr(int64_t b, int h) const { return k + b * k_b + h * k_h; }
+  __device__ __forceinline__ const T* v_ptr(int64_t b, int h) const { return v + b * v_b + h * v_h; }
+  __device__ __forceinline__ T* o_ptr(int64_t b, int h) const { return o + b * o_b + h * o_h; }
+  __device__ __forceinline__ int64_t q_row() const { return q_n; }
+  __device__ __forceinline__ int64_t k_row() const { return k_n; }
+  __device__ __forceinline__ int64_t v_row() const { return v_n; }
+  __device__ __forceinline__ int64_t o_row() const { return o_n; }
 };
 
 // Row stride (elements) of the Q/K/V/P tiles: 16 bytes of padding per row
@@ -87,7 +126,8 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
 }
 
 // Copies tokens [row0, row0 + 64) of one head (64 wide) into a shared tile
-// with 16-byte loads; tokens >= n become zeros.
+// with 16-byte loads through the read-only path (no kernel writes its
+// inputs); tokens >= n become zeros.
 template <typename T>
 __device__ __forceinline__ void load_tile(T* dst, const T* src, int64_t row_stride,
                                           int row0, int n) {
@@ -99,7 +139,7 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int64_t row_stri
     const int c = (i % kVecPerRow) * kVec;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
     if (row0 + r < n) {
-      v = *reinterpret_cast<const uint4*>(src + (row0 + r) * row_stride + c);
+      v = __ldg(reinterpret_cast<const uint4*>(src + (row0 + r) * row_stride + c));
     }
     *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
   }
@@ -195,8 +235,8 @@ __device__ __forceinline__ void tile_pv(const float* p_s, const float* v_s, floa
 // head, batch item), grid = (ceil(n / 64), heads, batch), smem_bytes<T>()
 // of dynamic shared memory. Each kernel (K1, K2) wraps it in a __global__
 // of its own name, so that a profile tells the two apart.
-template <typename T>
-__device__ __forceinline__ void attn_tile(const AttnArgs<T>& a) {
+template <typename T, typename Layout>
+__device__ __forceinline__ void attn_tile(const Layout& a) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int ld = tile_ld<T>();
   T* q_s = reinterpret_cast<T*>(smem);
@@ -210,15 +250,14 @@ __device__ __forceinline__ void attn_tile(const AttnArgs<T>& a) {
 
   const int n = a.n;
   const int q0 = blockIdx.x * kBlockQ;
-  const int64_t h = blockIdx.y;
+  const int h = blockIdx.y;
   const int64_t b = blockIdx.z;
-  const T* q_base = a.q + b * a.q_b + h * a.q_h;
-  const T* k_base = a.k + b * a.k_b + h * a.k_h;
-  const T* v_base = a.v + b * a.v_b + h * a.v_h;
+  const T* k_base = a.k_ptr(b, h);
+  const T* v_base = a.v_ptr(b, h);
   const int lane = threadIdx.x % 32;
   const int r0 = (threadIdx.x / 32) * kRowsPerWarp;
 
-  load_tile(q_s, q_base, a.q_n, q0, n);
+  load_tile(q_s, a.q_ptr(b, h), a.q_row(), q0, n);
   for (int i = threadIdx.x; i < kBlockQ * kLdF; i += kThreads) o_s[i] = 0.0f;
   for (int i = threadIdx.x; i < kBlockQ; i += kThreads) {
     m_s[i] = -INFINITY;
@@ -227,8 +266,8 @@ __device__ __forceinline__ void attn_tile(const AttnArgs<T>& a) {
 
   for (int k0 = 0; k0 < n; k0 += kBlockK) {
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile(k_s, k_base, a.k_n, k0, n);
-    load_tile(v_s, v_base, a.v_n, k0, n);
+    load_tile(k_s, k_base, a.k_row(), k0, n);
+    load_tile(v_s, v_base, a.v_row(), k0, n);
     __syncthreads();
 
     tile_scores(q_s, k_s, s_s, r0, lane);
@@ -272,32 +311,29 @@ __device__ __forceinline__ void attn_tile(const AttnArgs<T>& a) {
     __syncwarp();
   }
 
-  T* o_base = a.o + b * a.o_b + h * a.o_h;
+  T* o_base = a.o_ptr(b, h);
   for (int r = r0; r < r0 + kRowsPerWarp; ++r) {
     const int row = q0 + r;
     if (row >= n) break;
     const float l = l_s[r];
-    T* dst = o_base + row * a.o_n;
+    T* dst = o_base + row * a.o_row();
     dst[lane] = from_float<T>(o_s[r * kLdF + lane] / l);
     dst[lane + 32] = from_float<T>(o_s[r * kLdF + lane + 32] / l);
   }
 }
 
-template <typename T>
-using AttnKernel = void (*)(AttnArgs<T>);
-
-// Launches `kernel` (a __global__ wrapper of attn_tile) over `batch` x
-// `heads` problems on `stream`; returns the cudaError_t of the launch (0 on
-// success).
-template <typename T>
-int launch_attention(AttnKernel<T> kernel, const AttnArgs<T>& a, int batch, int heads,
-                     void* stream) {
+// Launches `kernel` (a __global__ wrapper of attn_tile, taking `args`) over
+// `batch` x `heads` problems of `n` tokens on `stream`; returns the
+// cudaError_t of the launch (0 on success).
+template <typename T, typename... Params, typename... Args>
+int launch_attention(void (*kernel)(Params...), int n, int batch, int heads, void* stream,
+                     Args... args) {
   constexpr size_t smem = smem_bytes<T>();
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.n + kBlockQ - 1) / kBlockQ, heads, batch);
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  const dim3 grid((n + kBlockQ - 1) / kBlockQ, heads, batch);
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -36,15 +36,15 @@
 namespace {
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) attn_bhnd_kernel(const AttnArgs<T> a) {
-  attn_tile(a);
+__global__ void __launch_bounds__(kThreads) attn_bhnd_kernel(const StridedLayout<T> a) {
+  attn_tile<T>(a);
 }
 
 // strides: 12 element strides, (batch, head, token) of q, k, v, then o.
 template <typename T>
 int launch_bhnd(const void* q, const void* k, const void* v, void* o, const int64_t* strides,
                 int batch, int heads, int n, float scale, void* stream) {
-  AttnArgs<T> a;
+  StridedLayout<T> a;
   a.q = static_cast<const T*>(q);
   a.k = static_cast<const T*>(k);
   a.v = static_cast<const T*>(v);
@@ -63,7 +63,7 @@ int launch_bhnd(const void* q, const void* k, const void* v, void* o, const int6
   a.o_n = strides[11];
   a.n = n;
   a.scale = scale;
-  return launch_attention<T>(attn_bhnd_kernel<T>, a, batch, heads, stream);
+  return launch_attention<T>(attn_bhnd_kernel<T>, n, batch, heads, stream, a);
 }
 
 }  // namespace

@@ -25,30 +25,17 @@
 namespace {
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) attn_packed_kernel(const AttnArgs<T> a) {
-  attn_tile(a);
+__global__ void __launch_bounds__(kThreads)
+    attn_packed_kernel(const T* __restrict__ qkv, T* __restrict__ out, int n, int heads,
+                       float scale) {
+  attn_tile<T>(PackedLayout<T>{qkv, out, n, heads, scale});
 }
 
 template <typename T>
 int launch_packed(const void* qkv, void* out, int batch, int n, int heads, float scale,
                   void* stream) {
-  const int64_t hd = static_cast<int64_t>(heads) * kD;
-  const int64_t row = 3 * hd;
-  const T* base = static_cast<const T*>(qkv);
-  AttnArgs<T> a;
-  a.q = base;
-  a.k = base + hd;
-  a.v = base + 2 * hd;
-  a.o = static_cast<T*>(out);
-  a.q_b = a.k_b = a.v_b = static_cast<int64_t>(n) * row;
-  a.q_h = a.k_h = a.v_h = kD;
-  a.q_n = a.k_n = a.v_n = row;
-  a.o_b = static_cast<int64_t>(n) * hd;
-  a.o_h = kD;
-  a.o_n = hd;
-  a.n = n;
-  a.scale = scale;
-  return launch_attention<T>(attn_packed_kernel<T>, a, batch, heads, stream);
+  return launch_attention<T>(attn_packed_kernel<T>, n, batch, heads, stream,
+                             static_cast<const T*>(qkv), static_cast<T*>(out), n, heads, scale);
 }
 
 }  // namespace

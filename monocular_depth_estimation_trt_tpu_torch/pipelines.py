@@ -142,20 +142,18 @@ class VGGTPipeline(DepthPipeline):
             return self._views_forward(views)
 
     def views_engine(self, s: int, src_hw: Optional[Tuple[int, int]] = None) -> Callable:
-        """The cached forward for ``s`` views of size ``src_hw`` (default the
-        model's input size)."""
-        src = tuple(src_hw or self.spec.input_hw)
-        name = f"{self.spec.artifact_name()}_views{s}_{src[0]}x{src[1]}"
-        if name not in self._engines:
-            self._engines[name] = self._run_views
-        return self._engines[name]
+        """The forward for ``s`` views of size ``src_hw``: fn(views_u8 (S, H,
+        W, 3) on ``device``) -> dict. The eager forward serves every S and
+        size with one callable; the arguments keep the JAX package's
+        interface, where each shape is a program of its own."""
+        del s, src_hw
+        return self._run_views
 
     def multi_view(self, views_u8, *, device_out: bool = False) -> Dict[str, Any]:
         """views_u8: (S, H, W, 3) RGB uint8 -> depth and depth_conf (S, 518,
         518), pose_enc (S, 9), as host numpy (device tensors if
         ``device_out``)."""
-        eng = self.views_engine(views_u8.shape[0], tuple(views_u8.shape[1:3]))
-        out = eng(self._to_device(views_u8))
+        out = self._run_views(self._to_device(views_u8))
         return out if device_out else self._to_host(out)
 
     def benchmark_views(self, s: int,
@@ -163,11 +161,10 @@ class VGGTPipeline(DepthPipeline):
         """Per-frame throughput of the S-view forward on device-resident
         uint8 views (tokens scale with S; global attention is quadratic in
         S·tokens)."""
-        eng = self.views_engine(s)
         rng = np.random.default_rng(0)
         views = self._to_device(
             rng.integers(0, 255, (s, *self.spec.input_hw, 3), dtype=np.uint8))
-        rep = benchmark(lambda: eng(views), device=self.device, config=config,
+        rep = benchmark(lambda: self._run_views(views), device=self.device, config=config,
                         name=f"{self.spec.artifact_name()}_s{s}")
         rep.frames_per_iteration = s
         return rep

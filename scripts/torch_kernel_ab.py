@@ -1,0 +1,94 @@
+#!/usr/bin/env python3
+"""A/B of the PyTorch port's attention kernels between checkouts, on one card.
+
+    python3 scripts/torch_kernel_ab.py PARENT CHANGE CHANGE PARENT
+
+Each argument is the root of a checkout of this repository. For each one in
+the order given, a fresh process puts that root first on ``sys.path``,
+builds its kernels from its own ``csrc/`` and times K1 (packed-qkv
+attention) at the DA-V2 shapes and, where the checkout has it, K2 ((B, H,
+N, d) attention) at VGGT's frame and global shapes, all bf16 on random
+inputs from a fixed seed. It prints one JSON line per checkout: the median
+of ``REPEATS`` CUDA-event timings of ``ITERS`` back-to-back launches each,
+in ms per launch, beside the card's name and power limit. Imports nothing
+of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+REPEATS = 7
+ITERS = 50
+K1_SHAPES = {"vits_518": (1, 1370, 6), "vits_518_batch4": (4, 1370, 6),
+             "vitl_518": (1, 1370, 16)}  # (B, N, H)
+K2_SHAPES = {"frame_s4": (4, 16, 1374), "global_s4": (1, 16, 5496)}  # (B, H, N)
+
+
+def child(root: str) -> dict:
+    import statistics
+
+    import torch
+
+    sys.path.insert(0, root)
+    from monocular_depth_estimation_trt_tpu_torch.ops.cuda import flash_attention as fa
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(0)
+    d = fa.HEAD_DIM
+
+    def time_ms(fn) -> float:
+        for _ in range(5):
+            fn()
+        times = []
+        for _ in range(REPEATS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(ITERS):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end) / ITERS)
+        return statistics.median(times)
+
+    rec = {"root": root, "package": os.path.dirname(fa.__file__)}
+    for label, (b, n, h) in K1_SHAPES.items():
+        qkv = torch.randn((b, n, 3 * h * d), generator=gen).to(dev, torch.bfloat16)
+        rec[f"k1_{label}_ms"] = time_ms(lambda: fa.flash_attention_packed(qkv, h))
+    if hasattr(fa, "flash_attention"):
+        for label, (b, h, n) in K2_SHAPES.items():
+            q, k, v = (torch.randn((b, h, n, d), generator=gen).to(dev, torch.bfloat16)
+                       for _ in range(3))
+            rec[f"k2_{label}_ms"] = time_ms(lambda: fa.flash_attention(q, k, v))
+    from monocular_depth_estimation_trt_tpu_torch.ops.cuda import _build
+
+    rec["ptxas"] = [ln.strip() for ln in _build.build_info().log.splitlines()
+                    if "Compiling entry" in ln or "registers" in ln]
+    return rec
+
+
+def main() -> None:
+    if len(sys.argv) >= 3 and sys.argv[1] == "--child":
+        print(json.dumps(child(os.path.abspath(sys.argv[2]))), flush=True)
+        return
+    roots = sys.argv[1:]
+    if not roots:
+        sys.exit(__doc__)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.splitlines()[0]
+    for i, root in enumerate(roots):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", root],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            sys.exit(f"{root}: exited {proc.returncode}\n{proc.stderr}")
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(json.dumps({"run": i + 1, "card": smi, **rec}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

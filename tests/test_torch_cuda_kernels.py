@@ -8,6 +8,8 @@ so there it runs without it::
     python -m pytest tests/test_torch_cuda_kernels.py -m cuda --noconftest -q
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -99,14 +101,27 @@ def _bhnd(b, h, n, d, dtype, device, seed=0):
     (1, 4, 300, 64, torch.float32), (2, 3, 65, 16, torch.float32),
 ])
 def test_k2_matches_its_plain_version(cuda, b, h, n, d, dtype):
+    """In bf16 the kernel and its plain version differ in when P is divided
+    by the row sum, so they round at most a bf16 step apart: the bar is 4
+    steps at the largest output (a typical output at N = 5496 is about
+    0.022, so 2e-2 alone could not see a skipped key tile), and the kernel
+    is no further from fp32 attention than the plain bf16 route."""
     q, k, v = _bhnd(b, h, n, d, dtype, cuda)
     before = fa.flash_attention.launches
     out = fa.flash_attention(q, k, v)
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == before + 1
     assert out.shape == (b, h, n, d) and out.dtype == dtype and out.is_cuda
-    ref = fa.flash_attention_reference(q, k, v)
-    assert (out.float() - ref.float()).abs().max().item() < TOL[dtype]
+    ref = fa.flash_attention_reference(q, k, v).float()
+    err = (out.float() - ref).abs().max().item()
+    if dtype == torch.float32:
+        assert err < TOL[dtype]
+        return
+    step = 2.0 ** (math.floor(math.log2(ref.abs().max().item())) - 7)  # bf16 ulp
+    assert err <= min(TOL[dtype], 4 * step), (err, step)
+    exact = fa.flash_attention_reference(q.float(), k.float(), v.float())
+    plain = fa.attention_reference(q, k, v).float()
+    assert (out.float() - exact).abs().max() <= (plain - exact).abs().max()
 
 
 def test_k2_reads_strided_views_and_refuses_what_it_cannot_read(cuda):
