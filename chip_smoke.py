@@ -9,9 +9,10 @@ Phases, each printed as one JSON line; any failure exits non-zero:
 2. build: compiles ``monocular_depth_estimation_trt_tpu_torch/csrc/*.cu``
    with nvcc into the package's ``_build/`` directory and loads it;
 3. kernel checks: each kernel's wrapper (K1 packed-qkv attention, K2
-   (B, H, N, d) attention) against its plain PyTorch version on the card, at
-   the main paths' shapes and edge shapes, with timings of the kernel, the
-   plain version and one library call, and the card's bound;
+   (B, H, N, d) attention, K3 whole-row attention of many short heads)
+   against its plain PyTorch version on the card, at the main paths' shapes
+   and edge shapes, with timings of the kernel, the plain version and one
+   library call, and the card's bound;
 4. main path: ``build_pipeline("depth_anything_v2", encoder="vits")`` on the
    card with seeded random weights: two frames, a batch of two with the viz
    epilogue, the metric variant; the launch counts of every kernel are read
@@ -24,10 +25,19 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    then its bf16 outputs against plain attention and the fp32 path for two
    weight seeds and three frames, and the fp32 path on the card against the
    CPU;
-6. speed: ``DepthPipeline.benchmark((518, 518))`` for vits and vitl, and for
-   vggt at S=1 and (``benchmark_views``) S=4;
-7. profile: device time by kernel, device busy time and idle share of a
-   vits frame and of vggt forwards of 1 and 4 views, from ``torch.profiler``.
+6. Depth Pro path: ``build_pipeline("depth_pro")`` at full size (two
+   ViT-L/16@384 encoders, 1536 input): a 480x640 frame with the viz
+   epilogue and a 1536x1536 frame, with the counts set to 0 just before and
+   read just after (24 K3 + 24 K1 launches per forward); then its bf16
+   outputs against plain attention and the fp32 path for two weight seeds
+   and two frames, and the fp32 path on the card against the CPU with the
+   ViT depth cut to 12 blocks;
+7. speed: ``DepthPipeline.benchmark((518, 518))`` for vits and vitl, for
+   vggt at S=1 and (``benchmark_views``) S=4, and
+   ``DepthPipeline.benchmark((1536, 1536))`` for depth_pro;
+8. profile: device time by kernel, device busy time and idle share of a
+   vits frame, of vggt forwards of 1 and 4 views and of a depth_pro frame,
+   from ``torch.profiler``.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -75,8 +85,13 @@ PARITY_WEIGHT_SEEDS = (0, 1)
 # reading alone swings 0.3 to 2x on pose's 9 values).
 PATH_BF16_ROUTE_RATIO = 1.5
 
+# The fp32 card-vs-CPU comparison runs the full 1536 geometry and widths
+# with the ViT depth cut to 12 blocks (hooks 5 and 11 kept): the CPU run.
+DEPTH_PRO_CPU_VIT_DEPTH = 12
+
 SPEED_REPEATS = 3
 VGGT_BENCH = dict(warmup=3, iterations=20, latency_iterations=10)
+DEPTH_PRO_BENCH = dict(warmup=3, iterations=20, latency_iterations=10)
 
 PEAK_BF16_OPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_FP32_OPS = 67e12  # H100 SXM fp32 outside the tensor cores
@@ -155,6 +170,7 @@ def check_flash_attention_packed(fa, dev):
         ("vits_518_batch2", 2, 1370, 6, torch.bfloat16),
         ("vits_518_batch4", 4, 1370, 6, torch.bfloat16),
         ("vitl_518", 1, 1370, 16, torch.bfloat16),
+        ("depth_pro_image", 1, 577, 16, torch.bfloat16),
         ("n1", 1, 1, 6, torch.bfloat16),
         ("n63", 1, 63, 6, torch.bfloat16),
         ("n64", 1, 64, 6, torch.bfloat16),
@@ -203,13 +219,11 @@ def check_flash_attention(fa, dev):
     """K2 against its plain version at VGGT's shapes and edge shapes. The
     frame shape is (B*S, 16, 1374, 64) at S=4; global attention is
     (1, 16, S*1374, 64). "strided" reads q, k, v as views of one qkv
-    tensor, as the VGGT path does. In bf16 the bar is K2_BF16_ULPS steps at
-    the largest output (at most BF16_TOL), and the kernel must sit no
-    further from fp32 attention than the plain bf16 route does."""
+    tensor, as the VGGT path does."""
     import torch
-    import torch.nn.functional as F
 
-    shapes = [  # (label, B, H, N, d, dtype, strided)
+    return check_bhnd_kernel(fa, dev, "flash_attention", seed=1, shapes=[
+        # (label, B, H, N, d, dtype, strided)
         ("frame_s4", 4, 16, 1374, 64, torch.bfloat16, False),
         ("global_s4", 1, 16, 5496, 64, torch.bfloat16, False),
         ("global_s8", 1, 16, 10992, 64, torch.bfloat16, False),
@@ -220,8 +234,44 @@ def check_flash_attention(fa, dev):
         ("global_s4_strided", 1, 16, 5496, 64, torch.bfloat16, True),
         ("frame_s1_fp32", 1, 16, 1374, 64, torch.float32, False),
         ("n65_fp32", 2, 3, 65, 64, torch.float32, False),
-    ]
-    gen = torch.Generator().manual_seed(1)
+    ])
+
+
+def check_flash_attention_batched(fa, dev):
+    """K3 against its plain version at Depth Pro's patch-encoder shape (35
+    windows x 16 heads of 577 tokens, q, k, v as views of the qkv output,
+    as the path reads them) and edge shapes: the bound N = 1024 and N = 833
+    (the 32-row query tile, in bf16 and fp32), N = 63, 65 and 1, a padded
+    d = 16, a head count that is no power of two, and fp32. K1 is timed at
+    the main shape too, on the same qkv: the route between the two is open."""
+    import torch
+
+    return check_bhnd_kernel(fa, dev, "flash_attention_batched", seed=3, k1_at="depth_pro_patch",
+                             shapes=[
+        ("depth_pro_patch", 35, 16, 577, 64, torch.bfloat16, True),
+        ("n1024", 16, 16, 1024, 64, torch.bfloat16, False),
+        ("n833", 4, 16, 833, 64, torch.bfloat16, False),
+        ("n1", 35, 8, 1, 64, torch.bfloat16, False),
+        ("n63", 35, 8, 63, 64, torch.bfloat16, False),
+        ("n65", 35, 8, 65, 64, torch.bfloat16, False),
+        ("d16_padded", 35, 16, 577, 16, torch.bfloat16, True),
+        ("bh259", 7, 37, 577, 64, torch.bfloat16, False),
+        ("depth_pro_patch_fp32", 35, 16, 577, 64, torch.float32, True),
+        ("n1024_fp32", 2, 8, 1024, 64, torch.float32, False),
+    ])
+
+
+def check_bhnd_kernel(fa, dev, name, shapes, seed, k1_at=None):
+    """K2 or K3 (``name``) against its plain version (both divide P by the
+    row sum before its cast: the TPU's numerics) at ``shapes``. In bf16 the
+    bar is K2_BF16_ULPS steps at the largest output (at most BF16_TOL); the
+    plain version with one 64-key tile left out must fail it; the kernel
+    must sit no further from fp32 attention than the plain bf16 route."""
+    import torch
+    import torch.nn.functional as F
+
+    kernel = getattr(fa, name)
+    gen = torch.Generator().manual_seed(seed)
     records = []
     for label, b, h, n, d, dtype, strided in shapes:
         if strided:
@@ -231,15 +281,15 @@ def check_flash_attention(fa, dev):
             q, k, v = (torch.randn((b, h, n, d), generator=gen).to(dev, dtype)
                        for _ in range(3))
         bf16 = dtype == torch.bfloat16
-        out = fa.flash_attention(q, k, v)
+        out = kernel(q, k, v)
         torch.cuda.synchronize()
         ref = fa.flash_attention_reference(q, k, v).float()
         diff = (out.float() - ref).abs()
         err, mean_err = diff.max().item(), diff.mean().item()
         ref_max, ref_rms = ref.abs().max().item(), ref.square().mean().sqrt().item()
         tol = min(BF16_TOL, K2_BF16_ULPS * bf16_ulp(ref_max)) if bf16 else FP32_TOL
-        check(out.shape == (b, h, n, d), f"K2 {label}: shape {tuple(out.shape)}")
-        check(err <= tol, f"K2 {label}: max_abs_err {err} > {tol}")
+        check(out.shape == (b, h, n, d), f"{name} {label}: shape {tuple(out.shape)}")
+        check(err <= tol, f"{name} {label}: max_abs_err {err} > {tol}")
         # the bar's power: the plain version with one key tile left out (what
         # a kernel that skipped a tile computes) must fail it
         dropped_tile_err = None
@@ -249,7 +299,7 @@ def check_flash_attention(fa, dev):
             skipped = fa.flash_attention_reference(q, k[:, :, keep], v[:, :, keep])
             dropped_tile_err = (skipped.float() - ref).abs().max().item()
             check(dropped_tile_err > tol,
-                  f"K2 {label}: a dropped key tile moves the output {dropped_tile_err} "
+                  f"{name} {label}: a dropped key tile moves the output {dropped_tile_err} "
                   f"<= the bar {tol}")
             del skipped
         del ref, diff
@@ -259,9 +309,9 @@ def check_flash_attention(fa, dev):
         plain_route = fa.attention_reference(q, k, v)
         plain_vs_fp32 = (plain_route.float() - exact).abs().max().item()
         del exact, plain_route
-        if bf16:  # the deferred division rounds P less than the bf16 route
+        if bf16:
             check(kernel_vs_fp32 <= plain_vs_fp32,
-                  f"K2 {label}: kernel vs fp32 {kernel_vs_fp32} > plain bf16 attention "
+                  f"{name} {label}: kernel vs fp32 {kernel_vs_fp32} > plain bf16 attention "
                   f"vs fp32 {plain_vs_fp32}")
         peak = PEAK_BF16_OPS if dtype == torch.bfloat16 else PEAK_FP32_OPS
         bound_ms, bound_by = attention_bound(b, n, h, d, q.element_size(), peak)
@@ -274,17 +324,22 @@ def check_flash_attention(fa, dev):
             "dropped_key_tile_err": dropped_tile_err,
             "kernel_vs_fp32_err": kernel_vs_fp32,
             "plain_attention_vs_fp32_err": plain_vs_fp32,
-            "kernel_ms": time_ms(lambda: fa.flash_attention(q, k, v),
-                                 iters=10 if long else 50),
+            "kernel_ms": time_ms(lambda: kernel(q, k, v), iters=10 if long else 50),
             "plain_ms": time_ms(lambda: fa.flash_attention_reference(q, k, v),
                                 iters=3 if long else 10, warmup=1 if long else 2),
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v),
                                   iters=10 if long else 50),
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
-        emit({"phase": "kernel_check", "kernel": "flash_attention", **rec})
+        if label == k1_at:  # K1 on the same problem, read from the packed qkv
+            packed = qkv.reshape(b, n, 3 * h * d)
+            rec["k1_same_shape_ms"] = time_ms(lambda: fa.flash_attention_packed(packed, h))
+            del packed
+        emit({"phase": "kernel_check", "kernel": name, **rec})
         records.append(rec)
         del q, k, v, out
+        if strided:
+            del qkv
         torch.cuda.empty_cache()
     return records
 
@@ -330,6 +385,7 @@ def profile_breakdown(step, name: str, iters: int = 5, top: int = 12):
             "device_ops_per_call": len(spans) / iters,
             "k1_ms_per_call": kernel_ms("attn_packed_kernel"),
             "k2_ms_per_call": kernel_ms("attn_bhnd_kernel"),
+            "k3_ms_per_call": kernel_ms("attn_batched_kernel"),
             "top": [{"name": k[:90], "ms_per_call": v[0] / 1e3 / iters,
                      "per_call": v[1] / iters} for k, v in ranked[:top]]}
 
@@ -346,8 +402,7 @@ def run_vggt_path(build_pipeline, fa, rng):
     views4 = rng.integers(0, 256, (4, 518, 518, 3), dtype=np.uint8)
     views8 = rng.integers(0, 256, (8, 518, 518, 3), dtype=np.uint8)
 
-    fa.flash_attention_packed.launches = 0
-    fa.flash_attention.launches = 0
+    set_counts_to_zero(fa)
     per_forward = {}
     outs = {}
     for key, run, arg in (("frame_480x640", lambda a: pipe(a, viz=True), frame),
@@ -358,13 +413,12 @@ def run_vggt_path(build_pipeline, fa, rng):
         per_forward[key] = [fa.flash_attention_packed.launches - before[0],
                             fa.flash_attention.launches - before[1]]
     torch.cuda.synchronize()
-    launches = {"flash_attention_packed": fa.flash_attention_packed.launches,
-                "flash_attention": fa.flash_attention.launches}
+    launches = launch_record(fa)
 
     for key, got in per_forward.items():
         check(got == [24, 48], f"vggt {key}: K1, K2 launches {got}, want [24, 48]")
-    check(launches == {"flash_attention_packed": 72, "flash_attention": 144},
-          f"launches on the vggt path {launches}")
+    check(launches == {"flash_attention_batched": 0, "flash_attention_packed": 72,
+                       "flash_attention": 144}, f"launches on the vggt path {launches}")
     one = outs["frame_480x640"]
     want = {"depth": (480, 640), "depth_conf": (480, 640), "pose_enc": (9,),
             "extrinsic": (3, 4), "focal_px": (), "viz": (480, 640, 3)}
@@ -498,6 +552,198 @@ def vggt_parity(build_pipeline, pipe, frames):
         check(got < PATH_FP32_REL_TOL, f"vggt fp32 {k} card vs cpu {got}")
 
 
+def lift_depth_pro_outputs(model) -> None:
+    """Seeded random weights leave Depth Pro's two output layers at zero
+    bias: the canonical inverse depth sits at 0 at about half the pixels
+    (relu) and the field of view has a random sign, which puts every pixel
+    at the depth clip. Output biases of 1 and 60 degrees give a depth map and
+    a focal that every check can read; nothing else of the weights moves."""
+    import torch
+
+    with torch.no_grad():
+        model.head_conv2.bias.fill_(1.0)
+        model.fov.head.bias.fill_(60.0)
+
+
+def depth_pro_pipeline(build_pipeline, **kw):
+    pipe = build_pipeline("depth_pro", **kw)
+    lift_depth_pro_outputs(pipe.model)
+    return pipe
+
+
+def counts(fa):
+    """The launch counts of K3, K1 and K2, in that order."""
+    return [fa.flash_attention_batched.launches, fa.flash_attention_packed.launches,
+            fa.flash_attention.launches]
+
+
+def set_counts_to_zero(fa) -> None:
+    fa.flash_attention_batched.launches = 0
+    fa.flash_attention_packed.launches = 0
+    fa.flash_attention.launches = 0
+
+
+def launch_record(fa):
+    return {"flash_attention_batched": fa.flash_attention_batched.launches,
+            "flash_attention_packed": fa.flash_attention_packed.launches,
+            "flash_attention": fa.flash_attention.launches}
+
+
+def run_depth_pro_path(build_pipeline, fa, rng):
+    """The Depth Pro path with its own counts: set to 0 just before, read
+    just after. Returns the pipeline, the counts and the frames."""
+    import numpy as np
+    import torch
+
+    pipe = depth_pro_pipeline(build_pipeline)
+    check(pipe.device.type == "cuda", f"depth_pro default device is {pipe.device}")
+    frames = {"frame_480x640": rng.integers(0, 256, (480, 640, 3), dtype=np.uint8),
+              "frame_1536x1536": rng.integers(0, 256, (1536, 1536, 3), dtype=np.uint8)}
+
+    set_counts_to_zero(fa)
+    per_forward, outs = {}, {}
+    for key, frame in frames.items():
+        before = counts(fa)
+        outs[key] = pipe(frame, viz=key == "frame_480x640")
+        per_forward[key] = [a - b for a, b in zip(counts(fa), before)]
+    torch.cuda.synchronize()
+    launches = launch_record(fa)
+
+    for key, got in per_forward.items():
+        check(got == [24, 24, 0], f"depth_pro {key}: K3, K1, K2 launches {got}, want [24, 24, 0]")
+    check(launches == {"flash_attention_batched": 48, "flash_attention_packed": 48,
+                       "flash_attention": 0}, f"launches on the depth_pro path {launches}")
+    rec = {"phase": "depth_pro_path", "model": pipe.spec.artifact_name(),
+           "forwards": list(per_forward), "launches_per_forward_k3_k1_k2": per_forward,
+           "launches": launches}
+    for key, frame in frames.items():
+        out, hw = outs[key], frame.shape[:2]
+        d, f_px = out["depth"], float(out["f_px"])
+        check(d.shape == hw and d.dtype == np.float32, f"depth_pro {key}: depth {d.shape} {d.dtype}")
+        check(bool(np.isfinite(d).all()), f"depth_pro {key}: depth not finite")
+        check(d.min() >= 1e-4 and d.max() <= 1e4,
+              f"depth_pro {key}: depth outside the clip {d.min()} {d.max()}")
+        check(d.max() > d.min(), f"depth_pro {key}: depth is constant")
+        # the focal follows a random-weight fov: checked where it is finite
+        check(not np.isfinite(f_px) or f_px > 0, f"depth_pro {key}: f_px {f_px}")
+        rec[key] = {"depth_range": [float(d.min()), float(d.max())],
+                    "depth_share_at_clip": float(np.mean(d == 1e4)), "f_px": f_px}
+    check(outs["frame_480x640"]["viz"].shape == (480, 640, 3)
+          and outs["frame_480x640"]["viz"].dtype == np.uint8, "depth_pro viz")
+    emit(rec)
+    return pipe, launches, frames
+
+
+def depth_pro_parity(build_pipeline, pipe, frames):
+    """For each weight seed and frame, on weights rounded to bf16 and shared
+    by every route: the bf16 kernel route (K3 + K1) against plain attention
+    and against the fp32 card path, on the inverse depth (the model's
+    output: a pixel at the depth clip would set the scale of a relative
+    error of the depth itself) and f_px. The kernel route is held to
+    PATH_BF16_REL_TOL of the plain route at every reading, and, averaged
+    over the readings, to PATH_BF16_ROUTE_RATIO times the plain route's
+    distance from fp32. Then the
+    fp32 path on the card against the CPU at the full 1536 geometry and
+    widths, the ViT depth cut to DEPTH_PRO_CPU_VIT_DEPTH blocks. Every
+    reading is emitted before any is checked."""
+    import numpy as np
+    import torch
+    from monocular_depth_estimation_trt_tpu_torch.models.depth_pro import (
+        DepthPro,
+        DepthProConfig,
+    )
+    from monocular_depth_estimation_trt_tpu_torch.models.vit import ViTConfig
+    from monocular_depth_estimation_trt_tpu_torch.weights.store import init_random_
+
+    keys = ("inverse_depth", "f_px")
+
+    def run(p, frame):
+        out = p(frame)
+        return {"inverse_depth": 1.0 / out["depth"], "f_px": np.asarray(out["f_px"])}
+
+    readings = []
+    for seed in PARITY_WEIGHT_SEEDS:
+        kernel_pipe = pipe
+        if seed != 0:  # the path's pipeline holds seed 0
+            model = DepthPro()
+            init_random_(model, seed)
+            lift_depth_pro_outputs(model)
+            kernel_pipe = build_pipeline("depth_pro", params=model.state_dict())
+            del model
+        sd = {k: v.float().cpu() for k, v in kernel_pipe.model.state_dict().items()}
+        plain_pipe = build_pipeline("depth_pro", attn_impl="xla", params=sd)
+        card32_pipe = build_pipeline("depth_pro", precision="fp32", params=sd)
+        for name, frame in frames.items():
+            kernel, plain = run(kernel_pipe, frame), run(plain_pipe, frame)
+            card32 = run(card32_pipe, frame)
+            rec = {"phase": "depth_pro_parity", "weights_seed": seed, "frame": name,
+                   "f_px": {"kernel": float(kernel["f_px"]), "plain": float(plain["f_px"]),
+                            "fp32": float(card32["f_px"])}}
+            for k in keys:
+                rec[k] = {
+                    "bf16_kernel_vs_plain_attention_rel": rel(kernel[k], plain[k]),
+                    "bf16_kernel_vs_plain_attention_mean_rel": mean_rel(kernel[k], plain[k]),
+                    "bf16_kernel_route_vs_fp32_rel": rel(kernel[k], card32[k]),
+                    "bf16_plain_route_vs_fp32_rel": rel(plain[k], card32[k]),
+                }
+            emit(rec)
+            readings.append(rec)
+        del kernel_pipe, plain_pipe, card32_pipe, sd
+        torch.cuda.empty_cache()
+
+    # fp32, card against CPU: full geometry and widths, 12 ViT blocks
+    vit = ViTConfig(dim=1024, depth=DEPTH_PRO_CPU_VIT_DEPTH, num_heads=16, patch_size=16,
+                    pretrain_img_size=384)
+    model_kw = dict(cfg=DepthProConfig(vit_config=vit))
+    card32 = depth_pro_pipeline(build_pipeline, precision="fp32", model_kw=model_kw)
+    frame = frames["frame_480x640"]
+    got_card = run(card32, frame)
+    sd = {k: v.cpu() for k, v in card32.model.state_dict().items()}
+    del card32
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    got_cpu = run(build_pipeline("depth_pro", precision="fp32", device="cpu", params=sd,
+                                 model_kw=model_kw), frame)
+    cpu_rec = {"phase": "depth_pro_parity_cpu", "frame": "frame_480x640",
+               "cpu_fp32_seconds": time.perf_counter() - t0,
+               "model_depth": f"full widths and 1536 geometry; {DEPTH_PRO_CPU_VIT_DEPTH} of 24 "
+                              "ViT blocks in each encoder (hooks 5 and 11 kept)",
+               **{k: {"fp32_card_vs_cpu_rel": rel(got_card[k], got_cpu[k])} for k in keys}}
+    emit(cpu_rec)
+
+    def worst(k, metric):
+        return max(r[k][metric] for r in readings)
+
+    def average(k, metric):
+        return sum(r[k][metric] for r in readings) / len(readings)
+
+    ratio = {k: average(k, "bf16_kernel_route_vs_fp32_rel")
+             / average(k, "bf16_plain_route_vs_fp32_rel") for k in keys}
+    emit({"phase": "depth_pro_parity_summary", "readings": len(readings),
+          **{k: {"max_bf16_kernel_vs_plain_attention_rel":
+                 worst(k, "bf16_kernel_vs_plain_attention_rel"),
+                 "max_bf16_kernel_route_vs_fp32_rel": worst(k, "bf16_kernel_route_vs_fp32_rel"),
+                 "max_bf16_plain_route_vs_fp32_rel": worst(k, "bf16_plain_route_vs_fp32_rel"),
+                 "bf16_kernel_vs_plain_attention_tolerance": PATH_BF16_REL_TOL,
+                 "kernel_over_plain_route_vs_fp32": ratio[k]}
+             for k in keys},
+          "bf16_route_ratio_tolerance": PATH_BF16_ROUTE_RATIO,
+          "fp32_tolerance": PATH_FP32_REL_TOL})
+    for r in readings:
+        at = f"seed {r['weights_seed']} {r['frame']}"
+        check(all(np.isfinite(v) for v in r["f_px"].values()), f"depth_pro f_px ({at})")
+        for k in keys:
+            got = r[k]["bf16_kernel_vs_plain_attention_rel"]
+            check(got < PATH_BF16_REL_TOL,
+                  f"depth_pro bf16 {k} kernel vs plain attention {got} ({at})")
+    for k in keys:
+        check(ratio[k] <= PATH_BF16_ROUTE_RATIO,
+              f"depth_pro bf16 {k}: kernel route {ratio[k]} x as far from fp32 as the plain "
+              f"route, over {len(readings)} readings")
+        got = cpu_rec[k]["fp32_card_vs_cpu_rel"]
+        check(got < PATH_FP32_REL_TOL, f"depth_pro fp32 {k} card vs cpu {got}")
+
+
 def parse_smi(line: str):
     name, _, limit = line.partition(",")
     return name.strip(), limit.strip()
@@ -546,6 +792,7 @@ def main() -> None:
     # 3. kernel checks (their launches are not the main paths')
     k1 = check_flash_attention_packed(fa, dev)
     k2 = check_flash_attention(fa, dev)
+    k3 = check_flash_attention_batched(fa, dev)
 
     # 4. main path: every count set to 0 just before, read just after
     set_allow_random_weights(True)
@@ -557,8 +804,7 @@ def main() -> None:
     metric = build_pipeline("depth_anything_v2", encoder="vits", metric=True)
     check(pipe.device.type == "cuda", f"default device is {pipe.device}")
 
-    fa.flash_attention_packed.launches = 0
-    fa.flash_attention.launches = 0
+    set_counts_to_zero(fa)
     per_frame = []
     outs = {}
     for key, frame in (("a", frame_a), ("b", frame_b)):
@@ -570,13 +816,12 @@ def main() -> None:
     batch_launches = fa.flash_attention_packed.launches - before
     out_metric = metric(frame_a, viz=True)
     torch.cuda.synchronize()
-    launches = {"flash_attention_packed": fa.flash_attention_packed.launches,
-                "flash_attention": fa.flash_attention.launches}
+    launches = launch_record(fa)
 
     check(per_frame == [12, 12], f"K1 launches per vits frame {per_frame}, want 12")
     check(batch_launches == 12, f"K1 launches for a batch of 2: {batch_launches}")
-    check(launches == {"flash_attention_packed": 48, "flash_attention": 0},
-          f"launches on the main path {launches}")
+    check(launches == {"flash_attention_batched": 0, "flash_attention_packed": 48,
+                       "flash_attention": 0}, f"launches on the main path {launches}")
     for key, frame in (("a", frame_a), ("b", frame_b)):
         d, viz = outs[key]["depth"], outs[key]["viz"]
         check(d.shape == frame.shape[:2] and d.dtype == np.float32,
@@ -636,7 +881,11 @@ def main() -> None:
     vggt, vggt_launches = run_vggt_path(build_pipeline, fa, rng)
     vggt_parity(build_pipeline, vggt, parity_frames(rng))
 
-    # 6. speed (the counts are read above; benchmark launches are not counted)
+    # 6. the Depth Pro path (its own counted run), then its route comparisons
+    depth_pro, depth_pro_launches, depth_pro_frames = run_depth_pro_path(build_pipeline, fa, rng)
+    depth_pro_parity(build_pipeline, depth_pro, depth_pro_frames)
+
+    # 7. speed (the counts are read above; benchmark launches are not counted)
     cfg = BenchmarkConfig(warmup=10, iterations=100, latency_iterations=50)
     for encoder in ("vits", "vitl"):
         p = pipe if encoder == "vits" else build_pipeline(
@@ -673,7 +922,17 @@ def main() -> None:
                   "iterations": rep.iterations, "includes": includes,
                   "card": card, "power_limit": power_limit})
 
-    # 7. where the device time goes, after the speed phase so that the
+    dcfg = BenchmarkConfig(**DEPTH_PRO_BENCH)
+    for repeat in range(SPEED_REPEATS):
+        rep = depth_pro.benchmark((1536, 1536), dcfg)
+        emit({"phase": "speed", "model": depth_pro.spec.artifact_name(), "repeat": repeat,
+              "fps": rep.fps, "mean_ms": rep.avg_ms,
+              "p50_ms": rep.percentile_ms(50), "p99_ms": rep.percentile_ms(99),
+              "iterations": rep.iterations,
+              "includes": "H2D uint8 1536x1536 + forward + D2H depth",
+              "card": card, "power_limit": power_limit})
+
+    # 8. where the device time goes, after the speed phase so that the
     # profiler cannot slow it (launches not counted)
     eng = pipe.engine_for(frame_b.shape[:2])
     dev_frame = torch.from_numpy(frame_b).to(dev)
@@ -684,12 +943,16 @@ def main() -> None:
     views4 = torch.from_numpy(rng.integers(0, 256, (4, 518, 518, 3), dtype=np.uint8)).to(dev)
     veng = vggt.views_engine(4)
     emit(profile_breakdown(lambda: veng(views4), vggt.spec.artifact_name() + "_s4", iters=3))
+    frame_dp = torch.from_numpy(depth_pro_frames["frame_1536x1536"]).to(dev)
+    deng = depth_pro.engine_for(frame_dp.shape[:2])
+    emit(profile_breakdown(lambda: deng(frame_dp), depth_pro.spec.artifact_name(), iters=3))
 
     # kernels line: the main shape's numbers, every shape in "shapes"; the
     # launches of each path's counted run
     def kernel_entry(name, source, replaces, function, records, main_shape):
         main = next(r for r in records if r["shape"] == main_shape)
-        by_path = {"depth_anything_v2": launches[name], "vggt": vggt_launches[name]}
+        by_path = {"depth_anything_v2": launches[name], "vggt": vggt_launches[name],
+                   "depth_pro": depth_pro_launches[name]}
         return {
             "name": name,
             "route": "cuda",
@@ -715,6 +978,8 @@ def main() -> None:
                      "_attn_kernel_packed", k1, "vits_518"),
         kernel_entry("flash_attention", "flash_attention.cu", 38, "_attn_kernel", k2,
                      "global_s4"),
+        kernel_entry("flash_attention_batched", "flash_attention_batched.cu", 68,
+                     "_attn_kernel_batched", k3, "depth_pro_patch"),
     ]
 
     emit({"kernels": kernels})

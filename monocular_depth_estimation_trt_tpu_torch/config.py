@@ -92,6 +92,9 @@ def compute_dtype(precision: str) -> torch.dtype:
 # ImageNet statistics (reference Depth_Anything_V2/onnx2trt.py:121).
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+# Depth Pro normalizes with mean = std = 0.5 (reference Depth_Pro/onnx2trt.py:96-114).
+HALF_MEAN = (0.5, 0.5, 0.5)
+HALF_STD = (0.5, 0.5, 0.5)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -13,16 +13,21 @@ bf16 inputs and returns bf16, as Flax's ``LayerNorm(dtype=bf16)`` does.
 Attention routes (``attn_impl``), the same on every device (on a CPU
 tensor each kernel wrapper runs its plain version):
 
-* ``"auto"`` / ``"packed"``: every non-rope attention goes through the
-  packed-qkv kernel K1, ViT-S included;
+* ``"auto"``: a non-rope attention of many short heads, ``B*H >= 256`` and
+  ``N <= 1024`` (Depth Pro's 35 windows x 16 heads of 577 tokens), goes to
+  the whole-row kernel K3: the regime in which the JAX package runs its
+  batched kernel. Every other non-rope attention of head_dim 64 goes to the
+  packed-qkv kernel K1, ViT-S included; another head_dim to K2, which
+  zero-pads it;
+* ``"packed"``: every non-rope attention through K1;
 * ``"flash"``, and every rope attention whatever ``attn_impl`` other than
   ``"xla"``: the ``(B, H, N, d)`` kernel K2, after the rotation of q and k.
-  The TPU's head-count and length gates are v5e findings and are not
-  carried over;
+  The TPU's head-count and length gates for K1 and K2 are v5e findings and
+  are not carried over;
 * ``"xla"``: plain attention equal to the JAX package's
   ``attention_reference`` (the caller's explicit choice).
 
-Both kernels are in ``ops/cuda/flash_attention.py``.
+The kernels are in ``ops/cuda/flash_attention.py``.
 """
 
 from __future__ import annotations
@@ -37,8 +42,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from monocular_depth_estimation_trt_tpu_torch.ops.cuda.flash_attention import (
+    BATCHED_MAX_N,
+    HEAD_DIM,
     attention_reference,
     flash_attention,
+    flash_attention_batched,
     flash_attention_packed,
 )
 from monocular_depth_estimation_trt_tpu_torch.ops.resize import resample_tensor
@@ -81,6 +89,12 @@ def swiglu_hidden(dim: int, mlp_ratio: float = 4.0) -> int:
     return (int(h * 2 / 3) + 7) // 8 * 8
 
 
+# "auto" sends a non-rope attention of at least this many (batch x head)
+# problems of at most BATCHED_MAX_N tokens to K3 (the JAX package's
+# many-small-heads regime, ops/pallas/autotune.py::default_block).
+BATCHED_MIN_HEADS = 256
+
+
 def rope_2d_normalized(ph: int, pw: int, head_dim: int, base: float = 100.0,
                        device=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """2D axial RoPE tables over a patch grid with coordinates normalized to
@@ -120,10 +134,16 @@ class Attention(nn.Module):
         trailing patch tokens; the ``num_prefix`` leading tokens (cls and
         registers) stay unrotated."""
         qkv = self.qkv(x)  # (B, N, 3*H*d): q | k | v, head-major
-        if rope is None and self.attn_impl in ("auto", "packed"):
-            return self.proj(flash_attention_packed(qkv, self.num_heads))
         b, n, _ = qkv.shape
         head_dim = self.dim // self.num_heads
+        impl = self.attn_impl
+        if rope is None and impl == "auto":
+            if b * self.num_heads >= BATCHED_MIN_HEADS and n <= BATCHED_MAX_N:
+                impl = "batched"
+            elif head_dim == HEAD_DIM:
+                impl = "packed"
+        if rope is None and impl == "packed":
+            return self.proj(flash_attention_packed(qkv, self.num_heads))
         # (B, H, N, d) views of the qkv output
         q, k, v = qkv.view(b, n, 3, self.num_heads, head_dim).permute(2, 0, 3, 1, 4)
         if rope is not None:
@@ -131,8 +151,10 @@ class Attention(nn.Module):
             cos, sin = cos.to(q.dtype), sin.to(q.dtype)
             q, k = (torch.cat([t[:, :, :prefix], _apply_rope(t[:, :, prefix:], cos, sin)],
                               dim=2) for t in (q, k))
-        if self.attn_impl == "xla":
+        if impl == "xla":
             o = attention_reference(q, k, v)
+        elif impl == "batched":
+            o = flash_attention_batched(q, k, v)
         else:
             o = flash_attention(q, k, v)
         return self.proj(o.transpose(1, 2).reshape(b, n, self.dim))

@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, under ``<package>/_build/``, and
-loaded with ``ctypes``. The library's name carries a hash of the sources,
+Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` for ``sm_90a``,
+all of them at once, and the objects are linked into one shared library
+with a plain C interface, under ``<package>/_build/``, loaded with
+``ctypes``. The library's name carries a hash of the sources,
 the headers they share (``csrc/*.cuh``) and the flags, so an edited source
 builds anew and an unchanged one loads at once.
 The build runs at the first kernel launch of a process, never at import.
@@ -19,6 +20,7 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -27,7 +29,7 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -78,20 +80,27 @@ def _digest(srcs) -> str:
     return h.hexdigest()[:16]
 
 
-def _build(srcs, target: str) -> str:
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
+def _run(cmd) -> str:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        os.unlink(tmp)
         raise KernelBuildError(
-            f"nvcc exited with {proc.returncode}: {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
+            f"nvcc exited with {proc.returncode}: {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
     return proc.stdout + proc.stderr
+
+
+def _build(srcs, target: str) -> str:
+    """One nvcc per source, all started together, then one link."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(src) + ".o") for src in srcs]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src] for src, obj in zip(srcs, objs)]
+        with ThreadPoolExecutor(max_workers=len(cmds)) as pool:
+            logs = list(pool.map(_run, cmds))
+        lib = os.path.join(tmp, "lib.so")
+        logs.append(_run([nvcc, "-shared", "-o", lib, *objs]))
+        os.replace(lib, target)  # atomic: a concurrent loader sees all or nothing
+    return "".join(logs)
 
 
 def library() -> ctypes.CDLL:
@@ -120,12 +129,14 @@ def build_info() -> Optional[BuildInfo]:
 
 def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    bhnd = (ptr, ptr, ptr, ptr, ctypes.POINTER(ctypes.c_int64), i32, i32, i32, ctypes.c_float,
+            ptr)
     signatures = {
         # K1: qkv, out, batch, n, heads, scale, stream
         "mdet_flash_attention_packed": (ptr, ptr, i32, i32, i32, ctypes.c_float, ptr),
-        # K2: q, k, v, out, 12 int64 strides, batch, heads, n, scale, stream
-        "mdet_flash_attention": (ptr, ptr, ptr, ptr, ctypes.POINTER(ctypes.c_int64),
-                                 i32, i32, i32, ctypes.c_float, ptr),
+        # K2 and K3: q, k, v, out, 12 int64 strides, batch, heads, n, scale, stream
+        "mdet_flash_attention": bhnd,
+        "mdet_flash_attention_batched": bhnd,
     }
     for stem, argtypes in signatures.items():
         for suffix in ("_bf16", "_f32"):

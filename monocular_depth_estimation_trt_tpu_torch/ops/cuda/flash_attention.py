@@ -1,4 +1,4 @@
-"""Fused attention kernels K1 and K2 (counterpart of
+"""Fused attention kernels K1, K2 and K3 (counterpart of
 ``monocular_depth_estimation_trt_tpu/ops/pallas/flash_attention.py``).
 
 * K1, :func:`flash_attention_packed` (``_attn_kernel_packed``): straight
@@ -9,13 +9,17 @@
 * K2, :func:`flash_attention` (``_attn_kernel``): ``(B, H, N, d)`` operands,
   for the attentions that rotate q and k before attending (2D RoPE) and for
   ``attn_impl="flash"``. CUDA source ``csrc/flash_attention.cu``.
+* K3, :func:`flash_attention_batched` (``_attn_kernel_batched``): the same
+  ``(B, H, N, d)`` operands in the many-short-heads regime (N <= 1024), with
+  the TPU kernel's exact single-pass softmax over whole rows. CUDA source
+  ``csrc/flash_attention_batched.cu``.
 
-Both share the tile loop of ``csrc/attention_tile.cuh``. On a CUDA tensor
-each wrapper launches its kernel or raises; on a CPU tensor it runs its
-plain PyTorch version (:func:`flash_attention_packed_reference`,
-:func:`flash_attention_reference`). :func:`attention_reference` is the
-plain attention of the JAX package's ``attention_reference`` (the
-``attn_impl="xla"`` route).
+K1 and K2 share the tile loop of ``csrc/attention_tile.cuh``; K3 holds whole
+score rows instead. On a CUDA tensor each wrapper launches its kernel or
+raises; on a CPU tensor it runs its plain PyTorch version
+(:func:`flash_attention_packed_reference`, :func:`flash_attention_reference`
+for K2 and K3). :func:`attention_reference` is the plain attention of the
+JAX package's ``attention_reference`` (the ``attn_impl="xla"`` route).
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 HEAD_DIM = 64  # the kernels' one head width: every DINOv2 encoder and VGGT
+BATCHED_MAX_N = 1024  # K3 holds a query tile's whole score rows in shared memory
 
 _C_FUNCS = {
     torch.bfloat16: "mdet_flash_attention_packed_bf16",
@@ -36,6 +41,10 @@ _C_FUNCS = {
 _K2_C_FUNCS = {
     torch.bfloat16: "mdet_flash_attention_bf16",
     torch.float32: "mdet_flash_attention_f32",
+}
+_K3_C_FUNCS = {
+    torch.bfloat16: "mdet_flash_attention_batched_bf16",
+    torch.float32: "mdet_flash_attention_batched_f32",
 }
 
 
@@ -142,6 +151,36 @@ def _aligned(t: torch.Tensor) -> bool:
             and all(st * size % 16 == 0 for st in t.stride()[:3]))
 
 
+def _launch_bhnd(c_funcs, name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 scale: float) -> torch.Tensor:
+    """Launches K2 or K3 (their C entries share one signature) on CUDA
+    operands; returns the ``(B, N, H, d)`` output seen as ``(B, H, N, d)``."""
+    b, h, n, d = q.shape
+    if d < HEAD_DIM:
+        q, k, v = (F.pad(t, (0, HEAD_DIM - d)) for t in (q, k, v))
+    for label, t in (("q", q), ("k", k), ("v", v)):
+        if not _aligned(t):
+            raise ValueError(
+                f"{label} must have unit stride on d and 16-byte aligned rows, "
+                f"got strides {t.stride()}")
+    out = torch.empty((b, n, h, HEAD_DIM), dtype=q.dtype, device=q.device)
+    if out.numel():
+        from monocular_depth_estimation_trt_tpu_torch.ops.cuda._build import library
+
+        fn = getattr(library(), c_funcs[q.dtype])
+        strides = (ctypes.c_int64 * 12)(
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            out.stride(0), out.stride(2), out.stride(1))
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
+                     b, h, n, float(scale), stream)
+        if err:
+            raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    out = out.transpose(1, 2)
+    return out if d == HEAD_DIM else out[..., :d]
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Non-causal multi-head attention, ``(B, H, N, d)`` -> ``(B, H, N, d)``.
@@ -154,45 +193,59 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     as ``(B, H, N, d)``, so that the reshape before the proj matmul is
     free; a CPU tensor goes to the plain version."""
     _check_bhnd(q, k, v)
-    b, h, n, d = q.shape
     if scale is None:
-        scale = 1.0 / math.sqrt(d)
+        scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    if d < HEAD_DIM:
-        q, k, v = (F.pad(t, (0, HEAD_DIM - d)) for t in (q, k, v))
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not _aligned(t):
-            raise ValueError(
-                f"{name} must have unit stride on d and 16-byte aligned rows, "
-                f"got strides {t.stride()}")
-    out = torch.empty((b, n, h, HEAD_DIM), dtype=q.dtype, device=q.device)
+    out = _launch_bhnd(_K2_C_FUNCS, "flash_attention", q, k, v, scale)
     if out.numel():
-        from monocular_depth_estimation_trt_tpu_torch.ops.cuda._build import library
-
-        fn = getattr(library(), _K2_C_FUNCS[q.dtype])
-        strides = (ctypes.c_int64 * 12)(
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            out.stride(0), out.stride(2), out.stride(1))
-        with torch.cuda.device(q.device):
-            stream = torch.cuda.current_stream(q.device).cuda_stream
-            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-                     b, h, n, float(scale), stream)
-        if err:
-            raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
         flash_attention.launches += 1
-    out = out.transpose(1, 2)
-    return out if d == HEAD_DIM else out[..., :d]
+    return out
 
 
 flash_attention.launches = 0
 
 
+def flash_attention_batched(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            scale: Optional[float] = None) -> torch.Tensor:
+    """K3: non-causal multi-head attention, ``(B, H, N, d)`` ->
+    ``(B, H, N, d)``, for many short heads: N <= 1024 (its kernel holds a
+    query tile's whole score rows), any B and H.
+
+    K2's signature and layout rules: bf16 or fp32, d <= 64 zero-padded with
+    the scale of the unpadded d, strided views with unit stride on d and
+    16-byte aligned rows, output written ``(B, N, H, d)`` and returned as a
+    ``(B, H, N, d)`` view. N > 1024 raises on every device: that bound is
+    the kernel's regime. A CUDA tensor launches the kernel on the current
+    stream (counted in ``flash_attention_batched.launches``); a CPU tensor
+    goes to the plain version, :func:`flash_attention_reference`: the two
+    JAX kernels compute one function on different grids, so K2's plain
+    version, with the TPU's division of P before its cast, is K3's too."""
+    _check_bhnd(q, k, v)
+    if q.shape[2] > BATCHED_MAX_N:
+        raise ValueError(
+            f"flash_attention_batched takes N <= {BATCHED_MAX_N} tokens, got shape "
+            f"{tuple(q.shape)}; longer sequences go to flash_attention")
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    out = _launch_bhnd(_K3_C_FUNCS, "flash_attention_batched", q, k, v, scale)
+    if out.numel():
+        flash_attention_batched.launches += 1
+    return out
+
+
+flash_attention_batched.launches = 0
+
+
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               scale: Optional[float] = None) -> torch.Tensor:
-    """Plain PyTorch version of K2 with the TPU kernel's numerics: fp32
+    """Plain PyTorch version of K2 and K3 with the TPU kernels' numerics: fp32
     scores of the operands times ``scale``, row max, ``exp``, division by
     the row sum, P cast to the operand type, P.V accumulated in fp32, cast
     to the output type. Nothing is padded here, so no key needs a mask.

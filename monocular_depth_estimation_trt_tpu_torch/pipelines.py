@@ -9,7 +9,7 @@ in the role of the JAX package's compiled ``Engine``s.
 Public layouts follow the JAX package: uint8 ``(H, W, 3)`` in, depth
 ``(H, W)`` float32 out, viz ``(H, W, 3)`` uint8; ``batch_call`` adds a
 leading frame axis. Other outputs of a forward (VGGT's confidence and
-camera) come back beside the depth. :class:`VGGTPipeline` adds the
+camera, Depth Pro's focal) come back beside the depth. :class:`VGGTPipeline` adds the
 multi-view protocol.
 """
 

@@ -6,7 +6,7 @@
 
 Ported so far: the Depth Anything family (``depth_anything_v2``,
 ``distill_any_depth``, ``depth_anything_ac``, ``dkt``, ``bridge``), which
-shares one serving graph, and ``vggt``. Every factory takes ``device``;
+shares one serving graph, ``vggt`` and ``depth_pro``. Every factory takes ``device``;
 ``None`` means ``"cuda"``, and a missing card is an error, never a quiet
 move to the CPU.
 """
@@ -74,7 +74,7 @@ def resolve_int8_precision(model_name: str, encoder: str, precision: str) -> str
     """int8 (w8a8 serving, kernel K4) is not ported yet: refuse it clearly."""
     if precision == "int8":
         raise NotImplementedError(
-            f"{model_name} {encoder}: precision='int8' needs the w8a8 matmul "
+            f"{' '.join(filter(None, (model_name, encoder)))}: precision='int8' needs the w8a8 matmul "
             "kernel K4 (ops/pallas/quant_matmul.py::_w8a8_kernel), which is "
             "not ported to CUDA yet; use bf16, fp16 or fp32"
         )
@@ -290,3 +290,57 @@ def vggt(input_size: int = 518, precision: str = "bf16", attn_impl: str = "auto"
     return _build_vggt("vggt", input_size=input_size, precision=precision,
                        attn_impl=attn_impl, params=params, vggt_cfg=vggt_cfg,
                        with_camera=not depth_only, checkpoint=checkpoint, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Apple Depth Pro (reference Depth_Pro/)
+# ---------------------------------------------------------------------------
+
+
+@register("depth_pro", fidelity="converter-verified")
+def depth_pro(precision: str = "bf16", attn_impl: str = "auto",
+              params: Optional[Mapping[str, torch.Tensor]] = None,
+              f_px: Optional[float] = None, checkpoint: Optional[str] = None, device=None,
+              model_kw: Optional[Dict[str, Any]] = None) -> DepthPipeline:
+    """Apple Depth Pro serving contract (reference ``Depth_Pro/onnx2trt.py``):
+    a 1536^2 input; canonical inverse depth and the predicted FoV -> metric
+    depth at the frame's own size, plus the focal estimate ``f_px`` (or the
+    caller's ``f_px``). One frame per call.
+
+    ``params``: an upstream-named state dict (e.g. from
+    ``weights.from_jax.depth_pro_from_jax``); ``model_kw``: overrides passed
+    to ``DepthPro`` (``cfg``, ``decoder_features``, ``dims_encoder``)."""
+    from monocular_depth_estimation_trt_tpu_torch.config import HALF_MEAN, HALF_STD, compute_dtype
+    from monocular_depth_estimation_trt_tpu_torch.models.depth_pro import DepthPro
+    from monocular_depth_estimation_trt_tpu_torch.ops.camera import fov_to_focal
+    from monocular_depth_estimation_trt_tpu_torch.ops.preprocess import normalize, to_float_rgb
+    from monocular_depth_estimation_trt_tpu_torch.ops.resize import resize, resize_hw
+    from monocular_depth_estimation_trt_tpu_torch.weights.store import resolve_weights
+
+    device = resolve_device(device)
+    precision = resolve_int8_precision("depth_pro", "", precision)
+    model = DepthPro(attn_impl=attn_impl, **(model_kw or {}))
+    size = model.cfg.img_size
+    spec = ModelSpec(model="depth_pro", input_hw=(size, size), precision=precision)
+    dtype = compute_dtype(precision)
+    _full_fp32(dtype, device)
+    resolve_weights(model, spec.artifact_name(), checkpoint=checkpoint, state_dict=params)
+    model = model.to(device=device, dtype=dtype).eval()
+
+    def forward(img_u8: torch.Tensor, out_hw):
+        if img_u8.dim() != 3:
+            raise ValueError(f"depth_pro takes one (H, W, 3) frame, got {tuple(img_u8.shape)}")
+        # reference: ToTensor + Normalize(0.5) + bilinear resize to 1536
+        x = normalize(to_float_rgb(img_u8), HALF_MEAN, HALF_STD)
+        cid, fov_deg = model(resize(x[None], (size, size), method="linear"))
+        # postprocess (reference :152-165): W is the frame's own width
+        width = out_hw[1]
+        if f_px is None:
+            focal = fov_to_focal(fov_deg[0], width)
+        else:
+            focal = torch.tensor(float(f_px), device=cid.device)
+        inverse_depth = resize_hw(cid[0] * (width / focal), out_hw, "linear",
+                                  align_corners=False)
+        return {"depth": 1.0 / torch.clamp(inverse_depth, 1e-4, 1e4), "f_px": focal}
+
+    return DepthPipeline(spec, forward, device=device, model=model, viz="metric")

@@ -1,8 +1,9 @@
 """JAX params tree -> the port's ``state_dict``.
 
 The exact inverse of the JAX package's ``weights/convert.py``
-(``convert_dinovit``, ``convert_dpt_head``, ``convert_vggt``), so that the
-parity tests can feed one set of weights to both packages:
+(``convert_dinovit``, ``convert_dpt_head``, ``convert_vggt``,
+``convert_depth_pro``), so that the parity tests can feed one set of weights
+to both packages:
 
 * Dense kernel (in, out)                 -> Linear weight (out, in)
 * Conv kernel (kh, kw, in, out)          -> Conv2d weight (out, in, kh, kw)
@@ -75,16 +76,31 @@ def dinovit_from_jax(p: Mapping, prefix: str = "pretrained") -> Dict[str, torch.
     return out
 
 
+def _fusion_from_jax(p: Mapping, prefix: str, out: Dict[str, torch.Tensor]) -> None:
+    """One ``FeatureFusionBlock``. A block without a skip input never runs
+    its ``resConfUnit1``, so Flax's ``init`` creates no params for it; the
+    upstream layout carries it all the same, and gets zeros shaped like its
+    twin, which inference never reads."""
+    for unit in ("resConfUnit1", "resConfUnit2"):
+        for conv in ("conv1", "conv2"):
+            key = f"{prefix}.{unit}.{conv}"
+            if unit in p:
+                _conv(p[unit][conv], key, out)
+            else:
+                kh, kw, cin, cout = np.shape(p["resConfUnit2"][conv]["kernel"])
+                out[f"{key}.weight"] = torch.zeros(cout, cin, kh, kw)
+                out[f"{key}.bias"] = torch.zeros(cout)
+    _conv(p["out_conv"], f"{prefix}.out_conv", out)
+
+
 def dpt_head_from_jax(p: Mapping, prefix: str = "depth_head",
                       nested_scratch: bool = True) -> Dict[str, torch.Tensor]:
     """JAX ``DPTHead`` params -> ``DPTHead`` state-dict entries under
     ``prefix``; ``nested_scratch=False`` for VGGT's layout, whose fusion
     modules have no ``scratch.`` level.
 
-    ``refinenet4`` has no skip input, so its ``resConfUnit1`` never runs and
-    Flax's ``init`` creates no params for it; the upstream checkpoints carry
-    it all the same. A tree without it gets zeros there, which inference
-    never reads."""
+    ``refinenet4`` has no skip input: a tree without its ``resConfUnit1``
+    gets zeros there (:func:`_fusion_from_jax`)."""
     out: Dict[str, torch.Tensor] = {}
     for i in range(4):
         _conv(p[f"project_{i}"], _join(prefix, f"projects.{i}"), out)
@@ -95,17 +111,7 @@ def dpt_head_from_jax(p: Mapping, prefix: str = "depth_head",
     for i in range(1, 5):
         _conv(p[f"layer{i}_rn"], _join(sc, f"layer{i}_rn"), out)
     for i in range(1, 5):
-        rf = p[f"refinenet{i}"]
-        for unit in ("resConfUnit1", "resConfUnit2"):
-            for conv in ("conv1", "conv2"):
-                key = _join(sc, f"refinenet{i}.{unit}.{conv}")
-                if unit in rf:
-                    _conv(rf[unit][conv], key, out)
-                else:  # the unused unit: zeros shaped like its twin
-                    kh, kw, cin, cout = np.shape(rf["resConfUnit2"][conv]["kernel"])
-                    out[f"{key}.weight"] = torch.zeros(cout, cin, kh, kw)
-                    out[f"{key}.bias"] = torch.zeros(cout)
-        _conv(rf["out_conv"], _join(sc, f"refinenet{i}.out_conv"), out)
+        _fusion_from_jax(p[f"refinenet{i}"], _join(sc, f"refinenet{i}"), out)
     _conv(p["output_conv1"], _join(sc, "output_conv1"), out)
     _conv(p["output_conv2_0"], _join(sc, "output_conv2.0"), out)
     _conv(p["output_conv2_2"], _join(sc, "output_conv2.2"), out)
@@ -161,6 +167,40 @@ def vggt_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             blk = {name: cam[f"trunk_{i}_{name}"]
                    for name in ("norm1", "qkv", "proj", "ls1", "norm2", "mlp", "ls2")}
             _block_from_jax(blk, f"camera_head.trunk.{i}", out)
+    return out
+
+
+def depth_pro_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``DepthPro`` params (optionally under a ``"params"`` key) -> the
+    port's ``DepthPro.state_dict()`` in the layout of
+    ``weights/manifests/depth_pro.json``, fp32 CPU tensors. The inverse of
+    ``convert_depth_pro``; the coarsest fusion block, which has no skip
+    input, gets a zero ``resConfUnit1``."""
+    if "params" in params:
+        params = params["params"]
+    out = {**dinovit_from_jax(params["patch_encoder"], "patch_encoder"),
+           **dinovit_from_jax(params["image_encoder"], "image_encoder")}
+    for name in ("upsample_latent0", "upsample_latent1", "upsample0", "upsample1",
+                 "upsample2"):
+        p = params[name]
+        _conv(p["proj"], f"{name}.proj", out)
+        for i in range(sum(1 for k in p if k.startswith("up_"))):
+            _conv_transpose(p[f"up_{i}"], f"{name}.ups.{i}", out)
+    _conv_transpose(params["upsample_lowres"], "upsample_lowres", out)
+    _conv(params["fuse_lowres"], "fuse_lowres", out)
+    dec = params["decoder"]
+    for i in range(sum(1 for k in dec if k.startswith("fusion_"))):
+        if f"conv_{i}" in dec:
+            _conv(dec[f"conv_{i}"], f"decoder.convs.{i}", out)
+        _fusion_from_jax(dec[f"fusion_{i}"], f"decoder.fusions.{i}", out)
+    for name in ("head_conv0", "head_conv1", "head_conv2"):
+        _conv(params[name], name, out)
+    _conv_transpose(params["head_up"], "head_up", out)
+    fov = params["fov"]
+    for name in ("down0", "down1", "down2"):
+        _conv(fov[name], f"fov.{name}", out)
+    _linear(fov["fov_proj"], "fov.fov_proj", out)
+    _linear(fov["head"], "fov.head", out)
     return out
 
 

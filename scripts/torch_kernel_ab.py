@@ -6,9 +6,10 @@
 Each argument is the root of a checkout of this repository. For each one in
 the order given, a fresh process puts that root first on ``sys.path``,
 builds its kernels from its own ``csrc/`` and times K1 (packed-qkv
-attention) at the DA-V2 shapes and, where the checkout has it, K2 ((B, H,
-N, d) attention) at VGGT's frame and global shapes, all bf16 on random
-inputs from a fixed seed. It prints one JSON line per checkout: the median
+attention) at the DA-V2 shapes and Depth Pro's patch shape and, where the
+checkout has them, K2 ((B, H, N, d) attention) at VGGT's frame and global
+shapes and K3 (whole-row attention) at Depth Pro's patch shape, all bf16 on
+random inputs from a fixed seed. It prints one JSON line per checkout: the median
 of ``REPEATS`` CUDA-event timings of ``ITERS`` back-to-back launches each,
 in ms per launch, beside the card's name and power limit. Imports nothing
 of JAX.
@@ -24,8 +25,9 @@ import sys
 REPEATS = 7
 ITERS = 50
 K1_SHAPES = {"vits_518": (1, 1370, 6), "vits_518_batch4": (4, 1370, 6),
-             "vitl_518": (1, 1370, 16)}  # (B, N, H)
+             "vitl_518": (1, 1370, 16), "depth_pro_patch": (35, 577, 16)}  # (B, N, H)
 K2_SHAPES = {"frame_s4": (4, 16, 1374), "global_s4": (1, 16, 5496)}  # (B, H, N)
+K3_SHAPES = {"depth_pro_patch": (35, 16, 577), "n1024": (16, 16, 1024)}  # (B, H, N)
 
 
 def child(root: str) -> dict:
@@ -64,6 +66,11 @@ def child(root: str) -> dict:
             q, k, v = (torch.randn((b, h, n, d), generator=gen).to(dev, torch.bfloat16)
                        for _ in range(3))
             rec[f"k2_{label}_ms"] = time_ms(lambda: fa.flash_attention(q, k, v))
+    if hasattr(fa, "flash_attention_batched"):
+        for label, (b, h, n) in K3_SHAPES.items():
+            q, k, v = (torch.randn((b, h, n, d), generator=gen).to(dev, torch.bfloat16)
+                       for _ in range(3))
+            rec[f"k3_{label}_ms"] = time_ms(lambda: fa.flash_attention_batched(q, k, v))
     from monocular_depth_estimation_trt_tpu_torch.ops.cuda import _build
 
     rec["ptxas"] = [ln.strip() for ln in _build.build_info().log.splitlines()

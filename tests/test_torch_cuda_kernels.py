@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from monocular_depth_estimation_trt_tpu_torch.models.depth_pro import DepthProConfig
 from monocular_depth_estimation_trt_tpu_torch.models.vggt import VGGTConfig
 from monocular_depth_estimation_trt_tpu_torch.models.vit import ViTConfig
 from monocular_depth_estimation_trt_tpu_torch.ops.cuda import flash_attention as fa
@@ -124,6 +125,42 @@ def test_k2_matches_its_plain_version(cuda, b, h, n, d, dtype):
     assert (out.float() - exact).abs().max() <= (plain - exact).abs().max()
 
 
+@pytest.mark.parametrize("b,h,n,d,dtype", [
+    (35, 16, 577, 64, torch.bfloat16), (35, 16, 65, 64, torch.bfloat16),
+    (2, 3, 1024, 64, torch.bfloat16), (35, 8, 65, 16, torch.float32),
+    (35, 16, 577, 64, torch.float32),
+])
+def test_k3_matches_its_plain_version(cuda, b, h, n, d, dtype):
+    """Depth Pro's patch-encoder shape (35 windows x 16 heads of 577 tokens)
+    as views of one qkv tensor, and edges, with K2's bar: K3 divides P by
+    the row sum before its cast, as its plain version does, so in bf16 the
+    two round at most a few steps apart."""
+    gen = torch.Generator().manual_seed(2)
+    qkv = torch.randn((b, n, 3, h, d), generator=gen).to(cuda, dtype)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    before = fa.flash_attention_batched.launches
+    out = fa.flash_attention_batched(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_batched.launches == before + 1
+    assert out.shape == (b, h, n, d) and out.dtype == dtype and out.is_cuda
+    ref = fa.flash_attention_reference(q, k, v).float()
+    err = (out.float() - ref).abs().max().item()
+    if dtype == torch.float32:
+        assert err < TOL[dtype]
+        return
+    step = 2.0 ** (math.floor(math.log2(ref.abs().max().item())) - 7)  # bf16 ulp
+    assert err <= min(TOL[dtype], 4 * step), (err, step)
+    exact = fa.flash_attention_reference(q.float(), k.float(), v.float())
+    plain = fa.attention_reference(q, k, v).float()
+    assert (out.float() - exact).abs().max() <= (plain - exact).abs().max()
+
+
+def test_k3_refuses_more_than_1024_tokens(cuda):
+    q = torch.zeros((1, 2, 1025, D), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="1024"):
+        fa.flash_attention_batched(q, q, q)
+
+
 def test_k2_reads_strided_views_and_refuses_what_it_cannot_read(cuda):
     gen = torch.Generator().manual_seed(1)
     qkv = torch.randn((2, 100, 3, 4, D), generator=gen).to(cuda, torch.bfloat16)
@@ -170,3 +207,39 @@ def test_vggt_pipeline_on_the_card_goes_through_k1_and_k2(cuda, precision):
             assert out[key].shape == ref[key].shape and np.isfinite(out[key]).all()
             rel = np.abs(out[key] - ref[key]).max() / np.abs(ref[key]).max()
             assert rel < tol, (key, rel)
+
+
+@pytest.mark.parametrize("precision", ["bf16", "fp32"])
+def test_depth_pro_pipeline_on_the_card_goes_through_k3_and_k1(cuda, precision):
+    """A narrow Depth Pro at the real 1536 geometry (ViT dim 512, 8 heads, 2
+    blocks) on the card: per frame, one K3 launch per patch-encoder block
+    (35 windows x 8 heads of 577 tokens) and one K1 launch per
+    image-encoder block; the inverse depth and focal against the CPU fp32
+    path at the same weights."""
+    kw = dict(model_kw=dict(
+        cfg=DepthProConfig(vit_config=ViTConfig(dim=512, depth=2, num_heads=8, patch_size=16,
+                                                pretrain_img_size=384),
+                           hook_block_ids=(0, 1)),
+        decoder_features=32, dims_encoder=(16, 32, 64, 64)))
+    with allow_random_weights(True):
+        card = build_pipeline("depth_pro", precision=precision, **kw)
+        cpu = build_pipeline("depth_pro", precision="fp32", device="cpu", **kw)
+    for pipe in (card, cpu):  # random output layers: depth off the clip, fov near 60 degrees
+        with torch.no_grad():
+            pipe.model.head_conv2.bias.fill_(1.0)
+            pipe.model.fov.head.bias.fill_(60.0)
+    frame = np.random.default_rng(0).integers(0, 256, (480, 640, 3), dtype=np.uint8)
+    counts = (fa.flash_attention_batched.launches, fa.flash_attention_packed.launches,
+              fa.flash_attention.launches)
+    out = card(frame, viz=True)
+    assert (fa.flash_attention_batched.launches - counts[0],
+            fa.flash_attention_packed.launches - counts[1],
+            fa.flash_attention.launches - counts[2]) == (2, 2, 0)
+    ref = cpu(frame)
+    tol = 5e-2 if precision == "bf16" else 1e-3
+    d, d_ref = out["depth"], ref["depth"]
+    assert d.shape == (480, 640) and np.isfinite(d).all()
+    rel = np.abs(1 / d - 1 / d_ref).max() / np.abs(1 / d_ref).max()
+    assert rel < tol, rel
+    assert abs(float(out["f_px"]) / float(ref["f_px"]) - 1) < tol
+    assert out["viz"].shape == (480, 640, 3) and out["viz"].dtype == np.uint8

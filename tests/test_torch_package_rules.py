@@ -22,7 +22,7 @@ PORT = os.path.join(REPO, "monocular_depth_estimation_trt_tpu_torch")
 JAX_PKG = "monocular_depth_estimation_trt_tpu"
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "orbax")
 DA_FAMILY = ("bridge", "depth_anything_ac", "depth_anything_v2", "distill_any_depth", "dkt")
-PORTED = tuple(sorted(DA_FAMILY + ("vggt",)))
+PORTED = tuple(sorted(DA_FAMILY + ("depth_pro", "vggt")))
 
 
 def _forbidden(module: str) -> bool:
@@ -65,6 +65,8 @@ def test_forbidden_matcher_tells_the_two_packages_apart():
 def test_no_port_source_imports_jax_or_the_jax_package():
     sources = _port_sources()
     assert len(sources) > 15
+    for new in ("models/depth_pro.py", "ops/cuda/flash_attention.py", "weights/from_jax.py"):
+        assert os.path.join(PORT, new) in sources
     bad = [(os.path.relpath(p, REPO), m) for p in sources
            for m in _imported_modules(p) if _forbidden(m)]
     assert bad == []
@@ -99,6 +101,8 @@ def test_build_pipeline_defaults_to_the_card_and_raises_without_one():
             treg.build_pipeline("depth_anything_v2", encoder="vits", device="cuda")
         with pytest.raises(RuntimeError, match="CUDA"):
             treg.build_pipeline("vggt")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            treg.build_pipeline("depth_pro")
     assert treg.resolve_device("cpu") == torch.device("cpu")
 
 
@@ -106,9 +110,9 @@ def test_registry_lists_the_da_family_with_the_jax_fidelity():
     assert tuple(treg.list_models()) == PORTED
     for name in PORTED:
         assert treg.get_fidelity(name) == jreg.get_fidelity(name)
-    assert treg.get_fidelity("vggt") == "converter-verified"
+    assert treg.get_fidelity("vggt") == treg.get_fidelity("depth_pro") == "converter-verified"
     with pytest.raises(KeyError):
-        treg.build_pipeline("depth_pro")
+        treg.build_pipeline("metric3d_v2")
 
 
 @pytest.mark.parametrize("name", DA_FAMILY)
@@ -149,7 +153,23 @@ def test_vggt_builds_with_the_jax_artifact_names(monkeypatch, kw):
     assert callable(tpipe.multi_view) and callable(tpipe.benchmark_views)
 
 
-@pytest.mark.parametrize("name", ["depth_anything_v2", "vggt"])
+@pytest.mark.parametrize("kw", [{}, {"precision": "fp32"}, {"precision": "fp16"},
+                                {"attn_impl": "xla", "f_px": 1000.0}])
+def test_depth_pro_builds_with_the_jax_artifact_names(monkeypatch, kw):
+    """The port builds the full-size Depth Pro on the meta device, no weights."""
+    monkeypatch.setattr(jreg, "_params_for", lambda *a, **k: {})
+    monkeypatch.setattr(store, "resolve_weights", lambda *a, **k: None)
+    jpipe = jreg.build_pipeline("depth_pro", **kw)
+    tpipe = treg.build_pipeline("depth_pro", device="meta", **kw)
+    assert tpipe.spec == tconfig.ModelSpec(**jpipe.spec.to_dict())
+    assert tpipe.spec.artifact_name() == jpipe.spec.artifact_name()
+    assert tpipe.spec.input_hw == (1536, 1536)
+    assert tpipe.viz == jpipe.viz == "metric"
+    attn = tpipe.model.patch_encoder.blocks[0].attn
+    assert attn.attn_impl == kw.get("attn_impl", "auto") and attn.num_heads == 16
+
+
+@pytest.mark.parametrize("name", ["depth_anything_v2", "vggt", "depth_pro"])
 def test_int8_is_refused_with_the_missing_kernel_named(name):
     with pytest.raises(NotImplementedError, match="K4"):
         treg.build_pipeline(name, precision="int8", device="cpu")
@@ -166,6 +186,7 @@ def test_model_spec_and_config_match_jax(fields):
             == jconfig.ModelSpec(**fields).artifact_name())
     assert tconfig.IMAGENET_MEAN == jconfig.IMAGENET_MEAN
     assert tconfig.IMAGENET_STD == jconfig.IMAGENET_STD
+    assert tconfig.HALF_MEAN == jconfig.HALF_MEAN == tconfig.HALF_STD == jconfig.HALF_STD
     assert tconfig.BenchmarkConfig() == tconfig.BenchmarkConfig(
         **jconfig.BenchmarkConfig().__dict__)
     assert tconfig.compute_dtype("fp16") == tconfig.compute_dtype("bf16") == torch.bfloat16

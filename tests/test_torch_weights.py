@@ -12,6 +12,7 @@ import torch
 import monocular_depth_estimation_trt_tpu.models.depth_anything_v2 as jda
 import monocular_depth_estimation_trt_tpu.models.vit as jvit
 from monocular_depth_estimation_trt_tpu.weights.convert import (
+    convert_depth_pro,
     convert_dinovit,
     convert_dpt_head,
     convert_vggt,
@@ -19,16 +20,19 @@ from monocular_depth_estimation_trt_tpu.weights.convert import (
 from monocular_depth_estimation_trt_tpu_torch.models.depth_anything_v2 import (
     DepthAnythingV2,
 )
+from monocular_depth_estimation_trt_tpu_torch.models.depth_pro import DepthPro, DepthProConfig
 from monocular_depth_estimation_trt_tpu_torch.models.vggt import VGGT, VGGTConfig
 from monocular_depth_estimation_trt_tpu_torch.models.vit import ViTConfig
 from monocular_depth_estimation_trt_tpu_torch.registry import build_pipeline
 from monocular_depth_estimation_trt_tpu_torch.weights import store
 from monocular_depth_estimation_trt_tpu_torch.weights.from_jax import (
+    depth_pro_from_jax,
     state_dict_from_jax,
     vggt_from_jax,
 )
 
 from torch_mirror import TorchDepthAnythingV2
+from torch_mirror_depth_pro import TorchDepthPro
 from torch_mirror_vggt import TorchVGGT
 from torch_port_params import random_params
 
@@ -205,3 +209,45 @@ def test_init_random_draws_the_vggt_tokens_from_normal():
     assert model.camera_head.adaln_norm.weight is None  # no affine, left alone
     gamma = float(model.camera_head.trunk[0].ls1.gamma.detach()[0])
     assert gamma == pytest.approx(store.RANDOM_LAYERSCALE)
+
+
+def test_depth_pro_state_dict_keys_and_shapes_equal_upstream_manifest():
+    with open(os.path.join(MANIFESTS, "depth_pro.json")) as f:
+        manifest = json.load(f)["keys"]
+    with torch.device("meta"):  # full size: two ViT-L/16@384 encoders, no memory
+        model = DepthPro()
+    ours = {k: list(v.shape) for k, v in model.state_dict().items()}
+    assert len(ours) == len(manifest) == 780
+    assert ours == manifest
+    assert sum(v.numel() for v in model.state_dict().values()) > 0.6e9
+
+
+def test_depth_pro_from_jax_inverts_the_jax_converter_exactly():
+    """tests/test_parity_depth_pro.py's tiny mirror through convert_depth_pro
+    and back. The JAX converter drops the coarsest fusion block's
+    resConfUnit1 (it has no skip input and never runs): it comes back as
+    zeros."""
+    torch.manual_seed(37)
+    mirror = TorchDepthPro(img_size=512, window=128, stride0=96, stride1=64, vit_dim=32,
+                           vit_depth=3, vit_heads=2, vit_patch=16, hook_ids=(0, 1),
+                           decoder_features=16, dims_encoder=(8, 16, 32, 32))
+    with torch.no_grad():
+        for p in mirror.parameters():
+            p.add_(torch.randn_like(p) * 0.02)
+    sd = mirror.state_dict()
+    back = depth_pro_from_jax(convert_depth_pro(sd, vit_depth=3))
+    assert sorted(back) == sorted(sd)
+    dropped = [k for k in sd if k.startswith("decoder.fusions.4.resConfUnit1.")]
+    assert len(dropped) == 4
+    for k, v in sd.items():
+        assert back[k].dtype == torch.float32 and back[k].shape == v.shape, k
+        if k in dropped:
+            assert not back[k].any(), k
+        else:
+            assert torch.equal(back[k], v), k
+    cfg = DepthProConfig(img_size=512, window=128, stride0=96, stride1=64,
+                         hook_block_ids=(0, 1),
+                         vit_config=ViTConfig(dim=32, depth=3, num_heads=2, patch_size=16,
+                                              pretrain_img_size=128))
+    model = DepthPro(cfg, decoder_features=16, dims_encoder=(8, 16, 32, 32))
+    store.load_state_dict(model, back)  # strict

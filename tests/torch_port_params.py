@@ -33,6 +33,15 @@ def random_params(module, *args, seed=0):
     return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
+def lift_depth_pro_outputs(params):
+    """Random weights put Depth Pro's canonical inverse depth at about 0
+    (relu) and its field of view near 0 degrees, so that the depth would sit
+    at the clip and the focal would be huge; output biases of 1 and 60
+    degrees make every pixel and the focal count."""
+    params["head_conv2"]["bias"] = np.ones(1, np.float32)
+    params["fov"]["head"]["bias"] = np.full(1, 60.0, np.float32)
+
+
 def rel_err(a, b):
     """max |a - b| / max |b|, in float64."""
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
