@@ -9,10 +9,11 @@ Phases, each printed as one JSON line; any failure exits non-zero:
 2. build: compiles ``monocular_depth_estimation_trt_tpu_torch/csrc/*.cu``
    with nvcc into the package's ``_build/`` directory and loads it;
 3. kernel checks: each kernel's wrapper (K1 packed-qkv attention, K2
-   (B, H, N, d) attention, K3 whole-row attention of many short heads)
-   against its plain PyTorch version on the card, at the main paths' shapes
-   and edge shapes, with timings of the kernel, the plain version and one
-   library call, and the card's bound;
+   (B, H, N, d) attention, K3 whole-row attention of many short heads, K4
+   the fused w8a8 matmul) against its plain PyTorch version on the card, at
+   the main paths' shapes and edge shapes (K4 bit for bit), with timings of
+   the kernel, the plain version and one library call (for K4 the chain
+   quantize, ``torch._int_mm``, rescale), and the card's bound;
 4. main path: ``build_pipeline("depth_anything_v2", encoder="vits")`` on the
    card with seeded random weights: two frames, a batch of two with the viz
    epilogue, the metric variant; the launch counts of every kernel are read
@@ -32,12 +33,19 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    outputs against plain attention and the fp32 path for two weight seeds
    and two frames, and the fp32 path on the card against the CPU with the
    ViT depth cut to 12 blocks;
-7. speed: ``DepthPipeline.benchmark((518, 518))`` for vits and vitl, for
+7. int8 paths: ``build_pipeline(name, precision="int8", calib_images=...)``
+   for DA-V2 vitl, depth_pro and vggt at full size, each with its own counts
+   set to 0 just before and read just after (per forward: 96 K4 + 24 K1;
+   192 K4 + 24 K3 + 24 K1; 288 K4 + 24 K1 + 48 K2), two frames each (the
+   first with the viz epilogue) and 4 views for vggt; then the int8 outputs
+   against the bf16 and fp32 routes for two weight seeds and two frames;
+8. speed: ``DepthPipeline.benchmark((518, 518))`` for vits and vitl, for
    vggt at S=1 and (``benchmark_views``) S=4, and
-   ``DepthPipeline.benchmark((1536, 1536))`` for depth_pro;
-8. profile: device time by kernel, device busy time and idle share of a
-   vits frame, of vggt forwards of 1 and 4 views and of a depth_pro frame,
-   from ``torch.profiler``.
+   ``DepthPipeline.benchmark((1536, 1536))`` for depth_pro, in bf16 and in
+   int8, and vits int8 (forced) against vits bf16 in alternating turns;
+9. profile: device time by kernel, device busy time and idle share of a
+   vits and a vitl frame, of vggt forwards of 1 and 4 views and of a
+   depth_pro frame, in bf16 and int8, from ``torch.profiler``.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -89,11 +97,26 @@ PATH_BF16_ROUTE_RATIO = 1.5
 # with the ViT depth cut to 12 blocks (hooks 5 and 11 kept): the CPU run.
 DEPTH_PRO_CPU_VIT_DEPTH = 12
 
+# int8 serving against its fp32 path, at 2 weight seeds x 2 frames per
+# family: Pearson r above the JAX package's bar (tests/test_quant.py) at
+# every reading, and max |int8 - fp32| / max |fp32| below these bars, about
+# twice the largest of the four readings per output (PERF.md): DA-V2 depth
+# 3.3e-2; Depth Pro inverse depth 3.2e-2, f_px 1.8e-3; VGGT depth 6.0e-2,
+# confidence 3.8e-2, pose 9.2e-2. The bf16 route alone reads up to 2.7e-2,
+# 2.0e-2, 1.8e-3, 4.5e-2, 3.3e-2 and 3.9e-2 from fp32 there.
+INT8_PEARSON_MIN = 0.98
+INT8_REL_TOL = {
+    "depth_anything_v2": {"depth": 7.5e-2},
+    "depth_pro": {"inverse_depth": 7.5e-2, "f_px": 5e-3},
+    "vggt": {"depth": 1.2e-1, "depth_conf": 7.5e-2, "pose_enc": 2e-1},
+}
+
 SPEED_REPEATS = 3
 VGGT_BENCH = dict(warmup=3, iterations=20, latency_iterations=10)
 DEPTH_PRO_BENCH = dict(warmup=3, iterations=20, latency_iterations=10)
 
 PEAK_BF16_OPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate
 PEAK_FP32_OPS = 67e12  # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 
@@ -386,11 +409,12 @@ def profile_breakdown(step, name: str, iters: int = 5, top: int = 12):
             "k1_ms_per_call": kernel_ms("attn_packed_kernel"),
             "k2_ms_per_call": kernel_ms("attn_bhnd_kernel"),
             "k3_ms_per_call": kernel_ms("attn_batched_kernel"),
+            "k4_ms_per_call": kernel_ms("w8a8_kernel"),
             "top": [{"name": k[:90], "ms_per_call": v[0] / 1e3 / iters,
                      "per_call": v[1] / iters} for k, v in ranked[:top]]}
 
 
-def run_vggt_path(build_pipeline, fa, rng):
+def run_vggt_path(build_pipeline, fa, wrappers, rng):
     """The VGGT path with its own counts: set to 0 just before, read just
     after. Returns the pipeline and the counts."""
     import numpy as np
@@ -402,7 +426,7 @@ def run_vggt_path(build_pipeline, fa, rng):
     views4 = rng.integers(0, 256, (4, 518, 518, 3), dtype=np.uint8)
     views8 = rng.integers(0, 256, (8, 518, 518, 3), dtype=np.uint8)
 
-    set_counts_to_zero(fa)
+    set_counts_to_zero(wrappers)
     per_forward = {}
     outs = {}
     for key, run, arg in (("frame_480x640", lambda a: pipe(a, viz=True), frame),
@@ -413,12 +437,13 @@ def run_vggt_path(build_pipeline, fa, rng):
         per_forward[key] = [fa.flash_attention_packed.launches - before[0],
                             fa.flash_attention.launches - before[1]]
     torch.cuda.synchronize()
-    launches = launch_record(fa)
+    launches = launch_record(wrappers)
 
     for key, got in per_forward.items():
         check(got == [24, 48], f"vggt {key}: K1, K2 launches {got}, want [24, 48]")
     check(launches == {"flash_attention_batched": 0, "flash_attention_packed": 72,
-                       "flash_attention": 144}, f"launches on the vggt path {launches}")
+                       "flash_attention": 144, "w8a8_matmul": 0},
+          f"launches on the vggt path {launches}")
     one = outs["frame_480x640"]
     want = {"depth": (480, 640), "depth_conf": (480, 640), "pose_enc": (9,),
             "extrinsic": (3, 4), "focal_px": (), "viz": (480, 640, 3)}
@@ -571,25 +596,31 @@ def depth_pro_pipeline(build_pipeline, **kw):
     return pipe
 
 
-def counts(fa):
-    """The launch counts of K3, K1 and K2, in that order."""
-    return [fa.flash_attention_batched.launches, fa.flash_attention_packed.launches,
-            fa.flash_attention.launches]
+# the kernels' wrappers by name, in the order of counts(): K3, K1, K2, K4
+KERNELS = ("flash_attention_batched", "flash_attention_packed", "flash_attention", "w8a8_matmul")
 
 
-def set_counts_to_zero(fa) -> None:
-    fa.flash_attention_batched.launches = 0
-    fa.flash_attention_packed.launches = 0
-    fa.flash_attention.launches = 0
+def wrappers_of(fa, qm):
+    return {"flash_attention_batched": fa.flash_attention_batched,
+            "flash_attention_packed": fa.flash_attention_packed,
+            "flash_attention": fa.flash_attention, "w8a8_matmul": qm.w8a8_matmul}
 
 
-def launch_record(fa):
-    return {"flash_attention_batched": fa.flash_attention_batched.launches,
-            "flash_attention_packed": fa.flash_attention_packed.launches,
-            "flash_attention": fa.flash_attention.launches}
+def counts(wrappers):
+    """The launch counts of K3, K1, K2 and K4, in that order."""
+    return [wrappers[name].launches for name in KERNELS]
 
 
-def run_depth_pro_path(build_pipeline, fa, rng):
+def set_counts_to_zero(wrappers) -> None:
+    for name in KERNELS:
+        wrappers[name].launches = 0
+
+
+def launch_record(wrappers):
+    return {name: wrappers[name].launches for name in KERNELS}
+
+
+def run_depth_pro_path(build_pipeline, wrappers, rng):
     """The Depth Pro path with its own counts: set to 0 just before, read
     just after. Returns the pipeline, the counts and the frames."""
     import numpy as np
@@ -600,21 +631,23 @@ def run_depth_pro_path(build_pipeline, fa, rng):
     frames = {"frame_480x640": rng.integers(0, 256, (480, 640, 3), dtype=np.uint8),
               "frame_1536x1536": rng.integers(0, 256, (1536, 1536, 3), dtype=np.uint8)}
 
-    set_counts_to_zero(fa)
+    set_counts_to_zero(wrappers)
     per_forward, outs = {}, {}
     for key, frame in frames.items():
-        before = counts(fa)
+        before = counts(wrappers)
         outs[key] = pipe(frame, viz=key == "frame_480x640")
-        per_forward[key] = [a - b for a, b in zip(counts(fa), before)]
+        per_forward[key] = [a - b for a, b in zip(counts(wrappers), before)]
     torch.cuda.synchronize()
-    launches = launch_record(fa)
+    launches = launch_record(wrappers)
 
     for key, got in per_forward.items():
-        check(got == [24, 24, 0], f"depth_pro {key}: K3, K1, K2 launches {got}, want [24, 24, 0]")
+        check(got == [24, 24, 0, 0],
+              f"depth_pro {key}: K3, K1, K2, K4 launches {got}, want [24, 24, 0, 0]")
     check(launches == {"flash_attention_batched": 48, "flash_attention_packed": 48,
-                       "flash_attention": 0}, f"launches on the depth_pro path {launches}")
+                       "flash_attention": 0, "w8a8_matmul": 0},
+          f"launches on the depth_pro path {launches}")
     rec = {"phase": "depth_pro_path", "model": pipe.spec.artifact_name(),
-           "forwards": list(per_forward), "launches_per_forward_k3_k1_k2": per_forward,
+           "forwards": list(per_forward), "launches_per_forward_k3_k1_k2_k4": per_forward,
            "launches": launches}
     for key, frame in frames.items():
         out, hw = outs[key], frame.shape[:2]
@@ -744,6 +777,273 @@ def depth_pro_parity(build_pipeline, pipe, frames):
         check(got < PATH_FP32_REL_TOL, f"depth_pro fp32 {k} card vs cpu {got}")
 
 
+def w8a8_operands(m, k, n, dtype, dev, gen):
+    """K4's operands at one shape: activations whose quantized values span
+    the int8 range (a few clip at +-127), random int8 weights, scales of a
+    calibrated layer."""
+    import torch
+
+    x = torch.randn((m, k), generator=gen).to(dev, dtype)
+    wq = torch.randint(-127, 128, (n, k), generator=gen, dtype=torch.int8).to(dev)
+    qmul = (10.0 + 50.0 * torch.rand(k, generator=gen)).to(dev)
+    scale = (1e-5 + 1e-3 * torch.rand(n, generator=gen)).to(dev)
+    bias = torch.randn(n, generator=gen).to(dev)
+    return x, wq, qmul, scale, bias
+
+
+def w8a8_bound(m, k, n, itemsize):
+    ops = 2.0 * m * k * n
+    nbytes = float(m * k * itemsize + n * k + 4 * (k + 2 * n) + m * n * itemsize)
+    t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def w8a8_library(x, wq, qmul, scale, bias):
+    """The same function through PyTorch calls: quantize, torch._int_mm
+    (cuBLASLt int8), rescale. A yardstick only; the port never calls it."""
+    import torch
+
+    xq = torch.clamp(torch.round(x.float() * qmul), -127, 127).to(torch.int8)
+    return (torch._int_mm(xq, wq.t()).float() * scale + bias).to(x.dtype)
+
+
+def check_w8a8_matmul(qm, dev):
+    """K4 against its plain version, bit for bit (torch.equal), at the int8
+    paths' shapes (DA-V2 ViT-L's four layers at M = 1370; Depth Pro's patch
+    encoder at M = 35 x 577 = 20,195; VGGT S=4 at M = 4 x 1374 = 5,496) in
+    bf16 and fp32, and at edge shapes M in (1, 17, 130), K in (32, 40, 96),
+    N in (8, 136, 1000); timings of the kernel, the plain version and the
+    library chain (quantize, torch._int_mm, rescale) at the main shapes."""
+    import torch
+
+    gen = torch.Generator().manual_seed(4)
+    main = [  # (label, M, K, N, dtype)
+        ("vitl_qkv", 1370, 1024, 3072, torch.bfloat16),
+        ("vitl_proj", 1370, 1024, 1024, torch.bfloat16),
+        ("vitl_fc1", 1370, 1024, 4096, torch.bfloat16),
+        ("vitl_fc2", 1370, 4096, 1024, torch.bfloat16),
+        ("depth_pro_fc1", 20195, 1024, 4096, torch.bfloat16),
+        ("depth_pro_fc2", 20195, 4096, 1024, torch.bfloat16),
+        ("vggt_s4_fc1", 5496, 1024, 4096, torch.bfloat16),
+        ("vitl_qkv_fp32", 1370, 1024, 3072, torch.float32),
+        ("depth_pro_fc1_fp32", 20195, 1024, 4096, torch.float32),
+    ]
+    records = []
+    for label, m, k, n, dtype in main:
+        x, wq, qmul, scale, bias = w8a8_operands(m, k, n, dtype, dev, gen)
+        out = qm.w8a8_matmul(x, wq, qmul, scale, bias)
+        torch.cuda.synchronize()
+        ref = qm.w8a8_matmul_reference(x, wq, qmul, scale, bias)
+        check(out.shape == (m, n) and out.dtype == dtype, f"K4 {label}: {out.shape} {out.dtype}")
+        equal = torch.equal(out, ref)
+        err = (out.float() - ref.float()).abs().max().item()
+        lib = w8a8_library(x, wq, qmul, scale, bias)
+        clipped = (torch.round(x.float() * qmul).abs() > 127).float().mean().item()
+        bound_ms, bound_by = w8a8_bound(m, k, n, x.element_size())
+        rec = {"shape": label, "M": m, "K": k, "N": n, "dtype": str(dtype).replace("torch.", ""),
+               "equal": equal, "max_abs_err": err, "tolerance": "torch.equal",
+               "library_equal": torch.equal(lib, ref), "share_clipped": clipped,
+               "kernel_ms": time_ms(lambda: qm.w8a8_matmul(x, wq, qmul, scale, bias)),
+               "plain_ms": time_ms(lambda: qm.w8a8_matmul_reference(x, wq, qmul, scale, bias),
+                                   iters=5, warmup=1),
+               "library_ms": time_ms(lambda: w8a8_library(x, wq, qmul, scale, bias)),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        rec["kernel_tops"] = 2.0 * m * k * n / rec["kernel_ms"] / 1e9
+        emit({"phase": "kernel_check", "kernel": "w8a8_matmul", **rec})
+        records.append(rec)
+        check(equal, f"K4 {label}: differs from its plain version by {err}")
+        del x, wq, qmul, scale, bias, out, ref, lib
+        torch.cuda.empty_cache()
+    edges = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for m in (1, 17, 130):
+            for k in (32, 40, 96):
+                for n in (8, 136, 1000):
+                    ops = w8a8_operands(m, k, n, dtype, dev, gen)
+                    out = qm.w8a8_matmul(*ops)
+                    ref = qm.w8a8_matmul_reference(*ops)
+                    edges.append({"M": m, "K": k, "N": n, "dtype": str(dtype)[6:],
+                                  "equal": torch.equal(out, ref)})
+    torch.cuda.synchronize()
+    emit({"phase": "kernel_check", "kernel": "w8a8_matmul", "edge_shapes": len(edges),
+          "all_equal": all(e["equal"] for e in edges)})
+    bad = [e for e in edges if not e["equal"]]
+    check(not bad, f"K4 differs from its plain version at {bad}")
+    return records
+
+
+def pearson(a, b) -> float:
+    import numpy as np
+
+    return float(np.corrcoef(np.ravel(a).astype(np.float64), np.ravel(b).astype(np.float64))[0, 1])
+
+
+def int8_family(name, build_pipeline, calib):
+    """What the int8 phases need of one family: the model class, a function
+    that builds its pipeline at a precision on a state dict, one forward's
+    outputs as host arrays, the per-forward launches [K3, K1, K2, K4] of its
+    int8 path, and the outputs that Pearson r is read on."""
+    import numpy as np
+
+    from monocular_depth_estimation_trt_tpu_torch.models.depth_anything_v2 import (
+        DepthAnythingV2,
+    )
+    from monocular_depth_estimation_trt_tpu_torch.models.depth_pro import DepthPro
+    from monocular_depth_estimation_trt_tpu_torch.models.vggt import VGGT
+
+    if name == "depth_anything_v2":
+        return dict(
+            make=lambda: DepthAnythingV2(encoder="vitl"),
+            build=lambda precision, sd: build_pipeline(
+                "depth_anything_v2", encoder="vitl", precision=precision, params=sd,
+                calib_images=calib),
+            run=lambda p, frame: {"depth": p(frame)["depth"]},
+            per_forward=[0, 24, 0, 96], pearson_keys=("depth",))
+    if name == "depth_pro":
+        def build(precision, sd):
+            return depth_pro_pipeline(build_pipeline, precision=precision, params=sd,
+                                      calib_images=calib)
+
+        def run(p, frame):
+            out = p(frame)
+            return {"inverse_depth": 1.0 / out["depth"], "f_px": np.asarray(out["f_px"])}
+
+        return dict(make=DepthPro, build=build, run=run, per_forward=[24, 24, 0, 192],
+                    pearson_keys=("inverse_depth",))
+
+    def run_vggt(p, frame):
+        out = p(frame)
+        return {k: out[k] for k in ("depth", "depth_conf", "pose_enc")}
+
+    return dict(make=VGGT,
+                build=lambda precision, sd: build_pipeline("vggt", precision=precision,
+                                                           params=sd, calib_images=calib),
+                run=run_vggt, per_forward=[0, 24, 48, 288],
+                pearson_keys=("depth", "depth_conf", "pose_enc"))
+
+
+def run_int8_path(name, fam, wrappers, frames, views4=None):
+    """One family's int8 path on seed-0 weights, with the counts set to 0
+    just before and read just after: each frame through ``__call__`` (the
+    first with the viz epilogue), then 4 views where the family has them.
+    Returns the pipeline and the counts."""
+    import numpy as np
+    import torch
+
+    from monocular_depth_estimation_trt_tpu_torch.ops.quant import QuantLinear
+    from monocular_depth_estimation_trt_tpu_torch.weights.store import init_random_
+
+    model = fam["make"]()
+    init_random_(model, 0)
+    t0 = time.perf_counter()
+    pipe = fam["build"]("int8", model.state_dict())
+    build_s = time.perf_counter() - t0
+    del model
+    check(pipe.device.type == "cuda" and pipe.spec.precision == "int8",
+          f"{name} int8 on {pipe.device}, {pipe.spec.precision}")
+    swapped = sum(isinstance(m, QuantLinear) for m in pipe.model.modules())
+    torch.cuda.synchronize()
+
+    set_counts_to_zero(wrappers)
+    per_forward, outs = {}, {}
+    for i, (key, frame) in enumerate(frames.items()):
+        before = counts(wrappers)
+        outs[key] = pipe(frame, viz=i == 0)
+        per_forward[key] = [a - b for a, b in zip(counts(wrappers), before)]
+    if views4 is not None:
+        before = counts(wrappers)
+        outs["views_s4"] = pipe.multi_view(views4)
+        per_forward["views_s4"] = [a - b for a, b in zip(counts(wrappers), before)]
+    torch.cuda.synchronize()
+    launches = launch_record(wrappers)
+
+    want = fam["per_forward"]
+    for key, got in per_forward.items():
+        check(got == want, f"{name} int8 {key}: K3, K1, K2, K4 launches {got}, want {want}")
+    check(launches == {k: n * len(per_forward) for k, n in zip(KERNELS, want)},
+          f"launches on the {name} int8 path {launches}")
+    check(swapped == want[3], f"{name} int8: {swapped} QuantLinear layers, want {want[3]}")
+    rec = {"phase": "int8_path", "model": pipe.spec.artifact_name(), "build_seconds": build_s,
+           "quantized_layers": swapped, "forwards": list(per_forward),
+           "launches_per_forward_k3_k1_k2_k4": per_forward, "launches": launches}
+    for key, out in outs.items():
+        d = out["depth"]
+        check(bool(np.isfinite(d).all()), f"{name} int8 {key}: depth not finite")
+        check(d.max() > d.min(), f"{name} int8 {key}: depth is constant")
+        if key in frames:
+            check(d.shape == frames[key].shape[:2], f"{name} int8 {key}: depth {d.shape}")
+        rec[key] = {"depth_shape": list(d.shape), "depth_range": [float(d.min()), float(d.max())]}
+    first = outs[next(iter(frames))]
+    check(first["viz"].dtype == np.uint8 and first["viz"].shape[:2] == first["depth"].shape,
+          f"{name} int8 viz")
+    emit(rec)
+    return pipe, launches
+
+
+def int8_parity(name, fam, path_pipe, frames):
+    """For each weight seed and frame, the int8 route against the bf16 and
+    fp32 routes on the same fp32 weights: Pearson r against fp32 (held above
+    INT8_PEARSON_MIN at every reading) and max rel against both (against
+    fp32 held below INT8_REL_TOL). Every reading is emitted before any is
+    checked."""
+    import numpy as np
+    import torch
+
+    from monocular_depth_estimation_trt_tpu_torch.weights.store import init_random_
+
+    readings = []
+    for seed in PARITY_WEIGHT_SEEDS:
+        model = fam["make"]()
+        init_random_(model, seed)
+        sd = model.state_dict()
+        del model
+        int8 = path_pipe if seed == 0 else fam["build"]("int8", sd)
+        bf16, fp32 = fam["build"]("bf16", sd), fam["build"]("fp32", sd)
+        for frame_name, frame in frames.items():
+            q, b, f = (fam["run"](p, frame) for p in (int8, bf16, fp32))
+            rec = {"phase": "int8_parity", "model": name, "weights_seed": seed,
+                   "frame": frame_name}
+            for k in q:
+                rec[k] = {"int8_vs_fp32_rel": rel(q[k], f[k]),
+                          "int8_vs_fp32_mean_rel": mean_rel(q[k], f[k]),
+                          "int8_vs_bf16_rel": rel(q[k], b[k]),
+                          "bf16_vs_fp32_rel": rel(b[k], f[k]),
+                          "bf16_vs_fp32_mean_rel": mean_rel(b[k], f[k])}
+                if k in fam["pearson_keys"]:
+                    rec[k]["int8_vs_fp32_pearson"] = pearson(q[k], f[k])
+                    rec[k]["bf16_vs_fp32_pearson"] = pearson(b[k], f[k])
+            emit(rec)
+            readings.append(rec)
+        del int8, bf16, fp32, sd
+        torch.cuda.empty_cache()
+    keys = [k for k in readings[0] if isinstance(readings[0][k], dict)]
+    emit({"phase": "int8_parity_summary", "model": name, "readings": len(readings),
+          **{k: {"max_int8_vs_fp32_rel": max(r[k]["int8_vs_fp32_rel"] for r in readings),
+                 "max_bf16_vs_fp32_rel": max(r[k]["bf16_vs_fp32_rel"] for r in readings),
+                 "min_int8_vs_fp32_pearson": min(
+                     (r[k].get("int8_vs_fp32_pearson", 1.0) for r in readings)),
+                 "int8_vs_fp32_rel_tolerance": INT8_REL_TOL[name][k]}
+             for k in keys},
+          "pearson_tolerance": INT8_PEARSON_MIN})
+    for r in readings:
+        at = f"seed {r['weights_seed']} {r['frame']}"
+        for k in keys:
+            check(bool(np.isfinite(r[k]["int8_vs_fp32_rel"])), f"{name} int8 {k} ({at})")
+            got = r[k].get("int8_vs_fp32_pearson")
+            check(got is None or got > INT8_PEARSON_MIN,
+                  f"{name} int8 {k}: Pearson r {got} against fp32 ({at})")
+            got = r[k]["int8_vs_fp32_rel"]
+            check(got < INT8_REL_TOL[name][k], f"{name} int8 {k} vs fp32 rel {got} ({at})")
+
+
+def speed_record(rep, pipe, repeat, card, power_limit):
+    return {"phase": "speed", "model": pipe.spec.artifact_name(), "repeat": repeat,
+            "fps": rep.fps, "mean_ms": rep.avg_ms,
+            "p50_ms": rep.percentile_ms(50), "p99_ms": rep.percentile_ms(99),
+            "iterations": rep.iterations, "includes": "H2D uint8 + forward + D2H depth",
+            "card": card, "power_limit": power_limit}
+
+
 def parse_smi(line: str):
     name, _, limit = line.partition(",")
     return name.strip(), limit.strip()
@@ -758,6 +1058,7 @@ def main() -> None:
     sys.path.insert(0, REPO)
     from monocular_depth_estimation_trt_tpu_torch.ops.cuda import _build
     from monocular_depth_estimation_trt_tpu_torch.ops.cuda import flash_attention as fa
+    from monocular_depth_estimation_trt_tpu_torch.ops.cuda import quant_matmul as qm
     from monocular_depth_estimation_trt_tpu_torch.registry import build_pipeline
     from monocular_depth_estimation_trt_tpu_torch.config import BenchmarkConfig
     from monocular_depth_estimation_trt_tpu_torch.weights.store import (
@@ -767,6 +1068,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    wrappers = wrappers_of(fa, qm)
 
     # 1. device
     smi = run_cmd(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -793,6 +1095,7 @@ def main() -> None:
     k1 = check_flash_attention_packed(fa, dev)
     k2 = check_flash_attention(fa, dev)
     k3 = check_flash_attention_batched(fa, dev)
+    k4 = check_w8a8_matmul(qm, dev)
 
     # 4. main path: every count set to 0 just before, read just after
     set_allow_random_weights(True)
@@ -804,7 +1107,7 @@ def main() -> None:
     metric = build_pipeline("depth_anything_v2", encoder="vits", metric=True)
     check(pipe.device.type == "cuda", f"default device is {pipe.device}")
 
-    set_counts_to_zero(fa)
+    set_counts_to_zero(wrappers)
     per_frame = []
     outs = {}
     for key, frame in (("a", frame_a), ("b", frame_b)):
@@ -816,12 +1119,13 @@ def main() -> None:
     batch_launches = fa.flash_attention_packed.launches - before
     out_metric = metric(frame_a, viz=True)
     torch.cuda.synchronize()
-    launches = launch_record(fa)
+    launches = launch_record(wrappers)
 
     check(per_frame == [12, 12], f"K1 launches per vits frame {per_frame}, want 12")
     check(batch_launches == 12, f"K1 launches for a batch of 2: {batch_launches}")
     check(launches == {"flash_attention_batched": 0, "flash_attention_packed": 48,
-                       "flash_attention": 0}, f"launches on the main path {launches}")
+                       "flash_attention": 0, "w8a8_matmul": 0},
+          f"launches on the main path {launches}")
     for key, frame in (("a", frame_a), ("b", frame_b)):
         d, viz = outs[key]["depth"], outs[key]["viz"]
         check(d.shape == frame.shape[:2] and d.dtype == np.float32,
@@ -878,14 +1182,34 @@ def main() -> None:
     del plain, card32, cpu32, metric
 
     # 5. the VGGT path (its own counted run), then its route comparisons
-    vggt, vggt_launches = run_vggt_path(build_pipeline, fa, rng)
+    vggt, vggt_launches = run_vggt_path(build_pipeline, fa, wrappers, rng)
     vggt_parity(build_pipeline, vggt, parity_frames(rng))
 
     # 6. the Depth Pro path (its own counted run), then its route comparisons
-    depth_pro, depth_pro_launches, depth_pro_frames = run_depth_pro_path(build_pipeline, fa, rng)
+    depth_pro, depth_pro_launches, depth_pro_frames = run_depth_pro_path(build_pipeline, wrappers,
+                                                                         rng)
     depth_pro_parity(build_pipeline, depth_pro, depth_pro_frames)
 
-    # 7. speed (the counts are read above; benchmark launches are not counted)
+    # 7. the int8 paths (each its own counted run), then int8 against the bf16
+    # and fp32 routes; calibration on three seeded frames (noise and a
+    # smooth scene-like frame)
+    calib = list(parity_frames(np.random.default_rng(7)).values())
+    int8_frames = {
+        "depth_anything_v2": {"frame_480x640": rng.integers(0, 256, (480, 640, 3), dtype=np.uint8),
+                              "frame_518x518": rng.integers(0, 256, (518, 518, 3), dtype=np.uint8)},
+        "depth_pro": depth_pro_frames,
+        "vggt": {"frame_480x640": rng.integers(0, 256, (480, 640, 3), dtype=np.uint8),
+                 "frame_518x518": rng.integers(0, 256, (518, 518, 3), dtype=np.uint8)},
+    }
+    views4_u8 = rng.integers(0, 256, (4, 518, 518, 3), dtype=np.uint8)
+    int8_pipes, int8_launches = {}, {}
+    for name, frames in int8_frames.items():
+        fam = int8_family(name, build_pipeline, calib)
+        int8_pipes[name], int8_launches[name] = run_int8_path(
+            name, fam, wrappers, frames, views4_u8 if name == "vggt" else None)
+        int8_parity(name, fam, int8_pipes[name], frames)
+
+    # 8. speed (the counts are read above; benchmark launches are not counted)
     cfg = BenchmarkConfig(warmup=10, iterations=100, latency_iterations=50)
     for encoder in ("vits", "vitl"):
         p = pipe if encoder == "vits" else build_pipeline(
@@ -897,14 +1221,9 @@ def main() -> None:
             check(got == 24, f"K1 launches per vitl frame {got}, want 24")
             check(bool(np.isfinite(out).all()), "vitl depth not finite")
         for repeat in range(SPEED_REPEATS):  # the spread within one call
-            rep = p.benchmark((518, 518), cfg)
-            emit({"phase": "speed", "model": p.spec.artifact_name(), "repeat": repeat,
-                  "fps": rep.fps, "mean_ms": rep.avg_ms,
-                  "p50_ms": rep.percentile_ms(50), "p99_ms": rep.percentile_ms(99),
-                  "iterations": rep.iterations,
-                  "includes": "H2D uint8 + forward + D2H depth",
-                  "card": card, "power_limit": power_limit})
-        del p
+            emit(speed_record(p.benchmark((518, 518), cfg), p, repeat, card, power_limit))
+        if encoder == "vitl":
+            vitl = p
     vcfg = BenchmarkConfig(**VGGT_BENCH)
     for s in (1, 4):
         for repeat in range(SPEED_REPEATS):
@@ -932,7 +1251,40 @@ def main() -> None:
               "includes": "H2D uint8 1536x1536 + forward + D2H depth",
               "card": card, "power_limit": power_limit})
 
-    # 8. where the device time goes, after the speed phase so that the
+    # int8 beside bf16: DA-V2 vitl, depth_pro and vggt (their bf16 rows are
+    # above); vits int8 (forced past the small-encoder guard) against vits
+    # bf16 in alternating turns: the evidence for the guard's default
+    for repeat in range(SPEED_REPEATS):
+        emit(speed_record(int8_pipes["depth_anything_v2"].benchmark((518, 518), cfg),
+                          int8_pipes["depth_anything_v2"], repeat, card, power_limit))
+    os.environ["MDET_FORCE_INT8"] = "1"
+    vits8 = build_pipeline("depth_anything_v2", encoder="vits", precision="int8",
+                           calib_images=calib)
+    del os.environ["MDET_FORCE_INT8"]
+    check(vits8.spec.precision == "int8", f"forced vits int8 built {vits8.spec.precision}")
+    for turn, p in enumerate((pipe, vits8, vits8, pipe, pipe, vits8)):
+        emit({**speed_record(p.benchmark((518, 518), cfg), p, turn, card, power_limit),
+              "ab_turn": turn})
+    for repeat in range(SPEED_REPEATS):
+        rep = int8_pipes["depth_pro"].benchmark((1536, 1536), dcfg)
+        emit({**speed_record(rep, int8_pipes["depth_pro"], repeat, card, power_limit),
+              "includes": "H2D uint8 1536x1536 + forward + D2H depth"})
+    vggt8 = int8_pipes["vggt"]
+    for s in (1, 4):
+        for repeat in range(SPEED_REPEATS):
+            rep = (vggt8.benchmark((518, 518), vcfg) if s == 1
+                   else vggt8.benchmark_views(s, vcfg))
+            emit({"phase": "speed", "model": vggt8.spec.artifact_name(), "views": s,
+                  "repeat": repeat, "fps_per_frame": rep.fps,
+                  "mean_ms_per_forward": rep.avg_ms,
+                  "p50_ms_per_forward": rep.percentile_ms(50),
+                  "p99_ms_per_forward": rep.percentile_ms(99),
+                  "iterations": rep.iterations,
+                  "includes": ("H2D uint8 + forward (S=1) + D2H depth" if s == 1
+                               else f"forward of {s} device-resident uint8 views"),
+                  "card": card, "power_limit": power_limit})
+
+    # 9. where the device time goes, after the speed phase so that the
     # profiler cannot slow it (launches not counted)
     eng = pipe.engine_for(frame_b.shape[:2])
     dev_frame = torch.from_numpy(frame_b).to(dev)
@@ -946,19 +1298,32 @@ def main() -> None:
     frame_dp = torch.from_numpy(depth_pro_frames["frame_1536x1536"]).to(dev)
     deng = depth_pro.engine_for(frame_dp.shape[:2])
     emit(profile_breakdown(lambda: deng(frame_dp), depth_pro.spec.artifact_name(), iters=3))
+    for p in (vitl, int8_pipes["depth_anything_v2"], vits8):
+        e = p.engine_for(frame_b.shape[:2])
+        emit(profile_breakdown(lambda: e(dev_frame), p.spec.artifact_name()))
+    e = int8_pipes["depth_pro"].engine_for(frame_dp.shape[:2])
+    emit(profile_breakdown(lambda: e(frame_dp), int8_pipes["depth_pro"].spec.artifact_name(),
+                           iters=3))
+    e = vggt8.engine_for(frame_b.shape[:2])
+    emit(profile_breakdown(lambda: e(dev_frame), vggt8.spec.artifact_name() + "_s1", iters=3))
+    v8 = vggt8.views_engine(4)
+    emit(profile_breakdown(lambda: v8(views4), vggt8.spec.artifact_name() + "_s4", iters=3))
 
     # kernels line: the main shape's numbers, every shape in "shapes"; the
     # launches of each path's counted run
-    def kernel_entry(name, source, replaces, function, records, main_shape):
+    def kernel_entry(name, source, replaces, function, records, main_shape,
+                     library_call="torch.nn.functional.scaled_dot_product_attention"):
         main = next(r for r in records if r["shape"] == main_shape)
         by_path = {"depth_anything_v2": launches[name], "vggt": vggt_launches[name],
-                   "depth_pro": depth_pro_launches[name]}
+                   "depth_pro": depth_pro_launches[name],
+                   **{f"{k}_int8": v[name] for k, v in int8_launches.items()}}
+        pallas_file = replaces.partition(":")[0]
         return {
             "name": name,
             "route": "cuda",
             "source": f"monocular_depth_estimation_trt_tpu_torch/csrc/{source}",
-            "replaces": f"monocular_depth_estimation_trt_tpu/ops/pallas/flash_attention.py:{replaces}",
-            "replaces_function": f"ops/pallas/flash_attention.py::{function}",
+            "replaces": f"monocular_depth_estimation_trt_tpu/ops/pallas/{replaces}",
+            "replaces_function": f"ops/pallas/{pallas_file}::{function}",
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in records),
@@ -968,18 +1333,20 @@ def main() -> None:
             "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"],
             "library_ms": main["library_ms"],
-            "library_call": "torch.nn.functional.scaled_dot_product_attention",
+            "library_call": library_call,
             "at_shape": main["shape"],
             "shapes": records,
         }
 
     kernels = [
-        kernel_entry("flash_attention_packed", "flash_attention_packed.cu", 272,
-                     "_attn_kernel_packed", k1, "vits_518"),
-        kernel_entry("flash_attention", "flash_attention.cu", 38, "_attn_kernel", k2,
-                     "global_s4"),
-        kernel_entry("flash_attention_batched", "flash_attention_batched.cu", 68,
-                     "_attn_kernel_batched", k3, "depth_pro_patch"),
+        kernel_entry("flash_attention_packed", "flash_attention_packed.cu",
+                     "flash_attention.py:272", "_attn_kernel_packed", k1, "vits_518"),
+        kernel_entry("flash_attention", "flash_attention.cu", "flash_attention.py:38",
+                     "_attn_kernel", k2, "global_s4"),
+        kernel_entry("flash_attention_batched", "flash_attention_batched.cu",
+                     "flash_attention.py:68", "_attn_kernel_batched", k3, "depth_pro_patch"),
+        kernel_entry("w8a8_matmul", "w8a8_matmul.cu", "quant_matmul.py:43", "_w8a8_kernel", k4,
+                     "vitl_qkv", library_call="quantize + torch._int_mm + rescale"),
     ]
 
     emit({"kernels": kernels})

@@ -78,9 +78,13 @@ def compute_dtype(precision: str) -> torch.dtype:
     """Map a precision name to the torch compute dtype (fp16 -> bf16, as in
     the JAX package)."""
     if precision == "int8":
+        # int8 is a serving mode (w8a8, ops/quant.py), not a compute dtype:
+        # the families with an int8 path build the bf16 graph and swap in
+        # QuantLinear layers themselves
         raise ValueError(
-            "int8 (w8a8) serving is not ported to the torch package yet; "
-            "use bf16/fp16/fp32"
+            "int8 is a serving mode, not a compute dtype: the families in "
+            "registry.INT8_FAMILIES serve it as a bf16 graph with int8 linear "
+            "layers; use bf16/fp16/fp32 here"
         )
     return {
         "fp32": torch.float32,

@@ -20,6 +20,7 @@ from monocular_depth_estimation_trt_tpu_torch.models.vit import (
     DinoViT,
     ViTConfig,
 )
+from monocular_depth_estimation_trt_tpu_torch.ops.quant import linear_paths
 
 # features / out_channels per encoder (reference Depth_Anything_V2/infer.py:48-53)
 HEAD_CONFIGS = {
@@ -70,6 +71,13 @@ class DepthAnythingV2(nn.Module):
             patch_size=vit_cfg.patch_size,
             final_act="sigmoid" if metric else "relu",
         )
+
+    def int8_targets(self):
+        """The layers that int8 serving quantizes: every ``nn.Linear`` of the
+        encoder (qkv, proj, fc1 and fc2, or w12 and w3, of each block), the
+        JAX package's ``QuantDense`` layers. The DPT head keeps the compute
+        type."""
+        return linear_paths(self, "pretrained")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         ph, pw = x.shape[1] // self.patch_size, x.shape[2] // self.patch_size

@@ -36,6 +36,7 @@ import torch.nn.functional as F
 
 from monocular_depth_estimation_trt_tpu_torch.models.dpt import FeatureFusionBlock
 from monocular_depth_estimation_trt_tpu_torch.models.vit import DinoViT, ViTConfig
+from monocular_depth_estimation_trt_tpu_torch.ops.quant import linear_paths
 from monocular_depth_estimation_trt_tpu_torch.ops.resize import resize
 
 VIT_L16_384 = ViTConfig(dim=1024, depth=24, num_heads=16, patch_size=16, pretrain_img_size=384)
@@ -180,6 +181,12 @@ class DepthPro(nn.Module):
         self.head_conv1 = nn.Conv2d(f // 2, 32, 3, 1, 1)
         self.head_conv2 = nn.Conv2d(32, 1, 1)
         self.fov = FOVNetwork(f, vit.dim, self.grid)
+
+    def int8_targets(self):
+        """The layers that int8 serving quantizes: every ``nn.Linear`` of
+        the two ViT encoders, as in the JAX package. The decoder and the FoV
+        network keep the compute type."""
+        return linear_paths(self, "patch_encoder", "image_encoder")
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         c = self.cfg

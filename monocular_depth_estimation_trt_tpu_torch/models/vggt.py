@@ -45,6 +45,7 @@ from monocular_depth_estimation_trt_tpu_torch.ops.cuda.flash_attention import (
     attention_reference,
     flash_attention,
 )
+from monocular_depth_estimation_trt_tpu_torch.ops.quant import linear_paths
 
 
 def rope_2d_freqs(ph: int, pw: int, head_dim: int, base: float = 100.0,
@@ -320,6 +321,13 @@ class VGGT(nn.Module):
                                         cfg.head_out_channels, cfg.patch_size)
         if with_camera:
             self.camera_head = CameraHead(2 * cfg.dim, num_heads=cfg.num_heads)
+
+    def int8_targets(self):
+        """The layers that int8 serving quantizes: every ``nn.Linear`` of the
+        aggregator (the DINOv2 patch embed's blocks, ``input_proj`` where it
+        exists, the frame and global blocks), as in the JAX package. The
+        depth and camera heads keep the compute type."""
+        return linear_paths(self, "aggregator")
 
     def forward(self, views: torch.Tensor) -> Dict[str, torch.Tensor]:
         agg, patch_hw = self.aggregator(views)

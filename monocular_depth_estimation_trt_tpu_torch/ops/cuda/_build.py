@@ -137,6 +137,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         # K2 and K3: q, k, v, out, 12 int64 strides, batch, heads, n, scale, stream
         "mdet_flash_attention": bhnd,
         "mdet_flash_attention_batched": bhnd,
+        # K4: x, weight_q, qmul, out_scale, bias (or null), out, m, n, k, stream
+        "mdet_w8a8_matmul": (ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr),
     }
     for stem, argtypes in signatures.items():
         for suffix in ("_bf16", "_f32"):

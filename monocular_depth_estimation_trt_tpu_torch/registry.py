@@ -8,13 +8,18 @@ Ported so far: the Depth Anything family (``depth_anything_v2``,
 ``distill_any_depth``, ``depth_anything_ac``, ``dkt``, ``bridge``), which
 shares one serving graph, ``vggt`` and ``depth_pro``. Every factory takes ``device``;
 ``None`` means ``"cuda"``, and a missing card is an error, never a quiet
-move to the CPU.
+move to the CPU. ``precision="int8"`` serves the bf16 graph with the
+family's encoder linears quantized (``ops/quant.py``, kernel K4),
+calibrated at build time on ``calib_images`` or on
+:func:`_calibration_images`.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping, Optional
+import os
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence
 
+import numpy as np
 import torch
 
 from monocular_depth_estimation_trt_tpu_torch.config import (
@@ -70,15 +75,35 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+# Families with an int8 w8a8 serving path, of those the port has registered
+# (dkt and bridge reach it through _build_da_family as well).
+INT8_FAMILIES = frozenset({
+    "depth_anything_v2", "distill_any_depth", "depth_anything_ac", "depth_pro", "vggt",
+})
+
+# Encoders for which precision="int8" builds the bf16 graph unless
+# MDET_FORCE_INT8=1: on one H100, DA-V2 vits int8 at batch 1 is slower than
+# vits bf16 (PERF.md, section 6, from chip_smoke.py's speed phase).
+INT8_MEMORY_BOUND_ENCODERS = frozenset({"vits", "vits16", "small"})
+
+
 def resolve_int8_precision(model_name: str, encoder: str, precision: str) -> str:
-    """int8 (w8a8 serving, kernel K4) is not ported yet: refuse it clearly."""
-    if precision == "int8":
-        raise NotImplementedError(
-            f"{' '.join(filter(None, (model_name, encoder)))}: precision='int8' needs the w8a8 matmul "
-            "kernel K4 (ops/pallas/quant_matmul.py::_w8a8_kernel), which is "
-            "not ported to CUDA yet; use bf16, fp16 or fp32"
-        )
-    return precision
+    """Build-time int8 routing guard: for an encoder of
+    :data:`INT8_MEMORY_BOUND_ENCODERS`, ``int8`` becomes ``bf16`` with a
+    warning; ``MDET_FORCE_INT8=1`` keeps int8 (to measure it, or for
+    batched offline serving)."""
+    from monocular_depth_estimation_trt_tpu_torch.utils.logging import log
+
+    if precision != "int8" or encoder not in INT8_MEMORY_BOUND_ENCODERS:
+        return precision
+    if os.environ.get("MDET_FORCE_INT8", "") == "1":
+        log(f"{model_name} {encoder}: int8 on a small encoder is slower than bf16 at batch 1 "
+            "on the H100 (PERF.md); forced by MDET_FORCE_INT8=1", tag="WARN")
+        return precision
+    log(f"{model_name} {encoder}: auto-routing int8 -> bf16: int8 on a small encoder is "
+        "slower than bf16 at batch 1 on the H100 (PERF.md). Set MDET_FORCE_INT8=1 to "
+        "override.", tag="WARN")
+    return "bf16"
 
 
 def _full_fp32(dtype: torch.dtype, device: torch.device) -> None:
@@ -87,6 +112,110 @@ def _full_fp32(dtype: torch.dtype, device: torch.device) -> None:
     if dtype == torch.float32 and device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+# ---------------------------------------------------------------------------
+# int8 serving: calibration images, weights and the quantized layers
+# ---------------------------------------------------------------------------
+
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _resize_u8(img: np.ndarray, hw) -> np.ndarray:
+    """Bilinear resize of a uint8 (H, W, 3) image, half-pixel centers and no
+    antialiasing (cv2.INTER_LINEAR's sampling), rounded back to uint8."""
+    t = torch.from_numpy(np.ascontiguousarray(img)).permute(2, 0, 1)[None].float()
+    t = torch.nn.functional.interpolate(t, size=tuple(hw), mode="bilinear", align_corners=False)
+    return t[0].permute(1, 2, 0).round().clamp(0, 255).to(torch.uint8).numpy()
+
+
+def _read_rgb(path: str) -> Optional[np.ndarray]:
+    """An image file as uint8 RGB, decoded by cv2 as in the JAX package;
+    None when it is missing or unreadable, or (with a warning) when cv2 is
+    not importable."""
+    from monocular_depth_estimation_trt_tpu_torch.utils.logging import log
+
+    if not os.path.exists(path):
+        return None
+    try:
+        import cv2
+    except ImportError:
+        log(f"cv2 is not importable: int8 calibration skips {path}", tag="WARN")
+        return None
+    img = cv2.imread(path)  # None on an unreadable file
+    return None if img is None else cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+
+
+def _calibration_images(input_hw, n_synthetic: int = 2):
+    """Images for int8 activation-scale calibration: the repository's example
+    photo where it can be decoded, padded with deterministic synthetic
+    textures (so that a bare checkout still calibrates; a deployment should
+    calibrate on its own images through ``calib_images=[...]``). The JAX
+    package's set: the same seed, sizes and count rule.
+
+    ``input_hw``: (H, W) target resolution, or one int for a square."""
+    if isinstance(input_hw, int):
+        input_hw = (input_hw, input_hw)
+    h, w = input_hw
+    imgs = []
+    photo = _read_rgb(os.path.join(_REPO_ROOT, "data", "example.jpg"))
+    if photo is not None:
+        imgs.append(_resize_u8(photo, (h, w)))
+    rng = np.random.default_rng(0)
+    for _ in range(max(n_synthetic - len(imgs), 1)):
+        base = rng.integers(0, 255, (h // 7, w // 7, 3), dtype=np.uint8)
+        imgs.append(_resize_u8(base, (h, w)))
+    return imgs
+
+
+def _int8_bundle(model: torch.nn.Module, masters, make_sample: Callable, *,
+                 calib_images: Optional[Sequence[np.ndarray]], input_size) -> None:
+    """Calibrate ``model`` (cast, on its device) on ``calib_images`` or the
+    default set, each through ``make_sample`` (uint8 (H, W, 3) on the device
+    -> the model's input), and swap in the quantized layers built from
+    ``masters`` (path -> full-precision weight and bias). No bundle is
+    cached on disk yet."""
+    from monocular_depth_estimation_trt_tpu_torch.ops.quant import quantize_model_bundle
+
+    device = next(model.parameters()).device
+
+    def samples():
+        images = calib_images if calib_images is not None else _calibration_images(input_size)
+        for img in images:
+            yield make_sample(torch.from_numpy(np.ascontiguousarray(img)).to(device))
+
+    quantize_model_bundle(model, masters, samples())
+
+
+def _params_for(model: torch.nn.Module, spec: ModelSpec, *, params, checkpoint, device,
+                dtype, make_sample: Callable, input_size, calib_images=None) -> torch.nn.Module:
+    """Fill ``model``'s weights (``params``, else ``checkpoint``, else random
+    weights where allowed; int8 reads the bf16 artifact's weights, as in the
+    JAX package), cast it to ``device`` and ``dtype``, and for
+    ``spec.precision == "int8"`` calibrate it and swap its
+    ``int8_targets()`` for ``QuantLinear`` layers quantized from the
+    full-precision weights."""
+    from monocular_depth_estimation_trt_tpu_torch.ops.quant import full_precision
+    from monocular_depth_estimation_trt_tpu_torch.weights.store import resolve_weights
+
+    quant = spec.precision == "int8"
+    name = spec.with_(precision="bf16").artifact_name() if quant else spec.artifact_name()
+    resolve_weights(model, name, checkpoint=checkpoint, state_dict=params)
+    masters = full_precision(model, model.int8_targets()) if quant else None
+    model = model.to(device=device, dtype=dtype).eval()
+    if quant:
+        _int8_bundle(model, masters, make_sample, calib_images=calib_images,
+                     input_size=input_size)
+    return model
+
+
+def _dtype_for(precision: str, device: torch.device) -> torch.dtype:
+    """The compute type: int8 serves a bf16 graph."""
+    from monocular_depth_estimation_trt_tpu_torch.config import compute_dtype
+
+    dtype = compute_dtype("bf16" if precision == "int8" else precision)
+    _full_fp32(dtype, device)
+    return dtype
 
 
 # ---------------------------------------------------------------------------
@@ -110,12 +239,12 @@ def _build_da_family(
     resize_mode: str = "square",  # "square" | "lower_bound"
     device=None,
     model_kw: Optional[Dict[str, Any]] = None,
+    calib_images: Optional[Sequence[np.ndarray]] = None,  # uint8 (H, W, 3), for int8 scales
 ) -> DepthPipeline:
     """``params``: an upstream-named state dict (e.g. from
     ``weights.from_jax.state_dict_from_jax``); ``model_kw``: overrides of
     the encoder presets passed to ``DepthAnythingV2`` (``vit_config``,
     ``head_features``, ``head_out_channels``, ``out_indices``)."""
-    from monocular_depth_estimation_trt_tpu_torch.config import compute_dtype
     from monocular_depth_estimation_trt_tpu_torch.models.depth_anything_v2 import (
         DepthAnythingV2,
     )
@@ -125,7 +254,6 @@ def _build_da_family(
         to_float_rgb,
     )
     from monocular_depth_estimation_trt_tpu_torch.ops.resize import resize
-    from monocular_depth_estimation_trt_tpu_torch.weights.store import resolve_weights
 
     if resize_mode not in ("square", "lower_bound"):
         raise ValueError(f"unknown resize_mode {resize_mode!r}")
@@ -144,15 +272,9 @@ def _build_da_family(
         metric=metric,
         dataset=dataset if metric else "",
     )
-    dtype = compute_dtype(precision)
-    _full_fp32(dtype, device)
-
-    model = DepthAnythingV2(encoder=encoder, metric=metric, max_depth=max_depth,
-                            attn_impl=attn_impl, **(model_kw or {}))
-    resolve_weights(model, spec.artifact_name(), checkpoint=checkpoint,
-                    state_dict=params)
-    # parameters are held in the compute dtype (bf16 on the default path)
-    model = model.to(device=device, dtype=dtype).eval()
+    # int8 = w8a8 encoder serving: the bf16 graph, with the encoder's linear
+    # layers quantized (ops/quant.py, kernel K4)
+    dtype = _dtype_for(precision, device)
 
     def preprocess(img_u8: torch.Tensor) -> torch.Tensor:
         if resize_mode == "lower_bound":
@@ -162,6 +284,13 @@ def _build_da_family(
         x = to_float_rgb(img_u8)
         x = resize(x, spec.input_hw, method="linear")
         return normalize(x, IMAGENET_MEAN, IMAGENET_STD)
+
+    model = DepthAnythingV2(encoder=encoder, metric=metric, max_depth=max_depth,
+                            attn_impl=attn_impl, **(model_kw or {}))
+    # parameters are held in the compute dtype (bf16 on the default path)
+    model = _params_for(model, spec, params=params, checkpoint=checkpoint, device=device,
+                        dtype=dtype, make_sample=lambda img: preprocess(img[None]),
+                        input_size=input_size, calib_images=calib_images)
 
     forward = depth_forward_factory(model, preprocess)
     return DepthPipeline(spec, forward, device=device, model=model,
@@ -218,11 +347,11 @@ def _build_vggt(
     with_camera: bool = True,
     checkpoint: Optional[str] = None,
     device=None,
+    calib_images: Optional[Sequence[np.ndarray]] = None,
 ) -> VGGTPipeline:
     """``params``: an upstream-named state dict (e.g. from
     ``weights.from_jax.vggt_from_jax``); ``vggt_cfg``: a ``VGGTConfig``
     override (tests)."""
-    from monocular_depth_estimation_trt_tpu_torch.config import compute_dtype
     from monocular_depth_estimation_trt_tpu_torch.models.vggt import VGGT, VGGTConfig
     from monocular_depth_estimation_trt_tpu_torch.ops.camera import (
         extrinsics_from_quat_trans,
@@ -230,22 +359,23 @@ def _build_vggt(
     )
     from monocular_depth_estimation_trt_tpu_torch.ops.postprocess import upsample_depth
     from monocular_depth_estimation_trt_tpu_torch.ops.preprocess import preprocess_pad_square
-    from monocular_depth_estimation_trt_tpu_torch.weights.store import resolve_weights
 
     device = resolve_device(device)
     cfg = vggt_cfg or VGGTConfig()
-    precision = resolve_int8_precision(model_name, cfg.encoder, precision)
     spec = ModelSpec(
         model=model_name, input_hw=(input_size, input_size), precision=precision,
         metric=True,
         # the depth-only and with-camera variants have different weights
         variant="" if with_camera else "depth",
     )
-    dtype = compute_dtype(precision)
-    _full_fp32(dtype, device)
-    model = VGGT(cfg, attn_impl, with_camera)
-    resolve_weights(model, spec.artifact_name(), checkpoint=checkpoint, state_dict=params)
-    model = model.to(device=device, dtype=dtype).eval()
+    # int8 = w8a8 aggregator serving; calibrated on S=1 views (the scales
+    # are per layer, so S > 1 serving reuses them)
+    dtype = _dtype_for(precision, device)
+    model = _params_for(
+        VGGT(cfg, attn_impl, with_camera), spec, params=params, checkpoint=checkpoint,
+        device=device, dtype=dtype,
+        make_sample=lambda img: preprocess_pad_square(img[None], input_size)[:, None],
+        input_size=input_size, calib_images=calib_images)
 
     def forward(img_u8: torch.Tensor, out_hw):
         """Pad to square, S=1 through the model, crop the padding, resample
@@ -283,13 +413,15 @@ def _build_vggt(
 def vggt(input_size: int = 518, precision: str = "bf16", attn_impl: str = "auto",
          params: Optional[Mapping[str, torch.Tensor]] = None, depth_only: bool = False,
          checkpoint: Optional[str] = None, device=None,
-         vggt_cfg: Any = None) -> VGGTPipeline:
+         vggt_cfg: Any = None,
+         calib_images: Optional[Sequence[np.ndarray]] = None) -> VGGTPipeline:
     """VGGT-1B multi-view geometry transformer (reference ``VGGT/``):
     aggregator + one 2-channel DPT depth head + iterative adaLN camera head,
     single-image (``__call__``) or multi-view (``multi_view``)."""
     return _build_vggt("vggt", input_size=input_size, precision=precision,
                        attn_impl=attn_impl, params=params, vggt_cfg=vggt_cfg,
-                       with_camera=not depth_only, checkpoint=checkpoint, device=device)
+                       with_camera=not depth_only, checkpoint=checkpoint, device=device,
+                       calib_images=calib_images)
 
 
 # ---------------------------------------------------------------------------
@@ -301,7 +433,8 @@ def vggt(input_size: int = 518, precision: str = "bf16", attn_impl: str = "auto"
 def depth_pro(precision: str = "bf16", attn_impl: str = "auto",
               params: Optional[Mapping[str, torch.Tensor]] = None,
               f_px: Optional[float] = None, checkpoint: Optional[str] = None, device=None,
-              model_kw: Optional[Dict[str, Any]] = None) -> DepthPipeline:
+              model_kw: Optional[Dict[str, Any]] = None,
+              calib_images: Optional[Sequence[np.ndarray]] = None) -> DepthPipeline:
     """Apple Depth Pro serving contract (reference ``Depth_Pro/onnx2trt.py``):
     a 1536^2 input; canonical inverse depth and the predicted FoV -> metric
     depth at the frame's own size, plus the focal estimate ``f_px`` (or the
@@ -310,29 +443,32 @@ def depth_pro(precision: str = "bf16", attn_impl: str = "auto",
     ``params``: an upstream-named state dict (e.g. from
     ``weights.from_jax.depth_pro_from_jax``); ``model_kw``: overrides passed
     to ``DepthPro`` (``cfg``, ``decoder_features``, ``dims_encoder``)."""
-    from monocular_depth_estimation_trt_tpu_torch.config import HALF_MEAN, HALF_STD, compute_dtype
+    from monocular_depth_estimation_trt_tpu_torch.config import HALF_MEAN, HALF_STD
     from monocular_depth_estimation_trt_tpu_torch.models.depth_pro import DepthPro
     from monocular_depth_estimation_trt_tpu_torch.ops.camera import fov_to_focal
     from monocular_depth_estimation_trt_tpu_torch.ops.preprocess import normalize, to_float_rgb
     from monocular_depth_estimation_trt_tpu_torch.ops.resize import resize, resize_hw
-    from monocular_depth_estimation_trt_tpu_torch.weights.store import resolve_weights
 
     device = resolve_device(device)
-    precision = resolve_int8_precision("depth_pro", "", precision)
     model = DepthPro(attn_impl=attn_impl, **(model_kw or {}))
     size = model.cfg.img_size
     spec = ModelSpec(model="depth_pro", input_hw=(size, size), precision=precision)
-    dtype = compute_dtype(precision)
-    _full_fp32(dtype, device)
-    resolve_weights(model, spec.artifact_name(), checkpoint=checkpoint, state_dict=params)
-    model = model.to(device=device, dtype=dtype).eval()
+    # int8 = w8a8 serving of both ViT encoders
+    dtype = _dtype_for(precision, device)
+
+    def preprocess(img_u8: torch.Tensor) -> torch.Tensor:
+        # reference: ToTensor + Normalize(0.5) + bilinear resize to 1536
+        x = normalize(to_float_rgb(img_u8), HALF_MEAN, HALF_STD)
+        return resize(x[None], (size, size), method="linear")
+
+    model = _params_for(model, spec, params=params, checkpoint=checkpoint, device=device,
+                        dtype=dtype, make_sample=preprocess, input_size=size,
+                        calib_images=calib_images)
 
     def forward(img_u8: torch.Tensor, out_hw):
         if img_u8.dim() != 3:
             raise ValueError(f"depth_pro takes one (H, W, 3) frame, got {tuple(img_u8.shape)}")
-        # reference: ToTensor + Normalize(0.5) + bilinear resize to 1536
-        x = normalize(to_float_rgb(img_u8), HALF_MEAN, HALF_STD)
-        cid, fov_deg = model(resize(x[None], (size, size), method="linear"))
+        cid, fov_deg = model(preprocess(img_u8))
         # postprocess (reference :152-165): W is the frame's own width
         width = out_hw[1]
         if f_px is None:

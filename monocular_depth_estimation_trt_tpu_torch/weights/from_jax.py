@@ -9,6 +9,7 @@ to both packages:
 * Conv kernel (kh, kw, in, out)          -> Conv2d weight (out, in, kh, kw)
 * ConvTranspose kernel (kh, kw, in, out) -> ConvTranspose2d weight (in, out, kh, kw)
 * LayerNorm scale / bias                 -> weight / bias
+* q8 kernel_q (in, out) int8             -> QuantLinear weight_q (out, in) (:func:`q8_from_jax`)
 
 Leaves may be numpy or JAX arrays; they are read with ``np.asarray`` and
 nothing of JAX is imported.
@@ -201,6 +202,56 @@ def depth_pro_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         _conv(fov[name], f"fov.{name}", out)
     _linear(fov["fov_proj"], "fov.fov_proj", out)
     _linear(fov["head"], "fov.head", out)
+    return out
+
+
+# the submodules whose Dense layers each family's int8 serving quantizes
+Q8_ROOTS = {
+    "depth_anything_v2": ("pretrained",),
+    "vggt": ("aggregator",),
+    "depth_pro": ("patch_encoder", "image_encoder"),
+}
+# Flax module names -> the port's module paths
+_Q8_NAMES = (("blocks_", "blocks."), ("frame_", "frame_blocks."), ("global_", "global_blocks."))
+
+
+def _q8_path(keys) -> str:
+    parts = []
+    for key in keys:
+        for flax, port in _Q8_NAMES:
+            if key.startswith(flax) and key[len(flax):].isdigit():
+                key = port + key[len(flax):]
+                break
+        parts.append(key)
+    return ".".join(parts)
+
+
+def q8_from_jax(q8: Mapping[str, Any], family: str) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The JAX package's ``q8`` collection (optionally under a ``"q8"`` key)
+    -> ``{port module path: {"weight_q", "qmul", "out_scale"}}``, the input
+    of ``ops.quant.install_q8``: ``kernel_q`` (K, N) becomes ``weight_q``
+    (N, K) int8, the scales fp32. ``family`` (a key of :data:`Q8_ROOTS`)
+    names the submodules the collection may hold."""
+    if "q8" in q8:
+        q8 = q8["q8"]
+    roots = Q8_ROOTS[family]
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+
+    def walk(node, keys):
+        if "kernel_q" in node:
+            out[_q8_path(keys)] = {
+                "weight_q": torch.from_numpy(np.ascontiguousarray(np.asarray(node["kernel_q"]).T)),
+                "qmul": _t(node["qmul"]),
+                "out_scale": _t(node["out_scale"]),
+            }
+            return
+        for key, sub in node.items():
+            walk(sub, keys + (key,))
+
+    for root, sub in q8.items():
+        if root not in roots:
+            raise ValueError(f"q8 entry {root!r} is outside {family}'s quantized modules {roots}")
+        walk(sub, (root,))
     return out
 
 

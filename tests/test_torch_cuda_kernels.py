@@ -18,6 +18,8 @@ from monocular_depth_estimation_trt_tpu_torch.models.depth_pro import DepthProCo
 from monocular_depth_estimation_trt_tpu_torch.models.vggt import VGGTConfig
 from monocular_depth_estimation_trt_tpu_torch.models.vit import ViTConfig
 from monocular_depth_estimation_trt_tpu_torch.ops.cuda import flash_attention as fa
+from monocular_depth_estimation_trt_tpu_torch.ops.cuda import quant_matmul as qm
+from monocular_depth_estimation_trt_tpu_torch.ops.quant import QuantLinear
 from monocular_depth_estimation_trt_tpu_torch.registry import build_pipeline
 from monocular_depth_estimation_trt_tpu_torch.weights.store import allow_random_weights
 
@@ -243,3 +245,72 @@ def test_depth_pro_pipeline_on_the_card_goes_through_k3_and_k1(cuda, precision):
     assert rel < tol, rel
     assert abs(float(out["f_px"]) / float(ref["f_px"]) - 1) < tol
     assert out["viz"].shape == (480, 640, 3) and out["viz"].dtype == np.uint8
+
+
+def _w8a8(m, k, n, dtype, device, lead=(), seed=0):
+    """K4 operands: activations whose quantized values span the int8 range
+    (some clip), random int8 weights, scales of a calibrated layer."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((*lead, m, k)).astype(np.float32)).to(device, dtype)
+    wq = torch.from_numpy(rng.integers(-127, 128, (n, k)).astype(np.int8)).to(device)
+    qmul = torch.from_numpy(rng.uniform(10.0, 60.0, k).astype(np.float32)).to(device)
+    scale = torch.from_numpy(rng.uniform(1e-5, 1e-3, n).astype(np.float32)).to(device)
+    bias = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(device)
+    return x, wq, qmul, scale, bias
+
+
+@pytest.mark.parametrize("m,k,n,dtype", [
+    (1370, 1024, 3072, torch.bfloat16), (1370, 4096, 1024, torch.bfloat16),
+    (1, 40, 136, torch.bfloat16), (17, 32, 8, torch.bfloat16), (130, 96, 1000, torch.bfloat16),
+    (1370, 1024, 1024, torch.float32), (5, 40, 8, torch.float32), (130, 96, 136, torch.float32),
+])
+def test_k4_equals_its_plain_version(cuda, m, k, n, dtype):
+    """Bit for bit: an exact int32 product and the same fp32 roundings."""
+    x, wq, qmul, scale, bias = _w8a8(m, k, n, dtype, cuda)
+    before = qm.w8a8_matmul.launches
+    out = qm.w8a8_matmul(x, wq, qmul, scale, bias)
+    torch.cuda.synchronize()
+    assert qm.w8a8_matmul.launches == before + 1
+    assert out.shape == (m, n) and out.dtype == dtype and out.is_cuda
+    assert torch.equal(out, qm.w8a8_matmul_reference(x, wq, qmul, scale, bias))
+
+
+def test_k4_takes_leading_dims_and_no_bias_and_refuses_what_it_cannot_write(cuda):
+    x, wq, qmul, scale, _ = _w8a8(10, 64, 128, torch.bfloat16, cuda, lead=(2, 3))
+    out = qm.w8a8_matmul(x, wq, qmul, scale)
+    assert out.shape == (2, 3, 10, 128)
+    assert torch.equal(out, qm.w8a8_matmul_reference(x, wq, qmul, scale))
+    strided = x.transpose(1, 2)  # copied to rows of K by the wrapper
+    assert torch.equal(qm.w8a8_matmul(strided, wq, qmul, scale),
+                       qm.w8a8_matmul_reference(strided, wq, qmul, scale))
+    with pytest.raises(TypeError, match="type of x"):
+        qm.w8a8_matmul(x, wq, qmul, scale, out_dtype=torch.float32)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        qm.w8a8_matmul(x.half(), wq, qmul, scale)
+
+
+@pytest.mark.parametrize("precision", ["bf16", "fp32"])
+def test_int8_pipeline_on_the_card_goes_through_k4(cuda, precision, monkeypatch):
+    """A small DA-V2 int8 (head_dim 64, 2 blocks, forced past the small-encoder
+    guard) on the card: four K4 launches and one K1 launch per block per
+    frame; the depth tracks the CPU fp32 path at the same weights.
+    ``precision`` is the reference's; the int8 graph computes in bf16."""
+    monkeypatch.setenv("MDET_FORCE_INT8", "1")
+    kw = dict(encoder="small", input_size=70, model_kw=dict(
+        vit_config=ViTConfig(dim=128, depth=2, num_heads=2, pretrain_img_size=70),
+        head_features=16, head_out_channels=(8, 16, 32, 32), out_indices=(0, 1, 0, 1)))
+    calib = [np.random.default_rng(i).integers(0, 256, (70, 70, 3), dtype=np.uint8)
+             for i in range(2)]
+    with allow_random_weights(True):
+        card = build_pipeline("depth_anything_v2", precision="int8", calib_images=calib, **kw)
+        ref = build_pipeline("depth_anything_v2", precision=precision, device="cpu", **kw)
+    assert sum(isinstance(m, QuantLinear) for m in card.model.modules()) == 8
+    frame = np.random.default_rng(0).integers(0, 256, (48, 64, 3), dtype=np.uint8)
+    before = (qm.w8a8_matmul.launches, fa.flash_attention_packed.launches)
+    out = card(frame, viz=True)
+    assert (qm.w8a8_matmul.launches - before[0],
+            fa.flash_attention_packed.launches - before[1]) == (8, 2)
+    want = ref(frame)["depth"].ravel()
+    assert np.isfinite(out["depth"]).all()
+    assert np.corrcoef(out["depth"].ravel(), want)[0, 1] > 0.98
+    assert out["viz"].shape == (48, 64, 3) and out["viz"].dtype == np.uint8

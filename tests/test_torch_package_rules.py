@@ -65,7 +65,8 @@ def test_forbidden_matcher_tells_the_two_packages_apart():
 def test_no_port_source_imports_jax_or_the_jax_package():
     sources = _port_sources()
     assert len(sources) > 15
-    for new in ("models/depth_pro.py", "ops/cuda/flash_attention.py", "weights/from_jax.py"):
+    for new in ("models/depth_pro.py", "ops/cuda/flash_attention.py", "weights/from_jax.py",
+                "ops/quant.py", "ops/cuda/quant_matmul.py"):
         assert os.path.join(PORT, new) in sources
     bad = [(os.path.relpath(p, REPO), m) for p in sources
            for m in _imported_modules(p) if _forbidden(m)]
@@ -169,10 +170,47 @@ def test_depth_pro_builds_with_the_jax_artifact_names(monkeypatch, kw):
     assert attn.attn_impl == kw.get("attn_impl", "auto") and attn.num_heads == 16
 
 
-@pytest.mark.parametrize("name", ["depth_anything_v2", "vggt", "depth_pro"])
-def test_int8_is_refused_with_the_missing_kernel_named(name):
-    with pytest.raises(NotImplementedError, match="K4"):
-        treg.build_pipeline(name, precision="int8", device="cpu")
+@pytest.mark.parametrize("name,kw,roots", [
+    ("depth_anything_v2", {"encoder": "vitl"}, ("pretrained",)),
+    ("vggt", {}, ("aggregator",)),
+    ("depth_pro", {}, ("patch_encoder", "image_encoder")),
+])
+def test_int8_builds_with_the_jax_artifact_names(monkeypatch, name, kw, roots):
+    """The full-size int8 builds on the meta device, no weights: calibration
+    (which runs the model) reports layers that never fired, so every target
+    is swapped for a QuantLinear; the spec and artifact name are the JAX
+    package's."""
+    from monocular_depth_estimation_trt_tpu_torch.ops import quant as tquant
+
+    monkeypatch.setattr(jreg, "_params_for", lambda *a, **k: {})
+    monkeypatch.setattr(store, "resolve_weights", lambda *a, **k: None)
+    monkeypatch.setattr(tquant, "calibrate", lambda model, targets, samples: {
+        t: torch.zeros(model.get_submodule(t).in_features, device="meta") for t in targets})
+    jpipe = jreg.build_pipeline(name, precision="int8", **kw)
+    tpipe = treg.build_pipeline(name, device="meta", precision="int8", **kw)
+    assert tpipe.spec == tconfig.ModelSpec(**jpipe.spec.to_dict())
+    assert tpipe.spec.artifact_name() == jpipe.spec.artifact_name()
+    assert tpipe.spec.precision == "int8"
+    swapped = [n for n, m in tpipe.model.named_modules() if isinstance(m, tquant.QuantLinear)]
+    assert swapped and {n.split(".")[0] for n in swapped} == set(roots)
+    assert not [n for n, m in tpipe.model.named_modules()
+                if isinstance(m, torch.nn.Linear) and n.split(".")[0] in roots]
+    layer = tpipe.model.get_submodule(swapped[0])
+    assert layer.weight_q.dtype == torch.int8 and layer.qmul.dtype == torch.float32
+    assert layer.out_dtype == torch.bfloat16
+
+
+def test_every_int8_family_takes_calib_images():
+    import inspect
+
+    assert treg.INT8_FAMILIES <= set(treg.list_models())
+    for name in sorted(treg.INT8_FAMILIES | {"dkt", "bridge"}):
+        params = inspect.signature(getattr(treg, name)).parameters
+        takes_kw = any(p.kind is inspect.Parameter.VAR_KEYWORD for p in params.values())
+        assert "calib_images" in params or (
+            takes_kw and "calib_images" in inspect.signature(treg._build_da_family).parameters)
+    with pytest.raises(ValueError, match="serving mode"):
+        tconfig.compute_dtype("int8")
 
 
 @pytest.mark.parametrize("fields", [
