@@ -7,13 +7,20 @@ Phases, each printed as one JSON line; any failure exits non-zero:
 
 1. device: card name and power limit, torch/CUDA versions, ``nvcc --version``;
 2. build: compiles ``monocular_depth_estimation_trt_tpu_torch/csrc/*.cu``
-   with nvcc into the package's ``_build/`` directory and loads it;
-3. kernel checks: each kernel's wrapper (K1 packed-qkv attention, K2
-   (B, H, N, d) attention, K3 whole-row attention of many short heads, K4
-   the fused w8a8 matmul) against its plain PyTorch version on the card, at
-   the main paths' shapes and edge shapes (K4 bit for bit), with timings of
-   the kernel, the plain version and one library call (for K4 the chain
-   quantize, ``torch._int_mm``, rescale), and the card's bound;
+   with nvcc into the package's ``_build/`` directory and loads it, with
+   ptxas's registers and spills per kernel; then ``sass``: the HGMMA (wgmma)
+   and UTMALDG (TMA load) instructions of each kernel in ``cuobjdump -sass``
+   (the bf16 K2 and K3 must have both, K1 neither);
+3. kernel checks: each kernel's wrapper (K1 packed-qkv attention; K2
+   (B, H, N, d) attention and K3 exact-softmax attention of many short
+   heads, both on the TMA + wgmma mainloop of ``csrc/attention_sm90.cuh`` in
+   bf16; K4 the fused w8a8 matmul) against its plain PyTorch version on the
+   card, at the main paths' shapes and edge shapes (for K2 and K3 the ends
+   of the 64-row query tiles and 128-key tiles: N = 1, 63, 65, 127, 128,
+   129, 255, 257, 577; K4 bit for bit), with timings of the kernel, the plain version
+   and one library call (for K4 the chain quantize, ``torch._int_mm``,
+   rescale), the card's bound, and the host time of one wrapper call (K2 and
+   K3 encode four TMA tensor maps a call);
 4. main path: ``build_pipeline("depth_anything_v2", encoder="vits")`` on the
    card with seeded random weights: two frames, a batch of two with the viz
    epilogue, the metric variant; the launch counts of every kernel are read
@@ -158,6 +165,44 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_us(fn, calls: int = 20) -> float:
+    """Median host time of one call of ``fn`` in µs, the card busy behind
+    it: what the wrapper costs the host (checks, argument packing, launch)."""
+    import statistics
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e6
+
+
+def sass_counts(lib_path: str):
+    """HGMMA (wgmma), UTMALDG (TMA load) and UTMASTG (TMA store)
+    instructions per kernel of the built library, from ``cuobjdump -sass``;
+    None if the toolkit has no cuobjdump."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    counts, func = {}, None
+    for line in run_cmd([tool, "-sass", lib_path]).splitlines():
+        if "Function :" in line:
+            func = line.split("Function :", 1)[1].strip()
+            counts[func] = {"HGMMA": 0, "UTMALDG": 0, "UTMASTG": 0}
+        elif func is not None:
+            for op in counts[func]:
+                counts[func][op] += op in line
+    return counts
+
+
 def attention_bound(b: int, n: int, h: int, d: int, itemsize: int, peak_ops: float):
     ops = 4.0 * b * h * n * n * d
     nbytes = float(b * n * 4 * h * d * itemsize)  # qkv read once, out written once
@@ -228,6 +273,7 @@ def check_flash_attention_packed(fa, dev):
             "kernel_vs_fp32_err": (out.float() - exact).abs().max().item(),
             "plain_attention_vs_fp32_err": (plain_route.float() - exact).abs().max().item(),
             "kernel_ms": time_ms(lambda: fa.flash_attention_packed(qkv, h)),
+            "host_us_per_call": host_us(lambda: fa.flash_attention_packed(qkv, h)),
             "plain_ms": time_ms(lambda: fa.flash_attention_packed_reference(qkv, h),
                                 iters=10, warmup=2),
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
@@ -253,6 +299,12 @@ def check_flash_attention(fa, dev):
         ("n1", 1, 16, 1, 64, torch.bfloat16, False),
         ("n63", 2, 16, 63, 64, torch.bfloat16, False),
         ("n65", 2, 16, 65, 64, torch.bfloat16, False),
+        ("n127", 2, 16, 127, 64, torch.bfloat16, False),
+        ("n128", 2, 16, 128, 64, torch.bfloat16, False),
+        ("n129", 2, 16, 129, 64, torch.bfloat16, False),
+        ("n255", 2, 16, 255, 64, torch.bfloat16, False),
+        ("n257", 2, 16, 257, 64, torch.bfloat16, False),
+        ("n577_strided", 4, 16, 577, 64, torch.bfloat16, True),
         ("d16_padded", 1, 16, 1374, 16, torch.bfloat16, False),
         ("global_s4_strided", 1, 16, 5496, 64, torch.bfloat16, True),
         ("frame_s1_fp32", 1, 16, 1374, 64, torch.float32, False),
@@ -263,10 +315,11 @@ def check_flash_attention(fa, dev):
 def check_flash_attention_batched(fa, dev):
     """K3 against its plain version at Depth Pro's patch-encoder shape (35
     windows x 16 heads of 577 tokens, q, k, v as views of the qkv output,
-    as the path reads them) and edge shapes: the bound N = 1024 and N = 833
-    (the 32-row query tile, in bf16 and fp32), N = 63, 65 and 1, a padded
-    d = 16, a head count that is no power of two, and fp32. K1 is timed at
-    the main shape too, on the same qkv: the route between the two is open."""
+    as the path reads them) and edge shapes: the bound N = 1024, N = 833,
+    the ends of the 64-row query tiles and 128-key tiles (N = 1, 63, 65,
+    127, 128, 129, 255, 257), a padded d = 16, a head count that is no power
+    of two, and fp32. K1 is timed at the main shape too, on the same qkv:
+    the route between the two is open."""
     import torch
 
     return check_bhnd_kernel(fa, dev, "flash_attention_batched", seed=3, k1_at="depth_pro_patch",
@@ -277,6 +330,11 @@ def check_flash_attention_batched(fa, dev):
         ("n1", 35, 8, 1, 64, torch.bfloat16, False),
         ("n63", 35, 8, 63, 64, torch.bfloat16, False),
         ("n65", 35, 8, 65, 64, torch.bfloat16, False),
+        ("n127", 35, 8, 127, 64, torch.bfloat16, False),
+        ("n128", 35, 8, 128, 64, torch.bfloat16, False),
+        ("n129", 35, 8, 129, 64, torch.bfloat16, False),
+        ("n255", 35, 8, 255, 64, torch.bfloat16, False),
+        ("n257", 35, 8, 257, 64, torch.bfloat16, False),
         ("d16_padded", 35, 16, 577, 16, torch.bfloat16, True),
         ("bh259", 7, 37, 577, 64, torch.bfloat16, False),
         ("depth_pro_patch_fp32", 35, 16, 577, 64, torch.float32, True),
@@ -310,7 +368,8 @@ def check_bhnd_kernel(fa, dev, name, shapes, seed, k1_at=None):
         diff = (out.float() - ref).abs()
         err, mean_err = diff.max().item(), diff.mean().item()
         ref_max, ref_rms = ref.abs().max().item(), ref.square().mean().sqrt().item()
-        tol = min(BF16_TOL, K2_BF16_ULPS * bf16_ulp(ref_max)) if bf16 else FP32_TOL
+        step = bf16_ulp(ref_max)
+        tol = min(BF16_TOL, K2_BF16_ULPS * step) if bf16 else FP32_TOL
         check(out.shape == (b, h, n, d), f"{name} {label}: shape {tuple(out.shape)}")
         check(err <= tol, f"{name} {label}: max_abs_err {err} > {tol}")
         # the bar's power: the plain version with one key tile left out (what
@@ -343,11 +402,13 @@ def check_bhnd_kernel(fa, dev, name, shapes, seed, k1_at=None):
             "shape": label, "B": b, "H": h, "N": n, "d": d, "strided": strided,
             "dtype": str(dtype).replace("torch.", ""),
             "max_abs_err": err, "tolerance": tol, "mean_abs_err": mean_err,
+            "err_bf16_steps": err / step if bf16 else None,
             "plain_max_abs": ref_max, "plain_rms": ref_rms,
             "dropped_key_tile_err": dropped_tile_err,
             "kernel_vs_fp32_err": kernel_vs_fp32,
             "plain_attention_vs_fp32_err": plain_vs_fp32,
             "kernel_ms": time_ms(lambda: kernel(q, k, v), iters=10 if long else 50),
+            "host_us_per_call": host_us(lambda: kernel(q, k, v)),
             "plain_ms": time_ms(lambda: fa.flash_attention_reference(q, k, v),
                                 iters=3 if long else 10, warmup=1 if long else 2),
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v),
@@ -844,6 +905,7 @@ def check_w8a8_matmul(qm, dev):
                "equal": equal, "max_abs_err": err, "tolerance": "torch.equal",
                "library_equal": torch.equal(lib, ref), "share_clipped": clipped,
                "kernel_ms": time_ms(lambda: qm.w8a8_matmul(x, wq, qmul, scale, bias)),
+               "host_us_per_call": host_us(lambda: qm.w8a8_matmul(x, wq, qmul, scale, bias)),
                "plain_ms": time_ms(lambda: qm.w8a8_matmul_reference(x, wq, qmul, scale, bias),
                                    iters=5, warmup=1),
                "library_ms": time_ms(lambda: w8a8_library(x, wq, qmul, scale, bias)),
@@ -1086,10 +1148,23 @@ def main() -> None:
     _build.library()
     info = _build.build_info()
     ptxas = [ln.strip() for ln in info.log.splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": info.built, "library": os.path.relpath(info.path, REPO),
           "ptxas": ptxas})
+    # the bf16 K2 and K3 run on wgmma and TMA; K1 (the older tile loop) on neither
+    sass = sass_counts(info.path)
+    if sass is None:
+        emit({"phase": "sass", "counts": "not measured (no cuobjdump in the toolkit)"})
+    else:
+        emit({"phase": "sass", "counts": sass})
+        for entry in ("attn_bhnd_kernel_sm90", "attn_batched_kernel_sm90"):
+            found = [c for f, c in sass.items() if entry in f]
+            check(len(found) == 1 and found[0]["HGMMA"] > 0 and found[0]["UTMALDG"] > 0,
+                  f"{entry}: no HGMMA or UTMALDG in its SASS {found}")
+        k1 = [c for f, c in sass.items() if "attn_packed_kernel" in f]
+        check(k1 and all(c["HGMMA"] == 0 and c["UTMALDG"] == 0 for c in k1),
+              f"attn_packed_kernel SASS {k1}")
 
     # 3. kernel checks (their launches are not the main paths')
     k1 = check_flash_attention_packed(fa, dev)
@@ -1329,6 +1404,7 @@ def main() -> None:
             "max_abs_err": max(r["max_abs_err"] for r in records),
             "ms": main["kernel_ms"],
             "kernel_ms": main["kernel_ms"],
+            "host_us_per_call": main["host_us_per_call"],
             "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"],

@@ -8,47 +8,68 @@
 // attention (2D RoPE: the VGGT aggregator's frame and global blocks, rope
 // ViTs) and attn_impl="flash".
 //
-// Numerics: those of attention_tile.cuh. The TPU kernel divides by the row
-// sum before it casts P to the operand type; a streaming kernel does not
-// know the row sum until the last key tile, so this one keeps K1's deferred
-// division: the unnormalized exponentials are cast to the operand type,
-// P.V accumulates in fp32 and the sum divides once at the end. Against the
-// TPU-rounded plain version that differs by a rounding of P, well inside
-// the bf16 output mantissa.
+// Numerics: scores and softmax in fp32, keys >= N masked to -inf. The TPU
+// kernel divides by the row sum before it casts P to the operand type; a
+// streaming kernel does not know the row sum until the last key tile, so
+// this one defers the division: the unnormalised exponentials are cast to
+// the operand type, P.V accumulates in fp32 and the sum divides once at the
+// end. Against the TPU-rounded plain version that differs by a rounding of
+// P, well inside the bf16 output mantissa.
 //
 // What bounds it on the H100: 4*B*H*N^2*d operations against
 // 4*B*H*N*d*itemsize bytes. VGGT's global attention at S=4 views is
-// (1, 16, 5496, 64): 1.24e11 operations, 0.13 ms at 989 TFLOP/s, against
-// 22.5 MB, 6.7 us at 3.35 TB/s. Operations bound it at every VGGT shape.
+// (1, 16, 5496, 64): 1.24e11 operations, 0.125 ms at 989 TFLOP/s, against
+// 22.5 MB, 6.7 us at 3.35 TB/s; the frame attention at S=4 (4, 16, 1374, 64)
+// 0.031 ms against 1.7 us. Operations bound it at every VGGT shape.
 //
-// Design: what the TPU kernel does in one whole-N pass (K/V of a head in
+// Design. What the TPU kernel does in one whole-N pass (K/V of a head in
 // VMEM, 0.7 to 1.4 MB at VGGT's N) does not fit shared memory, so K/V
-// stream through the shared tile loop with an online softmax. The TPU's
-// padding of N to 128 and of d to 64 is not carried over: the ragged last
-// tile is masked in shared memory, and the wrapper pads d < 64 to 64. Each
-// operand is read through its own strides (v may be a strided view of the
-// qkv output), and the output is written as (B, N, H, d), which makes the
-// reshape before the proj matmul free. Grid (ceil(N/64), H, B): 86 x 16 =
-// 1376 CTAs at the S=4 global shape.
+// stream through a ring of 128-key tiles with an online softmax.
+// bf16 runs the Hopper mainloop of attention_sm90.cuh in its online mode:
+// TMA loads of Q and of K/V tiles through per-operand tensor maps (each
+// operand read through its own strides: v may be a strided view of the qkv
+// output, q and k VGGT's rotated buffer), a producer warpgroup and a
+// consumer warpgroup of 64 query rows per CTA, two CTAs an SM, S = Q.K^T
+// and O += P.V on wgmma with S, P and O in registers, O rescaled in
+// registers per tile. The output is written (B, N, H, d) by a TMA store,
+// which makes the reshape before the proj matmul free. The TPU's padding of
+// N to 128 is not carried over (TMA zero-fills the ragged last tile, which
+// is masked); the wrapper pads d < 64 to 64. Grid (ceil(N/64), H, B):
+// 86 x 16 = 1,376 CTAs at the S=4 global shape, 22 x 16 x 4 = 1,408 at the
+// S=4 frame shape.
+//
+// fp32 (precision="fp32") keeps fp32 FMAs, not TF32, on the shared tile loop
+// of attention_tile.cuh (64-key tiles, wmma-era, no TMA).
+//
+// Left on the table (later work, attention_sm90.cuh): ping-pong scheduling
+// of consumer warpgroups and overlap of the softmax with the next tile's
+// wgmma; a persistent tile scheduler (1,376 CTAs are 5.2 waves of 2 x 132);
+// RoPE fused into the Q/K tile load.
 
+#include "attention_sm90.cuh"
 #include "attention_tile.cuh"
 
 namespace {
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) attn_bhnd_kernel(const StridedLayout<T> a) {
-  attn_tile<T>(a);
+__global__ void __launch_bounds__(kThreads) attn_bhnd_kernel_f32(const StridedLayout<float> a) {
+  attn_tile<float>(a);
+}
+
+__global__ void __launch_bounds__(sm90::kThreads, sm90::kMinCtas) attn_bhnd_kernel_sm90(
+    const __grid_constant__ CUtensorMap q, const __grid_constant__ CUtensorMap k,
+    const __grid_constant__ CUtensorMap v, const __grid_constant__ CUtensorMap o, int n,
+    float scale_log2) {
+  sm90::attention</*kExact=*/false>(q, k, v, o, n, scale_log2);
 }
 
 // strides: 12 element strides, (batch, head, token) of q, k, v, then o.
-template <typename T>
-int launch_bhnd(const void* q, const void* k, const void* v, void* o, const int64_t* strides,
-                int batch, int heads, int n, float scale, void* stream) {
-  StridedLayout<T> a;
-  a.q = static_cast<const T*>(q);
-  a.k = static_cast<const T*>(k);
-  a.v = static_cast<const T*>(v);
-  a.o = static_cast<T*>(o);
+int launch_bhnd_f32(const void* q, const void* k, const void* v, void* o, const int64_t* strides,
+                    int batch, int heads, int n, float scale, void* stream) {
+  StridedLayout<float> a;
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.o = static_cast<float*>(o);
   a.q_b = strides[0];
   a.q_h = strides[1];
   a.q_n = strides[2];
@@ -63,7 +84,7 @@ int launch_bhnd(const void* q, const void* k, const void* v, void* o, const int6
   a.o_n = strides[11];
   a.n = n;
   a.scale = scale;
-  return launch_attention<T>(attn_bhnd_kernel<T>, n, batch, heads, stream, a);
+  return launch_attention<float>(attn_bhnd_kernel_f32, n, batch, heads, stream, a);
 }
 
 }  // namespace
@@ -77,13 +98,13 @@ extern "C" {
 int mdet_flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
                               const int64_t* strides, int batch, int heads, int n,
                               float scale, void* stream) {
-  return launch_bhnd<__nv_bfloat16>(q, k, v, o, strides, batch, heads, n, scale, stream);
+  return sm90::launch(attn_bhnd_kernel_sm90, q, k, v, o, strides, batch, heads, n, scale, stream);
 }
 
 int mdet_flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                              const int64_t* strides, int batch, int heads, int n,
                              float scale, void* stream) {
-  return launch_bhnd<float>(q, k, v, o, strides, batch, heads, n, scale, stream);
+  return launch_bhnd_f32(q, k, v, o, strides, batch, heads, n, scale, stream);
 }
 
 }  // extern "C"

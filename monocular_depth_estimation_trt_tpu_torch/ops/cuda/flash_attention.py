@@ -11,12 +11,15 @@
   ``attn_impl="flash"``. CUDA source ``csrc/flash_attention.cu``.
 * K3, :func:`flash_attention_batched` (``_attn_kernel_batched``): the same
   ``(B, H, N, d)`` operands in the many-short-heads regime (N <= 1024), with
-  the TPU kernel's exact single-pass softmax over whole rows. CUDA source
-  ``csrc/flash_attention_batched.cu``.
+  the TPU kernel's exact softmax (P divided by the row sum before its cast).
+  CUDA source ``csrc/flash_attention_batched.cu``.
 
-K1 and K2 share the tile loop of ``csrc/attention_tile.cuh``; K3 holds whole
-score rows instead. On a CUDA tensor each wrapper launches its kernel or
-raises; on a CPU tensor it runs its plain PyTorch version
+In bf16, K2 and K3 run the Hopper mainloop of ``csrc/attention_sm90.cuh``
+(TMA loads through one tensor map per operand, wgmma, warp specialisation):
+K2 with an online softmax, K3 with two passes over the keys. K1 and the fp32
+K2 share the tile loop of ``csrc/attention_tile.cuh``; the fp32 K3 holds a
+query tile's whole score rows. On a CUDA tensor each wrapper launches its
+kernel or raises; on a CPU tensor it runs its plain PyTorch version
 (:func:`flash_attention_packed_reference`, :func:`flash_attention_reference`
 for K2 and K3). :func:`attention_reference` is the plain attention of the
 JAX package's ``attention_reference`` (the ``attn_impl="xla"`` route).
@@ -32,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 HEAD_DIM = 64  # the kernels' one head width: every DINOv2 encoder and VGGT
-BATCHED_MAX_N = 1024  # K3 holds a query tile's whole score rows in shared memory
+BATCHED_MAX_N = 1024  # K3's regime: the TPU kernel's many short heads
 
 _C_FUNCS = {
     torch.bfloat16: "mdet_flash_attention_packed_bf16",
@@ -211,8 +214,9 @@ flash_attention.launches = 0
 def flash_attention_batched(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             scale: Optional[float] = None) -> torch.Tensor:
     """K3: non-causal multi-head attention, ``(B, H, N, d)`` ->
-    ``(B, H, N, d)``, for many short heads: N <= 1024 (its kernel holds a
-    query tile's whole score rows), any B and H.
+    ``(B, H, N, d)``, for many short heads: N <= 1024 (the TPU kernel's
+    regime; the fp32 kernel holds a query tile's whole score rows), any B
+    and H.
 
     K2's signature and layout rules: bf16 or fp32, d <= 64 zero-padded with
     the scale of the unpadded d, strided views with unit stride on d and

@@ -11,8 +11,9 @@ checkout has them, K2 ((B, H, N, d) attention) at VGGT's frame and global
 shapes and K3 (whole-row attention) at Depth Pro's patch shape, all bf16 on
 random inputs from a fixed seed. It prints one JSON line per checkout: the median
 of ``REPEATS`` CUDA-event timings of ``ITERS`` back-to-back launches each,
-in ms per launch, beside the card's name and power limit. Imports nothing
-of JAX.
+in ms per launch, beside the card's name and power limit; and each wrapper's
+host time per call (``*_host_us``: the median over ``HOST_CALLS`` calls at a
+small shape, where the card keeps up with the host). Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ import sys
 
 REPEATS = 7
 ITERS = 50
+HOST_CALLS = 200
+HOST_SHAPE = (1, 16, 128)  # (B, H, N): a kernel shorter than its host call
 K1_SHAPES = {"vits_518": (1, 1370, 6), "vits_518_batch4": (4, 1370, 6),
              "vitl_518": (1, 1370, 16), "depth_pro_patch": (35, 577, 16)}  # (B, N, H)
 K2_SHAPES = {"frame_s4": (4, 16, 1374), "global_s4": (1, 16, 5496)}  # (B, H, N)
@@ -32,6 +35,7 @@ K3_SHAPES = {"depth_pro_patch": (35, 16, 577), "n1024": (16, 16, 1024)}  # (B, H
 
 def child(root: str) -> dict:
     import statistics
+    import time
 
     import torch
 
@@ -57,6 +61,17 @@ def child(root: str) -> dict:
             times.append(start.elapsed_time(end) / ITERS)
         return statistics.median(times)
 
+    def host_us(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(HOST_CALLS):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        return statistics.median(times) * 1e6
+
     rec = {"root": root, "package": os.path.dirname(fa.__file__)}
     for label, (b, n, h) in K1_SHAPES.items():
         qkv = torch.randn((b, n, 3 * h * d), generator=gen).to(dev, torch.bfloat16)
@@ -71,6 +86,13 @@ def child(root: str) -> dict:
             q, k, v = (torch.randn((b, h, n, d), generator=gen).to(dev, torch.bfloat16)
                        for _ in range(3))
             rec[f"k3_{label}_ms"] = time_ms(lambda: fa.flash_attention_batched(q, k, v))
+    b, h, n = HOST_SHAPE
+    qkv = torch.randn((b, n, 3 * h * d), generator=gen).to(dev, torch.bfloat16)
+    rec["k1_host_us"] = host_us(lambda: fa.flash_attention_packed(qkv, h))
+    q, k, v = (qkv.view(b, n, 3, h, d)[:, :, i].transpose(1, 2) for i in range(3))
+    for key, name in (("k2", "flash_attention"), ("k3", "flash_attention_batched")):
+        if hasattr(fa, name):
+            rec[f"{key}_host_us"] = host_us(lambda: getattr(fa, name)(q, k, v))
     from monocular_depth_estimation_trt_tpu_torch.ops.cuda import _build
 
     rec["ptxas"] = [ln.strip() for ln in _build.build_info().log.splitlines()

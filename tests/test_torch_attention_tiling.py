@@ -1,0 +1,166 @@
+"""The tile algorithms of the port's Hopper attention kernels K2 and K3
+(``monocular_depth_estimation_trt_tpu_torch/csrc/attention_sm90.cuh``),
+modelled here in plain PyTorch, against the JAX package's Pallas kernels in
+interpret mode.
+
+The CUDA kernels cannot run on the CPU; these models repeat their algorithms
+step by step (64-row query tiles, 128-key tiles, the softmax in fp32 with
+exp2 and scale*log2(e) folded in, P cast to bf16 before P.V), so that the
+algorithms are settled against the TPU kernels before any card time is
+spent. The kernels themselves are held against the port's plain version on
+a card (``tests/test_torch_cuda_kernels.py``, ``chip_smoke.py``).
+
+Bars, in bf16 steps at the largest output of the JAX kernel: K3's exact
+two-pass model divides P by the row sum before its cast, as the TPU kernel
+does, so the two differ only by the rounding of a few fp32 values before a
+cast: 1 step. K2's online model casts the unnormalised exponentials and
+divides at the end: K2_BF16_ULPS steps, the bar ``chip_smoke.py`` holds the
+kernel to. A model that skips one key tile must fail both.
+"""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from monocular_depth_estimation_trt_tpu.ops.pallas.flash_attention import (
+    flash_attention as jax_flash_attention,
+)
+from monocular_depth_estimation_trt_tpu_torch.ops.cuda import flash_attention as fa
+
+BLOCK_Q = 64  # query rows per CTA: one consumer warpgroup
+BLOCK_K = 128  # keys per K/V tile of the ring
+LOG2E = 1.4426950408889634
+K2_BF16_ULPS = 4  # chip_smoke.py's bar for K2 against its plain version
+K3_BF16_ULPS = 1
+
+
+def _blocks(n, size):
+    return [(i, min(i + size, n)) for i in range(0, n, size)]
+
+
+def k2_model(q, k, v, scale, skip_tile=None):
+    """K2 (online mode): per query tile, one pass over the key tiles with a
+    running row max m and sum l; O rescaled by exp(m_old - m_new) on every
+    tile; the unnormalised exponentials cast to bf16 before P.V; the row
+    sum divides once at the end."""
+    c = scale * LOG2E
+    qf, kf, vf = q.float(), k.float(), v.float()
+    out = torch.empty(qf.shape)
+    for r0, r1 in _blocks(q.shape[2], BLOCK_Q):
+        rows = qf[:, :, r0:r1]
+        m = torch.full(rows.shape[:-1], -math.inf)
+        l = torch.zeros(rows.shape[:-1])
+        o = torch.zeros(rows.shape)
+        for t, (k0, k1) in enumerate(_blocks(k.shape[2], BLOCK_K)):
+            if t == skip_tile:
+                continue
+            s = rows @ kf[:, :, k0:k1].transpose(-1, -2)
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp2((m - m_new) * c)  # 0 on the first tile
+            p = torch.exp2(s * c - (m_new * c)[..., None])
+            l = l * alpha + p.sum(-1)
+            o = o * alpha[..., None] + p.to(q.dtype).float() @ vf[:, :, k0:k1]
+            m = m_new
+        out[:, :, r0:r1] = o / l[..., None]
+    return out.to(q.dtype)
+
+
+def k3_model(q, k, v, scale, skip_tile=None):
+    """K3 (exact mode): per query tile, pass 1 over the key tiles keeps the
+    row max m and the rescaled row sum l; pass 2 recomputes the scores and
+    forms P = exp(s*scale - m) / l as exp2(s*c - (m*c + log2 l)), cast to
+    bf16 before P.V; O accumulates with no rescaling and is only cast."""
+    c = scale * LOG2E
+    qf, kf, vf = q.float(), k.float(), v.float()
+    out = torch.empty(qf.shape)
+    key_tiles = [kt for t, kt in enumerate(_blocks(k.shape[2], BLOCK_K)) if t != skip_tile]
+    for r0, r1 in _blocks(q.shape[2], BLOCK_Q):
+        rows = qf[:, :, r0:r1]
+        m = torch.full(rows.shape[:-1], -math.inf)
+        l = torch.zeros(rows.shape[:-1])
+        for k0, k1 in key_tiles:  # pass 1: K tiles only
+            s = rows @ kf[:, :, k0:k1].transpose(-1, -2)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp2(s * c - (m_new * c)[..., None])
+            l = l * torch.exp2((m - m_new) * c) + p.sum(-1)
+            m = m_new
+        bias = (m * c + torch.log2(l))[..., None]
+        o = torch.zeros(rows.shape)
+        for k0, k1 in key_tiles:  # pass 2: K and V tiles
+            s = rows @ kf[:, :, k0:k1].transpose(-1, -2)
+            p = torch.exp2(s * c - bias)
+            o = o + p.to(q.dtype).float() @ vf[:, :, k0:k1]
+        out[:, :, r0:r1] = o
+    return out.to(q.dtype)
+
+
+MODELS = {"k2": k2_model, "k3": k3_model}
+
+
+def _inputs(rng, n, d):
+    return [rng.standard_normal((1, 2, n, d)).astype(np.float32) for _ in range(3)]
+
+
+def _jax_kernel(kernel, q, k, v):
+    """``_attn_kernel`` (blk_b=1) for K2, ``_attn_kernel_batched`` (blk_b=2,
+    both heads in one program) for K3, in interpret mode, in bf16."""
+    kw = {"blk_b": 2} if kernel == "k3" else {}
+    out = jax_flash_attention(*(jnp.asarray(t, jnp.bfloat16) for t in (q, k, v)),
+                              interpret=True, **kw)
+    return np.asarray(out, np.float32)
+
+
+def _model(kernel, q, k, v, skip_tile=None):
+    args = [torch.from_numpy(t).to(torch.bfloat16) for t in (q, k, v)]
+    out = MODELS[kernel](*args, 1.0 / math.sqrt(q.shape[-1]), skip_tile=skip_tile)
+    assert out.dtype == torch.bfloat16 and out.shape == args[0].shape
+    return out.float().numpy()
+
+
+def _bf16_step(ref):
+    """Spacing of bf16 numbers at the largest output."""
+    return 2.0 ** (math.floor(math.log2(float(np.abs(ref).max()))) - 7)
+
+
+@pytest.mark.parametrize("n", [1, 65, 129, 577])
+@pytest.mark.parametrize("d", [64, 16])
+def test_k2_tile_model_matches_the_jax_kernel(rng, n, d):
+    q, k, v = _inputs(rng, n, d)
+    ref = _jax_kernel("k2", q, k, v)
+    err = np.abs(_model("k2", q, k, v) - ref).max()
+    assert err <= K2_BF16_ULPS * _bf16_step(ref), (err, _bf16_step(ref))
+
+
+@pytest.mark.parametrize("n", [1, 65, 129, 577])
+@pytest.mark.parametrize("d", [64, 16])
+def test_k3_tile_model_matches_the_batched_jax_kernel(rng, n, d):
+    q, k, v = _inputs(rng, n, d)
+    ref = _jax_kernel("k3", q, k, v)
+    err = np.abs(_model("k3", q, k, v) - ref).max()
+    assert err <= K3_BF16_ULPS * _bf16_step(ref), (err, _bf16_step(ref))
+
+
+@pytest.mark.parametrize("kernel", ["k2", "k3"])
+@pytest.mark.parametrize("n,skip_tile", [(129, 0), (129, 1), (577, 2)])
+def test_a_model_that_skips_a_key_tile_fails_both_bars(rng, kernel, n, skip_tile):
+    q, k, v = _inputs(rng, n, 64)
+    ref = _jax_kernel(kernel, q, k, v)
+    err = np.abs(_model(kernel, q, k, v, skip_tile=skip_tile) - ref).max()
+    assert err > max(K2_BF16_ULPS, K3_BF16_ULPS) * _bf16_step(ref), (err, _bf16_step(ref))
+
+
+@pytest.mark.parametrize("kernel", ["k2", "k3"])
+@pytest.mark.parametrize("n", [65, 577])
+def test_tile_models_match_the_plain_version(rng, kernel, n):
+    """The port's plain version of K2 and K3 (what a CPU tensor runs, and
+    what the kernels are held against on the card) is the TPU kernels'
+    single-pass softmax: the models sit within their bars of it too."""
+    q, k, v = _inputs(rng, n, 64)
+    plain = fa.flash_attention_reference(*(torch.from_numpy(t).to(torch.bfloat16)
+                                           for t in (q, k, v))).float().numpy()
+    bar = {"k2": K2_BF16_ULPS, "k3": K3_BF16_ULPS}[kernel]
+    err = np.abs(_model(kernel, q, k, v) - plain).max()
+    assert err <= bar * _bf16_step(plain), (err, _bf16_step(plain))

@@ -27,6 +27,7 @@ pytestmark = pytest.mark.cuda
 
 D = fa.HEAD_DIM
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}  # bf16 output mantissa; fp32 order
+K2_BF16_ULPS = 4  # K2 and K3 in bf16 against their plain version (chip_smoke.py)
 
 
 @pytest.fixture
@@ -92,69 +93,103 @@ def test_pipeline_on_the_card_goes_through_k1(cuda, precision):
     assert out["viz"].shape == (48, 64, 3) and out["viz"].dtype == np.uint8
 
 
-def _bhnd(b, h, n, d, dtype, device, seed=0):
+def _bhnd(b, h, n, d, dtype, device, seed=0, strided=False):
+    """q, k, v: three (B, H, N, d) tensors, or views of one (B, N, 3, H, d)
+    qkv tensor (the layout the model paths hand over)."""
     gen = torch.Generator().manual_seed(seed)
+    if strided:
+        qkv = torch.randn((b, n, 3, h, d), generator=gen).to(device, dtype)
+        return [qkv[:, :, i].transpose(1, 2) for i in range(3)]
     return [torch.randn((b, h, n, d), generator=gen).to(device, dtype) for _ in range(3)]
 
 
-@pytest.mark.parametrize("b,h,n,d,dtype", [
-    (4, 16, 1374, 64, torch.bfloat16), (1, 16, 5496, 64, torch.bfloat16),
-    (1, 2, 1, 64, torch.bfloat16), (2, 3, 63, 64, torch.bfloat16),
-    (2, 3, 65, 64, torch.bfloat16), (2, 3, 130, 16, torch.bfloat16),
-    (1, 4, 300, 64, torch.float32), (2, 3, 65, 16, torch.float32),
+def _check_bhnd(out, q, k, v):
+    """K2 or K3 against the plain version. In bf16 the two differ in when P
+    is divided by the row sum (K2) or only in the rounding of P (K3), so
+    they round a few bf16 steps apart at most: the bar is K2_BF16_ULPS steps
+    at the largest output (a typical output at N = 5496 is about 0.022, so
+    2e-2 alone could not see a skipped key tile); the plain version with one
+    64-key tile left out must fail it; and the kernel is no further from
+    fp32 attention than the plain bf16 route. Returns the error in steps."""
+    b, h, n, d = q.shape
+    assert out.shape == (b, h, n, d) and out.dtype == q.dtype and out.is_cuda
+    ref = fa.flash_attention_reference(q, k, v).float()
+    err = (out.float() - ref).abs().max().item()
+    if q.dtype == torch.float32:
+        assert err < TOL[q.dtype]
+        return None
+    step = 2.0 ** (math.floor(math.log2(ref.abs().max().item())) - 7)  # bf16 ulp
+    bar = min(TOL[q.dtype], K2_BF16_ULPS * step)
+    assert err <= bar, (err, step)
+    if n >= 128:
+        keep = torch.cat([torch.arange(64), torch.arange(128, n)]).to(q.device)
+        skipped = fa.flash_attention_reference(q, k[:, :, keep], v[:, :, keep]).float()
+        assert (skipped - ref).abs().max().item() > bar
+    exact = fa.flash_attention_reference(q.float(), k.float(), v.float())
+    plain = fa.attention_reference(q, k, v).float()
+    assert (out.float() - exact).abs().max() <= (plain - exact).abs().max()
+    return err / step
+
+
+@pytest.mark.parametrize("b,h,n,d,dtype,strided", [
+    (4, 16, 1374, 64, torch.bfloat16, False), (1, 16, 5496, 64, torch.bfloat16, False),
+    (1, 2, 1, 64, torch.bfloat16, False), (2, 3, 63, 64, torch.bfloat16, False),
+    (2, 3, 65, 64, torch.bfloat16, False), (2, 3, 130, 16, torch.bfloat16, False),
+    (2, 3, 127, 64, torch.bfloat16, False), (2, 3, 128, 64, torch.bfloat16, False),
+    (2, 3, 129, 64, torch.bfloat16, False), (2, 3, 255, 64, torch.bfloat16, False),
+    (2, 3, 257, 64, torch.bfloat16, False), (2, 16, 577, 64, torch.bfloat16, True),
+    (1, 16, 5496, 64, torch.bfloat16, True),
+    (1, 4, 300, 64, torch.float32, False), (2, 3, 65, 16, torch.float32, False),
 ])
-def test_k2_matches_its_plain_version(cuda, b, h, n, d, dtype):
-    """In bf16 the kernel and its plain version differ in when P is divided
-    by the row sum, so they round at most a bf16 step apart: the bar is 4
-    steps at the largest output (a typical output at N = 5496 is about
-    0.022, so 2e-2 alone could not see a skipped key tile), and the kernel
-    is no further from fp32 attention than the plain bf16 route."""
-    q, k, v = _bhnd(b, h, n, d, dtype, cuda)
+def test_k2_matches_its_plain_version(cuda, b, h, n, d, dtype, strided):
+    """VGGT's frame and global shapes and the ends of the 64-row query
+    tiles and 128-key tiles of the ring (N = 1, 127, 128, 129, 255, 257),
+    contiguous and as views of one qkv tensor."""
+    q, k, v = _bhnd(b, h, n, d, dtype, cuda, strided=strided)
     before = fa.flash_attention.launches
     out = fa.flash_attention(q, k, v)
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == before + 1
-    assert out.shape == (b, h, n, d) and out.dtype == dtype and out.is_cuda
-    ref = fa.flash_attention_reference(q, k, v).float()
-    err = (out.float() - ref).abs().max().item()
-    if dtype == torch.float32:
-        assert err < TOL[dtype]
-        return
-    step = 2.0 ** (math.floor(math.log2(ref.abs().max().item())) - 7)  # bf16 ulp
-    assert err <= min(TOL[dtype], 4 * step), (err, step)
-    exact = fa.flash_attention_reference(q.float(), k.float(), v.float())
-    plain = fa.attention_reference(q, k, v).float()
-    assert (out.float() - exact).abs().max() <= (plain - exact).abs().max()
+    _check_bhnd(out, q, k, v)
 
 
 @pytest.mark.parametrize("b,h,n,d,dtype", [
     (35, 16, 577, 64, torch.bfloat16), (35, 16, 65, 64, torch.bfloat16),
-    (2, 3, 1024, 64, torch.bfloat16), (35, 8, 65, 16, torch.float32),
-    (35, 16, 577, 64, torch.float32),
+    (2, 3, 1024, 64, torch.bfloat16), (35, 8, 1, 64, torch.bfloat16),
+    (35, 8, 127, 64, torch.bfloat16), (35, 8, 128, 64, torch.bfloat16),
+    (35, 8, 129, 64, torch.bfloat16), (35, 8, 255, 64, torch.bfloat16),
+    (35, 8, 257, 64, torch.bfloat16),
+    (35, 8, 65, 16, torch.float32), (35, 16, 577, 64, torch.float32),
 ])
 def test_k3_matches_its_plain_version(cuda, b, h, n, d, dtype):
     """Depth Pro's patch-encoder shape (35 windows x 16 heads of 577 tokens)
-    as views of one qkv tensor, and edges, with K2's bar: K3 divides P by
-    the row sum before its cast, as its plain version does, so in bf16 the
-    two round at most a few steps apart."""
-    gen = torch.Generator().manual_seed(2)
-    qkv = torch.randn((b, n, 3, h, d), generator=gen).to(cuda, dtype)
-    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    as views of one qkv tensor, and edges (the ends of the 64-row query
+    tiles and 128-key tiles, N = 1024), with K2's bar: K3 divides P by the
+    row sum before its cast, as its plain version does."""
+    q, k, v = _bhnd(b, h, n, d, dtype, cuda, seed=2, strided=True)
     before = fa.flash_attention_batched.launches
     out = fa.flash_attention_batched(q, k, v)
     torch.cuda.synchronize()
     assert fa.flash_attention_batched.launches == before + 1
-    assert out.shape == (b, h, n, d) and out.dtype == dtype and out.is_cuda
-    ref = fa.flash_attention_reference(q, k, v).float()
-    err = (out.float() - ref).abs().max().item()
-    if dtype == torch.float32:
-        assert err < TOL[dtype]
-        return
-    step = 2.0 ** (math.floor(math.log2(ref.abs().max().item())) - 7)  # bf16 ulp
-    assert err <= min(TOL[dtype], 4 * step), (err, step)
-    exact = fa.flash_attention_reference(q.float(), k.float(), v.float())
-    plain = fa.attention_reference(q, k, v).float()
-    assert (out.float() - exact).abs().max() <= (plain - exact).abs().max()
+    _check_bhnd(out, q, k, v)
+
+
+@pytest.mark.parametrize("d", [64, 16])
+@pytest.mark.parametrize("name", ["flash_attention", "flash_attention_batched"])
+def test_k2_and_k3_read_rotated_q_k_beside_a_strided_v(cuda, name, d):
+    """A grid of 35 x 16 heads of 577 tokens with VGGT's operand layout:
+    q and k non-contiguous views of one rotated (B, N, 2, H, d) buffer, v a
+    strided view of the (B, N, 3, H, d) qkv output; d = 16 is zero-padded
+    to 64 by the wrapper."""
+    gen = torch.Generator().manual_seed(5)
+    qk = torch.randn((35, 577, 2, 16, d), generator=gen).to(cuda, torch.bfloat16)
+    qkv = torch.randn((35, 577, 3, 16, d), generator=gen).to(cuda, torch.bfloat16)
+    q, k = qk[:, :, 0].transpose(1, 2), qk[:, :, 1].transpose(1, 2)
+    v = qkv[:, :, 2].transpose(1, 2)
+    assert not q.is_contiguous() and not v.is_contiguous()
+    out = getattr(fa, name)(q, k, v)
+    torch.cuda.synchronize()
+    _check_bhnd(out, q, k, v)
 
 
 def test_k3_refuses_more_than_1024_tokens(cuda):
