@@ -8,19 +8,26 @@ Phases, each printed as one JSON line; any failure exits non-zero:
 1. device: card name and power limit, torch/CUDA versions, ``nvcc --version``;
 2. build: compiles ``monocular_depth_estimation_trt_tpu_torch/csrc/*.cu``
    with nvcc into the package's ``_build/`` directory and loads it, with
-   ptxas's registers and spills per kernel; then ``sass``: the HGMMA (wgmma)
-   and UTMALDG (TMA load) instructions of each kernel in ``cuobjdump -sass``
-   (the bf16 K2 and K3 must have both, K1 neither);
-3. kernel checks: each kernel's wrapper (K1 packed-qkv attention; K2
+   ptxas's registers and spills per kernel; then ``sass``: the HGMMA (bf16
+   wgmma; IGMMA for K4's int8) and UTMALDG (TMA load) instructions of each
+   kernel in ``cuobjdump -sass`` (the bf16 K1, K2 (both head widths), K3
+   (both) and K4 (both tile widths) must have both);
+3. kernel checks: each kernel's wrapper (K1 packed-qkv attention, K2
    (B, H, N, d) attention and K3 exact-softmax attention of many short
-   heads, both on the TMA + wgmma mainloop of ``csrc/attention_sm90.cuh`` in
-   bf16; K4 the fused w8a8 matmul) against its plain PyTorch version on the
-   card, at the main paths' shapes and edge shapes (for K2 and K3 the ends
-   of the 64-row query tiles and 128-key tiles: N = 1, 63, 65, 127, 128,
-   129, 255, 257, 577; K4 bit for bit), with timings of the kernel, the plain version
-   and one library call (for K4 the chain quantize, ``torch._int_mm``,
-   rescale), the card's bound, and the host time of one wrapper call (K2 and
-   K3 encode four TMA tensor maps a call);
+   heads, all three on the TMA + wgmma mainloop of
+   ``csrc/attention_sm90.cuh`` in bf16, K2 and K3 at head widths 64 and 128;
+   K4 the fused w8a8 matmul, a TMA + wgmma int8 GEMM in bf16) against its
+   plain PyTorch version on the card, at the main paths' shapes and edge
+   shapes (for the attention kernels the ends of the 64-row query tiles and
+   128-key tiles: N = 1, 63, 65, 127, 128, 129, 255, 257, 577, and head
+   widths 16, 80, 96, 128; K4 bit for bit), with timings of the kernel and
+   one library call (for K4 the chain quantize, ``torch._int_mm``, rescale,
+   and the bf16 ``torch.matmul`` of the same shape) as device time (CUDA
+   events around calls queued behind a spin kernel, so that the host's time
+   per call is hidden), the kernel and the plain version also from CUDA
+   events around back-to-back calls, the card's bound, and the host time of
+   one wrapper call (the attention kernels encode four TMA tensor maps a
+   call, K4 two);
 4. main path: ``build_pipeline("depth_anything_v2", encoder="vits")`` on the
    card with seeded random weights: two frames, a batch of two with the viz
    epilogue, the metric variant; the launch counts of every kernel are read
@@ -122,6 +129,12 @@ SPEED_REPEATS = 3
 VGGT_BENCH = dict(warmup=3, iterations=20, latency_iterations=10)
 DEPTH_PRO_BENCH = dict(warmup=3, iterations=20, latency_iterations=10)
 
+# the TMA + wgmma kernels (bf16 x) and their instantiations in the library
+# (K2 and K3 at head widths 64 and 128, K4 at tile widths 128 and 256),
+# with the wgmma's SASS name: HGMMA for bf16 operands, IGMMA for int8
+SM90_KERNELS = {"attn_packed_kernel_sm90": (1, "HGMMA"), "attn_bhnd_kernel_sm90": (2, "HGMMA"),
+                "attn_batched_kernel_sm90": (2, "HGMMA"), "w8a8_kernel_sm90": (2, "IGMMA")}
+
 PEAK_BF16_OPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate
 PEAK_FP32_OPS = 67e12  # H100 SXM fp32 outside the tensor cores
@@ -165,6 +178,40 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 20, repeats: int = 3) -> float:
+    """Device time of one call of ``fn`` in ms: CUDA events around ``iters``
+    back-to-back calls queued behind a spin kernel (``torch.cuda._sleep``)
+    twice as long as the host took to issue them, so that the card runs
+    them one after the other whatever a call costs the host (a small kernel
+    behind four tensor-map encodes); the median of ``repeats``. The card's
+    gaps between launches count, the host's time does not. Unlike
+    ``time_ms``, it does not follow the host."""
+    import statistics
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    issue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    spin_cycles = int(2 * issue_s * 2e9) + 100_000  # the H100 clocks at most 2 GHz
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin_cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
 def host_us(fn, calls: int = 20) -> float:
     """Median host time of one call of ``fn`` in µs, the card busy behind
     it: what the wrapper costs the host (checks, argument packing, launch)."""
@@ -184,9 +231,9 @@ def host_us(fn, calls: int = 20) -> float:
 
 
 def sass_counts(lib_path: str):
-    """HGMMA (wgmma), UTMALDG (TMA load) and UTMASTG (TMA store)
-    instructions per kernel of the built library, from ``cuobjdump -sass``;
-    None if the toolkit has no cuobjdump."""
+    """HGMMA (bf16 wgmma), IGMMA (int8 wgmma), UTMALDG (TMA load) and UTMASTG
+    (TMA store) instructions per kernel of the built library, from
+    ``cuobjdump -sass``; None if the toolkit has no cuobjdump."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -196,7 +243,7 @@ def sass_counts(lib_path: str):
     for line in run_cmd([tool, "-sass", lib_path]).splitlines():
         if "Function :" in line:
             func = line.split("Function :", 1)[1].strip()
-            counts[func] = {"HGMMA": 0, "UTMALDG": 0, "UTMASTG": 0}
+            counts[func] = {"HGMMA": 0, "IGMMA": 0, "UTMALDG": 0, "UTMASTG": 0}
         elif func is not None:
             for op in counts[func]:
                 counts[func][op] += op in line
@@ -229,7 +276,11 @@ def mean_rel(a, b) -> float:
 
 
 def check_flash_attention_packed(fa, dev):
-    """K1 against its plain version at the main path's and edge shapes."""
+    """K1 against its plain version at the main path's and edge shapes. In
+    bf16 the bar is K2's: K2_BF16_ULPS steps at the largest output (at most
+    BF16_TOL); the plain version with one 64-key tile left out must fail
+    it; the kernel must sit no further from fp32 attention than the plain
+    bf16 route."""
     import torch
     import torch.nn.functional as F
 
@@ -253,30 +304,51 @@ def check_flash_attention_packed(fa, dev):
     for label, b, n, h, dtype in shapes:
         d = fa.HEAD_DIM
         qkv = torch.randn((b, n, 3 * h * d), generator=gen).to(dev, dtype)
+        bf16 = dtype == torch.bfloat16
         out = fa.flash_attention_packed(qkv, h)
         torch.cuda.synchronize()
-        ref = fa.flash_attention_packed_reference(qkv, h)
-        err = (out.float() - ref.float()).abs().max().item()
-        tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
+        ref = fa.flash_attention_packed_reference(qkv, h).float()
+        err = (out.float() - ref).abs().max().item()
+        step = bf16_ulp(ref.abs().max().item())
+        tol = min(BF16_TOL, K2_BF16_ULPS * step) if bf16 else FP32_TOL
         check(out.shape == (b, n, h * d), f"K1 {label}: shape {tuple(out.shape)}")
         check(err <= tol, f"K1 {label}: max_abs_err {err} > {tol}")
         q, k, v = qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4)
+        dropped_tile_err = None
+        if n >= 2 * 64:  # the bar's power: one key tile left out must fail it
+            t0 = (n // 64 // 2) * 64
+            keep = torch.cat([torch.arange(t0), torch.arange(t0 + 64, n)]).to(dev)
+            skipped = fa.flash_attention_reference(q, k[:, :, keep], v[:, :, keep])
+            skipped = skipped.transpose(1, 2).reshape(b, n, h * d).float()
+            dropped_tile_err = (skipped - ref).abs().max().item()
+            check(dropped_tile_err > tol, f"K1 {label}: a dropped key tile moves the output "
+                                          f"{dropped_tile_err} <= the bar {tol}")
+            del skipped
         # both bf16 routes against fp32 attention of the same inputs
         exact = fa.flash_attention_packed_reference(qkv.float(), h)
         plain_route = fa.attention_reference(q, k, v).transpose(1, 2).reshape(b, n, h * d)
+        kernel_vs_fp32 = (out.float() - exact).abs().max().item()
+        plain_vs_fp32 = (plain_route.float() - exact).abs().max().item()
+        if bf16:
+            check(kernel_vs_fp32 <= plain_vs_fp32,
+                  f"K1 {label}: kernel vs fp32 {kernel_vs_fp32} > plain bf16 attention vs "
+                  f"fp32 {plain_vs_fp32}")
         peak = PEAK_BF16_OPS if dtype == torch.bfloat16 else PEAK_FP32_OPS
         bound_ms, bound_by = attention_bound(b, n, h, d, qkv.element_size(), peak)
         rec = {
             "shape": label, "B": b, "N": n, "H": h, "d": d,
             "dtype": str(dtype).replace("torch.", ""),
             "max_abs_err": err, "tolerance": tol,
-            "kernel_vs_fp32_err": (out.float() - exact).abs().max().item(),
-            "plain_attention_vs_fp32_err": (plain_route.float() - exact).abs().max().item(),
-            "kernel_ms": time_ms(lambda: fa.flash_attention_packed(qkv, h)),
+            "err_bf16_steps": err / step if bf16 else None,
+            "dropped_key_tile_err": dropped_tile_err,
+            "kernel_vs_fp32_err": kernel_vs_fp32,
+            "plain_attention_vs_fp32_err": plain_vs_fp32,
+            "kernel_ms": device_ms(lambda: fa.flash_attention_packed(qkv, h)),
+            "kernel_event_ms": time_ms(lambda: fa.flash_attention_packed(qkv, h)),
             "host_us_per_call": host_us(lambda: fa.flash_attention_packed(qkv, h)),
             "plain_ms": time_ms(lambda: fa.flash_attention_packed_reference(qkv, h),
                                 iters=10, warmup=2),
-            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+            "library_ms": device_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
         emit({"phase": "kernel_check", "kernel": "flash_attention_packed", **rec})
@@ -309,6 +381,14 @@ def check_flash_attention(fa, dev):
         ("global_s4_strided", 1, 16, 5496, 64, torch.bfloat16, True),
         ("frame_s1_fp32", 1, 16, 1374, 64, torch.float32, False),
         ("n65_fp32", 2, 3, 65, 64, torch.float32, False),
+        # head_dim 128 (DINOv3 vit7b16's 32 heads at 1029 tokens), and 80, 96 padded to it
+        ("d128_vit7b", 1, 32, 1029, 128, torch.bfloat16, False),
+        ("d128_n129", 2, 16, 129, 128, torch.bfloat16, False),
+        ("d128_n577_strided", 4, 16, 577, 128, torch.bfloat16, True),
+        ("d80_padded", 2, 16, 257, 80, torch.bfloat16, False),
+        ("d96_padded", 2, 16, 255, 96, torch.bfloat16, True),
+        ("d128_vit7b_fp32", 1, 32, 1029, 128, torch.float32, False),
+        ("d96_fp32", 2, 3, 65, 96, torch.float32, False),
     ])
 
 
@@ -339,6 +419,14 @@ def check_flash_attention_batched(fa, dev):
         ("bh259", 7, 37, 577, 64, torch.bfloat16, False),
         ("depth_pro_patch_fp32", 35, 16, 577, 64, torch.float32, True),
         ("n1024_fp32", 2, 8, 1024, 64, torch.float32, False),
+        # head_dim 128, and 80, 96 padded to it
+        ("d128", 16, 16, 577, 128, torch.bfloat16, False),
+        ("d128_n1024", 4, 8, 1024, 128, torch.bfloat16, True),
+        ("d128_n1", 35, 8, 1, 128, torch.bfloat16, False),
+        ("d80_padded", 35, 8, 129, 80, torch.bfloat16, True),
+        ("d96_padded", 35, 8, 257, 96, torch.bfloat16, False),
+        ("d128_fp32", 16, 16, 577, 128, torch.float32, False),
+        ("d128_n1024_fp32", 2, 8, 1024, 128, torch.float32, False),
     ])
 
 
@@ -407,17 +495,18 @@ def check_bhnd_kernel(fa, dev, name, shapes, seed, k1_at=None):
             "dropped_key_tile_err": dropped_tile_err,
             "kernel_vs_fp32_err": kernel_vs_fp32,
             "plain_attention_vs_fp32_err": plain_vs_fp32,
-            "kernel_ms": time_ms(lambda: kernel(q, k, v), iters=10 if long else 50),
+            "kernel_ms": device_ms(lambda: kernel(q, k, v), iters=5 if long else 20),
+            "kernel_event_ms": time_ms(lambda: kernel(q, k, v), iters=10 if long else 50),
             "host_us_per_call": host_us(lambda: kernel(q, k, v)),
             "plain_ms": time_ms(lambda: fa.flash_attention_reference(q, k, v),
                                 iters=3 if long else 10, warmup=1 if long else 2),
-            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v),
-                                  iters=10 if long else 50),
+            "library_ms": device_ms(lambda: F.scaled_dot_product_attention(q, k, v),
+                                    iters=5 if long else 20),
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
         if label == k1_at:  # K1 on the same problem, read from the packed qkv
             packed = qkv.reshape(b, n, 3 * h * d)
-            rec["k1_same_shape_ms"] = time_ms(lambda: fa.flash_attention_packed(packed, h))
+            rec["k1_same_shape_ms"] = device_ms(lambda: fa.flash_attention_packed(packed, h))
             del packed
         emit({"phase": "kernel_check", "kernel": name, **rec})
         records.append(rec)
@@ -901,20 +990,23 @@ def check_w8a8_matmul(qm, dev):
         lib = w8a8_library(x, wq, qmul, scale, bias)
         clipped = (torch.round(x.float() * qmul).abs() > 127).float().mean().item()
         bound_ms, bound_by = w8a8_bound(m, k, n, x.element_size())
+        w = wq.to(dtype)  # the yardstick int8 serving has to beat: the matmul it replaces
         rec = {"shape": label, "M": m, "K": k, "N": n, "dtype": str(dtype).replace("torch.", ""),
                "equal": equal, "max_abs_err": err, "tolerance": "torch.equal",
                "library_equal": torch.equal(lib, ref), "share_clipped": clipped,
-               "kernel_ms": time_ms(lambda: qm.w8a8_matmul(x, wq, qmul, scale, bias)),
+               "kernel_ms": device_ms(lambda: qm.w8a8_matmul(x, wq, qmul, scale, bias)),
+               "kernel_event_ms": time_ms(lambda: qm.w8a8_matmul(x, wq, qmul, scale, bias)),
                "host_us_per_call": host_us(lambda: qm.w8a8_matmul(x, wq, qmul, scale, bias)),
                "plain_ms": time_ms(lambda: qm.w8a8_matmul_reference(x, wq, qmul, scale, bias),
                                    iters=5, warmup=1),
-               "library_ms": time_ms(lambda: w8a8_library(x, wq, qmul, scale, bias)),
+               "library_ms": device_ms(lambda: w8a8_library(x, wq, qmul, scale, bias)),
+               "matmul_ms": device_ms(lambda: torch.matmul(x, w.t())),
                "bound_ms": bound_ms, "bound_by": bound_by}
         rec["kernel_tops"] = 2.0 * m * k * n / rec["kernel_ms"] / 1e9
         emit({"phase": "kernel_check", "kernel": "w8a8_matmul", **rec})
         records.append(rec)
         check(equal, f"K4 {label}: differs from its plain version by {err}")
-        del x, wq, qmul, scale, bias, out, ref, lib
+        del x, wq, qmul, scale, bias, out, ref, lib, w
         torch.cuda.empty_cache()
     edges = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -1152,19 +1244,20 @@ def main() -> None:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": info.built, "library": os.path.relpath(info.path, REPO),
           "ptxas": ptxas})
-    # the bf16 K2 and K3 run on wgmma and TMA; K1 (the older tile loop) on neither
+    # every bf16 kernel runs on wgmma and TMA (K2 and K3 in two head widths);
+    # the fp32 kernels (fp32 FMAs, and K4's fp32 wmma loop) on neither
     sass = sass_counts(info.path)
     if sass is None:
         emit({"phase": "sass", "counts": "not measured (no cuobjdump in the toolkit)"})
     else:
         emit({"phase": "sass", "counts": sass})
-        for entry in ("attn_bhnd_kernel_sm90", "attn_batched_kernel_sm90"):
+        for entry, (count, mma) in SM90_KERNELS.items():
             found = [c for f, c in sass.items() if entry in f]
-            check(len(found) == 1 and found[0]["HGMMA"] > 0 and found[0]["UTMALDG"] > 0,
-                  f"{entry}: no HGMMA or UTMALDG in its SASS {found}")
-        k1 = [c for f, c in sass.items() if "attn_packed_kernel" in f]
-        check(k1 and all(c["HGMMA"] == 0 and c["UTMALDG"] == 0 for c in k1),
-              f"attn_packed_kernel SASS {k1}")
+            check(len(found) == count and all(c[mma] > 0 and c["UTMALDG"] > 0 for c in found),
+                  f"{entry}: want {count} instantiations with {mma} and UTMALDG, SASS {found}")
+        fp32 = {f: c for f, c in sass.items() if "_sm90" not in f}
+        check(fp32 and all(c["HGMMA"] + c["IGMMA"] + c["UTMALDG"] == 0 for c in fp32.values()),
+              f"fp32 kernels' SASS {fp32}")
 
     # 3. kernel checks (their launches are not the main paths')
     k1 = check_flash_attention_packed(fa, dev)
@@ -1387,8 +1480,18 @@ def main() -> None:
     # kernels line: the main shape's numbers, every shape in "shapes"; the
     # launches of each path's counted run
     def kernel_entry(name, source, replaces, function, records, main_shape,
-                     library_call="torch.nn.functional.scaled_dot_product_attention"):
+                     library_call="torch.nn.functional.scaled_dot_product_attention",
+                     head_dim_128=None):
         main = next(r for r in records if r["shape"] == main_shape)
+        extra = {}
+        if "matmul_ms" in main:
+            extra.update(matmul_ms=main["matmul_ms"],
+                         matmul_call="torch.matmul of bf16 x and the weight cast to bf16")
+        if head_dim_128:  # the d = 128 instantiation, on no ported path yet
+            wide = next(r for r in records if r["shape"] == head_dim_128)
+            extra["head_dim_128"] = {k: wide[k] for k in (
+                "shape", "B", "H", "N", "d", "max_abs_err", "err_bf16_steps", "kernel_ms",
+                "plain_ms", "library_ms", "bound_ms", "bound_by", "host_us_per_call")}
         by_path = {"depth_anything_v2": launches[name], "vggt": vggt_launches[name],
                    "depth_pro": depth_pro_launches[name],
                    **{f"{k}_int8": v[name] for k, v in int8_launches.items()}}
@@ -1411,6 +1514,7 @@ def main() -> None:
             "library_ms": main["library_ms"],
             "library_call": library_call,
             "at_shape": main["shape"],
+            **extra,
             "shapes": records,
         }
 
@@ -1418,9 +1522,10 @@ def main() -> None:
         kernel_entry("flash_attention_packed", "flash_attention_packed.cu",
                      "flash_attention.py:272", "_attn_kernel_packed", k1, "vits_518"),
         kernel_entry("flash_attention", "flash_attention.cu", "flash_attention.py:38",
-                     "_attn_kernel", k2, "global_s4"),
+                     "_attn_kernel", k2, "global_s4", head_dim_128="d128_vit7b"),
         kernel_entry("flash_attention_batched", "flash_attention_batched.cu",
-                     "flash_attention.py:68", "_attn_kernel_batched", k3, "depth_pro_patch"),
+                     "flash_attention.py:68", "_attn_kernel_batched", k3, "depth_pro_patch",
+                     head_dim_128="d128"),
         kernel_entry("w8a8_matmul", "w8a8_matmul.cu", "quant_matmul.py:43", "_w8a8_kernel", k4,
                      "vitl_qkv", library_call="quantize + torch._int_mm + rescale"),
     ]

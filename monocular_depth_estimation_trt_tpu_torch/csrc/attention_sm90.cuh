@@ -1,40 +1,56 @@
-// The Hopper attention mainloop of kernels K2 (flash_attention.cu) and K3
-// (flash_attention_batched.cu), bf16 only: non-causal softmax(q k^T * scale) v
-// over (B, H, N, 64) operands that are read through their own strides, with
-// the output written as (B, N, H, 64).
+// The Hopper attention mainloop of kernels K1 (flash_attention_packed.cu),
+// K2 (flash_attention.cu) and K3 (flash_attention_batched.cu), bf16 only:
+// non-causal softmax(q k^T * scale) v over (B, H, N, d) operands that are
+// read through their own strides, with the output written as (B, N, H, d),
+// for a head width d of 64 or 128 (a template parameter, Config::kD).
 //
 // CTA: one producer warpgroup, whose first thread issues every copy, and
-// one consumer warpgroup of 64 query rows; setmaxnreg moves registers from
-// the producer (24 a thread) to the consumer (232). Two CTAs are resident
-// on an SM. Grid (ceil(N / 64), H, B). This measured 9 to 14 % faster on
-// the H100 than one CTA an SM with two consumer warpgroups sharing its ring
-// (scripts/torch_kernel_ab.py, PERF.md): the two CTAs' prologues, epilogues
-// and waits can interleave. Three CTAs an SM give the kernel 80 registers a
-// thread at launch, and ptxas refuses the m64n128 wgmma at that count.
+// one consumer warpgroup of 64 query rows; two CTAs are resident on an SM,
+// and setmaxnreg moves registers from the producer (24 a thread) to the
+// consumer (232). Grid (ceil(N / 64), H, B).
+// * d = 64 (Head64): K/V tiles of 128 keys in a ring of three stages. This
+//   measured 9 to 14 % faster on the H100 than one CTA an SM with two
+//   consumer warpgroups sharing its ring (scripts/torch_kernel_ab.py,
+//   PERF.md): the two CTAs' prologues, epilogues and waits can interleave.
+//   Three CTAs an SM give the kernel 80 registers a thread at launch, and
+//   ptxas refuses the m64n128 wgmma at that count.
+// * d = 128 (Head128): K/V tiles of 64 keys (a (K, V) stage is 32 KB) in a
+//   ring of two stages beside the 16 KB Q tile; the consumer holds S (32
+//   fp32), P (16) and O (64). Measured on the H100 against 128-key tiles in
+//   a ring of three 64 KB stages at one CTA an SM, with every thread at 255
+//   registers (scripts/torch_kernel_ab.py, PERF.md): K2 0.054 against 0.070
+//   ms at (1, 32, 1029, 128), K3 0.18 against 0.25 ms at (16, 16, 577,
+//   128). Three 64-key stages would leave two CTAs 112 bytes short of the
+//   SM's shared memory.
 //
 // Loads: one rank-4 TMA tensor map per operand over (d, N, H, B), with the
 // view's own byte strides, a box of 64 (d) x the tile's rows and the 128-byte
-// swizzle (a 64-wide bf16 row is 128 bytes). TMA fills the rows past N of a
+// swizzle. Under that swizzle a box row is at most 128 bytes (64 bf16), so a
+// tile is kHalves = d / 64 boxes side by side in d, each its own region of
+// rows x 128 bytes (one swizzle atom wide). TMA fills the rows past N of a
 // head with zeros; scores of keys >= N are set to -inf on the last key tile.
-// K and V stream through a ring of kStages (K tile, V tile) stages of 128
+// K and V stream through a ring of kStages (K tile, V tile) stages of kBlockK
 // keys, guarded by full and empty mbarriers (an empty stage takes one
 // arrival per consumer warp).
 //
-// S = Q.K^T: wgmma m64n128k16 (fp32 <- bf16 x bf16), Q and K both from shared
-// memory and both K-major; S stays in registers (64 fp32 a thread). The
-// softmax runs on the accumulator fragment: a row lives on the four threads
-// of a quad, so a row reduction takes two shuffles; exp2 with scale*log2(e)
-// folded into one FMA. P is cast to bf16 in registers and fed as the
-// register A operand of wgmma m64n64k16 against the V tile in shared memory
-// (V is (keys, d) with d contiguous: an MN-major B operand, transposed). O
-// (64 x 64 fp32 a warpgroup) stays in registers for the whole loop. The
-// epilogue stages O, cast to bf16, in the Q tile and writes it with a TMA
-// store, which clips rows >= N.
+// S = Q.K^T: wgmma m64n{kBlockK}k16 (fp32 <- bf16 x bf16), Q and K both from
+// shared memory and both K-major, d / 16 k16 steps (step kk reads region
+// kk / 4 at byte 32 * (kk % 4)); S stays in registers. The softmax runs on
+// the accumulator fragment: a row lives on the four threads of a quad, so a
+// row reduction takes two shuffles; exp2 with scale*log2(e) folded into one
+// FMA. P is cast to bf16 in registers and fed as the register A operand of
+// wgmma m64n{d}k16 against the V tile in shared memory (V is (keys, d) with d
+// contiguous: an MN-major B operand, transposed; at d = 128 its N extent
+// spans two atoms, kTileHalf bytes apart: the descriptor's leading offset).
+// O (64 x d fp32 a warpgroup) stays in registers for the whole loop. The
+// epilogue stages O, cast to bf16, in the Q tile and writes it with one TMA
+// store per 64-column region, which clips rows >= N.
 //
 // Two softmax modes, chosen by the kernel:
-// * online (K2): one pass over K/V; a running row max and sum, O rescaled
-//   in registers by exp(m_old - m_new) on every tile, the unnormalised
-//   exponentials cast before P.V, and the row sum divides once at the end.
+// * online (K1, K2): one pass over K/V; a running row max and sum, O
+//   rescaled in registers by exp(m_old - m_new) on every tile, the
+//   unnormalised exponentials cast before P.V, and the row sum divides once
+//   at the end.
 // * exact (K3): the TPU kernel's division before the cast. Pass 1 streams
 //   only K tiles and keeps the row max m and the rescaled row sum l; pass 2
 //   streams K and V again, recomputes S and forms P = exp(s*scale - m) / l,
@@ -53,141 +69,51 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90_common.cuh"
+
 namespace {
 namespace sm90 {
 
-constexpr int kD = 64;        // head_dim
-constexpr int kBlockQ = 64;   // query rows per CTA: the consumer warpgroup's wgmma M
-constexpr int kBlockK = 128;  // keys per K/V tile
-constexpr int kStages = 3;    // (K, V) stages of the ring
-constexpr int kThreads = 256;  // the consumer warpgroup, then the producer warpgroup
-constexpr int kMinCtas = 2;    // CTAs resident on an SM
-// setmaxnreg: a CTA holds the registers of its launch (the largest multiple
-// of 8 a thread that lets kMinCtas CTAs share the SM's 64K: 128); the
-// producer keeps 24 a thread and the consumer takes the rest.
-constexpr int kLaunchRegs = 65536 / (kMinCtas * kThreads) / 8 * 8;
-constexpr int kProducerRegs = 24;
-constexpr int kConsumerRegs = (2 * kLaunchRegs - kProducerRegs) / 8 * 8;  // 232
-constexpr uint32_t kQBytes = kBlockQ * kD * 2;     // 8 KB
-constexpr uint32_t kTileBytes = kBlockK * kD * 2;  // 16 KB
+// One instantiation of the mainloop: head width D, keys per K/V tile BlockK,
+// stages of the ring.
+template <int D, int BlockK, int Stages>
+struct Config {
+  static_assert(D == 64 || D == 128, "head width 64 or 128");
+  static_assert(BlockK == 64 || BlockK == 128, "64- or 128-key tiles");
+  static constexpr int kD = D;
+  static constexpr int kBlockQ = 64;  // query rows per CTA: the consumer warpgroup's wgmma M
+  static constexpr int kBlockK = BlockK;
+  static constexpr int kStages = Stages;
+  static constexpr int kThreads = 256;  // the consumer warpgroup, then the producer warpgroup
+  static constexpr int kMinCtas = 2;  // CTAs resident on an SM
+  static constexpr int kHalves = D / 64;  // 64-column regions of a tile
+  static constexpr int kS = BlockK / 2;   // scores a consumer thread holds
+  static constexpr int kO = D / 2;        // outputs a consumer thread holds
+  // setmaxnreg: a CTA holds the registers of its launch (the largest
+  // multiple of 8 a thread that lets kMinCtas CTAs share the SM's 64K: 128);
+  // the producer keeps 24 a thread and the consumer takes the rest (232).
+  static constexpr int kLaunchRegs = 65536 / (kMinCtas * kThreads) / 8 * 8;
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs = (2 * kLaunchRegs - kProducerRegs) / 8 * 8;
+  static constexpr uint32_t kQHalf = kBlockQ * 128;      // one 64-column region of Q
+  static constexpr uint32_t kQBytes = kQHalf * kHalves;  // 8 KB at d = 64
+  static constexpr uint32_t kTileHalf = kBlockK * 128;
+  static constexpr uint32_t kTileBytes = kTileHalf * kHalves;  // 16 KB at d = 64
+  // Shared memory, from a 1024-byte aligned base (the 128-byte swizzle
+  // repeats every 8 rows of 128 bytes): the Q tile, the K tiles, the V tiles,
+  // then the mbarriers: q_full, full[kStages], empty[kStages].
+  static constexpr uint32_t kOffK = kQBytes;
+  static constexpr uint32_t kOffV = kOffK + kStages * kTileBytes;
+  static constexpr uint32_t kOffBar = kOffV + kStages * kTileBytes;
+  static constexpr uint32_t kSmemBytes = kOffBar + 8 * (1 + 2 * kStages) + 1024;  // + alignment
+  static_assert(kMinCtas * (kSmemBytes + 1024) <= 233472,
+                "kMinCtas CTAs must fit the SM's 228 KB of shared memory");
+};
 
-// Shared memory, from a 1024-byte aligned base (the 128-byte swizzle repeats
-// every 8 rows of 128 bytes): the Q tile, the K tiles, the V tiles, then the
-// mbarriers: q_full, full[kStages], empty[kStages].
-constexpr uint32_t kOffK = kQBytes;
-constexpr uint32_t kOffV = kOffK + kStages * kTileBytes;
-constexpr uint32_t kOffBar = kOffV + kStages * kTileBytes;
-constexpr uint32_t kSmemBytes = kOffBar + 8 * (1 + 2 * kStages) + 1024;  // + alignment slack
-static_assert(kMinCtas * (kSmemBytes + 1024) <= 233472,
-              "kMinCtas CTAs must fit the SM's 228 KB of shared memory");
+using Head64 = Config<64, 128, 3>;
+using Head128 = Config<128, 64, 2>;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// --- mbarriers ---------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Returns once the phase of parity `parity` of the barrier has completed.
-// No wait of this kernel lasts longer than one tile's copy or compute, so a
-// wait that has not ended after 2^30 tries (seconds) is a fault: it traps,
-// and the launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t tries = 0;; ++tries) {
-    uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (tries == (1u << 30)) __trap();
-  }
-}
-
-// --- TMA -----------------------------------------------------------------------
-
-// The box at (0, row, head, batch) of `map` into shared memory at `dst`;
-// completion is reported to `bar` as transaction bytes.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap& map, uint32_t bar,
-                                         int row, int head, int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(&map)), "r"(bar), "r"(0), "r"(row), "r"(head), "r"(batch)
-      : "memory");
-}
-
-// Shared memory at `src` to the box at (0, row, head, batch) of `map`; waits
-// until the copy has read shared memory.
-__device__ __forceinline__ void tma_store(const CUtensorMap& map, uint32_t src, int row, int head,
-                                          int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
-          reinterpret_cast<uint64_t>(&map)),
-      "r"(src), "r"(0), "r"(row), "r"(head), "r"(batch)
-      : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-
-// --- wgmma ---------------------------------------------------------------------
-
-// Shared-memory matrix descriptor of a tile of 128-byte rows under the
-// 128-byte swizzle: start address, leading byte offset, stride byte offset
-// 1024 (from one group of 8 rows to the next), layout type 1 (128B swizzle).
-// K-major operands (Q, K) step along d by adding 32 bytes to the start
-// address; the leading offset is not used for them. For the MN-major V tile,
-// 1024 is the stride between groups of 8 keys, and a 64-wide d is one
-// swizzle atom, so the leading offset (between atoms along d) is never
-// stepped; it is set to 1024 as well.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lead_bytes) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lead_bytes >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of registers that an
-// asynchronous wgmma owns across the wgmma's wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
+// --- wgmma -----------------------------------------------------------------------
 
 // d[64x128] (+)= A[64x16] . B[16x128], A and B from shared memory, both
 // K-major; accumulate = 0 overwrites d.
@@ -217,6 +143,25 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t des
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// d[64x64] (+)= A[64x16] . B[16x64], A and B from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // d[64x64] += A[64x16] . B[16x64], A from registers (a0..a3: this
 // thread's fragment), B from shared memory, MN-major (transposed).
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], uint32_t a0, uint32_t a1,
@@ -236,6 +181,58 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], uint32_t a0, 
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
+}
+
+// d[64x128] += A[64x16] . B[16x128], A from registers, B from shared memory,
+// MN-major (transposed): two 64-column atoms, the descriptor's leading
+// offset apart.
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], uint32_t a0, uint32_t a1,
+                                                    uint32_t a2, uint32_t a3, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
+}
+
+// S (+)= Q . K^T over one k16 step: N = kBlockK keys.
+template <int N>
+__device__ __forceinline__ void wgmma_scores(float (&s)[N / 2], uint64_t desc_q, uint64_t desc_k,
+                                             int accumulate) {
+  if constexpr (N == 128) {
+    wgmma_m64n128k16_ss(s, desc_q, desc_k, accumulate);
+  } else {
+    wgmma_m64n64k16_ss(s, desc_q, desc_k, accumulate);
+  }
+}
+
+// O += P . V over one k16 step: N = d.
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float (&o)[N / 2], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t desc_v) {
+  if constexpr (N == 128) {
+    wgmma_m64n128k16_rs(o, a0, a1, a2, a3, desc_v);
+  } else {
+    wgmma_m64n64k16_rs(o, a0, a1, a2, a3, desc_v);
+  }
 }
 
 // --- softmax helpers -----------------------------------------------------------
@@ -269,9 +266,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // 16*(i/4) + 15.
 
 // Sets the scores of keys >= n to -inf (only the last tile has any).
-__device__ __forceinline__ void mask_keys(float (&s)[64], int key0, int n, int lane) {
+template <int S>
+__device__ __forceinline__ void mask_keys(float (&s)[S], int key0, int n, int lane) {
 #pragma unroll
-  for (int c = 0; c < 16; ++c) {
+  for (int c = 0; c < S / 4; ++c) {
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       if (key0 + 8 * c + 2 * (lane % 4) + j >= n) {
@@ -283,11 +281,12 @@ __device__ __forceinline__ void mask_keys(float (&s)[64], int key0, int n, int l
 }
 
 // The row maxima of this thread's two rows over the tile, reduced over the quad.
-__device__ __forceinline__ void row_max(const float (&s)[64], float& mx0, float& mx1) {
+template <int S>
+__device__ __forceinline__ void row_max(const float (&s)[S], float& mx0, float& mx1) {
   mx0 = fmaxf(s[0], s[1]);
   mx1 = fmaxf(s[2], s[3]);
 #pragma unroll
-  for (int c = 1; c < 16; ++c) {
+  for (int c = 1; c < S / 4; ++c) {
     mx0 = fmaxf(mx0, fmaxf(s[4 * c], s[4 * c + 1]));
     mx1 = fmaxf(mx1, fmaxf(s[4 * c + 2], s[4 * c + 3]));
   }
@@ -297,12 +296,13 @@ __device__ __forceinline__ void row_max(const float (&s)[64], float& mx0, float&
 
 // s <- exp2(s * c - bias) per row, in place; returns this thread's part of
 // the two row sums.
-__device__ __forceinline__ void exp_rows(float (&s)[64], float c, float bias0, float bias1,
+template <int S>
+__device__ __forceinline__ void exp_rows(float (&s)[S], float c, float bias0, float bias1,
                                          float& sum0, float& sum1) {
   sum0 = 0.0f;
   sum1 = 0.0f;
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
+  for (int i = 0; i < S / 4; ++i) {
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       s[4 * i + j] = ex2(fmaf(s[4 * i + j], c, -bias0));
@@ -313,24 +313,43 @@ __device__ __forceinline__ void exp_rows(float (&s)[64], float c, float bias0, f
   }
 }
 
+// Scales this thread's two rows of O by f0 and f1.
+template <int O>
+__device__ __forceinline__ void scale_rows(float (&o)[O], float f0, float f1) {
+#pragma unroll
+  for (int c = 0; c < O / 4; ++c) {
+    o[4 * c] *= f0;
+    o[4 * c + 1] *= f0;
+    o[4 * c + 2] *= f1;
+    o[4 * c + 3] *= f1;
+  }
+}
+
 // --- the kernel body -----------------------------------------------------------
 
-// One CTA of kThreads threads per (64-row query tile, head, batch item),
-// grid (ceil(n / 64), heads, batch), kSmemBytes of dynamic shared memory.
-// kExact selects the two-pass exact softmax (K3) over the online one (K2).
-// Each kernel wraps it in a __global__ of its own name.
-template <bool kExact>
+// One CTA of Cfg::kThreads threads per (64-row query tile, head, batch item),
+// grid (ceil(n / 64), heads, batch), Cfg::kSmemBytes of dynamic shared
+// memory. kExact selects the two-pass exact softmax (K3) over the online one
+// (K1, K2). Each kernel wraps it in a __global__ of its own name.
+template <typename Cfg, bool kExact>
 __device__ __forceinline__ void attention(const CUtensorMap& tq, const CUtensorMap& tk,
                                           const CUtensorMap& tv, const CUtensorMap& to, int n,
                                           float scale_log2) {
+  constexpr int kD = Cfg::kD, kBlockQ = Cfg::kBlockQ, kBlockK = Cfg::kBlockK;
+  constexpr int kStages = Cfg::kStages, kHalves = Cfg::kHalves;
+  constexpr uint32_t kQHalf = Cfg::kQHalf, kTileHalf = Cfg::kTileHalf, kTileBytes = Cfg::kTileBytes;
+  // V's leading offset: the distance between its 64-column atoms (at d = 64
+  // there is one atom and the field is never read)
+  constexpr uint32_t kVLead = kHalves > 1 ? kTileHalf : 1024;
+
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* smem = smem_raw + (base - raw);
   const uint32_t q_s = base;
-  const uint32_t k_s = base + kOffK;
-  const uint32_t v_s = base + kOffV;
-  const uint32_t bar_q = base + kOffBar;
+  const uint32_t k_s = base + Cfg::kOffK;
+  const uint32_t v_s = base + Cfg::kOffV;
+  const uint32_t bar_q = base + Cfg::kOffBar;
   const uint32_t bar_full = bar_q + 8;               // + 8 * stage
   const uint32_t bar_empty = bar_full + 8 * kStages;  // + 8 * stage
 
@@ -352,34 +371,44 @@ __device__ __forceinline__ void attention(const CUtensorMap& tq, const CUtensorM
 
   if (threadIdx.x >= 128) {
     // The producer: one thread issues every copy.
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(Cfg::kProducerRegs));
     if (threadIdx.x == 128) {
-      mbar_expect_tx(bar_q, kQBytes);
-      tma_load(q_s, tq, bar_q, q0, head, batch);
+      mbar_expect_tx(bar_q, Cfg::kQBytes);
+#pragma unroll
+      for (int h = 0; h < kHalves; ++h) {
+        tma_load_4d(q_s + h * kQHalf, tq, bar_q, 64 * h, q0, head, batch);
+      }
       for (int it = 0; it < steps; ++it) {
         const int st = it % kStages;
         const uint32_t round = it / kStages;
         const bool with_v = !kExact || it >= tiles;
         const int key0 = (kExact && it >= tiles ? it - tiles : it) * kBlockK;
+        const uint32_t full = bar_full + 8 * st;
         mbar_wait(bar_empty + 8 * st, (round & 1) ^ 1);  // the first round passes
-        mbar_expect_tx(bar_full + 8 * st, with_v ? 2 * kTileBytes : kTileBytes);
-        tma_load(k_s + st * kTileBytes, tk, bar_full + 8 * st, key0, head, batch);
-        if (with_v) tma_load(v_s + st * kTileBytes, tv, bar_full + 8 * st, key0, head, batch);
+        mbar_expect_tx(full, with_v ? 2 * kTileBytes : kTileBytes);
+#pragma unroll
+        for (int h = 0; h < kHalves; ++h) {
+          tma_load_4d(k_s + st * kTileBytes + h * kTileHalf, tk, full, 64 * h, key0, head, batch);
+          if (with_v) {
+            tma_load_4d(v_s + st * kTileBytes + h * kTileHalf, tv, full, 64 * h, key0, head,
+                        batch);
+          }
+        }
       }
     }
   } else {
     // The consumer warpgroup: query rows [q0, q0 + 64).
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(Cfg::kConsumerRegs));
     const int tid = threadIdx.x;
     const int lane = tid % 32;
 
-    float s[64];
-    float o[32];
-    uint32_t p[32];
+    float s[Cfg::kS];
+    float o[Cfg::kO];
+    uint32_t p[Cfg::kS / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) s[i] = 0.0f;
+    for (int i = 0; i < Cfg::kS; ++i) s[i] = 0.0f;
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] = 0.0f;
+    for (int i = 0; i < Cfg::kO; ++i) o[i] = 0.0f;
     // Per row (this thread's two rows): the running max (raw scores), this
     // thread's part of the running sum, and, for the exact pass 2, the bias
     // m * scale * log2(e) + log2(l).
@@ -392,14 +421,16 @@ __device__ __forceinline__ void attention(const CUtensorMap& tq, const CUtensorM
       const int key0 = (kExact && it >= tiles ? it - tiles : it) * kBlockK;
       mbar_wait(bar_full + 8 * st, (it / kStages) & 1);
 
-      // S = Q . K^T over d in four k16 steps.
+      // S = Q . K^T over d in d / 16 k16 steps; step kk reads the
+      // 64-column region kk / 4 of Q and K.
       const uint32_t k_tile = k_s + st * kTileBytes;
       fence_regs(s);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kD / 16; ++kk) {
-        wgmma_m64n128k16_ss(s, smem_desc(q_s + 32 * kk, 16), smem_desc(k_tile + 32 * kk, 16),
-                            kk);
+        const uint32_t off = 32 * (kk % 4);
+        wgmma_scores<kBlockK>(s, smem_desc(q_s + (kk / 4) * kQHalf + off, 16),
+                              smem_desc(k_tile + (kk / 4) * kTileHalf + off, 16), kk);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -441,26 +472,21 @@ __device__ __forceinline__ void attention(const CUtensorMap& tq, const CUtensorM
         l1 = l1 * alpha1 + sum1;
         m0 = mn0;
         m1 = mn1;
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          o[4 * c] *= alpha0;
-          o[4 * c + 1] *= alpha0;
-          o[4 * c + 2] *= alpha1;
-          o[4 * c + 3] *= alpha1;
-        }
+        scale_rows(o, alpha0, alpha1);
       }
 
-      // O += P . V over the tile's keys in eight k16 steps, P from registers.
+      // O += P . V over the tile's keys in kBlockK / 16 k16 steps, P from
+      // registers; a k16 step is 16 key rows of 128 bytes.
 #pragma unroll
-      for (int i = 0; i < 32; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+      for (int i = 0; i < Cfg::kS / 2; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
       const uint32_t v_tile = v_s + st * kTileBytes;
       fence_regs(o);
       fence_regs(p);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBlockK / 16; ++kk) {
-        wgmma_m64n64k16_rs(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
-                           smem_desc(v_tile + kk * 16 * 128, 1024));
+        wgmma_pv<kD>(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+                     smem_desc(v_tile + kk * 16 * 128, kVLead));
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -469,75 +495,46 @@ __device__ __forceinline__ void attention(const CUtensorMap& tq, const CUtensorM
       if (lane == 0) mbar_arrive(bar_empty + 8 * st);
     }
 
-    if (!kExact) {  // the deferred division by the row sum
-      const float inv0 = 1.0f / quad_sum(l0), inv1 = 1.0f / quad_sum(l1);
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        o[4 * c] *= inv0;
-        o[4 * c + 1] *= inv0;
-        o[4 * c + 2] *= inv1;
-        o[4 * c + 3] *= inv1;
-      }
-    }
+    if (!kExact) scale_rows(o, 1.0f / quad_sum(l0), 1.0f / quad_sum(l1));  // deferred division
 
     // Epilogue: O as bf16 into the Q tile (no wgmma reads it any more), in
-    // the 128-byte swizzle of the output map, then one TMA store.
-    uint8_t* stage = smem;
+    // the 128-byte swizzle of the output map, one 64-column region after the
+    // other, then one TMA store per region.
     const int row = (tid / 32) * 16 + lane / 4;  // and row + 8; row % 8 == lane / 4
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int chunk = (c ^ (lane / 4)) * 16 + 4 * (lane % 4);
-      *reinterpret_cast<uint32_t*>(stage + row * 128 + chunk) = pack_bf16(o[4 * c], o[4 * c + 1]);
-      *reinterpret_cast<uint32_t*>(stage + (row + 8) * 128 + chunk) =
+    for (int c = 0; c < kD / 8; ++c) {
+      uint8_t* region = smem + (c / 8) * kQHalf;
+      const int chunk = ((c % 8) ^ (lane / 4)) * 16 + 4 * (lane % 4);
+      *reinterpret_cast<uint32_t*>(region + row * 128 + chunk) = pack_bf16(o[4 * c], o[4 * c + 1]);
+      *reinterpret_cast<uint32_t*>(region + (row + 8) * 128 + chunk) =
           pack_bf16(o[4 * c + 2], o[4 * c + 3]);
     }
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    fence_proxy_async();
     asm volatile("bar.sync 1, 128;\n" ::: "memory");  // the consumer warpgroup alone
-    if (tid == 0) tma_store(to, q_s, q0, head, batch);
+    if (tid == 0) {
+#pragma unroll
+      for (int h = 0; h < kHalves; ++h) tma_store_4d(to, q_s + h * kQHalf, 64 * h, q0, head, batch);
+      tma_store_wait();
+    }
   }
 }
 
 // --- host side -----------------------------------------------------------------
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled of libcuda, found once through the CUDA runtime
-// (no link against libcuda); null if the installed libcuda lacks it.
-inline EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiledFn>(ptr)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // A rank-4 map over one bf16 operand's (d, N, H, B) with element strides
 // (token, head, batch) and a box of 64 x `box_rows`. The stride of an axis
 // of extent 1 is never stepped; it gets a legal value whatever the view says.
-inline bool encode_operand(EncodeTiledFn encode, CUtensorMap* map, const void* ptr, int n,
+inline bool encode_operand(EncodeTiledFn encode, CUtensorMap* map, const void* ptr, int d, int n,
                            int heads, int batch, int64_t s_n, int64_t s_h, int64_t s_b,
                            int box_rows) {
   constexpr uint64_t e = sizeof(__nv_bfloat16);
-  const cuuint64_t sn = n > 1 ? s_n * e : kD * e;
+  const cuuint64_t sn = n > 1 ? s_n * e : d * e;
   const cuuint64_t sh = heads > 1 ? s_h * e : sn * n;
   const cuuint64_t sb = batch > 1 ? s_b * e : sh * heads;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kD), static_cast<cuuint64_t>(n),
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(n),
                               static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
   const cuuint64_t strides[3] = {sn, sh, sb};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kD), static_cast<cuuint32_t>(box_rows), 1, 1};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_rows), 1, 1};
   const cuuint32_t steps[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
                 box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
@@ -549,28 +546,29 @@ typedef void (*Kernel)(const CUtensorMap, const CUtensorMap, const CUtensorMap, 
                        int, float);
 
 // Encodes the four tensor maps and launches `kernel` (a __global__ wrapper of
-// attention<>) over `batch` x `heads` problems of `n` tokens on `stream`.
-// strides: 12 element strides, (batch, head, token) of q, k, v, then o.
-// Returns a cudaError_t (0 on success).
-inline int launch(Kernel kernel, const void* q, const void* k, const void* v, void* o,
-                  const int64_t* strides, int batch, int heads, int n, float scale, void* stream) {
+// attention<Cfg, ...>) over `batch` x `heads` problems of `n` tokens on
+// `stream`. strides: 12 element strides, (batch, head, token) of q, k, v,
+// then o. Returns a cudaError_t (0 on success).
+template <typename Cfg>
+int launch(Kernel kernel, const void* q, const void* k, const void* v, void* o,
+           const int64_t* strides, int batch, int heads, int n, float scale, void* stream) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap maps[4];
   const void* ptrs[4] = {q, k, v, o};
-  const int box_rows[4] = {kBlockQ, kBlockK, kBlockK, kBlockQ};
+  const int box_rows[4] = {Cfg::kBlockQ, Cfg::kBlockK, Cfg::kBlockK, Cfg::kBlockQ};
   for (int i = 0; i < 4; ++i) {
     const int64_t* st = strides + 3 * i;
-    if (!encode_operand(encode, &maps[i], ptrs[i], n, heads, batch, st[2], st[1], st[0],
+    if (!encode_operand(encode, &maps[i], ptrs[i], Cfg::kD, n, heads, batch, st[2], st[1], st[0],
                         box_rows[i])) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
   }
   const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + kBlockQ - 1) / kBlockQ, heads, batch);
-  kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((n + Cfg::kBlockQ - 1) / Cfg::kBlockQ, heads, batch);
+  kernel<<<grid, Cfg::kThreads, Cfg::kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       maps[0], maps[1], maps[2], maps[3], n, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }

@@ -34,12 +34,16 @@
 // registers per tile. The output is written (B, N, H, d) by a TMA store,
 // which makes the reshape before the proj matmul free. The TPU's padding of
 // N to 128 is not carried over (TMA zero-fills the ragged last tile, which
-// is masked); the wrapper pads d < 64 to 64. Grid (ceil(N/64), H, B):
+// is masked). Grid (ceil(N/64), H, B):
 // 86 x 16 = 1,376 CTAs at the S=4 global shape, 22 x 16 x 4 = 1,408 at the
 // S=4 frame shape.
 //
-// fp32 (precision="fp32") keeps fp32 FMAs, not TF32, on the shared tile loop
-// of attention_tile.cuh (64-key tiles, wmma-era, no TMA).
+// Head widths: 64 and 128 (Head64 and Head128 of attention_sm90.cuh); the
+// wrapper zero-pads d < 64 to 64 and 64 < d < 128 to 128, as the JAX entry
+// pads d > 64 to a multiple of 128.
+//
+// fp32 (precision="fp32") keeps fp32 FMAs, not TF32, on the tile loop of
+// attention_tile.cuh (64-key tiles, no TMA), at either width.
 //
 // Left on the table (later work, attention_sm90.cuh): ping-pong scheduling
 // of consumer warpgroups and overlap of the softmax with the next tile's
@@ -51,60 +55,58 @@
 
 namespace {
 
-__global__ void __launch_bounds__(kThreads) attn_bhnd_kernel_f32(const StridedLayout<float> a) {
-  attn_tile<float>(a);
+template <int D>
+__global__ void __launch_bounds__(kThreads) attn_bhnd_kernel_f32(const StridedLayout<D> a) {
+  attn_tile(a);
 }
 
-__global__ void __launch_bounds__(sm90::kThreads, sm90::kMinCtas) attn_bhnd_kernel_sm90(
+template <typename Cfg>
+__global__ void __launch_bounds__(Cfg::kThreads, Cfg::kMinCtas) attn_bhnd_kernel_sm90(
     const __grid_constant__ CUtensorMap q, const __grid_constant__ CUtensorMap k,
     const __grid_constant__ CUtensorMap v, const __grid_constant__ CUtensorMap o, int n,
     float scale_log2) {
-  sm90::attention</*kExact=*/false>(q, k, v, o, n, scale_log2);
+  sm90::attention<Cfg, /*kExact=*/false>(q, k, v, o, n, scale_log2);
 }
 
-// strides: 12 element strides, (batch, head, token) of q, k, v, then o.
+template <int D>
 int launch_bhnd_f32(const void* q, const void* k, const void* v, void* o, const int64_t* strides,
                     int batch, int heads, int n, float scale, void* stream) {
-  StridedLayout<float> a;
-  a.q = static_cast<const float*>(q);
-  a.k = static_cast<const float*>(k);
-  a.v = static_cast<const float*>(v);
-  a.o = static_cast<float*>(o);
-  a.q_b = strides[0];
-  a.q_h = strides[1];
-  a.q_n = strides[2];
-  a.k_b = strides[3];
-  a.k_h = strides[4];
-  a.k_n = strides[5];
-  a.v_b = strides[6];
-  a.v_h = strides[7];
-  a.v_n = strides[8];
-  a.o_b = strides[9];
-  a.o_h = strides[10];
-  a.o_n = strides[11];
-  a.n = n;
-  a.scale = scale;
-  return launch_attention<float>(attn_bhnd_kernel_f32, n, batch, heads, stream, a);
+  return launch_attention<D>(attn_bhnd_kernel_f32<D>, n, batch, heads, stream,
+                             strided_layout<D>(q, k, v, o, strides, n, scale));
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, k, v: (batch, heads, n, 64) with unit stride on the last axis; o: any
-// layout given by its strides. Pointers and strides (times the element
-// size) are multiples of 16 bytes. Launches on `stream`, allocates nothing,
-// does not synchronise. Returns the cudaError_t of the launch (0 on success).
+// q, k, v: (batch, heads, n, head_dim) with unit stride on the last axis,
+// head_dim 64 or 128 (the wrapper zero-pads narrower heads); o: any layout
+// given by its strides. strides: 12 element strides, (batch, head, token) of
+// q, k, v, then o. Pointers and strides (times the element size) are
+// multiples of 16 bytes. Launches on `stream`, allocates nothing, does not
+// synchronise. Returns the cudaError_t of the launch (0 on success).
 int mdet_flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
-                              const int64_t* strides, int batch, int heads, int n,
+                              const int64_t* strides, int batch, int heads, int n, int head_dim,
                               float scale, void* stream) {
-  return sm90::launch(attn_bhnd_kernel_sm90, q, k, v, o, strides, batch, heads, n, scale, stream);
+  if (head_dim == 64) {
+    return sm90::launch<sm90::Head64>(attn_bhnd_kernel_sm90<sm90::Head64>, q, k, v, o, strides,
+                                      batch, heads, n, scale, stream);
+  }
+  if (head_dim == 128) {
+    return sm90::launch<sm90::Head128>(attn_bhnd_kernel_sm90<sm90::Head128>, q, k, v, o, strides,
+                                       batch, heads, n, scale, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 int mdet_flash_attention_f32(const void* q, const void* k, const void* v, void* o,
-                             const int64_t* strides, int batch, int heads, int n,
+                             const int64_t* strides, int batch, int heads, int n, int head_dim,
                              float scale, void* stream) {
-  return launch_bhnd_f32(q, k, v, o, strides, batch, heads, n, scale, stream);
+  if (head_dim == 64) return launch_bhnd_f32<64>(q, k, v, o, strides, batch, heads, n, scale, stream);
+  if (head_dim == 128) {
+    return launch_bhnd_f32<128>(q, k, v, o, strides, batch, heads, n, scale, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

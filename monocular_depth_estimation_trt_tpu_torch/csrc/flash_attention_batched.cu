@@ -36,6 +36,8 @@
 // 640 keys and rows. Grid (ceil(N/64), H, B): 10 x 16 x 35 = 5,600 CTAs at
 // the Depth Pro patch shape.
 //
+// Head widths: 64 and 128, as K2 (the wrapper zero-pads narrower heads).
+//
 // Design (fp32, precision="fp32": fp32 FMAs, as K1 and K2, since TF32 would
 // round): one CTA of 8 warps per (query tile, head, batch item). Pass 1
 // computes S = Q.K^T over 64-key tiles into a shared-memory score block
@@ -45,7 +47,8 @@
 // 64-key V tiles in registers, with no rescaling. The launcher asks the
 // runtime's occupancy calculator which query tile (64 or 32 rows) keeps more
 // CTAs resident, and takes the 64-row tile on a tie and the 32-row tile
-// wherever the 64-row score block does not fit (N > 768).
+// wherever the 64-row score block does not fit (N > 768 at d = 64, N > 640
+// at d = 128).
 //
 // Left on the table (later work): for bf16, those of attention_sm90.cuh
 // (ping-pong consumers, softmax/wgmma overlap, a persistent scheduler); for
@@ -61,64 +64,67 @@ constexpr int kBWarps = 8;
 constexpr int kBThreads = kBWarps * 32;
 constexpr int kKeysPerLane = kMaxKeys / 32;
 constexpr size_t kSmemPerBlock = 232448;  // H100: 227 KB of dynamic shared memory per block
-constexpr int kLd = tile_ld<float>();     // row stride of the Q and K/V tiles
 
 __host__ __device__ constexpr int round_up64(int n) { return (n + 63) / 64 * 64; }
 
-// Row stride (floats) of the score block: 16 bytes of padding per row.
-__host__ __device__ constexpr int score_ld(int n_pad) { return n_pad + 4; }
+// Row stride (floats) of the score block, which also stages the output
+// (D wide) at the end: 16 bytes of padding per row.
+template <int D>
+__host__ __device__ constexpr int score_ld(int n_pad) { return (n_pad > D ? n_pad : D) + 4; }
 
-template <int BQ>
+template <int D, int BQ>
 size_t batched_smem_bytes(int n_pad) {
-  return (static_cast<size_t>(BQ) * score_ld(n_pad)  // S, then P, then O
-          + static_cast<size_t>(BQ) * kLd              // Q tile
-          + static_cast<size_t>(kBlockK) * kLd)        // K or V tile
+  return (static_cast<size_t>(BQ) * score_ld<D>(n_pad)  // S, then P, then O
+          + static_cast<size_t>(BQ) * tile_ld<D>()       // Q tile
+          + static_cast<size_t>(kBlockK) * tile_ld<D>())  // K or V tile
          * sizeof(float);
 }
 
-// Copies rows [row0, row0 + kRows) of one head (64 wide) into a shared
+// Copies rows [row0, row0 + kRows) of one head (D wide) into a shared
 // tile with 16-byte loads through the read-only path; rows >= n become zeros.
-template <int kRows>
+template <int D, int kRows>
 __device__ __forceinline__ void load_rows(float* dst, const float* src, int64_t row_stride,
                                           int row0, int n) {
-  constexpr int kVecPerRow = kD / 4;
+  constexpr int kVecPerRow = D / 4;
+  constexpr int ld = tile_ld<D>();
   for (int i = threadIdx.x; i < kRows * kVecPerRow; i += kBThreads) {
     const int r = i / kVecPerRow;
     const int c = (i % kVecPerRow) * 4;
     float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     if (row0 + r < n) v = __ldg(reinterpret_cast<const float4*>(src + (row0 + r) * row_stride + c));
-    *reinterpret_cast<float4*>(dst + r * kLd + c) = v;
+    *reinterpret_cast<float4*>(dst + r * ld + c) = v;
   }
 }
 
-// Writes rows [row0, row0 + kRows) of the tile o_s (row stride kLdF) to dst
+// Writes rows [row0, row0 + kRows) of the tile o_s (row stride lds) to dst
 // with 16-byte stores; rows >= n are not written.
-template <int kRows>
+template <int D, int kRows>
 __device__ __forceinline__ void store_rows(float* dst, int64_t row_stride, const float* o_s,
-                                           int row0, int n) {
-  constexpr int kVecPerRow = kD / 4;
+                                           int lds, int row0, int n) {
+  constexpr int kVecPerRow = D / 4;
   for (int i = threadIdx.x; i < kRows * kVecPerRow; i += kBThreads) {
     const int r = i / kVecPerRow;
     const int c = (i % kVecPerRow) * 4;
     if (row0 + r >= n) continue;
     *reinterpret_cast<float4*>(dst + (row0 + r) * row_stride + c) =
-        *reinterpret_cast<const float4*>(o_s + r * kLdF + c);
+        *reinterpret_cast<const float4*>(o_s + r * lds + c);
   }
 }
 
-// A warp's share of a 64-wide tile: rows [r0, r0 + 16), columns [c0, c0 + WC).
+// A warp's share of a tile: rows [r0, r0 + 16), columns [c0, c0 + WC).
 
 // S[r0:r0+16, c0:c0+WC] of one 64-key tile = Q . K^T, unscaled, into s_dst
 // (the score block at the tile's first key, row stride lds).
-template <int WC>
+template <int D, int WC>
 __device__ __forceinline__ void warp_scores(const float* q_s, const float* k_s, float* s_dst,
                                             int lds, int r0, int c0, int lane) {
+  constexpr int ld = tile_ld<D>();
   constexpr int kStep = 32 / WC;  // lanes per column: a lane's rows are kStep apart
   const int c = c0 + lane % WC;
   for (int r = r0 + lane / WC; r < r0 + 16; r += kStep) {
     float acc = 0.0f;
 #pragma unroll 16
-    for (int k = 0; k < kD; ++k) acc = fmaf(q_s[r * kLd + k], k_s[c * kLd + k], acc);
+    for (int k = 0; k < D; ++k) acc = fmaf(q_s[r * ld + k], k_s[c * ld + k], acc);
     s_dst[r * lds + c] = acc;
   }
 }
@@ -152,55 +158,69 @@ __device__ __forceinline__ void softmax_row(float* row, int n, int n_pad, float 
 }
 
 // The P.V accumulator of a warp's (16 x WC) share of the output, kept in
-// registers over every key tile.
-template <int WC>
+// registers over every key tile: a lane owns columns c0 + lane % kCols +
+// 32 j and rows lane / kCols + kStep i of the share.
+template <int D, int WC>
 struct PVAccumulator {
-  static constexpr int kStep = 32 / WC;
+  static constexpr int kCols = WC < 32 ? WC : 32;
+  static constexpr int kReps = WC / kCols;   // columns of one lane
+  static constexpr int kStep = 32 / kCols;
   static constexpr int kRows = 16 / kStep;  // rows of one lane
-  float acc[kRows];
+  float acc[kRows][kReps];
 
   __device__ __forceinline__ void zero() {
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) acc[i] = 0.0f;
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int j = 0; j < kReps; ++j) acc[i][j] = 0.0f;
   }
 
   // p: P at (r0, the tile's first key), row stride ldp; v_s: the V tile.
   __device__ __forceinline__ void step(const float* p, int ldp, const float* v_s, int c0,
                                        int lane) {
-    const int c = c0 + lane % WC;
+    constexpr int ld = tile_ld<D>();
+    const int c = c0 + lane % kCols;
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
-      const float* p_row = p + (lane / WC + i * kStep) * ldp;
+      const float* p_row = p + (lane / kCols + i * kStep) * ldp;
 #pragma unroll 16
-      for (int k = 0; k < kBlockK; ++k) acc[i] = fmaf(p_row[k], v_s[k * kLd + c], acc[i]);
+      for (int k = 0; k < kBlockK; ++k) {
+        const float pk = p_row[k];
+#pragma unroll
+        for (int j = 0; j < kReps; ++j) acc[i][j] = fmaf(pk, v_s[k * ld + c + 32 * j], acc[i][j]);
+      }
     }
   }
 
-  __device__ __forceinline__ void store(float* o_s, int r0, int c0, int lane) const {
+  __device__ __forceinline__ void store(float* o_s, int lds, int r0, int c0, int lane) const {
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      o_s[(r0 + lane / WC + i * kStep) * kLdF + c0 + lane % WC] = acc[i];
-    }
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int j = 0; j < kReps; ++j) {
+        o_s[(r0 + lane / kCols + i * kStep) * lds + c0 + lane % kCols + 32 * j] = acc[i][j];
+      }
   }
 };
 
 // One CTA of kBThreads threads per (BQ-row query tile, head, batch item),
-// grid = (ceil(n / BQ), heads, batch), batched_smem_bytes<BQ>(n_pad) of
+// grid = (ceil(n / BQ), heads, batch), batched_smem_bytes<D, BQ>(n_pad) of
 // dynamic shared memory.
-template <int BQ>
-__global__ void __launch_bounds__(kBThreads) attn_batched_kernel(const StridedLayout<float> a) {
+template <int D, int BQ>
+__global__ void __launch_bounds__(kBThreads) attn_batched_kernel(const StridedLayout<D> a) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int kRowTiles = BQ / 16;
-  constexpr int kWC = kD * kRowTiles / kBWarps;  // columns of a 64-wide tile per warp
+  constexpr int kWS = kBlockK * kRowTiles / kBWarps;  // key columns of a score tile per warp
+  constexpr int kWO = D * kRowTiles / kBWarps;        // output columns per warp
   constexpr int kSoftmaxRows = BQ / kBWarps;
-  static_assert(kWC % 16 == 0 && kWC <= 32, "a warp takes one or two 16-column slices");
+  static_assert(kWS % 16 == 0 && kWS <= 32, "a warp takes one or two 16-key slices");
+  static_assert(kWO % 16 == 0 && (kWO <= 32 || kWO % 32 == 0), "a warp's output columns");
 
   const int n = a.n;
   const int n_pad = round_up64(n);
-  const int lds = score_ld(n_pad);
+  const int lds = score_ld<D>(n_pad);
   float* s_s = reinterpret_cast<float*>(smem);
   float* q_s = s_s + BQ * lds;
-  float* kv_s = q_s + BQ * kLd;
+  float* kv_s = q_s + BQ * tile_ld<D>();
 
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
@@ -208,16 +228,15 @@ __global__ void __launch_bounds__(kBThreads) attn_batched_kernel(const StridedLa
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int r0 = (warp % kRowTiles) * 16;
-  const int c0 = (warp / kRowTiles) * kWC;
 
-  load_rows<BQ>(q_s, a.q_ptr(b, h), a.q_row(), q0, n);
+  load_rows<D, BQ>(q_s, a.q_ptr(b, h), a.q_row(), q0, n);
 
   // Pass 1: the query tile's whole score rows, one 64-key tile at a time.
   for (int k0 = 0; k0 < n_pad; k0 += kBlockK) {
     __syncthreads();  // Q is in; every warp is done with the previous K tile
-    load_rows<kBlockK>(kv_s, a.k_ptr(b, h), a.k_row(), k0, n);
+    load_rows<D, kBlockK>(kv_s, a.k_ptr(b, h), a.k_row(), k0, n);
     __syncthreads();
-    warp_scores<kWC>(q_s, kv_s, s_s + k0, lds, r0, c0, lane);
+    warp_scores<D, kWS>(q_s, kv_s, s_s + k0, lds, r0, (warp / kRowTiles) * kWS, lane);
   }
   __syncthreads();
 
@@ -227,106 +246,105 @@ __global__ void __launch_bounds__(kBThreads) attn_batched_kernel(const StridedLa
   }
 
   // Pass 2: O = P.V, accumulated over the V tiles.
-  PVAccumulator<kWC> acc;
+  const int c0 = (warp / kRowTiles) * kWO;
+  PVAccumulator<D, kWO> acc;
   acc.zero();
   for (int k0 = 0; k0 < n_pad; k0 += kBlockK) {
     __syncthreads();  // P is complete; every warp is done with the previous V tile
-    load_rows<kBlockK>(kv_s, a.v_ptr(b, h), a.v_row(), k0, n);
+    load_rows<D, kBlockK>(kv_s, a.v_ptr(b, h), a.v_row(), k0, n);
     __syncthreads();
     acc.step(s_s + r0 * lds + k0, lds, kv_s, c0, lane);
   }
   __syncthreads();  // every warp is done reading P: O is staged over it
-  acc.store(s_s, r0, c0, lane);
+  acc.store(s_s, lds, r0, c0, lane);
   __syncthreads();
-  store_rows<BQ>(a.o_ptr(b, h), a.o_row(), s_s, q0, n);
+  store_rows<D, BQ>(a.o_ptr(b, h), a.o_row(), s_s, lds, q0, n);
 }
 
 // How many CTAs of the BQ-row tile the runtime keeps resident on one SM
 // (0 if its shared memory does not fit a block), and their shared memory.
-template <int BQ>
+template <int D, int BQ>
 cudaError_t resident_ctas(int n_pad, size_t* smem, int* ctas) {
-  *smem = batched_smem_bytes<BQ>(n_pad);
+  *smem = batched_smem_bytes<D, BQ>(n_pad);
   *ctas = 0;
   if (*smem > kSmemPerBlock) return cudaSuccess;
   const cudaError_t err = cudaFuncSetAttribute(
-      attn_batched_kernel<BQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attn_batched_kernel<D, BQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(*smem));
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, attn_batched_kernel<BQ>, kBThreads,
-                                                       *smem);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, attn_batched_kernel<D, BQ>,
+                                                       kBThreads, *smem);
 }
 
-template <int BQ>
-int launch_tile(const StridedLayout<float>& a, int batch, int heads, size_t smem, void* stream) {
+template <int D, int BQ>
+int launch_tile(const StridedLayout<D>& a, int batch, int heads, size_t smem, void* stream) {
   const dim3 grid((a.n + BQ - 1) / BQ, heads, batch);
-  attn_batched_kernel<BQ><<<grid, kBThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  attn_batched_kernel<D, BQ><<<grid, kBThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// strides: 12 element strides, (batch, head, token) of q, k, v, then o.
+template <int D>
 int launch_batched_f32(const void* q, const void* k, const void* v, void* o,
                        const int64_t* strides, int batch, int heads, int n, float scale,
                        void* stream) {
-  if (n < 1 || n > kMaxKeys) return static_cast<int>(cudaErrorInvalidValue);
-  StridedLayout<float> a;
-  a.q = static_cast<const float*>(q);
-  a.k = static_cast<const float*>(k);
-  a.v = static_cast<const float*>(v);
-  a.o = static_cast<float*>(o);
-  a.q_b = strides[0];
-  a.q_h = strides[1];
-  a.q_n = strides[2];
-  a.k_b = strides[3];
-  a.k_h = strides[4];
-  a.k_n = strides[5];
-  a.v_b = strides[6];
-  a.v_h = strides[7];
-  a.v_n = strides[8];
-  a.o_b = strides[9];
-  a.o_h = strides[10];
-  a.o_n = strides[11];
-  a.n = n;
-  a.scale = scale;
+  const StridedLayout<D> a = strided_layout<D>(q, k, v, o, strides, n, scale);
   // The query tile that keeps more warps resident on an SM (both tiles run
   // 8 warps a CTA); on a tie the 64-row tile, which reads each K/V tile half
   // as often.
   const int n_pad = round_up64(n);
   size_t smem64 = 0, smem32 = 0;
   int ctas64 = 0, ctas32 = 0;
-  cudaError_t err = resident_ctas<64>(n_pad, &smem64, &ctas64);
-  if (err == cudaSuccess) err = resident_ctas<32>(n_pad, &smem32, &ctas32);
+  cudaError_t err = resident_ctas<D, 64>(n_pad, &smem64, &ctas64);
+  if (err == cudaSuccess) err = resident_ctas<D, 32>(n_pad, &smem32, &ctas32);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (ctas64 > 0 && ctas64 >= ctas32) return launch_tile<64>(a, batch, heads, smem64, stream);
-  return launch_tile<32>(a, batch, heads, smem32, stream);
+  if (ctas64 > 0 && ctas64 >= ctas32) return launch_tile<D, 64>(a, batch, heads, smem64, stream);
+  return launch_tile<D, 32>(a, batch, heads, smem32, stream);
 }
 
-__global__ void __launch_bounds__(sm90::kThreads, sm90::kMinCtas) attn_batched_kernel_sm90(
+template <typename Cfg>
+__global__ void __launch_bounds__(Cfg::kThreads, Cfg::kMinCtas) attn_batched_kernel_sm90(
     const __grid_constant__ CUtensorMap q, const __grid_constant__ CUtensorMap k,
     const __grid_constant__ CUtensorMap v, const __grid_constant__ CUtensorMap o, int n,
     float scale_log2) {
-  sm90::attention</*kExact=*/true>(q, k, v, o, n, scale_log2);
+  sm90::attention<Cfg, /*kExact=*/true>(q, k, v, o, n, scale_log2);
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, k, v: (batch, heads, n, 64) with unit stride on the last axis, n <= 1024;
-// o: any layout given by its strides. Pointers and strides (times the element
+// q, k, v: (batch, heads, n, head_dim) with unit stride on the last axis,
+// n <= 1024, head_dim 64 or 128 (the wrapper zero-pads narrower heads); o:
+// any layout given by its strides. strides: 12 element strides, (batch,
+// head, token) of q, k, v, then o. Pointers and strides (times the element
 // size) are multiples of 16 bytes. Launches on `stream`, allocates nothing,
 // does not synchronise. Returns the cudaError_t of the launch (0 on success).
 int mdet_flash_attention_batched_bf16(const void* q, const void* k, const void* v, void* o,
                                       const int64_t* strides, int batch, int heads, int n,
-                                      float scale, void* stream) {
+                                      int head_dim, float scale, void* stream) {
   if (n < 1 || n > kMaxKeys) return static_cast<int>(cudaErrorInvalidValue);
-  return sm90::launch(attn_batched_kernel_sm90, q, k, v, o, strides, batch, heads, n, scale,
-                      stream);
+  if (head_dim == 64) {
+    return sm90::launch<sm90::Head64>(attn_batched_kernel_sm90<sm90::Head64>, q, k, v, o, strides,
+                                      batch, heads, n, scale, stream);
+  }
+  if (head_dim == 128) {
+    return sm90::launch<sm90::Head128>(attn_batched_kernel_sm90<sm90::Head128>, q, k, v, o,
+                                       strides, batch, heads, n, scale, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 int mdet_flash_attention_batched_f32(const void* q, const void* k, const void* v, void* o,
                                      const int64_t* strides, int batch, int heads, int n,
-                                     float scale, void* stream) {
-  return launch_batched_f32(q, k, v, o, strides, batch, heads, n, scale, stream);
+                                     int head_dim, float scale, void* stream) {
+  if (n < 1 || n > kMaxKeys) return static_cast<int>(cudaErrorInvalidValue);
+  if (head_dim == 64) {
+    return launch_batched_f32<64>(q, k, v, o, strides, batch, heads, n, scale, stream);
+  }
+  if (head_dim == 128) {
+    return launch_batched_f32<128>(q, k, v, o, strides, batch, heads, n, scale, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

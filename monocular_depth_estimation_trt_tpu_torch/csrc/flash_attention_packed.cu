@@ -4,38 +4,45 @@
 // Replaces the TPU kernel
 //   monocular_depth_estimation_trt_tpu/ops/pallas/flash_attention.py::_attn_kernel_packed
 // (entry flash_attention_packed). Same function: non-causal
-// softmax(q k^T * scale) v per head, read from the packed (B, N, 3*H*d)
-// tensor (q | k | v regions, each H*d wide, head-major) and written as the
-// (B, N, H*d) input of the proj matmul. The numerics and the tile loop are
-// those of attention_tile.cuh, shared with kernel K2.
+// softmax(q k^T * scale) v per head, read from the packed (B, N, 3*H*64)
+// tensor (q | k | v regions, each H*64 wide, head-major) and written as the
+// (B, N, H*64) input of the proj matmul. Like the TPU kernel, it casts the
+// unnormalised exponentials before P.V and divides by the row sum after it.
 //
 // What bounds it on the H100: 4*B*H*N^2*d operations against
 // B*N*4*H*d*itemsize bytes. At ViT-S 518^2 (B=1, N=1370, H=6, d=64, bf16)
 // that is 2.9 GFLOP (2.9 us at 989 TFLOP/s) against 4.2 MB (1.3 us at
 // 3.35 TB/s): the tensor cores bound it, as they do at every DINOv2 shape.
 //
-// Design. No per-head copies exist: each CTA (64 query rows, one head, one
-// batch item) reads q, k and v at column offsets h*64, H*64 + h*64 and
-// 2*H*64 + h*64 of rows 3*H*64 apart, and writes its rows into the proj
-// input at column h*64. One CTA of 4 warps per (q tile, head, batch item):
-// 22 x 6 = 132 CTAs at ViT-S, one wave.
+// Design (bf16): the packed tensor is three strided (B, H, N, 64) views, q
+// at column 0, k at H*64 and v at 2*H*64, with element strides N*3*H*64
+// (batch), 64 (head) and 3*H*64 (token); the output is (B, N, H, 64)
+// contiguous. Those are the rank-4 tensor maps of the Hopper mainloop of
+// attention_sm90.cuh (every stride a multiple of 16 bytes, a 64-wide row
+// 128 bytes), which K1 runs in its online mode, as K2 does: TMA loads, a
+// producer warpgroup and a consumer warpgroup of 64 query rows, two CTAs an
+// SM, wgmma with S, P and O in registers. No per-head copy exists. Grid
+// (ceil(N/64), H, B): 22 x 6 = 132 CTAs at ViT-S, one wave at two CTAs an SM
+// of which only one is filled, so the prologue shows.
+//
+// fp32 (precision="fp32") runs the fp32 tile loop of attention_tile.cuh.
 
+#include "attention_sm90.cuh"
 #include "attention_tile.cuh"
 
 namespace {
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    attn_packed_kernel(const T* __restrict__ qkv, T* __restrict__ out, int n, int heads,
-                       float scale) {
-  attn_tile<T>(PackedLayout<T>{qkv, out, n, heads, scale});
+    attn_packed_kernel_f32(const PackedLayout<64> a) {
+  attn_tile(a);
 }
 
-template <typename T>
-int launch_packed(const void* qkv, void* out, int batch, int n, int heads, float scale,
-                  void* stream) {
-  return launch_attention<T>(attn_packed_kernel<T>, n, batch, heads, stream,
-                             static_cast<const T*>(qkv), static_cast<T*>(out), n, heads, scale);
+__global__ void __launch_bounds__(sm90::Head64::kThreads, sm90::Head64::kMinCtas)
+    attn_packed_kernel_sm90(const __grid_constant__ CUtensorMap q,
+                            const __grid_constant__ CUtensorMap k,
+                            const __grid_constant__ CUtensorMap v,
+                            const __grid_constant__ CUtensorMap o, int n, float scale_log2) {
+  sm90::attention<sm90::Head64, /*kExact=*/false>(q, k, v, o, n, scale_log2);
 }
 
 }  // namespace
@@ -47,12 +54,21 @@ extern "C" {
 // synchronise. Returns the cudaError_t of the launch (0 on success).
 int mdet_flash_attention_packed_bf16(const void* qkv, void* out, int batch, int n, int heads,
                                      float scale, void* stream) {
-  return launch_packed<__nv_bfloat16>(qkv, out, batch, n, heads, scale, stream);
+  const int64_t hd = static_cast<int64_t>(heads) * 64;
+  const int64_t row = 3 * hd;
+  // (batch, head, token) element strides of q, k, v, then o
+  const int64_t strides[12] = {n * row, 64, row, n * row, 64, row,
+                               n * row, 64, row, n * hd,  64, hd};
+  const __nv_bfloat16* base = static_cast<const __nv_bfloat16*>(qkv);
+  return sm90::launch<sm90::Head64>(attn_packed_kernel_sm90, base, base + hd, base + 2 * hd, out,
+                                    strides, batch, heads, n, scale, stream);
 }
 
 int mdet_flash_attention_packed_f32(const void* qkv, void* out, int batch, int n, int heads,
                                     float scale, void* stream) {
-  return launch_packed<float>(qkv, out, batch, n, heads, scale, stream);
+  return launch_attention<64>(
+      attn_packed_kernel_f32, n, batch, heads, stream,
+      PackedLayout<64>{static_cast<const float*>(qkv), static_cast<float*>(out), n, heads, scale});
 }
 
 }  // extern "C"

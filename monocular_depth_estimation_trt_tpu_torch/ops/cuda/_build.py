@@ -129,12 +129,13 @@ def build_info() -> Optional[BuildInfo]:
 
 def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    bhnd = (ptr, ptr, ptr, ptr, ctypes.POINTER(ctypes.c_int64), i32, i32, i32, ctypes.c_float,
-            ptr)
+    bhnd = (ptr, ptr, ptr, ptr, ctypes.POINTER(ctypes.c_int64), i32, i32, i32, i32,
+            ctypes.c_float, ptr)
     signatures = {
         # K1: qkv, out, batch, n, heads, scale, stream
         "mdet_flash_attention_packed": (ptr, ptr, i32, i32, i32, ctypes.c_float, ptr),
-        # K2 and K3: q, k, v, out, 12 int64 strides, batch, heads, n, scale, stream
+        # K2 and K3: q, k, v, out, 12 int64 strides, batch, heads, n, head_dim, scale,
+        # stream
         "mdet_flash_attention": bhnd,
         "mdet_flash_attention_batched": bhnd,
         # K4: x, weight_q, qmul, out_scale, bias (or null), out, m, n, k, stream

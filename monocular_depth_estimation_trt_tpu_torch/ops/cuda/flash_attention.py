@@ -14,11 +14,13 @@
   the TPU kernel's exact softmax (P divided by the row sum before its cast).
   CUDA source ``csrc/flash_attention_batched.cu``.
 
-In bf16, K2 and K3 run the Hopper mainloop of ``csrc/attention_sm90.cuh``
-(TMA loads through one tensor map per operand, wgmma, warp specialisation):
-K2 with an online softmax, K3 with two passes over the keys. K1 and the fp32
-K2 share the tile loop of ``csrc/attention_tile.cuh``; the fp32 K3 holds a
-query tile's whole score rows. On a CUDA tensor each wrapper launches its
+In bf16, K1, K2 and K3 run the Hopper mainloop of
+``csrc/attention_sm90.cuh`` (TMA loads through one tensor map per operand,
+wgmma, warp specialisation): K1 and K2 with an online softmax, K3 with two
+passes over the keys. K2 and K3 take head widths up to 128: narrower heads
+are zero-padded to 64 or 128. The fp32 K1 and K2 share the tile loop of
+``csrc/attention_tile.cuh``; the fp32 K3 holds a query tile's whole score
+rows. On a CUDA tensor each wrapper launches its
 kernel or raises; on a CPU tensor it runs its plain PyTorch version
 (:func:`flash_attention_packed_reference`, :func:`flash_attention_reference`
 for K2 and K3). :func:`attention_reference` is the plain attention of the
@@ -34,7 +36,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-HEAD_DIM = 64  # the kernels' one head width: every DINOv2 encoder and VGGT
+HEAD_DIM = 64  # K1's one head width: every DINOv2 encoder and VGGT
+BHND_MAX_HEAD_DIM = 128  # K2's and K3's widest head on a card (the JAX entry's d_pad <= 128)
 BATCHED_MAX_N = 1024  # K3's regime: the TPU kernel's many short heads
 
 _C_FUNCS = {
@@ -139,10 +142,8 @@ def _check_bhnd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dtype not in _K2_C_FUNCS or not q.dtype == k.dtype == v.dtype:
         raise TypeError(
             f"q, k, v must all be bfloat16 or all float32, got {q.dtype} {k.dtype} {v.dtype}")
-    if not 1 <= q.shape[-1] <= HEAD_DIM:
-        raise ValueError(
-            f"head_dim must be 1..{HEAD_DIM} (smaller is zero-padded to {HEAD_DIM}), "
-            f"got shape {tuple(q.shape)}")
+    if q.shape[-1] < 1:
+        raise ValueError(f"head_dim must be at least 1, got shape {tuple(q.shape)}")
     if not q.device == k.device == v.device:
         raise ValueError(f"q, k, v on different devices: {q.device} {k.device} {v.device}")
 
@@ -154,19 +155,30 @@ def _aligned(t: torch.Tensor) -> bool:
             and all(st * size % 16 == 0 for st in t.stride()[:3]))
 
 
+def _kernel_head_dim(d: int) -> int:
+    """The head width K2 and K3 compute ``d`` at: 64, or 128 where d > 64
+    (the JAX entry's ``d_pad`` for d <= 128)."""
+    if d > BHND_MAX_HEAD_DIM:
+        raise ValueError(
+            f"head_dim {d} is above {BHND_MAX_HEAD_DIM}, the widest head the K2 and K3 "
+            "kernels take on a card")
+    return HEAD_DIM if d <= HEAD_DIM else BHND_MAX_HEAD_DIM
+
+
 def _launch_bhnd(c_funcs, name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  scale: float) -> torch.Tensor:
     """Launches K2 or K3 (their C entries share one signature) on CUDA
     operands; returns the ``(B, N, H, d)`` output seen as ``(B, H, N, d)``."""
     b, h, n, d = q.shape
-    if d < HEAD_DIM:
-        q, k, v = (F.pad(t, (0, HEAD_DIM - d)) for t in (q, k, v))
+    width = _kernel_head_dim(d)
+    if d < width:
+        q, k, v = (F.pad(t, (0, width - d)) for t in (q, k, v))
     for label, t in (("q", q), ("k", k), ("v", v)):
         if not _aligned(t):
             raise ValueError(
                 f"{label} must have unit stride on d and 16-byte aligned rows, "
                 f"got strides {t.stride()}")
-    out = torch.empty((b, n, h, HEAD_DIM), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, n, h, width), dtype=q.dtype, device=q.device)
     if out.numel():
         from monocular_depth_estimation_trt_tpu_torch.ops.cuda._build import library
 
@@ -177,24 +189,25 @@ def _launch_bhnd(c_funcs, name: str, q: torch.Tensor, k: torch.Tensor, v: torch.
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
             err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-                     b, h, n, float(scale), stream)
+                     b, h, n, width, float(scale), stream)
         if err:
             raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     out = out.transpose(1, 2)
-    return out if d == HEAD_DIM else out[..., :d]
+    return out if d == width else out[..., :d]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Non-causal multi-head attention, ``(B, H, N, d)`` -> ``(B, H, N, d)``.
 
-    bf16 or fp32, any B, H, N >= 1, d <= 64 (d < 64 is zero-padded, with
-    the scale of the unpadded d, as the JAX entry does). The operands may be
-    strided views (unit stride on d, 16-byte aligned rows). A CUDA tensor
-    launches the kernel on the current stream (counted in
-    ``flash_attention.launches``) and returns a ``(B, N, H, d)`` buffer seen
-    as ``(B, H, N, d)``, so that the reshape before the proj matmul is
-    free; a CPU tensor goes to the plain version."""
+    bf16 or fp32, any B, H, N >= 1 and d >= 1, with the scale of the
+    unpadded d, as the JAX entry does. The operands may be strided views
+    (unit stride on d, 16-byte aligned rows). A CUDA tensor launches the
+    kernel on the current stream (counted in ``flash_attention.launches``)
+    at d <= 128 (d < 64 zero-padded to 64, 64 < d < 128 to 128; a wider
+    head raises) and returns a ``(B, N, H, d)`` buffer seen as
+    ``(B, H, N, d)``, so that the reshape before the proj matmul is free; a
+    CPU tensor goes to the plain version at any d."""
     _check_bhnd(q, k, v)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
@@ -218,10 +231,10 @@ def flash_attention_batched(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     regime; the fp32 kernel holds a query tile's whole score rows), any B
     and H.
 
-    K2's signature and layout rules: bf16 or fp32, d <= 64 zero-padded with
-    the scale of the unpadded d, strided views with unit stride on d and
-    16-byte aligned rows, output written ``(B, N, H, d)`` and returned as a
-    ``(B, H, N, d)`` view. N > 1024 raises on every device: that bound is
+    K2's signature and layout rules: bf16 or fp32, any d >= 1 with the
+    scale of the unpadded d (on a card d <= 128, zero-padded to 64 or 128),
+    strided views with unit stride on d and 16-byte aligned rows, output
+    written ``(B, N, H, d)`` and returned as a ``(B, H, N, d)`` view. N > 1024 raises on every device: that bound is
     the kernel's regime. A CUDA tensor launches the kernel on the current
     stream (counted in ``flash_attention_batched.launches``); a CPU tensor
     goes to the plain version, :func:`flash_attention_reference`: the two

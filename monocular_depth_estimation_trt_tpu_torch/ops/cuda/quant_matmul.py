@@ -11,6 +11,10 @@
 with ``weight_q`` in ``nn.Linear``'s ``(N, K)`` layout. On a CUDA tensor it
 launches the kernel or raises; on a CPU tensor it runs the plain version,
 :func:`w8a8_matmul_reference`, which computes the same numbers bit for bit.
+bf16 activations (int8 serving) run a persistent TMA + wgmma GEMM whose
+consumer warpgroups quantize each landed x tile straight into the register
+A operand of the int8 wgmma; fp32 activations (the parity route) run a wmma
+kernel.
 """
 
 from __future__ import annotations
@@ -18,8 +22,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 QMAX = 127.0
+K_ALIGN = 16  # the bf16 kernel's K granule: one 16-byte row of int8 weight
 
 _C_FUNCS = {
     torch.bfloat16: "mdet_w8a8_matmul_bf16",
@@ -55,7 +61,8 @@ def w8a8_matmul(x: torch.Tensor, weight_q: torch.Tensor, qmul: torch.Tensor,
 
     A CUDA tensor launches K4 on the current stream (counted in
     ``w8a8_matmul.launches``); its output type is the type of ``x``, and
-    another ``out_dtype`` raises. A CPU tensor goes to the plain version."""
+    another ``out_dtype`` raises. In bf16 a K that is no multiple of 16 is
+    zero-padded to one first. A CPU tensor goes to the plain version."""
     _check(x, weight_q, qmul, out_scale, bias)
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
@@ -69,9 +76,15 @@ def w8a8_matmul(x: torch.Tensor, weight_q: torch.Tensor, qmul: torch.Tensor,
     n, k = weight_q.shape
     lead = x.shape[:-1]
     x2 = x.reshape(-1, k)
-    if not x2.is_contiguous():
-        x2 = x2.contiguous()
+    if not x2.is_contiguous() or x2.data_ptr() % 16:
+        x2 = x2.contiguous() if not x2.is_contiguous() else x2.clone()
     weight_q, qmul, out_scale = (t.contiguous() for t in (weight_q, qmul, out_scale))
+    if x.dtype == torch.bfloat16 and k % K_ALIGN:
+        # the bf16 kernel's TMA maps need rows of a multiple of 16 bytes: zero
+        # columns add nothing to the int32 sum (no model layer has such a K)
+        pad = K_ALIGN - k % K_ALIGN
+        x2, weight_q, qmul = (F.pad(t, (0, pad)) for t in (x2, weight_q, qmul))
+        k += pad
     if bias is not None:
         bias = bias.contiguous()
     out = torch.empty((x2.shape[0], n), dtype=x.dtype, device=x.device)

@@ -1,19 +1,28 @@
 #!/usr/bin/env python3
-"""A/B of the PyTorch port's attention kernels between checkouts, on one card.
+"""A/B of the PyTorch port's kernels between checkouts, on one card.
 
     python3 scripts/torch_kernel_ab.py PARENT CHANGE CHANGE PARENT
 
 Each argument is the root of a checkout of this repository. For each one in
 the order given, a fresh process puts that root first on ``sys.path``,
-builds its kernels from its own ``csrc/`` and times K1 (packed-qkv
-attention) at the DA-V2 shapes and Depth Pro's patch shape and, where the
-checkout has them, K2 ((B, H, N, d) attention) at VGGT's frame and global
-shapes and K3 (whole-row attention) at Depth Pro's patch shape, all bf16 on
-random inputs from a fixed seed. It prints one JSON line per checkout: the median
-of ``REPEATS`` CUDA-event timings of ``ITERS`` back-to-back launches each,
-in ms per launch, beside the card's name and power limit; and each wrapper's
-host time per call (``*_host_us``: the median over ``HOST_CALLS`` calls at a
-small shape, where the card keeps up with the host). Imports nothing of JAX.
+builds its kernels from its own ``csrc/`` and times, all bf16 on random
+inputs from a fixed seed: K1 (packed-qkv attention) at the DA-V2, VGGT and
+Depth Pro shapes, beside ``scaled_dot_product_attention`` at ViT-S and ViT-L
+(``*_sdpa_ms``); K2 ((B, H, N, d) attention) at VGGT's frame and global
+shapes and K3 (many short heads) at Depth Pro's patch shape, and both at
+head_dim 128 where the checkout takes it; K4 (the w8a8 matmul) at the int8
+paths' seven layer shapes, beside the bf16 ``torch.matmul`` of the same
+(M, K, N) (``*_matmul_ms``, the yardstick int8 serving has to beat). It
+prints one JSON line per checkout, beside the card's name and power
+limit: the median of ``REPEATS`` CUDA-event timings of ``ITERS``
+back-to-back launches each, in ms per launch (``*_ms``), which follows the
+host where a call's host time exceeds its kernel's; the device time per
+call (``*_dev_ms``: the median of ``REPEATS`` CUDA-event timings of
+``ITERS`` calls queued behind a spin kernel twice as long as the host took
+to issue them, so that the card runs them back to back); and each
+wrapper's host time
+per call (``*_host_us``: the median over ``HOST_CALLS`` calls at a small
+shape, where the card keeps up with the host). Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -28,9 +37,18 @@ ITERS = 50
 HOST_CALLS = 200
 HOST_SHAPE = (1, 16, 128)  # (B, H, N): a kernel shorter than its host call
 K1_SHAPES = {"vits_518": (1, 1370, 6), "vits_518_batch4": (4, 1370, 6),
-             "vitl_518": (1, 1370, 16), "depth_pro_patch": (35, 577, 16)}  # (B, N, H)
-K2_SHAPES = {"frame_s4": (4, 16, 1374), "global_s4": (1, 16, 5496)}  # (B, H, N)
-K3_SHAPES = {"depth_pro_patch": (35, 16, 577), "n1024": (16, 16, 1024)}  # (B, H, N)
+             "vitl_518": (1, 1370, 16), "vggt_s4": (4, 1374, 16),
+             "depth_pro_image": (1, 577, 16), "depth_pro_patch": (35, 577, 16)}  # (B, N, H)
+K1_SDPA = ("vits_518", "vitl_518")
+K2_SHAPES = {"frame_s4": (4, 16, 1374, 64), "global_s4": (1, 16, 5496, 64),
+             "d128_vit7b": (1, 32, 1029, 128), "d128": (16, 16, 577, 128)}  # (B, H, N, d)
+K3_SHAPES = {"depth_pro_patch": (35, 16, 577, 64), "n1024": (16, 16, 1024, 64),
+             "d128": (16, 16, 577, 128)}
+K4_SHAPES = {"vitl_qkv": (1370, 1024, 3072), "vitl_proj": (1370, 1024, 1024),
+             "vitl_fc1": (1370, 1024, 4096), "vitl_fc2": (1370, 4096, 1024),
+             "depth_pro_fc1": (20195, 1024, 4096), "depth_pro_fc2": (20195, 4096, 1024),
+             "vggt_s4_fc1": (5496, 1024, 4096)}  # (M, K, N)
+K4_HOST_SHAPE = (64, 256, 256)
 
 
 def child(root: str) -> dict:
@@ -38,9 +56,11 @@ def child(root: str) -> dict:
     import time
 
     import torch
+    import torch.nn.functional as F
 
     sys.path.insert(0, root)
     from monocular_depth_estimation_trt_tpu_torch.ops.cuda import flash_attention as fa
+    from monocular_depth_estimation_trt_tpu_torch.ops.cuda import quant_matmul as qm
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
@@ -61,6 +81,32 @@ def child(root: str) -> dict:
             times.append(start.elapsed_time(end) / ITERS)
         return statistics.median(times)
 
+    def dev_ms(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ITERS):
+            fn()
+        issue_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        spin_cycles = int(2 * issue_s * 2e9) + 100_000  # the H100 clocks at most 2 GHz
+        times = []
+        for _ in range(REPEATS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(spin_cycles)
+            start.record()
+            for _ in range(ITERS):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end) / ITERS)
+        return statistics.median(times)
+
+    def timed(key, fn) -> None:
+        rec[f"{key}_ms"] = time_ms(fn)
+        rec[f"{key}_dev_ms"] = dev_ms(fn)
+
     def host_us(fn) -> float:
         fn()
         torch.cuda.synchronize()
@@ -75,24 +121,40 @@ def child(root: str) -> dict:
     rec = {"root": root, "package": os.path.dirname(fa.__file__)}
     for label, (b, n, h) in K1_SHAPES.items():
         qkv = torch.randn((b, n, 3 * h * d), generator=gen).to(dev, torch.bfloat16)
-        rec[f"k1_{label}_ms"] = time_ms(lambda: fa.flash_attention_packed(qkv, h))
-    if hasattr(fa, "flash_attention"):
-        for label, (b, h, n) in K2_SHAPES.items():
-            q, k, v = (torch.randn((b, h, n, d), generator=gen).to(dev, torch.bfloat16)
+        timed(f"k1_{label}", lambda: fa.flash_attention_packed(qkv, h))
+        if label in K1_SDPA:
+            q, k, v = qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4)
+            timed(f"k1_{label}_sdpa", lambda: F.scaled_dot_product_attention(q, k, v))
+    widest = getattr(fa, "BHND_MAX_HEAD_DIM", d)
+    for key, name, shapes in (("k2", "flash_attention", K2_SHAPES),
+                              ("k3", "flash_attention_batched", K3_SHAPES)):
+        for label, (b, h, n, hd) in shapes.items():
+            if hd > widest:
+                continue
+            q, k, v = (torch.randn((b, h, n, hd), generator=gen).to(dev, torch.bfloat16)
                        for _ in range(3))
-            rec[f"k2_{label}_ms"] = time_ms(lambda: fa.flash_attention(q, k, v))
-    if hasattr(fa, "flash_attention_batched"):
-        for label, (b, h, n) in K3_SHAPES.items():
-            q, k, v = (torch.randn((b, h, n, d), generator=gen).to(dev, torch.bfloat16)
-                       for _ in range(3))
-            rec[f"k3_{label}_ms"] = time_ms(lambda: fa.flash_attention_batched(q, k, v))
+            timed(f"{key}_{label}", lambda: getattr(fa, name)(q, k, v))
+    for label, (m, kk, n) in K4_SHAPES.items():
+        x = torch.randn((m, kk), generator=gen).to(dev, torch.bfloat16)
+        wq = torch.randint(-127, 128, (n, kk), generator=gen, dtype=torch.int8).to(dev)
+        qmul = (10.0 + 50.0 * torch.rand(kk, generator=gen)).to(dev)
+        scale = (1e-5 + 1e-3 * torch.rand(n, generator=gen)).to(dev)
+        bias = torch.randn(n, generator=gen).to(dev)
+        timed(f"k4_{label}", lambda: qm.w8a8_matmul(x, wq, qmul, scale, bias))
+        w = wq.to(torch.bfloat16)
+        timed(f"k4_{label}_matmul", lambda: torch.matmul(x, w.t()))
+        del x, wq, w
     b, h, n = HOST_SHAPE
     qkv = torch.randn((b, n, 3 * h * d), generator=gen).to(dev, torch.bfloat16)
     rec["k1_host_us"] = host_us(lambda: fa.flash_attention_packed(qkv, h))
     q, k, v = (qkv.view(b, n, 3, h, d)[:, :, i].transpose(1, 2) for i in range(3))
     for key, name in (("k2", "flash_attention"), ("k3", "flash_attention_batched")):
-        if hasattr(fa, name):
-            rec[f"{key}_host_us"] = host_us(lambda: getattr(fa, name)(q, k, v))
+        rec[f"{key}_host_us"] = host_us(lambda: getattr(fa, name)(q, k, v))
+    m, kk, n = K4_HOST_SHAPE
+    x = torch.randn((m, kk), generator=gen).to(dev, torch.bfloat16)
+    wq = torch.randint(-127, 128, (n, kk), generator=gen, dtype=torch.int8).to(dev)
+    qmul, scale, bias = (torch.rand(size, generator=gen).to(dev) for size in (kk, n, n))
+    rec["k4_host_us"] = host_us(lambda: qm.w8a8_matmul(x, wq, qmul, scale, bias))
     from monocular_depth_estimation_trt_tpu_torch.ops.cuda import _build
 
     rec["ptxas"] = [ln.strip() for ln in _build.build_info().log.splitlines()

@@ -1,13 +1,15 @@
-"""The tile algorithms of the port's Hopper attention kernels K2 and K3
+"""The tile algorithms of the port's Hopper attention kernels K1, K2 and K3
 (``monocular_depth_estimation_trt_tpu_torch/csrc/attention_sm90.cuh``),
 modelled here in plain PyTorch, against the JAX package's Pallas kernels in
 interpret mode.
 
 The CUDA kernels cannot run on the CPU; these models repeat their algorithms
 step by step (64-row query tiles, 128-key tiles, the softmax in fp32 with
-exp2 and scale*log2(e) folded in, P cast to bf16 before P.V), so that the
-algorithms are settled against the TPU kernels before any card time is
-spent. The kernels themselves are held against the port's plain version on
+exp2 and scale*log2(e) folded in, P cast to bf16 before P.V; at head_dim
+128 the scores summed over two 64-column regions and O computed region by
+region, as the kernels' tiles hold them; K1 as K2's online mode over the
+strided q, k and v views of the packed qkv tensor), so that the algorithms
+are settled against the TPU kernels before any card time is spent. The kernels themselves are held against the port's plain version on
 a card (``tests/test_torch_cuda_kernels.py``, ``chip_smoke.py``).
 
 Bars, in bf16 steps at the largest output of the JAX kernel: K3's exact
@@ -27,6 +29,7 @@ import torch
 
 from monocular_depth_estimation_trt_tpu.ops.pallas.flash_attention import (
     flash_attention as jax_flash_attention,
+    flash_attention_packed as jax_flash_attention_packed,
 )
 from monocular_depth_estimation_trt_tpu_torch.ops.cuda import flash_attention as fa
 
@@ -39,6 +42,21 @@ K3_BF16_ULPS = 1
 
 def _blocks(n, size):
     return [(i, min(i + size, n)) for i in range(0, n, size)]
+
+
+def _regions(d):
+    """The 64-column regions of a head (one at d <= 64, two at d = 128)."""
+    return [slice(c, c + 64) for c in range(0, d, 64)]
+
+
+def _scores(rows, keys):
+    """Q . K^T summed over the 64-column regions of d."""
+    return sum(rows[..., r] @ keys[..., r].transpose(-1, -2) for r in _regions(rows.shape[-1]))
+
+
+def _pv(p, values):
+    """P . V, one 64-column region of the output after the other."""
+    return torch.cat([p @ values[..., r] for r in _regions(values.shape[-1])], dim=-1)
 
 
 def k2_model(q, k, v, scale, skip_tile=None):
@@ -57,12 +75,12 @@ def k2_model(q, k, v, scale, skip_tile=None):
         for t, (k0, k1) in enumerate(_blocks(k.shape[2], BLOCK_K)):
             if t == skip_tile:
                 continue
-            s = rows @ kf[:, :, k0:k1].transpose(-1, -2)
+            s = _scores(rows, kf[:, :, k0:k1])
             m_new = torch.maximum(m, s.amax(-1))
             alpha = torch.exp2((m - m_new) * c)  # 0 on the first tile
             p = torch.exp2(s * c - (m_new * c)[..., None])
             l = l * alpha + p.sum(-1)
-            o = o * alpha[..., None] + p.to(q.dtype).float() @ vf[:, :, k0:k1]
+            o = o * alpha[..., None] + _pv(p.to(q.dtype).float(), vf[:, :, k0:k1])
             m = m_new
         out[:, :, r0:r1] = o / l[..., None]
     return out.to(q.dtype)
@@ -82,7 +100,7 @@ def k3_model(q, k, v, scale, skip_tile=None):
         m = torch.full(rows.shape[:-1], -math.inf)
         l = torch.zeros(rows.shape[:-1])
         for k0, k1 in key_tiles:  # pass 1: K tiles only
-            s = rows @ kf[:, :, k0:k1].transpose(-1, -2)
+            s = _scores(rows, kf[:, :, k0:k1])
             m_new = torch.maximum(m, s.amax(-1))
             p = torch.exp2(s * c - (m_new * c)[..., None])
             l = l * torch.exp2((m - m_new) * c) + p.sum(-1)
@@ -90,9 +108,9 @@ def k3_model(q, k, v, scale, skip_tile=None):
         bias = (m * c + torch.log2(l))[..., None]
         o = torch.zeros(rows.shape)
         for k0, k1 in key_tiles:  # pass 2: K and V tiles
-            s = rows @ kf[:, :, k0:k1].transpose(-1, -2)
+            s = _scores(rows, kf[:, :, k0:k1])
             p = torch.exp2(s * c - bias)
-            o = o + p.to(q.dtype).float() @ vf[:, :, k0:k1]
+            o = o + _pv(p.to(q.dtype).float(), vf[:, :, k0:k1])
         out[:, :, r0:r1] = o
     return out.to(q.dtype)
 
@@ -126,7 +144,7 @@ def _bf16_step(ref):
 
 
 @pytest.mark.parametrize("n", [1, 65, 129, 577])
-@pytest.mark.parametrize("d", [64, 16])
+@pytest.mark.parametrize("d", [64, 16, 128])
 def test_k2_tile_model_matches_the_jax_kernel(rng, n, d):
     q, k, v = _inputs(rng, n, d)
     ref = _jax_kernel("k2", q, k, v)
@@ -135,7 +153,7 @@ def test_k2_tile_model_matches_the_jax_kernel(rng, n, d):
 
 
 @pytest.mark.parametrize("n", [1, 65, 129, 577])
-@pytest.mark.parametrize("d", [64, 16])
+@pytest.mark.parametrize("d", [64, 16, 128])
 def test_k3_tile_model_matches_the_batched_jax_kernel(rng, n, d):
     q, k, v = _inputs(rng, n, d)
     ref = _jax_kernel("k3", q, k, v)
@@ -144,9 +162,10 @@ def test_k3_tile_model_matches_the_batched_jax_kernel(rng, n, d):
 
 
 @pytest.mark.parametrize("kernel", ["k2", "k3"])
-@pytest.mark.parametrize("n,skip_tile", [(129, 0), (129, 1), (577, 2)])
-def test_a_model_that_skips_a_key_tile_fails_both_bars(rng, kernel, n, skip_tile):
-    q, k, v = _inputs(rng, n, 64)
+@pytest.mark.parametrize("n,skip_tile,d", [(129, 0, 64), (129, 1, 64), (577, 2, 64),
+                                           (577, 2, 128)])
+def test_a_model_that_skips_a_key_tile_fails_both_bars(rng, kernel, n, skip_tile, d):
+    q, k, v = _inputs(rng, n, d)
     ref = _jax_kernel(kernel, q, k, v)
     err = np.abs(_model(kernel, q, k, v, skip_tile=skip_tile) - ref).max()
     assert err > max(K2_BF16_ULPS, K3_BF16_ULPS) * _bf16_step(ref), (err, _bf16_step(ref))
@@ -164,3 +183,31 @@ def test_tile_models_match_the_plain_version(rng, kernel, n):
     bar = {"k2": K2_BF16_ULPS, "k3": K3_BF16_ULPS}[kernel]
     err = np.abs(_model(kernel, q, k, v) - plain).max()
     assert err <= bar * _bf16_step(plain), (err, _bf16_step(plain))
+
+
+def k1_model(qkv, heads, scale, skip_tile=None):
+    """K1: K2's online mode over the (B, H, N, 64) views of the packed
+    (B, N, 3*H*64) tensor (q at column 0, k at H*64, v at 2*H*64; strides
+    N*3*H*64, 64 and 3*H*64), the output written (B, N, H*64)."""
+    b, n, _ = qkv.shape
+    q, k, v = (t.transpose(1, 2) for t in qkv.view(b, n, 3, heads, 64).unbind(2))
+    assert q.stride() == (n * 3 * heads * 64, 64, 3 * heads * 64, 1)
+    out = k2_model(q, k, v, scale, skip_tile=skip_tile)
+    return out.transpose(1, 2).reshape(b, n, heads * 64)
+
+
+@pytest.mark.parametrize("n,heads", [(1, 2), (65, 2), (577, 4), (1370, 2)])
+def test_k1_tile_model_matches_the_packed_jax_kernel(rng, n, heads):
+    """K1's online mode over packed strides against ``_attn_kernel_packed``
+    (which, like it, divides after P.V): within K2's bar; with a key tile
+    skipped, outside it."""
+    qkv = rng.standard_normal((1, n, 3 * heads * 64)).astype(np.float32)
+    ref = np.asarray(jax_flash_attention_packed(jnp.asarray(qkv, jnp.bfloat16), heads,
+                                                interpret=True), np.float32)
+    x = torch.from_numpy(qkv).to(torch.bfloat16)
+    bar = K2_BF16_ULPS * _bf16_step(ref)
+    err = np.abs(k1_model(x, heads, 0.125).float().numpy() - ref).max()
+    assert err <= bar, (err, bar)
+    if n > BLOCK_K:
+        skipped = k1_model(x, heads, 0.125, skip_tile=n // BLOCK_K // 2).float().numpy()
+        assert np.abs(skipped - ref).max() > bar

@@ -47,6 +47,8 @@ def _qkv(b, n, h, dtype, device, seed=0):
     (1, 64, 16, torch.bfloat16), (2, 130, 3, torch.float32), (1, 1370, 6, torch.float32),
 ])
 def test_k1_matches_its_plain_version(cuda, b, n, h, dtype):
+    """K2's bar (``_check_bhnd``) on the (B, H, N, 64) views of the packed
+    qkv tensor: K1 runs K2's online mode over them."""
     x = _qkv(b, n, h, dtype, cuda)
     before = fa.flash_attention_packed.launches
     out = fa.flash_attention_packed(x, h)
@@ -55,6 +57,8 @@ def test_k1_matches_its_plain_version(cuda, b, n, h, dtype):
     assert out.shape == (b, n, h * D) and out.dtype == dtype and out.is_cuda
     ref = fa.flash_attention_packed_reference(x, h)
     assert (out.float() - ref.float()).abs().max().item() < TOL[dtype]
+    q, k, v = x.view(b, n, 3, h, D).permute(2, 0, 3, 1, 4)
+    _check_bhnd(out.view(b, n, h, D).transpose(1, 2), q, k, v)
 
 
 def test_k1_takes_a_scale_and_refuses_what_it_cannot_read(cuda):
@@ -174,13 +178,13 @@ def test_k3_matches_its_plain_version(cuda, b, h, n, d, dtype):
     _check_bhnd(out, q, k, v)
 
 
-@pytest.mark.parametrize("d", [64, 16])
+@pytest.mark.parametrize("d", [64, 16, 128])
 @pytest.mark.parametrize("name", ["flash_attention", "flash_attention_batched"])
 def test_k2_and_k3_read_rotated_q_k_beside_a_strided_v(cuda, name, d):
     """A grid of 35 x 16 heads of 577 tokens with VGGT's operand layout:
     q and k non-contiguous views of one rotated (B, N, 2, H, d) buffer, v a
     strided view of the (B, N, 3, H, d) qkv output; d = 16 is zero-padded
-    to 64 by the wrapper."""
+    to 64 by the wrapper, d = 128 runs the two-region tiles."""
     gen = torch.Generator().manual_seed(5)
     qk = torch.randn((35, 577, 2, 16, d), generator=gen).to(cuda, torch.bfloat16)
     qkv = torch.randn((35, 577, 3, 16, d), generator=gen).to(cuda, torch.bfloat16)
@@ -214,8 +218,46 @@ def test_k2_reads_strided_views_and_refuses_what_it_cannot_read(cuda):
     with pytest.raises(ValueError, match="aligned"):
         fa.flash_attention(flat[1:].view(2, 4, 100, D), k, v)
     with pytest.raises(ValueError, match="head_dim"):
-        wide = torch.zeros((1, 2, 10, 128), device=cuda, dtype=torch.bfloat16)
+        wide = torch.zeros((1, 2, 10, 192), device=cuda, dtype=torch.bfloat16)
         fa.flash_attention(wide, wide, wide)
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "flash_attention_batched"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [80, 96, 128])
+@pytest.mark.parametrize("n", [1, 129, 577])
+def test_k2_and_k3_at_head_dims_above_64(cuda, name, dtype, d, n):
+    """d in (64, 128] runs the head-width-128 kernels (64 < d < 128
+    zero-padded), with K2's bar and the dropped-tile check."""
+    q, k, v = _bhnd(2, 3, n, d, dtype, cuda, seed=d)
+    kernel = getattr(fa, name)
+    before = kernel.launches
+    out = kernel(q, k, v)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    _check_bhnd(out, q, k, v)
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "flash_attention_batched"])
+def test_head_dim_128_reads_each_64_column_half_of_v(cuda, name):
+    """V's two 64-column halves are distinct functions of one another (a
+    kernel that read one half twice, or swapped them, would be off by O(1)):
+    the check of the descriptor's leading offset between V's two atoms."""
+    gen = torch.Generator().manual_seed(7)
+    q, k, lo = (torch.randn((4, 8, 300, 64), generator=gen) for _ in range(3))
+    q, k = (torch.cat([t, torch.randn(t.shape, generator=gen)], -1) for t in (q, k))
+    v = torch.cat([lo, 1.0 - 2.0 * lo.flip(-1)], -1)
+    q, k, v = (t.to(cuda, torch.bfloat16) for t in (q, k, v))
+    out = getattr(fa, name)(q, k, v)
+    torch.cuda.synchronize()
+    _check_bhnd(out, q, k, v)
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "flash_attention_batched"])
+def test_k2_and_k3_refuse_heads_wider_than_128_on_a_card(cuda, name):
+    q = torch.zeros((1, 2, 10, 192), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="128"):
+        getattr(fa, name)(q, q, q)
 
 
 @pytest.mark.parametrize("precision", ["bf16", "fp32"])
@@ -296,18 +338,43 @@ def _w8a8(m, k, n, dtype, device, lead=(), seed=0):
 
 @pytest.mark.parametrize("m,k,n,dtype", [
     (1370, 1024, 3072, torch.bfloat16), (1370, 4096, 1024, torch.bfloat16),
-    (1, 40, 136, torch.bfloat16), (17, 32, 8, torch.bfloat16), (130, 96, 1000, torch.bfloat16),
+    (20195, 1024, 4096, torch.bfloat16), (5496, 4096, 1024, torch.bfloat16),
+    (1, 1024, 1024, torch.bfloat16), (1, 40, 136, torch.bfloat16), (17, 32, 8, torch.bfloat16),
+    (130, 96, 1000, torch.bfloat16), (300, 1040, 520, torch.bfloat16),
+    (1370, 1040, 3000, torch.bfloat16), (1370, 64, 3066, torch.bfloat16),
     (1370, 1024, 1024, torch.float32), (5, 40, 8, torch.float32), (130, 96, 136, torch.float32),
 ])
 def test_k4_equals_its_plain_version(cuda, m, k, n, dtype):
-    """Bit for bit: an exact int32 product and the same fp32 roundings."""
+    """Bit for bit: an exact int32 product and the same fp32 roundings; in
+    bf16 (the persistent kernel) every output tile written exactly: where
+    the wrapper allocates nothing else, the output lands in the block the
+    allocator held NaN in just before. The bf16 shapes take both tile
+    widths, ragged N on each (3000 and 3066 on 256-column tiles, 3066 with
+    rows no multiple of 16 bytes) and K tails (1040, 64)."""
     x, wq, qmul, scale, bias = _w8a8(m, k, n, dtype, cuda)
+    ref = qm.w8a8_matmul_reference(x, wq, qmul, scale, bias)
+    poisoned = torch.full((m, n), float("nan"), dtype=dtype, device=cuda).data_ptr()
     before = qm.w8a8_matmul.launches
     out = qm.w8a8_matmul(x, wq, qmul, scale, bias)
     torch.cuda.synchronize()
     assert qm.w8a8_matmul.launches == before + 1
     assert out.shape == (m, n) and out.dtype == dtype and out.is_cuda
-    assert torch.equal(out, qm.w8a8_matmul_reference(x, wq, qmul, scale, bias))
+    assert torch.equal(out, ref)
+    assert dtype != torch.bfloat16 or k % 16 or out.data_ptr() == poisoned
+
+
+def test_k4_equals_its_plain_version_at_the_edge_shapes(cuda):
+    """M in (1, 17, 130), K in (32, 40, 96) (40 is zero-padded to 48 in
+    bf16), N in (8, 136, 1000), bf16 and fp32: 54 shapes, bit for bit."""
+    bad = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for m in (1, 17, 130):
+            for k in (32, 40, 96):
+                for n in (8, 136, 1000):
+                    ops = _w8a8(m, k, n, dtype, cuda, seed=m + k + n)
+                    if not torch.equal(qm.w8a8_matmul(*ops), qm.w8a8_matmul_reference(*ops)):
+                        bad.append((m, k, n, dtype))
+    assert not bad
 
 
 def test_k4_takes_leading_dims_and_no_bias_and_refuses_what_it_cannot_write(cuda):

@@ -75,7 +75,7 @@ def test_plain_k3_matches_jax_batched_kernel(rng, n, d, dtype):
 
 @pytest.mark.parametrize("shapes,dtypes,exc,match", [
     ([(1, 2, 1025, 64)] * 3, [torch.float32] * 3, ValueError, "1024"),
-    ([(1, 2, 10, 80)] * 3, [torch.float32] * 3, ValueError, "head_dim"),
+    ([(1, 2, 10, 0)] * 3, [torch.float32] * 3, ValueError, "head_dim"),
     ([(1, 2, 10, 64), (1, 2, 11, 64), (1, 2, 10, 64)], [torch.float32] * 3, ValueError,
      "shape"),
     ([(1, 2, 10)] * 3, [torch.float32] * 3, ValueError, "shape"),
@@ -166,6 +166,34 @@ def test_auto_route_takes_any_head_dim_as_jax_does(rng):
     with torch.no_grad():
         ours = tm(torch.from_numpy(x))
     assert rel_err(ours.numpy(), jm.apply({"params": params}, jnp.asarray(x))) < 1e-5
+
+
+@pytest.mark.parametrize("impl,b,route", [("auto", 1, "flash_attention"),
+                                          ("auto", 200, "flash_attention_batched"),
+                                          ("flash", 1, "flash_attention")])
+def test_head_dim_128_attention_matches_jax(rng, monkeypatch, impl, b, route):
+    """Attention(256, 2): head_dim 128, which used to raise in the port.
+    "auto" sends B = 1 to K2 and B = 200 (400 heads of 16 tokens) to K3;
+    "flash" takes K2 on both sides (the JAX kernel in interpret mode, d
+    padded to 128); on the CPU each wrapper runs its plain version."""
+    routes = []
+    for name in ("flash_attention", "flash_attention_batched", "flash_attention_packed"):
+        real = getattr(tvit, name)
+        monkeypatch.setattr(tvit, name, lambda *a, _f=real, _n=name: routes.append(_n) or _f(*a))
+    x = rng.standard_normal((b, 16, 256)).astype(np.float32)
+    jm = jvit.Attention(256, 2, dtype=jnp.float32, attn_impl=impl)
+    params = random_params(jm, jnp.asarray(x[:1]), seed=6)
+    tm = tvit.Attention(256, 2, attn_impl=impl)
+    tm.load_state_dict({f"{name}.{p}": torch.from_numpy(
+        np.array(params[name]["kernel"].T if p == "weight" else params[name]["bias"]))
+        for name in ("qkv", "proj") for p in ("weight", "bias")}, strict=True)
+    counts = (fa.flash_attention.launches, fa.flash_attention_batched.launches)
+    with torch.no_grad():
+        ours = tm(torch.from_numpy(x))
+    assert (fa.flash_attention.launches, fa.flash_attention_batched.launches) == counts
+    assert routes == [route]
+    ref = jax.jit(lambda p, v: jm.apply({"params": p}, v))(params, jnp.asarray(x))
+    assert rel_err(ours.numpy(), ref) < 1e-5
 
 
 def test_jax_attention_reference_is_the_plain_route_of_k3(rng):

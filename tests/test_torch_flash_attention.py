@@ -105,11 +105,12 @@ def test_plain_k1_is_one_softmax_attention(rng):
 
 
 @pytest.mark.parametrize("n", [1, 65, 130, 300])
-@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("d", [16, 64, 96, 128, 256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_plain_k2_matches_jax_kernel(rng, n, d, dtype):
-    """The JAX entry pads N to 128 with masked keys and d to 64 with zeros;
-    the port's plain version pads nothing."""
+    """The JAX entry pads N to 128 with masked keys and d to 64, or above
+    64 to a multiple of 128, with zeros; the port's plain version pads
+    nothing and takes any d."""
     jdt, tdt, tol = DTYPES[dtype]
     q, k, v = (rng.standard_normal((2, 3, n, d)).astype(np.float32) for _ in range(3))
     ref = jax_flash_attention(*(jnp.asarray(t, jdt) for t in (q, k, v)), interpret=True)
@@ -129,9 +130,20 @@ def test_plain_k2_takes_strided_views_and_a_scale(rng):
     assert np.max(np.abs(out.numpy() - ref.numpy())) < 1e-5
 
 
+@pytest.mark.parametrize("d", [80, 128])
+def test_k2_computes_head_dims_above_64_as_jax_does(rng, d):
+    """Widths that used to raise: on the CPU the plain version computes them
+    with the scale of the unpadded d, as the JAX entry does (on a card K2
+    pads them to 128)."""
+    q, k, v = (rng.standard_normal((1, 2, 10, d)).astype(np.float32) for _ in range(3))
+    ref = jax_flash_attention(*(jnp.asarray(t) for t in (q, k, v)), interpret=True)
+    out = fa.flash_attention(*(torch.from_numpy(t) for t in (q, k, v)))
+    assert out.shape == (1, 2, 10, d)
+    assert np.max(np.abs(out.numpy() - np.asarray(ref))) < 1e-5
+
+
 @pytest.mark.parametrize("shapes,dtypes,exc", [
-    ([(1, 2, 10, 80)] * 3, [torch.float32] * 3, ValueError),  # d > 64
-    ([(1, 2, 10, 128)] * 3, [torch.float32] * 3, ValueError),  # d = 128
+    ([(1, 2, 10, 0)] * 3, [torch.float32] * 3, ValueError),  # no head width
     ([(2, 10, 64)] * 3, [torch.float32] * 3, ValueError),  # no head axis
     ([(1, 2, 10, 64), (1, 2, 11, 64), (1, 2, 10, 64)], [torch.float32] * 3, ValueError),
     ([(1, 2, 10, 64)] * 3, [torch.float16] * 3, TypeError),

@@ -116,6 +116,26 @@ def test_rope_attention_matches_jax(pair, rng, views):
     assert rel_err(ours.numpy(), ref) < REL_TOL
 
 
+@pytest.mark.parametrize("views", [1, 2])
+def test_rope_attention_at_head_dim_128_matches_jax(rng, views):
+    """RopeAttention(256, 2): head_dim 128 (the width of VGGT's camera
+    heads and of DINOv3 vit7b16), which used to raise in the port's K2
+    wrapper; on the CPU it runs K2's plain version."""
+    jm = jvggt.RopeAttention(256, 2, 5, (5, 5), dtype=jnp.float32)
+    x = rng.standard_normal((1, views * 30, 256)).astype(np.float32)
+    params = random_params(jm, jnp.asarray(x), views, seed=12)
+    tm = tvggt.RopeAttention(256, 2, 5)
+    tm.load_state_dict({f"{name}.{p}": torch.from_numpy(
+        np.array(params[name]["kernel"].T if p == "weight" else params[name]["bias"]))
+        for name in ("qkv", "proj") for p in ("weight", "bias")}, strict=True)
+    ref = jax.jit(lambda p, v: jm.apply({"params": p}, v, views))(params, jnp.asarray(x))
+    before = fa.flash_attention.launches
+    with torch.no_grad():
+        ours = tm(torch.from_numpy(x), (5, 5), views)
+    assert fa.flash_attention.launches == before  # CPU: the plain version
+    assert rel_err(ours.numpy(), ref) < 1e-5
+
+
 def test_view_causal_config_is_refused():
     with pytest.raises(NotImplementedError, match="streamvggt"):
         tvggt.Aggregator(tvggt.VGGTConfig(causal=True))
