@@ -22,12 +22,14 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    128-key tiles: N = 1, 63, 65, 127, 128, 129, 255, 257, 577, and head
    widths 16, 80, 96, 128; K4 bit for bit), with timings of the kernel and
    one library call (for K4 the chain quantize, ``torch._int_mm``, rescale,
-   and the bf16 ``torch.matmul`` of the same shape) as device time (CUDA
-   events around calls queued behind a spin kernel, so that the host's time
-   per call is hidden), the kernel and the plain version also from CUDA
-   events around back-to-back calls, the card's bound, and the host time of
-   one wrapper call (the attention kernels encode four TMA tensor maps a
-   call, K4 two);
+   and the bf16 ``torch.matmul`` of the same shape) as device time
+   (``kernel_ms``, ``library_ms``: CUDA events around calls queued behind a
+   spin kernel, so that the host's time per call is hidden), the kernel and
+   the plain version also from CUDA events around back-to-back calls
+   (``kernel_event_ms``, ``plain_ms``), the card's bound, and the host time
+   of one wrapper call (the attention kernels encode four TMA tensor maps a
+   call, K4 two), all three from
+   ``monocular_depth_estimation_trt_tpu_torch/runtime/kernel_timing.py``;
 4. main path: ``build_pipeline("depth_anything_v2", encoder="vits")`` on the
    card with seeded random weights: two frames, a batch of two with the viz
    epilogue, the metric variant; the launch counts of every kernel are read
@@ -73,6 +75,9 @@ import os
 import subprocess
 import sys
 import time
+
+from monocular_depth_estimation_trt_tpu_torch.runtime.kernel_timing import (
+    device_ms, event_ms, host_us)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -160,74 +165,6 @@ def run_cmd(cmd) -> str:
     if proc.returncode != 0:
         fail(f"{' '.join(cmd)} exited {proc.returncode}: {proc.stderr.strip()}")
     return proc.stdout.strip()
-
-
-def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def device_ms(fn, iters: int = 20, repeats: int = 3) -> float:
-    """Device time of one call of ``fn`` in ms: CUDA events around ``iters``
-    back-to-back calls queued behind a spin kernel (``torch.cuda._sleep``)
-    twice as long as the host took to issue them, so that the card runs
-    them one after the other whatever a call costs the host (a small kernel
-    behind four tensor-map encodes); the median of ``repeats``. The card's
-    gaps between launches count, the host's time does not. Unlike
-    ``time_ms``, it does not follow the host."""
-    import statistics
-
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    issue_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    spin_cycles = int(2 * issue_s * 2e9) + 100_000  # the H100 clocks at most 2 GHz
-    times = []
-    for _ in range(repeats):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(spin_cycles)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / iters)
-    return statistics.median(times)
-
-
-def host_us(fn, calls: int = 20) -> float:
-    """Median host time of one call of ``fn`` in µs, the card busy behind
-    it: what the wrapper costs the host (checks, argument packing, launch)."""
-    import statistics
-
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(calls):
-        t0 = time.perf_counter()
-        fn()
-        times.append(time.perf_counter() - t0)
-    torch.cuda.synchronize()
-    return statistics.median(times) * 1e6
 
 
 def sass_counts(lib_path: str):
@@ -344,10 +281,10 @@ def check_flash_attention_packed(fa, dev):
             "kernel_vs_fp32_err": kernel_vs_fp32,
             "plain_attention_vs_fp32_err": plain_vs_fp32,
             "kernel_ms": device_ms(lambda: fa.flash_attention_packed(qkv, h)),
-            "kernel_event_ms": time_ms(lambda: fa.flash_attention_packed(qkv, h)),
+            "kernel_event_ms": event_ms(lambda: fa.flash_attention_packed(qkv, h)),
             "host_us_per_call": host_us(lambda: fa.flash_attention_packed(qkv, h)),
-            "plain_ms": time_ms(lambda: fa.flash_attention_packed_reference(qkv, h),
-                                iters=10, warmup=2),
+            "plain_ms": event_ms(lambda: fa.flash_attention_packed_reference(qkv, h),
+                                 iters=10, warmup=2),
             "library_ms": device_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
@@ -496,10 +433,10 @@ def check_bhnd_kernel(fa, dev, name, shapes, seed, k1_at=None):
             "kernel_vs_fp32_err": kernel_vs_fp32,
             "plain_attention_vs_fp32_err": plain_vs_fp32,
             "kernel_ms": device_ms(lambda: kernel(q, k, v), iters=5 if long else 20),
-            "kernel_event_ms": time_ms(lambda: kernel(q, k, v), iters=10 if long else 50),
+            "kernel_event_ms": event_ms(lambda: kernel(q, k, v), iters=10 if long else 50),
             "host_us_per_call": host_us(lambda: kernel(q, k, v)),
-            "plain_ms": time_ms(lambda: fa.flash_attention_reference(q, k, v),
-                                iters=3 if long else 10, warmup=1 if long else 2),
+            "plain_ms": event_ms(lambda: fa.flash_attention_reference(q, k, v),
+                                 iters=3 if long else 10, warmup=1 if long else 2),
             "library_ms": device_ms(lambda: F.scaled_dot_product_attention(q, k, v),
                                     iters=5 if long else 20),
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -995,10 +932,10 @@ def check_w8a8_matmul(qm, dev):
                "equal": equal, "max_abs_err": err, "tolerance": "torch.equal",
                "library_equal": torch.equal(lib, ref), "share_clipped": clipped,
                "kernel_ms": device_ms(lambda: qm.w8a8_matmul(x, wq, qmul, scale, bias)),
-               "kernel_event_ms": time_ms(lambda: qm.w8a8_matmul(x, wq, qmul, scale, bias)),
+               "kernel_event_ms": event_ms(lambda: qm.w8a8_matmul(x, wq, qmul, scale, bias)),
                "host_us_per_call": host_us(lambda: qm.w8a8_matmul(x, wq, qmul, scale, bias)),
-               "plain_ms": time_ms(lambda: qm.w8a8_matmul_reference(x, wq, qmul, scale, bias),
-                                   iters=5, warmup=1),
+               "plain_ms": event_ms(lambda: qm.w8a8_matmul_reference(x, wq, qmul, scale, bias),
+                                    iters=5, warmup=1),
                "library_ms": device_ms(lambda: w8a8_library(x, wq, qmul, scale, bias)),
                "matmul_ms": device_ms(lambda: torch.matmul(x, w.t())),
                "bound_ms": bound_ms, "bound_by": bound_by}

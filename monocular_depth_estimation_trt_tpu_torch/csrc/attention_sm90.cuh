@@ -564,8 +564,7 @@ int launch(Kernel kernel, const void* q, const void* k, const void* v, void* o,
       return static_cast<int>(cudaErrorInvalidValue);
     }
   }
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmemBytes);
+  const cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), Cfg::kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((n + Cfg::kBlockQ - 1) / Cfg::kBlockQ, heads, batch);
   kernel<<<grid, Cfg::kThreads, Cfg::kSmemBytes, static_cast<cudaStream_t>(stream)>>>(

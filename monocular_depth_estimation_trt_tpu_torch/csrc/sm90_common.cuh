@@ -1,14 +1,19 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels: the
 // attention mainloop of K1 to K3 (attention_sm90.cuh) and the w8a8 GEMM K4
 // (w8a8_matmul.cu). mbarriers, TMA loads and stores, wgmma fences and the
-// shared-memory matrix descriptor of 128-byte-swizzled tiles, and the host's
-// lookup of cuTensorMapEncodeTiled.
+// shared-memory matrix descriptor of 128-byte-swizzled tiles; on the host,
+// the lookup of cuTensorMapEncodeTiled and the per-device facts a launch
+// needs, each queried once.
 
 #pragma once
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
+#include <utility>
+#include <vector>
 
 namespace {
 namespace sm90 {
@@ -171,6 +176,43 @@ inline EncodeTiledFn encode_tiled() {
                : nullptr;
   }();
   return fn;
+}
+
+// Raises `kernel`'s dynamic shared-memory limit to `bytes` (a kernel always
+// asks for the same) on the current device, with one driver call per kernel
+// and device, not one per launch.
+inline cudaError_t allow_smem(const void* kernel, int bytes) {
+  static std::mutex mu;
+  static std::vector<std::pair<const void*, int>> raised;  // (kernel, device)
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const std::lock_guard<std::mutex> lock(mu);
+  for (const auto& r : raised) {
+    if (r.first == kernel && r.second == device) return cudaSuccess;
+  }
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) raised.emplace_back(kernel, device);
+  return err;
+}
+
+// The current device's SM count, read once per device.
+inline cudaError_t sm_count(int* sms) {
+  static std::mutex mu;
+  static std::vector<int> counts;  // by device; 0 until read
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const std::lock_guard<std::mutex> lock(mu);
+  if (device < static_cast<int>(counts.size()) && counts[device] > 0) {
+    *sms = counts[device];
+    return cudaSuccess;
+  }
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  if (device >= static_cast<int>(counts.size())) counts.resize(device + 1, 0);
+  counts[device] = *sms;
+  return cudaSuccess;
 }
 
 }  // namespace sm90

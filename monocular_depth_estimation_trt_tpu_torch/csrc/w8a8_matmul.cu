@@ -427,8 +427,9 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 // operation (each x tile is quantized once per tile), 128 give twice the
 // tiles where 256 would leave SMs idle. The one with the smaller waves x
 // time per tile wins, a 256-wide tile taking kWide256Cost / 4 of a 128-wide
-// one's time (1.2 to 1.45 measured on the H100 at the paths' shapes,
-// PERF.md).
+// one's time (1.2 to 1.45 measured on the H100 at the paths' shapes). At
+// M = 1370, N = 1024 it picks 128 (1.11x and 1.04x faster than 256 there),
+// elsewhere 256 (1.16 to 1.55x faster than 128): PERF.md.
 constexpr int kWide256Cost = 5;
 
 int tile_width(int m, int n, int sms) {
@@ -453,8 +454,8 @@ int launch_tiles(const CUtensorMap& tx, sm90::EncodeTiledFn encode, const void* 
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaError_t err = cudaFuncSetAttribute(
-      w8a8_kernel_sm90<Cfg>, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmemBytes);
+  const cudaError_t err =
+      sm90::allow_smem(reinterpret_cast<const void*>(w8a8_kernel_sm90<Cfg>), Cfg::kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (m + kBM - 1) / kBM * ((n + BN - 1) / BN);
   w8a8_kernel_sm90<Cfg><<<tiles < sms ? tiles : sms, kThreads, Cfg::kSmemBytes, stream>>>(
@@ -466,7 +467,8 @@ int launch_tiles(const CUtensorMap& tx, sm90::EncodeTiledFn encode, const void* 
 int launch_sm90(const void* x, const void* wq, const void* qmul, const void* out_scale,
                 const void* bias, void* out, int m, int n, int k, void* stream) {
   if (m <= 0 || n <= 0) return 0;
-  if (k % 16 != 0 || !aligned16(x) || !aligned16(wq) || !aligned16(qmul) || !aligned16(out)) {
+  if (k <= 0 || k % 16 != 0 || !aligned16(x) || !aligned16(wq) || !aligned16(qmul) ||
+      !aligned16(out)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const sm90::EncodeTiledFn encode = sm90::encode_tiled();
@@ -481,9 +483,8 @@ int launch_sm90(const void* x, const void* wq, const void* qmul, const void* out
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  int sms = 0;
+  const cudaError_t err = sm90::sm_count(&sms);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return tile_width(m, n, sms) == 256
@@ -676,7 +677,7 @@ extern "C" {
 
 // x: (m, k) contiguous, bf16 or fp32; weight_q: (n, k) int8 contiguous;
 // qmul: (k,), out_scale: (n,), bias: (n,) or null, all fp32; out: (m, n)
-// contiguous, the type of x. bf16 takes k % 16 == 0 and 16-byte aligned x,
+// contiguous, the type of x. bf16 takes k > 0, k % 16 == 0 and 16-byte aligned x,
 // weight_q, qmul and out. Launches on `stream`, allocates nothing, does not
 // synchronise. Returns the cudaError_t of the launch (0 on success).
 int mdet_w8a8_matmul_bf16(const void* x, const void* weight_q, const void* qmul,

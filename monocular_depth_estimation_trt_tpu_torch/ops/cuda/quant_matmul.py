@@ -38,6 +38,8 @@ def _check(x, weight_q, qmul, out_scale, bias) -> None:
         raise TypeError(f"weight_q must be an (N, K) int8 tensor, got {weight_q.dtype} "
                         f"{tuple(weight_q.shape)}")
     n, k = weight_q.shape
+    if k < 1:
+        raise ValueError(f"weight_q must have K >= 1 columns, got shape {tuple(weight_q.shape)}")
     if x.dim() < 1 or x.shape[-1] != k:
         raise ValueError(f"x must be (..., {k}), got shape {tuple(x.shape)}")
     for name, t, size in (("qmul", qmul, k), ("out_scale", out_scale, n), ("bias", bias, n)):

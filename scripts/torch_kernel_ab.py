@@ -20,13 +20,17 @@ host where a call's host time exceeds its kernel's; the device time per
 call (``*_dev_ms``: the median of ``REPEATS`` CUDA-event timings of
 ``ITERS`` calls queued behind a spin kernel twice as long as the host took
 to issue them, so that the card runs them back to back); and each
-wrapper's host time
-per call (``*_host_us``: the median over ``HOST_CALLS`` calls at a small
-shape, where the card keeps up with the host). Imports nothing of JAX.
+wrapper's host time per call (``*_host_us``: the median over
+``HOST_CALLS`` calls at a small shape, where the card keeps up with the
+host). The three come from the port's ``runtime/kernel_timing.py`` of the
+checkout that holds this script, loaded by path, so that every checkout
+is timed the same way, an older one without that module too. Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import subprocess
@@ -49,15 +53,24 @@ K4_SHAPES = {"vitl_qkv": (1370, 1024, 3072), "vitl_proj": (1370, 1024, 1024),
              "depth_pro_fc1": (20195, 1024, 4096), "depth_pro_fc2": (20195, 4096, 1024),
              "vggt_s4_fc1": (5496, 1024, 4096)}  # (M, K, N)
 K4_HOST_SHAPE = (64, 256, 256)
+TIMING = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                      "monocular_depth_estimation_trt_tpu_torch", "runtime", "kernel_timing.py")
+
+
+def _yardstick():
+    """This checkout's ``kernel_timing`` module, without importing its
+    package (the package under test comes from the root being timed)."""
+    spec = importlib.util.spec_from_file_location("mdet_kernel_timing", TIMING)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def child(root: str) -> dict:
-    import statistics
-    import time
-
     import torch
     import torch.nn.functional as F
 
+    timing = _yardstick()
     sys.path.insert(0, root)
     from monocular_depth_estimation_trt_tpu_torch.ops.cuda import flash_attention as fa
     from monocular_depth_estimation_trt_tpu_torch.ops.cuda import quant_matmul as qm
@@ -66,57 +79,12 @@ def child(root: str) -> dict:
     gen = torch.Generator().manual_seed(0)
     d = fa.HEAD_DIM
 
-    def time_ms(fn) -> float:
-        for _ in range(5):
-            fn()
-        times = []
-        for _ in range(REPEATS):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(ITERS):
-                fn()
-            end.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(end) / ITERS)
-        return statistics.median(times)
-
-    def dev_ms(fn) -> float:
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(ITERS):
-            fn()
-        issue_s = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        spin_cycles = int(2 * issue_s * 2e9) + 100_000  # the H100 clocks at most 2 GHz
-        times = []
-        for _ in range(REPEATS):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(spin_cycles)
-            start.record()
-            for _ in range(ITERS):
-                fn()
-            end.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(end) / ITERS)
-        return statistics.median(times)
-
     def timed(key, fn) -> None:
-        rec[f"{key}_ms"] = time_ms(fn)
-        rec[f"{key}_dev_ms"] = dev_ms(fn)
+        rec[f"{key}_ms"] = timing.event_ms(fn, iters=ITERS, repeats=REPEATS)
+        rec[f"{key}_dev_ms"] = timing.device_ms(fn, iters=ITERS, repeats=REPEATS)
 
     def host_us(fn) -> float:
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(HOST_CALLS):
-            t0 = time.perf_counter()
-            fn()
-            times.append(time.perf_counter() - t0)
-        torch.cuda.synchronize()
-        return statistics.median(times) * 1e6
+        return timing.host_us(fn, calls=HOST_CALLS)
 
     rec = {"root": root, "package": os.path.dirname(fa.__file__)}
     for label, (b, n, h) in K1_SHAPES.items():

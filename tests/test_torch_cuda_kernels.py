@@ -389,6 +389,8 @@ def test_k4_takes_leading_dims_and_no_bias_and_refuses_what_it_cannot_write(cuda
         qm.w8a8_matmul(x, wq, qmul, scale, out_dtype=torch.float32)
     with pytest.raises(TypeError, match="bfloat16 or float32"):
         qm.w8a8_matmul(x.half(), wq, qmul, scale)
+    with pytest.raises(ValueError, match="K >= 1"):
+        qm.w8a8_matmul(x[..., :0], wq[:, :0], qmul[:0], scale)
 
 
 @pytest.mark.parametrize("precision", ["bf16", "fp32"])

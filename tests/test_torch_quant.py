@@ -152,6 +152,15 @@ def test_plain_version_matches_the_jax_serve_path(m, k, n, lead, with_bias):
     assert np.all(np.abs(bf.float().numpy() - want) <= _bf16_step(want))
 
 
+def test_w8a8_matmul_refuses_an_empty_k():
+    """K = 0 has no product to take: the wrapper raises on every device
+    rather than return the bias alone."""
+    x = torch.zeros((4, 0))
+    wq = torch.zeros((8, 0), dtype=torch.int8)
+    with pytest.raises(ValueError, match="K >= 1"):
+        qm.w8a8_matmul(x, wq, torch.zeros(0), torch.ones(8), torch.zeros(8))
+
+
 @pytest.mark.parametrize("impl", ["xla", "pallas"])
 def test_quant_linear_matches_jax_quant_dense(monkeypatch, impl):
     """QuantDense serve mode (both of its routes) and QuantLinear on one
