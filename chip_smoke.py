@@ -15,12 +15,13 @@ Phases, each printed as one JSON line; any failure exits non-zero:
 3. kernel checks: each kernel's wrapper (K1 packed-qkv attention, K2
    (B, H, N, d) attention and K3 exact-softmax attention of many short
    heads, all three on the TMA + wgmma mainloop of
-   ``csrc/attention_sm90.cuh`` in bf16, K2 and K3 at head widths 64 and 128;
+   ``csrc/attention_sm90.cuh`` in bf16, K2 and K3 at head widths 64 and 128,
+   and above 128 on the simple loop of ``csrc/attention_wide.cuh``;
    K4 the fused w8a8 matmul, a TMA + wgmma int8 GEMM in bf16) against its
    plain PyTorch version on the card, at the main paths' shapes and edge
    shapes (for the attention kernels the ends of the 64-row query tiles and
    128-key tiles: N = 1, 63, 65, 127, 128, 129, 255, 257, 577, and head
-   widths 16, 80, 96, 128; K4 bit for bit), with timings of the kernel and
+   widths 16, 80, 96, 128, 192, 256, 320; K4 bit for bit), with timings of the kernel and
    one library call (for K4 the chain quantize, ``torch._int_mm``, rescale,
    and the bf16 ``torch.matmul`` of the same shape) as device time
    (``kernel_ms``, ``library_ms``: CUDA events around calls queued behind a
@@ -32,36 +33,59 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    ``monocular_depth_estimation_trt_tpu_torch/runtime/kernel_timing.py``;
 4. main path: ``build_pipeline("depth_anything_v2", encoder="vits")`` on the
    card with seeded random weights: two frames, a batch of two with the viz
-   epilogue, the metric variant; the launch counts of every kernel are read
-   over exactly this run; then the bf16 depth against the same pipeline with
-   plain attention and against the fp32 path, and the fp32 pipeline on the
-   card against the CPU;
+   epilogue, the metric variant, each through a captured engine
+   (``runtime/engine.py``: WARMUP_CALLS eager calls, then one captured
+   call; the wrappers count both, a replay goes through none); the launch
+   counts of every kernel are read over exactly this run, and each
+   engine's captured forward holds 12 K1 launches; then the bf16 depth
+   against the same pipeline with plain attention and against the fp32
+   path, and the fp32 pipeline on the card against the CPU;
 5. VGGT path: ``build_pipeline("vggt")`` at full size (ViT-L patch embed, 24
    alternating blocks): one 480x640 frame with the viz epilogue, 4 views,
-   then 8 views, with the counts set to 0 just before and read just after;
-   then its bf16 outputs against plain attention and the fp32 path for two
-   weight seeds and three frames, and the fp32 path on the card against the
-   CPU;
+   then 8 views, with the counts set to 0 just before and read just after
+   (24 K1 + 48 K2 per captured forward); then its bf16 outputs against
+   plain attention and the fp32 path for two weight seeds and three frames,
+   and the fp32 path on the card against the CPU;
 6. Depth Pro path: ``build_pipeline("depth_pro")`` at full size (two
    ViT-L/16@384 encoders, 1536 input): a 480x640 frame with the viz
    epilogue and a 1536x1536 frame, with the counts set to 0 just before and
-   read just after (24 K3 + 24 K1 launches per forward); then its bf16
+   read just after (24 K3 + 24 K1 per captured forward); then its bf16
    outputs against plain attention and the fp32 path for two weight seeds
    and two frames, and the fp32 path on the card against the CPU with the
    ViT depth cut to 12 blocks;
 7. int8 paths: ``build_pipeline(name, precision="int8", calib_images=...)``
    for DA-V2 vitl, depth_pro and vggt at full size, each with its own counts
-   set to 0 just before and read just after (per forward: 96 K4 + 24 K1;
-   192 K4 + 24 K3 + 24 K1; 288 K4 + 24 K1 + 48 K2), two frames each (the
-   first with the viz epilogue) and 4 views for vggt; then the int8 outputs
-   against the bf16 and fp32 routes for two weight seeds and two frames;
-8. speed: ``DepthPipeline.benchmark((518, 518))`` for vits and vitl, for
-   vggt at S=1 and (``benchmark_views``) S=4, and
-   ``DepthPipeline.benchmark((1536, 1536))`` for depth_pro, in bf16 and in
-   int8, and vits int8 (forced) against vits bf16 in alternating turns;
-9. profile: device time by kernel, device busy time and idle share of a
-   vits and a vitl frame, of vggt forwards of 1 and 4 views and of a
-   depth_pro frame, in bf16 and int8, from ``torch.profiler``.
+   set to 0 just before and read just after (per captured forward: 96 K4 +
+   24 K1; 192 K4 + 24 K3 + 24 K1; 288 K4 + 24 K1 + 48 K2), two frames each
+   (the first with the viz epilogue) and 4 views for vggt; then the int8
+   outputs against the bf16 and fp32 routes for two weight seeds and two
+   frames;
+8. engine: an engine each for vits, vitl, int8 vitl, vggt S=1 and S=4 and
+   depth_pro 1536², against the eager forward it captures: the same kernel
+   launches per forward, output buffers filled with NaN before the first
+   replay, the replay's outputs finite and equal to the eager forward's bit
+   for bit (else within ENGINE_REL_TOL, recorded), a result that survives
+   the next call; build seconds per engine;
+9. cli: ``python -m monocular_depth_estimation_trt_tpu_torch run
+   depth_anything_v2 --encoder vits --pointcloud --benchmark`` on a seeded
+   480x640 PNG in a process of its own (npz depth equal to this process's
+   pipeline bit for bit; viz and ``.ply`` written), ``views vggt`` on 4
+   PNGs, ``run depth_pro`` on this process's weights (``_fov.json`` against
+   its f_px);
+10. server: ``DepthServer`` over vits on port 0 with max_batch 4: 8
+   concurrent PNG requests, 2 of another size, a bad body (400), an unknown
+   model (404), ``format=jpg`` (501 without a JPEG codec); each npz answer
+   equal to ``batch_call`` on the same padded bucket, or to the
+   single-frame call, bit for bit; ``/v1/stats``;
+11. speed: ``DepthPipeline.benchmark`` (through the engine, "graph") and
+   the same step through the eager forward ("eager") in turns eager,
+   graph, graph, eager for vits, vitl, int8 vitl, vggt S=1 and S=4
+   (``benchmark_views``) and depth_pro 1536²; int8 depth_pro and vggt
+   through their engines; vits int8 (forced) against vits bf16 in
+   alternating turns;
+12. profile: device time by kernel, device busy time and idle share of a
+   graph replay of each path (and of the eager forward of vits, vggt S=4
+   and depth_pro), from ``torch.profiler``.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -76,6 +100,7 @@ import subprocess
 import sys
 import time
 
+from monocular_depth_estimation_trt_tpu_torch.runtime.engine import WARMUP_CALLS
 from monocular_depth_estimation_trt_tpu_torch.runtime.kernel_timing import (
     device_ms, event_ms, host_us)
 
@@ -130,7 +155,9 @@ INT8_REL_TOL = {
     "vggt": {"depth": 1.2e-1, "depth_conf": 7.5e-2, "pose_enc": 2e-1},
 }
 
-SPEED_REPEATS = 3
+# replay against eager where a library call picks another algorithm under
+# capture (max |graph - eager| / max |eager|); equal bit for bit otherwise
+ENGINE_REL_TOL = 1e-3
 VGGT_BENCH = dict(warmup=3, iterations=20, latency_iterations=10)
 DEPTH_PRO_BENCH = dict(warmup=3, iterations=20, latency_iterations=10)
 
@@ -146,7 +173,12 @@ PEAK_FP32_OPS = 67e12  # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 
 
+T0 = time.perf_counter()
+
+
 def emit(record) -> None:
+    if "phase" in record:  # the script's clock at each phase record
+        record = {**record, "elapsed_s": round(time.perf_counter() - T0, 1)}
     print(json.dumps(record), flush=True)
 
 
@@ -326,6 +358,12 @@ def check_flash_attention(fa, dev):
         ("d96_padded", 2, 16, 255, 96, torch.bfloat16, True),
         ("d128_vit7b_fp32", 1, 32, 1029, 128, torch.float32, False),
         ("d96_fp32", 2, 3, 65, 96, torch.float32, False),
+        # heads wider than 128, zero-padded to a multiple of 128: the wide loop
+        ("d192_wide", 1, 16, 1029, 192, torch.bfloat16, False),
+        ("d256_wide", 1, 16, 1029, 256, torch.bfloat16, False),
+        ("d320_wide_strided", 2, 8, 577, 320, torch.bfloat16, True),
+        ("d192_wide_fp32", 1, 4, 257, 192, torch.float32, False),
+        ("d320_wide_fp32", 1, 4, 129, 320, torch.float32, False),
     ])
 
 
@@ -364,6 +402,11 @@ def check_flash_attention_batched(fa, dev):
         ("d96_padded", 35, 8, 257, 96, torch.bfloat16, False),
         ("d128_fp32", 16, 16, 577, 128, torch.float32, False),
         ("d128_n1024_fp32", 2, 8, 1024, 128, torch.float32, False),
+        # heads wider than 128, zero-padded to a multiple of 128: the wide loop
+        ("d192_wide", 16, 16, 577, 192, torch.bfloat16, True),
+        ("d256_wide", 8, 16, 577, 256, torch.bfloat16, False),
+        ("d320_wide", 8, 8, 257, 320, torch.bfloat16, False),
+        ("d256_wide_fp32", 4, 8, 577, 256, torch.float32, False),
     ])
 
 
@@ -501,7 +544,7 @@ def profile_breakdown(step, name: str, iters: int = 5, top: int = 12):
                      "per_call": v[1] / iters} for k, v in ranked[:top]]}
 
 
-def run_vggt_path(build_pipeline, fa, wrappers, rng):
+def run_vggt_path(build_pipeline, wrappers, rng):
     """The VGGT path with its own counts: set to 0 just before, read just
     after. Returns the pipeline and the counts."""
     import numpy as np
@@ -516,20 +559,21 @@ def run_vggt_path(build_pipeline, fa, wrappers, rng):
     set_counts_to_zero(wrappers)
     per_forward = {}
     outs = {}
-    for key, run, arg in (("frame_480x640", lambda a: pipe(a, viz=True), frame),
-                          ("views_s4", pipe.multi_view, views4),
-                          ("views_s8", pipe.multi_view, views8)):
-        before = (fa.flash_attention_packed.launches, fa.flash_attention.launches)
-        outs[key] = run(arg)
-        per_forward[key] = [fa.flash_attention_packed.launches - before[0],
-                            fa.flash_attention.launches - before[1]]
+    for key, run, arg, engine_of in (
+            ("frame_480x640", lambda a: pipe(a, viz=True), frame,
+             lambda: pipe.engine_for((480, 640), True)),
+            ("views_s4", pipe.multi_view, views4, lambda: pipe.views_engine(4)),
+            ("views_s8", pipe.multi_view, views8, lambda: pipe.views_engine(8))):
+        outs[key], per = run_counted(lambda: run(arg), engine_of, wrappers, f"vggt {key}")
+        per_forward[key] = per[1:3]
     torch.cuda.synchronize()
     launches = launch_record(wrappers)
 
     for key, got in per_forward.items():
         check(got == [24, 48], f"vggt {key}: K1, K2 launches {got}, want [24, 48]")
-    check(launches == {"flash_attention_batched": 0, "flash_attention_packed": 72,
-                       "flash_attention": 144, "w8a8_matmul": 0},
+    n = 3 * (WARMUP_CALLS + 1)  # three engines, each warmed up and captured
+    check(launches == {"flash_attention_batched": 0, "flash_attention_packed": 24 * n,
+                       "flash_attention": 48 * n, "w8a8_matmul": 0},
           f"launches on the vggt path {launches}")
     one = outs["frame_480x640"]
     want = {"depth": (480, 640), "depth_conf": (480, 640), "pose_enc": (9,),
@@ -556,7 +600,7 @@ def run_vggt_path(build_pipeline, fa, wrappers, rng):
         check(o["depth"].max() > o["depth"].min(), f"vggt {key} depth is constant")
     emit({"phase": "vggt_path", "model": pipe.spec.artifact_name(),
           "forwards": list(per_forward), "launches_per_forward_k1_k2": per_forward,
-          "launches": launches,
+          "launches": launches, "counted": f"{WARMUP_CALLS} warm-up + 1 captured per engine",
           "depth_range_480x640": [float(d.min()), float(d.max())],
           "pose_enc_480x640": [float(x) for x in one["pose_enc"]],
           "focal_px_480x640": float(one["focal_px"])})
@@ -628,8 +672,8 @@ def vggt_parity(build_pipeline, pipe, frames):
                            **{k: {"fp32_card_vs_cpu_rel": rel(card32[k], cpu32[k])}
                               for k in keys}}
                 emit(cpu_rec)
+        drop_engines(plain_pipe, card32_pipe, kernel_pipe)
         del kernel_pipe, plain_pipe, card32_pipe, sd
-        torch.cuda.empty_cache()
 
     def worst(k, metric):
         return max(r[k][metric] for r in readings)
@@ -707,6 +751,39 @@ def launch_record(wrappers):
     return {name: wrappers[name].launches for name in KERNELS}
 
 
+def drop_engines(*pipes) -> None:
+    """Release the pipelines' captured graphs and their memory pools (an
+    engine's function refers back to its pipeline, so a dropped pipeline
+    would keep its graphs until the cycle collector ran)."""
+    import gc
+
+    import torch
+
+    for p in pipes:
+        p.release_engines()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def engine_launches(engine):
+    """The launches [K3, K1, K2, K4] of an engine's captured forward."""
+    return [engine.captured_launches[name] for name in KERNELS]
+
+
+def run_counted(call, engine_of, wrappers, label):
+    """``call()`` through an engine that it builds: the wrappers count the
+    engine's WARMUP_CALLS eager calls and its captured one, and nothing else
+    (a replay goes through no wrapper). Returns the output and the launches
+    [K3, K1, K2, K4] of one forward."""
+    before = counts(wrappers)
+    out = call()
+    got = [a - b for a, b in zip(counts(wrappers), before)]
+    per = engine_launches(engine_of())
+    check(got == [(WARMUP_CALLS + 1) * n for n in per],
+          f"{label}: launches {got} for a new engine whose forward launches {per}")
+    return out, per
+
+
 def run_depth_pro_path(build_pipeline, wrappers, rng):
     """The Depth Pro path with its own counts: set to 0 just before, read
     just after. Returns the pipeline, the counts and the frames."""
@@ -721,16 +798,18 @@ def run_depth_pro_path(build_pipeline, wrappers, rng):
     set_counts_to_zero(wrappers)
     per_forward, outs = {}, {}
     for key, frame in frames.items():
-        before = counts(wrappers)
-        outs[key] = pipe(frame, viz=key == "frame_480x640")
-        per_forward[key] = [a - b for a, b in zip(counts(wrappers), before)]
+        viz = key == "frame_480x640"
+        outs[key], per_forward[key] = run_counted(
+            lambda: pipe(frame, viz=viz), lambda: pipe.engine_for(frame.shape[:2], viz),
+            wrappers, f"depth_pro {key}")
     torch.cuda.synchronize()
     launches = launch_record(wrappers)
 
     for key, got in per_forward.items():
         check(got == [24, 24, 0, 0],
               f"depth_pro {key}: K3, K1, K2, K4 launches {got}, want [24, 24, 0, 0]")
-    check(launches == {"flash_attention_batched": 48, "flash_attention_packed": 48,
+    n = 2 * (WARMUP_CALLS + 1)
+    check(launches == {"flash_attention_batched": 24 * n, "flash_attention_packed": 24 * n,
                        "flash_attention": 0, "w8a8_matmul": 0},
           f"launches on the depth_pro path {launches}")
     rec = {"phase": "depth_pro_path", "model": pipe.spec.artifact_name(),
@@ -808,8 +887,8 @@ def depth_pro_parity(build_pipeline, pipe, frames):
                 }
             emit(rec)
             readings.append(rec)
+        drop_engines(plain_pipe, card32_pipe, kernel_pipe)
         del kernel_pipe, plain_pipe, card32_pipe, sd
-        torch.cuda.empty_cache()
 
     # fp32, card against CPU: full geometry and widths, 12 ViT blocks
     vit = ViTConfig(dim=1024, depth=DEPTH_PRO_CPU_VIT_DEPTH, num_heads=16, patch_size=16,
@@ -819,8 +898,8 @@ def depth_pro_parity(build_pipeline, pipe, frames):
     frame = frames["frame_480x640"]
     got_card = run(card32, frame)
     sd = {k: v.cpu() for k, v in card32.model.state_dict().items()}
+    drop_engines(card32)
     del card32
-    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     got_cpu = run(build_pipeline("depth_pro", precision="fp32", device="cpu", params=sd,
                                  model_kw=model_kw), frame)
@@ -1038,20 +1117,21 @@ def run_int8_path(name, fam, wrappers, frames, views4=None):
     set_counts_to_zero(wrappers)
     per_forward, outs = {}, {}
     for i, (key, frame) in enumerate(frames.items()):
-        before = counts(wrappers)
-        outs[key] = pipe(frame, viz=i == 0)
-        per_forward[key] = [a - b for a, b in zip(counts(wrappers), before)]
+        outs[key], per_forward[key] = run_counted(
+            lambda: pipe(frame, viz=i == 0), lambda: pipe.engine_for(frame.shape[:2], i == 0),
+            wrappers, f"{name} int8 {key}")
     if views4 is not None:
-        before = counts(wrappers)
-        outs["views_s4"] = pipe.multi_view(views4)
-        per_forward["views_s4"] = [a - b for a, b in zip(counts(wrappers), before)]
+        outs["views_s4"], per_forward["views_s4"] = run_counted(
+            lambda: pipe.multi_view(views4), lambda: pipe.views_engine(4), wrappers,
+            f"{name} int8 views_s4")
     torch.cuda.synchronize()
     launches = launch_record(wrappers)
 
     want = fam["per_forward"]
     for key, got in per_forward.items():
         check(got == want, f"{name} int8 {key}: K3, K1, K2, K4 launches {got}, want {want}")
-    check(launches == {k: n * len(per_forward) for k, n in zip(KERNELS, want)},
+    forwards = len(per_forward) * (WARMUP_CALLS + 1)
+    check(launches == {k: n * forwards for k, n in zip(KERNELS, want)},
           f"launches on the {name} int8 path {launches}")
     check(swapped == want[3], f"{name} int8: {swapped} QuantLinear layers, want {want[3]}")
     rec = {"phase": "int8_path", "model": pipe.spec.artifact_name(), "build_seconds": build_s,
@@ -1105,8 +1185,8 @@ def int8_parity(name, fam, path_pipe, frames):
                     rec[k]["bf16_vs_fp32_pearson"] = pearson(b[k], f[k])
             emit(rec)
             readings.append(rec)
+        drop_engines(bf16, fp32, *(() if int8 is path_pipe else (int8,)))
         del int8, bf16, fp32, sd
-        torch.cuda.empty_cache()
     keys = [k for k in readings[0] if isinstance(readings[0][k], dict)]
     emit({"phase": "int8_parity_summary", "model": name, "readings": len(readings),
           **{k: {"max_int8_vs_fp32_rel": max(r[k]["int8_vs_fp32_rel"] for r in readings),
@@ -1127,12 +1207,342 @@ def int8_parity(name, fam, path_pipe, frames):
             check(got < INT8_REL_TOL[name][k], f"{name} int8 {k} vs fp32 rel {got} ({at})")
 
 
-def speed_record(rep, pipe, repeat, card, power_limit):
-    return {"phase": "speed", "model": pipe.spec.artifact_name(), "repeat": repeat,
-            "fps": rep.fps, "mean_ms": rep.avg_ms,
-            "p50_ms": rep.percentile_ms(50), "p99_ms": rep.percentile_ms(99),
-            "iterations": rep.iterations, "includes": "H2D uint8 + forward + D2H depth",
+ROUTE_TURNS = ("eager", "graph", "graph", "eager")
+
+
+def p_eager(pipe, in_hw):
+    """The pipeline's eager forward of one frame (or batch) of size ``in_hw``
+    without the viz epilogue: what its engine captures."""
+    return lambda x: pipe._eager(x, in_hw, False)
+
+
+def timed_route(pipe, route, in_hw, views, config):
+    """The benchmark of one path: ``DepthPipeline.benchmark`` /
+    ``VGGTPipeline.benchmark_views`` through the engine ("graph"), or the
+    same step through the eager forward ("eager"): pinned uint8 H2D,
+    forward, depth D2H into pinned memory (S views: device-resident uint8
+    views, forward only)."""
+    import numpy as np
+    import torch
+
+    from monocular_depth_estimation_trt_tpu_torch.runtime.benchmark import benchmark
+
+    if route == "graph":
+        return pipe.benchmark_views(views, config) if views else pipe.benchmark(in_hw, config)
+    rng = np.random.default_rng(0)
+    if views:
+        arg = torch.from_numpy(
+            rng.integers(0, 255, (views, *pipe.spec.input_hw, 3), dtype=np.uint8)).to(pipe.device)
+
+        def step():
+            with torch.inference_mode():
+                pipe._views_forward(arg)
+    else:
+        frame = rng.integers(0, 255, size=(*in_hw, 3), dtype=np.uint8)
+        host_in = torch.from_numpy(frame).pin_memory()
+        host_out = torch.empty(tuple(in_hw), dtype=torch.float32).pin_memory()
+
+        def step():
+            dev = host_in.to(pipe.device, non_blocking=True)
+            host_out.copy_(pipe._run(dev, tuple(in_hw), False)["depth"], non_blocking=True)
+    rep = benchmark(step, device=pipe.device, config=config, name=pipe.spec.artifact_name())
+    rep.frames_per_iteration = views or 1
+    return rep
+
+
+def speed_record(rep, pipe, label, route, turn, views, in_hw, card, power_limit):
+    per = "_per_forward" if views else ""
+    return {"phase": "speed", "path": label, "model": pipe.spec.artifact_name(),
+            "route": route, "turn": turn, "views": views or None,
+            "fps_per_frame" if views else "fps": rep.fps, f"mean_ms{per}": rep.avg_ms,
+            f"p50_ms{per}": rep.percentile_ms(50), f"p99_ms{per}": rep.percentile_ms(99),
+            "iterations": rep.iterations,
+            "includes": (f"forward of {views} device-resident uint8 views" if views
+                         else f"H2D uint8 {in_hw[0]}x{in_hw[1]} + forward + D2H depth"),
             "card": card, "power_limit": power_limit}
+
+
+def finite_or_none(x: float):
+    return x if math.isfinite(x) else None
+
+
+def check_engine(label, pipe, engine, eager, arg, other, want, wrappers):
+    """One engine against the eager forward it captures: the eager forward's
+    launches [K3, K1, K2, K4] equal the captured forward's and ``want``; the
+    capture's output buffers are filled with NaN before the first replay,
+    whose outputs are finite and equal the eager forward's bit for bit (or,
+    where a library call picks another algorithm under capture, within
+    ENGINE_REL_TOL, recorded); a result survives the next call on another
+    input."""
+    import numpy as np
+    import torch
+
+    dev_arg = torch.from_numpy(arg).to(pipe.device)
+    before = counts(wrappers)
+    with torch.inference_mode():
+        ref = eager(dev_arg)
+    torch.cuda.synchronize()
+    eager_launches = [a - b for a, b in zip(counts(wrappers), before)]
+    engine.compile()
+    with torch.inference_mode():
+        for t in engine.static_outputs().values():
+            if t.is_floating_point():
+                t.fill_(float("nan"))
+    out = engine(torch.from_numpy(arg))
+    kept = {k: v.clone() for k, v in out.items()}
+    second = engine(torch.from_numpy(other))
+    torch.cuda.synchronize()
+    rec = {"phase": "engine", "path": label, "engine": engine.name,
+           "build_seconds": engine.build_seconds,
+           "launches_per_forward_k3_k1_k2_k4": {"eager": eager_launches,
+                                                "captured": engine_launches(engine)},
+           "outputs": {}}
+    for k in out:
+        a, b = out[k].float(), ref[k].float()
+        equal = bool(torch.equal(out[k], ref[k]))
+        rec["outputs"][k] = {
+            "equal_to_eager": equal, "finite": bool(torch.isfinite(a).all()),
+            "eager_finite": bool(torch.isfinite(b).all()), "nan": bool(torch.isnan(a).any()),
+            "max_rel": finite_or_none(
+                ((a - b).abs().max() / b.abs().max().clamp_min(1e-12)).item()),
+            "survives_next_call": bool(torch.equal(out[k], kept[k])),
+            "next_call_differs": not torch.equal(second[k], out[k]) if second[k].numel() > 1
+            else None}
+    emit(rec)
+    check(eager_launches == engine_launches(engine) == want,
+          f"engine {label}: launches eager {eager_launches}, captured "
+          f"{engine_launches(engine)}, want {want}")
+    for k, r in rec["outputs"].items():
+        # the replay overwrote every NaN, and is finite wherever eager is
+        # (VGGT's random-weight fov can sit at the relu's 0: focal_px inf)
+        check(not r["nan"] and (r["finite"] or (r["equal_to_eager"] and not r["eager_finite"])),
+              f"engine {label} {k}: not finite after the NaN-filled capture")
+        check(r["equal_to_eager"] or (r["max_rel"] or math.inf) <= ENGINE_REL_TOL,
+              f"engine {label} {k}: replay vs eager max rel {r['max_rel']}")
+        check(r["survives_next_call"], f"engine {label} {k}: overwritten by the next call")
+    check(rec["outputs"]["depth"]["next_call_differs"],
+          f"engine {label}: another input gave the same depth")
+
+
+class LaunchRecorder:
+    """A pipeline seen through the server: records the frames of every
+    launch (``__call__`` and ``batch_call``), then delegates."""
+
+    def __init__(self, pipe):
+        self.pipe, self.spec, self.device = pipe, pipe.spec, pipe.device
+        self.launches = []
+
+    def __call__(self, frame, viz=False, device_out=False):
+        import numpy as np
+
+        self.launches.append((np.array(frame)[None], viz, False))
+        return self.pipe(frame, viz=viz, device_out=device_out)
+
+    def batch_call(self, frames, viz=False, device_out=False):
+        import numpy as np
+
+        self.launches.append((np.array(frames), viz, True))
+        return self.pipe.batch_call(frames, viz=viz, device_out=device_out)
+
+
+def post(url, body, timeout=120):
+    """(status, body) of a POST."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(urllib.request.Request(url, data=body, method="POST"),
+                                    timeout=timeout) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def server_phase(pipe, rng):
+    """``DepthServer`` over the vits pipeline on port 0 with max_batch 4: 8
+    concurrent PNG requests at the served size, then 2 of another size
+    (resized with the area rule), a bad body (400), an unknown model (404),
+    ``format=jpg`` (501 without a JPEG codec). Each npz answer must equal
+    its frame's row of ``batch_call`` on the same padded bucket, or the
+    single-frame call, bit for bit."""
+    import io
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+
+    from monocular_depth_estimation_trt_tpu_torch.apps.server import DepthServer, make_handler
+    from monocular_depth_estimation_trt_tpu_torch.utils import imageio
+
+    recorder = LaunchRecorder(pipe)
+    ds = DepthServer(recorder, max_batch=4, batch_window_ms=50.0)
+    warm_s = ds.warmup()
+    recorder.launches.clear()
+    ds.start()
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(ds))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    hw = tuple(pipe.spec.input_hw)
+    frames = [rng.integers(0, 256, (*hw, 3), dtype=np.uint8) for _ in range(8)]
+    frames += [rng.integers(0, 256, (480, 640, 3), dtype=np.uint8) for _ in range(2)]
+    answers = {}
+
+    def fire(i):
+        answers[i] = post(f"{base}/v1/depth", imageio.encode_png(frames[i]))
+
+    try:
+        t0 = time.perf_counter()
+        for group in (range(8), range(8, 10)):
+            threads = [threading.Thread(target=fire, args=(i,)) for i in group]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        serve_s = time.perf_counter() - t0
+        bad = post(f"{base}/v1/depth", b"not an image")
+        unknown = post(f"{base}/v1/models/nope/depth", imageio.encode_png(frames[0]))
+        jpg = post(f"{base}/v1/depth?format=jpg", imageio.encode_png(frames[0]))
+        stats = json.load(urllib.request.urlopen(f"{base}/v1/stats", timeout=30))
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join()
+        ds.stop()
+
+    has_jpeg = imageio.jpeg_available()
+    rec = {"phase": "server", "model": pipe.spec.artifact_name(), "max_batch": 4,
+           "warmup_seconds": warm_s, "requests_seconds": serve_s, "stats": stats,
+           "launches": [(int(f.shape[0]), batched) for f, _, batched in recorder.launches],
+           "bad_body": bad[0], "unknown_model": unknown[0], "jpg": jpg[0],
+           "answers": {}}
+    for i, frame in enumerate(frames):
+        status, body = answers[i]
+        check(status == 200, f"server request {i}: HTTP {status} {body[:200]!r}")
+        depth = np.load(io.BytesIO(body))["depth"]
+        served = imageio.resize(frame, hw, "area")
+        where = [(f, j, batched) for f, _, batched in recorder.launches
+                 for j in range(f.shape[0]) if np.array_equal(f[j], served)]
+        check(len(where) >= 1, f"server request {i}: its frame is in no launch")
+        f, j, batched = where[0]
+        want = pipe.batch_call(f)["depth"][j] if batched else pipe(f[0])["depth"]
+        equal = bool(np.array_equal(depth, want))
+        rec["answers"][i] = {"bucket": int(f.shape[0]), "row": j, "equal": equal,
+                             "size": list(frame.shape[:2])}
+        check(equal, f"server request {i}: answer differs from the direct call "
+                     f"(bucket {f.shape[0]}, row {j})")
+    emit(rec)
+    check(bad[0] == 400, f"server: a bad body answered {bad[0]}")
+    check(unknown[0] == 404, f"server: an unknown model answered {unknown[0]}")
+    check(jpg[0] == (200 if has_jpeg else 501), f"server: format=jpg answered {jpg[0]}")
+    # the jpg request is served (and counted) only where a JPEG codec imports
+    check(stats["requests"] == 10 + has_jpeg and stats["errors"] == 0, f"server stats {stats}")
+    check(any(batched and f.shape[0] > 1 for f, _, batched in recorder.launches),
+          "server: no request was batched")
+
+
+def cli_phase(pipe, vggt, depth_pro, rng):
+    """``python -m monocular_depth_estimation_trt_tpu_torch`` in processes of
+    its own, as a user starts it: ``run`` of DA-V2 vits on a seeded 480x640
+    PNG with ``--pointcloud --benchmark`` (its npz depth equal to this
+    process's pipeline on the same frame, bit for bit; the viz and the
+    ``.ply`` written), ``views vggt`` on 4 PNGs, and ``run depth_pro`` on
+    weights saved from this process's (``_fov.json`` against its f_px)."""
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from monocular_depth_estimation_trt_tpu_torch.apps.ply import read_ply
+    from monocular_depth_estimation_trt_tpu_torch.utils import imageio
+
+    tmp = tempfile.mkdtemp(prefix="mdet_cli_")
+    env = {**os.environ, "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
+
+    def cli(*argv):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "monocular_depth_estimation_trt_tpu_torch",
+                               *argv], cwd=REPO, env=env, capture_output=True, text=True,
+                              timeout=600)
+        check(proc.returncode == 0, f"cli {' '.join(argv[:2])} exited {proc.returncode}: "
+                                    f"{proc.stdout[-1500:]}{proc.stderr[-2500:]}")
+        return proc.stdout, time.perf_counter() - t0
+
+    def only(directory, suffix):
+        found = [f for f in os.listdir(directory) if f.endswith(suffix)]
+        check(len(found) == 1, f"cli: want one *{suffix} in {sorted(os.listdir(directory))}")
+        return os.path.join(directory, found[0])
+
+    try:
+        frame = rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)
+        png = os.path.join(tmp, "frame.png")
+        imageio.write_image(png, frame)
+        check(np.array_equal(imageio.read_image(png), frame), "cli: the PNG round trip")
+        out_run = os.path.join(tmp, "run")
+        stdout, run_s = cli("run", "depth_anything_v2", "--encoder", "vits", "--image", png,
+                            "--out", out_run, "--pointcloud", "--allow-random-weights",
+                            "--benchmark")
+        depth = np.load(only(out_run, ".npz"))["depth"]
+        in_process = pipe(frame, viz=True)["depth"]
+        viz = [f for f in os.listdir(out_run) if f.endswith((".jpg", ".png"))]
+        pts, cols = read_ply(only(out_run, ".ply"))
+        fps = [ln for ln in stdout.splitlines() if "Average FPS" in ln]
+        rec = {"phase": "cli", "command": "run depth_anything_v2 --encoder vits --pointcloud "
+                                          "--benchmark", "seconds": run_s,
+               "files": sorted(os.listdir(out_run)),
+               "depth_equal_in_process": bool(np.array_equal(depth, in_process)),
+               "ply_points": int(pts.shape[0]), "benchmark_line": fps[-1] if fps else None}
+        emit(rec)
+        check(rec["depth_equal_in_process"], "cli run: npz depth differs from the pipeline's")
+        check(len(viz) == 1 and pts.shape == (480 * 640, 3) and cols is not None,
+              f"cli run: viz {viz}, ply {pts.shape}")
+        check(bool(fps), "cli run --benchmark printed no FPS line")
+
+        views = rng.integers(0, 256, (4, 518, 518, 3), dtype=np.uint8)
+        pngs = []
+        for i, v in enumerate(views):
+            pngs.append(os.path.join(tmp, f"view{i}.png"))
+            imageio.write_image(pngs[-1], v)
+        out_views = os.path.join(tmp, "views")
+        _, views_s = cli("views", "vggt", "--images", *pngs, "--out", out_views,
+                         "--allow-random-weights")
+        got = np.load(only(out_views, "_s4.npz"))
+        want = vggt.multi_view(views)
+        vpts, _ = read_ply(only(out_views, "_s4.ply"))
+        rec = {"phase": "cli", "command": "views vggt (4 views)", "seconds": views_s,
+               "files": sorted(os.listdir(out_views)),
+               "shapes": {k: list(got[k].shape) for k in got.files},
+               "depth_equal_in_process": bool(np.array_equal(got["depth"], want["depth"])),
+               "ply_points": int(vpts.shape[0])}
+        emit(rec)
+        check(got["depth"].shape == (4, 518, 518) and got["pose_enc"].shape == (4, 9)
+              and all(bool(np.isfinite(got[k]).all()) for k in got.files),
+              f"cli views: {rec['shapes']}")
+        check(vpts.shape[0] > 0, "cli views: an empty point cloud")
+
+        ckpt = os.path.join(tmp, "depth_pro_lifted.pth")
+        torch.save({k: v.detach().cpu() for k, v in depth_pro.model.state_dict().items()}, ckpt)
+        out_dp = os.path.join(tmp, "depth_pro")
+        _, dp_s = cli("run", "depth_pro", "--image", png, "--out", out_dp, "--checkpoint", ckpt)
+        fov = json.load(open(only(out_dp, "_fov.json")))
+        ours = depth_pro(frame)
+        f_px = float(ours["f_px"])
+        want_fov = {"fov_x": round(math.degrees(2 * math.atan(0.5 * 640 / f_px)), 2),
+                    "fov_y": round(math.degrees(2 * math.atan(0.5 * 480 / f_px)), 2)}
+        dp_depth = np.load(only(out_dp, ".npz"))["depth"]
+        rec = {"phase": "cli", "command": "run depth_pro (this process's weights)",
+               "seconds": dp_s, "files": sorted(os.listdir(out_dp)), "fov_json": fov,
+               "in_process_f_px": f_px, "in_process_fov": want_fov,
+               "depth_equal_in_process": bool(np.array_equal(dp_depth, ours["depth"]))}
+        emit(rec)
+        check(f_px > 0 and fov == want_fov, f"cli depth_pro: fov {fov}, want {want_fov}")
+        check(dp_depth.shape == (480, 640) and bool(np.isfinite(dp_depth).all()),
+              "cli depth_pro: depth")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def parse_smi(line: str):
@@ -1167,10 +1577,12 @@ def main() -> None:
     card, power_limit = parse_smi(smi)
     nvcc_version = run_cmd([_build._nvcc(), "--version"]).splitlines()[-1]
     kind = torch.cuda.get_device_name(0)
+    from monocular_depth_estimation_trt_tpu_torch.utils.imageio import jpeg_available
+
     emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "nvcc": nvcc_version,
-          "python": sys.version.split()[0]})
+          "python": sys.version.split()[0], "cv2_importable": jpeg_available()})
 
     # 2. build
     t0 = time.perf_counter()
@@ -1216,21 +1628,28 @@ def main() -> None:
     per_frame = []
     outs = {}
     for key, frame in (("a", frame_a), ("b", frame_b)):
-        before = fa.flash_attention_packed.launches
-        outs[key] = pipe(frame, viz=True)
-        per_frame.append(fa.flash_attention_packed.launches - before)
-    before = fa.flash_attention_packed.launches
-    batch = pipe.batch_call(np.stack([frame_b, frame_c]), viz=True)
-    batch_launches = fa.flash_attention_packed.launches - before
-    out_metric = metric(frame_a, viz=True)
+        outs[key], per = run_counted(lambda: pipe(frame, viz=True),
+                                     lambda: pipe.engine_for(frame.shape[:2], True), wrappers,
+                                     f"vits frame {key}")
+        per_frame.append(per[1])
+    batch, per = run_counted(lambda: pipe.batch_call(np.stack([frame_b, frame_c]), viz=True),
+                             lambda: pipe.batch_engine_for((518, 518), 2, True), wrappers,
+                             "vits batch of 2")
+    batch_launches = per[1]
+    out_metric, _ = run_counted(lambda: metric(frame_a, viz=True),
+                                lambda: metric.engine_for((480, 640), True), wrappers,
+                                "vits metric")
+    replayed = pipe(frame_a, viz=True)  # a replay: no wrapper call
     torch.cuda.synchronize()
     launches = launch_record(wrappers)
 
     check(per_frame == [12, 12], f"K1 launches per vits frame {per_frame}, want 12")
     check(batch_launches == 12, f"K1 launches for a batch of 2: {batch_launches}")
-    check(launches == {"flash_attention_batched": 0, "flash_attention_packed": 48,
+    check(launches == {"flash_attention_batched": 0,
+                       "flash_attention_packed": 4 * 12 * (WARMUP_CALLS + 1),
                        "flash_attention": 0, "w8a8_matmul": 0},
           f"launches on the main path {launches}")
+    check(np.array_equal(replayed["depth"], outs["a"]["depth"]), "vits replay differs")
     for key, frame in (("a", frame_a), ("b", frame_b)):
         d, viz = outs[key]["depth"], outs[key]["viz"]
         check(d.shape == frame.shape[:2] and d.dtype == np.float32,
@@ -1254,6 +1673,7 @@ def main() -> None:
     emit({"phase": "main_path", "model": pipe.spec.artifact_name(),
           "frames": ["480x640", "518x518"], "launches_per_frame": per_frame,
           "batch2_launches": batch_launches, "launches": launches,
+          "counted": f"{WARMUP_CALLS} warm-up + 1 captured per engine, 4 engines",
           "depth_range_480x640": [float(outs["a"]["depth"].min()),
                                   float(outs["a"]["depth"].max())],
           "metric_depth_range": [float(dm.min()), float(dm.max())],
@@ -1284,16 +1704,19 @@ def main() -> None:
           "bf16_plain_route_vs_fp32_mean_rel": mean_rel(ref, d_card),
           "bf16_tolerance": PATH_BF16_REL_TOL,
           "fp32_card_vs_cpu_rel": rel_fp32, "fp32_tolerance": PATH_FP32_REL_TOL})
+    drop_engines(pipe, plain, card32, cpu32, metric)
     del plain, card32, cpu32, metric
 
     # 5. the VGGT path (its own counted run), then its route comparisons
-    vggt, vggt_launches = run_vggt_path(build_pipeline, fa, wrappers, rng)
+    vggt, vggt_launches = run_vggt_path(build_pipeline, wrappers, rng)
     vggt_parity(build_pipeline, vggt, parity_frames(rng))
+    drop_engines(vggt)
 
     # 6. the Depth Pro path (its own counted run), then its route comparisons
     depth_pro, depth_pro_launches, depth_pro_frames = run_depth_pro_path(build_pipeline, wrappers,
                                                                          rng)
     depth_pro_parity(build_pipeline, depth_pro, depth_pro_frames)
+    drop_engines(depth_pro)
 
     # 7. the int8 paths (each its own counted run), then int8 against the bf16
     # and fp32 routes; calibration on three seeded frames (noise and a
@@ -1313,122 +1736,123 @@ def main() -> None:
         int8_pipes[name], int8_launches[name] = run_int8_path(
             name, fam, wrappers, frames, views4_u8 if name == "vggt" else None)
         int8_parity(name, fam, int8_pipes[name], frames)
+        drop_engines(int8_pipes[name])
 
-    # 8. speed (the counts are read above; benchmark launches are not counted)
+    # 8. engines: each captured graph against the eager forward it captures
+    vitl = build_pipeline("depth_anything_v2", encoder="vitl")
+    frame_dp = depth_pro_frames["frame_1536x1536"]
+    other_dp = rng.integers(0, 256, (1536, 1536, 3), dtype=np.uint8)
+    views4_other = rng.integers(0, 256, (4, 518, 518, 3), dtype=np.uint8)
+    int8_vitl = int8_pipes["depth_anything_v2"]
+    for label, p, engine, eager, arg, other, want in (
+            ("vits", pipe, pipe.engine_for((518, 518)), p_eager(pipe, (518, 518)), frame_b,
+             frame_c, [0, 12, 0, 0]),
+            ("vitl", vitl, vitl.engine_for((518, 518)), p_eager(vitl, (518, 518)), frame_b,
+             frame_c, [0, 24, 0, 0]),
+            ("vitl_int8", int8_vitl, int8_vitl.engine_for((518, 518)),
+             p_eager(int8_vitl, (518, 518)), frame_b, frame_c, [0, 24, 0, 96]),
+            ("vggt_s1", vggt, vggt.engine_for((518, 518)), p_eager(vggt, (518, 518)), frame_b,
+             frame_c, [0, 24, 48, 0]),
+            ("vggt_s4", vggt, vggt.views_engine(4), vggt._views_forward, views4_u8,
+             views4_other, [0, 24, 48, 0]),
+            ("depth_pro_1536", depth_pro, depth_pro.engine_for((1536, 1536)),
+             p_eager(depth_pro, (1536, 1536)), frame_dp, other_dp, [24, 24, 0, 0])):
+        check_engine(label, p, engine, eager, arg, other, want, wrappers)
+        drop_engines(p)
+
+    # 9. the command line, as a user starts it, in processes of its own
+    cli_phase(pipe, vggt, depth_pro, rng)
+    drop_engines(pipe, vggt, depth_pro)
+
+    # 10. the HTTP server in this process, batching up to 4
+    server_phase(pipe, rng)
+    drop_engines(pipe)
+
+    # 11. speed (the counts are read above; benchmark launches are not
+    # counted): each path eager and through its engine, in turns eager,
+    # graph, graph, eager
     cfg = BenchmarkConfig(warmup=10, iterations=100, latency_iterations=50)
-    for encoder in ("vits", "vitl"):
-        p = pipe if encoder == "vits" else build_pipeline(
-            "depth_anything_v2", encoder=encoder)
-        if encoder == "vitl":
-            before = fa.flash_attention_packed.launches
-            out = p(frame_b)["depth"]
-            got = fa.flash_attention_packed.launches - before
-            check(got == 24, f"K1 launches per vitl frame {got}, want 24")
-            check(bool(np.isfinite(out).all()), "vitl depth not finite")
-        for repeat in range(SPEED_REPEATS):  # the spread within one call
-            emit(speed_record(p.benchmark((518, 518), cfg), p, repeat, card, power_limit))
-        if encoder == "vitl":
-            vitl = p
     vcfg = BenchmarkConfig(**VGGT_BENCH)
-    for s in (1, 4):
-        for repeat in range(SPEED_REPEATS):
-            if s == 1:
-                rep = vggt.benchmark((518, 518), vcfg)
-                includes = "H2D uint8 + forward (S=1) + D2H depth"
-            else:
-                rep = vggt.benchmark_views(s, vcfg)
-                includes = f"forward of {s} device-resident uint8 views"
-            emit({"phase": "speed", "model": vggt.spec.artifact_name(), "views": s,
-                  "repeat": repeat, "fps_per_frame": rep.fps,
-                  "mean_ms_per_forward": rep.avg_ms,
-                  "p50_ms_per_forward": rep.percentile_ms(50),
-                  "p99_ms_per_forward": rep.percentile_ms(99),
-                  "iterations": rep.iterations, "includes": includes,
-                  "card": card, "power_limit": power_limit})
-
     dcfg = BenchmarkConfig(**DEPTH_PRO_BENCH)
-    for repeat in range(SPEED_REPEATS):
-        rep = depth_pro.benchmark((1536, 1536), dcfg)
-        emit({"phase": "speed", "model": depth_pro.spec.artifact_name(), "repeat": repeat,
-              "fps": rep.fps, "mean_ms": rep.avg_ms,
-              "p50_ms": rep.percentile_ms(50), "p99_ms": rep.percentile_ms(99),
-              "iterations": rep.iterations,
-              "includes": "H2D uint8 1536x1536 + forward + D2H depth",
-              "card": card, "power_limit": power_limit})
-
-    # int8 beside bf16: DA-V2 vitl, depth_pro and vggt (their bf16 rows are
-    # above); vits int8 (forced past the small-encoder guard) against vits
-    # bf16 in alternating turns: the evidence for the guard's default
-    for repeat in range(SPEED_REPEATS):
-        emit(speed_record(int8_pipes["depth_anything_v2"].benchmark((518, 518), cfg),
-                          int8_pipes["depth_anything_v2"], repeat, card, power_limit))
+    for label, p, in_hw, views, c in (
+            ("vits", pipe, (518, 518), 0, cfg), ("vitl", vitl, (518, 518), 0, cfg),
+            ("vitl_int8", int8_vitl, (518, 518), 0, cfg),
+            ("vggt_s1", vggt, (518, 518), 0, vcfg), ("vggt_s4", vggt, None, 4, vcfg),
+            ("depth_pro_1536", depth_pro, (1536, 1536), 0, dcfg)):
+        for turn, route in enumerate(ROUTE_TURNS):
+            rep = timed_route(p, route, in_hw, views, c)
+            emit(speed_record(rep, p, label, route, turn, views, in_hw, card, power_limit))
+        drop_engines(p)
+    # the other int8 paths through their engines; vits int8 (forced past the
+    # small-encoder guard) against vits bf16 in alternating turns: the
+    # evidence for the guard's default
+    for label, p, in_hw, views, c in (("depth_pro_1536_int8", int8_pipes["depth_pro"],
+                                        (1536, 1536), 0, dcfg),
+                                       ("vggt_s1_int8", int8_pipes["vggt"], (518, 518), 0, vcfg),
+                                       ("vggt_s4_int8", int8_pipes["vggt"], None, 4, vcfg)):
+        for repeat in range(2):
+            rep = timed_route(p, "graph", in_hw, views, c)
+            emit(speed_record(rep, p, label, "graph", repeat, views, in_hw, card, power_limit))
+        drop_engines(p)
     os.environ["MDET_FORCE_INT8"] = "1"
     vits8 = build_pipeline("depth_anything_v2", encoder="vits", precision="int8",
                            calib_images=calib)
     del os.environ["MDET_FORCE_INT8"]
     check(vits8.spec.precision == "int8", f"forced vits int8 built {vits8.spec.precision}")
-    for turn, p in enumerate((pipe, vits8, vits8, pipe, pipe, vits8)):
-        emit({**speed_record(p.benchmark((518, 518), cfg), p, turn, card, power_limit),
-              "ab_turn": turn})
-    for repeat in range(SPEED_REPEATS):
-        rep = int8_pipes["depth_pro"].benchmark((1536, 1536), dcfg)
-        emit({**speed_record(rep, int8_pipes["depth_pro"], repeat, card, power_limit),
-              "includes": "H2D uint8 1536x1536 + forward + D2H depth"})
-    vggt8 = int8_pipes["vggt"]
-    for s in (1, 4):
-        for repeat in range(SPEED_REPEATS):
-            rep = (vggt8.benchmark((518, 518), vcfg) if s == 1
-                   else vggt8.benchmark_views(s, vcfg))
-            emit({"phase": "speed", "model": vggt8.spec.artifact_name(), "views": s,
-                  "repeat": repeat, "fps_per_frame": rep.fps,
-                  "mean_ms_per_forward": rep.avg_ms,
-                  "p50_ms_per_forward": rep.percentile_ms(50),
-                  "p99_ms_per_forward": rep.percentile_ms(99),
-                  "iterations": rep.iterations,
-                  "includes": ("H2D uint8 + forward (S=1) + D2H depth" if s == 1
-                               else f"forward of {s} device-resident uint8 views"),
-                  "card": card, "power_limit": power_limit})
+    for turn, p in enumerate((pipe, vits8, vits8, pipe)):
+        emit({**speed_record(p.benchmark((518, 518), cfg), p, "vits_ab", "graph", turn, 0,
+                             (518, 518), card, power_limit), "ab_turn": turn})
 
-    # 9. where the device time goes, after the speed phase so that the
-    # profiler cannot slow it (launches not counted)
-    eng = pipe.engine_for(frame_b.shape[:2])
+    # 12. where the device time goes, after the speed phase so that the
+    # profiler cannot slow it (launches not counted): graph replays, and the
+    # eager forward of vits, vggt S=4 and depth_pro beside them
     dev_frame = torch.from_numpy(frame_b).to(dev)
-    emit(profile_breakdown(lambda: eng(dev_frame), pipe.spec.artifact_name()))
-    feng = vggt.engine_for(frame_b.shape[:2])
-    emit(profile_breakdown(lambda: feng(dev_frame), vggt.spec.artifact_name() + "_s1",
-                           iters=3))
-    views4 = torch.from_numpy(rng.integers(0, 256, (4, 518, 518, 3), dtype=np.uint8)).to(dev)
-    veng = vggt.views_engine(4)
-    emit(profile_breakdown(lambda: veng(views4), vggt.spec.artifact_name() + "_s4", iters=3))
-    frame_dp = torch.from_numpy(depth_pro_frames["frame_1536x1536"]).to(dev)
-    deng = depth_pro.engine_for(frame_dp.shape[:2])
-    emit(profile_breakdown(lambda: deng(frame_dp), depth_pro.spec.artifact_name(), iters=3))
-    for p in (vitl, int8_pipes["depth_anything_v2"], vits8):
-        e = p.engine_for(frame_b.shape[:2])
-        emit(profile_breakdown(lambda: e(dev_frame), p.spec.artifact_name()))
-    e = int8_pipes["depth_pro"].engine_for(frame_dp.shape[:2])
-    emit(profile_breakdown(lambda: e(frame_dp), int8_pipes["depth_pro"].spec.artifact_name(),
-                           iters=3))
-    e = vggt8.engine_for(frame_b.shape[:2])
-    emit(profile_breakdown(lambda: e(dev_frame), vggt8.spec.artifact_name() + "_s1", iters=3))
-    v8 = vggt8.views_engine(4)
-    emit(profile_breakdown(lambda: v8(views4), vggt8.spec.artifact_name() + "_s4", iters=3))
+    views4 = torch.from_numpy(views4_u8).to(dev)
+    dev_dp = torch.from_numpy(frame_dp).to(dev)
+    for p, arg, in_hw, suffix, iters, with_eager in (
+            (pipe, dev_frame, (518, 518), "", 5, True),
+            (vitl, dev_frame, (518, 518), "", 5, False),
+            (int8_vitl, dev_frame, (518, 518), "", 5, False),
+            (vits8, dev_frame, (518, 518), "", 5, False),
+            (vggt, dev_frame, (518, 518), "_s1", 3, False),
+            (vggt, views4, None, "_s4", 3, True),
+            (int8_pipes["vggt"], dev_frame, (518, 518), "_s1", 3, False),
+            (int8_pipes["vggt"], views4, None, "_s4", 3, False),
+            (depth_pro, dev_dp, (1536, 1536), "", 3, True),
+            (int8_pipes["depth_pro"], dev_dp, (1536, 1536), "", 3, False)):
+        eng = p.engine_for(in_hw) if in_hw else p.views_engine(4)
+        emit({**profile_breakdown(lambda: eng(arg), p.spec.artifact_name() + suffix, iters),
+              "route": "graph"})
+        if with_eager:
+            eager = p_eager(p, in_hw) if in_hw else p._views_forward
+
+            def eager_step():
+                with torch.inference_mode():
+                    eager(arg)
+
+            emit({**profile_breakdown(eager_step, p.spec.artifact_name() + suffix, iters),
+                  "route": "eager"})
+        drop_engines(p)
 
     # kernels line: the main shape's numbers, every shape in "shapes"; the
     # launches of each path's counted run
     def kernel_entry(name, source, replaces, function, records, main_shape,
                      library_call="torch.nn.functional.scaled_dot_product_attention",
                      head_dim_128=None):
+        keys = ("shape", "B", "H", "N", "d", "dtype", "max_abs_err", "err_bf16_steps",
+                "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "host_us_per_call")
         main = next(r for r in records if r["shape"] == main_shape)
         extra = {}
         if "matmul_ms" in main:
             extra.update(matmul_ms=main["matmul_ms"],
                          matmul_call="torch.matmul of bf16 x and the weight cast to bf16")
         if head_dim_128:  # the d = 128 instantiation, on no ported path yet
-            wide = next(r for r in records if r["shape"] == head_dim_128)
-            extra["head_dim_128"] = {k: wide[k] for k in (
-                "shape", "B", "H", "N", "d", "max_abs_err", "err_bf16_steps", "kernel_ms",
-                "plain_ms", "library_ms", "bound_ms", "bound_by", "host_us_per_call")}
+            d128 = next(r for r in records if r["shape"] == head_dim_128)
+            extra["head_dim_128"] = {k: d128[k] for k in keys}
+            # the wide loop (d > 128, csrc/attention_wide.cuh), on no ported path
+            extra["wide_heads"] = [{k: r[k] for k in keys} for r in records
+                                   if "_wide" in r["shape"]]
         by_path = {"depth_anything_v2": launches[name], "vggt": vggt_launches[name],
                    "depth_pro": depth_pro_launches[name],
                    **{f"{k}_int8": v[name] for k, v in int8_launches.items()}}

@@ -40,7 +40,8 @@
 //
 // Head widths: 64 and 128 (Head64 and Head128 of attention_sm90.cuh); the
 // wrapper zero-pads d < 64 to 64 and 64 < d < 128 to 128, as the JAX entry
-// pads d > 64 to a multiple of 128.
+// pads d > 64 to a multiple of 128. Wider heads, padded to a multiple of 128,
+// run the simple fp32-math loop of attention_wide.cuh in either type.
 //
 // fp32 (precision="fp32") keeps fp32 FMAs, not TF32, on the tile loop of
 // attention_tile.cuh (64-key tiles, no TMA), at either width.
@@ -52,6 +53,7 @@
 
 #include "attention_sm90.cuh"
 #include "attention_tile.cuh"
+#include "attention_wide.cuh"
 
 namespace {
 
@@ -68,6 +70,11 @@ __global__ void __launch_bounds__(Cfg::kThreads, Cfg::kMinCtas) attn_bhnd_kernel
   sm90::attention<Cfg, /*kExact=*/false>(q, k, v, o, n, scale_log2);
 }
 
+template <typename T>
+__global__ void __launch_bounds__(wide::kThreads) attn_bhnd_wide_kernel(const wide::Args<T> a) {
+  wide::attention<T>(a);
+}
+
 template <int D>
 int launch_bhnd_f32(const void* q, const void* k, const void* v, void* o, const int64_t* strides,
                     int batch, int heads, int n, float scale, void* stream) {
@@ -80,7 +87,8 @@ int launch_bhnd_f32(const void* q, const void* k, const void* v, void* o, const 
 extern "C" {
 
 // q, k, v: (batch, heads, n, head_dim) with unit stride on the last axis,
-// head_dim 64 or 128 (the wrapper zero-pads narrower heads); o: any layout
+// head_dim 64, 128 or a multiple of 128 (the wrapper zero-pads other
+// widths); o: any layout
 // given by its strides. strides: 12 element strides, (batch, head, token) of
 // q, k, v, then o. Pointers and strides (times the element size) are
 // multiples of 16 bytes. Launches on `stream`, allocates nothing, does not
@@ -96,7 +104,8 @@ int mdet_flash_attention_bf16(const void* q, const void* k, const void* v, void*
     return sm90::launch<sm90::Head128>(attn_bhnd_kernel_sm90<sm90::Head128>, q, k, v, o, strides,
                                        batch, heads, n, scale, stream);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return wide::launch<__nv_bfloat16>(attn_bhnd_wide_kernel<__nv_bfloat16>, q, k, v, o, strides,
+                                     batch, heads, n, head_dim, scale, stream);
 }
 
 int mdet_flash_attention_f32(const void* q, const void* k, const void* v, void* o,
@@ -106,7 +115,8 @@ int mdet_flash_attention_f32(const void* q, const void* k, const void* v, void* 
   if (head_dim == 128) {
     return launch_bhnd_f32<128>(q, k, v, o, strides, batch, heads, n, scale, stream);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return wide::launch<float>(attn_bhnd_wide_kernel<float>, q, k, v, o, strides, batch, heads, n,
+                             head_dim, scale, stream);
 }
 
 }  // extern "C"

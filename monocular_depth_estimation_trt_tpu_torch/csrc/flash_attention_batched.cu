@@ -36,7 +36,10 @@
 // 640 keys and rows. Grid (ceil(N/64), H, B): 10 x 16 x 35 = 5,600 CTAs at
 // the Depth Pro patch shape.
 //
-// Head widths: 64 and 128, as K2 (the wrapper zero-pads narrower heads).
+// Head widths: 64 and 128, as K2 (the wrapper zero-pads narrower heads);
+// wider heads, padded to a multiple of 128, run the simple loop of
+// attention_wide.cuh, as K2's do (its online softmax never rounds P, so it
+// is no further from the exact softmax than the two passes).
 //
 // Design (fp32, precision="fp32": fp32 FMAs, as K1 and K2, since TF32 would
 // round): one CTA of 8 warps per (query tile, head, batch item). Pass 1
@@ -56,6 +59,7 @@
 
 #include "attention_sm90.cuh"
 #include "attention_tile.cuh"
+#include "attention_wide.cuh"
 
 namespace {
 
@@ -309,12 +313,18 @@ __global__ void __launch_bounds__(Cfg::kThreads, Cfg::kMinCtas) attn_batched_ker
   sm90::attention<Cfg, /*kExact=*/true>(q, k, v, o, n, scale_log2);
 }
 
+template <typename T>
+__global__ void __launch_bounds__(wide::kThreads) attn_batched_wide_kernel(const wide::Args<T> a) {
+  wide::attention<T>(a);
+}
+
 }  // namespace
 
 extern "C" {
 
 // q, k, v: (batch, heads, n, head_dim) with unit stride on the last axis,
-// n <= 1024, head_dim 64 or 128 (the wrapper zero-pads narrower heads); o:
+// n <= 1024, head_dim 64, 128 or a multiple of 128 (the wrapper zero-pads
+// other widths); o:
 // any layout given by its strides. strides: 12 element strides, (batch,
 // head, token) of q, k, v, then o. Pointers and strides (times the element
 // size) are multiples of 16 bytes. Launches on `stream`, allocates nothing,
@@ -331,7 +341,8 @@ int mdet_flash_attention_batched_bf16(const void* q, const void* k, const void* 
     return sm90::launch<sm90::Head128>(attn_batched_kernel_sm90<sm90::Head128>, q, k, v, o,
                                        strides, batch, heads, n, scale, stream);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return wide::launch<__nv_bfloat16>(attn_batched_wide_kernel<__nv_bfloat16>, q, k, v, o,
+                                     strides, batch, heads, n, head_dim, scale, stream);
 }
 
 int mdet_flash_attention_batched_f32(const void* q, const void* k, const void* v, void* o,
@@ -344,7 +355,8 @@ int mdet_flash_attention_batched_f32(const void* q, const void* k, const void* v
   if (head_dim == 128) {
     return launch_batched_f32<128>(q, k, v, o, strides, batch, heads, n, scale, stream);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return wide::launch<float>(attn_batched_wide_kernel<float>, q, k, v, o, strides, batch, heads,
+                             n, head_dim, scale, stream);
 }
 
 }  // extern "C"

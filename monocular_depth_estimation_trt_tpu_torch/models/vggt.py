@@ -34,6 +34,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from monocular_depth_estimation_trt_tpu_torch.models.dpt import DPTHead
+from monocular_depth_estimation_trt_tpu_torch.ops.constants import device_cached
 from monocular_depth_estimation_trt_tpu_torch.models.vit import (
     VIT_CONFIGS,
     DinoViT,
@@ -52,7 +53,20 @@ def rope_2d_freqs(ph: int, pw: int, head_dim: int, base: float = 100.0,
                   device=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """2D rotary position tables for a (ph, pw) patch grid at integer
     coordinates. Half the head dims rotate with y, half with x. Returns fp32
-    (cos, sin), each (ph*pw, head_dim//2)."""
+    (cos, sin), each (ph*pw, head_dim//2), made once per arguments and
+    shared: do not write to them."""
+    return _rope_2d_freqs(ph, pw, head_dim, float(base), torch.device(device or "cpu"))
+
+
+@device_cached
+def _rope_tables(ph: int, pw: int, head_dim: int, dtype: torch.dtype, device: torch.device):
+    """The tables as RopeAttention broadcasts them: (P, 1, 1, d/2) in ``dtype``."""
+    cos, sin = rope_2d_freqs(ph, pw, head_dim, device=device)
+    return cos.to(dtype)[:, None, None], sin.to(dtype)[:, None, None]
+
+
+@device_cached
+def _rope_2d_freqs(ph: int, pw: int, head_dim: int, base: float, device: torch.device):
     d4 = head_dim // 4
     freqs = torch.tensor(1.0 / (base ** (np.arange(d4) / d4)), dtype=torch.float32,
                          device=device)
@@ -94,9 +108,7 @@ class RopeAttention(nn.Module):
         n_view = self.num_special + ph * pw
         qkv = self.qkv(x).view(b, n, 3, h, hd)
 
-        cos, sin = rope_2d_freqs(ph, pw, hd, device=x.device)
-        cos = cos.to(x.dtype)[:, None, None]  # (P, 1, 1, d/2): over (q|k, heads)
-        sin = sin.to(x.dtype)[:, None, None]
+        cos, sin = _rope_tables(ph, pw, hd, x.dtype, x.device)  # over (q|k, heads)
         qk = qkv[:, :, :2].view(b, views, n_view, 2, h, hd)
         special, patches = qk[:, :, : self.num_special], qk[:, :, self.num_special:]
         qk = torch.cat([special, apply_rope(patches, cos, sin)], dim=2).view(b, n, 2, h, hd)

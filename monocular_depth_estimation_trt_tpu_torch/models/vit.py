@@ -49,6 +49,7 @@ from monocular_depth_estimation_trt_tpu_torch.ops.cuda.flash_attention import (
     flash_attention_batched,
     flash_attention_packed,
 )
+from monocular_depth_estimation_trt_tpu_torch.ops.constants import device_cached
 from monocular_depth_estimation_trt_tpu_torch.ops.resize import resample_tensor
 
 
@@ -99,7 +100,13 @@ def rope_2d_normalized(ph: int, pw: int, head_dim: int, base: float = 100.0,
                        device=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """2D axial RoPE tables over a patch grid with coordinates normalized to
     [-1, 1] (the DINOv3 convention). Half the head dims rotate with y, half
-    with x. Returns fp32 (cos, sin), each (ph*pw, head_dim//2)."""
+    with x. Returns fp32 (cos, sin), each (ph*pw, head_dim//2), made once
+    per arguments and shared: do not write to them."""
+    return _rope_2d_normalized(ph, pw, head_dim, float(base), torch.device(device or "cpu"))
+
+
+@device_cached
+def _rope_2d_normalized(ph: int, pw: int, head_dim: int, base: float, device: torch.device):
     d4 = head_dim // 4
     freqs = torch.tensor(base ** (-np.arange(d4) / d4), dtype=torch.float32, device=device)
     ys = torch.arange(ph, dtype=torch.float32, device=device).repeat_interleave(pw)

@@ -17,10 +17,12 @@
 In bf16, K1, K2 and K3 run the Hopper mainloop of
 ``csrc/attention_sm90.cuh`` (TMA loads through one tensor map per operand,
 wgmma, warp specialisation): K1 and K2 with an online softmax, K3 with two
-passes over the keys. K2 and K3 take head widths up to 128: narrower heads
-are zero-padded to 64 or 128. The fp32 K1 and K2 share the tile loop of
+passes over the keys, at head widths 64 and 128 (narrower heads are
+zero-padded to one of them). The fp32 K1 and K2 share the tile loop of
 ``csrc/attention_tile.cuh``; the fp32 K3 holds a query tile's whole score
-rows. On a CUDA tensor each wrapper launches its
+rows. K2 and K3 zero-pad a head wider than 128 to a multiple of 128, as the
+JAX entry does, and run it in either type on the simple loop of
+``csrc/attention_wide.cuh``. On a CUDA tensor each wrapper launches its
 kernel or raises; on a CPU tensor it runs its plain PyTorch version
 (:func:`flash_attention_packed_reference`, :func:`flash_attention_reference`
 for K2 and K3). :func:`attention_reference` is the plain attention of the
@@ -37,7 +39,7 @@ import torch
 import torch.nn.functional as F
 
 HEAD_DIM = 64  # K1's one head width: every DINOv2 encoder and VGGT
-BHND_MAX_HEAD_DIM = 128  # K2's and K3's widest head on a card (the JAX entry's d_pad <= 128)
+WIDE_HEAD_DIM = 128  # K2 and K3 pad a wider head to a multiple of this (the JAX entry's d_pad)
 BATCHED_MAX_N = 1024  # K3's regime: the TPU kernel's many short heads
 
 _C_FUNCS = {
@@ -156,13 +158,11 @@ def _aligned(t: torch.Tensor) -> bool:
 
 
 def _kernel_head_dim(d: int) -> int:
-    """The head width K2 and K3 compute ``d`` at: 64, or 128 where d > 64
-    (the JAX entry's ``d_pad`` for d <= 128)."""
-    if d > BHND_MAX_HEAD_DIM:
-        raise ValueError(
-            f"head_dim {d} is above {BHND_MAX_HEAD_DIM}, the widest head the K2 and K3 "
-            "kernels take on a card")
-    return HEAD_DIM if d <= HEAD_DIM else BHND_MAX_HEAD_DIM
+    """The head width K2 and K3 compute ``d`` at: 64 where d <= 64, else the
+    next multiple of 128 (the JAX entry's ``d_pad``)."""
+    if d <= HEAD_DIM:
+        return HEAD_DIM
+    return -(-d // WIDE_HEAD_DIM) * WIDE_HEAD_DIM
 
 
 def _launch_bhnd(c_funcs, name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -204,8 +204,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     unpadded d, as the JAX entry does. The operands may be strided views
     (unit stride on d, 16-byte aligned rows). A CUDA tensor launches the
     kernel on the current stream (counted in ``flash_attention.launches``)
-    at d <= 128 (d < 64 zero-padded to 64, 64 < d < 128 to 128; a wider
-    head raises) and returns a ``(B, N, H, d)`` buffer seen as
+    at any d (d < 64 zero-padded to 64, any other d to a multiple of 128)
+    and returns a ``(B, N, H, d)`` buffer seen as
     ``(B, H, N, d)``, so that the reshape before the proj matmul is free; a
     CPU tensor goes to the plain version at any d."""
     _check_bhnd(q, k, v)
@@ -232,7 +232,7 @@ def flash_attention_batched(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and H.
 
     K2's signature and layout rules: bf16 or fp32, any d >= 1 with the
-    scale of the unpadded d (on a card d <= 128, zero-padded to 64 or 128),
+    scale of the unpadded d (on a card zero-padded to 64 or a multiple of 128),
     strided views with unit stride on d and 16-byte aligned rows, output
     written ``(B, N, H, d)`` and returned as a ``(B, H, N, d)`` view. N > 1024 raises on every device: that bound is
     the kernel's regime. A CUDA tensor launches the kernel on the current

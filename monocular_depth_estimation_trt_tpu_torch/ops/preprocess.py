@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from monocular_depth_estimation_trt_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD
+from monocular_depth_estimation_trt_tpu_torch.ops.constants import device_constant
 from monocular_depth_estimation_trt_tpu_torch.ops.resize import lower_bound_size, resize
 
 
@@ -32,8 +33,8 @@ def normalize(
     mean: Sequence[float] = IMAGENET_MEAN,
     std: Sequence[float] = IMAGENET_STD,
 ) -> torch.Tensor:
-    mean_t = torch.tensor(mean, dtype=img.dtype, device=img.device)
-    std_t = torch.tensor(std, dtype=img.dtype, device=img.device)
+    mean_t = device_constant(mean, img.dtype, img.device)
+    std_t = device_constant(std, img.dtype, img.device)
     return (img - mean_t) / std_t
 
 

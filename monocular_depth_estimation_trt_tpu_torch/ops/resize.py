@@ -15,6 +15,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from monocular_depth_estimation_trt_tpu_torch.ops.constants import device_cached
+
 
 def _cubic_kernel(x: np.ndarray, a: float = -0.75) -> np.ndarray:
     """Keys cubic convolution kernel (cv2/torch use a=-0.75)."""
@@ -109,12 +111,20 @@ def resample_matrix(
     return mat.astype(np.float32)
 
 
+@device_cached
+def _resample_on(in_size: int, out_size: int, method: str, align_corners: bool,
+                 antialias: bool, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    mat = resample_matrix(in_size, out_size, method, align_corners, antialias)
+    return torch.from_numpy(mat).to(device=device, dtype=dtype)
+
+
 def resample_tensor(in_size: int, out_size: int, method: str = "cubic",
                     align_corners: bool = False, antialias: bool = False, *,
                     device=None, dtype=torch.float32) -> torch.Tensor:
-    """:func:`resample_matrix` as a tensor on ``device``."""
-    mat = resample_matrix(in_size, out_size, method, align_corners, antialias)
-    return torch.from_numpy(mat).to(device=device, dtype=dtype)
+    """:func:`resample_matrix` as a tensor on ``device``, made once per
+    arguments and shared (``ops/constants.py``): do not write to it."""
+    return _resample_on(in_size, out_size, method, bool(align_corners), bool(antialias),
+                        torch.device(device or "cpu"), dtype)
 
 
 def _apply_separable(img: torch.Tensor, wh: torch.Tensor,

@@ -2,9 +2,12 @@
 (counterpart of the JAX package's ``pipelines.py``).
 
 One uint8 RGB frame goes to the device; preprocess, model, upsample + clamp
-and the optional colormap run there, eagerly under ``torch.inference_mode()``.
-The forward of each (H, W) is built once and cached under its artifact name,
-in the role of the JAX package's compiled ``Engine``s.
+and the optional colormap run there. Each input signature is served by one
+:class:`~monocular_depth_estimation_trt_tpu_torch.runtime.engine.Engine`,
+keyed by the JAX package's engine names: on the card a CUDA graph captured
+from the pipeline's eager forward (the role of the JAX package's compiled
+programs and of the reference's TensorRT engines), on the CPU that forward
+itself.
 
 Public layouts follow the JAX package: uint8 ``(H, W, 3)`` in, depth
 ``(H, W)`` float32 out, viz ``(H, W, 3)`` uint8; ``batch_call`` adds a
@@ -32,6 +35,8 @@ from monocular_depth_estimation_trt_tpu_torch.runtime.benchmark import (
     BenchmarkReport,
     benchmark,
 )
+from monocular_depth_estimation_trt_tpu_torch.runtime.engine import Engine
+from monocular_depth_estimation_trt_tpu_torch.runtime.transfer import tree_get_chunked
 
 
 class DepthPipeline:
@@ -55,7 +60,7 @@ class DepthPipeline:
         self.model = model
         self._forward = forward
         self.viz = viz
-        self._engines: Dict[str, Callable] = {}
+        self._engines: Dict[str, Engine] = {}
 
     def _with_viz_epilogue(self, out: Dict[str, torch.Tensor], with_viz: bool):
         """Colormap epilogue shared by single-frame and batched calls; the
@@ -68,42 +73,64 @@ class DepthPipeline:
             out["viz"] = turbo_colormap(norm)
         return out
 
-    def _run(self, img: torch.Tensor, in_hw: Tuple[int, int], with_viz: bool):
-        with torch.inference_mode():
-            return self._with_viz_epilogue(self._forward(img, in_hw), with_viz)
+    def _eager(self, img: torch.Tensor, in_hw: Tuple[int, int], with_viz: bool):
+        return self._with_viz_epilogue(self._forward(img, in_hw), with_viz)
 
-    def engine_for(self, in_hw: Tuple[int, int], with_viz: bool = False) -> Callable:
-        """The cached forward for frames of size ``in_hw``."""
-        name = f"{self.spec.artifact_name()}_in{in_hw[0]}x{in_hw[1]}" + (
-            "_viz" if with_viz else "")
+    def _run(self, img: torch.Tensor, in_hw: Tuple[int, int], with_viz: bool):
+        """The eager forward that the engines capture (one call, no graph)."""
+        with torch.inference_mode():
+            return self._eager(img, in_hw, with_viz)
+
+    def _engine(self, name: str, fn: Callable, shape) -> Engine:
         if name not in self._engines:
-            self._engines[name] = functools.partial(
-                self._run, in_hw=tuple(in_hw), with_viz=with_viz)
+            example = torch.empty(shape, dtype=torch.uint8, device="meta")
+            self._engines[name] = Engine(fn, (example,), name=name, device=self.device)
         return self._engines[name]
 
-    def _to_device(self, frames) -> torch.Tensor:
-        if isinstance(frames, torch.Tensor):
-            return frames.to(self.device)
-        return torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
+    def engine_for(self, in_hw: Tuple[int, int], with_viz: bool = False) -> Engine:
+        """The engine for one frame of size ``in_hw``."""
+        h, w = in_hw
+        name = f"{self.spec.artifact_name()}_in{h}x{w}" + ("_viz" if with_viz else "")
+        return self._engine(name, functools.partial(self._eager, in_hw=(h, w),
+                                                    with_viz=with_viz), (h, w, 3))
+
+    def batch_engine_for(self, in_hw: Tuple[int, int], batch: int,
+                         with_viz: bool = False) -> Engine:
+        """The engine for a batch of ``batch`` frames (B, H, W, 3): the
+        throughput-serving mode (the reference pins batch 1); the viz of
+        each frame is normalized by that frame's own range."""
+        h, w = in_hw
+        name = (f"{self.spec.artifact_name()}_in{h}x{w}_b{batch}"
+                + ("_viz" if with_viz else ""))
+        return self._engine(name, functools.partial(self._eager, in_hw=(h, w),
+                                                    with_viz=with_viz), (batch, h, w, 3))
+
+    def release_engines(self) -> None:
+        """Drop every engine and, on the card, its graph's memory."""
+        for eng in self._engines.values():
+            eng.release()
+        self._engines.clear()
 
     @staticmethod
-    def _to_host(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-        return {k: v.cpu().numpy() for k, v in out.items()}
+    def _as_tensor(frames) -> torch.Tensor:
+        if isinstance(frames, torch.Tensor):
+            return frames
+        return torch.from_numpy(np.ascontiguousarray(frames))
 
     def __call__(self, image_u8, *, viz: bool = False,
                  device_out: bool = False) -> Dict[str, Any]:
         """image_u8: (H, W, 3) RGB uint8 (numpy or tensor). Returns a dict of
         host numpy outputs (device tensors if ``device_out``)."""
         h, w = image_u8.shape[:2]
-        out = self.engine_for((h, w), viz)(self._to_device(image_u8))
-        return out if device_out else self._to_host(out)
+        out = self.engine_for((h, w), viz)(self._as_tensor(image_u8))
+        return out if device_out else tree_get_chunked(out)
 
     def batch_call(self, frames, *, viz: bool = False, device_out: bool = False):
         """frames: (B, H, W, 3) RGB uint8 -> dict of stacked outputs; the
         viz of each frame is normalized by that frame's own range."""
-        h, w = frames.shape[1:3]
-        out = self.engine_for((h, w), viz)(self._to_device(frames))
-        return out if device_out else self._to_host(out)
+        b, h, w = frames.shape[:3]
+        out = self.batch_engine_for((h, w), b, viz)(self._as_tensor(frames))
+        return out if device_out else tree_get_chunked(out)
 
     def benchmark(self, in_hw: Tuple[int, int],
                   config: Optional[BenchmarkConfig] = None) -> BenchmarkReport:
@@ -116,9 +143,8 @@ class DepthPipeline:
         host_in = torch.from_numpy(frame).pin_memory()
         host_out = torch.empty(tuple(in_hw), dtype=torch.float32).pin_memory()
 
-        def step():
-            dev = host_in.to(self.device, non_blocking=True)
-            host_out.copy_(eng(dev)["depth"], non_blocking=True)
+        def step():  # the engine queues the H2D copy into its static input
+            host_out.copy_(eng(host_in)["depth"], non_blocking=True)
 
         return benchmark(step, device=self.device, config=config,
                          name=self.spec.artifact_name())
@@ -137,34 +163,32 @@ class VGGTPipeline(DepthPipeline):
         super().__init__(spec, forward, device=device, model=model, viz=viz)
         self._views_forward = views_forward
 
-    def _run_views(self, views: torch.Tensor):
-        with torch.inference_mode():
-            return self._views_forward(views)
-
-    def views_engine(self, s: int, src_hw: Optional[Tuple[int, int]] = None) -> Callable:
-        """The forward for ``s`` views of size ``src_hw``: fn(views_u8 (S, H,
-        W, 3) on ``device``) -> dict. The eager forward serves every S and
-        size with one callable; the arguments keep the JAX package's
-        interface, where each shape is a program of its own."""
-        del s, src_hw
-        return self._run_views
+    def views_engine(self, s: int, src_hw: Optional[Tuple[int, int]] = None) -> Engine:
+        """The engine for ``s`` views of size ``src_hw`` (default: the
+        model's input size): fn(views_u8 (S, H, W, 3)) -> dict. Each (S,
+        size) is an engine of its own, as in the JAX package."""
+        h, w = tuple(src_hw or self.spec.input_hw)
+        name = f"{self.spec.artifact_name()}_views{s}_{h}x{w}"
+        return self._engine(name, self._views_forward, (s, h, w, 3))
 
     def multi_view(self, views_u8, *, device_out: bool = False) -> Dict[str, Any]:
         """views_u8: (S, H, W, 3) RGB uint8 -> depth and depth_conf (S, 518,
         518), pose_enc (S, 9), as host numpy (device tensors if
         ``device_out``)."""
-        out = self._run_views(self._to_device(views_u8))
-        return out if device_out else self._to_host(out)
+        s, h, w = views_u8.shape[:3]
+        out = self.views_engine(s, (h, w))(self._as_tensor(views_u8))
+        return out if device_out else tree_get_chunked(out)
 
     def benchmark_views(self, s: int,
                         config: Optional[BenchmarkConfig] = None) -> BenchmarkReport:
-        """Per-frame throughput of the S-view forward on device-resident
+        """Per-frame throughput of the S-view engine on device-resident
         uint8 views (tokens scale with S; global attention is quadratic in
         S·tokens)."""
         rng = np.random.default_rng(0)
-        views = self._to_device(
-            rng.integers(0, 255, (s, *self.spec.input_hw, 3), dtype=np.uint8))
-        rep = benchmark(lambda: self._run_views(views), device=self.device, config=config,
+        views = torch.from_numpy(
+            rng.integers(0, 255, (s, *self.spec.input_hw, 3), dtype=np.uint8)).to(self.device)
+        eng = self.views_engine(s)
+        rep = benchmark(lambda: eng(views), device=self.device, config=config,
                         name=f"{self.spec.artifact_name()}_s{s}")
         rep.frames_per_iteration = s
         return rep

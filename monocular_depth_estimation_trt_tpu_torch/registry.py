@@ -121,29 +121,25 @@ def _full_fp32(dtype: torch.dtype, device: torch.device) -> None:
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _resize_u8(img: np.ndarray, hw) -> np.ndarray:
-    """Bilinear resize of a uint8 (H, W, 3) image, half-pixel centers and no
-    antialiasing (cv2.INTER_LINEAR's sampling), rounded back to uint8."""
-    t = torch.from_numpy(np.ascontiguousarray(img)).permute(2, 0, 1)[None].float()
-    t = torch.nn.functional.interpolate(t, size=tuple(hw), mode="bilinear", align_corners=False)
-    return t[0].permute(1, 2, 0).round().clamp(0, 255).to(torch.uint8).numpy()
-
-
 def _read_rgb(path: str) -> Optional[np.ndarray]:
-    """An image file as uint8 RGB, decoded by cv2 as in the JAX package;
-    None when it is missing or unreadable, or (with a warning) when cv2 is
-    not importable."""
+    """An image file as uint8 RGB (``utils/imageio.py``: cv2 as in the JAX
+    package, else its own codecs); None when it is missing or unreadable,
+    or (with a warning) when no codec here reads it."""
+    from monocular_depth_estimation_trt_tpu_torch.utils.imageio import (
+        CodecUnavailable,
+        read_image,
+    )
     from monocular_depth_estimation_trt_tpu_torch.utils.logging import log
 
     if not os.path.exists(path):
         return None
     try:
-        import cv2
-    except ImportError:
-        log(f"cv2 is not importable: int8 calibration skips {path}", tag="WARN")
-        return None
-    img = cv2.imread(path)  # None on an unreadable file
-    return None if img is None else cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+        return read_image(path)
+    except CodecUnavailable as e:
+        log(f"int8 calibration skips {path}: {e}", tag="WARN")
+    except (OSError, ValueError):  # an unreadable file
+        pass
+    return None
 
 
 def _calibration_images(input_hw, n_synthetic: int = 2):
@@ -154,17 +150,19 @@ def _calibration_images(input_hw, n_synthetic: int = 2):
     package's set: the same seed, sizes and count rule.
 
     ``input_hw``: (H, W) target resolution, or one int for a square."""
+    from monocular_depth_estimation_trt_tpu_torch.utils.imageio import resize
+
     if isinstance(input_hw, int):
         input_hw = (input_hw, input_hw)
     h, w = input_hw
     imgs = []
     photo = _read_rgb(os.path.join(_REPO_ROOT, "data", "example.jpg"))
     if photo is not None:
-        imgs.append(_resize_u8(photo, (h, w)))
+        imgs.append(resize(photo, (h, w)))
     rng = np.random.default_rng(0)
     for _ in range(max(n_synthetic - len(imgs), 1)):
         base = rng.integers(0, 255, (h // 7, w // 7, 3), dtype=np.uint8)
-        imgs.append(_resize_u8(base, (h, w)))
+        imgs.append(resize(base, (h, w)))
     return imgs
 
 
@@ -446,6 +444,7 @@ def depth_pro(precision: str = "bf16", attn_impl: str = "auto",
     from monocular_depth_estimation_trt_tpu_torch.config import HALF_MEAN, HALF_STD
     from monocular_depth_estimation_trt_tpu_torch.models.depth_pro import DepthPro
     from monocular_depth_estimation_trt_tpu_torch.ops.camera import fov_to_focal
+    from monocular_depth_estimation_trt_tpu_torch.ops.constants import device_constant
     from monocular_depth_estimation_trt_tpu_torch.ops.preprocess import normalize, to_float_rgb
     from monocular_depth_estimation_trt_tpu_torch.ops.resize import resize, resize_hw
 
@@ -474,7 +473,7 @@ def depth_pro(precision: str = "bf16", attn_impl: str = "auto",
         if f_px is None:
             focal = fov_to_focal(fov_deg[0], width)
         else:
-            focal = torch.tensor(float(f_px), device=cid.device)
+            focal = device_constant(f_px, torch.float32, cid.device)
         inverse_depth = resize_hw(cid[0] * (width / focal), out_hw, "linear",
                                   align_corners=False)
         return {"depth": 1.0 / torch.clamp(inverse_depth, 1e-4, 1e4), "f_px": focal}

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import math
 import os
 import subprocess
 import sys
@@ -93,7 +94,8 @@ def child(root: str) -> dict:
         if label in K1_SDPA:
             q, k, v = qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4)
             timed(f"k1_{label}_sdpa", lambda: F.scaled_dot_product_attention(q, k, v))
-    widest = getattr(fa, "BHND_MAX_HEAD_DIM", d)
+    # a tree with WIDE_HEAD_DIM takes every head width; older trees name their widest
+    widest = math.inf if hasattr(fa, "WIDE_HEAD_DIM") else getattr(fa, "BHND_MAX_HEAD_DIM", d)
     for key, name, shapes in (("k2", "flash_attention", K2_SHAPES),
                               ("k3", "flash_attention_batched", K3_SHAPES)):
         for label, (b, h, n, hd) in shapes.items():

@@ -21,6 +21,7 @@ from monocular_depth_estimation_trt_tpu_torch.ops.cuda import flash_attention as
 from monocular_depth_estimation_trt_tpu_torch.ops.cuda import quant_matmul as qm
 from monocular_depth_estimation_trt_tpu_torch.ops.quant import QuantLinear
 from monocular_depth_estimation_trt_tpu_torch.registry import build_pipeline
+from monocular_depth_estimation_trt_tpu_torch.runtime.engine import WARMUP_CALLS
 from monocular_depth_estimation_trt_tpu_torch.weights.store import allow_random_weights
 
 pytestmark = pytest.mark.cuda
@@ -79,8 +80,9 @@ def test_k1_takes_a_scale_and_refuses_what_it_cannot_read(cuda):
 @pytest.mark.parametrize("precision", ["bf16", "fp32"])
 def test_pipeline_on_the_card_goes_through_k1(cuda, precision):
     """A small DA-V2 (head_dim 64, 2 blocks) on the card: one K1 launch per
-    block per frame, and the depth of the card against the CPU fp32 path at
-    the same weights."""
+    block per frame in the engine's captured forward (the warm-up calls
+    launch it too; replays go through no wrapper), and the depth of the card
+    against the CPU fp32 path at the same weights."""
     kw = dict(encoder="small", input_size=70, model_kw=dict(
         vit_config=ViTConfig(dim=128, depth=2, num_heads=2, pretrain_img_size=70),
         head_features=16, head_out_channels=(8, 16, 32, 32), out_indices=(0, 1, 0, 1)))
@@ -90,7 +92,10 @@ def test_pipeline_on_the_card_goes_through_k1(cuda, precision):
     frame = np.random.default_rng(0).integers(0, 256, (48, 64, 3), dtype=np.uint8)
     before = fa.flash_attention_packed.launches
     out = card(frame, viz=True)
-    assert fa.flash_attention_packed.launches == before + 2
+    assert fa.flash_attention_packed.launches == before + 2 * (WARMUP_CALLS + 1)
+    assert card.engine_for((48, 64), True).captured_launches["flash_attention_packed"] == 2
+    card(frame, viz=True)  # a replay: no wrapper call
+    assert fa.flash_attention_packed.launches == before + 2 * (WARMUP_CALLS + 1)
     ref = cpu(frame)["depth"]
     rel = np.abs(out["depth"] - ref).max() / np.abs(ref).max()
     assert rel < (5e-2 if precision == "bf16" else 1e-3)
@@ -217,9 +222,6 @@ def test_k2_reads_strided_views_and_refuses_what_it_cannot_read(cuda):
     flat = torch.zeros(1 + 2 * 4 * 100 * D, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="aligned"):
         fa.flash_attention(flat[1:].view(2, 4, 100, D), k, v)
-    with pytest.raises(ValueError, match="head_dim"):
-        wide = torch.zeros((1, 2, 10, 192), device=cuda, dtype=torch.bfloat16)
-        fa.flash_attention(wide, wide, wide)
 
 
 @pytest.mark.parametrize("name", ["flash_attention", "flash_attention_batched"])
@@ -254,17 +256,27 @@ def test_head_dim_128_reads_each_64_column_half_of_v(cuda, name):
 
 
 @pytest.mark.parametrize("name", ["flash_attention", "flash_attention_batched"])
-def test_k2_and_k3_refuse_heads_wider_than_128_on_a_card(cuda, name):
-    q = torch.zeros((1, 2, 10, 192), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="128"):
-        getattr(fa, name)(q, q, q)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [192, 256, 320])
+@pytest.mark.parametrize("n,strided", [(1, False), (129, True), (577, False)])
+def test_k2_and_k3_compute_heads_wider_than_128_on_a_card(cuda, name, dtype, d, n, strided):
+    """d > 128 is zero-padded to a multiple of 128 and runs the wide loop
+    (csrc/attention_wide.cuh), with K2's bar and the dropped-tile check."""
+    q, k, v = _bhnd(2, 3, n, d, dtype, cuda, seed=d, strided=strided)
+    kernel = getattr(fa, name)
+    before = kernel.launches
+    out = kernel(q, k, v)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    _check_bhnd(out, q, k, v)
 
 
 @pytest.mark.parametrize("precision", ["bf16", "fp32"])
 def test_vggt_pipeline_on_the_card_goes_through_k1_and_k2(cuda, precision):
     """A small VGGT (head_dim 64: 2 ViT blocks, 2 alternating blocks) on the
-    card: per forward, whatever S, one K1 launch per ViT block and two K2
-    launches per alternating block; the outputs against the CPU fp32 path."""
+    card: per captured forward, whatever S, one K1 launch per ViT block and
+    two K2 launches per alternating block; the outputs against the CPU fp32
+    path."""
     cfg = VGGTConfig(dim=128, depth=2, num_heads=2, head_layers=(0, 1, 0, 1),
                      vit_config=ViTConfig(dim=128, depth=2, num_heads=2, pretrain_img_size=70),
                      head_features=16, head_out_channels=(8, 16, 32, 32))
@@ -276,12 +288,16 @@ def test_vggt_pipeline_on_the_card_goes_through_k1_and_k2(cuda, precision):
     frame = rng.integers(0, 256, (48, 64, 3), dtype=np.uint8)
     views = rng.integers(0, 256, (3, 70, 70, 3), dtype=np.uint8)
     tol = 5e-2 if precision == "bf16" else 1e-3
-    for run, arg, ref in ((card, frame, cpu(frame)),
-                          (card.multi_view, views, cpu.multi_view(views))):
+    for run, arg, ref, engine in (
+            (card, frame, cpu(frame), lambda: card.engine_for((48, 64))),
+            (card.multi_view, views, cpu.multi_view(views), lambda: card.views_engine(3))):
         counts = (fa.flash_attention_packed.launches, fa.flash_attention.launches)
         out = run(arg)
         assert (fa.flash_attention_packed.launches - counts[0],
-                fa.flash_attention.launches - counts[1]) == (2, 4)
+                fa.flash_attention.launches - counts[1]) == (2 * (WARMUP_CALLS + 1),
+                                                             4 * (WARMUP_CALLS + 1))
+        captured = engine().captured_launches
+        assert (captured["flash_attention_packed"], captured["flash_attention"]) == (2, 4)
         for key in ("depth", "depth_conf", "pose_enc"):
             assert out[key].shape == ref[key].shape and np.isfinite(out[key]).all()
             rel = np.abs(out[key] - ref[key]).max() / np.abs(ref[key]).max()
@@ -291,8 +307,8 @@ def test_vggt_pipeline_on_the_card_goes_through_k1_and_k2(cuda, precision):
 @pytest.mark.parametrize("precision", ["bf16", "fp32"])
 def test_depth_pro_pipeline_on_the_card_goes_through_k3_and_k1(cuda, precision):
     """A narrow Depth Pro at the real 1536 geometry (ViT dim 512, 8 heads, 2
-    blocks) on the card: per frame, one K3 launch per patch-encoder block
-    (35 windows x 8 heads of 577 tokens) and one K1 launch per
+    blocks) on the card: per captured frame, one K3 launch per patch-encoder
+    block (35 windows x 8 heads of 577 tokens) and one K1 launch per
     image-encoder block; the inverse depth and focal against the CPU fp32
     path at the same weights."""
     kw = dict(model_kw=dict(
@@ -311,9 +327,12 @@ def test_depth_pro_pipeline_on_the_card_goes_through_k3_and_k1(cuda, precision):
     counts = (fa.flash_attention_batched.launches, fa.flash_attention_packed.launches,
               fa.flash_attention.launches)
     out = card(frame, viz=True)
+    n = WARMUP_CALLS + 1
     assert (fa.flash_attention_batched.launches - counts[0],
             fa.flash_attention_packed.launches - counts[1],
-            fa.flash_attention.launches - counts[2]) == (2, 2, 0)
+            fa.flash_attention.launches - counts[2]) == (2 * n, 2 * n, 0)
+    captured = card.engine_for((480, 640), True).captured_launches
+    assert (captured["flash_attention_batched"], captured["flash_attention_packed"]) == (2, 2)
     ref = cpu(frame)
     tol = 5e-2 if precision == "bf16" else 1e-3
     d, d_ref = out["depth"], ref["depth"]
@@ -397,7 +416,7 @@ def test_k4_takes_leading_dims_and_no_bias_and_refuses_what_it_cannot_write(cuda
 def test_int8_pipeline_on_the_card_goes_through_k4(cuda, precision, monkeypatch):
     """A small DA-V2 int8 (head_dim 64, 2 blocks, forced past the small-encoder
     guard) on the card: four K4 launches and one K1 launch per block per
-    frame; the depth tracks the CPU fp32 path at the same weights.
+    captured frame; the depth tracks the CPU fp32 path at the same weights.
     ``precision`` is the reference's; the int8 graph computes in bf16."""
     monkeypatch.setenv("MDET_FORCE_INT8", "1")
     kw = dict(encoder="small", input_size=70, model_kw=dict(
@@ -413,7 +432,10 @@ def test_int8_pipeline_on_the_card_goes_through_k4(cuda, precision, monkeypatch)
     before = (qm.w8a8_matmul.launches, fa.flash_attention_packed.launches)
     out = card(frame, viz=True)
     assert (qm.w8a8_matmul.launches - before[0],
-            fa.flash_attention_packed.launches - before[1]) == (8, 2)
+            fa.flash_attention_packed.launches - before[1]) == (8 * (WARMUP_CALLS + 1),
+                                                                2 * (WARMUP_CALLS + 1))
+    captured = card.engine_for((48, 64), True).captured_launches
+    assert (captured["w8a8_matmul"], captured["flash_attention_packed"]) == (8, 2)
     want = ref(frame)["depth"].ravel()
     assert np.isfinite(out["depth"]).all()
     assert np.corrcoef(out["depth"].ravel(), want)[0, 1] > 0.98

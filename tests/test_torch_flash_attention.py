@@ -130,11 +130,11 @@ def test_plain_k2_takes_strided_views_and_a_scale(rng):
     assert np.max(np.abs(out.numpy() - ref.numpy())) < 1e-5
 
 
-@pytest.mark.parametrize("d", [80, 128])
+@pytest.mark.parametrize("d", [80, 128, 192, 320, 384])
 def test_k2_computes_head_dims_above_64_as_jax_does(rng, d):
     """Widths that used to raise: on the CPU the plain version computes them
     with the scale of the unpadded d, as the JAX entry does (on a card K2
-    pads them to 128)."""
+    pads them to 128 or, above 128, to the next multiple of 128)."""
     q, k, v = (rng.standard_normal((1, 2, 10, d)).astype(np.float32) for _ in range(3))
     ref = jax_flash_attention(*(jnp.asarray(t) for t in (q, k, v)), interpret=True)
     out = fa.flash_attention(*(torch.from_numpy(t) for t in (q, k, v)))
