@@ -52,40 +52,53 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    read just after (24 K3 + 24 K1 per captured forward); then its bf16
    outputs against plain attention and the fp32 path for two weight seeds
    and two frames, and the fp32 path on the card against the CPU with the
-   ViT depth cut to 12 blocks;
-7. int8 paths: ``build_pipeline(name, precision="int8", calib_images=...)``
-   for DA-V2 vitl, depth_pro and vggt at full size, each with its own counts
-   set to 0 just before and read just after (per captured forward: 96 K4 +
-   24 K1; 192 K4 + 24 K3 + 24 K1; 288 K4 + 24 K1 + 48 K2), two frames each
-   (the first with the viz epilogue) and 4 views for vggt; then the int8
-   outputs against the bf16 and fp32 routes for two weight seeds and two
-   frames;
-8. engine: an engine each for vits, vitl, int8 vitl, vggt S=1 and S=4 and
-   depth_pro 1536², against the eager forward it captures: the same kernel
+   ViT depth cut to 6 blocks (hooks at blocks 2 and 5);
+7. metric_families_path: ``depth_anything_v3`` (vitl 518²),
+   ``metric3d_v2`` (vitl on the 616x1064 canvas, ``iters=4``), ``moge2``
+   (vits 291x518, 1800 tokens) and ``metric_anything`` (vitl 518², 3600
+   tokens) at full width on the card, each with its own counts set to 0 just
+   before and read just after (per captured forward 24, 24, 12 and 24 K1, no
+   K2/K3/K4), two frames each (a 480x640 frame with the viz epilogue, then
+   one at the model's input size), outputs finite where they must be (the
+   MoGe pair: inf off its mask); then the bf16 kernel route against plain
+   attention and the fp32 path for two weight seeds and the two frames (the
+   MoGe pair on its model's outputs), and the fp32 path on the card against
+   the CPU, the ViT-L families cut to 4 blocks;
+8. int8 paths: ``build_pipeline(name, precision="int8", calib_images=...)``
+   for DA-V2 vitl, depth_pro, vggt and metric3d_v2 at full size, each with
+   its own counts set to 0 just before and read just after (per captured
+   forward: 96 K4 + 24 K1; 192 K4 + 24 K3 + 24 K1; 288 K4 + 24 K1 + 48 K2;
+   96 K4 + 24 K1), two frames each (the first with the viz epilogue) and 4
+   views for vggt; then the int8 outputs against the bf16 and fp32 routes
+   for two weight seeds and two frames;
+9. engine: an engine each for vits, vitl, int8 vitl, vggt S=1 and S=4,
+   depth_pro 1536² and the four metric families at their input sizes,
+   against the eager forward it captures: the same kernel
    launches per forward, output buffers filled with NaN before the first
    replay, the replay's outputs finite and equal to the eager forward's bit
    for bit (else within ENGINE_REL_TOL, recorded), a result that survives
    the next call; build seconds per engine;
-9. cli: ``python -m monocular_depth_estimation_trt_tpu_torch run
+10. cli: ``python -m monocular_depth_estimation_trt_tpu_torch run
    depth_anything_v2 --encoder vits --pointcloud --benchmark`` on a seeded
    480x640 PNG in a process of its own (npz depth equal to this process's
    pipeline bit for bit; viz and ``.ply`` written), ``views vggt`` on 4
    PNGs, ``run depth_pro`` on this process's weights (``_fov.json`` against
-   its f_px);
-10. server: ``DepthServer`` over vits on port 0 with max_batch 4: 8
+   its f_px), ``run moge2 --mesh --mesh-format glb`` on this process's
+   weights (every npz output equal to the pipeline's bit for bit);
+11. server: ``DepthServer`` over vits on port 0 with max_batch 4: 8
    concurrent PNG requests, 2 of another size, a bad body (400), an unknown
    model (404), ``format=jpg`` (501 without a JPEG codec); each npz answer
    equal to ``batch_call`` on the same padded bucket, or to the
    single-frame call, bit for bit; ``/v1/stats``;
-11. speed: ``DepthPipeline.benchmark`` (through the engine, "graph") and
+12. speed: ``DepthPipeline.benchmark`` (through the engine, "graph") and
    the same step through the eager forward ("eager") in turns eager,
    graph, graph, eager for vits, vitl, int8 vitl, vggt S=1 and S=4
-   (``benchmark_views``) and depth_pro 1536²; int8 depth_pro and vggt
-   through their engines; vits int8 (forced) against vits bf16 in
-   alternating turns;
-12. profile: device time by kernel, device busy time and idle share of a
-   graph replay of each path (and of the eager forward of vits, vggt S=4
-   and depth_pro), from ``torch.profiler``.
+   (``benchmark_views``), depth_pro 1536² and the four metric families at
+   their input sizes; int8 depth_pro, vggt and metric3d_v2 through their
+   engines; vits int8 (forced) against vits bf16 in alternating turns;
+13. profile: device time by kernel, device busy time and idle share of a
+   graph replay of each path (and of the eager forward of vits, vggt S=4,
+   depth_pro, metric3d_v2 and moge2), from ``torch.profiler``.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -138,21 +151,25 @@ PARITY_WEIGHT_SEEDS = (0, 1)
 PATH_BF16_ROUTE_RATIO = 1.5
 
 # The fp32 card-vs-CPU comparison runs the full 1536 geometry and widths
-# with the ViT depth cut to 12 blocks (hooks 5 and 11 kept): the CPU run.
-DEPTH_PRO_CPU_VIT_DEPTH = 12
+# with the ViT depth cut to 6 blocks, hooked at blocks 2 and 5 (12 blocks and
+# hooks 5 and 11 until the metric families' phases needed the card time).
+DEPTH_PRO_CPU_VIT_DEPTH = 6
+DEPTH_PRO_CPU_HOOKS = (2, 5)
 
 # int8 serving against its fp32 path, at 2 weight seeds x 2 frames per
 # family: Pearson r above the JAX package's bar (tests/test_quant.py) at
 # every reading, and max |int8 - fp32| / max |fp32| below these bars, about
 # twice the largest of the four readings per output (PERF.md): DA-V2 depth
 # 3.3e-2; Depth Pro inverse depth 3.2e-2, f_px 1.8e-3; VGGT depth 6.0e-2,
-# confidence 3.8e-2, pose 9.2e-2. The bf16 route alone reads up to 2.7e-2,
-# 2.0e-2, 1.8e-3, 4.5e-2, 3.3e-2 and 3.9e-2 from fp32 there.
+# confidence 3.8e-2, pose 9.2e-2; Metric3D V2 depth 4.1e-2, confidence
+# 1.5e-2. The bf16 route alone reads up to 2.7e-2, 2.0e-2, 1.8e-3, 4.5e-2,
+# 3.3e-2, 3.9e-2, 3.0e-2 and 1.1e-2 from fp32 there.
 INT8_PEARSON_MIN = 0.98
 INT8_REL_TOL = {
     "depth_anything_v2": {"depth": 7.5e-2},
     "depth_pro": {"inverse_depth": 7.5e-2, "f_px": 5e-3},
     "vggt": {"depth": 1.2e-1, "depth_conf": 7.5e-2, "pose_enc": 2e-1},
+    "metric3d_v2": {"depth": 1e-1, "confidence": 3e-2},
 }
 
 # replay against eager where a library call picks another algorithm under
@@ -160,6 +177,7 @@ INT8_REL_TOL = {
 ENGINE_REL_TOL = 1e-3
 VGGT_BENCH = dict(warmup=3, iterations=20, latency_iterations=10)
 DEPTH_PRO_BENCH = dict(warmup=3, iterations=20, latency_iterations=10)
+FAMILY_BENCH = dict(warmup=3, iterations=50, latency_iterations=20)
 
 # the TMA + wgmma kernels (bf16 x) and their instantiations in the library
 # (K2 and K3 at head widths 64 and 128, K4 at tile widths 128 and 256),
@@ -259,6 +277,11 @@ def check_flash_attention_packed(fa, dev):
         ("vits_518_batch4", 4, 1370, 6, torch.bfloat16),
         ("vitl_518", 1, 1370, 16, torch.bfloat16),
         ("depth_pro_image", 1, 577, 16, torch.bfloat16),
+        # the metric and point-map families: Metric3D V2 (44x76 patches, cls
+        # and 4 registers), Metric Anything (60x60 + cls), MoGe-2 vits (32x57)
+        ("metric3d_616x1064", 1, 3349, 16, torch.bfloat16),
+        ("metric_anything_518", 1, 3601, 16, torch.bfloat16),
+        ("moge2_vits_291x518", 1, 1825, 6, torch.bfloat16),
         ("n1", 1, 1, 6, torch.bfloat16),
         ("n63", 1, 63, 6, torch.bfloat16),
         ("n64", 1, 64, 6, torch.bfloat16),
@@ -890,10 +913,10 @@ def depth_pro_parity(build_pipeline, pipe, frames):
         drop_engines(plain_pipe, card32_pipe, kernel_pipe)
         del kernel_pipe, plain_pipe, card32_pipe, sd
 
-    # fp32, card against CPU: full geometry and widths, 12 ViT blocks
+    # fp32, card against CPU: full geometry and widths, DEPTH_PRO_CPU_VIT_DEPTH ViT blocks
     vit = ViTConfig(dim=1024, depth=DEPTH_PRO_CPU_VIT_DEPTH, num_heads=16, patch_size=16,
                     pretrain_img_size=384)
-    model_kw = dict(cfg=DepthProConfig(vit_config=vit))
+    model_kw = dict(cfg=DepthProConfig(vit_config=vit, hook_block_ids=DEPTH_PRO_CPU_HOOKS))
     card32 = depth_pro_pipeline(build_pipeline, precision="fp32", model_kw=model_kw)
     frame = frames["frame_480x640"]
     got_card = run(card32, frame)
@@ -906,7 +929,7 @@ def depth_pro_parity(build_pipeline, pipe, frames):
     cpu_rec = {"phase": "depth_pro_parity_cpu", "frame": "frame_480x640",
                "cpu_fp32_seconds": time.perf_counter() - t0,
                "model_depth": f"full widths and 1536 geometry; {DEPTH_PRO_CPU_VIT_DEPTH} of 24 "
-                              "ViT blocks in each encoder (hooks 5 and 11 kept)",
+                              f"ViT blocks in each encoder (hooks at {DEPTH_PRO_CPU_HOOKS})",
                **{k: {"fp32_card_vs_cpu_rel": rel(got_card[k], got_cpu[k])} for k in keys}}
     emit(cpu_rec)
 
@@ -941,6 +964,306 @@ def depth_pro_parity(build_pipeline, pipe, frames):
               f"route, over {len(readings)} readings")
         got = cpu_rec[k]["fp32_card_vs_cpu_rel"]
         check(got < PATH_FP32_REL_TOL, f"depth_pro fp32 {k} card vs cpu {got}")
+
+
+# The single-image metric and point-map families at full width: the frames
+# of each one's counted run (the first with the viz epilogue), the per-forward
+# launches [K3, K1, K2, K4] of its bf16 path, and the outputs that the route
+# comparisons read. DA3 vitl at 518^2 and Metric Anything vitl at 3600 tokens
+# (60x60) run 24 K1 at 16 heads, Metric3D V2 vitl 24 K1 at N = 3349 (a
+# 616x1064 canvas, 4 registers), MoGe-2 vits 12 K1 at 6 heads (32x57 tokens).
+FAMILIES = {
+    "depth_anything_v3": dict(hw=((480, 640), (518, 518)), per_forward=[0, 24, 0, 0],
+                              keys=("depth", "sky")),
+    "metric3d_v2": dict(hw=((480, 640), (616, 1064)), per_forward=[0, 24, 0, 0],
+                        keys=("depth", "confidence")),
+    "moge2": dict(hw=((480, 640), (291, 518)), per_forward=[0, 12, 0, 0],
+                  keys=("points", "normal", "mask", "metric_scale")),
+    "metric_anything": dict(hw=((480, 640), (518, 518)), per_forward=[0, 24, 0, 0],
+                            keys=("points", "mask", "metric_scale")),
+}
+POINTMAP = ("moge2", "metric_anything")
+# Seeded random weights leave the MoGe pair's mask logit about 0, where the
+# mask can hold no pixel and the focal solve reads 0/0: an output bias of
+# the mask branch keeps most pixels in the mask (as lift_depth_pro_outputs
+# does for Depth Pro); nothing else of the weights moves.
+MOGE_MASK_BIAS = 1.0
+# bf16 kernel route against the plain route, max rel at every (weight seed,
+# frame) of the comparison. The MoGe pair is compared on its model's outputs
+# (affine-invariant points, normal, mask probability, metric scale): with
+# random weights its focal solve is ill-conditioned (a focal near 1e-4), so
+# the focal and the shifted depth built from them are recorded, not held.
+# The unit normal divides by a norm that random weights leave near 0 at some
+# pixels, so it is held on its mean rel (mean |a - b| / mean |b|). Each bar
+# sits about twice above the largest of the first run's 4 readings per
+# family (PERF.md §6): depth 2.9e-2 (DA3) and 2.2e-2 (Metric3D; DA-V2's
+# bar kept), sky 1.4e-2, confidence 1.2e-2, points 6.3e-3 and 7.1e-3, normal
+# 1.1e-2 (mean), mask 3.2e-3 and 3.3e-3, metric scale 1.6e-2 and 3.9e-3; a
+# key tile left out of K1 moves an attention output by O(1).
+PATH_BF16_FAMILY_REL_TOL = {"depth": 5e-2, "sky": 3e-2, "confidence": 2.5e-2, "points": 1.5e-2,
+                            "normal": 2.5e-2, "mask": 7.5e-3, "metric_scale": 3e-2}
+FAMILY_GATE = {"normal": "mean_rel"}  # else "rel"
+# The fp32 card-vs-CPU comparison cuts the ViT-L families to 4 blocks (taps
+# 0 to 3) at full width and resolution; MoGe-2 vits runs whole.
+FAMILY_CPU_VIT_DEPTH = 4
+
+
+def lift_moge_mask(model) -> None:
+    import torch
+
+    with torch.no_grad():
+        model.head.mask_out[2].bias.fill_(MOGE_MASK_BIAS)
+
+
+def family_model_kw(name, depth=None):
+    """``model_kw`` of a family's pipeline: none at full depth; else the ViT-L
+    cut to ``depth`` blocks with taps spread over them."""
+    if depth is None:
+        return None
+    from monocular_depth_estimation_trt_tpu_torch.models.metric3d_v2 import Metric3DConfig
+    from monocular_depth_estimation_trt_tpu_torch.models.moge2 import MoGeConfig
+    from monocular_depth_estimation_trt_tpu_torch.models.vit import ViTConfig
+
+    vit = ViTConfig(dim=1024, depth=depth, num_heads=16)
+    taps = tuple(range(depth // 4 - 1, depth, depth // 4))
+    if name == "depth_anything_v3":
+        return dict(vit_config=vit, out_indices=taps)
+    if name == "metric3d_v2":
+        return dict(cfg=Metric3DConfig(vit_config=vit, out_indices=taps))
+    return dict(cfg=MoGeConfig(vit_config=vit, out_indices=taps))
+
+
+def family_pipeline(build_pipeline, name, **kw):
+    pipe = build_pipeline(name, **kw)
+    if name in POINTMAP:
+        lift_moge_mask(pipe.model)
+    return pipe
+
+
+def family_model(name, seed):
+    """A family's full-size model on seeded random weights (fp32, CPU)."""
+    from monocular_depth_estimation_trt_tpu_torch.models.depth_anything_v3 import (
+        DepthAnythingV3,
+    )
+    from monocular_depth_estimation_trt_tpu_torch.models.metric3d_v2 import Metric3DV2
+    from monocular_depth_estimation_trt_tpu_torch.models.moge2 import MoGe2
+    from monocular_depth_estimation_trt_tpu_torch.weights.store import init_random_
+
+    model = {"depth_anything_v3": DepthAnythingV3, "metric3d_v2": Metric3DV2,
+             "moge2": MoGe2,
+             "metric_anything": lambda: MoGe2("vitl", 3600, predict_normal=False)}[name]()
+    init_random_(model, seed)
+    if name in POINTMAP:
+        lift_moge_mask(model)
+    return model
+
+
+def check_family_outputs(name, key, out, hw):
+    """The outputs of one forward: shapes, dtypes, and finite values where
+    they must be (the MoGe pair: depth and points finite on the mask and inf
+    off it, normal finite, focal and scale finite). Returns a summary."""
+    import numpy as np
+
+    d = out["depth"]
+    at = f"{name} {key}"
+    if name in POINTMAP:
+        mask = out["mask"]
+        check(mask.dtype == np.bool_ and d.shape == mask.shape, f"{at}: mask {mask.shape}")
+        check(bool(np.isfinite(d[mask]).all()) and bool(np.isinf(d[~mask]).all()),
+              f"{at}: depth not finite on the mask or not inf off it")
+        pts = out["points"]
+        check(pts.shape == (*d.shape, 3) and bool(np.isfinite(pts[mask]).all())
+              and bool(np.isinf(pts[~mask]).all()), f"{at}: points")
+        if "normal" in out:
+            check(bool(np.isfinite(out["normal"]).all()) and not out["normal"][~mask].any(),
+                  f"{at}: normal")
+        focal, scale = float(out["focal"]), float(out["metric_scale"])
+        check(np.isfinite(focal) and np.isfinite(scale) and scale > 0,
+              f"{at}: focal {focal}, metric_scale {scale}")
+        check(mask.mean() > 0.1, f"{at}: {mask.mean()} of the pixels in the mask")
+        check(np.ptp(d[mask]) > 0, f"{at}: depth is constant")
+        return {"depth_shape": list(d.shape), "mask_share": float(mask.mean()),
+                "depth_range_on_mask": [float(d[mask].min()), float(d[mask].max())],
+                "focal": focal, "metric_scale": scale}
+    check(d.shape == hw and d.dtype == np.float32, f"{at}: depth {d.shape} {d.dtype}")
+    rec = {"depth_shape": list(d.shape), "depth_range": [float(d.min()), float(d.max())]}
+    for k in FAMILIES[name]["keys"]:
+        check(out[k].shape == hw and bool(np.isfinite(out[k]).all()), f"{at}: {k}")
+    check(d.max() > d.min(), f"{at}: depth is constant")
+    if name == "metric3d_v2":
+        check(d.min() >= 0.0 and d.max() <= 300.0, f"{at}: depth outside [0, 300]")
+    if name == "depth_anything_v3":
+        check(d.min() >= 1e-3 and d.max() <= 1e3, f"{at}: depth outside the clamp")
+        rec["sky_range"] = [float(out["sky"].min()), float(out["sky"].max())]
+    return rec
+
+
+def run_family_path(name, build_pipeline, wrappers, rng):
+    """One family's path with its own counts: set to 0 just before, read
+    just after; each frame through ``__call__`` and a new engine (the first
+    with the viz epilogue). Returns the pipeline, the counts and the frames."""
+    import numpy as np
+    import torch
+
+    fam = FAMILIES[name]
+    t0 = time.perf_counter()
+    pipe = family_pipeline(build_pipeline, name)
+    build_s = time.perf_counter() - t0
+    check(pipe.device.type == "cuda", f"{name} default device is {pipe.device}")
+    frames = {f"frame_{h}x{w}": rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+              for h, w in fam["hw"]}
+
+    set_counts_to_zero(wrappers)
+    per_forward, outs = {}, {}
+    for i, (key, frame) in enumerate(frames.items()):
+        viz = i == 0
+        outs[key], per_forward[key] = run_counted(
+            lambda: pipe(frame, viz=viz), lambda: pipe.engine_for(frame.shape[:2], viz),
+            wrappers, f"{name} {key}")
+    torch.cuda.synchronize()
+    launches = launch_record(wrappers)
+
+    want = fam["per_forward"]
+    for key, got in per_forward.items():
+        check(got == want, f"{name} {key}: K3, K1, K2, K4 launches {got}, want {want}")
+    forwards = len(frames) * (WARMUP_CALLS + 1)
+    check(launches == {k: n * forwards for k, n in zip(KERNELS, want)},
+          f"launches on the {name} path {launches}")
+    rec = {"phase": "metric_families_path", "model": pipe.spec.artifact_name(),
+           "build_seconds": build_s, "forwards": list(per_forward),
+           "launches_per_forward_k3_k1_k2_k4": per_forward, "launches": launches,
+           "counted": f"{WARMUP_CALLS} warm-up + 1 captured per engine"}
+    for key, frame in frames.items():
+        rec[key] = check_family_outputs(name, key, outs[key], frame.shape[:2])
+    first = outs[next(iter(frames))]
+    if pipe.viz != "none":
+        check(first["viz"].dtype == np.uint8 and first["viz"].shape[:2] == first["depth"].shape,
+              f"{name} viz")
+    emit(rec)
+    return pipe, launches, frames
+
+
+def family_outputs(name, pipe, frame):
+    """The compared outputs of one frame as host arrays: the pipeline's, or,
+    for the MoGe pair, its model's on the pipeline's preprocessed input,
+    with the pipeline's focal beside them (recorded only)."""
+    import numpy as np
+    import torch
+
+    from monocular_depth_estimation_trt_tpu_torch.registry import _imagenet_square
+
+    out = pipe(frame)
+    if name not in POINTMAP:
+        return {k: out[k] for k in FAMILIES[name]["keys"]}
+    x = torch.from_numpy(frame).to(pipe.device)
+    with torch.inference_mode():
+        raw = pipe.model(_imagenet_square(pipe.spec.input_hw)(x[None]))
+    got = {k: v[0].float().cpu().numpy() for k, v in raw.items()}
+    got["focal"] = np.asarray(out["focal"])
+    return got
+
+
+def family_readings(name, a, b):
+    """max rel and mean rel of ``a`` against ``b`` on the family's compared
+    outputs."""
+    return {k: {"rel": rel(a[k], b[k]), "mean_rel": mean_rel(a[k], b[k])}
+            for k in FAMILIES[name]["keys"]}
+
+
+def family_parity(name, build_pipeline, pipe, frames):
+    """For each weight seed and frame, on weights rounded to bf16 and shared
+    by every route: the bf16 kernel route (K1) against plain attention and
+    against the fp32 card path, held to PATH_BF16_FAMILY_REL_TOL of the plain
+    route at every reading and, averaged over the readings, to
+    PATH_BF16_ROUTE_RATIO times the plain route's distance from fp32. Then
+    the fp32 path on the card against the CPU (ViT-L families cut to
+    FAMILY_CPU_VIT_DEPTH blocks). Every reading is emitted before any is
+    checked."""
+    import torch
+
+    keys = FAMILIES[name]["keys"]
+    readings = []
+    for seed in PARITY_WEIGHT_SEEDS:
+        kernel_pipe = pipe
+        if seed != 0:  # the path's pipeline holds seed 0
+            model = family_model(name, seed)
+            kernel_pipe = build_pipeline(name, params=model.state_dict())
+            del model
+        sd = {k: v.float().cpu() for k, v in kernel_pipe.model.state_dict().items()}
+        plain_pipe = build_pipeline(name, attn_impl="xla", params=sd)
+        card32_pipe = build_pipeline(name, precision="fp32", params=sd)
+        for frame_name, frame in frames.items():
+            kernel, plain, card32 = (family_outputs(name, p, frame)
+                                     for p in (kernel_pipe, plain_pipe, card32_pipe))
+            rec = {"phase": "metric_families_parity", "model": name, "weights_seed": seed,
+                   "frame": frame_name,
+                   "bf16_kernel_vs_plain_attention": family_readings(name, kernel, plain),
+                   "bf16_kernel_route_vs_fp32": family_readings(name, kernel, card32),
+                   "bf16_plain_route_vs_fp32": family_readings(name, plain, card32)}
+            if name in POINTMAP:
+                rec["focal"] = {"kernel": float(kernel["focal"]), "plain": float(plain["focal"]),
+                                "fp32": float(card32["focal"])}
+            emit(rec)
+            readings.append(rec)
+        drop_engines(plain_pipe, card32_pipe, kernel_pipe)
+        del kernel_pipe, plain_pipe, card32_pipe, sd
+
+    # fp32, card against CPU, on the first frame
+    depth = None if name == "moge2" else FAMILY_CPU_VIT_DEPTH
+    model_kw = family_model_kw(name, depth)
+    card32 = family_pipeline(build_pipeline, name, precision="fp32", model_kw=model_kw)
+    frame_name, frame = next(iter(frames.items()))
+    got_card = family_outputs(name, card32, frame)
+    sd = {k: v.cpu() for k, v in card32.model.state_dict().items()}
+    drop_engines(card32)
+    del card32
+    t0 = time.perf_counter()
+    got_cpu = family_outputs(name, build_pipeline(name, precision="fp32", device="cpu",
+                                                  params=sd, model_kw=model_kw), frame)
+    cpu_rec = {"phase": "metric_families_parity_cpu", "model": name, "frame": frame_name,
+               "cpu_fp32_seconds": time.perf_counter() - t0,
+               "model_depth": "full" if depth is None else
+               f"full widths and resolution; {depth} of 24 ViT blocks",
+               "fp32_card_vs_cpu": family_readings(name, got_card, got_cpu)}
+    if name in POINTMAP:
+        cpu_rec["focal"] = {"card": float(got_card["focal"]), "cpu": float(got_cpu["focal"])}
+    emit(cpu_rec)
+    torch.cuda.empty_cache()
+
+    def worst(route, k):
+        return max(r[route][k][FAMILY_GATE.get(k, "rel")] for r in readings)
+
+    def average(route, k):
+        return sum(r[route][k][FAMILY_GATE.get(k, "rel")] for r in readings) / len(readings)
+
+    ratio = {k: average("bf16_kernel_route_vs_fp32", k)
+             / max(average("bf16_plain_route_vs_fp32", k), 1e-12) for k in keys}
+    dense = [k for k in keys if k != "metric_scale"]
+    summary = {"phase": "metric_families_parity_summary", "model": name,
+               "readings": len(readings),
+               **{k: {"held_on": FAMILY_GATE.get(k, "rel"),
+                      "max_bf16_kernel_vs_plain_attention": worst("bf16_kernel_vs_plain_attention",
+                                                                  k),
+                      "max_bf16_kernel_route_vs_fp32": worst("bf16_kernel_route_vs_fp32", k),
+                      "max_bf16_plain_route_vs_fp32": worst("bf16_plain_route_vs_fp32", k),
+                      "bf16_kernel_vs_plain_attention_tolerance": PATH_BF16_FAMILY_REL_TOL[k],
+                      "kernel_over_plain_route_vs_fp32": ratio[k]} for k in keys},
+               "bf16_route_ratio_tolerance": PATH_BF16_ROUTE_RATIO,
+               "fp32_tolerance": PATH_FP32_REL_TOL}
+    emit(summary)
+    for r in readings:
+        at = f"seed {r['weights_seed']} {r['frame']}"
+        for k in keys:
+            got = r["bf16_kernel_vs_plain_attention"][k][FAMILY_GATE.get(k, "rel")]
+            check(got < PATH_BF16_FAMILY_REL_TOL[k],
+                  f"{name} bf16 {k} kernel vs plain attention {got} ({at})")
+    for k in dense:  # the scale's ratio swings with one value a reading: recorded only
+        check(ratio[k] <= PATH_BF16_ROUTE_RATIO,
+              f"{name} bf16 {k}: kernel route {ratio[k]} x as far from fp32 as the plain "
+              f"route, over {len(readings)} readings")
+    for k in keys:
+        got = cpu_rec["fp32_card_vs_cpu"][k]["rel"]
+        check(got < PATH_FP32_REL_TOL, f"{name} fp32 {k} card vs cpu {got}")
 
 
 def w8a8_operands(m, k, n, dtype, dev, gen):
@@ -991,6 +1314,11 @@ def check_w8a8_matmul(qm, dev):
         ("depth_pro_fc1", 20195, 1024, 4096, torch.bfloat16),
         ("depth_pro_fc2", 20195, 4096, 1024, torch.bfloat16),
         ("vggt_s4_fc1", 5496, 1024, 4096, torch.bfloat16),
+        # Metric3D V2's ViT-L at 616x1064 (M = 3349 tokens)
+        ("metric3d_qkv", 3349, 1024, 3072, torch.bfloat16),
+        ("metric3d_proj", 3349, 1024, 1024, torch.bfloat16),
+        ("metric3d_fc1", 3349, 1024, 4096, torch.bfloat16),
+        ("metric3d_fc2", 3349, 4096, 1024, torch.bfloat16),
         ("vitl_qkv_fp32", 1370, 1024, 3072, torch.float32),
         ("depth_pro_fc1_fp32", 20195, 1024, 4096, torch.float32),
     ]
@@ -1068,6 +1396,15 @@ def int8_family(name, build_pipeline, calib):
                 "depth_anything_v2", encoder="vitl", precision=precision, params=sd,
                 calib_images=calib),
             run=lambda p, frame: {"depth": p(frame)["depth"]},
+            per_forward=[0, 24, 0, 96], pearson_keys=("depth",))
+    if name == "metric3d_v2":
+        from monocular_depth_estimation_trt_tpu_torch.models.metric3d_v2 import Metric3DV2
+
+        return dict(
+            make=Metric3DV2,
+            build=lambda precision, sd: build_pipeline(
+                "metric3d_v2", precision=precision, params=sd, calib_images=calib),
+            run=lambda p, frame: {k: v for k, v in p(frame).items() if k != "viz"},
             per_forward=[0, 24, 0, 96], pearson_keys=("depth",))
     if name == "depth_pro":
         def build(precision, sd):
@@ -1442,13 +1779,16 @@ def server_phase(pipe, rng):
           "server: no request was batched")
 
 
-def cli_phase(pipe, vggt, depth_pro, rng):
+def cli_phase(pipe, vggt, depth_pro, moge, rng):
     """``python -m monocular_depth_estimation_trt_tpu_torch`` in processes of
     its own, as a user starts it: ``run`` of DA-V2 vits on a seeded 480x640
     PNG with ``--pointcloud --benchmark`` (its npz depth equal to this
     process's pipeline on the same frame, bit for bit; the viz and the
-    ``.ply`` written), ``views vggt`` on 4 PNGs, and ``run depth_pro`` on
-    weights saved from this process's (``_fov.json`` against its f_px)."""
+    ``.ply`` written), ``views vggt`` on 4 PNGs, ``run depth_pro`` on
+    weights saved from this process's (``_fov.json`` against its f_px), and
+    ``run moge2 --mesh --mesh-format glb`` on this process's MoGe-2 weights
+    (every npz output equal to its pipeline's bit for bit, the ``.glb`` mesh
+    written)."""
     import math
     import shutil
     import tempfile
@@ -1541,6 +1881,29 @@ def cli_phase(pipe, vggt, depth_pro, rng):
         check(f_px > 0 and fov == want_fov, f"cli depth_pro: fov {fov}, want {want_fov}")
         check(dp_depth.shape == (480, 640) and bool(np.isfinite(dp_depth).all()),
               "cli depth_pro: depth")
+
+        ckpt = os.path.join(tmp, "moge2_lifted.pth")
+        torch.save({k: v.detach().cpu() for k, v in moge.model.state_dict().items()}, ckpt)
+        out_moge = os.path.join(tmp, "moge2")
+        _, moge_s = cli("run", "moge2", "--image", png, "--out", out_moge, "--checkpoint", ckpt,
+                        "--mesh", "--mesh-format", "glb")
+        got = np.load(only(out_moge, ".npz"))
+        ours = moge(frame)
+        with open(only(out_moge, ".glb"), "rb") as f:
+            magic = f.read(4)
+        rec = {"phase": "cli", "command": "run moge2 --mesh --mesh-format glb (this process's "
+                                          "weights)", "seconds": moge_s,
+               "files": sorted(os.listdir(out_moge)),
+               "shapes": {k: list(got[k].shape) for k in got.files},
+               "equal_in_process": {k: bool(np.array_equal(got[k], ours[k]))
+                                    for k in got.files},
+               "glb_bytes": os.path.getsize(only(out_moge, ".glb"))}
+        emit(rec)
+        check(sorted(got.files) == sorted(ours) == ["depth", "focal", "mask", "metric_scale",
+                                                    "normal", "points"],
+              f"cli moge2: npz {got.files}, pipeline {sorted(ours)}")
+        check(all(rec["equal_in_process"].values()), "cli moge2: npz differs from the pipeline's")
+        check(magic == b"glTF", f"cli moge2: the mesh starts {magic!r}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1718,7 +2081,16 @@ def main() -> None:
     depth_pro_parity(build_pipeline, depth_pro, depth_pro_frames)
     drop_engines(depth_pro)
 
-    # 7. the int8 paths (each its own counted run), then int8 against the bf16
+    # 7. the single-image metric and point-map families (each its own counted
+    # run), then their route comparisons
+    families, family_launches, family_frames = {}, {}, {}
+    for name in FAMILIES:
+        families[name], family_launches[name], family_frames[name] = run_family_path(
+            name, build_pipeline, wrappers, rng)
+        family_parity(name, build_pipeline, families[name], family_frames[name])
+        drop_engines(families[name])
+
+    # 8. the int8 paths (each its own counted run), then int8 against the bf16
     # and fp32 routes; calibration on three seeded frames (noise and a
     # smooth scene-like frame)
     calib = list(parity_frames(np.random.default_rng(7)).values())
@@ -1728,6 +2100,7 @@ def main() -> None:
         "depth_pro": depth_pro_frames,
         "vggt": {"frame_480x640": rng.integers(0, 256, (480, 640, 3), dtype=np.uint8),
                  "frame_518x518": rng.integers(0, 256, (518, 518, 3), dtype=np.uint8)},
+        "metric3d_v2": family_frames["metric3d_v2"],
     }
     views4_u8 = rng.integers(0, 256, (4, 518, 518, 3), dtype=np.uint8)
     int8_pipes, int8_launches = {}, {}
@@ -1738,7 +2111,7 @@ def main() -> None:
         int8_parity(name, fam, int8_pipes[name], frames)
         drop_engines(int8_pipes[name])
 
-    # 8. engines: each captured graph against the eager forward it captures
+    # 9. engines: each captured graph against the eager forward it captures
     vitl = build_pipeline("depth_anything_v2", encoder="vitl")
     frame_dp = depth_pro_frames["frame_1536x1536"]
     other_dp = rng.integers(0, 256, (1536, 1536, 3), dtype=np.uint8)
@@ -1759,26 +2132,35 @@ def main() -> None:
              p_eager(depth_pro, (1536, 1536)), frame_dp, other_dp, [24, 24, 0, 0])):
         check_engine(label, p, engine, eager, arg, other, want, wrappers)
         drop_engines(p)
+    for name, fam in FAMILIES.items():
+        p, hw = families[name], fam["hw"][1]
+        arg, other = (rng.integers(0, 256, (*hw, 3), dtype=np.uint8) for _ in range(2))
+        check_engine(name, p, p.engine_for(hw), p_eager(p, hw), arg, other,
+                     fam["per_forward"], wrappers)
+        drop_engines(p)
 
-    # 9. the command line, as a user starts it, in processes of its own
-    cli_phase(pipe, vggt, depth_pro, rng)
-    drop_engines(pipe, vggt, depth_pro)
+    # 10. the command line, as a user starts it, in processes of its own
+    cli_phase(pipe, vggt, depth_pro, families["moge2"], rng)
+    drop_engines(pipe, vggt, depth_pro, families["moge2"])
 
-    # 10. the HTTP server in this process, batching up to 4
+    # 11. the HTTP server in this process, batching up to 4
     server_phase(pipe, rng)
     drop_engines(pipe)
 
-    # 11. speed (the counts are read above; benchmark launches are not
+    # 12. speed (the counts are read above; benchmark launches are not
     # counted): each path eager and through its engine, in turns eager,
     # graph, graph, eager
     cfg = BenchmarkConfig(warmup=10, iterations=100, latency_iterations=50)
     vcfg = BenchmarkConfig(**VGGT_BENCH)
     dcfg = BenchmarkConfig(**DEPTH_PRO_BENCH)
+    fcfg = BenchmarkConfig(**FAMILY_BENCH)
     for label, p, in_hw, views, c in (
             ("vits", pipe, (518, 518), 0, cfg), ("vitl", vitl, (518, 518), 0, cfg),
             ("vitl_int8", int8_vitl, (518, 518), 0, cfg),
             ("vggt_s1", vggt, (518, 518), 0, vcfg), ("vggt_s4", vggt, None, 4, vcfg),
-            ("depth_pro_1536", depth_pro, (1536, 1536), 0, dcfg)):
+            ("depth_pro_1536", depth_pro, (1536, 1536), 0, dcfg),
+            *((name, families[name], tuple(families[name].spec.input_hw), 0, fcfg)
+              for name in FAMILIES)):
         for turn, route in enumerate(ROUTE_TURNS):
             rep = timed_route(p, route, in_hw, views, c)
             emit(speed_record(rep, p, label, route, turn, views, in_hw, card, power_limit))
@@ -1789,7 +2171,9 @@ def main() -> None:
     for label, p, in_hw, views, c in (("depth_pro_1536_int8", int8_pipes["depth_pro"],
                                         (1536, 1536), 0, dcfg),
                                        ("vggt_s1_int8", int8_pipes["vggt"], (518, 518), 0, vcfg),
-                                       ("vggt_s4_int8", int8_pipes["vggt"], None, 4, vcfg)):
+                                       ("vggt_s4_int8", int8_pipes["vggt"], None, 4, vcfg),
+                                       ("metric3d_v2_int8", int8_pipes["metric3d_v2"],
+                                        (616, 1064), 0, fcfg)):
         for repeat in range(2):
             rep = timed_route(p, "graph", in_hw, views, c)
             emit(speed_record(rep, p, label, "graph", repeat, views, in_hw, card, power_limit))
@@ -1803,12 +2187,14 @@ def main() -> None:
         emit({**speed_record(p.benchmark((518, 518), cfg), p, "vits_ab", "graph", turn, 0,
                              (518, 518), card, power_limit), "ab_turn": turn})
 
-    # 12. where the device time goes, after the speed phase so that the
+    # 13. where the device time goes, after the speed phase so that the
     # profiler cannot slow it (launches not counted): graph replays, and the
     # eager forward of vits, vggt S=4 and depth_pro beside them
     dev_frame = torch.from_numpy(frame_b).to(dev)
     views4 = torch.from_numpy(views4_u8).to(dev)
     dev_dp = torch.from_numpy(frame_dp).to(dev)
+    family_args = {name: torch.from_numpy(rng.integers(
+        0, 256, (*p.spec.input_hw, 3), dtype=np.uint8)).to(dev) for name, p in families.items()}
     for p, arg, in_hw, suffix, iters, with_eager in (
             (pipe, dev_frame, (518, 518), "", 5, True),
             (vitl, dev_frame, (518, 518), "", 5, False),
@@ -1819,7 +2205,11 @@ def main() -> None:
             (int8_pipes["vggt"], dev_frame, (518, 518), "_s1", 3, False),
             (int8_pipes["vggt"], views4, None, "_s4", 3, False),
             (depth_pro, dev_dp, (1536, 1536), "", 3, True),
-            (int8_pipes["depth_pro"], dev_dp, (1536, 1536), "", 3, False)):
+            (int8_pipes["depth_pro"], dev_dp, (1536, 1536), "", 3, False),
+            *((families[name], family_args[name], tuple(families[name].spec.input_hw), "", 5,
+               name in ("metric3d_v2", "moge2")) for name in FAMILIES),
+            (int8_pipes["metric3d_v2"], family_args["metric3d_v2"], (616, 1064), "", 5,
+             False)):
         eng = p.engine_for(in_hw) if in_hw else p.views_engine(4)
         emit({**profile_breakdown(lambda: eng(arg), p.spec.artifact_name() + suffix, iters),
               "route": "graph"})
@@ -1855,6 +2245,7 @@ def main() -> None:
                                    if "_wide" in r["shape"]]
         by_path = {"depth_anything_v2": launches[name], "vggt": vggt_launches[name],
                    "depth_pro": depth_pro_launches[name],
+                   **{k: v[name] for k, v in family_launches.items()},
                    **{f"{k}_int8": v[name] for k, v in int8_launches.items()}}
         pallas_file = replaces.partition(":")[0]
         return {

@@ -6,6 +6,9 @@ Replaces the reference's "edit constants at the top of the script" workflow
     python -m monocular_depth_estimation_trt_tpu_torch run depth_anything_v2 \
         --encoder vits --image frame.png --out results/ --pointcloud
 
+    python -m monocular_depth_estimation_trt_tpu_torch run moge2 --image frame.png \
+        --mesh --mesh-format glb
+
     python -m monocular_depth_estimation_trt_tpu_torch serve depth_anything_v2 --max-batch 4
     python -m monocular_depth_estimation_trt_tpu_torch bench depth_anything_v2 --encoder vits
     python -m monocular_depth_estimation_trt_tpu_torch models
@@ -14,9 +17,11 @@ Every command runs on the card (``--device cuda``, the default) unless
 ``--device cpu`` asks for the port's plain PyTorch path on the CPU; without
 a card the default raises. Artifacts mirror the reference's outputs and the
 JAX CLI's file names: the turbo-colormapped viz (``.jpg``; ``.png`` where
-no JPEG codec is importable, see ``utils/imageio.py``), compressed ``.npz``
-depth, the ``_fov.json`` camera estimate, an optional ``.ply``/``.glb``
-point cloud, and the ``[MDET] max/min`` parity line
+no JPEG codec is importable, see ``utils/imageio.py``), a compressed
+``.npz`` of the depth and the model's other outputs (the JAX CLI's holds the
+depth alone), the ``_fov.json`` camera estimate, an optional ``.ply``/``.glb``
+point cloud or, for a point-map model, mesh, and the ``[MDET] max/min``
+parity line
 (``onnx2trt.py:218-245``).
 
 Not ported yet, so argparse rejects them: ``--engine`` (serialized
@@ -147,7 +152,10 @@ def _write_run_outputs(args, img, out, name, pipe) -> int:
         written = write_image(os.path.join(args.out, f"{stem}_{name}.jpg"), out["viz"])
         log(f"wrote {written}")
     npz = os.path.join(args.out, f"{stem}_{name}.npz")
-    np.savez_compressed(npz, depth=depth)
+    # the depth and every other output of the pipeline but the viz (sky,
+    # confidence, the MoGe pair's points, mask, normal, scale and focal)
+    np.savez_compressed(npz, depth=depth, **{k: np.asarray(v) for k, v in out.items()
+                                             if k not in ("depth", "viz")})
     log(f"wrote {npz}")
 
     fov = _fov_from_outputs(out, depth.shape)
@@ -158,7 +166,7 @@ def _write_run_outputs(args, img, out, name, pipe) -> int:
             json.dump({"fov_x": round(fov[0], 2), "fov_y": round(fov[1], 2)}, f)
         log(f"wrote {fov_path} (fov_x {fov[0]:.2f}°, fov_y {fov[1]:.2f}°)")
 
-    if args.pointcloud:
+    if args.pointcloud or args.mesh:
         from monocular_depth_estimation_trt_tpu_torch.apps.pointcloud import (
             depth_to_pointcloud_file,
             points_to_mesh_file,
@@ -260,8 +268,8 @@ def cmd_bench(args) -> int:
             return 2
         report = pipe.benchmark_views(args.views, cfg)
     else:
-        size = args.size or pipe.spec.input_hw[0]
-        report = pipe.benchmark((size, size), cfg)
+        in_hw = (args.size, args.size) if args.size else tuple(pipe.spec.input_hw)
+        report = pipe.benchmark(in_hw, cfg)
     report.print()
     return 0
 
@@ -385,8 +393,8 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--mesh-format", default="ply", choices=["ply", "glb"],
                      help="point-cloud container")
     run.add_argument("--mesh", action="store_true",
-                     help="triangulated image-grid mesh instead of points (models with a "
-                     "point map)")
+                     help="write a triangulated image-grid mesh of the model's point map "
+                     "(moge2, metric_anything) instead of points; implies --pointcloud")
     run.add_argument("--benchmark", action="store_true")
     run.add_argument("--compare", default="",
                      help="compare the depth against a stored .npz and fail on drift")

@@ -38,6 +38,32 @@ def _bilinear_ac(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     return torch.einsum("pw,ncow->ncop", ww, y)
 
 
+def resize_layers(out_channels: Sequence[int]) -> nn.ModuleList:
+    """The four levels' resize layers: ConvTranspose2d k=s=4, k=s=2,
+    identity, Conv 3x3 s=2."""
+    oc = list(out_channels)
+    return nn.ModuleList([
+        nn.ConvTranspose2d(oc[0], oc[0], 4, 4),
+        nn.ConvTranspose2d(oc[1], oc[1], 2, 2),
+        nn.Identity(),
+        nn.Conv2d(oc[3], oc[3], 3, 2, 1),
+    ])
+
+
+def project_levels(head: nn.Module, features, patch_hw: Tuple[int, int]):
+    """Tokens of the four taps -> the four NCHW levels, through ``head``'s
+    ``projects`` and ``resize_layers`` in its weights' dtype."""
+    ph, pw = patch_hw
+    dtype = head.projects[0].weight.dtype
+    levels = []
+    for i, feat in enumerate(features):
+        tokens = feat[0] if isinstance(feat, (tuple, list)) else feat
+        b, _, d = tokens.shape
+        x = tokens.reshape(b, ph, pw, d).permute(0, 3, 1, 2).to(dtype)
+        levels.append(head.resize_layers[i](head.projects[i](x)))
+    return levels
+
+
 class ResidualConvUnit(nn.Module):
     def __init__(self, features: int):
         super().__init__()
@@ -102,12 +128,7 @@ class DPTHead(nn.Module):
         self.final_act = final_act
         self.num_outputs = num_outputs
         self.projects = nn.ModuleList(nn.Conv2d(in_channels, c, 1) for c in oc)
-        self.resize_layers = nn.ModuleList([
-            nn.ConvTranspose2d(oc[0], oc[0], 4, 4),
-            nn.ConvTranspose2d(oc[1], oc[1], 2, 2),
-            nn.Identity(),
-            nn.Conv2d(oc[3], oc[3], 3, 2, 1),
-        ])
+        self.resize_layers = resize_layers(oc)
         self.nested_scratch = nested_scratch
         scratch = _Scratch(oc, features, num_outputs)
         if nested_scratch:
@@ -116,28 +137,24 @@ class DPTHead(nn.Module):
             for name, mod in scratch.named_children():
                 self.add_module(name, mod)
 
-    def forward(self, features, patch_hw: Tuple[int, int]) -> torch.Tensor:
+    def fuse(self, features, patch_hw: Tuple[int, int]) -> torch.Tensor:
+        """The trunk up to ``output_conv1`` and its resize to the patch grid's
+        pixel size: (B, features // 2, ph*14, pw*14)."""
         ph, pw = patch_hw
-        dtype = self.projects[0].weight.dtype
         s = self.scratch if self.nested_scratch else self
-        levels = []
-        for i, feat in enumerate(features):
-            tokens = feat[0] if isinstance(feat, (tuple, list)) else feat
-            b, _, d = tokens.shape
-            x = tokens.reshape(b, ph, pw, d).permute(0, 3, 1, 2).to(dtype)
-            x = self.resize_layers[i](self.projects[i](x))
-            levels.append(x)
-
         l1, l2, l3, l4 = (getattr(s, f"layer{i + 1}_rn")(x)
-                          for i, x in enumerate(levels))
+                          for i, x in enumerate(project_levels(self, features, patch_hw)))
         path4 = s.refinenet4(l4, size=l3.shape[-2:])
         path3 = s.refinenet3(path4, l3, size=l2.shape[-2:])
         path2 = s.refinenet2(path3, l2, size=l1.shape[-2:])
         path1 = s.refinenet1(path2, l1)
 
         out = s.output_conv1(path1)
-        out = _bilinear_ac(out, (ph * self.patch_size, pw * self.patch_size))
-        out = s.output_conv2(out)
+        return _bilinear_ac(out, (ph * self.patch_size, pw * self.patch_size))
+
+    def forward(self, features, patch_hw: Tuple[int, int]) -> torch.Tensor:
+        s = self.scratch if self.nested_scratch else self
+        out = s.output_conv2(self.fuse(features, patch_hw))
         if self.final_act == "relu":
             out = F.relu(out)
         elif self.final_act == "sigmoid":

@@ -3,16 +3,21 @@
 Ported so far: the pinhole unprojections (:func:`unproject_depth`,
 :func:`unproject_intrinsics`, :func:`unproject_to_world`, reference
 ``Depth_Anything_V2/onnx2trt_pointcloud.py:70-84`` and
-``VGGT/onnx2trt2.py:240-243``), :func:`fov_to_focal` and
-:func:`extrinsics_from_quat_trans`, which decode VGGT's pose encoding. The
-intrinsics and focal-recovery ops come with the families that use them.
+``VGGT/onnx2trt2.py:240-243``), :func:`fov_to_focal`,
+:func:`extrinsics_from_quat_trans`, which decode VGGT's pose encoding, and
+MoGe's view-plane grid and focal/shift solver
+(:func:`normalized_view_plane_uv`, :func:`recover_focal_shift`). The
+intrinsics rescaling comes with the family that uses it.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
+
+from monocular_depth_estimation_trt_tpu_torch.ops.constants import device_cached
 
 
 def pixel_grid(h: int, w: int, dtype=torch.float32,
@@ -80,3 +85,103 @@ def extrinsics_from_quat_trans(quat: torch.Tensor, trans: torch.Tensor) -> torch
         torch.stack([xz - wy, yz + wx, 1.0 - (xx + yy)], dim=-1),
     ], dim=-2)
     return torch.cat([rot, trans[..., :, None]], dim=-1)
+
+
+@device_cached
+def _view_plane_uv(h: int, w: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    diag = float(np.sqrt(h * h + w * w))
+    u = ((np.arange(w) + 0.5) / w * 2.0 - 1.0) * (w / diag)
+    v = ((np.arange(h) + 0.5) / h * 2.0 - 1.0) * (h / diag)
+    uv = np.stack(np.broadcast_arrays(u[None, :], v[:, None]), axis=-1)
+    return torch.from_numpy(uv.astype(np.float32)).to(device=device, dtype=dtype)
+
+
+def normalized_view_plane_uv(h: int, w: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """(H, W, 2) view-plane coordinates spanning [-w/diag, w/diag] x
+    [-h/diag, h/diag] at pixel centers (MoGe convention). Made in numpy
+    and kept on the device (``ops/constants.py``): shared, do not write."""
+    return _view_plane_uv(h, w, dtype, torch.device(device or "cpu"))
+
+
+@device_cached
+def _shift_exponents(n: int, device: torch.device) -> torch.Tensor:
+    return torch.linspace(-1.0, 4.0, n, device=device)
+
+
+def _median(x: torch.Tensor) -> torch.Tensor:
+    """Median over the last axis, keepdim; the mean of the two middle
+    values for an even count, as ``jnp.median`` (``torch.median`` returns
+    the lower one)."""
+    n = x.shape[-1]
+    s = torch.sort(x, dim=-1).values
+    if n % 2:
+        return s[..., n // 2: n // 2 + 1]
+    return 0.5 * (s[..., n // 2 - 1: n // 2] + s[..., n // 2: n // 2 + 1])
+
+
+def recover_focal_shift(points: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                        downsample: int = 64, num_shift_candidates: int = 128,
+                        gn_steps: int = 4) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Recover (focal, z-shift) from an affine-invariant point map (the
+    MoGe-2 postprocess, reference ``MoGe_2/onnx2trt.py:179``): a log-spaced
+    search over shift candidates with the closed-form focal of each, then
+    ``gn_steps`` Gauss-Newton steps on the shift (finite differences), as
+    the JAX package's function. Runs on the device with no host sync, so
+    that a captured graph can hold it.
+
+    The candidates are the JAX package's, in the points' dtype; the losses
+    are summed in float64. A Gauss-Newton step divides differences of sums
+    of thousands of residuals by eps^2 = 1e-6, so in fp32 the rounding of
+    the sums sets the step: XLA's and PyTorch's fp32 summation orders gave
+    focals 1.2 % apart on one map, float64 within 4e-4 of XLA's.
+
+    points: (B, H, W, 3); mask: optional (B, H, W) bool.
+    Returns (focal (B,), shift (B,)) in the points' dtype."""
+    b, h, w, _ = points.shape
+    sh, sw = max(h // downsample, 1), max(w // downsample, 1)
+    pts = points[:, ::sh, ::sw, :]
+    f64 = torch.float64
+    uv = normalized_view_plane_uv(pts.shape[1], pts.shape[2], f64, points.device)
+    if mask is not None:
+        m = mask[:, ::sh, ::sw].to(f64)
+    else:
+        m = torch.ones(pts.shape[:3], dtype=f64, device=points.device)
+    pz = pts[..., 2].reshape(b, -1)
+    px, py, pz64 = (pts[..., i].reshape(b, -1).to(f64) for i in range(3))
+    u, v = uv[..., 0].reshape(1, -1), uv[..., 1].reshape(1, -1)
+    mm = m.reshape(b, -1)
+
+    def loss_and_focal(shift):
+        """shift (B, K) -> loss (B, K), focal (B, K): K candidates at once."""
+        z = torch.clamp(pz64[:, None] + shift[..., None], min=1e-4)
+        a, c = px[:, None] / z, py[:, None] / z
+        num = torch.sum(mm[:, None] * (u * a + v * c), dim=-1)
+        den = torch.sum(mm[:, None] * (a * a + c * c), dim=-1) + 1e-12
+        f = num / den  # the optimal focal for the shift (closed form)
+        r = mm[:, None] * ((f[..., None] * a - u) ** 2 + (f[..., None] * c - v) ** 2)
+        return torch.sum(r, dim=-1), f
+
+    z_med = _median(pz)
+    spread = torch.clamp(pz.amax(dim=-1, keepdim=True) - pz.amin(dim=-1, keepdim=True),
+                         min=1e-2)
+    t = _shift_exponents(num_shift_candidates, points.device).to(points.dtype)[None]
+    candidates = (-z_med + spread * torch.pow(10.0, t) * 0.1).to(f64)  # (B, K)
+    losses, _ = loss_and_focal(candidates)
+    best = torch.argmin(losses, dim=-1, keepdim=True)  # the first minimum, as jnp
+    shift = torch.gather(candidates, 1, best)  # (B, 1)
+
+    floor = (-pz.amin(dim=-1, keepdim=True) + 1e-3).to(f64)
+    eps = 1e-3
+    for _ in range(gn_steps):  # jax.lax.scan over gn_steps
+        l0, _ = loss_and_focal(shift)
+        l1, _ = loss_and_focal(shift + eps)
+        l_1, _ = loss_and_focal(shift - eps)
+        g = (l1 - l_1) / (2 * eps)
+        hdiag = (l1 - 2 * l0 + l_1) / (eps * eps)
+        step = torch.where(hdiag.abs() > 1e-8, g / torch.clamp(hdiag, min=1e-8),
+                           torch.zeros_like(g))
+        new = torch.maximum(shift - torch.clamp(step, -1.0, 1.0), floor)
+        lnew, _ = loss_and_focal(new)
+        shift = torch.where(lnew < l0, new, shift)
+    _, focal = loss_and_focal(shift)
+    return focal[:, 0].to(points.dtype), shift[:, 0].to(points.dtype)

@@ -3,9 +3,10 @@
 ``(..., H', W', 3)`` out.
 
 Ported so far: :func:`to_float_rgb`, :func:`normalize`,
-:func:`preprocess_lower_bound` (the Depth Anything family) and
-:func:`preprocess_pad_square` (VGGT). The resize and keep-ratio-pad variants
-come with the families that use them.
+:func:`preprocess_lower_bound` (the Depth Anything family),
+:func:`preprocess_pad_square` (VGGT) and :func:`preprocess_keep_ratio_pad`
+(Metric3D V2). The plain resize variant comes with the families that use
+it.
 """
 
 from __future__ import annotations
@@ -92,3 +93,39 @@ def preprocess_pad_square(
     if x.dim() == 3:
         x = x[None]
     return x
+
+
+def preprocess_keep_ratio_pad(
+    img_u8: torch.Tensor,
+    canvas_hw: Tuple[int, int],
+    mean255: Sequence[float] = (123.675, 116.28, 103.53),
+    std255: Sequence[float] = (58.395, 57.12, 57.375),
+    *,
+    bgr: bool = False,
+    method: str = "linear",
+):
+    """Metric3D V2 preprocessing: keep-ratio resize into a fixed canvas, pad
+    the borders with the dataset mean, normalize in 0-255 space (reference
+    ``Metric3D_V2/infer.py:73-96``). The scale and the rounding of the new
+    size are host Python, as in the JAX package; the mean is subtracted
+    before the padding, so the pad is zero.
+
+    Returns (batched tensor, pad_info=(top, bottom, left, right), scale)."""
+    h, w = img_u8.shape[-3], img_u8.shape[-2]
+    ch, cw = canvas_hw
+    scale = min(ch / h, cw / w)
+    new_h, new_w = round(h * scale), round(w * scale)
+    x = img_u8.float()
+    if bgr:
+        x = x.flip(-1)
+    x = resize(x, (new_h, new_w), method=method)
+    pad_t = (ch - new_h) // 2
+    pad_b = ch - new_h - pad_t
+    pad_l = (cw - new_w) // 2
+    pad_r = cw - new_w - pad_l
+    x = x - device_constant(mean255, x.dtype, x.device)
+    x = F.pad(x, (0, 0, pad_l, pad_r, pad_t, pad_b))
+    x = x / device_constant(std255, x.dtype, x.device)
+    if x.dim() == 3:
+        x = x[None]
+    return x, (pad_t, pad_b, pad_l, pad_r), scale

@@ -13,7 +13,10 @@ Public layouts follow the JAX package: uint8 ``(H, W, 3)`` in, depth
 ``(H, W)`` float32 out, viz ``(H, W, 3)`` uint8; ``batch_call`` adds a
 leading frame axis. Other outputs of a forward (VGGT's confidence and
 camera, Depth Pro's focal) come back beside the depth. :class:`VGGTPipeline` adds the
-multi-view protocol.
+multi-view protocol. The MoGe pair's forward (:func:`pointmap_forward_factory`)
+holds the model and its focal/shift postprocess, so that one engine per
+(H, W) and batch bucket captures both: the JAX package splits them into two
+programs only because the fused one faulted a TPU worker.
 """
 
 from __future__ import annotations
@@ -25,6 +28,10 @@ import numpy as np
 import torch
 
 from monocular_depth_estimation_trt_tpu_torch.config import BenchmarkConfig, ModelSpec
+from monocular_depth_estimation_trt_tpu_torch.ops.camera import (
+    normalized_view_plane_uv,
+    recover_focal_shift,
+)
 from monocular_depth_estimation_trt_tpu_torch.ops.colormap import turbo_colormap
 from monocular_depth_estimation_trt_tpu_torch.ops.postprocess import (
     inverse_depth_normalize,
@@ -141,7 +148,9 @@ class DepthPipeline:
         rng = np.random.default_rng(0)
         frame = rng.integers(0, 255, size=(in_hw[0], in_hw[1], 3), dtype=np.uint8)
         host_in = torch.from_numpy(frame).pin_memory()
-        host_out = torch.empty(tuple(in_hw), dtype=torch.float32).pin_memory()
+        # the depth's own size (the MoGe pair answers at its input size)
+        out_shape = eng(host_in)["depth"].shape
+        host_out = torch.empty(tuple(out_shape), dtype=torch.float32).pin_memory()
 
         def step():  # the engine queues the H2D copy into its static input
             host_out.copy_(eng(host_in)["depth"], non_blocking=True)
@@ -210,5 +219,46 @@ def depth_forward_factory(
         x = preprocess(img_u8[None] if single else img_u8)  # (B, h, w, 3)
         depth = upsample_depth(model(x), out_hw, clamp=clamp)  # (B, H, W)
         return {"depth": depth[0] if single else depth}
+
+    return forward
+
+
+def pointmap_postprocess(out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """MoGe's postprocess on the device (reference ``MoGe_2/onnx2trt.py:169-206``,
+    the JAX package's ``registry._build_moge``): recover the focal and z
+    shift from the affine-invariant points where the mask exceeds 0.5,
+    shift z, re-unproject on the view-plane grid, scale by the metric
+    scale, and set the depth and points outside the mask (or behind the
+    camera) to inf, the normal there to 0. Batched: (B, H, W, ...) in and
+    out, the focal and scale (B,)."""
+    points = out["points"]
+    mask = out["mask"] > 0.5
+    focal, shift = recover_focal_shift(points, mask)
+    z = points[..., 2] + shift[:, None, None]
+    mask = mask & (z > 0)
+    uv = normalized_view_plane_uv(points.shape[1], points.shape[2], points.dtype,
+                                  points.device)
+    pts = torch.cat([uv[None] * z[..., None] / focal[:, None, None, None], z[..., None]],
+                    dim=-1)
+    scale = out["metric_scale"]
+    pts = pts * scale[:, None, None, None]
+    inf = float("inf")
+    result = {"depth": torch.where(mask, z * scale[:, None, None], inf),
+              "points": torch.where(mask[..., None], pts, inf),
+              "mask": mask, "metric_scale": scale, "focal": focal}
+    if "normal" in out:
+        result["normal"] = torch.where(mask[..., None], out["normal"], 0.0)
+    return result
+
+
+def pointmap_forward_factory(model: Callable, preprocess: Callable) -> Callable:
+    """The MoGe pair's forward: preprocess -> model -> :func:`pointmap_postprocess`,
+    one program. Takes one frame (H, W, 3) or a batch (B, H, W, 3); the
+    outputs are at the model's input size whatever ``out_hw``."""
+
+    def forward(img_u8: torch.Tensor, out_hw: Tuple[int, int]):
+        single = img_u8.dim() == 3
+        result = pointmap_postprocess(model(preprocess(img_u8[None] if single else img_u8)))
+        return {k: v[0] for k, v in result.items()} if single else result
 
     return forward

@@ -6,7 +6,9 @@
 
 Ported so far: the Depth Anything family (``depth_anything_v2``,
 ``distill_any_depth``, ``depth_anything_ac``, ``dkt``, ``bridge``), which
-shares one serving graph, ``vggt`` and ``depth_pro``. Every factory takes ``device``;
+shares one serving graph, ``vggt``, ``depth_pro``, and the single-image
+metric and point-map families ``depth_anything_v3``, ``metric3d_v2``,
+``moge2`` and ``metric_anything``. Every factory takes ``device``;
 ``None`` means ``"cuda"``, and a missing card is an error, never a quiet
 move to the CPU. ``precision="int8"`` serves the bf16 graph with the
 family's encoder linears quantized (``ops/quant.py``, kernel K4),
@@ -31,6 +33,7 @@ from monocular_depth_estimation_trt_tpu_torch.pipelines import (
     DepthPipeline,
     VGGTPipeline,
     depth_forward_factory,
+    pointmap_forward_factory,
 )
 
 _REGISTRY: Dict[str, Callable] = {}
@@ -79,6 +82,7 @@ def resolve_device(device=None) -> torch.device:
 # (dkt and bridge reach it through _build_da_family as well).
 INT8_FAMILIES = frozenset({
     "depth_anything_v2", "distill_any_depth", "depth_anything_ac", "depth_pro", "vggt",
+    "depth_anything_v3", "metric3d_v2", "moge2", "metric_anything",
 })
 
 # Encoders for which precision="int8" builds the bf16 graph unless
@@ -185,6 +189,19 @@ def _int8_bundle(model: torch.nn.Module, masters, make_sample: Callable, *,
     quantize_model_bundle(model, masters, samples())
 
 
+def _new_model(make: Callable[[], torch.nn.Module], params, checkpoint) -> torch.nn.Module:
+    """``make()``. When ``params`` or ``checkpoint`` will overwrite every
+    parameter (a strict load), the module is made on the meta device and
+    given uninitialized CPU storage, so that the default init of up to 1.2 B
+    parameters is not computed to be thrown away; random weights need the
+    ordinary construction."""
+    if params is None and not checkpoint:
+        return make()
+    with torch.device("meta"):
+        model = make()
+    return model.to_empty(device="cpu")
+
+
 def _params_for(model: torch.nn.Module, spec: ModelSpec, *, params, checkpoint, device,
                 dtype, make_sample: Callable, input_size, calib_images=None) -> torch.nn.Module:
     """Fill ``model``'s weights (``params``, else ``checkpoint``, else random
@@ -214,6 +231,19 @@ def _dtype_for(precision: str, device: torch.device) -> torch.dtype:
     dtype = compute_dtype("bf16" if precision == "int8" else precision)
     _full_fp32(dtype, device)
     return dtype
+
+
+def _imagenet_square(input_hw):
+    """uint8 (..., H, W, 3) -> linear resize to ``input_hw`` + ImageNet
+    normalize (the square path of the DA family, DA3 and the MoGe pair)."""
+    from monocular_depth_estimation_trt_tpu_torch.ops.preprocess import normalize, to_float_rgb
+    from monocular_depth_estimation_trt_tpu_torch.ops.resize import resize
+
+    def preprocess(img_u8: torch.Tensor) -> torch.Tensor:
+        return normalize(resize(to_float_rgb(img_u8), tuple(input_hw), method="linear"),
+                         IMAGENET_MEAN, IMAGENET_STD)
+
+    return preprocess
 
 
 # ---------------------------------------------------------------------------
@@ -246,12 +276,7 @@ def _build_da_family(
     from monocular_depth_estimation_trt_tpu_torch.models.depth_anything_v2 import (
         DepthAnythingV2,
     )
-    from monocular_depth_estimation_trt_tpu_torch.ops.preprocess import (
-        normalize,
-        preprocess_lower_bound,
-        to_float_rgb,
-    )
-    from monocular_depth_estimation_trt_tpu_torch.ops.resize import resize
+    from monocular_depth_estimation_trt_tpu_torch.ops.preprocess import preprocess_lower_bound
 
     if resize_mode not in ("square", "lower_bound"):
         raise ValueError(f"unknown resize_mode {resize_mode!r}")
@@ -273,18 +298,18 @@ def _build_da_family(
     # int8 = w8a8 encoder serving: the bf16 graph, with the encoder's linear
     # layers quantized (ops/quant.py, kernel K4)
     dtype = _dtype_for(precision, device)
+    square = _imagenet_square(spec.input_hw)
 
     def preprocess(img_u8: torch.Tensor) -> torch.Tensor:
         if resize_mode == "lower_bound":
             # aspect-preserving DPT policy (reference infer.py transform)
             return preprocess_lower_bound(img_u8, target=input_size)
         # reference square path: resize to (518, 518) + ImageNet normalize
-        x = to_float_rgb(img_u8)
-        x = resize(x, spec.input_hw, method="linear")
-        return normalize(x, IMAGENET_MEAN, IMAGENET_STD)
+        return square(img_u8)
 
-    model = DepthAnythingV2(encoder=encoder, metric=metric, max_depth=max_depth,
-                            attn_impl=attn_impl, **(model_kw or {}))
+    model = _new_model(lambda: DepthAnythingV2(encoder=encoder, metric=metric,
+                                               max_depth=max_depth, attn_impl=attn_impl,
+                                               **(model_kw or {})), params, checkpoint)
     # parameters are held in the compute dtype (bf16 on the default path)
     model = _params_for(model, spec, params=params, checkpoint=checkpoint, device=device,
                         dtype=dtype, make_sample=lambda img: preprocess(img[None]),
@@ -370,7 +395,8 @@ def _build_vggt(
     # are per layer, so S > 1 serving reuses them)
     dtype = _dtype_for(precision, device)
     model = _params_for(
-        VGGT(cfg, attn_impl, with_camera), spec, params=params, checkpoint=checkpoint,
+        _new_model(lambda: VGGT(cfg, attn_impl, with_camera), params, checkpoint), spec,
+        params=params, checkpoint=checkpoint,
         device=device, dtype=dtype,
         make_sample=lambda img: preprocess_pad_square(img[None], input_size)[:, None],
         input_size=input_size, calib_images=calib_images)
@@ -449,7 +475,8 @@ def depth_pro(precision: str = "bf16", attn_impl: str = "auto",
     from monocular_depth_estimation_trt_tpu_torch.ops.resize import resize, resize_hw
 
     device = resolve_device(device)
-    model = DepthPro(attn_impl=attn_impl, **(model_kw or {}))
+    model = _new_model(lambda: DepthPro(attn_impl=attn_impl, **(model_kw or {})), params,
+                       checkpoint)
     size = model.cfg.img_size
     spec = ModelSpec(model="depth_pro", input_hw=(size, size), precision=precision)
     # int8 = w8a8 serving of both ViT encoders
@@ -479,3 +506,171 @@ def depth_pro(precision: str = "bf16", attn_impl: str = "auto",
         return {"depth": 1.0 / torch.clamp(inverse_depth, 1e-4, 1e4), "f_px": focal}
 
     return DepthPipeline(spec, forward, device=device, model=model, viz="metric")
+
+
+# ---------------------------------------------------------------------------
+# Single-image metric and point-map families (reference Depth_Anything_V3/,
+# Metric3D_V2/, MoGe_2/, Metric_Anything/)
+# ---------------------------------------------------------------------------
+
+
+@register("depth_anything_v3", fidelity="converter-verified")
+def depth_anything_v3(encoder: str = "vitl", input_size: int = 518, precision: str = "bf16",
+                      attn_impl: str = "auto",
+                      params: Optional[Mapping[str, torch.Tensor]] = None,
+                      checkpoint: Optional[str] = None, device=None,
+                      model_kw: Optional[Dict[str, Any]] = None,
+                      calib_images: Optional[Sequence[np.ndarray]] = None) -> DepthPipeline:
+    """DA3METRIC-LARGE contract (reference ``Depth_Anything_V3/``): metric
+    depth (``exp``) and a sky map (``sigmoid``) at the frame's size, the
+    depth resized align-corners and clamped as the DA-V2 template, the sky
+    resized align-corners.
+
+    ``params``: an upstream-named state dict (e.g. from
+    ``weights.from_jax.da3_from_jax``); ``model_kw``: overrides passed to
+    ``DepthAnythingV3`` (``vit_config``, ``head_features``,
+    ``head_out_channels``, ``out_indices``)."""
+    from monocular_depth_estimation_trt_tpu_torch.models.depth_anything_v3 import (
+        DepthAnythingV3,
+    )
+    from monocular_depth_estimation_trt_tpu_torch.ops.postprocess import upsample_depth
+    from monocular_depth_estimation_trt_tpu_torch.ops.resize import resize_hw
+
+    device = resolve_device(device)
+    precision = resolve_int8_precision("depth_anything_v3", encoder, precision)
+    spec = ModelSpec(model="da3metric", encoder=encoder, input_hw=(input_size, input_size),
+                     precision=precision, metric=True)
+    dtype = _dtype_for(precision, device)
+    preprocess = _imagenet_square(spec.input_hw)
+    model = _params_for(_new_model(lambda: DepthAnythingV3(encoder=encoder, attn_impl=attn_impl,
+                                                           **(model_kw or {})), params, checkpoint),
+                        spec, params=params, checkpoint=checkpoint, device=device, dtype=dtype,
+                        make_sample=lambda img: preprocess(img[None]), input_size=input_size,
+                        calib_images=calib_images)
+
+    def forward(img_u8: torch.Tensor, out_hw):
+        single = img_u8.dim() == 3
+        depth, sky = model(preprocess(img_u8[None] if single else img_u8))
+        result = {"depth": upsample_depth(depth, out_hw),
+                  "sky": resize_hw(sky, out_hw, "linear", align_corners=True)}
+        return {k: v[0] for k, v in result.items()} if single else result
+
+    return DepthPipeline(spec, forward, device=device, model=model, viz="metric")
+
+
+METRIC3D_CANVAS = (616, 1064)
+
+
+@register("metric3d_v2", fidelity="converter-verified")
+def metric3d_v2(encoder: str = "vitl", precision: str = "bf16", attn_impl: str = "auto",
+                params: Optional[Mapping[str, torch.Tensor]] = None,
+                focal: Optional[float] = None, iters: int = 4,
+                checkpoint: Optional[str] = None, device=None,
+                model_kw: Optional[Dict[str, Any]] = None,
+                calib_images: Optional[Sequence[np.ndarray]] = None) -> DepthPipeline:
+    """Metric3D V2 (reference ``Metric3D_V2/infer.py:73-125``,
+    ``onnx2trt.py:176-190``): canonical-camera metric depth and its
+    confidence on a 616x1064 keep-ratio mean-padded canvas; the pad cropped,
+    both maps resized (half-pixel) to the frame, the depth scaled by
+    ``focal * scale / 1000`` when the caller gives its ``focal`` (the
+    de-canonical transform) and clipped to [0, 300].
+
+    ``params``: an upstream-named state dict (e.g. from
+    ``weights.from_jax.metric3d_v2_from_jax``); ``model_kw``: overrides
+    passed to ``Metric3DV2`` (``cfg``)."""
+    from monocular_depth_estimation_trt_tpu_torch.models.metric3d_v2 import Metric3DV2
+    from monocular_depth_estimation_trt_tpu_torch.ops.postprocess import crop_pad
+    from monocular_depth_estimation_trt_tpu_torch.ops.preprocess import (
+        preprocess_keep_ratio_pad,
+    )
+    from monocular_depth_estimation_trt_tpu_torch.ops.resize import resize_hw
+
+    device = resolve_device(device)
+    canvas = METRIC3D_CANVAS
+    precision = resolve_int8_precision("metric3d_v2", encoder, precision)
+    spec = ModelSpec(model="metric3d_v2", encoder=encoder, input_hw=canvas, precision=precision,
+                     metric=True)
+    dtype = _dtype_for(precision, device)
+    model = _params_for(_new_model(lambda: Metric3DV2(encoder=encoder, iters=iters,
+                                                      attn_impl=attn_impl, **(model_kw or {})),
+                                   params, checkpoint),
+                        spec, params=params, checkpoint=checkpoint, device=device, dtype=dtype,
+                        make_sample=lambda img: preprocess_keep_ratio_pad(img, canvas)[0],
+                        input_size=canvas, calib_images=calib_images)
+
+    def forward(img_u8: torch.Tensor, out_hw):
+        single = img_u8.dim() == 3
+        x, pad, scale = preprocess_keep_ratio_pad(img_u8, canvas)
+        out = model(x)
+        depth = resize_hw(crop_pad(out["depth"], pad), out_hw, "linear", align_corners=False)
+        if focal is not None:
+            # de-canonical transform (reference Metric3D_V2/infer.py:107-125)
+            depth = depth * (focal * scale / 1000.0)
+        depth = torch.clamp(depth, 0.0, 300.0)
+        conf = resize_hw(crop_pad(out["confidence"], pad), out_hw, "linear",
+                         align_corners=False)
+        result = {"depth": depth, "confidence": conf}
+        return {k: v[0] for k, v in result.items()} if single else result
+
+    return DepthPipeline(spec, forward, device=device, model=model, viz="metric")
+
+
+def _build_moge(model_name: str, encoder: str, input_hw, num_tokens: int, precision: str,
+                attn_impl: str, params, *, predict_normal: bool, checkpoint: Optional[str],
+                device, model_kw: Optional[Dict[str, Any]],
+                calib_images: Optional[Sequence[np.ndarray]]) -> DepthPipeline:
+    """The MoGe-2 architecture's pipeline: the frame resized to ``input_hw``,
+    the model, then the focal/shift postprocess (reference
+    ``MoGe_2/onnx2trt.py:169-206``) in the same forward, so that one captured
+    graph per (H, W) and batch bucket holds both (``pipelines.py``). The
+    outputs are at ``input_hw``, as in the JAX package."""
+    from monocular_depth_estimation_trt_tpu_torch.models.moge2 import MoGe2
+
+    device = resolve_device(device)
+    precision = resolve_int8_precision(model_name, encoder, precision)
+    spec = ModelSpec(model=model_name, encoder=encoder, input_hw=tuple(input_hw),
+                     precision=precision, variant="normal" if predict_normal else "",
+                     metric=True)
+    dtype = _dtype_for(precision, device)
+    preprocess = _imagenet_square(spec.input_hw)
+    model = _params_for(_new_model(lambda: MoGe2(encoder=encoder, num_tokens=num_tokens,
+                                                 predict_normal=predict_normal,
+                                                 attn_impl=attn_impl, **(model_kw or {})),
+                                   params, checkpoint),
+                        spec, params=params, checkpoint=checkpoint, device=device, dtype=dtype,
+                        make_sample=lambda img: preprocess(img[None]),
+                        input_size=tuple(input_hw), calib_images=calib_images)
+    return DepthPipeline(spec, pointmap_forward_factory(model, preprocess), device=device,
+                         model=model, viz="none")
+
+
+@register("moge2", fidelity="converter-verified")
+def moge2(encoder: str = "vits", input_hw: tuple = (291, 518), num_tokens: int = 1800,
+          precision: str = "bf16", attn_impl: str = "auto",
+          params: Optional[Mapping[str, torch.Tensor]] = None,
+          checkpoint: Optional[str] = None, device=None,
+          model_kw: Optional[Dict[str, Any]] = None,
+          calib_images: Optional[Sequence[np.ndarray]] = None) -> DepthPipeline:
+    """MoGe-2 (reference ``MoGe_2/``): affine-invariant point map, normal,
+    mask and metric scale -> metric depth, points, mask, normal,
+    metric_scale and the normalized focal. ``params``: e.g. from
+    ``weights.from_jax.moge2_from_jax``; ``model_kw``: ``cfg`` for
+    ``MoGe2``."""
+    return _build_moge("moge2", encoder, input_hw, num_tokens, precision, attn_impl, params,
+                       predict_normal=True, checkpoint=checkpoint, device=device,
+                       model_kw=model_kw, calib_images=calib_images)
+
+
+@register("metric_anything", fidelity="converter-verified")
+def metric_anything(encoder: str = "vitl", input_hw: tuple = (518, 518),
+                    num_tokens: int = 3600, precision: str = "bf16", attn_impl: str = "auto",
+                    params: Optional[Mapping[str, torch.Tensor]] = None,
+                    checkpoint: Optional[str] = None, device=None,
+                    model_kw: Optional[Dict[str, Any]] = None,
+                    calib_images: Optional[Sequence[np.ndarray]] = None) -> DepthPipeline:
+    """Metric Anything's student_pointmap (reference
+    ``Metric_Anything/infer.py:12-14``): the MoGe-2 architecture at 3600
+    tokens without the normal branch."""
+    return _build_moge("metric_anything", encoder, input_hw, num_tokens, precision, attn_impl,
+                       params, predict_normal=False, checkpoint=checkpoint, device=device,
+                       model_kw=model_kw, calib_images=calib_images)

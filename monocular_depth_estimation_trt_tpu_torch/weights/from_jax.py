@@ -2,12 +2,15 @@
 
 The exact inverse of the JAX package's ``weights/convert.py``
 (``convert_dinovit``, ``convert_dpt_head``, ``convert_vggt``,
-``convert_depth_pro``), so that the parity tests can feed one set of weights
-to both packages:
+``convert_depth_pro``, ``convert_depth_anything_v3``,
+``convert_metric3d_v2``, ``convert_moge2``), so that the parity tests can
+feed one set of weights to both packages:
 
 * Dense kernel (in, out)                 -> Linear weight (out, in)
 * Conv kernel (kh, kw, in, out)          -> Conv2d weight (out, in, kh, kw)
 * ConvTranspose kernel (kh, kw, in, out) -> ConvTranspose2d weight (in, out, kh, kw)
+* Dense kernel (in, out) on tokens       -> Conv2d 1x1 weight (out, in, 1, 1) (MoGe's projections)
+* fused GRU ``convzr`` (.., 2*hidden)    -> ``convz`` and ``convr`` (Metric3D V2)
 * LayerNorm scale / bias                 -> weight / bias
 * q8 kernel_q (in, out) int8             -> QuantLinear weight_q (out, in) (:func:`q8_from_jax`)
 
@@ -17,7 +20,7 @@ nothing of JAX is imported.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -41,6 +44,12 @@ def _conv(p: Mapping, prefix: str, out: Dict[str, torch.Tensor]) -> None:
 
 def _conv_transpose(p: Mapping, prefix: str, out: Dict[str, torch.Tensor]) -> None:
     out[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).transpose(2, 3, 0, 1))
+    if "bias" in p:
+        out[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _conv1x1_from_dense(p: Mapping, prefix: str, out: Dict[str, torch.Tensor]) -> None:
+    out[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T[:, :, None, None])
     if "bias" in p:
         out[f"{prefix}.bias"] = _t(p["bias"])
 
@@ -94,6 +103,20 @@ def _fusion_from_jax(p: Mapping, prefix: str, out: Dict[str, torch.Tensor]) -> N
     _conv(p["out_conv"], f"{prefix}.out_conv", out)
 
 
+def _dpt_levels_from_jax(p: Mapping, prefix: str, out: Dict[str, torch.Tensor],
+                         rn_prefix: Optional[str] = None) -> None:
+    """The projections and resize layers of a DPT trunk under ``prefix``, its
+    ``layer{i}_rn`` under ``rn_prefix`` (default ``prefix``)."""
+    for i in range(4):
+        _conv(p[f"project_{i}"], _join(prefix, f"projects.{i}"), out)
+    _conv_transpose(p["resize_0"], _join(prefix, "resize_layers.0"), out)
+    _conv_transpose(p["resize_1"], _join(prefix, "resize_layers.1"), out)
+    _conv(p["resize_3"], _join(prefix, "resize_layers.3"), out)
+    for i in range(1, 5):
+        _conv(p[f"layer{i}_rn"], _join(prefix if rn_prefix is None else rn_prefix,
+                                       f"layer{i}_rn"), out)
+
+
 def dpt_head_from_jax(p: Mapping, prefix: str = "depth_head",
                       nested_scratch: bool = True) -> Dict[str, torch.Tensor]:
     """JAX ``DPTHead`` params -> ``DPTHead`` state-dict entries under
@@ -103,14 +126,8 @@ def dpt_head_from_jax(p: Mapping, prefix: str = "depth_head",
     ``refinenet4`` has no skip input: a tree without its ``resConfUnit1``
     gets zeros there (:func:`_fusion_from_jax`)."""
     out: Dict[str, torch.Tensor] = {}
-    for i in range(4):
-        _conv(p[f"project_{i}"], _join(prefix, f"projects.{i}"), out)
-    _conv_transpose(p["resize_0"], _join(prefix, "resize_layers.0"), out)
-    _conv_transpose(p["resize_1"], _join(prefix, "resize_layers.1"), out)
-    _conv(p["resize_3"], _join(prefix, "resize_layers.3"), out)
     sc = _join(prefix, "scratch") if nested_scratch else prefix
-    for i in range(1, 5):
-        _conv(p[f"layer{i}_rn"], _join(sc, f"layer{i}_rn"), out)
+    _dpt_levels_from_jax(p, prefix, out, rn_prefix=sc)
     for i in range(1, 5):
         _fusion_from_jax(p[f"refinenet{i}"], _join(sc, f"refinenet{i}"), out)
     _conv(p["output_conv1"], _join(sc, "output_conv1"), out)
@@ -205,11 +222,89 @@ def depth_pro_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def da3_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``DepthAnythingV3`` params (optionally under a ``"params"`` key)
+    -> the port's state dict in the layout of
+    ``weights/manifests/depth_anything_v3_vitl.json``, fp32 CPU tensors. The
+    inverse of ``convert_depth_anything_v3``; ``refinenet4`` gets a zero
+    ``resConfUnit1``."""
+    if "params" in params:
+        params = params["params"]
+    out = dinovit_from_jax(params["backbone"], "backbone")
+    head = params["head"]
+    _dpt_levels_from_jax(head, "head", out)
+    for i in range(1, 5):
+        _fusion_from_jax(head[f"refinenet{i}"], f"head.refinenet{i}", out)
+    _conv(head["output_conv1"], "head.output_conv1", out)
+    for branch in ("depth", "sky"):
+        _conv(head[f"{branch}_conv0"], f"head.{branch}_branch.0", out)
+        _conv(head[f"{branch}_conv2"], f"head.{branch}_branch.2", out)
+    return out
+
+
+def metric3d_v2_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``Metric3DV2`` params (optionally under a ``"params"`` key) -> the
+    port's state dict in the layout of ``weights/manifests/metric3d_v2_vitl.json``,
+    fp32 CPU tensors. The inverse of ``convert_metric3d_v2``: the fused
+    ``gru.convzr`` splits back into upstream's ``gru.convz`` (the first
+    ``hidden`` output channels) and ``gru.convr``; ``refinenet4`` gets a zero
+    ``resConfUnit1``."""
+    if "params" in params:
+        params = params["params"]
+    out = dinovit_from_jax(params["encoder"], "encoder")
+    neck = params["neck"]
+    _dpt_levels_from_jax(neck, "neck", out)
+    for i in (2, 3, 4):
+        _fusion_from_jax(neck[f"refinenet{i}"], f"neck.refinenet{i}", out)
+    for name in ("context_conv", "init_head", "pred_encoder", "delta_head", "mask_head",
+                 "conf_head"):
+        _conv(params[name], name, out)
+    zr = params["gru"]["convzr"]
+    kernel, bias = np.asarray(zr["kernel"]), np.asarray(zr["bias"])
+    hidden = kernel.shape[-1] // 2
+    _conv({"kernel": kernel[..., :hidden], "bias": bias[:hidden]}, "gru.convz", out)
+    _conv({"kernel": kernel[..., hidden:], "bias": bias[hidden:]}, "gru.convr", out)
+    _conv(params["gru"]["convq"], "gru.convq", out)
+    return out
+
+
+def moge2_from_jax(params: Mapping[str, Any],
+                   predict_normal: Optional[bool] = None) -> Dict[str, torch.Tensor]:
+    """JAX ``MoGe2`` params (optionally under a ``"params"`` key) -> the
+    port's state dict in the layout of ``weights/manifests/moge2_vits.json``
+    (``metric_anything.json`` without the normal branch), fp32 CPU tensors.
+    The inverse of ``convert_moge2``; the projections, Dense layers on the
+    tokens there, become upstream's 1x1 convolutions. ``predict_normal``
+    defaults to whether the tree has the normal branch."""
+    if "params" in params:
+        params = params["params"]
+    head = params["head"]
+    if predict_normal is None:
+        predict_normal = "normal_conv0" in head
+    out = dinovit_from_jax(params["backbone"], "backbone")
+    for i in range(sum(1 for k in head if k.startswith("project_"))):
+        _conv1x1_from_dense(head[f"project_{i}"], f"head.projects.{i}", out)
+    for j in range(sum(1 for k in head if k.endswith("_deconv"))):
+        _conv_transpose(head[f"upsample_{j}_deconv"], f"head.upsample_blocks.{j}.0", out)
+        for conv in ("conv1", "conv2"):
+            _conv(head[f"upsample_{j}_res"][conv], f"head.upsample_blocks.{j}.1.{conv}", out)
+    for branch in ["points", "mask"] + (["normal"] if predict_normal else []):
+        _conv(head[f"{branch}_conv0"], f"head.{branch}_out.0", out)
+        _conv(head[f"{branch}_conv1"], f"head.{branch}_out.2", out)
+    _linear(params["scale_fc1"], "scale_head.0", out)
+    _linear(params["scale_fc2"], "scale_head.2", out)
+    return out
+
+
 # the submodules whose Dense layers each family's int8 serving quantizes
 Q8_ROOTS = {
     "depth_anything_v2": ("pretrained",),
     "vggt": ("aggregator",),
     "depth_pro": ("patch_encoder", "image_encoder"),
+    "depth_anything_v3": ("backbone",),
+    "metric3d_v2": ("encoder",),
+    "moge2": ("backbone",),
+    "metric_anything": ("backbone",),
 }
 # Flax module names -> the port's module paths
 _Q8_NAMES = (("blocks_", "blocks."), ("frame_", "frame_blocks."), ("global_", "global_blocks."))
@@ -256,11 +351,22 @@ def q8_from_jax(q8: Mapping[str, Any], family: str) -> Dict[str, Dict[str, torch
 
 
 def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX ``DepthAnythingV2`` params (``{"pretrained": ..., "depth_head":
-    ...}``, optionally under a ``"params"`` key) -> the port's
-    ``DepthAnythingV2.state_dict()``, fp32 CPU tensors."""
+    """JAX params of a ported family (optionally under a ``"params"`` key)
+    -> the port's state dict, fp32 CPU tensors. The family is read from the
+    tree's top-level modules: ``pretrained`` (``DepthAnythingV2``),
+    ``aggregator`` (VGGT), ``patch_encoder`` (Depth Pro), ``encoder``
+    (Metric3D V2), ``backbone`` with ``scale_fc1`` (MoGe-2, Metric Anything)
+    or with a two-branch ``head`` (Depth Anything V3)."""
     if "params" in params:
         params = params["params"]
+    if "aggregator" in params:
+        return vggt_from_jax(params)
+    if "patch_encoder" in params:
+        return depth_pro_from_jax(params)
+    if "encoder" in params:
+        return metric3d_v2_from_jax(params)
+    if "backbone" in params:
+        return moge2_from_jax(params) if "scale_fc1" in params else da3_from_jax(params)
     return {
         **dinovit_from_jax(params["pretrained"], "pretrained"),
         **dpt_head_from_jax(params["depth_head"], "depth_head"),
