@@ -63,16 +63,27 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    MoGe pair: inf off its mask); then the bf16 kernel route against plain
    attention and the fp32 path for two weight seeds and the two frames (the
    MoGe pair on its model's outputs), and the fp32 path on the card against
-   the CPU, the ViT-L families cut to 4 blocks;
+   the CPU, the ViT-L families cut to 4 blocks; then single_image_families_path:
+   ``unidepth_v2`` and ``unik3d`` (vitb 518², 4 registers), ``sidepth`` (two
+   vits stacks, 518²), ``geocalib`` (vits 322² and its 10-step camera fit)
+   and ``prior_depth_anything`` (VGGT S=1 depth-only and the vits refiner) in
+   the same way (per captured forward 12, 12, 24, 12 K1, and 48 K1 + 48 K2;
+   GeoCalib's fields compared, its roll, pitch and focal recorded; the fp32
+   comparison with every ViT, and Prior Depth Anything's VGGT, cut to 4
+   blocks); then ``geocalib_fit``: GeoCalib's camera fit on the fields of
+   a known camera (exact, and noisy under uneven weights), eager and
+   through an engine, against the camera and the CPU's fit;
 8. int8 paths: ``build_pipeline(name, precision="int8", calib_images=...)``
-   for DA-V2 vitl, depth_pro, vggt and metric3d_v2 at full size, each with
-   its own counts set to 0 just before and read just after (per captured
-   forward: 96 K4 + 24 K1; 192 K4 + 24 K3 + 24 K1; 288 K4 + 24 K1 + 48 K2;
-   96 K4 + 24 K1), two frames each (the first with the viz epilogue) and 4
-   views for vggt; then the int8 outputs against the bf16 and fp32 routes
-   for two weight seeds and two frames;
+   for DA-V2 vitl, depth_pro, vggt, metric3d_v2 and unidepth_v2 at full
+   size, each with its own counts set to 0 just before and read just after
+   (per captured forward: 96 K4 + 24 K1; 192 K4 + 24 K3 + 24 K1; 288 K4 + 24
+   K1 + 48 K2; 96 K4 + 24 K1; 48 K4 + 12 K1), two frames each (the first
+   with the viz epilogue) and 4 views for vggt; then the int8 outputs
+   against the bf16 and fp32 routes for two weight seeds and two frames;
+   and unik3d int8's counted run alone (48 K4 + 12 K1 a forward);
 9. engine: an engine each for vits, vitl, int8 vitl, vggt S=1 and S=4,
-   depth_pro 1536² and the four metric families at their input sizes,
+   depth_pro 1536², int8 unidepth_v2 and the nine single-image families at
+   their input sizes,
    against the eager forward it captures: the same kernel
    launches per forward, output buffers filled with NaN before the first
    replay, the replay's outputs finite and equal to the eager forward's bit
@@ -83,8 +94,10 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    480x640 PNG in a process of its own (npz depth equal to this process's
    pipeline bit for bit; viz and ``.ply`` written), ``views vggt`` on 4
    PNGs, ``run depth_pro`` on this process's weights (``_fov.json`` against
-   its f_px), ``run moge2 --mesh --mesh-format glb`` on this process's
-   weights (every npz output equal to the pipeline's bit for bit);
+   its f_px), ``run moge2 --mesh --mesh-format glb``, ``run unidepth_v2``
+   (``_fov.json`` from its intrinsics) and ``run geocalib`` (the
+   calibration lines) on this process's weights (every npz output equal to
+   the pipeline's bit for bit);
 11. server: ``DepthServer`` over vits on port 0 with max_batch 4: 8
    concurrent PNG requests, 2 of another size, a bad body (400), an unknown
    model (404), ``format=jpg`` (501 without a JPEG codec); each npz answer
@@ -93,12 +106,15 @@ Phases, each printed as one JSON line; any failure exits non-zero:
 12. speed: ``DepthPipeline.benchmark`` (through the engine, "graph") and
    the same step through the eager forward ("eager") in turns eager,
    graph, graph, eager for vits, vitl, int8 vitl, vggt S=1 and S=4
-   (``benchmark_views``), depth_pro 1536² and the four metric families at
-   their input sizes; int8 depth_pro, vggt and metric3d_v2 through their
-   engines; vits int8 (forced) against vits bf16 in alternating turns;
+   (``benchmark_views``), depth_pro 1536² and the nine single-image
+   families at their input sizes; int8 depth_pro, vggt, metric3d_v2 and
+   unidepth_v2 through their engines; vits int8 (forced) against vits bf16
+   in alternating turns;
 13. profile: device time by kernel, device busy time and idle share of a
    graph replay of each path (and of the eager forward of vits, vggt S=4,
-   depth_pro, metric3d_v2 and moge2), from ``torch.profiler``.
+   depth_pro, metric3d_v2, moge2, geocalib, unidepth_v2 and unik3d, with
+   the device time of the last two's decoder attention), from
+   ``torch.profiler``.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -106,6 +122,8 @@ line ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
 import math
 import os
@@ -163,13 +181,16 @@ DEPTH_PRO_CPU_HOOKS = (2, 5)
 # 3.3e-2; Depth Pro inverse depth 3.2e-2, f_px 1.8e-3; VGGT depth 6.0e-2,
 # confidence 3.8e-2, pose 9.2e-2; Metric3D V2 depth 4.1e-2, confidence
 # 1.5e-2. The bf16 route alone reads up to 2.7e-2, 2.0e-2, 1.8e-3, 4.5e-2,
-# 3.3e-2, 3.9e-2, 3.0e-2 and 1.1e-2 from fp32 there.
+# 3.3e-2, 3.9e-2, 3.0e-2 and 1.1e-2 from fp32 there. UniDepth V2 (its first
+# card run): depth 2.8e-3, points 1.2e-2, confidence 1.8e-3, intrinsics 1.0e-2,
+# the bf16 route alone up to 3.5e-3, 1.3e-2, 2.4e-3 and 1.6e-2.
 INT8_PEARSON_MIN = 0.98
 INT8_REL_TOL = {
     "depth_anything_v2": {"depth": 7.5e-2},
     "depth_pro": {"inverse_depth": 7.5e-2, "f_px": 5e-3},
     "vggt": {"depth": 1.2e-1, "depth_conf": 7.5e-2, "pose_enc": 2e-1},
     "metric3d_v2": {"depth": 1e-1, "confidence": 3e-2},
+    "unidepth_v2": {"depth": 7.5e-3, "pts_3d": 3e-2, "confidence": 4e-3, "intrinsics": 3e-2},
 }
 
 # replay against eager where a library call picks another algorithm under
@@ -282,6 +303,10 @@ def check_flash_attention_packed(fa, dev):
         ("metric3d_616x1064", 1, 3349, 16, torch.bfloat16),
         ("metric_anything_518", 1, 3601, 16, torch.bfloat16),
         ("moge2_vits_291x518", 1, 1825, 6, torch.bfloat16),
+        # UniDepth V2 / UniK3D vitb (37x37 patches, cls and 4 registers) and
+        # GeoCalib vits at 322^2 (23x23 + cls)
+        ("unidepth_vitb_518", 1, 1374, 12, torch.bfloat16),
+        ("geocalib_vits_322", 1, 530, 6, torch.bfloat16),
         ("n1", 1, 1, 6, torch.bfloat16),
         ("n63", 1, 63, 6, torch.bfloat16),
         ("n64", 1, 64, 6, torch.bfloat16),
@@ -520,11 +545,14 @@ def check_bhnd_kernel(fa, dev, name, shapes, seed, k1_at=None):
     return records
 
 
-def profile_breakdown(step, name: str, iters: int = 5, top: int = 12):
+def profile_breakdown(step, name: str, iters: int = 5, top: int = 12, ranges=()):
     """Device time by kernel over ``iters`` calls of ``step`` (one forward of
     device-resident input), from ``torch.profiler``'s CUDA events; the busy
     time is the union of the kernels' intervals, the wall time the host clock
-    around the loop (which the profiler itself slows). Times are per call."""
+    around the loop (which the profiler itself slows). Times are per call.
+    ``ranges``: names of ``record_function`` ranges (see ``annotated``) whose
+    kernels' device time is added up (an eager step only: a graph replay's
+    kernels belong to no range)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -537,9 +565,13 @@ def profile_breakdown(step, name: str, iters: int = 5, top: int = 12):
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / iters
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and e.name not in ranges)
     rec = {"phase": "profile", "model": name, "calls": iters, "wall_ms_per_call": wall_ms}
+    for r in ranges:  # the kernels launched inside the range, its children's too
+        calls = [e for e in prof.events() if e.name == r and e.device_type == DeviceType.CPU]
+        rec[r] = {"calls_per_call": len(calls) / iters,
+                  "device_ms_per_call": sum(e.device_time_total for e in calls) / 1e3 / iters}
     if not spans:
         return {**rec, "device_time": "not measured (no CUDA events in the trace)"}
     busy_us, end = 0.0, float("-inf")
@@ -565,6 +597,25 @@ def profile_breakdown(step, name: str, iters: int = 5, top: int = 12):
             "k4_ms_per_call": kernel_ms("w8a8_kernel"),
             "top": [{"name": k[:90], "ms_per_call": v[0] / 1e3 / iters,
                      "per_call": v[1] / iters} for k, v in ranked[:top]]}
+
+
+@contextlib.contextmanager
+def annotated(module, fn_name: str):
+    """``module.<fn_name>`` called inside a ``torch.profiler.record_function``
+    range of its own name while the context lasts."""
+    import torch
+
+    fn = getattr(module, fn_name)
+
+    def in_range(*args, **kw):
+        with torch.profiler.record_function(fn_name):
+            return fn(*args, **kw)
+
+    setattr(module, fn_name, in_range)
+    try:
+        yield
+    finally:
+        setattr(module, fn_name, fn)
 
 
 def run_vggt_path(build_pipeline, wrappers, rng):
@@ -966,45 +1017,100 @@ def depth_pro_parity(build_pipeline, pipe, frames):
         check(got < PATH_FP32_REL_TOL, f"depth_pro fp32 {k} card vs cpu {got}")
 
 
-# The single-image metric and point-map families at full width: the frames
-# of each one's counted run (the first with the viz epilogue), the per-forward
-# launches [K3, K1, K2, K4] of its bf16 path, and the outputs that the route
-# comparisons read. DA3 vitl at 518^2 and Metric Anything vitl at 3600 tokens
-# (60x60) run 24 K1 at 16 heads, Metric3D V2 vitl 24 K1 at N = 3349 (a
-# 616x1064 canvas, 4 registers), MoGe-2 vits 12 K1 at 6 heads (32x57 tokens).
+# The single-image families at full width, in two groups (the phases'
+# names): the frames of each one's counted run (the first with the viz
+# epilogue), the per-forward launches [K3, K1, K2, K4] of its bf16 path, the
+# outputs that the route comparisons read and the scalars they record.
+# Metric and point-map families: DA3 vitl at 518^2 and Metric Anything vitl at
+# 3600 tokens (60x60) run 24 K1 at 16 heads, Metric3D V2 vitl 24 K1 at N = 3349
+# (a 616x1064 canvas, 4 registers), MoGe-2 vits 12 K1 at 6 heads (32x57
+# tokens). The last single-image families: UniDepth V2 and UniK3D vitb at
+# 518^2 run 12 K1 at N = 1374 (4 registers), 12 heads (their decoder's
+# attention is plain matmuls, as in the JAX package); SIDepth two vits stacks,
+# 24 K1; GeoCalib vits at 322^2, 12 K1 at N = 530, and its 10-step camera fit;
+# Prior Depth Anything VGGT S=1 depth-only (24 K1 + 48 K2) and the refiner's
+# two vits stacks (24 K1).
+METRIC, SINGLE = "metric_families", "single_image_families"
+# How each compared output of a family is held in the bf16 route
+# comparisons (family_parity): ``bar`` for the kernel route against the
+# plain route at every (weight seed, frame), on ``gate``: "rel" (max |a - b|
+# / max |b|) or "mean_rel" (mean |a - b| / mean |b|); ``in_ratio``: the
+# kernel route's distance from fp32, averaged over the readings, held to
+# PATH_BF16_ROUTE_RATIO times the plain route's (not for outputs of a few
+# values a reading, whose ratio swings with one value). The fp32 card-vs-CPU
+# comparison holds every output on max rel below PATH_FP32_REL_TOL.
+Held = collections.namedtuple("Held", "bar gate in_ratio", defaults=("rel", True))
+# The MoGe pair is compared on its model's outputs (affine-invariant points,
+# normal, mask probability, metric scale): with random weights its focal
+# solve is ill-conditioned (a focal near 1e-4), so the focal and the shifted
+# depth built from them are recorded, not held. A unit vector (the MoGe
+# normal, GeoCalib's up field) divides by a norm that random weights leave
+# near 0 at some pixels, where bf16 rounding turns the direction: held on
+# its mean rel; so are UniK3D's points, unit rays of such a field times the
+# distance (max rel 0.25 to 0.56 from fp32 on either bf16 route, mean rel
+# 0.006 to 0.009, in the first card runs). Each bar sits about twice above
+# the largest of the first card run's 4 readings per family (PERF.md §6):
+# DA3 depth 2.9e-2 (DA-V2's bar kept), sky 1.4e-2; Metric3D depth 2.2e-2,
+# confidence 1.2e-2; MoGe-2 / Metric Anything points 6.3e-3 and 7.1e-3,
+# normal 1.1e-2 (mean), mask 3.2e-3 and 3.3e-3, metric scale 1.6e-2 and
+# 3.9e-3; UniDepth V2 points 1.3e-2, confidence 1.5e-3, intrinsics 1.2e-2;
+# UniK3D points 7.7e-3 (mean), confidence 1.6e-3, intrinsics 9.9e-3;
+# SIDepth depth 3.4e-2, SSI 4.1e-2; GeoCalib up field 6.3e-3 (mean),
+# latitude 7.8e-2, confidences 1.8e-2 and 1.3e-2, where the plain route
+# reads as far from fp32 (up to 7.4e-2 on the latitude); Prior Depth
+# Anything refined depth 3.5e-2, VGGT depth 5.6e-2, confidence 5.6e-2 (after
+# VGGT's 48 bf16 blocks). A key tile left out of K1 moves an attention
+# output by O(1).
 FAMILIES = {
-    "depth_anything_v3": dict(hw=((480, 640), (518, 518)), per_forward=[0, 24, 0, 0],
-                              keys=("depth", "sky")),
-    "metric3d_v2": dict(hw=((480, 640), (616, 1064)), per_forward=[0, 24, 0, 0],
-                        keys=("depth", "confidence")),
-    "moge2": dict(hw=((480, 640), (291, 518)), per_forward=[0, 12, 0, 0],
-                  keys=("points", "normal", "mask", "metric_scale")),
-    "metric_anything": dict(hw=((480, 640), (518, 518)), per_forward=[0, 24, 0, 0],
-                            keys=("points", "mask", "metric_scale")),
+    "depth_anything_v3": dict(group=METRIC, hw=((480, 640), (518, 518)),
+                              per_forward=[0, 24, 0, 0],
+                              held={"depth": Held(5e-2), "sky": Held(3e-2)}),
+    "metric3d_v2": dict(group=METRIC, hw=((480, 640), (616, 1064)), per_forward=[0, 24, 0, 0],
+                        held={"depth": Held(5e-2), "confidence": Held(2.5e-2)}),
+    "moge2": dict(group=METRIC, hw=((480, 640), (291, 518)), per_forward=[0, 12, 0, 0],
+                  held={"points": Held(1.5e-2), "normal": Held(2.5e-2, "mean_rel"),
+                        "mask": Held(7.5e-3), "metric_scale": Held(3e-2, in_ratio=False)},
+                  recorded=("focal",)),
+    "metric_anything": dict(group=METRIC, hw=((480, 640), (518, 518)),
+                            per_forward=[0, 24, 0, 0],
+                            held={"points": Held(1.5e-2), "mask": Held(7.5e-3),
+                                  "metric_scale": Held(3e-2, in_ratio=False)},
+                            recorded=("focal",)),
+    "unidepth_v2": dict(group=SINGLE, hw=((480, 640), (518, 518)), per_forward=[0, 12, 0, 0],
+                        held={"pts_3d": Held(3e-2), "confidence": Held(3e-3),
+                              "intrinsics": Held(2.5e-2, in_ratio=False)}),
+    "unik3d": dict(group=SINGLE, hw=((480, 640), (518, 518)), per_forward=[0, 12, 0, 0],
+                   held={"pts_3d": Held(1.5e-2, "mean_rel"), "confidence": Held(3e-3),
+                         "intrinsics": Held(2.5e-2, in_ratio=False)}),
+    "sidepth": dict(group=SINGLE, hw=((480, 640), (518, 518)), per_forward=[0, 24, 0, 0],
+                    held={"depth": Held(7e-2), "ssi": Held(8e-2)}),
+    "geocalib": dict(group=SINGLE, hw=((480, 640), (322, 322)), per_forward=[0, 12, 0, 0],
+                     held={"up_field": Held(1.5e-2, "mean_rel"), "latitude_field": Held(1.5e-1),
+                           "up_confidence": Held(4e-2), "latitude_confidence": Held(3e-2)},
+                     recorded=("roll", "pitch", "focal")),
+    "prior_depth_anything": dict(group=SINGLE, hw=((480, 640), (518, 518)),
+                                 per_forward=[0, 48, 48, 0],
+                                 held={"depth": Held(7.5e-2), "depth_vggt": Held(1.2e-1),
+                                       "confidence": Held(1.2e-1)}),
 }
+GEOCALIB_FIELDS = tuple(FAMILIES["geocalib"]["held"])
 POINTMAP = ("moge2", "metric_anything")
+GEOMETRIC = ("unidepth_v2", "unik3d")
 # Seeded random weights leave the MoGe pair's mask logit about 0, where the
 # mask can hold no pixel and the focal solve reads 0/0: an output bias of
 # the mask branch keeps most pixels in the mask (as lift_depth_pro_outputs
 # does for Depth Pro); nothing else of the weights moves.
 MOGE_MASK_BIAS = 1.0
-# bf16 kernel route against the plain route, max rel at every (weight seed,
-# frame) of the comparison. The MoGe pair is compared on its model's outputs
-# (affine-invariant points, normal, mask probability, metric scale): with
-# random weights its focal solve is ill-conditioned (a focal near 1e-4), so
-# the focal and the shifted depth built from them are recorded, not held.
-# The unit normal divides by a norm that random weights leave near 0 at some
-# pixels, so it is held on its mean rel (mean |a - b| / mean |b|). Each bar
-# sits about twice above the largest of the first run's 4 readings per
-# family (PERF.md §6): depth 2.9e-2 (DA3) and 2.2e-2 (Metric3D; DA-V2's
-# bar kept), sky 1.4e-2, confidence 1.2e-2, points 6.3e-3 and 7.1e-3, normal
-# 1.1e-2 (mean), mask 3.2e-3 and 3.3e-3, metric scale 1.6e-2 and 3.9e-3; a
-# key tile left out of K1 moves an attention output by O(1).
-PATH_BF16_FAMILY_REL_TOL = {"depth": 5e-2, "sky": 3e-2, "confidence": 2.5e-2, "points": 1.5e-2,
-                            "normal": 2.5e-2, "mask": 7.5e-3, "metric_scale": 3e-2}
-FAMILY_GATE = {"normal": "mean_rel"}  # else "rel"
-# The fp32 card-vs-CPU comparison cuts the ViT-L families to 4 blocks (taps
-# 0 to 3) at full width and resolution; MoGe-2 vits runs whole.
+# GeoCalib's fp32 up field, card against CPU, is held on max rel over the
+# pixels where the field's norm before normalization is at least this share
+# of its median: below it the unit vector turns with the last bits of its
+# two components (max rel 1.4e-3 to 3.2e-3 over all pixels in card runs; 5.8e-5
+# over the rest, 0.7 % of the pixels left out, in one). The share left out is
+# recorded.
+UP_NORM_NEAR_0 = 0.1
+# The fp32 card-vs-CPU comparison cuts each family's ViTs to 4 blocks (taps 0
+# to 3) at full width and resolution, Prior Depth Anything's VGGT to 4
+# alternating blocks on a 4-block patch embed; MoGe-2 vits runs whole.
 FAMILY_CPU_VIT_DEPTH = 4
 
 
@@ -1015,22 +1121,36 @@ def lift_moge_mask(model) -> None:
         model.head.mask_out[2].bias.fill_(MOGE_MASK_BIAS)
 
 
-def family_model_kw(name, depth=None):
-    """``model_kw`` of a family's pipeline: none at full depth; else the ViT-L
-    cut to ``depth`` blocks with taps spread over them."""
+def family_cut_kw(name, depth=None):
+    """Keyword arguments of a family's pipeline: none at full depth; else its
+    ViTs (ViT-L, ViT-B or ViT-S at full width) cut to ``depth`` blocks with
+    taps spread over them, and Prior Depth Anything's VGGT cut likewise."""
     if depth is None:
-        return None
+        return {}
+    import dataclasses
+
+    from monocular_depth_estimation_trt_tpu_torch.models.geometric import GeometricConfig
     from monocular_depth_estimation_trt_tpu_torch.models.metric3d_v2 import Metric3DConfig
     from monocular_depth_estimation_trt_tpu_torch.models.moge2 import MoGeConfig
-    from monocular_depth_estimation_trt_tpu_torch.models.vit import ViTConfig
+    from monocular_depth_estimation_trt_tpu_torch.models.vggt import VGGTConfig
+    from monocular_depth_estimation_trt_tpu_torch.models.vit import VIT_CONFIGS
 
-    vit = ViTConfig(dim=1024, depth=depth, num_heads=16)
+    encoder = {"unidepth_v2": "vitb", "unik3d": "vitb", "sidepth": "vits", "geocalib": "vits",
+               "prior_depth_anything": "vits"}.get(name, "vitl")
+    vit = dataclasses.replace(VIT_CONFIGS[encoder], depth=depth)
     taps = tuple(range(depth // 4 - 1, depth, depth // 4))
-    if name == "depth_anything_v3":
-        return dict(vit_config=vit, out_indices=taps)
+    if name in ("depth_anything_v3", "sidepth", "geocalib"):
+        return dict(model_kw=dict(vit_config=vit, out_indices=taps))
+    if name == "prior_depth_anything":
+        return dict(model_kw=dict(vit_config=vit, out_indices=taps),
+                    vggt_cfg=VGGTConfig(depth=depth, head_layers=taps,
+                                        vit_config=dataclasses.replace(VIT_CONFIGS["vitl"],
+                                                                       depth=depth)))
+    if name in GEOMETRIC:
+        return dict(model_kw=dict(cfg=GeometricConfig(vit_config=vit, out_indices=taps)))
     if name == "metric3d_v2":
-        return dict(cfg=Metric3DConfig(vit_config=vit, out_indices=taps))
-    return dict(cfg=MoGeConfig(vit_config=vit, out_indices=taps))
+        return dict(model_kw=dict(cfg=Metric3DConfig(vit_config=vit, out_indices=taps)))
+    return dict(model_kw=dict(cfg=MoGeConfig(vit_config=vit, out_indices=taps)))
 
 
 def family_pipeline(build_pipeline, name, **kw):
@@ -1045,27 +1165,67 @@ def family_model(name, seed):
     from monocular_depth_estimation_trt_tpu_torch.models.depth_anything_v3 import (
         DepthAnythingV3,
     )
+    from monocular_depth_estimation_trt_tpu_torch.models.geocalib import GeoCalib
+    from monocular_depth_estimation_trt_tpu_torch.models.geometric import GeometricDepthModel
     from monocular_depth_estimation_trt_tpu_torch.models.metric3d_v2 import Metric3DV2
     from monocular_depth_estimation_trt_tpu_torch.models.moge2 import MoGe2
+    from monocular_depth_estimation_trt_tpu_torch.models.prior_depth import (
+        PriorDARefiner,
+        PriorDepthAnything,
+    )
+    from monocular_depth_estimation_trt_tpu_torch.models.sidepth import SIDepth
+    from monocular_depth_estimation_trt_tpu_torch.models.vggt import VGGT
     from monocular_depth_estimation_trt_tpu_torch.weights.store import init_random_
 
     model = {"depth_anything_v3": DepthAnythingV3, "metric3d_v2": Metric3DV2,
              "moge2": MoGe2,
-             "metric_anything": lambda: MoGe2("vitl", 3600, predict_normal=False)}[name]()
+             "metric_anything": lambda: MoGe2("vitl", 3600, predict_normal=False),
+             "unidepth_v2": GeometricDepthModel,
+             "unik3d": lambda: GeometricDepthModel(mode="unik3d"),
+             "sidepth": SIDepth, "geocalib": GeoCalib,
+             "prior_depth_anything": lambda: PriorDepthAnything(VGGT(with_camera=False),
+                                                                PriorDARefiner())}[name]()
     init_random_(model, seed)
     if name in POINTMAP:
         lift_moge_mask(model)
     return model
 
 
+def family_params(name, model):
+    """``params`` of a family's pipeline from its model's weights, as fp32
+    CPU tensors (Prior Depth Anything: a state dict each for VGGT and the
+    refiner)."""
+    def sd(m):
+        return {k: v.float().cpu() for k, v in m.state_dict().items()}
+
+    if name == "prior_depth_anything":
+        return {"vggt": sd(model.vggt), "refiner": sd(model.refiner)}
+    return sd(model)
+
+
 def check_family_outputs(name, key, out, hw):
     """The outputs of one forward: shapes, dtypes, and finite values where
     they must be (the MoGe pair: depth and points finite on the mask and inf
-    off it, normal finite, focal and scale finite). Returns a summary."""
+    off it, normal finite, focal and scale finite; GeoCalib: its fields, the
+    up field of unit norm, and its fit recorded). Returns a summary."""
     import numpy as np
 
-    d = out["depth"]
     at = f"{name} {key}"
+    if name == "geocalib":
+        side = FAMILIES[name]["hw"][1]
+        for k in GEOCALIB_FIELDS:
+            check(out[k].shape[:2] == side and bool(np.isfinite(out[k]).all()), f"{at}: {k}")
+        norm_err = float(np.abs(np.linalg.norm(out["up_field"], axis=-1) - 1.0).max())
+        check(norm_err < 1e-3, f"{at}: up field off unit norm by {norm_err}")
+        for k in ("up_confidence", "latitude_confidence"):
+            check(out[k].min() >= 0.0 and out[k].max() <= 1.0, f"{at}: {k} outside [0, 1]")
+        check(np.abs(out["latitude_field"]).max() <= np.pi / 2, f"{at}: latitude")
+        # the fit of random-weight fields may run off (PERF.md): recorded
+        return {"up_field_norm_err": norm_err,
+                **{k: finite_or_none(float(out[k])) for k in (
+                    "roll", "pitch", "focal", "vfov", "hfov", "roll_uncertainty",
+                    "pitch_uncertainty", "focal_uncertainty", "vfov_uncertainty")}}
+    d = out["depth"]
     if name in POINTMAP:
         mask = out["mask"]
         check(mask.dtype == np.bool_ and d.shape == mask.shape, f"{at}: mask {mask.shape}")
@@ -1085,16 +1245,33 @@ def check_family_outputs(name, key, out, hw):
         return {"depth_shape": list(d.shape), "mask_share": float(mask.mean()),
                 "depth_range_on_mask": [float(d[mask].min()), float(d[mask].max())],
                 "focal": focal, "metric_scale": scale}
-    check(d.shape == hw and d.dtype == np.float32, f"{at}: depth {d.shape} {d.dtype}")
+    check(d.shape == hw and d.dtype == np.float32 and bool(np.isfinite(d).all()),
+          f"{at}: depth {d.shape} {d.dtype}")
     rec = {"depth_shape": list(d.shape), "depth_range": [float(d.min()), float(d.max())]}
-    for k in FAMILIES[name]["keys"]:
-        check(out[k].shape == hw and bool(np.isfinite(out[k]).all()), f"{at}: {k}")
     check(d.max() > d.min(), f"{at}: depth is constant")
+    if name in GEOMETRIC:
+        pts, conf, K = out["pts_3d"], out["confidence"], out["intrinsics"]
+        check(pts.shape == (*hw, 3) and bool(np.isfinite(pts).all()), f"{at}: pts_3d")
+        check(np.array_equal(d, np.clip(pts[..., 2], 1e-3, 1e3)), f"{at}: depth is not z")
+        check(conf.shape == hw and conf.min() >= 0.0 and conf.max() <= 1.0, f"{at}: confidence")
+        check(K.shape == (3, 3) and bool(np.isfinite(K).all()) and K[0, 0] > 0 and K[1, 1] > 0,
+              f"{at}: intrinsics {K.tolist()}")
+        rec["intrinsics"] = K.tolist()
+        return rec
+    for k in FAMILIES[name]["held"]:
+        check(out[k].shape == hw and bool(np.isfinite(out[k]).all()), f"{at}: {k}")
     if name == "metric3d_v2":
         check(d.min() >= 0.0 and d.max() <= 300.0, f"{at}: depth outside [0, 300]")
-    if name == "depth_anything_v3":
+    if name in ("depth_anything_v3", "sidepth", "prior_depth_anything"):
         check(d.min() >= 1e-3 and d.max() <= 1e3, f"{at}: depth outside the clamp")
+    if name == "depth_anything_v3":
         rec["sky_range"] = [float(out["sky"].min()), float(out["sky"].max())]
+    if name == "sidepth":
+        rec["ssi_range"] = [float(out["ssi"].min()), float(out["ssi"].max())]
+    if name == "prior_depth_anything":
+        check(out["confidence"].min() >= 1.0, f"{at}: VGGT confidence below 1")
+        rec["depth_vggt_range"] = [float(out["depth_vggt"].min()),
+                                   float(out["depth_vggt"].max())]
     return rec
 
 
@@ -1129,7 +1306,7 @@ def run_family_path(name, build_pipeline, wrappers, rng):
     forwards = len(frames) * (WARMUP_CALLS + 1)
     check(launches == {k: n * forwards for k, n in zip(KERNELS, want)},
           f"launches on the {name} path {launches}")
-    rec = {"phase": "metric_families_path", "model": pipe.spec.artifact_name(),
+    rec = {"phase": f"{fam['group']}_path", "model": pipe.spec.artifact_name(),
            "build_seconds": build_s, "forwards": list(per_forward),
            "launches_per_forward_k3_k1_k2_k4": per_forward, "launches": launches,
            "counted": f"{WARMUP_CALLS} warm-up + 1 captured per engine"}
@@ -1146,7 +1323,8 @@ def run_family_path(name, build_pipeline, wrappers, rng):
 def family_outputs(name, pipe, frame):
     """The compared outputs of one frame as host arrays: the pipeline's, or,
     for the MoGe pair, its model's on the pipeline's preprocessed input,
-    with the pipeline's focal beside them (recorded only)."""
+    with the family's recorded scalars beside them (the MoGe focal,
+    GeoCalib's roll, pitch and focal)."""
     import numpy as np
     import torch
 
@@ -1154,12 +1332,14 @@ def family_outputs(name, pipe, frame):
 
     out = pipe(frame)
     if name not in POINTMAP:
-        return {k: out[k] for k in FAMILIES[name]["keys"]}
-    x = torch.from_numpy(frame).to(pipe.device)
-    with torch.inference_mode():
-        raw = pipe.model(_imagenet_square(pipe.spec.input_hw)(x[None]))
-    got = {k: v[0].float().cpu().numpy() for k, v in raw.items()}
-    got["focal"] = np.asarray(out["focal"])
+        got = {k: out[k] for k in FAMILIES[name]["held"]}
+    else:
+        x = torch.from_numpy(frame).to(pipe.device)
+        with torch.inference_mode():
+            raw = pipe.model(_imagenet_square(pipe.spec.input_hw)(x[None]))
+        got = {k: v[0].float().cpu().numpy() for k, v in raw.items()}
+    for k in FAMILIES[name].get("recorded", ()):
+        got[k] = np.asarray(out[k])
     return got
 
 
@@ -1167,42 +1347,59 @@ def family_readings(name, a, b):
     """max rel and mean rel of ``a`` against ``b`` on the family's compared
     outputs."""
     return {k: {"rel": rel(a[k], b[k]), "mean_rel": mean_rel(a[k], b[k])}
-            for k in FAMILIES[name]["keys"]}
+            for k in FAMILIES[name]["held"]}
+
+
+def geocalib_up_norm(pipe, frame):
+    """The norm of GeoCalib's up field before it is made a unit vector, at
+    the network's input size (host array)."""
+    import torch
+
+    from monocular_depth_estimation_trt_tpu_torch.models.sidepth import run_stack
+    from monocular_depth_estimation_trt_tpu_torch.registry import _imagenet_square
+
+    x = torch.from_numpy(frame).to(pipe.device)
+    with torch.inference_mode():
+        raw = run_stack(pipe.model.backbone, pipe.model.head,
+                        _imagenet_square(pipe.spec.input_hw)(x[None]))
+    return torch.linalg.vector_norm(raw[0, ..., 0:2].float(), dim=-1).cpu().numpy()
 
 
 def family_parity(name, build_pipeline, pipe, frames):
     """For each weight seed and frame, on weights rounded to bf16 and shared
     by every route: the bf16 kernel route (K1) against plain attention and
-    against the fp32 card path, held to PATH_BF16_FAMILY_REL_TOL of the plain
-    route at every reading and, averaged over the readings, to
+    against the fp32 card path, each output held to its ``Held`` bar of the
+    plain route at every reading and, averaged over the readings, to
     PATH_BF16_ROUTE_RATIO times the plain route's distance from fp32. Then
-    the fp32 path on the card against the CPU (ViT-L families cut to
-    FAMILY_CPU_VIT_DEPTH blocks). Every reading is emitted before any is
-    checked."""
+    the fp32 path on the card against the CPU (ViTs cut to
+    FAMILY_CPU_VIT_DEPTH blocks), every output on max rel. Every reading is
+    emitted before any is checked."""
+    import numpy as np
     import torch
 
-    keys = FAMILIES[name]["keys"]
+    fam = FAMILIES[name]
+    held, group, recorded = fam["held"], fam["group"], fam.get("recorded", ())
     readings = []
     for seed in PARITY_WEIGHT_SEEDS:
         kernel_pipe = pipe
         if seed != 0:  # the path's pipeline holds seed 0
             model = family_model(name, seed)
-            kernel_pipe = build_pipeline(name, params=model.state_dict())
+            kernel_pipe = build_pipeline(name, params=family_params(name, model))
             del model
-        sd = {k: v.float().cpu() for k, v in kernel_pipe.model.state_dict().items()}
+        sd = family_params(name, kernel_pipe.model)
         plain_pipe = build_pipeline(name, attn_impl="xla", params=sd)
         card32_pipe = build_pipeline(name, precision="fp32", params=sd)
         for frame_name, frame in frames.items():
             kernel, plain, card32 = (family_outputs(name, p, frame)
                                      for p in (kernel_pipe, plain_pipe, card32_pipe))
-            rec = {"phase": "metric_families_parity", "model": name, "weights_seed": seed,
+            rec = {"phase": f"{group}_parity", "model": name, "weights_seed": seed,
                    "frame": frame_name,
                    "bf16_kernel_vs_plain_attention": family_readings(name, kernel, plain),
                    "bf16_kernel_route_vs_fp32": family_readings(name, kernel, card32),
                    "bf16_plain_route_vs_fp32": family_readings(name, plain, card32)}
-            if name in POINTMAP:
-                rec["focal"] = {"kernel": float(kernel["focal"]), "plain": float(plain["focal"]),
-                                "fp32": float(card32["focal"])}
+            for k in recorded:
+                rec[k] = {route: finite_or_none(float(got[k])) for route, got in
+                          (("kernel", kernel), ("plain", plain), ("fp32", card32))}
             emit(rec)
             readings.append(rec)
         drop_engines(plain_pipe, card32_pipe, kernel_pipe)
@@ -1210,60 +1407,143 @@ def family_parity(name, build_pipeline, pipe, frames):
 
     # fp32, card against CPU, on the first frame
     depth = None if name == "moge2" else FAMILY_CPU_VIT_DEPTH
-    model_kw = family_model_kw(name, depth)
-    card32 = family_pipeline(build_pipeline, name, precision="fp32", model_kw=model_kw)
+    cut = family_cut_kw(name, depth)
+    card32 = family_pipeline(build_pipeline, name, precision="fp32", **cut)
     frame_name, frame = next(iter(frames.items()))
     got_card = family_outputs(name, card32, frame)
-    sd = {k: v.cpu() for k, v in card32.model.state_dict().items()}
+    sd = family_params(name, card32.model)
     drop_engines(card32)
     del card32
     t0 = time.perf_counter()
-    got_cpu = family_outputs(name, build_pipeline(name, precision="fp32", device="cpu",
-                                                  params=sd, model_kw=model_kw), frame)
-    cpu_rec = {"phase": "metric_families_parity_cpu", "model": name, "frame": frame_name,
+    cpu32 = build_pipeline(name, precision="fp32", device="cpu", params=sd, **cut)
+    got_cpu = family_outputs(name, cpu32, frame)
+    cpu_rec = {"phase": f"{group}_parity_cpu", "model": name, "frame": frame_name,
                "cpu_fp32_seconds": time.perf_counter() - t0,
                "model_depth": "full" if depth is None else
-               f"full widths and resolution; {depth} of 24 ViT blocks",
+               f"full widths and resolution; {depth} blocks of each ViT"
+               + (" and of VGGT's aggregator" if name == "prior_depth_anything" else ""),
                "fp32_card_vs_cpu": family_readings(name, got_card, got_cpu)}
-    if name in POINTMAP:
-        cpu_rec["focal"] = {"card": float(got_card["focal"]), "cpu": float(got_cpu["focal"])}
+    fp32_rel = {k: cpu_rec["fp32_card_vs_cpu"][k]["rel"] for k in held}
+    if name == "geocalib":  # the up field where its norm is not near 0
+        norm = geocalib_up_norm(cpu32, frame)
+        kept = norm >= UP_NORM_NEAR_0 * np.median(norm)
+        fp32_rel["up_field"] = rel(got_card["up_field"][kept], got_cpu["up_field"][kept])
+        cpu_rec["fp32_card_vs_cpu"]["up_field"].update(
+            rel_where_norm_not_near_0=fp32_rel["up_field"],
+            share_near_0=float(1.0 - kept.mean()))
+    for k in recorded:
+        cpu_rec[k] = {"card": finite_or_none(float(got_card[k])),
+                      "cpu": finite_or_none(float(got_cpu[k]))}
     emit(cpu_rec)
+    del cpu32
     torch.cuda.empty_cache()
 
     def worst(route, k):
-        return max(r[route][k][FAMILY_GATE.get(k, "rel")] for r in readings)
+        return max(r[route][k][held[k].gate] for r in readings)
 
     def average(route, k):
-        return sum(r[route][k][FAMILY_GATE.get(k, "rel")] for r in readings) / len(readings)
+        return sum(r[route][k][held[k].gate] for r in readings) / len(readings)
 
     ratio = {k: average("bf16_kernel_route_vs_fp32", k)
-             / max(average("bf16_plain_route_vs_fp32", k), 1e-12) for k in keys}
-    dense = [k for k in keys if k != "metric_scale"]
-    summary = {"phase": "metric_families_parity_summary", "model": name,
+             / max(average("bf16_plain_route_vs_fp32", k), 1e-12) for k in held}
+    summary = {"phase": f"{group}_parity_summary", "model": name,
                "readings": len(readings),
-               **{k: {"held_on": FAMILY_GATE.get(k, "rel"),
+               **{k: {"held_on": h.gate,
                       "max_bf16_kernel_vs_plain_attention": worst("bf16_kernel_vs_plain_attention",
                                                                   k),
                       "max_bf16_kernel_route_vs_fp32": worst("bf16_kernel_route_vs_fp32", k),
                       "max_bf16_plain_route_vs_fp32": worst("bf16_plain_route_vs_fp32", k),
-                      "bf16_kernel_vs_plain_attention_tolerance": PATH_BF16_FAMILY_REL_TOL[k],
-                      "kernel_over_plain_route_vs_fp32": ratio[k]} for k in keys},
+                      "bf16_kernel_vs_plain_attention_tolerance": h.bar,
+                      "kernel_over_plain_route_vs_fp32": ratio[k],
+                      "ratio_held": h.in_ratio} for k, h in held.items()},
                "bf16_route_ratio_tolerance": PATH_BF16_ROUTE_RATIO,
                "fp32_tolerance": PATH_FP32_REL_TOL}
     emit(summary)
     for r in readings:
         at = f"seed {r['weights_seed']} {r['frame']}"
-        for k in keys:
-            got = r["bf16_kernel_vs_plain_attention"][k][FAMILY_GATE.get(k, "rel")]
-            check(got < PATH_BF16_FAMILY_REL_TOL[k],
-                  f"{name} bf16 {k} kernel vs plain attention {got} ({at})")
-    for k in dense:  # the scale's ratio swings with one value a reading: recorded only
-        check(ratio[k] <= PATH_BF16_ROUTE_RATIO,
+        for k, h in held.items():
+            got = r["bf16_kernel_vs_plain_attention"][k][h.gate]
+            check(got < h.bar, f"{name} bf16 {k} kernel vs plain attention {got} ({at})")
+    for k, h in held.items():
+        check(not h.in_ratio or ratio[k] <= PATH_BF16_ROUTE_RATIO,
               f"{name} bf16 {k}: kernel route {ratio[k]} x as far from fp32 as the plain "
               f"route, over {len(readings)} readings")
-    for k in keys:
-        got = cpu_rec["fp32_card_vs_cpu"][k]["rel"]
-        check(got < PATH_FP32_REL_TOL, f"{name} fp32 {k} card vs cpu {got}")
+        check(fp32_rel[k] < PATH_FP32_REL_TOL, f"{name} fp32 {k} card vs cpu {fp32_rel[k]}")
+
+
+# GeoCalib's fit on the fields of a known camera at the network's 322^2:
+# roll and pitch (radians) and the focal (pixels; a vertical FoV of 60 degrees)
+GEOCALIB_CAMERA = {"roll": 0.12, "pitch": -0.25, "focal": 280.0}
+
+
+def check_geocalib_fit(dev):
+    """GeoCalib's 10-step Gauss-Newton fit (``models/geocalib.py::
+    fit_camera``) on the card, eager and through an engine, on the fields
+    that ``perspective_fields`` gives for GEOCALIB_CAMERA: as they are
+    ("exact", unit weights), and with seeded noise on both fields under
+    uneven weights ("noisy"). Every estimate is finite; the engine's replay,
+    its output buffers filled with NaN first, equals the eager fit bit for
+    bit; the eager fit agrees with the CPU's within PATH_FP32_REL_TOL (rel
+    per estimate); the exact fit recovers the camera (roll and pitch within
+    1e-3 rad, the focal within 1e-3 rel, as the JAX package's test)."""
+    import torch
+
+    from monocular_depth_estimation_trt_tpu_torch.models.geocalib import (
+        fit_camera,
+        perspective_fields,
+    )
+    from monocular_depth_estimation_trt_tpu_torch.runtime.engine import Engine
+
+    hw = FAMILIES["geocalib"]["hw"][1]
+    cam = {k: torch.tensor(v) for k, v in GEOCALIB_CAMERA.items()}
+    up, lat = perspective_fields(cam["roll"], cam["pitch"], cam["focal"], hw)
+    gen = torch.Generator().manual_seed(9)
+    noisy_up = up + 0.05 * torch.randn(up.shape, generator=gen)
+    noisy_up = noisy_up / torch.linalg.vector_norm(noisy_up, dim=-1, keepdim=True)
+    cases = {"exact": (up, lat, torch.ones(hw), torch.ones(hw)),
+             "noisy": (noisy_up, lat + 0.02 * torch.randn(hw, generator=gen),
+                       0.2 + 0.8 * torch.rand(hw, generator=gen),
+                       0.2 + 0.8 * torch.rand(hw, generator=gen))}
+
+    def fit(*fields):
+        return fit_camera(*fields, hw, iters=10)
+
+    for case, fields in cases.items():
+        cpu = fit(*fields)
+        on_card = [f.to(dev) for f in fields]
+        with torch.inference_mode():
+            eager = fit(*on_card)
+        engine = Engine(fit, on_card, name=f"geocalib_fit_{case}_{hw[0]}x{hw[1]}").compile()
+        with torch.inference_mode():
+            for t in engine.static_outputs().values():
+                t.fill_(float("nan"))
+        replay = engine(*fields)
+        torch.cuda.synchronize()
+        rec = {"phase": "geocalib_fit", "case": case, "hw": list(hw), "iters": 10,
+               "camera": GEOCALIB_CAMERA,
+               "card": {k: float(v) for k, v in eager.items()},
+               "cpu": {k: float(v) for k, v in cpu.items()},
+               "replay_equal_to_eager": all(torch.equal(replay[k], eager[k]) for k in eager),
+               "card_vs_cpu_rel": {k: abs(float(eager[k]) - float(cpu[k]))
+                                   / max(abs(float(cpu[k])), 1e-12) for k in eager},
+               "card_vs_camera": {k: abs(float(eager[k]) - v)
+                                  / (v if k == "focal" else 1.0)
+                                  for k, v in GEOCALIB_CAMERA.items()},
+               "tolerance": PATH_FP32_REL_TOL}
+        emit(rec)
+        engine.release()
+        check(all(math.isfinite(v) for v in rec["card"].values())
+              and bool(all(torch.isfinite(v).all() for v in replay.values())),
+              f"geocalib fit {case}: not finite {rec['card']}")
+        check(rec["replay_equal_to_eager"], f"geocalib fit {case}: replay differs from eager")
+        held = GEOCALIB_CAMERA if case == "exact" else eager
+        for k in held:
+            got = rec["card_vs_cpu_rel"][k]
+            check(got < PATH_FP32_REL_TOL, f"geocalib fit {case}: {k} card vs cpu rel {got}")
+        if case == "exact":
+            got = rec["card_vs_camera"]
+            check(all(v < 1e-3 for v in got.values()),
+                  f"geocalib fit: off the camera by {got} (radians; focal rel)")
 
 
 def w8a8_operands(m, k, n, dtype, dev, gen):
@@ -1319,6 +1599,11 @@ def check_w8a8_matmul(qm, dev):
         ("metric3d_proj", 3349, 1024, 1024, torch.bfloat16),
         ("metric3d_fc1", 3349, 1024, 4096, torch.bfloat16),
         ("metric3d_fc2", 3349, 4096, 1024, torch.bfloat16),
+        # UniDepth V2's ViT-B pixel encoder at 518^2 (M = 1374 tokens)
+        ("vitb_qkv", 1374, 768, 2304, torch.bfloat16),
+        ("vitb_proj", 1374, 768, 768, torch.bfloat16),
+        ("vitb_fc1", 1374, 768, 3072, torch.bfloat16),
+        ("vitb_fc2", 1374, 3072, 768, torch.bfloat16),
         ("vitl_qkv_fp32", 1370, 1024, 3072, torch.float32),
         ("depth_pro_fc1_fp32", 20195, 1024, 4096, torch.float32),
     ]
@@ -1406,6 +1691,18 @@ def int8_family(name, build_pipeline, calib):
                 "metric3d_v2", precision=precision, params=sd, calib_images=calib),
             run=lambda p, frame: {k: v for k, v in p(frame).items() if k != "viz"},
             per_forward=[0, 24, 0, 96], pearson_keys=("depth",))
+    if name in GEOMETRIC:
+        from monocular_depth_estimation_trt_tpu_torch.models.geometric import (
+            GeometricDepthModel,
+        )
+
+        mode = "unik3d" if name == "unik3d" else "unidepth"
+        return dict(
+            make=lambda: GeometricDepthModel(mode=mode),
+            build=lambda precision, sd: build_pipeline(
+                name, precision=precision, params=sd, calib_images=calib),
+            run=lambda p, frame: {k: v for k, v in p(frame).items() if k != "viz"},
+            per_forward=[0, 12, 0, 48], pearson_keys=("depth", "pts_3d", "confidence"))
     if name == "depth_pro":
         def build(precision, sd):
             return depth_pro_pipeline(build_pipeline, precision=precision, params=sd,
@@ -1577,11 +1874,16 @@ def timed_route(pipe, route, in_hw, views, config):
     else:
         frame = rng.integers(0, 255, size=(*in_hw, 3), dtype=np.uint8)
         host_in = torch.from_numpy(frame).pin_memory()
-        host_out = torch.empty(tuple(in_hw), dtype=torch.float32).pin_memory()
+        # what DepthPipeline.benchmark fetches: the depth, else every output
+        out = pipe._run(host_in.to(pipe.device), tuple(in_hw), False)
+        host_out = {k: torch.empty(out[k].shape, dtype=out[k].dtype).pin_memory()
+                    for k in (["depth"] if "depth" in out else sorted(out))}
 
         def step():
             dev = host_in.to(pipe.device, non_blocking=True)
-            host_out.copy_(pipe._run(dev, tuple(in_hw), False)["depth"], non_blocking=True)
+            res = pipe._run(dev, tuple(in_hw), False)
+            for k, buf in host_out.items():
+                buf.copy_(res[k], non_blocking=True)
     rep = benchmark(step, device=pipe.device, config=config, name=pipe.spec.artifact_name())
     rep.frames_per_iteration = views or 1
     return rep
@@ -1595,7 +1897,8 @@ def speed_record(rep, pipe, label, route, turn, views, in_hw, card, power_limit)
             f"p50_ms{per}": rep.percentile_ms(50), f"p99_ms{per}": rep.percentile_ms(99),
             "iterations": rep.iterations,
             "includes": (f"forward of {views} device-resident uint8 views" if views
-                         else f"H2D uint8 {in_hw[0]}x{in_hw[1]} + forward + D2H depth"),
+                         else f"H2D uint8 {in_hw[0]}x{in_hw[1]} + forward + D2H "
+                              + ("every output" if pipe.spec.model == "geocalib" else "depth")),
             "card": card, "power_limit": power_limit}
 
 
@@ -1657,8 +1960,9 @@ def check_engine(label, pipe, engine, eager, arg, other, want, wrappers):
         check(r["equal_to_eager"] or (r["max_rel"] or math.inf) <= ENGINE_REL_TOL,
               f"engine {label} {k}: replay vs eager max rel {r['max_rel']}")
         check(r["survives_next_call"], f"engine {label} {k}: overwritten by the next call")
-    check(rec["outputs"]["depth"]["next_call_differs"],
-          f"engine {label}: another input gave the same depth")
+    main_key = "depth" if "depth" in out else max(out, key=lambda k: out[k].numel())
+    check(rec["outputs"][main_key]["next_call_differs"],
+          f"engine {label}: another input gave the same {main_key}")
 
 
 class LaunchRecorder:
@@ -1779,16 +2083,19 @@ def server_phase(pipe, rng):
           "server: no request was batched")
 
 
-def cli_phase(pipe, vggt, depth_pro, moge, rng):
+def cli_phase(pipe, vggt, depth_pro, moge, unidepth, geocalib, rng):
     """``python -m monocular_depth_estimation_trt_tpu_torch`` in processes of
     its own, as a user starts it: ``run`` of DA-V2 vits on a seeded 480x640
     PNG with ``--pointcloud --benchmark`` (its npz depth equal to this
     process's pipeline on the same frame, bit for bit; the viz and the
     ``.ply`` written), ``views vggt`` on 4 PNGs, ``run depth_pro`` on
-    weights saved from this process's (``_fov.json`` against its f_px), and
+    weights saved from this process's (``_fov.json`` against its f_px),
     ``run moge2 --mesh --mesh-format glb`` on this process's MoGe-2 weights
     (every npz output equal to its pipeline's bit for bit, the ``.glb`` mesh
-    written)."""
+    written), ``run unidepth_v2`` (the npz's points, confidence and
+    intrinsics equal to the pipeline's, ``_fov.json`` from the intrinsics)
+    and ``run geocalib`` (the Roll / Pitch / vFoV / Focal lines and the npz
+    of every output, equal to the pipeline's) on this process's weights."""
     import math
     import shutil
     import tempfile
@@ -1904,6 +2211,40 @@ def cli_phase(pipe, vggt, depth_pro, moge, rng):
               f"cli moge2: npz {got.files}, pipeline {sorted(ours)}")
         check(all(rec["equal_in_process"].values()), "cli moge2: npz differs from the pipeline's")
         check(magic == b"glTF", f"cli moge2: the mesh starts {magic!r}")
+
+        for name, p in (("unidepth_v2", unidepth), ("geocalib", geocalib)):
+            ckpt = os.path.join(tmp, f"{name}.pth")
+            torch.save({k: v.detach().cpu() for k, v in p.model.state_dict().items()}, ckpt)
+            out_dir = os.path.join(tmp, name)
+            stdout, seconds = cli("run", name, "--image", png, "--out", out_dir,
+                                  "--checkpoint", ckpt)
+            got = np.load(only(out_dir, ".npz"))
+            ours = {k: v for k, v in p(frame).items() if k != "viz"}
+            rec = {"phase": "cli", "command": f"run {name} (this process's weights)",
+                   "seconds": seconds, "files": sorted(os.listdir(out_dir)),
+                   "shapes": {k: list(got[k].shape) for k in got.files},
+                   "equal_in_process": {k: bool(np.array_equal(got[k], ours[k], equal_nan=True))
+                                        for k in got.files}}
+            if name == "unidepth_v2":
+                K = ours["intrinsics"]
+                want_fov = {"fov_x": round(math.degrees(2 * math.atan(0.5 * 640 / K[0, 0])), 2),
+                            "fov_y": round(math.degrees(2 * math.atan(0.5 * 480 / K[1, 1])), 2)}
+                rec["fov_json"] = json.load(open(only(out_dir, "_fov.json")))
+                rec["in_process_fov"] = want_fov
+            else:
+                rec["lines"] = [ln for ln in stdout.splitlines()
+                                if ln.startswith(("[MDET] Roll", "[MDET] Pitch", "[MDET] vFoV",
+                                                  "[MDET] Focal"))]
+            emit(rec)
+            check(sorted(got.files) == sorted(ours), f"cli {name}: npz {got.files}, pipeline "
+                                                     f"{sorted(ours)}")
+            check(all(rec["equal_in_process"].values()),
+                  f"cli {name}: npz differs from the pipeline's")
+            if name == "unidepth_v2":
+                check(rec["fov_json"] == rec["in_process_fov"],
+                      f"cli unidepth_v2: fov {rec['fov_json']}, want {rec['in_process_fov']}")
+            else:
+                check(len(rec["lines"]) == 4, f"cli geocalib: calibration lines {rec['lines']}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2081,14 +2422,18 @@ def main() -> None:
     depth_pro_parity(build_pipeline, depth_pro, depth_pro_frames)
     drop_engines(depth_pro)
 
-    # 7. the single-image metric and point-map families (each its own counted
-    # run), then their route comparisons
+    # 7. the single-image metric and point-map families, then the last
+    # single-image families (each its own counted run), then their route
+    # comparisons. The last families draw their frames from a generator of
+    # their own, so that every earlier phase reads the frames it read before
     families, family_launches, family_frames = {}, {}, {}
-    for name in FAMILIES:
-        families[name], family_launches[name], family_frames[name] = run_family_path(
-            name, build_pipeline, wrappers, rng)
-        family_parity(name, build_pipeline, families[name], family_frames[name])
-        drop_engines(families[name])
+    for group, frame_rng in ((METRIC, rng), (SINGLE, np.random.default_rng(9))):
+        for name in (n for n, fam in FAMILIES.items() if fam["group"] == group):
+            families[name], family_launches[name], family_frames[name] = run_family_path(
+                name, build_pipeline, wrappers, frame_rng)
+            family_parity(name, build_pipeline, families[name], family_frames[name])
+            drop_engines(families[name])
+    check_geocalib_fit(dev)
 
     # 8. the int8 paths (each its own counted run), then int8 against the bf16
     # and fp32 routes; calibration on three seeded frames (noise and a
@@ -2101,6 +2446,7 @@ def main() -> None:
         "vggt": {"frame_480x640": rng.integers(0, 256, (480, 640, 3), dtype=np.uint8),
                  "frame_518x518": rng.integers(0, 256, (518, 518, 3), dtype=np.uint8)},
         "metric3d_v2": family_frames["metric3d_v2"],
+        "unidepth_v2": family_frames["unidepth_v2"],
     }
     views4_u8 = rng.integers(0, 256, (4, 518, 518, 3), dtype=np.uint8)
     int8_pipes, int8_launches = {}, {}
@@ -2110,6 +2456,13 @@ def main() -> None:
             name, fam, wrappers, frames, views4_u8 if name == "vggt" else None)
         int8_parity(name, fam, int8_pipes[name], frames)
         drop_engines(int8_pipes[name])
+    # UniK3D's int8 build, the same pixel encoder as UniDepth V2's: its
+    # counted run only
+    unik3d8, int8_launches["unik3d"] = run_int8_path(
+        "unik3d", int8_family("unik3d", build_pipeline, calib), wrappers,
+        family_frames["unik3d"])
+    drop_engines(unik3d8)
+    del unik3d8
 
     # 9. engines: each captured graph against the eager forward it captures
     vitl = build_pipeline("depth_anything_v2", encoder="vitl")
@@ -2129,7 +2482,10 @@ def main() -> None:
             ("vggt_s4", vggt, vggt.views_engine(4), vggt._views_forward, views4_u8,
              views4_other, [0, 24, 48, 0]),
             ("depth_pro_1536", depth_pro, depth_pro.engine_for((1536, 1536)),
-             p_eager(depth_pro, (1536, 1536)), frame_dp, other_dp, [24, 24, 0, 0])):
+             p_eager(depth_pro, (1536, 1536)), frame_dp, other_dp, [24, 24, 0, 0]),
+            ("unidepth_v2_int8", int8_pipes["unidepth_v2"],
+             int8_pipes["unidepth_v2"].engine_for((518, 518)),
+             p_eager(int8_pipes["unidepth_v2"], (518, 518)), frame_b, frame_c, [0, 12, 0, 48])):
         check_engine(label, p, engine, eager, arg, other, want, wrappers)
         drop_engines(p)
     for name, fam in FAMILIES.items():
@@ -2140,8 +2496,10 @@ def main() -> None:
         drop_engines(p)
 
     # 10. the command line, as a user starts it, in processes of its own
-    cli_phase(pipe, vggt, depth_pro, families["moge2"], rng)
-    drop_engines(pipe, vggt, depth_pro, families["moge2"])
+    cli_phase(pipe, vggt, depth_pro, families["moge2"], families["unidepth_v2"],
+              families["geocalib"], rng)
+    drop_engines(pipe, vggt, depth_pro, families["moge2"], families["unidepth_v2"],
+                 families["geocalib"])
 
     # 11. the HTTP server in this process, batching up to 4
     server_phase(pipe, rng)
@@ -2173,7 +2531,9 @@ def main() -> None:
                                        ("vggt_s1_int8", int8_pipes["vggt"], (518, 518), 0, vcfg),
                                        ("vggt_s4_int8", int8_pipes["vggt"], None, 4, vcfg),
                                        ("metric3d_v2_int8", int8_pipes["metric3d_v2"],
-                                        (616, 1064), 0, fcfg)):
+                                        (616, 1064), 0, fcfg),
+                                       ("unidepth_v2_int8", int8_pipes["unidepth_v2"],
+                                        (518, 518), 0, fcfg)):
         for repeat in range(2):
             rep = timed_route(p, "graph", in_hw, views, c)
             emit(speed_record(rep, p, label, "graph", repeat, views, in_hw, card, power_limit))
@@ -2189,7 +2549,10 @@ def main() -> None:
 
     # 13. where the device time goes, after the speed phase so that the
     # profiler cannot slow it (launches not counted): graph replays, and the
-    # eager forward of vits, vggt S=4 and depth_pro beside them
+    # eager forward of some paths beside them; in the UniDepth pair's, the
+    # device time of its decoder's attention (plain matmuls, fp32 softmax)
+    from monocular_depth_estimation_trt_tpu_torch.models import geometric
+
     dev_frame = torch.from_numpy(frame_b).to(dev)
     views4 = torch.from_numpy(views4_u8).to(dev)
     dev_dp = torch.from_numpy(frame_dp).to(dev)
@@ -2207,21 +2570,25 @@ def main() -> None:
             (depth_pro, dev_dp, (1536, 1536), "", 3, True),
             (int8_pipes["depth_pro"], dev_dp, (1536, 1536), "", 3, False),
             *((families[name], family_args[name], tuple(families[name].spec.input_hw), "", 5,
-               name in ("metric3d_v2", "moge2")) for name in FAMILIES),
+               name in ("metric3d_v2", "moge2", "geocalib", *GEOMETRIC)) for name in FAMILIES),
             (int8_pipes["metric3d_v2"], family_args["metric3d_v2"], (616, 1064), "", 5,
+             False),
+            (int8_pipes["unidepth_v2"], family_args["unidepth_v2"], (518, 518), "", 5,
              False)):
         eng = p.engine_for(in_hw) if in_hw else p.views_engine(4)
         emit({**profile_breakdown(lambda: eng(arg), p.spec.artifact_name() + suffix, iters),
               "route": "graph"})
         if with_eager:
             eager = p_eager(p, in_hw) if in_hw else p._views_forward
+            ranges = ("decoder_attention",) if p.spec.model in GEOMETRIC else ()
 
             def eager_step():
                 with torch.inference_mode():
                     eager(arg)
 
-            emit({**profile_breakdown(eager_step, p.spec.artifact_name() + suffix, iters),
-                  "route": "eager"})
+            with annotated(geometric, "decoder_attention"):
+                emit({**profile_breakdown(eager_step, p.spec.artifact_name() + suffix, iters,
+                                          ranges=ranges), "route": "eager"})
         drop_engines(p)
 
     # kernels line: the main shape's numbers, every shape in "shapes"; the

@@ -139,6 +139,18 @@ def _write_run_outputs(args, img, out, name, pipe) -> int:
     stem = os.path.splitext(os.path.basename(args.image))[0]
 
     if "depth" not in out:
+        # calibration-style pipelines (GeoCalib): scalar estimates + fields
+        # (reference later/GeoCalib/infer.py:35-39 print format)
+        deg = 180.0 / np.pi
+        if "roll" in out:
+            log(f"Roll:  {float(out['roll']) * deg:.1f}° "
+                f"(± {float(out.get('roll_uncertainty', 0)) * deg:.1f})°")
+            log(f"Pitch: {float(out['pitch']) * deg:.1f}° "
+                f"(± {float(out.get('pitch_uncertainty', 0)) * deg:.1f})°")
+            log(f"vFoV:  {float(out['vfov']) * deg:.1f}° "
+                f"(± {float(out.get('vfov_uncertainty', 0)) * deg:.1f})°")
+            log(f"Focal: {float(out['focal']):.1f} px "
+                f"(± {float(out.get('focal_uncertainty', 0)):.1f} px)")
         npz = os.path.join(args.out, f"{stem}_{name}.npz")
         np.savez_compressed(npz, **{k: np.asarray(v) for k, v in out.items()})
         log(f"wrote {npz}")

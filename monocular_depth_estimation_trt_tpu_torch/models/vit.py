@@ -231,22 +231,25 @@ class PatchEmbed(nn.Module):
 class DinoViT(nn.Module):
     """DINOv2 encoder returning selected intermediate layers.
 
-    ``forward(images)`` with images (B, H, W, 3) already preprocessed returns
-    a list of (patch_tokens (B, N, D), cls_token (B, D)) for ``out_indices``,
-    each with the final LayerNorm applied unless ``norm_out`` is False or the
-    index is in ``raw_indices`` (DINOv2 ``get_intermediate_layers``).
+    ``forward(images)`` with images (B, H, W, ``in_chans``) already
+    preprocessed returns a list of (patch_tokens (B, N, D), cls_token (B, D))
+    for ``out_indices``, each with the final LayerNorm applied unless
+    ``norm_out`` is False or the index is in ``raw_indices`` (DINOv2
+    ``get_intermediate_layers``). ``in_chans`` is 3 for an image; the
+    conditioned stacks of SIDepth (4) and Prior Depth Anything (6) take the
+    image and their extra channels (the JAX patch embed infers it).
     """
 
     def __init__(self, cfg: ViTConfig, out_indices: Sequence[int] = (),
                  attn_impl: str = "auto", norm_out: bool = True,
-                 raw_indices: Sequence[int] = ()):
+                 raw_indices: Sequence[int] = (), in_chans: int = 3):
         super().__init__()
         c = cfg
         self.cfg = cfg
         self.out_indices = tuple(out_indices)
         self.norm_out = norm_out
         self.raw_indices = tuple(raw_indices)
-        self.patch_embed = PatchEmbed(c.dim, c.patch_size)
+        self.patch_embed = PatchEmbed(c.dim, c.patch_size, in_chans)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, c.dim))
         if c.pos_embed:
             n0 = c.pretrain_grid * c.pretrain_grid

@@ -6,8 +6,8 @@ Ported so far: the pinhole unprojections (:func:`unproject_depth`,
 ``VGGT/onnx2trt2.py:240-243``), :func:`fov_to_focal`,
 :func:`extrinsics_from_quat_trans`, which decode VGGT's pose encoding, and
 MoGe's view-plane grid and focal/shift solver
-(:func:`normalized_view_plane_uv`, :func:`recover_focal_shift`). The
-intrinsics rescaling comes with the family that uses it.
+(:func:`normalized_view_plane_uv`, :func:`recover_focal_shift`), and
+UniDepth's intrinsics rescaling (:func:`rescale_intrinsics`).
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
-from monocular_depth_estimation_trt_tpu_torch.ops.constants import device_cached
+from monocular_depth_estimation_trt_tpu_torch.ops.constants import device_cached, device_constant
 
 
 def pixel_grid(h: int, w: int, dtype=torch.float32,
@@ -65,6 +65,16 @@ def fov_to_focal(fov_deg: Union[torch.Tensor, float], width: int) -> torch.Tenso
     """Horizontal FoV (degrees) -> focal length in pixels."""
     fov_rad = torch.deg2rad(torch.as_tensor(fov_deg, dtype=torch.float32))
     return 0.5 * width / torch.tan(0.5 * fov_rad)
+
+
+def rescale_intrinsics(K: torch.Tensor, from_hw: Tuple[int, int],
+                       to_hw: Tuple[int, int]) -> torch.Tensor:
+    """Scale fx/cx by the W ratio and fy/cy by the H ratio (reference
+    ``Uni_Depth_V2/onnx2trt.py:78-94``)."""
+    sy = to_hw[0] / from_hw[0]
+    sx = to_hw[1] / from_hw[1]
+    scale = device_constant((sx, 1.0, sx, 1.0, sy, sy, 1.0, 1.0, 1.0), K.dtype, K.device)
+    return K * scale.view(3, 3)
 
 
 def extrinsics_from_quat_trans(quat: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:

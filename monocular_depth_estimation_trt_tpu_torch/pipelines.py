@@ -142,18 +142,22 @@ class DepthPipeline:
     def benchmark(self, in_hw: Tuple[int, int],
                   config: Optional[BenchmarkConfig] = None) -> BenchmarkReport:
         """Time the whole per-frame path on the card: uint8 H2D from a pinned
-        host buffer, preprocess + model + postprocess, depth D2H into a
-        pinned host buffer."""
+        host buffer, preprocess + model + postprocess, the depth (for a model
+        without one, as GeoCalib, every output) D2H into pinned host
+        buffers."""
         eng = self.engine_for(tuple(in_hw), False)
         rng = np.random.default_rng(0)
         frame = rng.integers(0, 255, size=(in_hw[0], in_hw[1], 3), dtype=np.uint8)
         host_in = torch.from_numpy(frame).pin_memory()
-        # the depth's own size (the MoGe pair answers at its input size)
-        out_shape = eng(host_in)["depth"].shape
-        host_out = torch.empty(tuple(out_shape), dtype=torch.float32).pin_memory()
+        # the outputs' own sizes (the MoGe pair answers at its input size)
+        out = eng(host_in)
+        keys = ["depth"] if "depth" in out else sorted(out)
+        host_out = {k: torch.empty(out[k].shape, dtype=out[k].dtype).pin_memory() for k in keys}
 
         def step():  # the engine queues the H2D copy into its static input
-            host_out.copy_(eng(host_in)["depth"], non_blocking=True)
+            res = eng(host_in)
+            for k, buf in host_out.items():
+                buf.copy_(res[k], non_blocking=True)
 
         return benchmark(step, device=self.device, config=config,
                          name=self.spec.artifact_name())

@@ -6,9 +6,11 @@
 
 Ported so far: the Depth Anything family (``depth_anything_v2``,
 ``distill_any_depth``, ``depth_anything_ac``, ``dkt``, ``bridge``), which
-shares one serving graph, ``vggt``, ``depth_pro``, and the single-image
+shares one serving graph, ``vggt``, ``depth_pro``, the single-image
 metric and point-map families ``depth_anything_v3``, ``metric3d_v2``,
-``moge2`` and ``metric_anything``. Every factory takes ``device``;
+``moge2`` and ``metric_anything``, the camera-aware ``unidepth_v2`` and
+``unik3d``, ``sidepth``, ``geocalib`` and ``prior_depth_anything``. Every
+factory takes ``device``;
 ``None`` means ``"cuda"``, and a missing card is an error, never a quiet
 move to the CPU. ``precision="int8"`` serves the bf16 graph with the
 family's encoder linears quantized (``ops/quant.py``, kernel K4),
@@ -82,7 +84,7 @@ def resolve_device(device=None) -> torch.device:
 # (dkt and bridge reach it through _build_da_family as well).
 INT8_FAMILIES = frozenset({
     "depth_anything_v2", "distill_any_depth", "depth_anything_ac", "depth_pro", "vggt",
-    "depth_anything_v3", "metric3d_v2", "moge2", "metric_anything",
+    "depth_anything_v3", "metric3d_v2", "moge2", "metric_anything", "unidepth_v2", "unik3d",
 })
 
 # Encoders for which precision="int8" builds the bf16 graph unless
@@ -224,13 +226,19 @@ def _params_for(model: torch.nn.Module, spec: ModelSpec, *, params, checkpoint, 
     return model
 
 
-def _dtype_for(precision: str, device: torch.device) -> torch.dtype:
-    """The compute type: int8 serves a bf16 graph."""
+def _plain_dtype(precision: str, device: torch.device) -> torch.dtype:
+    """The compute type of a family without an int8 path (int8 raises, as in
+    the JAX package)."""
     from monocular_depth_estimation_trt_tpu_torch.config import compute_dtype
 
-    dtype = compute_dtype("bf16" if precision == "int8" else precision)
+    dtype = compute_dtype(precision)
     _full_fp32(dtype, device)
     return dtype
+
+
+def _dtype_for(precision: str, device: torch.device) -> torch.dtype:
+    """The compute type: int8 serves a bf16 graph."""
+    return _plain_dtype("bf16" if precision == "int8" else precision, device)
 
 
 def _imagenet_square(input_hw):
@@ -359,6 +367,18 @@ def bridge(encoder: str = "vits", **kw) -> DepthPipeline:
 # ---------------------------------------------------------------------------
 
 
+def _square_crop(out_hw, input_size: int):
+    """(rows, columns) of a frame of size ``out_hw`` in its pad-square view
+    resized to ``input_size``, with the JAX pipelines' rounding."""
+    h0, w0 = out_hw
+    side = max(h0, w0)
+    top = int(round((side - h0) / 2 / side * input_size))
+    left = int(round((side - w0) / 2 / side * input_size))
+    hh = max(int(round(h0 / side * input_size)), 1)
+    ww = max(int(round(w0 / side * input_size)), 1)
+    return slice(top, top + hh), slice(left, left + ww)
+
+
 def _build_vggt(
     model_name: str,
     *,
@@ -407,13 +427,7 @@ def _build_vggt(
         single = img_u8.dim() == 3
         x = preprocess_pad_square(img_u8[None] if single else img_u8, input_size)
         out = model(x[:, None])
-        h0, w0 = out_hw
-        side = max(h0, w0)
-        top = int(round((side - h0) / 2 / side * input_size))
-        left = int(round((side - w0) / 2 / side * input_size))
-        hh = max(int(round(h0 / side * input_size)), 1)
-        ww = max(int(round(w0 / side * input_size)), 1)
-        crop = (slice(None), 0, slice(top, top + hh), slice(left, left + ww))
+        crop = (slice(None), 0, *_square_crop(out_hw, input_size))
         result = {
             "depth": upsample_depth(out["depth"][crop], out_hw, clamp=(1e-3, 1e3)),
             "depth_conf": upsample_depth(out["depth_conf"][crop], out_hw, clamp=None),
@@ -674,3 +688,202 @@ def metric_anything(encoder: str = "vitl", input_hw: tuple = (518, 518),
     return _build_moge("metric_anything", encoder, input_hw, num_tokens, precision, attn_impl,
                        params, predict_normal=False, checkpoint=checkpoint, device=device,
                        model_kw=model_kw, calib_images=calib_images)
+
+
+# ---------------------------------------------------------------------------
+# Camera-aware 3D, scale-invariant depth, calibration and prior-conditioned
+# refinement (reference Uni_Depth_V2/, UniK3D/, later/SIDepth/,
+# later/GeoCalib/, later/Prior_Depth_Anything/)
+# ---------------------------------------------------------------------------
+
+
+def _build_geometric(model_name: str, mode: str, encoder: str, input_size: int, precision: str,
+                     attn_impl: str, params, *, checkpoint: Optional[str], device,
+                     model_kw: Optional[Dict[str, Any]],
+                     calib_images: Optional[Sequence[np.ndarray]]) -> DepthPipeline:
+    """UniDepth V2 / UniK3D: the frame resized to the square input, the model,
+    then (reference ``Uni_Depth_V2/onnx2trt.py:170-183``) points and
+    confidence resized half-pixel to the frame, depth = z clamped to
+    [1e-3, 1e3], the intrinsics rescaled to the frame (``:78-94``). int8
+    quantizes the pixel encoder's linears."""
+    from monocular_depth_estimation_trt_tpu_torch.models.geometric import GeometricDepthModel
+    from monocular_depth_estimation_trt_tpu_torch.ops.camera import rescale_intrinsics
+    from monocular_depth_estimation_trt_tpu_torch.ops.resize import resize, resize_hw
+
+    device = resolve_device(device)
+    precision = resolve_int8_precision(model_name, encoder, precision)
+    spec = ModelSpec(model=model_name, encoder=encoder, input_hw=(input_size, input_size),
+                     precision=precision, metric=True)
+    dtype = _dtype_for(precision, device)
+    preprocess = _imagenet_square(spec.input_hw)
+    model = _params_for(_new_model(lambda: GeometricDepthModel(encoder, mode, attn_impl,
+                                                               **(model_kw or {})),
+                                   params, checkpoint),
+                        spec, params=params, checkpoint=checkpoint, device=device, dtype=dtype,
+                        make_sample=lambda img: preprocess(img[None]), input_size=input_size,
+                        calib_images=calib_images)
+
+    def forward(img_u8: torch.Tensor, out_hw):
+        single = img_u8.dim() == 3
+        out = model(preprocess(img_u8[None] if single else img_u8))
+        pts = resize(out["pts_3d"], out_hw, method="linear", align_corners=False)
+        result = {"depth": torch.clamp(pts[..., 2], 1e-3, 1e3), "pts_3d": pts,
+                  "confidence": resize_hw(out["confidence"], out_hw, "linear",
+                                          align_corners=False),
+                  "intrinsics": rescale_intrinsics(out["intrinsics"], spec.input_hw, out_hw)}
+        return {k: v[0] for k, v in result.items()} if single else result
+
+    return DepthPipeline(spec, forward, device=device, model=model, viz="metric")
+
+
+@register("unidepth_v2", fidelity="converter-verified")
+def unidepth_v2(encoder: str = "vitb", input_size: int = 518, precision: str = "bf16",
+                attn_impl: str = "auto", params: Optional[Mapping[str, torch.Tensor]] = None,
+                checkpoint: Optional[str] = None, device=None,
+                model_kw: Optional[Dict[str, Any]] = None,
+                calib_images: Optional[Sequence[np.ndarray]] = None) -> DepthPipeline:
+    """UniDepth V2 (reference ``Uni_Depth_V2/``): metric points, confidence and
+    predicted intrinsics. ``params``: e.g. from
+    ``weights.from_jax.geometric_from_jax``; ``model_kw``: ``cfg`` for
+    ``GeometricDepthModel``."""
+    return _build_geometric("unidepth_v2", "unidepth", encoder, input_size, precision,
+                            attn_impl, params, checkpoint=checkpoint, device=device,
+                            model_kw=model_kw, calib_images=calib_images)
+
+
+@register("unik3d", fidelity="converter-verified")
+def unik3d(encoder: str = "vitb", input_size: int = 518, precision: str = "bf16",
+           attn_impl: str = "auto", params: Optional[Mapping[str, torch.Tensor]] = None,
+           checkpoint: Optional[str] = None, device=None,
+           model_kw: Optional[Dict[str, Any]] = None,
+           calib_images: Optional[Sequence[np.ndarray]] = None) -> DepthPipeline:
+    """UniK3D (reference ``UniK3D/``): universal-camera 3D, unit rays x
+    distance."""
+    return _build_geometric("unik3d", "unik3d", encoder, input_size, precision, attn_impl,
+                            params, checkpoint=checkpoint, device=device, model_kw=model_kw,
+                            calib_images=calib_images)
+
+
+@register("sidepth", fidelity="converter-verified")
+def sidepth(encoder: str = "vits", input_size: int = 518, precision: str = "bf16",
+            attn_impl: str = "auto", params: Optional[Mapping[str, torch.Tensor]] = None,
+            checkpoint: Optional[str] = None, device=None,
+            model_kw: Optional[Dict[str, Any]] = None) -> DepthPipeline:
+    """SIDepth (reference ``later/SIDepth/``): the SSI relative stage and the
+    conditioned SI stage in one forward; the SI depth (metric up to one
+    global scale) resized align-corners and clamped, the SSI map beside it.
+    ``model_kw``: the encoder-preset overrides of ``SIDepth``."""
+    from monocular_depth_estimation_trt_tpu_torch.models.sidepth import SIDepth
+    from monocular_depth_estimation_trt_tpu_torch.ops.postprocess import upsample_depth
+
+    device = resolve_device(device)
+    spec = ModelSpec(model="sidepth", encoder=encoder, input_hw=(input_size, input_size),
+                     precision=precision)
+    dtype = _plain_dtype(precision, device)
+    preprocess = _imagenet_square(spec.input_hw)
+    model = _params_for(_new_model(lambda: SIDepth(encoder, attn_impl, **(model_kw or {})),
+                                   params, checkpoint),
+                        spec, params=params, checkpoint=checkpoint, device=device, dtype=dtype,
+                        make_sample=None, input_size=input_size)
+
+    def forward(img_u8: torch.Tensor, out_hw):
+        single = img_u8.dim() == 3
+        out = model(preprocess(img_u8[None] if single else img_u8))
+        result = {"depth": upsample_depth(out["depth"], out_hw, clamp=(1e-3, 1e3)),
+                  "ssi": upsample_depth(out["ssi"], out_hw, clamp=None)}
+        return {k: v[0] for k, v in result.items()} if single else result
+
+    return DepthPipeline(spec, forward, device=device, model=model, viz="relative")
+
+
+@register("geocalib", fidelity="converter-verified")
+def geocalib(encoder: str = "vits", input_size: int = 322, precision: str = "bf16",
+             attn_impl: str = "auto", params: Optional[Mapping[str, torch.Tensor]] = None,
+             checkpoint: Optional[str] = None, iters: int = 10, device=None,
+             model_kw: Optional[Dict[str, Any]] = None) -> DepthPipeline:
+    """GeoCalib (reference ``later/GeoCalib/``): perspective fields and their
+    confidences, then the Gauss-Newton camera fit in the same forward:
+    roll, pitch, vfov and hfov (radians) and the focal, with uncertainties,
+    beside the four fields at the input size. The angles carry over from the
+    square network view; the focal is in pixels of the frame's height, by its
+    vertical FoV. One frame per call, no depth and no viz."""
+    from monocular_depth_estimation_trt_tpu_torch.models.geocalib import GeoCalib, fit_camera
+
+    device = resolve_device(device)
+    spec = ModelSpec(model="geocalib", encoder=encoder, input_hw=(input_size, input_size),
+                     precision=precision)
+    dtype = _plain_dtype(precision, device)
+    preprocess = _imagenet_square(spec.input_hw)
+    model = _params_for(_new_model(lambda: GeoCalib(encoder, attn_impl, **(model_kw or {})),
+                                   params, checkpoint),
+                        spec, params=params, checkpoint=checkpoint, device=device, dtype=dtype,
+                        make_sample=None, input_size=input_size)
+
+    def forward(img_u8: torch.Tensor, out_hw):
+        if img_u8.dim() != 3:
+            raise ValueError(f"geocalib takes one (H, W, 3) frame, got {tuple(img_u8.shape)}")
+        fields = {k: v[0] for k, v in model(preprocess(img_u8[None])).items()}
+        est = fit_camera(fields["up_field"], fields["latitude_field"], fields["up_confidence"],
+                         fields["latitude_confidence"], spec.input_hw, iters=iters)
+        est["focal"] = out_hw[0] / (2.0 * torch.tan(est["vfov"] / 2.0))
+        est["focal_uncertainty"] = est["focal_uncertainty"] * out_hw[0] / input_size
+        est["hfov"] = 2.0 * torch.atan(out_hw[1] / (2.0 * est["focal"]))
+        return {**est, **fields}
+
+    return DepthPipeline(spec, forward, device=device, model=model, viz="none")
+
+
+@register("prior_depth_anything", fidelity="converter-verified")
+def prior_depth_anything(encoder: str = "vits", input_size: int = 518, precision: str = "bf16",
+                         attn_impl: str = "auto",
+                         params: Optional[Mapping[str, Mapping[str, torch.Tensor]]] = None,
+                         checkpoint: Optional[str] = None,
+                         vggt_checkpoint: Optional[str] = None, device=None,
+                         vggt_cfg: Any = None,
+                         model_kw: Optional[Dict[str, Any]] = None) -> DepthPipeline:
+    """Prior Depth Anything (reference ``later/Prior_Depth_Anything/infer.py:
+    190-217``): VGGT's depth and confidence (S = 1, depth only) refined by
+    the prior-conditioned stacks, one forward; the pad-square crop and
+    resample of the VGGT pipeline, giving ``depth`` (refined), ``depth_vggt``
+    and ``confidence``. ``params``: ``{"vggt": ..., "refiner": ...}`` state
+    dicts (``weights.from_jax.prior_depth_anything_from_jax``);
+    ``checkpoint`` loads the refiner, ``vggt_checkpoint`` VGGT;
+    ``vggt_cfg`` and ``model_kw`` override the presets (tests)."""
+    from monocular_depth_estimation_trt_tpu_torch.models.prior_depth import (
+        PriorDARefiner,
+        PriorDepthAnything,
+    )
+    from monocular_depth_estimation_trt_tpu_torch.models.vggt import VGGT, VGGTConfig
+    from monocular_depth_estimation_trt_tpu_torch.ops.postprocess import upsample_depth
+    from monocular_depth_estimation_trt_tpu_torch.ops.preprocess import preprocess_pad_square
+    from monocular_depth_estimation_trt_tpu_torch.weights.store import resolve_weights
+
+    device = resolve_device(device)
+    spec = ModelSpec(model="prior_depth_anything", encoder=encoder,
+                     input_hw=(input_size, input_size), precision=precision, metric=True)
+    dtype = _plain_dtype(precision, device)
+    vggt_sd, refiner_sd = (None, None) if params is None else (params["vggt"], params["refiner"])
+    vggt = _new_model(lambda: VGGT(vggt_cfg or VGGTConfig(), attn_impl, with_camera=False),
+                      vggt_sd, vggt_checkpoint)
+    refiner = _new_model(lambda: PriorDARefiner(encoder, attn_impl, **(model_kw or {})),
+                         refiner_sd, checkpoint)
+    # the JAX package's weight names: the depth-only VGGT's and the refiner's
+    vggt_name = ModelSpec(model="vggt", input_hw=(input_size, input_size), precision=precision,
+                          metric=True).artifact_name() + "_depthonly"
+    resolve_weights(vggt, vggt_name, checkpoint=vggt_checkpoint, state_dict=vggt_sd)
+    resolve_weights(refiner, spec.artifact_name() + "_refiner", checkpoint=checkpoint,
+                    state_dict=refiner_sd)
+    model = PriorDepthAnything(vggt, refiner).to(device=device, dtype=dtype).eval()
+
+    def forward(img_u8: torch.Tensor, out_hw):
+        single = img_u8.dim() == 3
+        refined, depth, conf = model(preprocess_pad_square(img_u8[None] if single else img_u8,
+                                                           input_size))
+        # crop the square padding out and resample, as the vggt pipeline does
+        crop = (slice(None), *_square_crop(out_hw, input_size))
+        result = {"depth": upsample_depth(refined[crop], out_hw, clamp=(1e-3, 1e3)),
+                  "depth_vggt": upsample_depth(depth[crop], out_hw, clamp=(1e-3, 1e3)),
+                  "confidence": upsample_depth(conf[crop], out_hw, clamp=None)}
+        return {k: v[0] for k, v in result.items()} if single else result
+
+    return DepthPipeline(spec, forward, device=device, model=model, viz="metric")

@@ -3,8 +3,9 @@
 The exact inverse of the JAX package's ``weights/convert.py``
 (``convert_dinovit``, ``convert_dpt_head``, ``convert_vggt``,
 ``convert_depth_pro``, ``convert_depth_anything_v3``,
-``convert_metric3d_v2``, ``convert_moge2``), so that the parity tests can
-feed one set of weights to both packages:
+``convert_metric3d_v2``, ``convert_moge2``, ``convert_geometric``,
+``convert_sidepth``, ``convert_geocalib``, ``convert_prior_depth``), so that
+the parity tests can feed one set of weights to both packages:
 
 * Dense kernel (in, out)                 -> Linear weight (out, in)
 * Conv kernel (kh, kw, in, out)          -> Conv2d weight (out, in, kh, kw)
@@ -296,6 +297,90 @@ def moge2_from_jax(params: Mapping[str, Any],
     return out
 
 
+def _xattn_block_from_jax(p: Mapping, prefix: str, out: Dict[str, torch.Tensor]) -> None:
+    """One ``CrossAttentionBlock`` (``norm_context`` only on a cross block)."""
+    for name in ("norm1", "norm2", "norm_context"):
+        if name in p:
+            _layernorm(p[name], f"{prefix}.{name}", out)
+    for name in ("q", "kv", "proj", "fc1", "fc2"):
+        _linear(p[name], f"{prefix}.{name}", out)
+
+
+def geometric_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``GeometricDepthModel`` params of either mode (optionally under a
+    ``"params"`` key) -> the port's state dict in the layout of
+    ``weights/manifests/unidepth_vit*.json`` (``unik3d_vit*.json`` with the
+    rays module), fp32 CPU tensors. The inverse of ``convert_geometric``."""
+    if "params" in params:
+        params = params["params"]
+    out = dinovit_from_jax(params["pixel_encoder"], "pixel_encoder")
+    for i in range(sum(1 for k in params if k.startswith("adapter_") and k[8:].isdigit())):
+        _linear(params[f"adapter_{i}"], f"adapters.{i}", out)
+    _layernorm(params["adapter_norm"], "adapter_norm", out)
+    cam = params["camera"]
+    out["camera.latents"] = _t(cam["latents"])
+    _xattn_block_from_jax(cam["cross"], "camera.cross", out)
+    _xattn_block_from_jax(cam["self"], "camera.self_block", out)
+    _layernorm(cam["norm"], "camera.norm", out)
+    _linear(cam["out"], "camera.out", out)
+    _linear(params["ray_embed"]["fc1"], "ray_embed.fc1", out)
+    _linear(params["ray_embed"]["fc2"], "ray_embed.fc2", out)
+    dm = params["depth_module"]
+    for i in range(sum(1 for k in dm if k.startswith("block_"))):
+        _xattn_block_from_jax(dm[f"block_{i}"], f"depth_module.blocks.{i}", out)
+    _layernorm(dm["norm"], "depth_module.norm", out)
+    for name in ("up1", "up2"):
+        _conv_transpose(dm[name], f"depth_module.{name}", out)
+    for name in ("conv1", "conv2", "out"):
+        _conv(dm[name], f"depth_module.{name}", out)
+    if "rays_module" in params:
+        rm = params["rays_module"]
+        _xattn_block_from_jax(rm["block_0"], "rays_module.block0", out)
+        _layernorm(rm["norm"], "rays_module.norm", out)
+        _linear(rm["out"], "rays_module.out", out)
+    return out
+
+
+def _dino_dpt_from_jax(params: Mapping[str, Any], *stacks) -> Dict[str, torch.Tensor]:
+    """(encoder, head) pairs of DINOv2 + DPT stacks under their own names."""
+    if "params" in params:
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+    for vit, head in stacks:
+        out.update(dinovit_from_jax(params[vit], vit))
+        out.update(dpt_head_from_jax(params[head], head))
+    return out
+
+
+def sidepth_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``SIDepth`` params -> the port's state dict in the layout of
+    ``weights/manifests/sidepth_vits.json``. The inverse of
+    ``convert_sidepth``."""
+    return _dino_dpt_from_jax(params, ("ssi", "ssi_head"), ("si", "si_head"))
+
+
+def geocalib_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``GeoCalib`` params -> the port's state dict in the layout of
+    ``weights/manifests/geocalib_vits.json``. The inverse of
+    ``convert_geocalib``."""
+    return _dino_dpt_from_jax(params, ("backbone", "head"))
+
+
+def prior_refiner_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``PriorDARefiner`` params -> the port's state dict in the layout of
+    ``weights/manifests/prior_depth_anything_vits.json``. The inverse of
+    ``convert_prior_depth``."""
+    return _dino_dpt_from_jax(params, ("mde", "mde_head"), ("cond", "refine_head"))
+
+
+def prior_depth_anything_from_jax(params: Mapping[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The JAX ``prior_depth_anything`` pipeline's params (``{"vggt": depth-only
+    VGGT, "refiner": PriorDARefiner}``) -> the same two keys holding the
+    port's state dicts, the ``params`` of its ``prior_depth_anything``."""
+    return {"vggt": vggt_from_jax(params["vggt"]),
+            "refiner": prior_refiner_from_jax(params["refiner"])}
+
+
 # the submodules whose Dense layers each family's int8 serving quantizes
 Q8_ROOTS = {
     "depth_anything_v2": ("pretrained",),
@@ -305,6 +390,8 @@ Q8_ROOTS = {
     "metric3d_v2": ("encoder",),
     "moge2": ("backbone",),
     "metric_anything": ("backbone",),
+    "unidepth_v2": ("pixel_encoder",),
+    "unik3d": ("pixel_encoder",),
 }
 # Flax module names -> the port's module paths
 _Q8_NAMES = (("blocks_", "blocks."), ("frame_", "frame_blocks."), ("global_", "global_blocks."))
@@ -350,23 +437,42 @@ def q8_from_jax(q8: Mapping[str, Any], family: str) -> Dict[str, Dict[str, torch
     return out
 
 
-def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+def state_dict_from_jax(params: Mapping[str, Any]):
     """JAX params of a ported family (optionally under a ``"params"`` key)
     -> the port's state dict, fp32 CPU tensors. The family is read from the
     tree's top-level modules: ``pretrained`` (``DepthAnythingV2``),
     ``aggregator`` (VGGT), ``patch_encoder`` (Depth Pro), ``encoder``
-    (Metric3D V2), ``backbone`` with ``scale_fc1`` (MoGe-2, Metric Anything)
-    or with a two-branch ``head`` (Depth Anything V3)."""
+    (Metric3D V2), ``pixel_encoder`` (UniDepth V2, UniK3D), ``ssi``/``si``
+    (SIDepth), ``mde``/``cond`` (Prior Depth Anything's refiner), ``backbone``
+    with ``scale_fc1`` (MoGe-2, Metric Anything), with a plain DPT ``head`` of
+    five outputs (GeoCalib) or with a two-branch ``head`` (Depth Anything
+    V3). The composite ``{"vggt", "refiner"}`` of ``prior_depth_anything``
+    gives those two keys, each a state dict."""
     if "params" in params:
         params = params["params"]
+    if "refiner" in params and "vggt" in params:
+        return prior_depth_anything_from_jax(params)
     if "aggregator" in params:
         return vggt_from_jax(params)
     if "patch_encoder" in params:
         return depth_pro_from_jax(params)
     if "encoder" in params:
         return metric3d_v2_from_jax(params)
+    if "pixel_encoder" in params:
+        return geometric_from_jax(params)
+    if "ssi" in params:
+        return sidepth_from_jax(params)
+    if "mde" in params:
+        return prior_refiner_from_jax(params)
     if "backbone" in params:
-        return moge2_from_jax(params) if "scale_fc1" in params else da3_from_jax(params)
+        if "scale_fc1" in params:
+            return moge2_from_jax(params)
+        if "output_conv2_2" not in params["head"]:  # DA3's two branches
+            return da3_from_jax(params)
+        outputs = np.shape(params["head"]["output_conv2_2"]["kernel"])[-1]
+        if outputs != 5:
+            raise ValueError(f"a DINOv2 + DPT tree with {outputs} outputs: no ported family")
+        return geocalib_from_jax(params)
     return {
         **dinovit_from_jax(params["pretrained"], "pretrained"),
         **dpt_head_from_jax(params["depth_head"], "depth_head"),

@@ -23,7 +23,8 @@ JAX_PKG = "monocular_depth_estimation_trt_tpu"
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "orbax")
 DA_FAMILY = ("bridge", "depth_anything_ac", "depth_anything_v2", "distill_any_depth", "dkt")
 PORTED = tuple(sorted(DA_FAMILY + ("depth_pro", "vggt", "depth_anything_v3", "metric3d_v2",
-                                    "moge2", "metric_anything")))
+                                    "moge2", "metric_anything", "unidepth_v2", "unik3d",
+                                    "sidepth", "geocalib", "prior_depth_anything")))
 
 
 def _forbidden(module: str) -> bool:
@@ -34,7 +35,8 @@ def _forbidden(module: str) -> bool:
 
 def _port_sources():
     paths = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "scripts", "torch_kernel_ab.py")]
+             os.path.join(REPO, "scripts", "torch_kernel_ab.py"),
+             os.path.join(REPO, "scripts", "torch_int8_vggt_frames.py")]
     for root, _, files in os.walk(PORT):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(paths)
@@ -105,7 +107,8 @@ def test_build_pipeline_defaults_to_the_card_and_raises_without_one():
             treg.build_pipeline("vggt")
         with pytest.raises(RuntimeError, match="CUDA"):
             treg.build_pipeline("depth_pro")
-        for name in ("depth_anything_v3", "metric3d_v2", "moge2", "metric_anything"):
+        for name in ("depth_anything_v3", "metric3d_v2", "moge2", "metric_anything",
+                     "unidepth_v2", "unik3d", "sidepth", "geocalib", "prior_depth_anything"):
             with pytest.raises(RuntimeError, match="CUDA"):
                 treg.build_pipeline(name)
     assert treg.resolve_device("cpu") == torch.device("cpu")
@@ -117,7 +120,7 @@ def test_registry_lists_the_da_family_with_the_jax_fidelity():
         assert treg.get_fidelity(name) == jreg.get_fidelity(name)
     assert treg.get_fidelity("vggt") == treg.get_fidelity("depth_pro") == "converter-verified"
     with pytest.raises(KeyError):
-        treg.build_pipeline("unidepth_v2")
+        treg.build_pipeline("flashdepth")
 
 
 @pytest.mark.parametrize("name", DA_FAMILY)
