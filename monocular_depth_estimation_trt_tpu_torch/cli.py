@@ -9,6 +9,8 @@ Replaces the reference's "edit constants at the top of the script" workflow
     python -m monocular_depth_estimation_trt_tpu_torch run moge2 --image frame.png \
         --mesh --mesh-format glb
 
+    python -m monocular_depth_estimation_trt_tpu_torch pair align3r --image1 a.png --image2 b.png
+
     python -m monocular_depth_estimation_trt_tpu_torch serve depth_anything_v2 --max-batch 4
     python -m monocular_depth_estimation_trt_tpu_torch bench depth_anything_v2 --encoder vits
     python -m monocular_depth_estimation_trt_tpu_torch models
@@ -22,12 +24,14 @@ no JPEG codec is importable, see ``utils/imageio.py``), a compressed
 depth alone), the ``_fov.json`` camera estimate, an optional ``.ply``/``.glb``
 point cloud or, for a point-map model, mesh, and the ``[MDET] max/min``
 parity line
-(``onnx2trt.py:218-245``).
+(``onnx2trt.py:218-245``). ``pair`` writes Align3R's depth image, a PLY of
+both views' points in view 1's frame with their colors, and the relative
+pose as JSON.
 
 Not ported yet, so argparse rejects them: ``--engine`` (serialized
 artifacts), ``--device-mesh`` (multi-device sharding), ``--trace`` (the
 profiler), ``--colorbar`` (a matplotlib figure), ``batch --video`` and the
-``flow``/``video``/``track``/``pair``/``webcam``/``export``/``slam``/
+``flow``/``video``/``track``/``webcam``/``export``/``slam``/
 ``convert``/``distill``/``eval``/``quantcheck``/``doctor`` commands.
 """
 
@@ -238,8 +242,6 @@ def cmd_batch(args) -> int:
 
     on_result = None
     if args.save:
-        from monocular_depth_estimation_trt_tpu_torch.utils import imageio
-
         def on_result(start_idx, host):
             depths = np.asarray(host["depth"])
             for j in range(depths.shape[0]):
@@ -249,20 +251,62 @@ def cmd_batch(args) -> int:
                 stem = os.path.splitext(os.path.basename(paths[i]))[0]
                 d = depths[j]
                 np.savez_compressed(os.path.join(args.out, f"{stem}_{name}.npz"), depth=d)
-                norm = ((d - d.min()) / max(float(d.max() - d.min()), 1e-6)
-                        * 255).astype(np.uint8)
-                jpg = os.path.join(args.out, f"{stem}_{name}.jpg")
-                cv2 = imageio._cv2()
-                if cv2 is not None:  # the JAX CLI's inferno viz
-                    imageio.write_image(jpg, cv2.cvtColor(
-                        cv2.applyColorMap(norm, cv2.COLORMAP_INFERNO), cv2.COLOR_BGR2RGB))
-                else:
-                    imageio.write_gray(jpg, norm)
+                _write_inferno(os.path.join(args.out, f"{stem}_{name}.jpg"), d)
 
     stats = process_images_batched(pipe, paths, batch=args.batch, on_result=on_result,
                                    decode_threads=args.decode_threads)
     print(json.dumps({"metric": f"{name}_batched_fps", "value": stats["fps"], "unit": "fps",
                       "batch": stats["batch"], "frames": stats["frames"]}))
+    return 0
+
+
+def _write_inferno(path: str, depth) -> str:
+    """The JAX CLI's depth image: min-max normalized, cv2's inferno colormap
+    where cv2 imports, else gray (``utils/imageio.py`` writes ``.png`` where
+    no JPEG codec imports). Returns the path written."""
+    from monocular_depth_estimation_trt_tpu_torch.utils import imageio
+
+    d = np.asarray(depth)
+    norm = ((d - d.min()) / max(float(d.max() - d.min()), 1e-6) * 255).astype(np.uint8)
+    cv2 = imageio._cv2()
+    if cv2 is None:
+        return imageio.write_gray(path, norm)
+    return imageio.write_image(path, cv2.cvtColor(cv2.applyColorMap(norm, cv2.COLORMAP_INFERNO),
+                                                  cv2.COLOR_BGR2RGB))
+
+
+def cmd_pair(args) -> int:
+    """Two-image 3D reconstruction (Align3R): the depth image, a colored
+    point-cloud PLY of both views' points and the relative pose as JSON
+    (reference ``later/Align3R/README.md``: "two 2d images -> depth, point
+    cloud, Camera pose")."""
+    from monocular_depth_estimation_trt_tpu_torch.apps.ply import write_ply
+    from monocular_depth_estimation_trt_tpu_torch.utils.imageio import read_image, resize
+
+    img1, img2 = read_image(args.image1), read_image(args.image2)
+    pipe = _build(args)
+    out = pipe(img1, img2)
+
+    os.makedirs(args.out, exist_ok=True)
+    stem = os.path.splitext(os.path.basename(args.image1))[0]
+    name = pipe.spec.artifact_name()
+    depth = np.asarray(out["depth"])
+    log(f"max : {depth.max():.5f} , min : {depth.min():.5f}")
+    log(f"wrote {_write_inferno(os.path.join(args.out, f'{stem}_{name}.jpg'), depth)}")
+
+    side = depth.shape[0]  # the points are at the model's square input size
+    colors = np.concatenate([resize(img, (side, side)).reshape(-1, 3) for img in (img1, img2)])
+    pts = np.concatenate([np.asarray(out["pts1"]).reshape(-1, 3),
+                          np.asarray(out["pts2"]).reshape(-1, 3)])
+    ply = os.path.join(args.out, f"{stem}_{name}.ply")
+    write_ply(ply, pts, colors)
+    log(f"wrote {ply}")
+
+    pose = os.path.join(args.out, f"{stem}_{name}_pose.json")
+    with open(pose, "w") as f:
+        json.dump({"rotation": np.asarray(out["rotation"]).tolist(),
+                   "translation": np.asarray(out["translation"]).tolist()}, f, indent=2)
+    log(f"wrote {pose}")
     return 0
 
 
@@ -451,6 +495,14 @@ def build_parser() -> argparse.ArgumentParser:
     _add_precision_args(views)
     views.set_defaults(fn=cmd_views)
 
+    pair = sub.add_parser("pair", help="two-image depth, point cloud and relative pose "
+                          "(Align3R)")
+    pair.add_argument("model", nargs="?", default="align3r")
+    pair.add_argument("--image1", required=True)
+    pair.add_argument("--image2", required=True)
+    pair.add_argument("--out", default="results")
+    pair.set_defaults(fn=cmd_pair)
+
     build = sub.add_parser("build", help="build (warm up and capture) an engine")
     build.add_argument("model")
     build.add_argument("--encoder", default="")
@@ -480,7 +532,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     sub.add_parser("models", help="list registered models").set_defaults(fn=cmd_models)
     sub.add_parser("engines", help="list built engines").set_defaults(fn=cmd_engines)
-    for sp in (run, batch, views, serve):
+    for sp in (run, batch, views, pair, serve):
         # SUPPRESS: the subparser's default must not clobber the main
         # parser's flag when it is given before the subcommand
         sp.add_argument("--allow-random-weights", action="store_true",

@@ -14,19 +14,26 @@ Views ``(B, S, H, W, 3)``, normalized, channels-last, go through:
 * a DPT head over the frame‖global concatenation of blocks (4, 11, 17, 23):
   depth ``exp`` and confidence ``1 + exp`` per view;
 * an iterative adaLN camera head on the camera token: ``pose_enc`` =
-  [tx ty tz, qx qy qz qw, fov_h fov_w] per view (quaternion scalar-last).
+  [tx ty tz, qx qy qz qw, fov_h fov_w] per view (quaternion scalar-last);
+* optionally the upstream point head (STream3R): world points by the
+  sign-preserving ``inv_log`` and their confidence.
+
+``VGGTConfig(causal=True)`` makes the global attention view-causal
+(StreamVGGT, STream3R): a token of view s attends to views <= s. K2 takes no
+mask, so that attention runs plain, on every device, as in the JAX package;
+over one view the mask allows everything and the attention stays on K2.
+``models/streamvggt.py`` steps the same weights one view at a time.
 
 Module and parameter names follow the upstream checkpoint
-(``weights/manifests/vggt.json``), so a VGGT ``state_dict`` loads with a
-plain ``load_state_dict``. Not ported: the view-causal global attention of
-StreamVGGT (``VGGTConfig(causal=True)`` raises; it comes with streamvggt)
-and the point head (it comes with stream3r).
+(``weights/manifests/vggt.json``, ``stream3r.json`` with the point head),
+so a VGGT ``state_dict`` loads with a plain ``load_state_dict``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Sequence, Tuple
+import math
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -80,6 +87,28 @@ def _rope_2d_freqs(ph: int, pw: int, head_dim: int, base: float, device: torch.d
 apply_rope = _apply_rope
 
 
+def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     allowed: torch.Tensor) -> torch.Tensor:
+    """Plain attention on ``(B, H, N, d)`` with a boolean mask that
+    broadcasts against the (B, H, Nq, Nk) scores: scores in the operand
+    type, then fp32 divided by sqrt(d), -inf where the mask is False, fp32
+    softmax, P cast back before P.V (the JAX package's masked attention in
+    ``models/vggt.py`` and ``models/streamvggt.py``). No kernel takes a
+    mask; this runs on every device."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k).float()  # a new fp32 tensor: scaled in place
+    s.div_(math.sqrt(q.shape[-1])).masked_fill_(~allowed, float("-inf"))
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v)
+
+
+@device_cached
+def _view_causal_mask(views: int, n_view: int, device: torch.device) -> torch.Tensor:
+    """(N, N) bool, N = views * n_view: True where the key's view is not
+    after the query's."""
+    vid = torch.arange(views * n_view, device=device) // n_view
+    return vid[:, None] >= vid[None, :]
+
+
 class RopeAttention(nn.Module):
     """Self-attention with 2D RoPE on the patch tokens of each view; the
     leading ``num_special`` tokens of a view (camera + registers) stay
@@ -88,7 +117,9 @@ class RopeAttention(nn.Module):
     Routes: ``attn_impl="xla"`` is the plain attention of the JAX package's
     CPU path; any other value goes to kernel K2 (on a CPU tensor its plain
     version). The rotation works on the qkv output's own layout, and K2
-    reads q, k and v as strided views of it: no per-head copy is made."""
+    reads q, k and v as strided views of it: no per-head copy is made.
+    ``causal`` over more than one view takes :func:`masked_attention` with
+    the view-causal mask, whatever ``attn_impl``."""
 
     def __init__(self, dim: int, num_heads: int, num_special: int,
                  attn_impl: str = "auto"):
@@ -100,8 +131,9 @@ class RopeAttention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor, grid_hw: Tuple[int, int],
-                views: int = 1) -> torch.Tensor:
+    def rotated_qkv(self, x: torch.Tensor, grid_hw: Tuple[int, int], views: int = 1):
+        """(q, k, v), each (B, H, N, d): q and k rotated, all three strided
+        views of the qkv output or of the rotated copy."""
         b, n, _ = x.shape
         h, hd = self.num_heads, self.dim // self.num_heads
         ph, pw = grid_hw
@@ -112,11 +144,17 @@ class RopeAttention(nn.Module):
         qk = qkv[:, :, :2].view(b, views, n_view, 2, h, hd)
         special, patches = qk[:, :, : self.num_special], qk[:, :, self.num_special:]
         qk = torch.cat([special, apply_rope(patches, cos, sin)], dim=2).view(b, n, 2, h, hd)
+        return (qk[:, :, 0].transpose(1, 2), qk[:, :, 1].transpose(1, 2),
+                qkv[:, :, 2].transpose(1, 2))
 
-        # (B, H, N, d) views: q, k of the rotated buffer, v of the qkv output
-        q, k = qk[:, :, 0].transpose(1, 2), qk[:, :, 1].transpose(1, 2)
-        v = qkv[:, :, 2].transpose(1, 2)
-        if self.attn_impl == "xla":
+    def forward(self, x: torch.Tensor, grid_hw: Tuple[int, int],
+                views: int = 1, causal: bool = False) -> torch.Tensor:
+        b, n, _ = x.shape
+        q, k, v = self.rotated_qkv(x, grid_hw, views)
+        if causal and views > 1:
+            allowed = _view_causal_mask(views, n // views, x.device)
+            o = masked_attention(q, k, v, allowed)
+        elif self.attn_impl == "xla":
             o = attention_reference(q, k, v)
         else:
             o = flash_attention(q, k, v)
@@ -127,18 +165,18 @@ class AASubBlock(nn.Module):
     """One pre-norm transformer block with RoPE attention (frame or global)."""
 
     def __init__(self, dim: int, num_heads: int, num_special: int,
-                 attn_impl: str = "auto"):
+                 attn_impl: str = "auto", attn_cls: type = RopeAttention):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn = RopeAttention(dim, num_heads, num_special, attn_impl)
+        self.attn = attn_cls(dim, num_heads, num_special, attn_impl)
         self.ls1 = LayerScale(dim, 0.01)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, dim * 4)
         self.ls2 = LayerScale(dim, 0.01)
 
     def forward(self, x: torch.Tensor, grid_hw: Tuple[int, int],
-                views: int = 1) -> torch.Tensor:
-        x = x + self.ls1(self.attn(self.norm1(x), grid_hw, views))
+                views: int = 1, causal: bool = False) -> torch.Tensor:
+        x = x + self.ls1(self.attn(self.norm1(x), grid_hw, views, causal))
         x = x + self.ls2(self.mlp(self.norm2(x)))
         return x
 
@@ -156,7 +194,8 @@ class VGGTConfig:
     vit_config: Any = None
     head_features: int = 256
     head_out_channels: Tuple[int, ...] = (256, 512, 1024, 1024)
-    # view-causal global attention (StreamVGGT): not ported
+    # view-causal global attention (StreamVGGT, STream3R); the KV-cache
+    # stream of models/streamvggt.py computes the same thing view by view
     causal: bool = False
 
 
@@ -168,12 +207,9 @@ class Aggregator(nn.Module):
     # module's initializers do (weights/store.py::init_random_)
     normal_init = ("camera_token", "register_tokens")
 
-    def __init__(self, cfg: VGGTConfig = VGGTConfig(), attn_impl: str = "auto"):
+    def __init__(self, cfg: VGGTConfig = VGGTConfig(), attn_impl: str = "auto",
+                 global_block: type = AASubBlock):
         super().__init__()
-        if cfg.causal:
-            raise NotImplementedError(
-                "view-causal global attention (StreamVGGT) is not ported; it comes "
-                "with streamvggt")
         c = cfg
         self.cfg = cfg
         vit_cfg = c.vit_config or VIT_CONFIGS[c.encoder]
@@ -187,20 +223,27 @@ class Aggregator(nn.Module):
         self.frame_blocks = nn.ModuleList(
             AASubBlock(c.dim, c.num_heads, num_special, attn_impl) for _ in range(c.depth))
         self.global_blocks = nn.ModuleList(
-            AASubBlock(c.dim, c.num_heads, num_special, attn_impl) for _ in range(c.depth))
+            global_block(c.dim, c.num_heads, num_special, attn_impl) for _ in range(c.depth))
+
+    def tokens(self, frames: torch.Tensor) -> torch.Tensor:
+        """Frames (F, H, W, 3) -> the camera, register and patch tokens of
+        each, (F, n_view, dim)."""
+        c = self.cfg
+        f = frames.shape[0]
+        patch_tokens = self.patch_embed(frames)[0][0]
+        if hasattr(self, "input_proj"):
+            patch_tokens = self.input_proj(patch_tokens)
+        return torch.cat([
+            self.camera_token.expand(f, 1, c.dim),
+            self.register_tokens.expand(f, c.num_register_tokens, c.dim),
+            patch_tokens,
+        ], dim=1)
 
     def forward(self, views: torch.Tensor) -> Tuple[List[torch.Tensor], Tuple[int, int]]:
         c = self.cfg
         b, s, H, W, _ = views.shape
         ph, pw = H // c.patch_size, W // c.patch_size
-        patch_tokens = self.patch_embed(views.reshape(b * s, H, W, 3))[0][0]
-        if hasattr(self, "input_proj"):
-            patch_tokens = self.input_proj(patch_tokens)
-        tokens = torch.cat([
-            self.camera_token.expand(b * s, 1, c.dim),
-            self.register_tokens.expand(b * s, c.num_register_tokens, c.dim),
-            patch_tokens,
-        ], dim=1)  # (B*S, n_view, dim)
+        tokens = self.tokens(views.reshape(b * s, H, W, 3))  # (B*S, n_view, dim)
         n_view = tokens.shape[1]
 
         saved: Dict[int, torch.Tensor] = {}
@@ -208,7 +251,8 @@ class Aggregator(nn.Module):
         for i in range(c.depth):
             x = self.frame_blocks[i](x, (ph, pw), views=1)  # within each view
             frame_out = x
-            xg = self.global_blocks[i](x.reshape(b, s * n_view, c.dim), (ph, pw), views=s)
+            xg = self.global_blocks[i](x.reshape(b, s * n_view, c.dim), (ph, pw), views=s,
+                                       causal=c.causal)
             x = xg.reshape(b * s, n_view, c.dim)
             if i in c.head_layers:
                 saved[i] = torch.cat([frame_out, x], dim=-1).reshape(b, s, n_view, 2 * c.dim)
@@ -218,7 +262,9 @@ class Aggregator(nn.Module):
 
 class CameraBlock(nn.Module):
     """One trunk block of the camera head. Its attention runs over the S
-    camera tokens (head_dim 128), outside any kernel, as in the JAX package."""
+    camera tokens (head_dim 128), outside any kernel, as in the JAX package;
+    ``key_mask`` (S,) bool leaves out the keys where it is False (the
+    streaming session's empty ring slots)."""
 
     def __init__(self, dim: int, num_heads: int):
         super().__init__()
@@ -231,12 +277,16 @@ class CameraBlock(nn.Module):
         self.mlp = Mlp(dim, dim * 4)
         self.ls2 = LayerScale(dim, 0.01)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, s, dim = x.shape
         hd = dim // self.num_heads
         qkv = self.qkv(self.norm1(x)).view(b, s, 3, self.num_heads, hd)
         q, k, v = qkv.permute(2, 0, 3, 1, 4)  # (B, H, S, d)
-        o = attention_reference(q, k, v).transpose(1, 2).reshape(b, s, dim)
+        if key_mask is None:
+            o = attention_reference(q, k, v)
+        else:
+            o = masked_attention(q, k, v, key_mask)
+        o = o.transpose(1, 2).reshape(b, s, dim)
         x = x + self.ls1(self.proj(o))
         return x + self.ls2(self.mlp(self.norm2(x)))
 
@@ -269,9 +319,12 @@ class CameraHead(nn.Module):
         self.trunk = nn.ModuleList(CameraBlock(dim, num_heads) for _ in range(trunk_depth))
         self.pose_branch = PoseBranch(dim)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor,
+                key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """tokens: the last aggregated layer (B, S, N, 2dim), whose first
-        token per view is the camera token, or camera tokens (B, S, 2dim)."""
+        token per view is the camera token, or camera tokens (B, S, 2dim);
+        ``key_mask`` (S,) bool: the views the trunk's attention may read (the
+        streaming session's filled ring slots)."""
         cam = tokens[:, :, 0] if tokens.dim() == 4 else tokens
         b, s, _ = cam.shape
         pose_tokens = self.token_norm(cam)
@@ -281,7 +334,7 @@ class CameraHead(nn.Module):
             shift, scale, gate = self.poseLN_modulation(emb).chunk(3, dim=-1)
             x = pose_tokens + gate * (self.adaln_norm(pose_tokens) * (1.0 + scale) + shift)
             for blk in self.trunk:
-                x = blk(x)
+                x = blk(x, key_mask)
             pred = pred + self.pose_branch(x).float()
         t, quat, fov = pred[..., :3], pred[..., 3:7], pred[..., 7:9]
         return torch.cat([t, quat, F.relu(fov)], dim=-1)
@@ -319,18 +372,52 @@ class VGGTDepthHead(nn.Module):
         return depth.reshape(b, s, *hw), conf.reshape(b, s, *hw)
 
 
+def pts_conf(out4: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A 4-channel dense output (..., 4) -> points ``sign(u) * expm1(|u|)``
+    (``inv_log``, |u| clipped to 10) and confidence ``1 + exp(clip(., ±10))``."""
+    xyz = out4[..., :3]
+    pts = torch.sign(xyz) * torch.expm1(torch.clamp(xyz.abs(), 0.0, 10.0))
+    return pts, 1.0 + torch.exp(torch.clamp(out4[..., 3], -10.0, 10.0))
+
+
+class VGGTPointHead(nn.Module):
+    """Upstream VGGT's second dense head (STream3R's per-frame point maps):
+    a 4-channel DPT head -> world points (B, S, H, W, 3) by :func:`pts_conf`
+    and their confidence (B, S, H, W)."""
+
+    def __init__(self, in_channels: int, features: int = 256,
+                 out_channels: Sequence[int] = (256, 512, 1024, 1024),
+                 patch_size: int = 14):
+        super().__init__()
+        self.dpt = DPTHead(in_channels, features, out_channels, patch_size,
+                           final_act="none", num_outputs=4, nested_scratch=False)
+
+    def forward(self, agg_tokens, patch_hw: Tuple[int, int], num_special: int):
+        ph, pw = patch_hw
+        out, b, s = apply_view_dpt(self.dpt, agg_tokens, patch_hw, num_special)
+        pts, conf = pts_conf(out)
+        hw = (ph * self.dpt.patch_size, pw * self.dpt.patch_size)
+        return pts.reshape(b, s, *hw, 3), conf.reshape(b, s, *hw)
+
+
 class VGGT(nn.Module):
-    """Views (B, S, H, W, 3) -> dict(depth (B, S, H, W), depth_conf, and
-    pose_enc (B, S, 9) when ``with_camera``)."""
+    """Views (B, S, H, W, 3) -> dict(depth (B, S, H, W), depth_conf,
+    world_points (B, S, H, W, 3) and world_points_conf when
+    ``with_point_head``, and pose_enc (B, S, 9) when ``with_camera``)."""
 
     def __init__(self, cfg: VGGTConfig = VGGTConfig(), attn_impl: str = "auto",
-                 with_camera: bool = True):
+                 with_camera: bool = True, with_point_head: bool = False,
+                 global_block: type = AASubBlock):
         super().__init__()
         self.cfg = cfg
         self.with_camera = with_camera
-        self.aggregator = Aggregator(cfg, attn_impl)
+        self.with_point_head = with_point_head
+        self.aggregator = Aggregator(cfg, attn_impl, global_block)
         self.depth_head = VGGTDepthHead(2 * cfg.dim, cfg.head_features,
                                         cfg.head_out_channels, cfg.patch_size)
+        if with_point_head:
+            self.point_head = VGGTPointHead(2 * cfg.dim, cfg.head_features,
+                                            cfg.head_out_channels, cfg.patch_size)
         if with_camera:
             self.camera_head = CameraHead(2 * cfg.dim, num_heads=cfg.num_heads)
 
@@ -346,6 +433,9 @@ class VGGT(nn.Module):
         num_special = 1 + self.cfg.num_register_tokens
         depth, conf = self.depth_head(agg, patch_hw, num_special)
         out = {"depth": depth, "depth_conf": conf}
+        if self.with_point_head:
+            out["world_points"], out["world_points_conf"] = self.point_head(
+                agg, patch_hw, num_special)
         if self.with_camera:
             out["pose_enc"] = self.camera_head(agg[-1])
         return out

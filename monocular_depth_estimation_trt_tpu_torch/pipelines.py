@@ -13,7 +13,8 @@ Public layouts follow the JAX package: uint8 ``(H, W, 3)`` in, depth
 ``(H, W)`` float32 out, viz ``(H, W, 3)`` uint8; ``batch_call`` adds a
 leading frame axis. Other outputs of a forward (VGGT's confidence and
 camera, Depth Pro's focal) come back beside the depth. :class:`VGGTPipeline` adds the
-multi-view protocol. The MoGe pair's forward (:func:`pointmap_forward_factory`)
+multi-view protocol; :class:`PairPipeline` serves a model of two frames
+(Align3R). The MoGe pair's forward (:func:`pointmap_forward_factory`)
 holds the model and its focal/shift postprocess, so that one engine per
 (H, W) and batch bucket captures both: the JAX package splits them into two
 programs only because the fused one faulted a TPU worker.
@@ -32,7 +33,10 @@ from monocular_depth_estimation_trt_tpu_torch.ops.camera import (
     normalized_view_plane_uv,
     recover_focal_shift,
 )
-from monocular_depth_estimation_trt_tpu_torch.ops.colormap import turbo_colormap
+from monocular_depth_estimation_trt_tpu_torch.ops.colormap import (
+    spectral_colormap,
+    turbo_colormap,
+)
 from monocular_depth_estimation_trt_tpu_torch.ops.postprocess import (
     inverse_depth_normalize,
     normalize_depth_for_viz,
@@ -61,7 +65,7 @@ class DepthPipeline:
 
     def __init__(self, spec: ModelSpec, forward: Callable, *,
                  device: torch.device, model: Optional[torch.nn.Module] = None,
-                 viz: str = "relative"):  # "relative" | "metric" | "none"
+                 viz: str = "relative"):  # "relative" | "metric" | "spectral" | "none"
         self.spec = spec
         self.device = torch.device(device)
         self.model = model
@@ -77,7 +81,9 @@ class DepthPipeline:
                 norm = inverse_depth_normalize(out["depth"])
             else:
                 norm = normalize_depth_for_viz(out["depth"])
-            out["viz"] = turbo_colormap(norm)
+            # the DINOv3 depther's figures use Spectral, every other model turbo
+            colormap = spectral_colormap if self.viz == "spectral" else turbo_colormap
+            out["viz"] = colormap(norm)
         return out
 
     def _eager(self, img: torch.Tensor, in_hw: Tuple[int, int], with_viz: bool):
@@ -266,3 +272,69 @@ def pointmap_forward_factory(model: Callable, preprocess: Callable) -> Callable:
         return {k: v[0] for k, v in result.items()} if single else result
 
     return forward
+
+
+class PairPipeline:
+    """Two-image pipeline (the JAX package's ``Align3RPipeline``):
+    ``pipe(frame1, frame2)`` -> dict of host outputs. One engine per frame
+    size holds both images' whole forward.
+
+    ``forward``: fn(frame1_u8, frame2_u8 (H, W, 3) on ``device``) -> dict;
+    ``model`` and ``prior``: the modules it runs (Align3R and its frozen
+    depth prior), kept for inspection."""
+
+    def __init__(self, spec: ModelSpec, forward: Callable, *, device: torch.device,
+                 model: Optional[torch.nn.Module] = None,
+                 prior: Optional[torch.nn.Module] = None):
+        self.spec = spec
+        self.device = torch.device(device)
+        self.model = model
+        self.prior = prior
+        self._forward = forward
+        self._engines: Dict[Tuple[int, int], Engine] = {}
+
+    def _run(self, frame1: torch.Tensor, frame2: torch.Tensor):
+        """The eager forward that the engines capture (one call, no graph)."""
+        with torch.inference_mode():
+            return self._forward(frame1, frame2)
+
+    def engine_for(self, in_hw: Tuple[int, int]) -> Engine:
+        """The engine for two frames of size ``in_hw``."""
+        h, w = in_hw
+        if (h, w) not in self._engines:
+            example = torch.empty((h, w, 3), dtype=torch.uint8, device="meta")
+            self._engines[(h, w)] = Engine(self._forward, (example, example),
+                                           name=f"{self.spec.artifact_name()}_in{h}x{w}",
+                                           device=self.device)
+        return self._engines[(h, w)]
+
+    def release_engines(self) -> None:
+        for eng in self._engines.values():
+            eng.release()
+        self._engines.clear()
+
+    def __call__(self, frame1, frame2, *, device_out: bool = False) -> Dict[str, Any]:
+        if tuple(frame1.shape) != tuple(frame2.shape):
+            raise ValueError(f"the two frames differ in size: {tuple(frame1.shape)} and "
+                             f"{tuple(frame2.shape)}")
+        eng = self.engine_for(tuple(frame1.shape[:2]))
+        out = eng(DepthPipeline._as_tensor(frame1), DepthPipeline._as_tensor(frame2))
+        return out if device_out else tree_get_chunked(out)
+
+    def benchmark(self, in_hw: Optional[Tuple[int, int]] = None,
+                  config: Optional[BenchmarkConfig] = None) -> BenchmarkReport:
+        """Time a pair on the card: two pinned uint8 frames in, the engine,
+        the depth D2H into a pinned buffer."""
+        h, w = tuple(in_hw or self.spec.input_hw)
+        eng = self.engine_for((h, w))
+        rng = np.random.default_rng(0)
+        frames = [torch.from_numpy(rng.integers(0, 255, (h, w, 3), dtype=np.uint8)).pin_memory()
+                  for _ in range(2)]
+        depth = eng(*frames)["depth"]
+        host_out = torch.empty(depth.shape, dtype=depth.dtype).pin_memory()
+
+        def step():
+            host_out.copy_(eng(*frames)["depth"], non_blocking=True)
+
+        return benchmark(step, device=self.device, config=config,
+                         name=self.spec.artifact_name())

@@ -9,8 +9,10 @@ Ported so far: the Depth Anything family (``depth_anything_v2``,
 shares one serving graph, ``vggt``, ``depth_pro``, the single-image
 metric and point-map families ``depth_anything_v3``, ``metric3d_v2``,
 ``moge2`` and ``metric_anything``, the camera-aware ``unidepth_v2`` and
-``unik3d``, ``sidepth``, ``geocalib`` and ``prior_depth_anything``. Every
-factory takes ``device``;
+``unik3d``, ``sidepth``, ``geocalib`` and ``prior_depth_anything``, and the
+multi-view and rope families ``streamvggt`` (with its KV-cache stream),
+``stream3r``, ``litevggt``, ``map_anything``, ``align3r`` (two frames) and
+``dinov3``. Every factory takes ``device``;
 ``None`` means ``"cuda"``, and a missing card is an error, never a quiet
 move to the CPU. ``precision="int8"`` serves the bf16 graph with the
 family's encoder linears quantized (``ops/quant.py``, kernel K4),
@@ -33,10 +35,13 @@ from monocular_depth_estimation_trt_tpu_torch.config import (
 )
 from monocular_depth_estimation_trt_tpu_torch.pipelines import (
     DepthPipeline,
+    PairPipeline,
     VGGTPipeline,
     depth_forward_factory,
     pointmap_forward_factory,
 )
+from monocular_depth_estimation_trt_tpu_torch.runtime.engine import Engine
+from monocular_depth_estimation_trt_tpu_torch.runtime.transfer import tree_get_chunked
 
 _REGISTRY: Dict[str, Callable] = {}
 _FIDELITY: Dict[str, str] = {}
@@ -85,6 +90,7 @@ def resolve_device(device=None) -> torch.device:
 INT8_FAMILIES = frozenset({
     "depth_anything_v2", "distill_any_depth", "depth_anything_ac", "depth_pro", "vggt",
     "depth_anything_v3", "metric3d_v2", "moge2", "metric_anything", "unidepth_v2", "unik3d",
+    "streamvggt", "map_anything",
 })
 
 # Encoders for which precision="int8" builds the bf16 graph unless
@@ -191,21 +197,19 @@ def _int8_bundle(model: torch.nn.Module, masters, make_sample: Callable, *,
     quantize_model_bundle(model, masters, samples())
 
 
-def _new_model(make: Callable[[], torch.nn.Module], params, checkpoint) -> torch.nn.Module:
-    """``make()``. When ``params`` or ``checkpoint`` will overwrite every
-    parameter (a strict load), the module is made on the meta device and
-    given uninitialized CPU storage, so that the default init of up to 1.2 B
-    parameters is not computed to be thrown away; random weights need the
-    ordinary construction."""
-    if params is None and not checkpoint:
-        return make()
+def _new_model(make: Callable[[], torch.nn.Module]) -> torch.nn.Module:
+    """``make()`` on the meta device, given uninitialized CPU storage: every
+    parameter is written after, by a strict load or by ``init_random_``
+    (which writes each one: ``tests/test_torch_weights.py``), so the default
+    init of up to 1.2 B parameters is not computed to be thrown away."""
     with torch.device("meta"):
         model = make()
     return model.to_empty(device="cpu")
 
 
 def _params_for(model: torch.nn.Module, spec: ModelSpec, *, params, checkpoint, device,
-                dtype, make_sample: Callable, input_size, calib_images=None) -> torch.nn.Module:
+                dtype, make_sample: Callable, input_size, calib_images=None,
+                allowed_unconsumed: Optional[str] = None) -> torch.nn.Module:
     """Fill ``model``'s weights (``params``, else ``checkpoint``, else random
     weights where allowed; int8 reads the bf16 artifact's weights, as in the
     JAX package), cast it to ``device`` and ``dtype``, and for
@@ -217,7 +221,8 @@ def _params_for(model: torch.nn.Module, spec: ModelSpec, *, params, checkpoint, 
 
     quant = spec.precision == "int8"
     name = spec.with_(precision="bf16").artifact_name() if quant else spec.artifact_name()
-    resolve_weights(model, name, checkpoint=checkpoint, state_dict=params)
+    resolve_weights(model, name, checkpoint=checkpoint, state_dict=params,
+                    allowed_unconsumed=allowed_unconsumed)
     masters = full_precision(model, model.int8_targets()) if quant else None
     model = model.to(device=device, dtype=dtype).eval()
     if quant:
@@ -317,7 +322,7 @@ def _build_da_family(
 
     model = _new_model(lambda: DepthAnythingV2(encoder=encoder, metric=metric,
                                                max_depth=max_depth, attn_impl=attn_impl,
-                                               **(model_kw or {})), params, checkpoint)
+                                               **(model_kw or {})))
     # parameters are held in the compute dtype (bf16 on the default path)
     model = _params_for(model, spec, params=params, checkpoint=checkpoint, device=device,
                         dtype=dtype, make_sample=lambda img: preprocess(img[None]),
@@ -379,6 +384,13 @@ def _square_crop(out_hw, input_size: int):
     return slice(top, top + hh), slice(left, left + ww)
 
 
+def _crop_to_frame(out_hw, input_size: int):
+    """fn(square map (B, S, side, side[, C])) -> the frame's rows and columns
+    of its pad-square view (``_square_crop``), view 0."""
+    rows, cols = _square_crop(out_hw, input_size)
+    return lambda a: a[:, 0, rows, cols]
+
+
 def _build_vggt(
     model_name: str,
     *,
@@ -391,10 +403,14 @@ def _build_vggt(
     checkpoint: Optional[str] = None,
     device=None,
     calib_images: Optional[Sequence[np.ndarray]] = None,
+    allowed_unconsumed: Optional[str] = None,
+    pipeline_cls: type = VGGTPipeline,
 ) -> VGGTPipeline:
     """``params``: an upstream-named state dict (e.g. from
     ``weights.from_jax.vggt_from_jax``); ``vggt_cfg``: a ``VGGTConfig``
-    override (tests)."""
+    override (tests); ``allowed_unconsumed``: a regex of checkpoint keys that
+    the model does not hold and the load may drop (LiteVGGT's token-merge
+    extras); any other extra key raises."""
     from monocular_depth_estimation_trt_tpu_torch.models.vggt import VGGT, VGGTConfig
     from monocular_depth_estimation_trt_tpu_torch.ops.camera import (
         extrinsics_from_quat_trans,
@@ -408,18 +424,20 @@ def _build_vggt(
     spec = ModelSpec(
         model=model_name, input_hw=(input_size, input_size), precision=precision,
         metric=True,
-        # the depth-only and with-camera variants have different weights
-        variant="" if with_camera else "depth",
+        # vggt's depth-only and with-camera variants have different weights;
+        # streamvggt is always depth-only and keeps the plain name
+        variant="depth" if (model_name == "vggt" and not with_camera) else "",
     )
     # int8 = w8a8 aggregator serving; calibrated on S=1 views (the scales
     # are per layer, so S > 1 serving reuses them)
     dtype = _dtype_for(precision, device)
     model = _params_for(
-        _new_model(lambda: VGGT(cfg, attn_impl, with_camera), params, checkpoint), spec,
+        _new_model(lambda: VGGT(cfg, attn_impl, with_camera)), spec,
         params=params, checkpoint=checkpoint,
         device=device, dtype=dtype,
         make_sample=lambda img: preprocess_pad_square(img[None], input_size)[:, None],
-        input_size=input_size, calib_images=calib_images)
+        input_size=input_size, calib_images=calib_images,
+        allowed_unconsumed=allowed_unconsumed)
 
     def forward(img_u8: torch.Tensor, out_hw):
         """Pad to square, S=1 through the model, crop the padding, resample
@@ -427,10 +445,10 @@ def _build_vggt(
         single = img_u8.dim() == 3
         x = preprocess_pad_square(img_u8[None] if single else img_u8, input_size)
         out = model(x[:, None])
-        crop = (slice(None), 0, *_square_crop(out_hw, input_size))
+        crop = _crop_to_frame(out_hw, input_size)
         result = {
-            "depth": upsample_depth(out["depth"][crop], out_hw, clamp=(1e-3, 1e3)),
-            "depth_conf": upsample_depth(out["depth_conf"][crop], out_hw, clamp=None),
+            "depth": upsample_depth(crop(out["depth"]), out_hw, clamp=(1e-3, 1e3)),
+            "depth_conf": upsample_depth(crop(out["depth_conf"]), out_hw, clamp=None),
         }
         if with_camera:
             pose = out["pose_enc"][:, 0]  # (B, 9)
@@ -443,7 +461,7 @@ def _build_vggt(
         out = model(preprocess_pad_square(views_u8, input_size)[None])
         return {k: v[0] for k, v in out.items()}
 
-    return VGGTPipeline(spec, forward, views_forward, device=device, model=model,
+    return pipeline_cls(spec, forward, views_forward, device=device, model=model,
                         viz="metric")
 
 
@@ -460,6 +478,127 @@ def vggt(input_size: int = 518, precision: str = "bf16", attn_impl: str = "auto"
                        attn_impl=attn_impl, params=params, vggt_cfg=vggt_cfg,
                        with_camera=not depth_only, checkpoint=checkpoint, device=device,
                        calib_images=calib_images)
+
+
+def _stream_session(pipe: DepthPipeline, window: int, epilogue=None):
+    from monocular_depth_estimation_trt_tpu_torch.apps.streaming import VGGTStreamingSession
+
+    return VGGTStreamingSession(pipe.model, window=window, input_size=pipe.spec.input_hw[0],
+                                epilogue=epilogue, name=pipe.spec.artifact_name() + "_stream")
+
+
+class StreamVGGTPipeline(VGGTPipeline):
+    """The VGGT pipeline plus ``stream(window)``: a causal KV-cache session
+    per video (``apps/streaming.py``), each step one captured graph that
+    also crops, resamples and colormaps."""
+
+    def _stream_session(self, window: int, epilogue=None):
+        return _stream_session(self, window, epilogue)
+
+    def _stream_viz(self, out: Dict[str, torch.Tensor], out_hw) -> Dict[str, torch.Tensor]:
+        """One step's depth cropped out of its pad-square view, resampled to
+        the frame and colormapped (the JAX ``_stream_viz``)."""
+        from monocular_depth_estimation_trt_tpu_torch.ops.postprocess import upsample_depth
+
+        rows, cols = _square_crop(out_hw, self.spec.input_hw[0])
+        depth = upsample_depth(out["depth"][None, rows, cols], out_hw, clamp=(1e-3, 1e3))[0]
+        return self._with_viz_epilogue({"depth": depth}, True)
+
+    def stream(self, window: int = 4):
+        """fn(frame (H, W, 3) uint8, viz=...) -> host {"depth", "viz"} of that
+        frame after the frames before it in this stream."""
+        sess = self._stream_session(window, self._stream_viz)
+
+        def runner(rgb, viz: bool = False):
+            return tree_get_chunked(sess.step(rgb))
+
+        runner.session = sess
+        return runner
+
+
+@register("streamvggt", fidelity="converter-verified")
+def streamvggt(input_size: int = 518, precision: str = "bf16", attn_impl: str = "auto",
+               params: Optional[Mapping[str, torch.Tensor]] = None,
+               checkpoint: Optional[str] = None, device=None, vggt_cfg: Any = None,
+               calib_images: Optional[Sequence[np.ndarray]] = None) -> StreamVGGTPipeline:
+    """StreamVGGT (reference ``StreamVGGT/``): the single-frame depth
+    wrapper that the reference exports (``onnx_export.py:25-55``), served as
+    depth-only VGGT, plus the causal KV-cache stream that it could not
+    export: ``pipe.stream(window)`` over the same weights."""
+    return _build_vggt("streamvggt", input_size=input_size, precision=precision,
+                       attn_impl=attn_impl, params=params, vggt_cfg=vggt_cfg,
+                       with_camera=False, checkpoint=checkpoint, device=device,
+                       calib_images=calib_images, pipeline_cls=StreamVGGTPipeline)
+
+
+# LiteVGGT checkpoints carry the token-merge extras of its speed-up, which the
+# stock VGGT graph does not use (reference later/LiteVGGT/infer.py loads them
+# with strict=False)
+LITEVGGT_UNCONSUMED = r"(^|\.)(te|te_dict|token_merge|merge)[._]"
+
+
+@register("litevggt", fidelity="converter-verified")
+def litevggt(input_size: int = 518, precision: str = "bf16", attn_impl: str = "auto",
+             params: Optional[Mapping[str, torch.Tensor]] = None,
+             checkpoint: Optional[str] = None, device=None, vggt_cfg: Any = None,
+             calib_images: Optional[Sequence[np.ndarray]] = None) -> VGGTPipeline:
+    """LiteVGGT (reference ``later/LiteVGGT/infer.py:26-31``): distilled VGGT
+    weights through the stock VGGT graph, camera and depth. Its checkpoint's
+    token-merge keys (:data:`LITEVGGT_UNCONSUMED`) are dropped on load; any
+    other key the model does not hold raises."""
+    return _build_vggt("litevggt", input_size=input_size, precision=precision,
+                       attn_impl=attn_impl, params=params, vggt_cfg=vggt_cfg,
+                       with_camera=True, checkpoint=checkpoint, device=device,
+                       calib_images=calib_images, allowed_unconsumed=LITEVGGT_UNCONSUMED)
+
+
+class Stream3RPipeline(DepthPipeline):
+    """Single frames through the causal model (S = 1), and
+    ``stream_session(window)``: the KV-cache session with the camera and the
+    point head (``apps/streaming.py``)."""
+
+    def stream_session(self, window: int = 4):
+        return _stream_session(self, window)
+
+
+@register("stream3r", fidelity="converter-verified")
+def stream3r(input_size: int = 518, precision: str = "bf16", attn_impl: str = "auto",
+             params: Optional[Mapping[str, torch.Tensor]] = None,
+             checkpoint: Optional[str] = None, device=None,
+             vggt_cfg: Any = None) -> Stream3RPipeline:
+    """STream3R (reference ``later/STream3R/``): a causal VGGT-family
+    transformer streaming images into per-frame point maps: depth, world
+    points (``inv_log``) and their confidence, and the camera, each cropped
+    out of the pad-square view and resampled to the frame (points
+    half-pixel linear, as the JAX package)."""
+    from monocular_depth_estimation_trt_tpu_torch.models.vggt import VGGT, VGGTConfig
+    from monocular_depth_estimation_trt_tpu_torch.ops.postprocess import upsample_depth
+    from monocular_depth_estimation_trt_tpu_torch.ops.preprocess import preprocess_pad_square
+    from monocular_depth_estimation_trt_tpu_torch.ops.resize import resize
+
+    device = resolve_device(device)
+    cfg = vggt_cfg or VGGTConfig(causal=True)
+    spec = ModelSpec(model="stream3r", input_hw=(input_size, input_size), precision=precision,
+                     metric=True)
+    dtype = _plain_dtype(precision, device)
+    model = _params_for(
+        _new_model(lambda: VGGT(cfg, attn_impl, with_camera=True, with_point_head=True)),
+        spec, params=params, checkpoint=checkpoint, device=device, dtype=dtype,
+        make_sample=None, input_size=input_size)
+
+    def forward(img_u8: torch.Tensor, out_hw):
+        single = img_u8.dim() == 3
+        out = model(preprocess_pad_square(img_u8[None] if single else img_u8,
+                                          input_size)[:, None])  # S=1
+        crop = _crop_to_frame(out_hw, input_size)
+        result = {"depth": upsample_depth(crop(out["depth"]), out_hw, clamp=(1e-3, 1e3)),
+                  "world_points": resize(crop(out["world_points"]), out_hw, method="linear"),
+                  "world_points_conf": upsample_depth(crop(out["world_points_conf"]), out_hw,
+                                                      clamp=None),
+                  "pose_enc": out["pose_enc"][:, 0]}
+        return {k: v[0] for k, v in result.items()} if single else result
+
+    return Stream3RPipeline(spec, forward, device=device, model=model, viz="metric")
 
 
 # ---------------------------------------------------------------------------
@@ -489,8 +628,7 @@ def depth_pro(precision: str = "bf16", attn_impl: str = "auto",
     from monocular_depth_estimation_trt_tpu_torch.ops.resize import resize, resize_hw
 
     device = resolve_device(device)
-    model = _new_model(lambda: DepthPro(attn_impl=attn_impl, **(model_kw or {})), params,
-                       checkpoint)
+    model = _new_model(lambda: DepthPro(attn_impl=attn_impl, **(model_kw or {})))
     size = model.cfg.img_size
     spec = ModelSpec(model="depth_pro", input_hw=(size, size), precision=precision)
     # int8 = w8a8 serving of both ViT encoders
@@ -557,7 +695,7 @@ def depth_anything_v3(encoder: str = "vitl", input_size: int = 518, precision: s
     dtype = _dtype_for(precision, device)
     preprocess = _imagenet_square(spec.input_hw)
     model = _params_for(_new_model(lambda: DepthAnythingV3(encoder=encoder, attn_impl=attn_impl,
-                                                           **(model_kw or {})), params, checkpoint),
+                                                           **(model_kw or {}))),
                         spec, params=params, checkpoint=checkpoint, device=device, dtype=dtype,
                         make_sample=lambda img: preprocess(img[None]), input_size=input_size,
                         calib_images=calib_images)
@@ -606,8 +744,7 @@ def metric3d_v2(encoder: str = "vitl", precision: str = "bf16", attn_impl: str =
                      metric=True)
     dtype = _dtype_for(precision, device)
     model = _params_for(_new_model(lambda: Metric3DV2(encoder=encoder, iters=iters,
-                                                      attn_impl=attn_impl, **(model_kw or {})),
-                                   params, checkpoint),
+                                                      attn_impl=attn_impl, **(model_kw or {}))),
                         spec, params=params, checkpoint=checkpoint, device=device, dtype=dtype,
                         make_sample=lambda img: preprocess_keep_ratio_pad(img, canvas)[0],
                         input_size=canvas, calib_images=calib_images)
@@ -649,8 +786,7 @@ def _build_moge(model_name: str, encoder: str, input_hw, num_tokens: int, precis
     preprocess = _imagenet_square(spec.input_hw)
     model = _params_for(_new_model(lambda: MoGe2(encoder=encoder, num_tokens=num_tokens,
                                                  predict_normal=predict_normal,
-                                                 attn_impl=attn_impl, **(model_kw or {})),
-                                   params, checkpoint),
+                                                 attn_impl=attn_impl, **(model_kw or {}))),
                         spec, params=params, checkpoint=checkpoint, device=device, dtype=dtype,
                         make_sample=lambda img: preprocess(img[None]),
                         input_size=tuple(input_hw), calib_images=calib_images)
@@ -717,8 +853,7 @@ def _build_geometric(model_name: str, mode: str, encoder: str, input_size: int, 
     dtype = _dtype_for(precision, device)
     preprocess = _imagenet_square(spec.input_hw)
     model = _params_for(_new_model(lambda: GeometricDepthModel(encoder, mode, attn_impl,
-                                                               **(model_kw or {})),
-                                   params, checkpoint),
+                                                               **(model_kw or {}))),
                         spec, params=params, checkpoint=checkpoint, device=device, dtype=dtype,
                         make_sample=lambda img: preprocess(img[None]), input_size=input_size,
                         calib_images=calib_images)
@@ -781,8 +916,7 @@ def sidepth(encoder: str = "vits", input_size: int = 518, precision: str = "bf16
                      precision=precision)
     dtype = _plain_dtype(precision, device)
     preprocess = _imagenet_square(spec.input_hw)
-    model = _params_for(_new_model(lambda: SIDepth(encoder, attn_impl, **(model_kw or {})),
-                                   params, checkpoint),
+    model = _params_for(_new_model(lambda: SIDepth(encoder, attn_impl, **(model_kw or {}))),
                         spec, params=params, checkpoint=checkpoint, device=device, dtype=dtype,
                         make_sample=None, input_size=input_size)
 
@@ -814,8 +948,7 @@ def geocalib(encoder: str = "vits", input_size: int = 322, precision: str = "bf1
                      precision=precision)
     dtype = _plain_dtype(precision, device)
     preprocess = _imagenet_square(spec.input_hw)
-    model = _params_for(_new_model(lambda: GeoCalib(encoder, attn_impl, **(model_kw or {})),
-                                   params, checkpoint),
+    model = _params_for(_new_model(lambda: GeoCalib(encoder, attn_impl, **(model_kw or {}))),
                         spec, params=params, checkpoint=checkpoint, device=device, dtype=dtype,
                         make_sample=None, input_size=input_size)
 
@@ -863,10 +996,8 @@ def prior_depth_anything(encoder: str = "vits", input_size: int = 518, precision
                      input_hw=(input_size, input_size), precision=precision, metric=True)
     dtype = _plain_dtype(precision, device)
     vggt_sd, refiner_sd = (None, None) if params is None else (params["vggt"], params["refiner"])
-    vggt = _new_model(lambda: VGGT(vggt_cfg or VGGTConfig(), attn_impl, with_camera=False),
-                      vggt_sd, vggt_checkpoint)
-    refiner = _new_model(lambda: PriorDARefiner(encoder, attn_impl, **(model_kw or {})),
-                         refiner_sd, checkpoint)
+    vggt = _new_model(lambda: VGGT(vggt_cfg or VGGTConfig(), attn_impl, with_camera=False))
+    refiner = _new_model(lambda: PriorDARefiner(encoder, attn_impl, **(model_kw or {})))
     # the JAX package's weight names: the depth-only VGGT's and the refiner's
     vggt_name = ModelSpec(model="vggt", input_hw=(input_size, input_size), precision=precision,
                           metric=True).artifact_name() + "_depthonly"
@@ -887,3 +1018,211 @@ def prior_depth_anything(encoder: str = "vits", input_size: int = 518, precision
         return {k: v[0] for k, v in result.items()} if single else result
 
     return DepthPipeline(spec, forward, device=device, model=model, viz="metric")
+
+
+# ---------------------------------------------------------------------------
+# Multi-view metric mapping, two-view reconstruction and DINOv3 (reference
+# later/Map_Anything/, later/Align3R/, later/DINOv3/)
+# ---------------------------------------------------------------------------
+
+
+class MapAnythingPipeline(DepthPipeline):
+    """Single frames (S = 1) through the standard pipeline, and
+    ``reconstruct(frames)``: the joint multi-view pass, one engine per
+    (S, H, W)."""
+
+    def __init__(self, spec: ModelSpec, forward: Callable, views_forward: Callable, **kw):
+        super().__init__(spec, forward, **kw)
+        self._views_forward = views_forward
+
+    def reconstruct_engine(self, s: int, src_hw) -> Engine:
+        """The engine of ``s`` views of size ``src_hw``."""
+        h, w = src_hw
+        return self._engine(f"{self.spec.artifact_name()}_s{s}_{h}x{w}", self._views_forward,
+                            (s, h, w, 3))
+
+    def reconstruct(self, frames_u8, *, device_out: bool = False) -> Dict[str, Any]:
+        """frames (S, H, W, 3) uint8 -> the full output set of the S views
+        with cross-view attention (the reference's ``model.infer(views)``),
+        each with a leading batch axis of 1."""
+        s, h, w = frames_u8.shape[:3]
+        out = self.reconstruct_engine(s, (h, w))(self._as_tensor(frames_u8))
+        return out if device_out else tree_get_chunked(out)
+
+
+@register("map_anything", fidelity="converter-verified")
+def map_anything(input_size: int = 518, precision: str = "bf16", attn_impl: str = "auto",
+                 params: Optional[Mapping[str, torch.Tensor]] = None,
+                 checkpoint: Optional[str] = None, device=None, vggt_cfg: Any = None,
+                 calib_images: Optional[Sequence[np.ndarray]] = None) -> MapAnythingPipeline:
+    """MapAnything metric 3D mapping (reference ``later/Map_Anything/
+    infer.py:30-68``): per view world and camera points, z depth, depth along
+    the ray, rays, intrinsics, cam2world poses, confidence, masks, the metric
+    scale and the de-normalized image, composed on the device; the depth is
+    also cropped out of the pad-square view and resampled to the frame.
+    ``precision="int8"`` quantizes the aggregator's linears (kernel K4)."""
+    from monocular_depth_estimation_trt_tpu_torch.models.map_anything import (
+        MapAnything,
+        compose,
+    )
+    from monocular_depth_estimation_trt_tpu_torch.models.vggt import VGGTConfig
+    from monocular_depth_estimation_trt_tpu_torch.ops.postprocess import upsample_depth
+    from monocular_depth_estimation_trt_tpu_torch.ops.preprocess import preprocess_pad_square
+
+    device = resolve_device(device)
+    cfg = vggt_cfg or VGGTConfig()
+    spec = ModelSpec(model="map_anything", input_hw=(input_size, input_size),
+                     precision=precision, metric=True)
+    dtype = _dtype_for(precision, device)
+    model = _params_for(
+        _new_model(lambda: MapAnything(cfg, attn_impl)), spec,
+        params=params, checkpoint=checkpoint, device=device, dtype=dtype,
+        make_sample=lambda img: preprocess_pad_square(img[None], input_size)[:, None],
+        input_size=input_size, calib_images=calib_images)
+
+    def forward(img_u8: torch.Tensor, out_hw):
+        single = img_u8.dim() == 3
+        x = preprocess_pad_square(img_u8[None] if single else img_u8, input_size)[:, None]
+        full = compose(model(x), x)
+        crop = _crop_to_frame(out_hw, input_size)
+        depth = upsample_depth(crop(full["depth_z"][..., 0]), out_hw, clamp=(1e-3, 1e3))
+        if single:  # the JAX layout: views (S = 1) lead, the scale keeps its batch axis
+            return {"depth": depth[0], **{k: v[0] for k, v in full.items()
+                                          if k != "metric_scaling_factor"},
+                    "metric_scaling_factor": full["metric_scaling_factor"]}
+        return {"depth": depth, **full}
+
+    def views_forward(frames_u8: torch.Tensor):
+        views = preprocess_pad_square(frames_u8, input_size)[None]
+        return compose(model(views), views)
+
+    return MapAnythingPipeline(spec, forward, views_forward, device=device, model=model,
+                               viz="metric")
+
+
+ALIGN3R_PRIOR_ENCODER = "vits"  # the frozen DA-V2 prior
+
+
+@register("align3r", fidelity="converter-verified")
+def align3r(input_size: int = 512, precision: str = "bf16", attn_impl: str = "auto",
+            params: Optional[Mapping[str, Mapping[str, torch.Tensor]]] = None,
+            checkpoint: Optional[str] = None, device=None,
+            model_kw: Optional[Dict[str, Any]] = None,
+            prior_params: Optional[Mapping[str, torch.Tensor]] = None,
+            prior_kw: Optional[Dict[str, Any]] = None) -> PairPipeline:
+    """Align3R pairwise dynamic-scene reconstruction (reference
+    ``later/Align3R/``): two images -> both views' point maps and confidence
+    in view 1's frame, view 1's depth and the relative camera (frame 2 ->
+    frame 1). One forward on the device: the frozen DA-V2 vits prior of both
+    frames at the nearest multiple of 14 below the input, both pair orders as
+    one batch of two, and the pose by confidence-weighted Procrustes
+    (``ops/procrustes.py``) on view 2's points in the two frames.
+
+    ``params``: ``{"align3r": ..., "prior": ...}`` state dicts (e.g.
+    ``weights.from_jax.align3r_from_jax`` and ``state_dict_from_jax``);
+    else ``checkpoint`` (Align3R) and ``prior_params`` (the prior), else
+    random weights where allowed. ``model_kw`` / ``prior_kw``: overrides of
+    ``Align3R`` / ``DepthAnythingV2`` (test sizes)."""
+    from monocular_depth_estimation_trt_tpu_torch.models.align3r import Align3R
+    from monocular_depth_estimation_trt_tpu_torch.models.depth_anything_v2 import (
+        DepthAnythingV2,
+    )
+    from monocular_depth_estimation_trt_tpu_torch.ops.preprocess import normalize
+    from monocular_depth_estimation_trt_tpu_torch.ops.procrustes import weighted_procrustes
+    from monocular_depth_estimation_trt_tpu_torch.ops.resize import resize
+    from monocular_depth_estimation_trt_tpu_torch.weights.store import resolve_weights
+
+    device = resolve_device(device)
+    spec = ModelSpec(model="align3r", input_hw=(input_size, input_size), precision=precision,
+                     metric=True)
+    dtype = _plain_dtype(precision, device)
+    # the frozen prior runs on a /14 grid: the nearest multiple of 14 below
+    prior_size = max((input_size // 14) * 14, 14)
+    pspec = ModelSpec(model="depth_anything_v2", encoder=ALIGN3R_PRIOR_ENCODER,
+                      input_hw=(prior_size, prior_size), precision=precision)
+    a3r_sd, prior_sd = (None, prior_params) if params is None else (params["align3r"],
+                                                                   params["prior"])
+    model = _new_model(lambda: Align3R(attn_impl=attn_impl, **(model_kw or {})))
+    prior = _new_model(lambda: DepthAnythingV2(encoder=ALIGN3R_PRIOR_ENCODER,
+                                               attn_impl=attn_impl, **(prior_kw or {})))
+    resolve_weights(model, spec.artifact_name(), checkpoint=checkpoint, state_dict=a3r_sd)
+    resolve_weights(prior, pspec.artifact_name(), state_dict=prior_sd)
+    model = model.to(device=device, dtype=dtype).eval()
+    prior = prior.to(device=device, dtype=dtype).eval()
+
+    def pair_forward(img1_u8: torch.Tensor, img2_u8: torch.Tensor):
+        in_hw = spec.input_hw
+        x1, x2 = (resize(img.float(), in_hw, method="linear")[None] for img in (img1_u8, img2_u8))
+        # the frozen DA-V2 priors of both frames in one batch
+        both = torch.cat([x1, x2]) / 255.0
+        pri = prior(normalize(resize(both, (prior_size, prior_size), method="linear"),
+                              IMAGENET_MEAN, IMAGENET_STD))
+        pri = resize(pri[..., None], in_hw, method="linear")[..., 0]
+        # both pair orders as one batch of two: row 0 = (1, 2), row 1 = (2, 1)
+        out = model(torch.cat([x1, x2]), torch.cat([x2, x1]), pri, pri.flip(0))
+        pts1, conf1 = out["pts1"][0], out["conf1"][0]  # view 1 in frame 1
+        pts2, conf2 = out["pts2"][0], out["conf2"][0]  # view 2 in frame 1
+        pts2_own, conf2_own = out["pts1"][1], out["conf1"][1]  # view 2 in frame 2
+        # the relative pose frame 2 -> frame 1 from the shared physical points
+        rot, trans = weighted_procrustes(pts2_own.reshape(1, -1, 3), pts2.reshape(1, -1, 3),
+                                         (conf2 * conf2_own).reshape(1, -1))
+        return {"depth": torch.clamp(pts1[..., 2], min=1e-3), "pts1": pts1, "conf1": conf1,
+                "pts2": pts2, "conf2": conf2, "rotation": rot[0], "translation": trans[0]}
+
+    return PairPipeline(spec, pair_forward, device=device, model=model, prior=prior)
+
+
+def _model_on_device(make: Callable[[], torch.nn.Module], spec: ModelSpec, *, params,
+                     checkpoint, device: torch.device, dtype: torch.dtype) -> torch.nn.Module:
+    """A model whose random weights are made where it runs: with neither
+    ``params`` nor ``checkpoint`` it is built on the meta device, given
+    uninitialized storage of ``dtype`` on ``device`` and filled there
+    (``init_random_`` draws from a generator on that device), so that the
+    host never holds a full-precision copy of DINOv3 vit7b16 (8.1 B
+    parameters); else as ``_params_for``."""
+    from monocular_depth_estimation_trt_tpu_torch.weights.store import resolve_weights
+
+    if params is not None or checkpoint:
+        return _params_for(_new_model(make), spec, params=params,
+                           checkpoint=checkpoint, device=device, dtype=dtype, make_sample=None,
+                           input_size=spec.input_hw)
+    with torch.device("meta"):
+        model = make()
+    model = model.to(dtype).to_empty(device=device)
+    resolve_weights(model, spec.artifact_name())
+    return model.eval()
+
+
+@register("dinov3", fidelity="converter-verified")
+def dinov3(encoder: str = "vitl16", input_size: int = 1024, precision: str = "bf16",
+           attn_impl: str = "auto", params: Optional[Mapping[str, torch.Tensor]] = None,
+           checkpoint: Optional[str] = None, device=None,
+           model_kw: Optional[Dict[str, Any]] = None) -> DepthPipeline:
+    """DINOv3 depther (reference ``later/DINOv3/infer.py:25-45``): the
+    RoPE-only patch-16 backbone and a DPT head at 1024², antialiased resize
+    and ImageNet normalization, the depth resized to the frame unclamped,
+    Spectral viz. ``encoder``: vits16, vitl16 (default) or vit7b16, whose
+    random weights are made on the card. ``model_kw``: overrides passed to
+    ``DINOv3Depther`` (``vit_config``, ``head_features``,
+    ``head_out_channels``, ``out_indices``)."""
+    from monocular_depth_estimation_trt_tpu_torch.models.dinov3 import DINOv3Depther
+    from monocular_depth_estimation_trt_tpu_torch.ops.postprocess import upsample_depth
+    from monocular_depth_estimation_trt_tpu_torch.ops.preprocess import normalize, to_float_rgb
+    from monocular_depth_estimation_trt_tpu_torch.ops.resize import resize
+
+    device = resolve_device(device)
+    spec = ModelSpec(model="dinov3", encoder=encoder, input_hw=(input_size, input_size),
+                     precision=precision)
+    dtype = _plain_dtype(precision, device)
+    model = _model_on_device(lambda: DINOv3Depther(encoder, attn_impl, **(model_kw or {})),
+                             spec, params=params, checkpoint=checkpoint, device=device,
+                             dtype=dtype)
+
+    def preprocess(img_u8: torch.Tensor) -> torch.Tensor:
+        # torchvision Resize(antialias=True) + ImageNet normalize
+        # (reference later/DINOv3/infer.py:16-24)
+        x = resize(to_float_rgb(img_u8), spec.input_hw, method="linear", antialias=True)
+        return normalize(x, IMAGENET_MEAN, IMAGENET_STD)
+
+    return DepthPipeline(spec, depth_forward_factory(model, preprocess, clamp=None),
+                         device=device, model=model, viz="spectral")

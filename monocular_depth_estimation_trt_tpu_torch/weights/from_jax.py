@@ -4,7 +4,8 @@ The exact inverse of the JAX package's ``weights/convert.py``
 (``convert_dinovit``, ``convert_dpt_head``, ``convert_vggt``,
 ``convert_depth_pro``, ``convert_depth_anything_v3``,
 ``convert_metric3d_v2``, ``convert_moge2``, ``convert_geometric``,
-``convert_sidepth``, ``convert_geocalib``, ``convert_prior_depth``), so that
+``convert_sidepth``, ``convert_geocalib``, ``convert_prior_depth``,
+``convert_map_anything``, ``convert_align3r``, ``convert_dinov3``), so that
 the parity tests can feed one set of weights to both packages:
 
 * Dense kernel (in, out)                 -> Linear weight (out, in)
@@ -152,18 +153,9 @@ def _block_from_jax(p: Mapping, prefix: str, out: Dict[str, torch.Tensor]) -> No
     out[f"{prefix}.ls2.gamma"] = _t(p["ls2"]["gamma"])
 
 
-def vggt_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX ``VGGT`` params (``aggregator`` / ``depth_head`` / optional
-    ``camera_head``, optionally under a ``"params"`` key) -> the port's
-    ``VGGT.state_dict()`` in the upstream layout, fp32 CPU tensors. The
-    inverse of ``convert_vggt``; the camera trunk's flat Flax names
-    (``trunk_{i}_qkv``, ``trunk_{i}_ls1`` ...) become ``trunk.{i}.*``."""
-    if "params" in params:
-        params = params["params"]
-    if "point_head" in params:
-        raise ValueError("the point head is not ported (it comes with stream3r)")
-    agg = params["aggregator"]
-    out = dinovit_from_jax(agg["patch_embed"], "aggregator.patch_embed")
+def _aggregator_from_jax(agg: Mapping, out: Dict[str, torch.Tensor]) -> None:
+    """A JAX VGGT ``Aggregator`` under ``aggregator``."""
+    out.update(dinovit_from_jax(agg["patch_embed"], "aggregator.patch_embed"))
     out["aggregator.camera_token"] = _t(agg["camera_token"])
     out["aggregator.register_tokens"] = _t(agg["register_tokens"])
     if "input_proj" in agg:
@@ -172,21 +164,96 @@ def vggt_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     for i in range(depth):
         _block_from_jax(agg[f"frame_{i}"], f"aggregator.frame_blocks.{i}", out)
         _block_from_jax(agg[f"global_{i}"], f"aggregator.global_blocks.{i}", out)
-    out.update(dpt_head_from_jax(params["depth_head"]["dpt"], "depth_head.dpt",
-                                 nested_scratch=False))
+
+
+def _camera_head_from_jax(cam: Mapping, out: Dict[str, torch.Tensor]) -> None:
+    """A JAX ``CameraHead`` under ``camera_head``: the trunk's flat Flax names
+    (``trunk_{i}_qkv``, ``trunk_{i}_ls1`` ...) become ``trunk.{i}.*``."""
+    _layernorm(cam["token_norm"], "camera_head.token_norm", out)
+    _linear(cam["embed_pose"], "camera_head.embed_pose", out)
+    _linear(cam["poseLN_modulation"], "camera_head.poseLN_modulation", out)
+    _linear(cam["pose_branch_fc1"], "camera_head.pose_branch.fc1", out)
+    _linear(cam["pose_branch_fc2"], "camera_head.pose_branch.fc2", out)
+    trunk_depth = sum(1 for k in cam if k.endswith("_norm1"))
+    for i in range(trunk_depth):
+        blk = {name: cam[f"trunk_{i}_{name}"]
+               for name in ("norm1", "qkv", "proj", "ls1", "norm2", "mlp", "ls2")}
+        _block_from_jax(blk, f"camera_head.trunk.{i}", out)
+
+
+def vggt_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``VGGT`` params (``aggregator`` / ``depth_head`` / optional
+    ``point_head`` and ``camera_head``, optionally under a ``"params"`` key)
+    -> the port's ``VGGT.state_dict()`` in the upstream layout
+    (``vggt.json``, ``stream3r.json`` with the point head), fp32 CPU
+    tensors: the inverse of ``convert_vggt``. One tree serves the joint
+    model and ``StreamingVGGT``."""
+    if "params" in params:
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+    _aggregator_from_jax(params["aggregator"], out)
+    for head in ("depth_head", "point_head"):
+        if head in params:
+            out.update(dpt_head_from_jax(params[head]["dpt"], f"{head}.dpt",
+                                         nested_scratch=False))
     if "camera_head" in params:
-        cam = params["camera_head"]
-        _layernorm(cam["token_norm"], "camera_head.token_norm", out)
-        _linear(cam["embed_pose"], "camera_head.embed_pose", out)
-        _linear(cam["poseLN_modulation"], "camera_head.poseLN_modulation", out)
-        _linear(cam["pose_branch_fc1"], "camera_head.pose_branch.fc1", out)
-        _linear(cam["pose_branch_fc2"], "camera_head.pose_branch.fc2", out)
-        trunk_depth = sum(1 for k in cam if k.endswith("_norm1"))
-        for i in range(trunk_depth):
-            blk = {name: cam[f"trunk_{i}_{name}"]
-                   for name in ("norm1", "qkv", "proj", "ls1", "norm2", "mlp", "ls2")}
-            _block_from_jax(blk, f"camera_head.trunk.{i}", out)
+        _camera_head_from_jax(params["camera_head"], out)
     return out
+
+
+def map_anything_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``MapAnything`` params -> the port's state dict in the layout of
+    ``weights/manifests/map_anything.json``: the inverse of
+    ``convert_map_anything``."""
+    if "params" in params:
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+    _aggregator_from_jax(params["aggregator"], out)
+    out.update(dpt_head_from_jax(params["dense_head"]["dpt"], "dense_head.dpt",
+                                 nested_scratch=False))
+    _camera_head_from_jax(params["camera_head"], out)
+    _linear(params["scale_fc1"], "scale_fc1", out)
+    _linear(params["scale_fc2"], "scale_fc2", out)
+    return out
+
+
+def align3r_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``Align3R`` params -> the port's state dict in the layout of
+    ``weights/manifests/align3r.json``: the inverse of ``convert_align3r``
+    (the decoder blocks' ``dec{1,2}_{i}`` become ``dec{1,2}.{i}``)."""
+    if "params" in params:
+        params = params["params"]
+    out = dinovit_from_jax(params["encoder"], "encoder")
+    _linear(params["decoder_embed"], "decoder_embed", out)
+    _conv(params["prior_embed"], "prior_embed", out)
+    for head in ("head1", "head2"):
+        out.update(dpt_head_from_jax(params[head], head, nested_scratch=False))
+    for key, blk in params.items():
+        side, _, i = key.partition("_")
+        if side not in ("dec1", "dec2"):
+            continue
+        for name in ("norm1", "norm2", "norm_y", "norm3"):
+            _layernorm(blk[name], f"{side}.{i}.{name}", out)
+        for name in ("self_q", "self_kv", "self_proj", "cross_q", "cross_kv", "cross_proj",
+                     "fc1", "fc2"):
+            _linear(blk[name], f"{side}.{i}.{name}", out)
+    return out
+
+
+def align3r_pair_from_jax(params: Mapping[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The JAX ``align3r`` pipeline's params (``{"align3r": Align3R, "prior":
+    DA-V2 vits}``) -> the same two keys holding the port's state dicts, the
+    ``params`` of its ``align3r``."""
+    return {"align3r": align3r_from_jax(params["align3r"]),
+            "prior": state_dict_from_jax(params["prior"])}
+
+
+def dinov3_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``DINOv3Depther`` params -> the port's state dict in the layout of
+    ``weights/manifests/dinov3_vit*16.json``: the inverse of
+    ``convert_dinov3`` (RoPE has no parameters, and there is no position
+    table)."""
+    return _dino_dpt_from_jax(params, ("backbone", "head"))
 
 
 def depth_pro_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -392,6 +459,8 @@ Q8_ROOTS = {
     "metric_anything": ("backbone",),
     "unidepth_v2": ("pixel_encoder",),
     "unik3d": ("pixel_encoder",),
+    "streamvggt": ("aggregator",),
+    "map_anything": ("aggregator",),
 }
 # Flax module names -> the port's module paths
 _Q8_NAMES = (("blocks_", "blocks."), ("frame_", "frame_blocks."), ("global_", "global_blocks."))
@@ -441,21 +510,28 @@ def state_dict_from_jax(params: Mapping[str, Any]):
     """JAX params of a ported family (optionally under a ``"params"`` key)
     -> the port's state dict, fp32 CPU tensors. The family is read from the
     tree's top-level modules: ``pretrained`` (``DepthAnythingV2``),
-    ``aggregator`` (VGGT), ``patch_encoder`` (Depth Pro), ``encoder``
-    (Metric3D V2), ``pixel_encoder`` (UniDepth V2, UniK3D), ``ssi``/``si``
-    (SIDepth), ``mde``/``cond`` (Prior Depth Anything's refiner), ``backbone``
-    with ``scale_fc1`` (MoGe-2, Metric Anything), with a plain DPT ``head`` of
-    five outputs (GeoCalib) or with a two-branch ``head`` (Depth Anything
-    V3). The composite ``{"vggt", "refiner"}`` of ``prior_depth_anything``
-    gives those two keys, each a state dict."""
+    ``aggregator`` (VGGT, StreamVGGT, STream3R, LiteVGGT; with
+    ``dense_head``: MapAnything), ``patch_encoder`` (Depth Pro),
+    ``decoder_embed`` (Align3R), ``encoder`` (Metric3D V2),
+    ``pixel_encoder`` (UniDepth V2, UniK3D), ``ssi``/``si`` (SIDepth),
+    ``mde``/``cond`` (Prior Depth Anything's refiner), ``backbone`` with
+    ``scale_fc1`` (MoGe-2, Metric Anything), with a plain DPT ``head`` of one
+    output (DINOv3) or five (GeoCalib), or with a two-branch ``head`` (Depth
+    Anything V3). The composites ``{"vggt", "refiner"}`` of
+    ``prior_depth_anything`` and ``{"align3r", "prior"}`` of ``align3r``
+    give those two keys, each a state dict."""
     if "params" in params:
         params = params["params"]
     if "refiner" in params and "vggt" in params:
         return prior_depth_anything_from_jax(params)
+    if "align3r" in params and "prior" in params:
+        return align3r_pair_from_jax(params)
     if "aggregator" in params:
-        return vggt_from_jax(params)
+        return (map_anything_from_jax if "dense_head" in params else vggt_from_jax)(params)
     if "patch_encoder" in params:
         return depth_pro_from_jax(params)
+    if "decoder_embed" in params:
+        return align3r_from_jax(params)
     if "encoder" in params:
         return metric3d_v2_from_jax(params)
     if "pixel_encoder" in params:
@@ -470,9 +546,9 @@ def state_dict_from_jax(params: Mapping[str, Any]):
         if "output_conv2_2" not in params["head"]:  # DA3's two branches
             return da3_from_jax(params)
         outputs = np.shape(params["head"]["output_conv2_2"]["kernel"])[-1]
-        if outputs != 5:
+        if outputs not in (1, 5):
             raise ValueError(f"a DINOv2 + DPT tree with {outputs} outputs: no ported family")
-        return geocalib_from_jax(params)
+        return (dinov3_from_jax if outputs == 1 else geocalib_from_jax)(params)
     return {
         **dinovit_from_jax(params["pretrained"], "pretrained"),
         **dpt_head_from_jax(params["depth_head"], "depth_head"),

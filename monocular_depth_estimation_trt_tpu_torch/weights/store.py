@@ -17,6 +17,7 @@ from __future__ import annotations
 import contextlib
 import math
 import os
+import re
 from typing import Mapping, Optional
 
 import torch
@@ -81,23 +82,34 @@ def resolve_checkpoint(path_or_uri: str) -> str:
     )
 
 
-def load_state_dict(model: nn.Module, state_dict: Mapping[str, torch.Tensor]) -> None:
+def load_state_dict(model: nn.Module, state_dict: Mapping[str, torch.Tensor],
+                    allowed_unconsumed: Optional[str] = None) -> None:
     """Strict load of an upstream-named state dict. The keys of
-    :data:`DROPPED_KEYS` are dropped; any other extra or missing key raises."""
+    :data:`DROPPED_KEYS` are dropped, and so are keys the model does not hold
+    that match the regex ``allowed_unconsumed`` (with a warning); any other
+    extra or missing key raises."""
     sd = {k: v for k, v in state_dict.items() if k not in DROPPED_KEYS}
+    if allowed_unconsumed:
+        held = set(model.state_dict())
+        extra = [k for k in sd if k not in held and re.search(allowed_unconsumed, k)]
+        if extra:
+            log(f"checkpoint: {len(extra)} keys the model does not use are dropped "
+                f"(allowed: {allowed_unconsumed!r}), e.g. {extra[0]!r}", tag="WARN")
+        sd = {k: v for k, v in sd.items() if k not in extra}
     model.load_state_dict(sd, strict=True)
 
 
-def load_checkpoint(model: nn.Module, path_or_uri: str) -> None:
+def load_checkpoint(model: nn.Module, path_or_uri: str,
+                    allowed_unconsumed: Optional[str] = None) -> None:
     path = resolve_checkpoint(path_or_uri)
     log(f"Load checkpoint {path}")
     sd = torch.load(path, map_location="cpu", weights_only=True)
-    load_state_dict(model, sd)
+    load_state_dict(model, sd, allowed_unconsumed)
 
 
 @torch.no_grad()
 def init_random_(model: nn.Module, seed: int = 0) -> None:
-    """Deterministic random init from a seeded CPU ``torch.Generator``:
+    """Deterministic random init from a seeded ``torch.Generator``:
     lecun-normal weights and zero biases for Linear/Conv layers, identity
     LayerNorms, normal(0.02) position table, zero class and register tokens,
     normal(0.02) for the parameters a module lists in its ``normal_init``
@@ -105,11 +117,16 @@ def init_random_(model: nn.Module, seed: int = 0) -> None:
     LayerScale gammas are set to
     :data:`RANDOM_LAYERSCALE` rather than the untrained 1e-5, so that every
     attention and MLP branch moves the output, as in a trained DINOv2, and
-    a whole-path comparison of two attention routes compares something."""
-    g = torch.Generator().manual_seed(seed)
+    a whole-path comparison of two attention routes compares something.
+
+    The generator lives where the parameters do: a model that lives on the
+    card (too large to build on the host) is filled there, from a seeded
+    CUDA generator, whose numbers differ from the CPU's."""
+    device = next(model.parameters()).device
+    g = torch.Generator(device=device).manual_seed(seed)
 
     def normal_(t: torch.Tensor, std: float) -> None:
-        t.copy_(torch.randn(t.shape, generator=g, dtype=torch.float32) * std)
+        t.copy_(torch.randn(t.shape, generator=g, dtype=torch.float32, device=device) * std)
 
     for mod in model.modules():
         if isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
@@ -140,15 +157,17 @@ def resolve_weights(model: nn.Module, name: str, *,
                     checkpoint: Optional[str] = None,
                     state_dict: Optional[Mapping[str, torch.Tensor]] = None,
                     seed: int = 0,
-                    allow_random: Optional[bool] = None) -> None:
+                    allow_random: Optional[bool] = None,
+                    allowed_unconsumed: Optional[str] = None) -> None:
     """Fill ``model`` in place: an explicit ``state_dict``, else
     ``checkpoint``, else deterministic random weights when allowed, else
-    :class:`MissingCheckpointError`."""
+    :class:`MissingCheckpointError`. ``allowed_unconsumed``: see
+    :func:`load_state_dict`."""
     if state_dict is not None:
-        load_state_dict(model, state_dict)
+        load_state_dict(model, state_dict, allowed_unconsumed)
         return
     if checkpoint:
-        load_checkpoint(model, checkpoint)
+        load_checkpoint(model, checkpoint, allowed_unconsumed)
         return
     allowed = _ALLOW_RANDOM_DEFAULT if allow_random is None else allow_random
     if not allowed:

@@ -24,7 +24,9 @@ FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "orbax")
 DA_FAMILY = ("bridge", "depth_anything_ac", "depth_anything_v2", "distill_any_depth", "dkt")
 PORTED = tuple(sorted(DA_FAMILY + ("depth_pro", "vggt", "depth_anything_v3", "metric3d_v2",
                                     "moge2", "metric_anything", "unidepth_v2", "unik3d",
-                                    "sidepth", "geocalib", "prior_depth_anything")))
+                                    "sidepth", "geocalib", "prior_depth_anything",
+                                    "streamvggt", "litevggt", "stream3r", "map_anything",
+                                    "align3r", "dinov3")))
 
 
 def _forbidden(module: str) -> bool:
@@ -180,6 +182,8 @@ def test_depth_pro_builds_with_the_jax_artifact_names(monkeypatch, kw):
 @pytest.mark.parametrize("name,kw,roots", [
     ("depth_anything_v2", {"encoder": "vitl"}, ("pretrained",)),
     ("vggt", {}, ("aggregator",)),
+    ("streamvggt", {}, ("aggregator",)),
+    ("map_anything", {}, ("aggregator",)),
     ("depth_pro", {}, ("patch_encoder", "image_encoder")),
 ])
 def test_int8_builds_with_the_jax_artifact_names(monkeypatch, name, kw, roots):

@@ -137,8 +137,14 @@ def test_rope_attention_at_head_dim_128_matches_jax(rng, views):
 
 
 def test_view_causal_config_is_refused():
-    with pytest.raises(NotImplementedError, match="streamvggt"):
-        tvggt.Aggregator(tvggt.VGGTConfig(causal=True))
+    """The view-causal config used to raise here; it now builds, and its
+    global attention masks later views (held against JAX in
+    ``tests/test_torch_streamvggt.py``)."""
+    agg = tvggt.Aggregator(tvggt.VGGTConfig(causal=True))
+    assert agg.cfg.causal
+    mask = tvggt._view_causal_mask(3, 2, torch.device("cpu"))
+    assert torch.equal(mask, torch.tensor([[v >= w for w in (0, 0, 1, 1, 2, 2)]
+                                           for v in (0, 0, 1, 1, 2, 2)]))
 
 
 def test_aggregator_matches_jax(pair, jax_run):

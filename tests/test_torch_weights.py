@@ -251,3 +251,57 @@ def test_depth_pro_from_jax_inverts_the_jax_converter_exactly():
                                               pretrain_img_size=128))
     model = DepthPro(cfg, decoder_features=16, dims_encoder=(8, 16, 32, 32))
     store.load_state_dict(model, back)  # strict
+
+
+def _tiny_models():
+    """One small instance of every model class the registry builds (the
+    registry builds them on the meta device and fills them after)."""
+    from monocular_depth_estimation_trt_tpu_torch.models.align3r import Align3R
+    from monocular_depth_estimation_trt_tpu_torch.models.depth_anything_v3 import DepthAnythingV3
+    from monocular_depth_estimation_trt_tpu_torch.models.dinov3 import DINOv3Depther
+    from monocular_depth_estimation_trt_tpu_torch.models.geocalib import GeoCalib
+    from monocular_depth_estimation_trt_tpu_torch.models.geometric import GeometricDepthModel
+    from monocular_depth_estimation_trt_tpu_torch.models.map_anything import MapAnything
+    from monocular_depth_estimation_trt_tpu_torch.models.metric3d_v2 import Metric3DV2
+    from monocular_depth_estimation_trt_tpu_torch.models.moge2 import MoGe2
+    from monocular_depth_estimation_trt_tpu_torch.models.prior_depth import PriorDARefiner
+    from monocular_depth_estimation_trt_tpu_torch.models.sidepth import SIDepth
+
+    vit = ViTConfig(dim=32, depth=2, num_heads=2, num_register_tokens=4)
+    vggt = VGGTConfig(dim=32, depth=2, num_heads=2, head_layers=(0, 1, 0, 1), vit_config=vit,
+                      head_features=8, head_out_channels=(8, 8, 8, 8), causal=True)
+    dpt = dict(head_features=8, head_out_channels=(8, 8, 8, 8), out_indices=(0, 1, 0, 1))
+    return {
+        "depth_anything_v2": lambda: DepthAnythingV2("vits", vit_config=vit, **dpt),
+        "vggt": lambda: VGGT(vggt, with_camera=True, with_point_head=True),
+        "depth_pro": lambda: DepthPro(cfg=DepthProConfig(vit_config=ViTConfig(
+            dim=64, depth=2, num_heads=2, patch_size=16, pretrain_img_size=384),
+            hook_block_ids=(0, 1))),
+        "depth_anything_v3": lambda: DepthAnythingV3("vits", vit_config=vit, **dpt),
+        "metric3d_v2": Metric3DV2, "moge2": MoGe2, "unidepth_v2": GeometricDepthModel,
+        "unik3d": lambda: GeometricDepthModel(mode="unik3d"), "sidepth": SIDepth,
+        "geocalib": GeoCalib, "prior_refiner": PriorDARefiner,
+        "map_anything": lambda: MapAnything(vggt),
+        "align3r": lambda: Align3R(ViTConfig(dim=32, depth=2, num_heads=2, patch_size=16),
+                                   dec_dim=16, dec_depth=4, dec_heads=2, head_features=8,
+                                   head_out_channels=(8, 8, 8, 8)),
+        "dinov3": lambda: DINOv3Depther("vits16", vit_config=ViTConfig(
+            dim=32, depth=2, num_heads=2, patch_size=16, num_register_tokens=4, rope=True,
+            pos_embed=False, ffn="swiglu"), **dpt),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_tiny_models()))
+def test_init_random_writes_every_parameter(name):
+    """The registry builds each model on the meta device and gives it
+    uninitialized storage before random weights fill it: every parameter
+    must be written, and no buffer be left."""
+    with torch.device("meta"):
+        model = _tiny_models()[name]()
+    model = model.to_empty(device="cpu")
+    with torch.no_grad():
+        for p in model.parameters():
+            p.fill_(float("nan"))
+    store.init_random_(model, 0)
+    assert [n for n, p in model.named_parameters() if torch.isnan(p).any()] == []
+    assert list(model.named_buffers()) == []
