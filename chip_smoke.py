@@ -45,7 +45,7 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    then 8 views, with the counts set to 0 just before and read just after
    (24 K1 + 48 K2 per captured forward); then its bf16 outputs against
    plain attention and the fp32 path for two weight seeds and three frames,
-   and the fp32 path on the card against the CPU (4 of 24 ViT and 4 of 24
+   and the fp32 path on the card against the CPU (2 of 24 ViT and 2 of 24
    alternating blocks);
 6. Depth Pro path: ``build_pipeline("depth_pro")`` at full size (two
    ViT-L/16@384 encoders, 1536 input): a 480x640 frame with the viz
@@ -53,7 +53,7 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    read just after (24 K3 + 24 K1 per captured forward); then its bf16
    outputs against plain attention and the fp32 path for two weight seeds
    and two frames, and the fp32 path on the card against the CPU with the
-   ViT depth cut to 4 blocks (hooks at blocks 1 and 3);
+   ViT depth cut to 2 blocks (hooks at blocks 0 and 1);
 7. metric_families_path: ``depth_anything_v3`` (vitl 518²),
    ``metric3d_v2`` (vitl on the 616x1064 canvas, ``iters=4``), ``moge2``
    (vits 291x518, 1800 tokens) and ``metric_anything`` (vitl 518², 3600
@@ -64,13 +64,13 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    MoGe pair: inf off its mask); then the bf16 kernel route against plain
    attention and the fp32 path for two weight seeds and the two frames (the
    MoGe pair on its model's outputs), and the fp32 path on the card against
-   the CPU, the ViT-L families cut to 4 blocks; then single_image_families_path:
+   the CPU, the ViT-L families cut to 2 blocks; then single_image_families_path:
    ``unidepth_v2`` and ``unik3d`` (vitb 518², 4 registers), ``sidepth`` (two
    vits stacks, 518²), ``geocalib`` (vits 322² and its 10-step camera fit)
    and ``prior_depth_anything`` (VGGT S=1 depth-only and the vits refiner) in
    the same way (per captured forward 12, 12, 24, 12 K1, and 48 K1 + 48 K2;
    GeoCalib's fields compared, its roll, pitch and focal recorded; the fp32
-   comparison with every ViT, and Prior Depth Anything's VGGT, cut to 4
+   comparison with every ViT, and Prior Depth Anything's VGGT, cut to 2
    blocks); then ``geocalib_fit``: GeoCalib's camera fit on the fields of
    a known camera (exact, and noisy under uneven weights), eager and
    through an engine, against the camera and the CPU's fit; then
@@ -95,7 +95,23 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    attention); then each multi-view family's engine against its eager
    forward, its speed in turns eager, graph, graph, eager, and its profile
    (Align3R's eager forward with the device time of its plain decoder
-   attention);
+   attention); then the video paths (``video``): Video Depth Anything vits
+   and vitl at 518², a 32-frame window each (K1 at (32, 1370, 6 or 16); 12
+   or 24 K1 a window) and, for vits, an 80-frame 288x512 clip through
+   ``video_depth`` (windows at 0, 22, 44, 48, stitched on the host; the
+   stitching re-done from the windows' replays), each window engine against
+   its eager forward; FlashDepth vits at 518², 16 steps of its session's one
+   captured graph (12 K1 a step) against the eager steps from a fresh state
+   and against ``flashdepth_video``, a single frame from a zero state, the
+   reset; the int8 StreamVGGT stream, window 4, 8 steps at 480x640 (288 K4
+   + 24 K1 + 24 K2 a step) against the eager steps; each with its own counts
+   set to 0 just before and read just after; the bf16 kernel route against
+   the plain and fp32 routes at 2 weight seeds (``video_parity``) and fp32
+   card against CPU with the ViT cut to 2 blocks; then their speed (the VDA
+   windows in frames/s, FlashDepth's frame in turns) and profile (the VDA
+   windows' eager rows with the device time of the temporal blocks and of
+   their attention, the FlashDepth and int8 stream steps' graphs), all
+   released before the int8 phases;
 8. int8 paths: ``build_pipeline(name, precision="int8", calib_images=...)``
    for DA-V2 vitl, depth_pro, vggt, metric3d_v2 and unidepth_v2 at full
    size, each with its own counts set to 0 just before and read just after
@@ -124,7 +140,11 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    its f_px), ``run moge2 --mesh --mesh-format glb``, ``run unidepth_v2``
    (``_fov.json`` from its intrinsics) and ``run geocalib`` (the
    calibration lines) on this process's weights (every npz output equal to
-   the pipeline's bit for bit);
+   the pipeline's bit for bit); ``video video_depth_anything``, ``video
+   flashdepth`` and ``batch depth_anything_v2 --video`` on
+   ``data/example_video.mp4`` in one process of their own (the MP4s' frame
+   count and size, each extracted frame's depth; without cv2, each exits
+   non-zero naming the codec);
 11. server: ``DepthServer`` over vits on port 0 with max_batch 4: 8
    concurrent PNG requests, 2 of another size, a bad body (400), an unknown
    model (404), ``format=jpg`` (501 without a JPEG codec); each npz answer
@@ -151,6 +171,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -196,15 +217,17 @@ PARITY_WEIGHT_SEEDS = (0, 1)
 PATH_BF16_ROUTE_RATIO = 1.5
 
 # The fp32 card-vs-CPU comparison runs the full 1536 geometry and widths
-# with the ViT depth cut to 4 blocks, hooked at blocks 1 and 3 (12 blocks and
+# with the ViT depth cut to 2 blocks, hooked at blocks 0 and 1 (12 blocks and
 # hooks 5 and 11 until the metric families' phases needed the card time, 6
-# and hooks 2 and 5 until the multi-view families').
-DEPTH_PRO_CPU_VIT_DEPTH = 4
-DEPTH_PRO_CPU_HOOKS = (1, 3)
-# VGGT's fp32 card-vs-CPU comparison: 4 of 24 ViT blocks and 4 of 24
+# and hooks 2 and 5 until the multi-view families', 4 and hooks 1 and 3
+# until the video paths').
+DEPTH_PRO_CPU_VIT_DEPTH = 2
+DEPTH_PRO_CPU_HOOKS = (0, 1)
+# VGGT's fp32 card-vs-CPU comparison: 2 of 24 ViT blocks and 2 of 24
 # alternating blocks at full widths and 518^2 (the whole model until the
-# multi-view families' phases needed the card time)
-VGGT_CPU_DEPTH = 4
+# multi-view families' phases needed the card time, 4 + 4 until the video
+# paths')
+VGGT_CPU_DEPTH = 2
 
 # int8 serving against its fp32 path, at 2 weight seeds x 2 frames per
 # family: Pearson r above the JAX package's bar (tests/test_quant.py) at
@@ -242,7 +265,9 @@ INT8_P999_TOL = {"vggt": {"depth_conf": 6e-2}}
 ENGINE_REL_TOL = 1e-3
 VGGT_BENCH = dict(warmup=3, iterations=20, latency_iterations=10)
 DEPTH_PRO_BENCH = dict(warmup=3, iterations=20, latency_iterations=10)
-FAMILY_BENCH = dict(warmup=3, iterations=50, latency_iterations=20)
+# 30 timed and 10 synchronised iterations (50 and 20 until the video paths'
+# phases needed the card time)
+FAMILY_BENCH = dict(warmup=3, iterations=30, latency_iterations=10)
 
 # the TMA + wgmma kernels (bf16 x) and their instantiations in the library
 # (K2 and K3 at head widths 64 and 128, K4 at tile widths 128 and 256),
@@ -362,6 +387,9 @@ def check_flash_attention_packed(fa, dev):
         # (32x32 + cls) and the DA-V2 vits prior of both frames at 504^2 (36x36 + cls)
         ("align3r_encoder_512", 4, 1025, 16, torch.bfloat16),
         ("align3r_prior_504", 2, 1297, 6, torch.bfloat16),
+        # Video Depth Anything: a 32-frame 518^2 window folded into the batch
+        ("vda_vits_window32", 32, 1370, 6, torch.bfloat16),
+        ("vda_vitl_window32", 32, 1370, 16, torch.bfloat16),
         ("n1", 1, 1, 6, torch.bfloat16),
         ("n63", 1, 63, 6, torch.bfloat16),
         ("n64", 1, 64, 6, torch.bfloat16),
@@ -1207,7 +1235,7 @@ FAMILIES = {
                      on_card_routes=True, cpu_depth=2,
                      held={k: Held(v) for k, v in PATH_BF16_VGGT_REL_TOL.items()}),
     "align3r": dict(group=MULTI, hw=((480, 640), (512, 512)), per_forward=[0, 36, 0, 0],
-                    pair=True, on_card_routes=True,
+                    pair=True, on_card_routes=True, cpu_depth=4,  # its decoder taps need 4
                     held={"depth": Held(1.5e-1, "mean_rel"), "pts1": Held(8e-2, "mean_rel"),
                           "pts2": Held(8e-2, "mean_rel"), "conf1": Held(8e-2, "mean_rel"),
                           "conf2": Held(1.5e-1)},
@@ -1238,10 +1266,11 @@ MOGE_MASK_BIAS = 1.0
 # over the rest, 0.7 % of the pixels left out, in one). The share left out is
 # recorded.
 UP_NORM_NEAR_0 = 0.1
-# The fp32 card-vs-CPU comparison cuts each family's ViTs to 4 blocks (taps 0
-# to 3) at full width and resolution, Prior Depth Anything's VGGT to 4
-# alternating blocks on a 4-block patch embed; MoGe-2 vits runs whole.
-FAMILY_CPU_VIT_DEPTH = 4
+# The fp32 card-vs-CPU comparison cuts each family's ViTs to 2 blocks (taps 0,
+# 1, 0, 1) at full width and resolution, Prior Depth Anything's VGGT to 2
+# alternating blocks on a 2-block patch embed; MoGe-2 vits runs whole (4
+# blocks until the video paths' phases needed the card time).
+FAMILY_CPU_VIT_DEPTH = 2
 
 
 def lift_moge_mask(model) -> None:
@@ -2596,9 +2625,36 @@ def server_phase(pipe, rng):
           "server: no request was batched")
 
 
+def cli_group(commands, env):
+    """Each argv of ``commands`` through the command line's ``main``, in
+    order, in one process of its own (the commands of one process share its
+    start-up: importing torch and loading the kernels' library). Returns
+    each command's stdout by its argv tuple, the exit codes, and the
+    process's seconds."""
+    # each command's pipeline and graphs are freed before the next command
+    code = ("import gc\nimport torch\n"
+            "from monocular_depth_estimation_trt_tpu_torch.cli import main\n"
+            f"for argv in {[list(c) for c in commands]!r}:\n"
+            "    print('@@ command', flush=True)\n"
+            "    print('@@ exit', main(argv), flush=True)\n"
+            "    gc.collect()\n"
+            "    torch.cuda.empty_cache()\n")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    parts = proc.stdout.split("@@ command\n")[1:]
+    check(proc.returncode == 0 and len(parts) == len(commands),
+          f"cli {[c[:2] for c in commands]} exited {proc.returncode}: {proc.stdout[-1500:]}"
+          f"{proc.stderr[-2500:]}")
+    rcs = [int(p.rsplit("@@ exit ", 1)[1].split()[0]) for p in parts]
+    return {tuple(c): p for c, p in zip(commands, parts)}, rcs, seconds
+
+
 def cli_phase(pipe, vggt, depth_pro, moge, unidepth, geocalib, align3r, rng):
-    """``python -m monocular_depth_estimation_trt_tpu_torch`` in processes of
-    its own, as a user starts it: ``run`` of DA-V2 vits on a seeded 480x640
+    """``python -m monocular_depth_estimation_trt_tpu_torch``'s commands, in
+    one process of their own (``cli_group``; its seconds are each record's):
+    ``run`` of DA-V2 vits on a seeded 480x640
     PNG with ``--pointcloud --benchmark`` (its npz depth equal to this
     process's pipeline on the same frame, bit for bit; the viz and the
     ``.ply`` written), ``views vggt`` on 4 PNGs, ``run depth_pro`` on
@@ -2611,7 +2667,7 @@ def cli_phase(pipe, vggt, depth_pro, moge, unidepth, geocalib, align3r, rng):
     of every output, equal to the pipeline's) on this process's weights;
     ``pair align3r`` on two seeded PNGs (the PLY's points and colors and the
     pose JSON equal to this process's Align3R on the same seeded random
-    weights)."""
+    weights); then ``video_commands``."""
     import math
     import shutil
     import tempfile
@@ -2625,14 +2681,11 @@ def cli_phase(pipe, vggt, depth_pro, moge, unidepth, geocalib, align3r, rng):
     tmp = tempfile.mkdtemp(prefix="mdet_cli_")
     env = {**os.environ, "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
 
+    outputs, seconds = {}, None
+
     def cli(*argv):
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "monocular_depth_estimation_trt_tpu_torch",
-                               *argv], cwd=REPO, env=env, capture_output=True, text=True,
-                              timeout=600)
-        check(proc.returncode == 0, f"cli {' '.join(argv[:2])} exited {proc.returncode}: "
-                                    f"{proc.stdout[-1500:]}{proc.stderr[-2500:]}")
-        return proc.stdout, time.perf_counter() - t0
+        """A command's stdout and its process's seconds."""
+        return outputs[argv], seconds
 
     def only(directory, suffix):
         found = [f for f in os.listdir(directory) if f.endswith(suffix)]
@@ -2644,10 +2697,46 @@ def cli_phase(pipe, vggt, depth_pro, moge, unidepth, geocalib, align3r, rng):
         png = os.path.join(tmp, "frame.png")
         imageio.write_image(png, frame)
         check(np.array_equal(imageio.read_image(png), frame), "cli: the PNG round trip")
-        out_run = os.path.join(tmp, "run")
-        stdout, run_s = cli("run", "depth_anything_v2", "--encoder", "vits", "--image", png,
-                            "--out", out_run, "--pointcloud", "--allow-random-weights",
-                            "--benchmark")
+        views = rng.integers(0, 256, (4, 518, 518, 3), dtype=np.uint8)
+        pngs = []
+        for i, v in enumerate(views):
+            pngs.append(os.path.join(tmp, f"view{i}.png"))
+            imageio.write_image(pngs[-1], v)
+        # pair: two PNGs on seeded random weights, as this process's Align3R
+        pair_rng = np.random.default_rng(13)
+        pair_pngs = []
+        for i in range(2):
+            pair_pngs.append(os.path.join(tmp, f"pair{i}.png"))
+            imageio.write_image(pair_pngs[-1], pair_rng.integers(0, 256, (480, 640, 3), np.uint8))
+        ckpts = {}
+        for name, p in (("depth_pro", depth_pro), ("moge2", moge), ("unidepth_v2", unidepth),
+                        ("geocalib", geocalib)):
+            ckpts[name] = os.path.join(tmp, f"{name}.pth")
+            torch.save({k: v.detach().cpu() for k, v in p.model.state_dict().items()},
+                       ckpts[name])
+        out_run, out_views = os.path.join(tmp, "run"), os.path.join(tmp, "views")
+        out_pair, out_dp = os.path.join(tmp, "pair"), os.path.join(tmp, "depth_pro")
+        out_moge = os.path.join(tmp, "moge2")
+        run_cmd_argv = ("run", "depth_anything_v2", "--encoder", "vits", "--image", png,
+                        "--out", out_run, "--pointcloud", "--allow-random-weights", "--benchmark")
+        views_argv = ("views", "vggt", "--images", *pngs, "--out", out_views,
+                      "--allow-random-weights")
+        pair_argv = ("pair", "align3r", "--image1", pair_pngs[0], "--image2", pair_pngs[1],
+                     "--out", out_pair, "--allow-random-weights")
+        dp_argv = ("run", "depth_pro", "--image", png, "--out", out_dp, "--checkpoint",
+                   ckpts["depth_pro"])
+        moge_argv = ("run", "moge2", "--image", png, "--out", out_moge, "--checkpoint",
+                     ckpts["moge2"], "--mesh", "--mesh-format", "glb")
+        family_argv = {name: ("run", name, "--image", png, "--out", os.path.join(tmp, name),
+                              "--checkpoint", ckpts[name]) for name in ("unidepth_v2", "geocalib")}
+        commands = [run_cmd_argv, views_argv, pair_argv, dp_argv, moge_argv,
+                    *family_argv.values()]
+        videos = video_commands(tmp)
+        outputs, rcs, seconds = cli_group(commands + videos, env)
+        check(rcs[:len(commands)] == [0] * len(commands),
+              f"cli {[c[:2] for c in commands]}: exit codes {rcs}")
+
+        stdout, run_s = cli(*run_cmd_argv)
         depth = np.load(only(out_run, ".npz"))["depth"]
         in_process = pipe(frame, viz=True)["depth"]
         viz = [f for f in os.listdir(out_run) if f.endswith((".jpg", ".png"))]
@@ -2664,14 +2753,7 @@ def cli_phase(pipe, vggt, depth_pro, moge, unidepth, geocalib, align3r, rng):
               f"cli run: viz {viz}, ply {pts.shape}")
         check(bool(fps), "cli run --benchmark printed no FPS line")
 
-        views = rng.integers(0, 256, (4, 518, 518, 3), dtype=np.uint8)
-        pngs = []
-        for i, v in enumerate(views):
-            pngs.append(os.path.join(tmp, f"view{i}.png"))
-            imageio.write_image(pngs[-1], v)
-        out_views = os.path.join(tmp, "views")
-        _, views_s = cli("views", "vggt", "--images", *pngs, "--out", out_views,
-                         "--allow-random-weights")
+        _, views_s = cli(*views_argv)
         got = np.load(only(out_views, "_s4.npz"))
         want = vggt.multi_view(views)
         vpts, _ = read_ply(only(out_views, "_s4.ply"))
@@ -2686,10 +2768,7 @@ def cli_phase(pipe, vggt, depth_pro, moge, unidepth, geocalib, align3r, rng):
               f"cli views: {rec['shapes']}")
         check(vpts.shape[0] > 0, "cli views: an empty point cloud")
 
-        ckpt = os.path.join(tmp, "depth_pro_lifted.pth")
-        torch.save({k: v.detach().cpu() for k, v in depth_pro.model.state_dict().items()}, ckpt)
-        out_dp = os.path.join(tmp, "depth_pro")
-        _, dp_s = cli("run", "depth_pro", "--image", png, "--out", out_dp, "--checkpoint", ckpt)
+        _, dp_s = cli(*dp_argv)
         fov = json.load(open(only(out_dp, "_fov.json")))
         ours = depth_pro(frame)
         f_px = float(ours["f_px"])
@@ -2705,11 +2784,7 @@ def cli_phase(pipe, vggt, depth_pro, moge, unidepth, geocalib, align3r, rng):
         check(dp_depth.shape == (480, 640) and bool(np.isfinite(dp_depth).all()),
               "cli depth_pro: depth")
 
-        ckpt = os.path.join(tmp, "moge2_lifted.pth")
-        torch.save({k: v.detach().cpu() for k, v in moge.model.state_dict().items()}, ckpt)
-        out_moge = os.path.join(tmp, "moge2")
-        _, moge_s = cli("run", "moge2", "--image", png, "--out", out_moge, "--checkpoint", ckpt,
-                        "--mesh", "--mesh-format", "glb")
+        _, moge_s = cli(*moge_argv)
         got = np.load(only(out_moge, ".npz"))
         ours = moge(frame)
         with open(only(out_moge, ".glb"), "rb") as f:
@@ -2729,15 +2804,12 @@ def cli_phase(pipe, vggt, depth_pro, moge, unidepth, geocalib, align3r, rng):
         check(magic == b"glTF", f"cli moge2: the mesh starts {magic!r}")
 
         for name, p in (("unidepth_v2", unidepth), ("geocalib", geocalib)):
-            ckpt = os.path.join(tmp, f"{name}.pth")
-            torch.save({k: v.detach().cpu() for k, v in p.model.state_dict().items()}, ckpt)
             out_dir = os.path.join(tmp, name)
-            stdout, seconds = cli("run", name, "--image", png, "--out", out_dir,
-                                  "--checkpoint", ckpt)
+            stdout, took = cli(*family_argv[name])
             got = np.load(only(out_dir, ".npz"))
             ours = {k: v for k, v in p(frame).items() if k != "viz"}
             rec = {"phase": "cli", "command": f"run {name} (this process's weights)",
-                   "seconds": seconds, "files": sorted(os.listdir(out_dir)),
+                   "seconds": took, "files": sorted(os.listdir(out_dir)),
                    "shapes": {k: list(got[k].shape) for k in got.files},
                    "equal_in_process": {k: bool(np.array_equal(got[k], ours[k], equal_nan=True))
                                         for k in got.files}}
@@ -2762,16 +2834,8 @@ def cli_phase(pipe, vggt, depth_pro, moge, unidepth, geocalib, align3r, rng):
             else:
                 check(len(rec["lines"]) == 4, f"cli geocalib: calibration lines {rec['lines']}")
 
-        # pair: two PNGs on seeded random weights, as this process's Align3R
-        pair_rng = np.random.default_rng(13)
-        pngs = []
-        for i in range(2):
-            pngs.append(os.path.join(tmp, f"pair{i}.png"))
-            imageio.write_image(pngs[-1], pair_rng.integers(0, 256, (480, 640, 3), np.uint8))
-        out_pair = os.path.join(tmp, "pair")
-        _, pair_s = cli("pair", "align3r", "--image1", pngs[0], "--image2", pngs[1], "--out",
-                        out_pair, "--allow-random-weights")
-        frames = [imageio.read_image(p) for p in pngs]
+        _, pair_s = cli(*pair_argv)
+        frames = [imageio.read_image(p) for p in pair_pngs]
         ours = align3r(*frames)
         pts, cols = read_ply(only(out_pair, ".ply"))
         pose = json.load(open(only(out_pair, "_pose.json")))
@@ -2791,8 +2855,72 @@ def cli_phase(pipe, vggt, depth_pro, moge, unidepth, geocalib, align3r, rng):
               and rec["pose_equal_in_process"], "cli pair: PLY or pose differs from the "
                                                 "pipeline's")
         check(any(f.endswith((".jpg", ".png")) for f in rec["files"]), "cli pair: no depth image")
+        check_video_commands(tmp, [outputs[c] for c in videos], rcs[len(commands):], seconds)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+VIDEO_FIXTURE = ("data/example_video.mp4", 16, 288, 512)  # path, frames, height, width
+
+
+def video_commands(tmp):
+    """``video video_depth_anything``, ``video flashdepth`` and ``batch
+    depth_anything_v2 --video`` on the repository's 16-frame 512x288 MP4, on
+    seeded random weights: their argvs, for ``cli_group``."""
+    fixture = os.path.join(REPO, VIDEO_FIXTURE[0])
+    out_video, out_batch = os.path.join(tmp, "video"), os.path.join(tmp, "batch")
+    return [("video", "video_depth_anything", "--video", fixture, "--out", out_video,
+             "--allow-random-weights"),
+            ("video", "flashdepth", "--video", fixture, "--out", out_video,
+             "--allow-random-weights"),
+            ("batch", "depth_anything_v2", "--video", fixture, "--out", out_batch, "--batch", "4",
+             "--save", "--allow-random-weights")]
+
+
+def check_video_commands(tmp, stdout, rcs, seconds):
+    """The video commands' results: where cv2 imports, each MP4 written with
+    the source's frame count and size, and ``batch`` the depth of every
+    extracted frame; where it does not, each command exited non-zero naming
+    the missing codec."""
+    import numpy as np
+
+    from monocular_depth_estimation_trt_tpu_torch.utils import imageio
+
+    _, n, h, w = VIDEO_FIXTURE
+    out_video, out_batch = os.path.join(tmp, "video"), os.path.join(tmp, "batch")
+    rec = {"phase": "cli", "command": "video video_depth_anything, video flashdepth, batch "
+                                      "depth_anything_v2 --video (one process)",
+           "process_seconds": seconds, "exit_codes": rcs,
+           "cv2_importable": imageio.jpeg_available()}
+    if not imageio.jpeg_available():
+        named = "".join(stdout).count("video (MP4/mp4v) needs the cv2 (OpenCV) codec")
+        emit({**rec, "codec_named": named})
+        check(rcs == [1, 1, 1] and named == 3, f"cli video commands without cv2: {rcs}, the "
+                                               f"codec named {named} times")
+        return
+    cv2 = imageio.video_cv2("the written MP4s")
+    mp4s = {}
+    for f in sorted(os.listdir(out_video)):
+        cap = cv2.VideoCapture(os.path.join(out_video, f))
+        frames = 0
+        while cap.read()[0]:
+            frames += 1
+        mp4s[f] = {"frames": frames, "width": int(cap.get(cv2.CAP_PROP_FRAME_WIDTH)),
+                   "height": int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT))}
+        cap.release()
+    depths = [np.load(os.path.join(out_batch, f))["depth"]
+              for f in sorted(os.listdir(out_batch)) if f.endswith(".npz")]
+    rec.update(mp4s=mp4s, batch_frames=len(os.listdir(os.path.join(out_batch, "_frames"))),
+               batch_depths=len(depths), batch_depth_shape=list(depths[0].shape) if depths else None)
+    emit(rec)
+    check(rcs == [0, 0, 0], f"cli video commands: exit codes {rcs}")
+    check(sorted(mp4s) == sorted(f"example_video_{m}.mp4" for m in (
+        "video_depth_anything_vits_518x518_bf16", "flashdepth_vits_518x518_bf16"))
+          and all(v == {"frames": n, "width": w, "height": h} for v in mp4s.values()),
+          f"cli video: {mp4s}")
+    check(rec["batch_frames"] == len(depths) == n
+          and all(d.shape == (518, 518) and bool(np.isfinite(d).all()) for d in depths),
+          f"cli batch --video: {rec['batch_frames']} frames, {len(depths)} depths")
 
 
 def multi_view_serving(families, wrappers, card, power_limit, dev):
@@ -2839,7 +2967,7 @@ def multi_view_serving(families, wrappers, card, power_limit, dev):
                     p._forward(*args)
 
             with annotated(align3r_mod, "decoder_attention"):
-                emit({**profile_breakdown(eager_step, p.spec.artifact_name(), 5,
+                emit({**profile_breakdown(eager_step, p.spec.artifact_name(), 3,
                                           ranges=("decoder_attention",)), "route": "eager"})
         drop_engines(p)
         if not pair:
@@ -2867,9 +2995,489 @@ def profile_stream_step(sess, frame, dev):
             sess.pure_step(on_card, cache)
 
     with annotated(stream_mod, "masked_attention"):
-        emit({**profile_breakdown(eager_step, sess.name + "_step", 5,
+        emit({**profile_breakdown(eager_step, sess.name + "_step", 3,
                                   ranges=("masked_attention",)), "route": "eager"})
     sess.release_engines()
+
+
+# ---------------------------------------------------------------------------
+# the video path: Video Depth Anything, FlashDepth, the int8 stream step
+# ---------------------------------------------------------------------------
+
+VDA_WINDOW = 32
+VDA_CLIP = (80, 288, 512)  # frames, height, width: windows at 0, 22, 44, 48
+VDA_ROUTE_FRAMES = 8  # the route comparisons' window (the model takes any T)
+VIDEO_CPU_DEPTH, VIDEO_CPU_TAPS, VIDEO_CPU_FRAMES = 2, (0, 0, 1, 1), 4
+FLASHDEPTH_STEPS = 16
+INT8_STREAM_STEPS = 8
+# the stitched clip against the host stitching re-done here from the
+# windows' replays (float64 least squares against video_depth's float32)
+STITCH_REL_TOL = 1e-5
+VIDEO_BENCH = dict(warmup=2, iterations=8, latency_iterations=4)
+
+
+@contextlib.contextmanager
+def temporal_ranges():
+    """The VDA temporal blocks (``forward``) and their attention inside a
+    ``record_function`` range each, ``temporal_block`` and
+    ``temporal_attention``, while the context lasts."""
+    import torch
+
+    from monocular_depth_estimation_trt_tpu_torch.models.video_depth_anything import (
+        TemporalAttentionBlock as block,
+    )
+
+    fns = {"forward": block.forward, "attention": block.attention}
+
+    def wrap(fn, name):
+        def in_range(*args, **kw):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kw)
+        return in_range
+
+    block.forward = wrap(fns["forward"], "temporal_block")
+    block.attention = wrap(fns["attention"], "temporal_attention")
+    try:
+        yield ("temporal_block", "temporal_attention")
+    finally:
+        block.forward, block.attention = fns["forward"], fns["attention"]
+
+
+def restitch(windows, starts, window, overlap, n_frames):
+    """``video_depth``'s protocol re-done from the windows' depths: each
+    window after the first aligned to the stitched frames before it by a
+    least-squares scale and shift (``np.linalg.lstsq``) on their overlap,
+    then cross-faded there. Returns the clip and the (scale, shift) of each
+    window."""
+    import numpy as np
+
+    out = np.zeros((n_frames, *windows[0].shape[1:]), np.float64)
+    fits, prev_end = [], 0
+    for s, d in zip(starts, windows):
+        d = d.astype(np.float64)
+        if prev_end == 0:
+            out[:window] = d
+            fits.append((1.0, 0.0))
+        else:
+            ov = prev_end - s
+            x = d[:ov].ravel()
+            (a, b), *_ = np.linalg.lstsq(np.stack([x, np.ones_like(x)], 1),
+                                         out[s:prev_end].ravel(), rcond=None)
+            aligned = a * d + b
+            w = np.linspace(0.0, 1.0, ov + 2)[1:-1, None, None]
+            out[s:prev_end] = out[s:prev_end] * (1.0 - w) + aligned[:ov] * w
+            out[prev_end:s + window] = aligned[ov:]
+            fits.append((float(a), float(b)))
+        prev_end = s + window
+    return out, fits
+
+
+def run_vda_path(build_pipeline, wrappers, rng, encoder):
+    """Video Depth Anything at full width, 518²: a 32-frame window through
+    ``video_depth`` (one engine, K1 at (32, 1370, heads)) and, for vits, an
+    80-frame 288x512 clip (4 windows, stitched on the host), with the counts
+    set to 0 just before and read just after; the window engine against its
+    eager forward. Returns the pipeline and the counts."""
+    import numpy as np
+    import torch
+
+    from monocular_depth_estimation_trt_tpu_torch.models.video_depth_anything import (
+        window_starts,
+    )
+
+    want = [0, 12 if encoder == "vits" else 24, 0, 0]
+    pipe = build_pipeline("video_depth_anything", encoder=encoder)
+    video = rng.integers(0, 256, (VDA_WINDOW, 518, 518, 3), dtype=np.uint8)
+    clip = rng.integers(0, 256, VDA_CLIP + (3,), dtype=np.uint8) if encoder == "vits" else None
+    torch.cuda.synchronize()
+    set_counts_to_zero(wrappers)
+    t0 = time.perf_counter()
+    depth, per = run_counted(lambda: pipe.video_depth(video),
+                             lambda: pipe.window_engine((518, 518)), wrappers,
+                             f"vda {encoder} window")
+    window_s = time.perf_counter() - t0
+    rec = {"phase": "video", "path": f"vda_{encoder}_window", "model": pipe.spec.artifact_name(),
+           "frames": list(video.shape[:3]), "launches_per_window_k3_k1_k2_k4": per,
+           "window_seconds_with_build": window_s}
+    if clip is not None:
+        t0 = time.perf_counter()
+        stitched, clip_per = run_counted(lambda: pipe.video_depth(clip),
+                                         lambda: pipe.window_engine(VDA_CLIP[1:]), wrappers,
+                                         "vda vits clip")
+        rec["clip_seconds_with_build"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = launch_record(wrappers)
+    engines = 2 if clip is not None else 1
+    check(per == want, f"vda {encoder} window: launches {per}, want {want}")
+    check(launches == {k: engines * (WARMUP_CALLS + 1) * n for k, n in zip(KERNELS, want)},
+          f"launches on the vda {encoder} path {launches}")
+    check(depth.shape == (VDA_WINDOW, 518, 518) and bool(np.isfinite(depth).all())
+          and depth.min() >= 0 and depth.max() > depth.min(),
+          f"vda {encoder} window depth {depth.shape} {depth.min()} {depth.max()}")
+    rec.update(launches=launches, depth_range=[float(depth.min()), float(depth.max())])
+    if clip is not None:
+        check(clip_per == want, f"vda clip: launches {clip_per}")
+        starts = window_starts(VDA_CLIP[0], VDA_WINDOW, pipe.overlap)
+        check(starts == [0, 22, 44, 48], f"vda clip: windows at {starts}")
+        eng = pipe.window_engine(VDA_CLIP[1:])
+        windows = [eng(torch.from_numpy(clip[s:s + VDA_WINDOW]))["depth"].cpu().numpy()
+                   for s in starts]
+        again, fits = restitch(windows, starts, VDA_WINDOW, pipe.overlap, VDA_CLIP[0])
+        stitch_rel = rel(stitched, again)
+        rec.update(clip=list(VDA_CLIP), window_starts=starts, scale_shift=fits,
+                   stitched_vs_restitched_rel=stitch_rel, stitch_tolerance=STITCH_REL_TOL,
+                   clip_depth_shape=list(stitched.shape))
+        check(stitched.shape == (VDA_CLIP[0], 518, 518) and bool(np.isfinite(stitched).all()),
+              f"vda clip: stitched {stitched.shape}")
+        check(np.array_equal(stitched[:22], windows[0][:22]), "vda clip: window 0 moved")
+        check(stitch_rel < STITCH_REL_TOL, f"vda clip: stitched vs re-stitched rel {stitch_rel}")
+    emit(rec)
+    other = rng.integers(0, 256, (VDA_WINDOW, 518, 518, 3), dtype=np.uint8)
+    check_engine(f"vda_{encoder}_window32", pipe, pipe.window_engine((518, 518)),
+                 pipe._window_forward, video, other, want, wrappers)
+    return pipe, launches
+
+
+def video_route_readings(name, pipe, frames):
+    """The bf16 kernel route, the plain route and the fp32 route on the
+    kernel route's own model (eager forwards): VDA on a window of
+    VDA_ROUTE_FRAMES frames, FlashDepth on one frame from a zero state.
+    Returns the three depths."""
+    import torch
+
+    def depth():
+        x = torch.from_numpy(frames).to(pipe.device)
+        with torch.inference_mode():
+            if name == "video_depth_anything":
+                return pipe._window_forward(x)["depth"].float().cpu().numpy()
+            return pipe._run(x, frames.shape[:2], False)["depth"].float().cpu().numpy()
+
+    out = [depth()]
+    set_attention_route([pipe.model], "xla")
+    out.append(depth())
+    set_attention_route([pipe.model], "auto")
+    pipe.model.float()
+    out.append(depth())
+    pipe.model.to(torch.bfloat16)
+    return out
+
+
+def video_parity(build_pipeline, rng):
+    """For each video family: the bf16 kernel route against the plain route
+    and the fp32 route at 2 weight seeds (max rel < PATH_BF16_REL_TOL at
+    every reading; averaged over them, the kernel route's distance from
+    fp32 at most PATH_BF16_ROUTE_RATIO times the plain route's), then fp32
+    on the card against the CPU on the same weights, the ViT cut to 2 blocks
+    (VDA on a 4-frame window, FlashDepth over 2 steps)."""
+    import numpy as np
+    import torch
+
+    from monocular_depth_estimation_trt_tpu_torch.models.flashdepth import FlashDepth
+    from monocular_depth_estimation_trt_tpu_torch.models.video_depth_anything import (
+        VideoDepthAnything,
+    )
+    from monocular_depth_estimation_trt_tpu_torch.models.vit import VIT_CONFIGS
+
+    makes = {"video_depth_anything": VideoDepthAnything, "flashdepth": FlashDepth}
+    for name, make in makes.items():
+        if name == "video_depth_anything":
+            frames = rng.integers(0, 256, (VDA_ROUTE_FRAMES, 518, 518, 3), dtype=np.uint8)
+        else:
+            frames = rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)
+        readings = []
+        for seed in PARITY_WEIGHT_SEEDS:
+            sd = seeded(make, seed).state_dict()
+            pipe = build_pipeline(name, params=sd)
+            kernel, plain, fp32 = video_route_readings(name, pipe, frames)
+            readings.append({"seed": seed, "kernel_vs_plain": rel(kernel, plain),
+                             "kernel_vs_fp32": rel(kernel, fp32),
+                             "plain_vs_fp32": rel(plain, fp32),
+                             "kernel_vs_fp32_mean_rel": mean_rel(kernel, fp32),
+                             "plain_vs_fp32_mean_rel": mean_rel(plain, fp32)})
+            drop_engines(pipe)
+            del pipe, sd
+        ratio = (np.mean([r["kernel_vs_fp32_mean_rel"] for r in readings])
+                 / np.mean([r["plain_vs_fp32_mean_rel"] for r in readings]))
+        # fp32, card against CPU: 2 ViT blocks, full widths and 518²
+        cfg = dataclasses.replace(VIT_CONFIGS["vits"], depth=VIDEO_CPU_DEPTH)
+        kw = dict(vit_config=cfg, out_indices=VIDEO_CPU_TAPS)
+        sd = seeded(lambda: make("vits", **kw), 0).state_dict()
+        card, cpu = (build_pipeline(name, precision="fp32", params=sd, model_kw=kw, device=d)
+                     for d in ("cuda", "cpu"))
+        got = []
+        if name == "video_depth_anything":
+            x = rng.integers(0, 256, (VIDEO_CPU_FRAMES, 518, 518, 3), dtype=np.uint8)
+            for p in (card, cpu):
+                with torch.inference_mode():
+                    got.append(p._window_forward(torch.from_numpy(x).to(p.device))["depth"]
+                               .cpu().numpy())
+        else:
+            x = rng.integers(0, 256, (2, 480, 640, 3), dtype=np.uint8)
+            for p in (card, cpu):
+                state = p._init_state(p.device)
+                steps = []
+                with torch.inference_mode():
+                    for f in x:
+                        out, state = p._forward_state(torch.from_numpy(f).to(p.device),
+                                                      f.shape[:2], state)
+                        steps.append(out["depth"].cpu().numpy())
+                got.append(np.stack(steps))
+        cpu_rel = rel(got[0], got[1])
+        drop_engines(card, cpu)
+        emit({"phase": "video_parity", "model": name, "readings": readings,
+              "kernel_over_plain_distance_from_fp32": float(ratio),
+              "bf16_tolerance": PATH_BF16_REL_TOL, "route_ratio_bar": PATH_BF16_ROUTE_RATIO,
+              "fp32_card_vs_cpu_rel": cpu_rel, "fp32_cpu_cut": f"{VIDEO_CPU_DEPTH} ViT blocks",
+              "fp32_tolerance": PATH_FP32_REL_TOL})
+        for r in readings:
+            check(r["kernel_vs_plain"] < PATH_BF16_REL_TOL and
+                  r["kernel_vs_fp32"] < PATH_BF16_REL_TOL, f"{name} routes {r}")
+        check(ratio <= PATH_BF16_ROUTE_RATIO, f"{name}: kernel route {ratio}x the plain "
+                                              "route's distance from fp32")
+        check(cpu_rel < PATH_FP32_REL_TOL, f"{name} fp32 card vs cpu rel {cpu_rel}")
+
+
+def run_flashdepth_path(build_pipeline, wrappers, rng):
+    """FlashDepth vits at 518², with the counts set to 0 just before and read
+    just after: its session's engine (2 warm-up steps and the captured one,
+    the state put back), then FLASHDEPTH_STEPS steps, each a replay of that
+    graph, and a single frame through the pipeline (a zero state inside its
+    graph). Every step against the eager step from a fresh state carried
+    along (bit for bit, else within ENGINE_REL_TOL, recorded), the clip
+    against ``flashdepth_video``, and the state's reset. Returns the
+    pipeline, the counts and the session."""
+    import numpy as np
+    import torch
+
+    from monocular_depth_estimation_trt_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD
+    from monocular_depth_estimation_trt_tpu_torch.models.flashdepth import flashdepth_video
+    from monocular_depth_estimation_trt_tpu_torch.ops.postprocess import upsample_depth
+    from monocular_depth_estimation_trt_tpu_torch.ops.preprocess import normalize, to_float_rgb
+    from monocular_depth_estimation_trt_tpu_torch.ops.resize import resize
+
+    hw = (518, 518)
+    want = [0, 12, 0, 0]
+    pipe = build_pipeline("flashdepth")
+    frames = [rng.integers(0, 256, (*hw, 3), dtype=np.uint8) for _ in range(FLASHDEPTH_STEPS)]
+    sess = pipe.stream()
+    torch.cuda.synchronize()
+    set_counts_to_zero(wrappers)
+    _, per = run_counted(lambda: sess.engine_for(hw), lambda: sess.engine_for(hw), wrappers,
+                         "flashdepth step engine")
+    state_zero = not any(bool(t.any()) for t in sess.state.values())
+    times, outs = [], []
+    for f in frames:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(sess.step(f))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    after_steps = counts(wrappers)
+    single, single_per = run_counted(lambda: pipe(frames[0]), lambda: pipe.engine_for(hw),
+                                     wrappers, "flashdepth frame")
+    torch.cuda.synchronize()
+    launches = launch_record(wrappers)
+    check(per == single_per == want, f"flashdepth launches: step {per}, frame {single_per}")
+    check(after_steps == [(WARMUP_CALLS + 1) * n for n in per],
+          f"flashdepth: launches after {FLASHDEPTH_STEPS} steps {after_steps}")
+    check(launches == {k: 2 * (WARMUP_CALLS + 1) * n for k, n in zip(KERNELS, want)},
+          f"launches on the flashdepth path {launches}")
+    check(state_zero, "flashdepth: the state moved during the engine build")
+
+    dev = pipe.device
+    state = pipe._init_state(dev)
+    replay = {"equal": [], "max_rel": []}
+    with torch.inference_mode():
+        for f, got in zip(frames, outs):
+            ref, state = pipe._forward_state(torch.from_numpy(f).to(dev), hw, state)
+            replay["equal"].append(bool(torch.equal(got["depth"], ref["depth"])))
+            a, b = got["depth"].float(), ref["depth"].float()
+            replay["max_rel"].append(float((a - b).abs().max() / b.abs().max()))
+        x = torch.stack([normalize(resize(to_float_rgb(torch.from_numpy(f).to(dev)), hw,
+                                          method="cubic"), IMAGENET_MEAN, IMAGENET_STD)
+                         for f in frames])
+        clip, _ = flashdepth_video(pipe.model, x[None])
+        clip = torch.clamp(upsample_depth(clip[0], hw, clamp=None), min=0.0)
+    steps = torch.stack([o["depth"] for o in outs])
+    clip_rel = float((steps - clip).abs().max() / clip.abs().max())
+    first_vs_single = float(np.abs(outs[0]["depth"].cpu().numpy() - single["depth"]).max())
+    last_vs_first = rel(outs[-1]["depth"].cpu().numpy(), outs[0]["depth"].cpu().numpy())
+    sess.reset()
+    after_reset = sess.step(frames[0])
+    rec = {"phase": "video", "path": "flashdepth_vits_stream", "model": pipe.spec.artifact_name(),
+           "steps": FLASHDEPTH_STEPS, "frame": list(hw),
+           "launches_per_step_k3_k1_k2_k4": per, "launches_per_frame_k3_k1_k2_k4": single_per,
+           "launches": launches, "step_ms": times,
+           "step_p50_ms": float(np.median(times)),
+           "replay_equal_to_eager": all(replay["equal"]),
+           "replay_vs_eager_max_rel": max(replay["max_rel"]),
+           "steps_vs_flashdepth_video_rel": clip_rel,
+           "first_step_vs_single_frame_max_abs": first_vs_single,
+           "last_step_vs_first_rel": last_vs_first,
+           "reset_step_equal_to_first": bool(torch.equal(after_reset["depth"], outs[0]["depth"])),
+           "card": torch.cuda.get_device_name(0)}
+    emit(rec)
+    check(all(bool(torch.isfinite(o["depth"]).all()) and float(o["depth"].min()) >= 0
+              for o in outs), "flashdepth: a step's depth not finite or negative")
+    check(rec["replay_equal_to_eager"] or rec["replay_vs_eager_max_rel"] <= ENGINE_REL_TOL,
+          f"flashdepth: replay vs eager max rel {rec['replay_vs_eager_max_rel']}")
+    check(clip_rel <= ENGINE_REL_TOL, f"flashdepth: steps vs flashdepth_video rel {clip_rel}")
+    check(first_vs_single == 0.0, "flashdepth: a single frame is not a fresh sequence's step")
+    check(last_vs_first > 0, "flashdepth: the state did not move the depth")
+    check(rec["reset_step_equal_to_first"], "flashdepth: reset did not start a new sequence")
+    sess.reset()
+    return pipe, launches, sess
+
+
+def run_int8_stream(build_pipeline, wrappers, rng, calib):
+    """The int8 StreamVGGT stream (window 4, 480x640 frames): the session on
+    the int8 joint model's QuantLinear layers, with the counts set to 0 just
+    before and read just after: its engine build, then INT8_STREAM_STEPS
+    steps of that graph; each step against the eager step on a fresh cache.
+    Returns the counts, the session and a frame."""
+    import numpy as np
+    import torch
+
+    from monocular_depth_estimation_trt_tpu_torch.ops.quant import QuantLinear
+
+    hw = (480, 640)
+    want = [0, 24, 24, 288]
+    pipe = build_pipeline("streamvggt", precision="int8", calib_images=calib)
+    sess = pipe.stream(STREAM_WINDOW).session
+    shared = [n for n, m in sess.model.named_modules() if isinstance(m, QuantLinear)
+              and m is pipe.model.get_submodule(n)]
+    frames = [rng.integers(0, 256, (*hw, 3), dtype=np.uint8) for _ in range(INT8_STREAM_STEPS)]
+    torch.cuda.synchronize()
+    set_counts_to_zero(wrappers)
+    _, per = run_counted(lambda: sess.engine_for(hw), lambda: sess.engine_for(hw), wrappers,
+                         "int8 stream step engine")
+    times, outs = [], []
+    for f in frames:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(sess.step(f))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = launch_record(wrappers)
+    check(per == want, f"int8 stream step launches {per}, want {want}")
+    check(len(shared) == want[3], f"int8 stream: {len(shared)} QuantLinear layers shared")
+    check(launches == {k: (WARMUP_CALLS + 1) * n for k, n in zip(KERNELS, want)},
+          f"launches on the int8 stream {launches}")
+    check(int(sess.steps) == INT8_STREAM_STEPS, f"int8 stream: {int(sess.steps)} steps")
+    dev = pipe.device
+    cache = sess.model.init_cache(1, (37, 37), next(sess.model.parameters()).dtype, dev)
+    replay = {"equal": [], "max_rel": []}
+    with torch.inference_mode():
+        for f, got in zip(frames, outs):
+            ref, _ = sess.pure_step(torch.from_numpy(f).to(dev), cache, hw)
+            for k in got:
+                replay["equal"].append(bool(torch.equal(got[k], ref[k])))
+                a, b = got[k].float(), ref[k].float()
+                replay["max_rel"].append(float((a - b).abs().max() / b.abs().max()))
+    rec = {"phase": "video", "path": "streamvggt_int8_stream", "model": pipe.spec.artifact_name(),
+           "window": STREAM_WINDOW, "steps": INT8_STREAM_STEPS, "frame": list(hw),
+           "launches_per_step_k3_k1_k2_k4": per, "launches": launches,
+           "quantized_layers_shared": len(shared), "step_ms": times,
+           "step_p50_ms_steps_1_to_4": float(np.median(times[:4])),
+           "step_p50_ms_steps_5_to_8": float(np.median(times[4:])),
+           "replay_equal_to_eager": all(replay["equal"]),
+           "replay_vs_eager_max_rel": max(replay["max_rel"]),
+           "card": torch.cuda.get_device_name(0)}
+    emit(rec)
+    check(all(bool(torch.isfinite(o["depth"]).all()) and tuple(o["depth"].shape) == hw
+              for o in outs), "int8 stream: depth")
+    check(rec["replay_equal_to_eager"] or rec["replay_vs_eager_max_rel"] <= ENGINE_REL_TOL,
+          f"int8 stream: replay vs eager max rel {rec['replay_vs_eager_max_rel']}")
+    return launches, sess, frames[0]
+
+
+def video_serving(vda, flashdepth, fd_sess, stream_sess, stream_frame, card, power_limit, dev):
+    """The video paths' speed and profile right after their checks, so that
+    their graphs are released before the int8 phases: each VDA window
+    engine (``VDAPipeline.benchmark``: frames/s; vits in turns eager, graph,
+    graph, eager, vitl graph twice), FlashDepth's single frame in turns
+    (its stream step's p50 is the video record's), then the profile of each
+    VDA window (graph, and eager with the device time of the temporal blocks
+    and of their attention), of the FlashDepth step and of the int8 stream
+    step (graph)."""
+    import numpy as np
+    import torch
+
+    from monocular_depth_estimation_trt_tpu_torch.config import BenchmarkConfig
+    from monocular_depth_estimation_trt_tpu_torch.runtime.benchmark import benchmark
+
+    cfg = BenchmarkConfig(**VIDEO_BENCH)
+    gen = np.random.default_rng(15)
+    for label, p in vda.items():
+        window = torch.from_numpy(
+            gen.integers(0, 256, (VDA_WINDOW, 518, 518, 3), dtype=np.uint8)).to(dev)
+
+        def eager_step():
+            with torch.inference_mode():
+                p._window_forward(window)
+
+        for turn, route in enumerate(ROUTE_TURNS if label == "vits" else ("graph", "graph")):
+            if route == "graph":
+                rep = p.benchmark((518, 518), cfg)
+            else:
+                rep = benchmark(eager_step, device=dev, config=cfg, name=p.spec.artifact_name())
+                rep.frames_per_iteration = VDA_WINDOW
+            emit({**speed_record(rep, p, f"vda_{label}_window32", route, turn, 0, (518, 518),
+                                 card, power_limit),
+                  "frames_per_iteration": VDA_WINDOW,
+                  "includes": f"a window of {VDA_WINDOW} device-resident uint8 518x518 frames "
+                              "+ forward" + (" + D2H depth" if route == "graph" else "")})
+        eng = p.window_engine((518, 518))
+        emit({**profile_breakdown(lambda: eng(window), p.spec.artifact_name() + "_win32", 3),
+              "route": "graph"})
+        with temporal_ranges() as ranges:
+            emit({**profile_breakdown(eager_step, p.spec.artifact_name() + "_win32", 2,
+                                      ranges=ranges), "route": "eager"})
+        drop_engines(p)
+    fcfg = BenchmarkConfig(**FAMILY_BENCH)
+    for turn, route in enumerate(ROUTE_TURNS):
+        rep = timed_route(flashdepth, route, (518, 518), 0, fcfg)
+        emit(speed_record(rep, flashdepth, "flashdepth", route, turn, 0, (518, 518), card,
+                          power_limit))
+    frame = torch.from_numpy(gen.integers(0, 256, (518, 518, 3), dtype=np.uint8))
+    eng = fd_sess.engine_for((518, 518))
+    emit({**profile_breakdown(lambda: eng(frame), fd_sess.name + "_step", 5), "route": "graph"})
+    drop_engines(flashdepth)
+    fd_sess.release_engines()
+    host = torch.from_numpy(stream_frame)
+    eng = stream_sess.engine_for(tuple(stream_frame.shape[:2]))
+    emit({**profile_breakdown(lambda: eng(host), stream_sess.name + "_step", 3),
+          "route": "graph"})
+    stream_sess.release_engines()
+
+
+def video_phase(build_pipeline, wrappers, calib, card, power_limit, dev):
+    """Every video path's counted run and checks, then its speed and profile
+    (``video_serving``), everything released at the end. Returns the counts
+    of each counted run."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(16)
+    vda, launches = {}, {}
+    for encoder in ("vits", "vitl"):
+        vda[encoder], launches[f"vda_{encoder}"] = run_vda_path(build_pipeline, wrappers, rng,
+                                                                encoder)
+        drop_engines(vda[encoder])
+    flashdepth, launches["flashdepth"], fd_sess = run_flashdepth_path(build_pipeline, wrappers,
+                                                                      rng)
+    launches["streamvggt_int8_stream"], stream_sess, stream_frame = run_int8_stream(
+        build_pipeline, wrappers, rng, calib)
+    video_parity(build_pipeline, rng)
+    emit({"phase": "video_summary", "seconds": time.perf_counter() - t0, "launches": launches})
+    video_serving(vda, flashdepth, fd_sess, stream_sess, stream_frame, card, power_limit, dev)
+    del vda, flashdepth, fd_sess, stream_sess
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def parse_smi(line: str):
@@ -3075,11 +3683,15 @@ def main() -> None:
     del stream_sess
     multi_view_serving(families, wrappers, card, power_limit, dev)
 
+    # the video paths (each its own counted run), their comparisons, speed and
+    # profile; released before the int8 phases
+    calib = list(parity_frames(np.random.default_rng(7)).values())
+    extra_launches.update(video_phase(build_pipeline, wrappers, calib, card, power_limit, dev))
+
     # 8. the int8 paths (each its own counted run), then int8 against the bf16
     # and fp32 routes; calibration on three seeded frames (noise and a
     # smooth scene-like frame)
     # (DA-V2 and VGGT on frames of their own generator, which no other phase moves)
-    calib = list(parity_frames(np.random.default_rng(7)).values())
     int8_rng = np.random.default_rng(8)
     int8_frames = {
         "depth_anything_v2": {

@@ -11,6 +11,11 @@ Replaces the reference's "edit constants at the top of the script" workflow
 
     python -m monocular_depth_estimation_trt_tpu_torch pair align3r --image1 a.png --image2 b.png
 
+    python -m monocular_depth_estimation_trt_tpu_torch video video_depth_anything --video in.mp4
+    python -m monocular_depth_estimation_trt_tpu_torch video flashdepth --video in.mp4
+    python -m monocular_depth_estimation_trt_tpu_torch batch depth_anything_v2 --video in.mp4
+    python -m monocular_depth_estimation_trt_tpu_torch webcam depth_anything_v2 --camera 0
+
     python -m monocular_depth_estimation_trt_tpu_torch serve depth_anything_v2 --max-batch 4
     python -m monocular_depth_estimation_trt_tpu_torch bench depth_anything_v2 --encoder vits
     python -m monocular_depth_estimation_trt_tpu_torch models
@@ -26,13 +31,20 @@ point cloud or, for a point-map model, mesh, and the ``[MDET] max/min``
 parity line
 (``onnx2trt.py:218-245``). ``pair`` writes Align3R's depth image, a PLY of
 both views' points in view 1's frame with their colors, and the relative
-pose as JSON.
+pose as JSON. ``video`` writes a colorized depth MP4 beside the source's
+name: the whole-video protocol with one normalization for a windowed model
+(``video_depth_anything``), else frame by frame with the frame rate
+overlaid, through the model's stream where it has one (``flashdepth``,
+``streamvggt``); ``batch --video`` serves a video's frames as a directory
+of PNGs; ``webcam`` shows a camera's depth live. Video needs cv2: without it
+these commands exit non-zero naming the missing codec
+(``utils/imageio.py``).
 
 Not ported yet, so argparse rejects them: ``--engine`` (serialized
 artifacts), ``--device-mesh`` (multi-device sharding), ``--trace`` (the
-profiler), ``--colorbar`` (a matplotlib figure), ``batch --video`` and the
-``flow``/``video``/``track``/``webcam``/``export``/``slam``/
-``convert``/``distill``/``eval``/``quantcheck``/``doctor`` commands.
+profiler), ``--colorbar`` (a matplotlib figure) and the
+``flow``/``track``/``export``/``slam``/``convert``/``distill``/``eval``/
+``quantcheck``/``doctor`` commands.
 """
 
 from __future__ import annotations
@@ -222,14 +234,27 @@ def _write_run_outputs(args, img, out, name, pipe) -> int:
 
 
 def cmd_batch(args) -> int:
-    """Batched offline serving over an image directory (``apps/offline.py``):
-    decode threads keep frames ahead of a (B, H, W, 3) engine."""
+    """Batched offline serving over an image directory or a video's frames
+    (``apps/offline.py``): decode threads keep frames ahead of a (B, H, W, 3)
+    engine."""
     from monocular_depth_estimation_trt_tpu_torch.apps.offline import process_images_batched
     from monocular_depth_estimation_trt_tpu_torch.utils.files import list_images
 
-    paths = list_images(args.images_dir)
-    if args.max_frames:
-        paths = paths[: args.max_frames]
+    if bool(args.images_dir) == bool(args.video):
+        log("batch: give exactly one of --images-dir / --video", tag="ERROR")
+        return 2
+    if args.video:
+        from monocular_depth_estimation_trt_tpu_torch.apps.streaming import (
+            extract_frames_from_video,
+        )
+
+        frames_dir = os.path.join(args.out, "_frames")
+        extract_frames_from_video(args.video, frames_dir, max_frames=args.max_frames or None)
+        paths = list_images(frames_dir)
+    else:
+        paths = list_images(args.images_dir)
+        if args.max_frames:
+            paths = paths[: args.max_frames]
     if not paths:
         log("batch: no images found", tag="ERROR")
         return 1
@@ -307,6 +332,46 @@ def cmd_pair(args) -> int:
         json.dump({"rotation": np.asarray(out["rotation"]).tolist(),
                    "translation": np.asarray(out["translation"]).tolist()}, f, indent=2)
     log(f"wrote {pose}")
+    return 0
+
+
+def cmd_video(args) -> int:
+    """Depth over a video file -> colorized MP4 (reference
+    ``Depth_Pro/onnx2trt_video.py``; the windowed protocol of Video Depth
+    Anything's ``run.py`` for a model with ``video_depth``)."""
+    from monocular_depth_estimation_trt_tpu_torch.apps.streaming import (
+        run_video,
+        write_depth_video,
+    )
+    from monocular_depth_estimation_trt_tpu_torch.utils.imageio import open_video
+
+    if not args.model:
+        log("video: give a model name", tag="ERROR")
+        return 2
+    open_video(args.video).release()  # the codec and the file, before the build
+    pipe = _build(args, "encoder", "checkpoint", "precision")
+    os.makedirs(args.out, exist_ok=True)
+    stem = os.path.splitext(os.path.basename(args.video))[0]
+    out_path = os.path.join(args.out, f"{stem}_{pipe.spec.artifact_name()}.mp4")
+    if hasattr(pipe, "video_depth"):
+        write_depth_video(pipe, args.video, out_path, max_frames=args.max_frames or None)
+    else:
+        run_video(pipe, args.video, out_path, max_frames=args.max_frames or None)
+    return 0
+
+
+def cmd_webcam(args) -> int:
+    """Live depth viewer (reference ``Depth_Pro/onnx2trt_webcam.py``; takes an
+    IP-camera URL)."""
+    from monocular_depth_estimation_trt_tpu_torch.apps.streaming import run_webcam
+    from monocular_depth_estimation_trt_tpu_torch.utils.imageio import video_cv2
+
+    if not args.model:
+        log("webcam: give a model name", tag="ERROR")
+        return 2
+    video_cv2(f"camera {args.camera!r}")  # the codec, before the build
+    pipe = _build(args, "encoder", "checkpoint", "precision")
+    run_webcam(pipe, int(args.camera) if args.camera.isdigit() else args.camera)
     return 0
 
 
@@ -458,10 +523,11 @@ def build_parser() -> argparse.ArgumentParser:
                      help="max relative error allowed with --compare")
     run.set_defaults(fn=cmd_run)
 
-    batch = sub.add_parser("batch", help="batched offline serving over an image dir")
+    batch = sub.add_parser("batch", help="batched offline serving over an image dir or video")
     batch.add_argument("model", nargs="?", default="")
     batch.add_argument("--encoder", default="")
-    batch.add_argument("--images-dir", required=True)
+    batch.add_argument("--images-dir", default="")
+    batch.add_argument("--video", default="")
     batch.add_argument("--batch", type=int, default=8)
     batch.add_argument("--out", default="results")
     batch.add_argument("--max-frames", type=int, default=0)
@@ -503,6 +569,24 @@ def build_parser() -> argparse.ArgumentParser:
     pair.add_argument("--out", default="results")
     pair.set_defaults(fn=cmd_pair)
 
+    video = sub.add_parser("video", help="depth over a video file")
+    video.add_argument("model", nargs="?", default="")
+    video.add_argument("--encoder", default="")
+    video.add_argument("--video", required=True)
+    video.add_argument("--out", default="results")
+    video.add_argument("--max-frames", type=int, default=0)
+    video.add_argument("--checkpoint", default="")
+    _add_precision_args(video)
+    video.set_defaults(fn=cmd_video)
+
+    webcam = sub.add_parser("webcam", help="live depth viewer (webcam or IP camera)")
+    webcam.add_argument("model", nargs="?", default="")
+    webcam.add_argument("--encoder", default="")
+    webcam.add_argument("--camera", default="0", help="device index or IP camera URL")
+    webcam.add_argument("--checkpoint", default="")
+    _add_precision_args(webcam)
+    webcam.set_defaults(fn=cmd_webcam)
+
     build = sub.add_parser("build", help="build (warm up and capture) an engine")
     build.add_argument("model")
     build.add_argument("--encoder", default="")
@@ -532,7 +616,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     sub.add_parser("models", help="list registered models").set_defaults(fn=cmd_models)
     sub.add_parser("engines", help="list built engines").set_defaults(fn=cmd_engines)
-    for sp in (run, batch, views, pair, serve):
+    for sp in (run, batch, views, pair, serve, video, webcam):
         # SUPPRESS: the subparser's default must not clobber the main
         # parser's flag when it is given before the subcommand
         sp.add_argument("--allow-random-weights", action="store_true",
@@ -556,7 +640,13 @@ def main(argv=None) -> int:
         )
 
         set_allow_random_weights(True)
-    return args.fn(args)
+    from monocular_depth_estimation_trt_tpu_torch.utils.imageio import CodecUnavailable
+
+    try:
+        return args.fn(args)
+    except CodecUnavailable as e:  # JPEG or video without cv2: name the codec
+        log(str(e), tag="ERROR")
+        return 1
 
 
 if __name__ == "__main__":

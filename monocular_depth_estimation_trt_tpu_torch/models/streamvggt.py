@@ -21,9 +21,10 @@ Submodule names are ``VGGT``'s (``aggregator.patch_embed``,
 ``aggregator.frame_blocks.i``, ``aggregator.global_blocks.i``,
 ``depth_head``, ``point_head``, ``camera_head``): one state dict serves the
 joint and the streaming model, and :meth:`StreamingVGGT.sharing` builds one
-on the very tensors of a joint model. The JAX session also serves an int8
-bundle; the port's streaming runs bf16 and fp32 weights only (an int8
-joint model holds ``QuantLinear`` layers whose state dict is another).
+on the very tensors of a joint model: an int8 joint model's
+``QuantLinear`` layers (kernel K4) are the streaming model's too, so that
+its calibrated scales serve every step, as the JAX session serves the
+pipeline's ``{"params", "q8"}`` bundle.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from monocular_depth_estimation_trt_tpu_torch.models.vggt import (
     VGGTConfig,
     masked_attention,
 )
+from monocular_depth_estimation_trt_tpu_torch.ops.quant import QuantLinear
 
 
 def init_stream_cache(cfg: VGGTConfig, batch: int, grid_hw: Tuple[int, int], max_views: int,
@@ -104,11 +106,18 @@ class StreamingVGGT(VGGT):
     @classmethod
     def sharing(cls, model: VGGT, max_views: int) -> "StreamingVGGT":
         """A streaming model on the very parameter tensors of ``model`` (no
-        copy; built on the meta device, then given them)."""
+        copy; built on the meta device, then given them). The joint model's
+        ``QuantLinear`` layers (int8 serving) are put in at their paths
+        first, so that both models hold the same modules there and the
+        rest of the state dict loads as the joint model's."""
         attn = model.aggregator.frame_blocks[0].attn.attn_impl
         with torch.device("meta"):
             self = cls(model.cfg, max_views, attn, with_camera=model.with_camera,
                        with_point_head=model.with_point_head)
+        for path, module in model.named_modules():
+            if isinstance(module, QuantLinear):
+                parent, _, child = path.rpartition(".")
+                setattr(self.get_submodule(parent) if parent else self, child, module)
         self.load_state_dict(model.state_dict(), strict=True, assign=True)
         return self.train(model.training)
 

@@ -439,3 +439,33 @@ class VGGT(nn.Module):
         if self.with_camera:
             out["pose_enc"] = self.camera_head(agg[-1])
         return out
+
+
+def build_stage_pipeline(model: VGGT):
+    """The reference's three-engine chain (``VGGT/onnx2trt2.py:155-208``) as a
+    :class:`~monocular_depth_estimation_trt_tpu_torch.runtime.pipeline.DevicePipeline`
+    on ``model``'s weights: aggregator -> (depth_head, camera_head), the
+    tokens of the head layers stacked into one device tensor (4, B, S, n,
+    2 * dim) between the stages. Views (B, S, H, W, 3), normalized and
+    square (the heads read the patch grid off the token count, as the JAX
+    stages do)."""
+    from monocular_depth_estimation_trt_tpu_torch.runtime.pipeline import DevicePipeline, Stage
+
+    num_special = 1 + model.cfg.num_register_tokens
+
+    def patch_hw(tokens: torch.Tensor) -> Tuple[int, int]:
+        side = int(round((tokens.shape[3] - num_special) ** 0.5))
+        return side, side
+
+    def aggregator(views):
+        return torch.stack(model.aggregator(views)[0])
+
+    def depth_head(tokens):
+        return model.depth_head(list(tokens), patch_hw(tokens), num_special)
+
+    stages = [Stage("aggregator", aggregator, ["views"], ["tokens"]),
+              Stage("depth_head", depth_head, ["tokens"], ["depth", "depth_conf"])]
+    if model.with_camera:
+        stages.append(Stage("camera_head", lambda tokens: model.camera_head(tokens[-1]),
+                            ["tokens"], ["pose_enc"]))
+    return DevicePipeline(stages)

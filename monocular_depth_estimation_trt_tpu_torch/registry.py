@@ -12,7 +12,9 @@ metric and point-map families ``depth_anything_v3``, ``metric3d_v2``,
 ``unik3d``, ``sidepth``, ``geocalib`` and ``prior_depth_anything``, and the
 multi-view and rope families ``streamvggt`` (with its KV-cache stream),
 ``stream3r``, ``litevggt``, ``map_anything``, ``align3r`` (two frames) and
-``dinov3``. Every factory takes ``device``;
+``dinov3``, and the video families ``video_depth_anything`` (windows of
+frames, ``video_depth``) and ``flashdepth`` (a Mamba state, ``stream()``).
+Every factory takes ``device``;
 ``None`` means ``"cuda"``, and a missing card is an error, never a quiet
 move to the CPU. ``precision="int8"`` serves the bf16 graph with the
 family's encoder linears quantized (``ops/quant.py``, kernel K4),
@@ -23,7 +25,7 @@ calibrated at build time on ``calib_images`` or on
 from __future__ import annotations
 
 import os
-from typing import Any, Callable, Dict, Mapping, Optional, Sequence
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +33,7 @@ import torch
 from monocular_depth_estimation_trt_tpu_torch.config import (
     IMAGENET_MEAN,
     IMAGENET_STD,
+    BenchmarkConfig,
     ModelSpec,
 )
 from monocular_depth_estimation_trt_tpu_torch.pipelines import (
@@ -40,6 +43,7 @@ from monocular_depth_estimation_trt_tpu_torch.pipelines import (
     depth_forward_factory,
     pointmap_forward_factory,
 )
+from monocular_depth_estimation_trt_tpu_torch.runtime.benchmark import BenchmarkReport, benchmark
 from monocular_depth_estimation_trt_tpu_torch.runtime.engine import Engine
 from monocular_depth_estimation_trt_tpu_torch.runtime.transfer import tree_get_chunked
 
@@ -1226,3 +1230,208 @@ def dinov3(encoder: str = "vitl16", input_size: int = 1024, precision: str = "bf
 
     return DepthPipeline(spec, depth_forward_factory(model, preprocess, clamp=None),
                          device=device, model=model, viz="spectral")
+
+
+# ---------------------------------------------------------------------------
+# Video families (reference later/FlashDepth/, later/Video_Depth_Anything/)
+# ---------------------------------------------------------------------------
+
+
+class FlashDepthPipeline(DepthPipeline):
+    """Single frames (each its own sequence, from a zero state that is a
+    constant of the engine's graph), and ``stream()``: a
+    :class:`~monocular_depth_estimation_trt_tpu_torch.apps.streaming.FlashDepthSession`
+    whose Mamba state stays on the card between frames."""
+
+    def __init__(self, spec: ModelSpec, forward: Callable, forward_state: Callable,
+                 init_state: Callable, *, device: torch.device, model: torch.nn.Module):
+        super().__init__(spec, forward, device=device, model=model, viz="relative")
+        self._forward_state = forward_state
+        self._init_state = init_state
+
+    def stream(self):
+        """A fresh stateful session (upstream ``start_new_sequence()``):
+        ``sess(frame, viz=...)`` -> host outputs of that frame."""
+        from monocular_depth_estimation_trt_tpu_torch.apps.streaming import FlashDepthSession
+
+        return FlashDepthSession(self._forward_state, self._init_state,
+                                 lambda out: self._with_viz_epilogue(out, True),
+                                 device=self.device, name=self.spec.artifact_name() + "_stream")
+
+
+@register("flashdepth", fidelity="converter-verified")
+def flashdepth(encoder: str = "vits", input_size: int = 518, precision: str = "bf16",
+               attn_impl: str = "auto", params: Optional[Mapping[str, torch.Tensor]] = None,
+               checkpoint: Optional[str] = None, device=None,
+               model_kw: Optional[Dict[str, Any]] = None) -> FlashDepthPipeline:
+    """FlashDepth streaming video depth (reference ``later/FlashDepth/``): a
+    DA-style DPT with a Mamba temporal module whose state persists across
+    frames (``wrapper.py:9-25``, ``infer.py:104-130``). The frame is resized
+    cubic to ``input_size``² and ImageNet-normalized (``infer.py:32-67``);
+    the depth is resized align-corners to the frame, clipped at 0.
+    ``model_kw``: overrides passed to ``FlashDepth`` (``vit_config``,
+    ``head_features``, ``head_out_channels``, ``out_indices``)."""
+    from monocular_depth_estimation_trt_tpu_torch.models.flashdepth import (
+        FlashDepth,
+        flashdepth_init_state,
+    )
+    from monocular_depth_estimation_trt_tpu_torch.ops.constants import device_cached
+    from monocular_depth_estimation_trt_tpu_torch.ops.postprocess import upsample_depth
+    from monocular_depth_estimation_trt_tpu_torch.ops.preprocess import normalize, to_float_rgb
+    from monocular_depth_estimation_trt_tpu_torch.ops.resize import resize
+
+    device = resolve_device(device)
+    spec = ModelSpec(model="flashdepth", encoder=encoder, input_hw=(input_size, input_size),
+                     precision=precision)
+    dtype = _plain_dtype(precision, device)
+    model = _params_for(_new_model(lambda: FlashDepth(encoder, attn_impl=attn_impl,
+                                                      **(model_kw or {}))),
+                        spec, params=params, checkpoint=checkpoint, device=device, dtype=dtype,
+                        make_sample=None, input_size=input_size)
+    patch = (input_size // model.patch_size,) * 2
+
+    def preprocess(img_u8: torch.Tensor) -> torch.Tensor:
+        x = resize(to_float_rgb(img_u8), spec.input_hw, method="cubic")
+        return normalize(x, IMAGENET_MEAN, IMAGENET_STD)
+
+    def forward_state(img_u8: torch.Tensor, out_hw, state):
+        single = img_u8.dim() == 3
+        depth, new_state = model(preprocess(img_u8[None] if single else img_u8), state)
+        depth = torch.clamp(upsample_depth(depth, out_hw, clamp=None), min=0.0)
+        return {"depth": depth[0] if single else depth}, new_state
+
+    @device_cached
+    def zero_state(batch: int, dev: torch.device):
+        return flashdepth_init_state(model, batch, patch, dev)
+
+    def forward(img_u8: torch.Tensor, out_hw):
+        # stateless serving: every image is its own sequence
+        batch = 1 if img_u8.dim() == 3 else img_u8.shape[0]
+        return forward_state(img_u8, out_hw, zero_state(batch, img_u8.device))[0]
+
+    return FlashDepthPipeline(spec, forward, forward_state,
+                              lambda dev: flashdepth_init_state(model, 1, patch, dev),
+                              device=device, model=model)
+
+
+class VDAPipeline(DepthPipeline):
+    """Single images as 1-frame windows, plus the windowed video protocol:
+    ``video_depth(frames_u8)``, one engine per (source size, window).
+
+    ``window_forward``: fn(frames_u8 (T, H, W, 3) on the device) ->
+    {"depth": (T, ih, iw)} at the model's input size."""
+
+    def __init__(self, spec: ModelSpec, forward: Callable, window_forward: Callable, *,
+                 window: int, overlap: int, device: torch.device, model: torch.nn.Module,
+                 viz: str):
+        super().__init__(spec, forward, device=device, model=model, viz=viz)
+        self._window_forward = window_forward
+        self.window = window
+        self.overlap = overlap
+
+    def window_engine(self, src_hw: Tuple[int, int]) -> Engine:
+        """The engine for a window of frames of size ``src_hw``."""
+        t, (h, w) = self.window, tuple(src_hw)
+        return self._engine(f"{self.spec.artifact_name()}_win{t}_{h}x{w}", self._window_forward,
+                            (t, h, w, 3))
+
+    def video_depth(self, video_u8) -> np.ndarray:
+        """video (T, H, W, 3) uint8 -> depth (T, ih, iw) float32 at the
+        model's input size (upstream run.py): a clip of at most one window
+        is padded with its last frame to the window and trimmed after, so
+        that every clip length reuses the one engine; a longer clip runs
+        overlapping windows (``window_starts``), each aligned to the one
+        before by a least-squares scale and shift on their overlap and
+        cross-faded there, on the host."""
+        from monocular_depth_estimation_trt_tpu_torch.models.video_depth_anything import (
+            stitch_window,
+            window_starts,
+        )
+
+        video_u8 = np.asarray(video_u8)
+        t_total, window = video_u8.shape[0], self.window
+        eng = self.window_engine(video_u8.shape[1:3])
+        if t_total <= window:
+            padded = np.concatenate([video_u8, np.repeat(video_u8[-1:], window - t_total, 0)])
+            return tree_get_chunked(eng(self._as_tensor(padded)))["depth"][:t_total]
+        out = np.zeros((t_total, *self.spec.input_hw), np.float32)
+        prev_end = 0
+        for s in window_starts(t_total, window, self.overlap):
+            d = tree_get_chunked(eng(self._as_tensor(video_u8[s:s + window])))["depth"]
+            if prev_end == 0:
+                out[:window] = d
+            else:  # the overlap is the configured one but at the last window
+                out[s:s + window] = stitch_window(out[s:prev_end], d, prev_end - s)
+            prev_end = s + window
+        return out
+
+    def benchmark(self, in_hw: Optional[Tuple[int, int]] = None,
+                  config: Optional[BenchmarkConfig] = None) -> BenchmarkReport:
+        """The window engine's throughput in frames/s: each iteration is one
+        ``window``-frame window (uint8 frames on the card, the depth D2H into
+        a pinned buffer), so the report has ``frames_per_iteration =
+        window``; its latencies are per window."""
+        h, w = tuple(in_hw or self.spec.input_hw)
+        eng = self.window_engine((h, w))
+        rng = np.random.default_rng(0)
+        frames = torch.from_numpy(
+            rng.integers(0, 255, (self.window, h, w, 3), dtype=np.uint8)).to(self.device)
+        depth = eng(frames)["depth"]
+        host_out = torch.empty(depth.shape, dtype=depth.dtype)
+        if self.device.type == "cuda":
+            host_out = host_out.pin_memory()
+
+        def step():
+            host_out.copy_(eng(frames)["depth"], non_blocking=True)
+
+        rep = benchmark(step, device=self.device, config=config, name=self.spec.artifact_name())
+        rep.frames_per_iteration = self.window
+        return rep
+
+
+@register("video_depth_anything", fidelity="converter-verified")
+def video_depth_anything(encoder: str = "vits", input_size: int = 518, metric: bool = False,
+                         window: int = 0, overlap: int = 0, precision: str = "bf16",
+                         attn_impl: str = "auto",
+                         params: Optional[Mapping[str, torch.Tensor]] = None,
+                         checkpoint: Optional[str] = None, device=None,
+                         model_kw: Optional[Dict[str, Any]] = None) -> VDAPipeline:
+    """Video Depth Anything (reference ``later/Video_Depth_Anything/``):
+    temporally consistent video depth, a DA-V2 encoder and a DPT head with
+    temporal attention, on 32-frame windows; long videos stitch overlapping
+    windows (upstream ``run.py``). ``metric`` selects the Metric-VDA
+    checkpoints (the same graph, depth in meters). ``model_kw``: overrides
+    passed to ``VideoDepthAnything`` (``vit_config``, ``head_features``,
+    ``head_out_channels``, ``out_indices``, ``num_heads``)."""
+    from monocular_depth_estimation_trt_tpu_torch.models.video_depth_anything import (
+        OVERLAP,
+        WINDOW,
+        VideoDepthAnything,
+    )
+    from monocular_depth_estimation_trt_tpu_torch.ops.postprocess import upsample_depth
+
+    device = resolve_device(device)
+    spec = ModelSpec(model="video_depth_anything", encoder=encoder,
+                     input_hw=(input_size, input_size), precision=precision, metric=metric,
+                     dataset="metric" if metric else "")
+    dtype = _plain_dtype(precision, device)
+    model = _params_for(_new_model(lambda: VideoDepthAnything(encoder, attn_impl=attn_impl,
+                                                              **(model_kw or {}))),
+                        spec, params=params, checkpoint=checkpoint, device=device, dtype=dtype,
+                        make_sample=None, input_size=input_size)
+    # upstream run.py: the DA transform per frame, on the card over the window
+    prep_frames = _imagenet_square(spec.input_hw)
+
+    def forward(img_u8: torch.Tensor, out_hw):
+        # one image = a 1-frame window (temporal attention over T = 1)
+        single = img_u8.dim() == 3
+        d = model(prep_frames(img_u8[None] if single else img_u8)[:, None])[:, 0]
+        depth = torch.clamp(upsample_depth(d, out_hw, clamp=None), min=0.0)
+        return {"depth": depth[0] if single else depth}
+
+    def window_forward(frames_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return {"depth": torch.clamp(model(prep_frames(frames_u8)[None])[0], min=0.0)}
+
+    return VDAPipeline(spec, forward, window_forward, window=window or WINDOW,
+                       overlap=overlap or OVERLAP, device=device, model=model,
+                       viz="metric" if metric else "relative")

@@ -14,7 +14,10 @@ dependencies, the module falls back to codecs of its own:
 JPEG has no fallback: reading or encoding one without cv2 raises
 :class:`CodecUnavailable`, which names the missing codec, and
 :func:`write_image` writes a ``.png`` where a ``.jpg`` was asked for (it
-logs that, and returns the path it wrote).
+logs that, and returns the path it wrote). Video has none either: the
+reader and writer (:func:`open_video`, :func:`read_video`,
+:class:`VideoWriter`; ``cv2.VideoCapture`` and an mp4v ``cv2.VideoWriter``,
+as in the JAX package) raise :class:`CodecUnavailable` without cv2.
 
 Arrays are RGB(A) ``uint8`` ``(H, W, C)`` or gray ``(H, W)``.
 """
@@ -37,7 +40,8 @@ _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # PNG color type -> samples per pixe
 
 
 class CodecUnavailable(RuntimeError):
-    """The format needs a codec that is not importable here (JPEG without cv2)."""
+    """The format needs a codec that is not importable here (JPEG or MP4
+    video without cv2)."""
 
 
 @functools.lru_cache(maxsize=1)
@@ -257,6 +261,82 @@ def write_gray(path: str, img: np.ndarray) -> str:
             raise IOError(f"could not write {path}")
         return path
     return write_image(path, np.repeat(np.asarray(img)[..., None], 3, axis=-1))
+
+
+# ---------------------------------------------------------------------------
+# video (cv2 only)
+# ---------------------------------------------------------------------------
+
+
+def video_cv2(what: str):
+    """The cv2 module for video work, or :class:`CodecUnavailable` naming the
+    missing codec."""
+    cv2 = _cv2()
+    if cv2 is None:
+        raise CodecUnavailable(
+            f"{what}: video (MP4/mp4v) needs the cv2 (OpenCV) codec, which is not "
+            "importable here")
+    return cv2
+
+
+def open_video(source):
+    """An opened ``cv2.VideoCapture`` of a file path or a camera (index or
+    URL); :class:`CodecUnavailable` without cv2, ``FileNotFoundError`` when
+    it does not open."""
+    cv2 = video_cv2(f"cannot read {source!r}")
+    cap = cv2.VideoCapture(source)
+    if not cap.isOpened():
+        raise FileNotFoundError(f"[MDET] cannot open video: {source}")
+    return cap
+
+
+def video_fps(cap) -> float:
+    """The capture's frame rate (30 where the container gives none)."""
+    return cap.get(_cv2().CAP_PROP_FPS) or 30.0
+
+
+def iter_video(cap, max_frames: Optional[int] = None):
+    """The capture's frames as RGB uint8 (H, W, 3), at most ``max_frames``;
+    releases the capture at the end."""
+    cv2 = _cv2()
+    n = 0
+    try:
+        while not max_frames or n < max_frames:
+            ok, bgr = cap.read()
+            if not ok:
+                break
+            yield cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
+            n += 1
+    finally:
+        cap.release()
+
+
+def read_video(path: str, max_frames: Optional[int] = None) -> Tuple[np.ndarray, float]:
+    """A video file as RGB uint8 (T, H, W, 3) and its frame rate."""
+    cap = open_video(path)
+    fps = video_fps(cap)
+    frames = list(iter_video(cap, max_frames))
+    if not frames:
+        raise ValueError(f"[MDET] no frames decoded from {path}")
+    return np.stack(frames), fps
+
+
+class VideoWriter:
+    """An mp4v MP4 of BGR uint8 frames (cv2's order) at ``(width, height)``;
+    a frame of another size is resized to it (bilinear)."""
+
+    def __init__(self, path: str, fps: float, size_wh: Tuple[int, int]):
+        cv2 = video_cv2(f"cannot write {path}")
+        self.size_wh = tuple(size_wh)
+        self._writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps, self.size_wh)
+
+    def write_bgr(self, bgr: np.ndarray) -> None:
+        if (bgr.shape[1], bgr.shape[0]) != self.size_wh:
+            bgr = _cv2().resize(bgr, self.size_wh)
+        self._writer.write(bgr)
+
+    def release(self) -> None:
+        self._writer.release()
 
 
 # ---------------------------------------------------------------------------

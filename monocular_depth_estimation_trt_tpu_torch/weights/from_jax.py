@@ -5,7 +5,8 @@ The exact inverse of the JAX package's ``weights/convert.py``
 ``convert_depth_pro``, ``convert_depth_anything_v3``,
 ``convert_metric3d_v2``, ``convert_moge2``, ``convert_geometric``,
 ``convert_sidepth``, ``convert_geocalib``, ``convert_prior_depth``,
-``convert_map_anything``, ``convert_align3r``, ``convert_dinov3``), so that
+``convert_map_anything``, ``convert_align3r``, ``convert_dinov3``,
+``convert_vda``, ``convert_flashdepth``), so that
 the parity tests can feed one set of weights to both packages:
 
 * Dense kernel (in, out)                 -> Linear weight (out, in)
@@ -13,6 +14,7 @@ the parity tests can feed one set of weights to both packages:
 * ConvTranspose kernel (kh, kw, in, out) -> ConvTranspose2d weight (in, out, kh, kw)
 * Dense kernel (in, out) on tokens       -> Conv2d 1x1 weight (out, in, 1, 1) (MoGe's projections)
 * fused GRU ``convzr`` (.., 2*hidden)    -> ``convz`` and ``convr`` (Metric3D V2)
+* Mamba ``conv1d_kernel`` (k, d_inner)   -> depthwise Conv1d weight (d_inner, 1, k) (FlashDepth)
 * LayerNorm scale / bias                 -> weight / bias
 * q8 kernel_q (in, out) int8             -> QuantLinear weight_q (out, in) (:func:`q8_from_jax`)
 
@@ -448,6 +450,58 @@ def prior_depth_anything_from_jax(params: Mapping[str, Any]) -> Dict[str, Dict[s
             "refiner": prior_refiner_from_jax(params["refiner"])}
 
 
+def temporal_block_from_jax(p: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A JAX ``TemporalAttentionBlock`` -> ``TemporalAttentionBlock``
+    state-dict entries under ``prefix``."""
+    out: Dict[str, torch.Tensor] = {}
+    for name in ("norm1", "norm2"):
+        _layernorm(p[name], _join(prefix, name), out)
+    for name in ("qkv", "proj", "fc1", "fc2"):
+        _linear(p[name], _join(prefix, name), out)
+    return out
+
+
+def vda_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``VideoDepthAnything`` params -> the port's state dict in the
+    layout of ``weights/manifests/video_depth_anything_vits.json``: DA-V2's
+    keys and ``depth_head.temporal{1..4}`` (Flax ``temporal_{i}``). The
+    inverse of ``convert_vda``."""
+    if "params" in params:
+        params = params["params"]
+    out = _dino_dpt_from_jax(params, ("pretrained", "depth_head"))
+    for i in (1, 2, 3, 4):
+        out.update(temporal_block_from_jax(params["depth_head"][f"temporal_{i}"],
+                                           f"depth_head.temporal{i}"))
+    return out
+
+
+def mamba_from_jax(p: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A JAX ``MambaBlock`` -> ``MambaBlock`` state-dict entries under
+    ``prefix`` (``mamba_ssm``'s names)."""
+    out: Dict[str, torch.Tensor] = {}
+    for name in ("in_proj", "x_proj", "dt_proj", "out_proj"):
+        _linear(p[name], _join(prefix, name), out)
+    out[_join(prefix, "A_log")] = _t(p["A_log"])
+    out[_join(prefix, "D")] = _t(p["D"])
+    out[_join(prefix, "conv1d.weight")] = _t(np.asarray(p["conv1d_kernel"]).T[:, None, :])
+    out[_join(prefix, "conv1d.bias")] = _t(p["conv1d_bias"])
+    return out
+
+
+def flashdepth_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``FlashDepth`` params -> the port's state dict in the layout of
+    ``weights/manifests/flashdepth_vits.json``: DA-V2's keys,
+    ``depth_head.temporal_norm`` and ``depth_head.mamba`` with
+    ``mamba_ssm``'s names. The inverse of ``convert_flashdepth``."""
+    if "params" in params:
+        params = params["params"]
+    out = _dino_dpt_from_jax(params, ("pretrained", "depth_head"))
+    head = params["depth_head"]
+    _layernorm(head["temporal_norm"], "depth_head.temporal_norm", out)
+    out.update(mamba_from_jax(head["mamba"], "depth_head.mamba"))
+    return out
+
+
 # the submodules whose Dense layers each family's int8 serving quantizes
 Q8_ROOTS = {
     "depth_anything_v2": ("pretrained",),
@@ -519,7 +573,9 @@ def state_dict_from_jax(params: Mapping[str, Any]):
     output (DINOv3) or five (GeoCalib), or with a two-branch ``head`` (Depth
     Anything V3). The composites ``{"vggt", "refiner"}`` of
     ``prior_depth_anything`` and ``{"align3r", "prior"}`` of ``align3r``
-    give those two keys, each a state dict."""
+    give those two keys, each a state dict. ``pretrained`` with temporal
+    blocks in its ``depth_head`` is Video Depth Anything, with a Mamba block
+    FlashDepth."""
     if "params" in params:
         params = params["params"]
     if "refiner" in params and "vggt" in params:
@@ -540,6 +596,11 @@ def state_dict_from_jax(params: Mapping[str, Any]):
         return sidepth_from_jax(params)
     if "mde" in params:
         return prior_refiner_from_jax(params)
+    head = params.get("depth_head", {})
+    if "temporal_4" in head:
+        return vda_from_jax(params)
+    if "mamba" in head:
+        return flashdepth_from_jax(params)
     if "backbone" in params:
         if "scale_fc1" in params:
             return moge2_from_jax(params)

@@ -113,7 +113,9 @@ def init_random_(model: nn.Module, seed: int = 0) -> None:
     lecun-normal weights and zero biases for Linear/Conv layers, identity
     LayerNorms, normal(0.02) position table, zero class and register tokens,
     normal(0.02) for the parameters a module lists in its ``normal_init``
-    (VGGT's camera and register tokens): the JAX modules' initializers.
+    (VGGT's camera and register tokens), and a module's own
+    ``init_constants_()`` (the Mamba block's A_log and D): the JAX modules'
+    initializers.
     LayerScale gammas are set to
     :data:`RANDOM_LAYERSCALE` rather than the untrained 1e-5, so that every
     attention and MLP branch moves the output, as in a trained DINOv2, and
@@ -129,7 +131,7 @@ def init_random_(model: nn.Module, seed: int = 0) -> None:
         t.copy_(torch.randn(t.shape, generator=g, dtype=torch.float32, device=device) * std)
 
     for mod in model.modules():
-        if isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+        if isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d)):
             w = mod.weight
             if isinstance(mod, nn.ConvTranspose2d):  # (in, out, kh, kw)
                 fan_in = w.shape[0] * w.shape[2] * w.shape[3]
@@ -151,6 +153,8 @@ def init_random_(model: nn.Module, seed: int = 0) -> None:
     for mod in model.modules():
         for name in getattr(mod, "normal_init", ()):
             normal_(getattr(mod, name), 0.02)
+        if hasattr(mod, "init_constants_"):
+            mod.init_constants_()
 
 
 def resolve_weights(model: nn.Module, name: str, *,

@@ -8,6 +8,7 @@ behind its artifacts (``ops/camera.py``'s unprojections, ``apps/ply.py``,
 
 import json
 import os
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -151,7 +152,9 @@ def test_views_matches_the_jax_cli(monkeypatch, tmp_path):
 def test_parser_has_the_ported_commands_and_rejects_the_rest():
     p = cli.build_parser()
     for cmd in (["run", "x"], ["batch", "x", "--images-dir", "d"], ["views", "--images", "a"],
-                ["bench", "x"], ["build", "x"], ["serve", "x"], ["models"], ["engines"]):
+                ["bench", "x"], ["build", "x"], ["serve", "x"], ["models"], ["engines"],
+                ["batch", "x", "--video", "v.mp4"], ["video", "x", "--video", "v.mp4"],
+                ["webcam", "x", "--camera", "1"]):
         assert p.parse_args(cmd).fn.__name__ == f"cmd_{cmd[0]}"
     assert p.parse_args(["run", "x"]).device == "cuda"
     assert p.parse_args(["--device", "cpu", "run", "x"]).device == "cpu"
@@ -215,6 +218,144 @@ def test_batch_command_writes_what_single_calls_give(monkeypatch, tmp_path, caps
         stem = os.path.splitext(os.path.basename(p))[0]
         got = np.load(tmp_path / "o" / f"{stem}_{name}.npz")["depth"]
         assert rel_err(got, tpipe(imageio.read_image(p))["depth"]) < REL_TOL
+
+
+FIXTURE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data",
+                       "example_video.mp4")
+
+
+def _decoded(path):
+    cv2 = pytest.importorskip("cv2")
+    cap = cv2.VideoCapture(path)
+    frames = []
+    while True:
+        ok, f = cap.read()
+        if not ok:
+            break
+        frames.append(f.astype(np.int16))
+    cap.release()
+    return np.stack(frames)
+
+
+def test_video_matches_the_jax_cli(monkeypatch, tmp_path):
+    """``video`` with the tiny Video Depth Anything on both sides (the
+    whole-video protocol: 6 frames, window 4, overlap 2): the same file
+    name, frame count and size, the decoded frames within 2 uint8 steps.
+    The two depths normalize to uint8 maps 1 step apart at about 0.02 % of
+    the pixels (rounding ties); the mp4v codec spreads such a pixel over its
+    block (and an 18x upscale before it): 0.12 % of the decoded values read
+    more than 2 steps apart, so the bar is 1 % of them, with the mean
+    difference far below a step (``tests/test_torch_vda.py`` holds the
+    writer at 2 steps everywhere on a clip without ties)."""
+    pytest.importorskip("cv2")
+    from test_torch_vda import SIZE, _models, vda_pipelines
+
+    jpipe, tpipe = vda_pipelines(_models(64, 2, seed=3)[1])
+    (rc_j, jdir), (rc_t, tdir) = _run_both(monkeypatch, tmp_path, jpipe, tpipe,
+                                           ["video", "--video", FIXTURE, "--max-frames", "6"])
+    assert rc_j == rc_t == 0
+    assert sorted(os.listdir(jdir)) == sorted(os.listdir(tdir)) == \
+        [f"example_video_{tpipe.spec.artifact_name()}.mp4"]
+    ref, ours = (_decoded(_only(d, ".mp4")) for d in (jdir, tdir))
+    assert ours.shape == ref.shape == (6, 288, 512, 3)
+    diff = np.abs(ours - ref)
+    assert float(np.mean(diff > 2)) < 1e-2 and float(diff.mean()) < 0.05
+
+
+def test_video_streams_flashdepth_as_the_jax_cli(monkeypatch, tmp_path):
+    """``video`` with the tiny FlashDepth: one stream over the video, frame
+    by frame, the frame rate overlaid (its digits differ from run to run):
+    the frame count and size of the JAX command's file, and the frames
+    close to its below the overlay."""
+    pytest.importorskip("cv2")
+    from test_torch_flashdepth import flashdepth_pipelines, tiny_models
+
+    jpipe, tpipe = flashdepth_pipelines(tiny_models()[1], monkeypatch)
+    (rc_j, jdir), (rc_t, tdir) = _run_both(monkeypatch, tmp_path, jpipe, tpipe,
+                                           ["video", "--video", FIXTURE, "--max-frames", "4"])
+    assert rc_j == rc_t == 0
+    ref, ours = (_decoded(_only(d, ".mp4")) for d in (jdir, tdir))
+    assert ours.shape == ref.shape == (4, 288, 512, 3)
+    assert float(np.abs(ours[:, 64:] - ref[:, 64:]).mean()) < 1.0
+
+
+def test_batch_video_writes_what_single_calls_give(monkeypatch, tmp_path, capsys):
+    """``batch --video``: the fixture's first 3 frames extracted as PNGs and
+    served in batches of 2; ``--images-dir`` and ``--video`` together (or
+    neither) is a usage error."""
+    pytest.importorskip("cv2")
+    from test_torch_da_v2_slice import TINY, _pipelines
+
+    _, tpipe = _pipelines(monkeypatch, TINY)
+    monkeypatch.setattr(treg, "build_pipeline", lambda name, **kw: tpipe)
+    out = tmp_path / "o"
+    rc = cli.main(["--device", "cpu", "batch", "toy", "--video", FIXTURE, "--max-frames", "3",
+                   "--batch", "2", "--save", "--out", str(out)])
+    assert rc == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["frames"] == 3 and line["batch"] == 2
+    frames = sorted(os.listdir(out / "_frames"))
+    assert frames == [f"frame_{i:05d}.png" for i in range(3)]
+    name = tpipe.spec.artifact_name()
+    for f in frames:
+        got = np.load(out / f"{f[:-4]}_{name}.npz")["depth"]
+        frame = imageio.resize(imageio.read_image(str(out / "_frames" / f)), (70, 70))
+        assert rel_err(got, tpipe(frame)["depth"]) < REL_TOL
+    for bad in ([], ["--images-dir", str(tmp_path), "--video", FIXTURE]):
+        assert cli.main(["--device", "cpu", "batch", "toy", *bad]) == 2
+
+
+def test_webcam_on_a_fake_capture(monkeypatch):
+    """``webcam`` with camera 0: frames of a fake capture through the
+    pipeline on its worker thread, shown with the rates overlaid; the
+    capture ends once three results were shown (or after 1000 frames)."""
+    cv2 = pytest.importorskip("cv2")
+    shown, opened = [], []
+
+    class FakeCapture:
+        def __init__(self, source):
+            opened.append(source)
+            self.read_frames = 0
+
+        def isOpened(self):
+            return True
+
+        def read(self):
+            time.sleep(0.005)  # a camera's pace
+            self.read_frames += 1
+            if len(shown) >= 3 or self.read_frames > 1000:
+                return False, None
+            return True, np.full((24, 32, 3), self.read_frames % 256, np.uint8)
+
+        def release(self):
+            pass
+
+    spec = ModelSpec(model="toy_cam", input_hw=(16, 16))
+    pipe = DepthPipeline(spec, lambda img, hw: {"depth": img.float()[..., 0] + 1.0},
+                         device="cpu", viz="relative")
+    monkeypatch.setattr(treg, "build_pipeline", lambda name, **kw: pipe)
+    monkeypatch.setattr(cv2, "VideoCapture", FakeCapture)
+    monkeypatch.setattr(cv2, "imshow", lambda title, view: shown.append(view.shape))
+    monkeypatch.setattr(cv2, "waitKey", lambda ms: -1)
+    monkeypatch.setattr(cv2, "destroyAllWindows", lambda: None)
+    assert cli.main(["--device", "cpu", "webcam", "toy", "--camera", "0"]) == 0
+    assert opened == [0]
+    assert len(shown) == 3 and set(shown) == {(24, 32, 3)}
+
+
+@pytest.mark.parametrize("argv", [
+    ["video", "toy", "--video", FIXTURE],
+    ["batch", "toy", "--video", FIXTURE],
+    ["webcam", "toy"],
+])
+def test_video_commands_without_cv2_name_the_codec(monkeypatch, capsys, tmp_path, argv):
+    """Without cv2 each video command exits non-zero before it builds a
+    pipeline, and names the missing codec."""
+    monkeypatch.setattr(imageio, "_cv2", lambda: None)
+    monkeypatch.setattr(treg, "build_pipeline", lambda name, **kw: pytest.fail("built"))
+    assert cli.main(["--device", "cpu", *argv, "--out", str(tmp_path)]
+                    if argv[0] != "webcam" else ["--device", "cpu", *argv]) == 1
+    assert "video (MP4/mp4v) needs the cv2 (OpenCV) codec" in capsys.readouterr().out
 
 
 def test_build_command_records_the_engine(monkeypatch):

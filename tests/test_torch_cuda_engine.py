@@ -107,6 +107,48 @@ def test_int8_engine_replays_the_eager_forward(cuda, monkeypatch):
                   {"flash_attention_packed": 2, "w8a8_matmul": 8})
 
 
+SMALL_HEAD = dict(vit_config=ViTConfig(dim=128, depth=2, num_heads=2, pretrain_img_size=70),
+                  head_features=16, head_out_channels=(8, 16, 32, 32), out_indices=(0, 1, 0, 1))
+
+
+def test_vda_window_engine_replays_the_eager_forward(cuda):
+    """A 4-frame window (K1 at batch 4), and the single-image engine."""
+    with allow_random_weights(True):
+        pipe = build_pipeline("video_depth_anything", input_size=70, window=4, overlap=2,
+                              model_kw=dict(num_heads=2, **SMALL_HEAD))
+    a, b = _frames(4, (48, 64)), _frames(4, (48, 64), seed=1)
+    _check_engine(pipe.window_engine((48, 64)), pipe._window_forward, a, b,
+                  {"flash_attention_packed": 2})
+    a1, b1 = _frames(2, (48, 64), seed=2)
+    _check_engine(pipe.engine_for((48, 64)), lambda x: pipe._run(x, (48, 64), False), a1, b1,
+                  {"flash_attention_packed": 2})
+
+
+def test_flashdepth_session_replays_the_eager_step(cuda):
+    """Four steps of the captured session against the eager step on a copy
+    of the state before each; reset() zeroes the state in place."""
+    with allow_random_weights(True):
+        pipe = build_pipeline("flashdepth", input_size=70, model_kw=SMALL_HEAD)
+    frames = _frames(4, (48, 64), seed=3)
+    sess = pipe.stream()
+    eng = sess.engine_for((48, 64))
+    assert not any(t.any() for t in sess.state.values())  # the build put the state back
+    assert {k: v for k, v in eng.captured_launches.items() if v} == {"flash_attention_packed": 2}
+    outs = []
+    for f in frames:
+        before = {k: t.clone() for k, t in sess.state.items()}
+        with torch.inference_mode():
+            ref, new = pipe._forward_state(torch.from_numpy(f).cuda(), (48, 64), before)
+        outs.append(sess.step(f))
+        assert torch.equal(outs[-1]["depth"], ref["depth"])
+        for k in new:
+            assert torch.equal(sess.state[k], new[k]), k
+    assert not torch.equal(outs[0]["depth"], outs[1]["depth"])
+    sess.reset()
+    assert not any(t.any() for t in sess.state.values())
+    assert torch.equal(sess.step(frames[0])["depth"], outs[0]["depth"])
+
+
 def test_one_graph_per_batch_bucket(cuda):
     with allow_random_weights(True):
         pipe = build_pipeline("depth_anything_v2", **SMALL_DA)

@@ -46,6 +46,8 @@ def _qkv(b, n, h, dtype, device, seed=0):
 @pytest.mark.parametrize("b,n,h,dtype", [
     (1, 1370, 6, torch.bfloat16), (2, 65, 3, torch.bfloat16), (1, 1, 6, torch.bfloat16),
     (1, 64, 16, torch.bfloat16), (2, 130, 3, torch.float32), (1, 1370, 6, torch.float32),
+    # Video Depth Anything's 32-frame window folded into the batch (vits, vitl)
+    (32, 1370, 6, torch.bfloat16), (32, 1370, 16, torch.bfloat16),
 ])
 def test_k1_matches_its_plain_version(cuda, b, n, h, dtype):
     """K2's bar (``_check_bhnd``) on the (B, H, N, 64) views of the packed

@@ -36,6 +36,9 @@ torch.set_num_threads(1)
 
 REL_TOL = 2e-3  # fp32 on both sides: summation order and exp/erf only
 EXACT = 1e-5  # the stream against the port's own causal joint model
+# each side's own int8 pipeline computes in bf16 and calibrates on its own
+# (tests/test_torch_int8_slice.py's PIPELINE_BF16_REL_TOL)
+INT8_BF16_REL_TOL = 7.5e-2
 SIZE = 70  # a 5x5 patch grid, 30 tokens per view
 VIT = dict(dim=48, depth=2, num_heads=2, pretrain_img_size=SIZE)
 COMMON = dict(dim=64, depth=2, num_heads=4, head_layers=(0, 1, 0, 1), encoder="vits",
@@ -251,3 +254,50 @@ def test_vggt_family_keys_equal_the_manifests(manifest, build):
     with torch.device("meta"):
         got = {k: list(v.shape) for k, v in build().state_dict().items()}
     assert got == want
+
+
+def test_int8_stream_matches_jax(depth_only_params, frames):
+    """The int8 stream (ROADMAP fault 4): the JAX int8 streamvggt pipeline's
+    ``{"params", "q8"}`` bundle, calibrated on two frames, served by the JAX
+    session and by the port's session on a joint model holding that q8
+    (``install_q8``), both in fp32, three steps at window 2; then the
+    port's own int8 pipeline streams on the joint model's ``QuantLinear``
+    layers, against the JAX int8 runner (both bf16)."""
+    from monocular_depth_estimation_trt_tpu.apps.streaming import (
+        VGGTStreamingSession as JSession,
+    )
+    from monocular_depth_estimation_trt_tpu_torch.ops.quant import QuantLinear, install_q8
+    from monocular_depth_estimation_trt_tpu_torch.weights.from_jax import q8_from_jax
+
+    jcfg, tcfg = configs(causal=False)
+    calib = [np.random.default_rng(s).integers(0, 256, (SIZE, SIZE, 3), dtype=np.uint8)
+             for s in (31, 32)]
+    jpipe = jreg._build_vggt("streamvggt", SIZE, "int8", "xla", depth_only_params,
+                             vggt_cfg=jcfg, with_camera=False, calib_images=calib)
+    bundle = jpipe.params
+    assert sorted(bundle) == ["params", "q8"]
+    jsess = JSession(bundle, cfg=jcfg, window=2, input_size=SIZE, dtype=jnp.float32,
+                     attn_impl="xla")
+    tm = tvggt.VGGT(tcfg, attn_impl="flash", with_camera=False)
+    tm.load_state_dict(vggt_from_jax(depth_only_params), strict=True)
+    targets = sorted(tm.int8_targets())
+    install_q8(tm.eval(), q8_from_jax(bundle["q8"], "streamvggt"))
+    sess = VGGTStreamingSession(tm, window=2, input_size=SIZE)
+    quant = [n for n, m in sess.model.named_modules() if isinstance(m, QuantLinear)]
+    assert sorted(quant) == targets
+    for s in range(3):
+        ref, ours = jsess.step(frames[s]), sess.step(frames[s])
+        for k in ("depth", "depth_conf"):
+            assert rel_err(ours[k].numpy(), ref[k]) < REL_TOL, (s, k)
+
+    tpipe = build_pipeline("streamvggt", input_size=SIZE, precision="int8", device="cpu",
+                           params=vggt_from_jax(depth_only_params), vggt_cfg=tcfg,
+                           calib_images=calib)
+    trun, jrun = tpipe.stream(window=2), jpipe.stream(window=2)
+    joint = {n: m for n, m in tpipe.model.named_modules() if isinstance(m, QuantLinear)}
+    streaming = dict(trun.session.model.named_modules())
+    assert sorted(joint) == sorted(quant) and all(streaming[n] is m for n, m in joint.items())
+    for frame in frames:
+        ref, ours = jrun(frame), trun(frame)
+        assert np.isfinite(ours["depth"]).all()
+        assert rel_err(ours["depth"], ref["depth"]) < INT8_BF16_REL_TOL

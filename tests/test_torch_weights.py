@@ -253,12 +253,70 @@ def test_depth_pro_from_jax_inverts_the_jax_converter_exactly():
     store.load_state_dict(model, back)  # strict
 
 
+@pytest.mark.parametrize("manifest,size", [("video_depth_anything_vits", 286),
+                                           ("flashdepth_vits", 249)])
+def test_video_families_keys_and_shapes_equal_upstream_manifests(manifest, size):
+    from monocular_depth_estimation_trt_tpu_torch.models.flashdepth import FlashDepth
+    from monocular_depth_estimation_trt_tpu_torch.models.video_depth_anything import (
+        VideoDepthAnything,
+    )
+
+    with open(os.path.join(MANIFESTS, f"{manifest}.json")) as f:
+        want = json.load(f)["keys"]
+    with torch.device("meta"):
+        model = (VideoDepthAnything if manifest.startswith("video") else FlashDepth)("vits")
+    ours = {k: list(v.shape) for k, v in model.state_dict().items()}
+    assert len(ours) == len(want) == size
+    assert ours == want
+
+
+@pytest.mark.parametrize("family", ["vda", "flashdepth"])
+def test_video_families_from_jax_invert_the_jax_converters(family):
+    """The torch mirrors' state dicts (``tests/torch_mirror_vda.py``,
+    ``torch_mirror_flashdepth.py``) through ``convert_vda`` /
+    ``convert_flashdepth`` and back: every key, bit for bit."""
+    from monocular_depth_estimation_trt_tpu.weights.convert import (
+        convert_flashdepth,
+        convert_vda,
+    )
+    from monocular_depth_estimation_trt_tpu_torch.models.flashdepth import FlashDepth
+    from monocular_depth_estimation_trt_tpu_torch.models.video_depth_anything import (
+        VideoDepthAnything,
+    )
+    from monocular_depth_estimation_trt_tpu_torch.weights.from_jax import (
+        flashdepth_from_jax,
+        vda_from_jax,
+    )
+    from torch_mirror_flashdepth import TorchFlashDepth
+    from torch_mirror_vda import TorchVDA
+
+    torch.manual_seed(41)
+    args = (64, 2, 2, 16, (8, 16, 32, 32), (0, 1, 0, 1))
+    if family == "vda":
+        mirror, convert, back = TorchVDA(*args, pretrain_img=70, temporal_heads=2), \
+            convert_vda, vda_from_jax
+    else:
+        mirror, convert, back = TorchFlashDepth(*args, pretrain_img=70), convert_flashdepth, \
+            flashdepth_from_jax
+    sd = {k: v.detach() for k, v in mirror.state_dict().items()}
+    got = back(convert(sd, depth=2))
+    assert sorted(got) == sorted(sd)
+    for k, v in sd.items():
+        assert torch.equal(got[k], v), k
+    kw = dict(vit_config=ViTConfig(dim=64, depth=2, num_heads=2, pretrain_img_size=70),
+              head_features=16, head_out_channels=(8, 16, 32, 32), out_indices=(0, 1, 0, 1))
+    port = VideoDepthAnything(num_heads=2, **kw) if family == "vda" else FlashDepth(**kw)
+    store.load_state_dict(port, got)  # strict
+    assert state_dict_from_jax(convert(sd, depth=2)).keys() == got.keys()
+
+
 def _tiny_models():
     """One small instance of every model class the registry builds (the
     registry builds them on the meta device and fills them after)."""
     from monocular_depth_estimation_trt_tpu_torch.models.align3r import Align3R
     from monocular_depth_estimation_trt_tpu_torch.models.depth_anything_v3 import DepthAnythingV3
     from monocular_depth_estimation_trt_tpu_torch.models.dinov3 import DINOv3Depther
+    from monocular_depth_estimation_trt_tpu_torch.models.flashdepth import FlashDepth
     from monocular_depth_estimation_trt_tpu_torch.models.geocalib import GeoCalib
     from monocular_depth_estimation_trt_tpu_torch.models.geometric import GeometricDepthModel
     from monocular_depth_estimation_trt_tpu_torch.models.map_anything import MapAnything
@@ -266,6 +324,9 @@ def _tiny_models():
     from monocular_depth_estimation_trt_tpu_torch.models.moge2 import MoGe2
     from monocular_depth_estimation_trt_tpu_torch.models.prior_depth import PriorDARefiner
     from monocular_depth_estimation_trt_tpu_torch.models.sidepth import SIDepth
+    from monocular_depth_estimation_trt_tpu_torch.models.video_depth_anything import (
+        VideoDepthAnything,
+    )
 
     vit = ViTConfig(dim=32, depth=2, num_heads=2, num_register_tokens=4)
     vggt = VGGTConfig(dim=32, depth=2, num_heads=2, head_layers=(0, 1, 0, 1), vit_config=vit,
@@ -288,6 +349,9 @@ def _tiny_models():
         "dinov3": lambda: DINOv3Depther("vits16", vit_config=ViTConfig(
             dim=32, depth=2, num_heads=2, patch_size=16, num_register_tokens=4, rope=True,
             pos_embed=False, ffn="swiglu"), **dpt),
+        "video_depth_anything": lambda: VideoDepthAnything("vits", num_heads=2, vit_config=vit,
+                                                           **dpt),
+        "flashdepth": lambda: FlashDepth("vits", vit_config=vit, **dpt),
     }
 
 
