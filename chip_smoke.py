@@ -132,9 +132,9 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    replay, the replay's outputs finite and equal to the eager forward's bit
    for bit (else within ENGINE_REL_TOL, recorded), a result that survives
    the next call; build seconds per engine;
-10. cli: ``python -m monocular_depth_estimation_trt_tpu_torch run
+10. cli: the commands in one process of their own, each timed: ``run
    depth_anything_v2 --encoder vits --pointcloud --benchmark`` on a seeded
-   480x640 PNG in a process of its own (npz depth equal to this process's
+   480x640 PNG (npz depth equal to this process's
    pipeline bit for bit; viz and ``.ply`` written), ``views vggt`` on 4
    PNGs, ``run depth_pro`` on this process's weights (``_fov.json`` against
    its f_px), ``run moge2 --mesh --mesh-format glb``, ``run unidepth_v2``
@@ -142,9 +142,10 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    calibration lines) on this process's weights (every npz output equal to
    the pipeline's bit for bit); ``video video_depth_anything``, ``video
    flashdepth`` and ``batch depth_anything_v2 --video`` on
-   ``data/example_video.mp4`` in one process of their own (the MP4s' frame
-   count and size, each extracted frame's depth; without cv2, each exits
-   non-zero naming the codec);
+   ``data/example_video.mp4`` (the MP4s' frame count and size, each
+   extracted frame's depth; without cv2, each exits non-zero naming the
+   codec); meanwhile ``python -m monocular_depth_estimation_trt_tpu_torch
+   models`` lists the registry;
 11. server: ``DepthServer`` over vits on port 0 with max_batch 4: 8
    concurrent PNG requests, 2 of another size, a bad body (400), an unknown
    model (404), ``format=jpg`` (501 without a JPEG codec); each npz answer
@@ -2629,33 +2630,34 @@ def cli_group(commands, env):
     """Each argv of ``commands`` through the command line's ``main``, in
     order, in one process of its own (the commands of one process share its
     start-up: importing torch and loading the kernels' library). Returns
-    each command's stdout by its argv tuple, the exit codes, and the
-    process's seconds."""
+    each command's stdout and its seconds (the process's clock around its
+    ``main``) by its argv tuple, and the exit codes."""
     # each command's pipeline and graphs are freed before the next command
-    code = ("import gc\nimport torch\n"
+    code = ("import gc\nimport time\nimport torch\n"
             "from monocular_depth_estimation_trt_tpu_torch.cli import main\n"
             f"for argv in {[list(c) for c in commands]!r}:\n"
             "    print('@@ command', flush=True)\n"
-            "    print('@@ exit', main(argv), flush=True)\n"
+            "    t0 = time.perf_counter()\n"
+            "    rc = main(argv)\n"
+            "    print('@@ exit', rc, time.perf_counter() - t0, flush=True)\n"
             "    gc.collect()\n"
             "    torch.cuda.empty_cache()\n")
-    t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
                           text=True, timeout=900)
-    seconds = time.perf_counter() - t0
     parts = proc.stdout.split("@@ command\n")[1:]
     check(proc.returncode == 0 and len(parts) == len(commands),
           f"cli {[c[:2] for c in commands]} exited {proc.returncode}: {proc.stdout[-1500:]}"
           f"{proc.stderr[-2500:]}")
-    rcs = [int(p.rsplit("@@ exit ", 1)[1].split()[0]) for p in parts]
-    return {tuple(c): p for c, p in zip(commands, parts)}, rcs, seconds
+    ends = [p.rsplit("@@ exit ", 1)[1].split() for p in parts]
+    return ({tuple(c): (p, float(e[1])) for c, p, e in zip(commands, parts, ends)},
+            [int(e[0]) for e in ends])
 
 
 def cli_phase(pipe, vggt, depth_pro, moge, unidepth, geocalib, align3r, rng):
-    """``python -m monocular_depth_estimation_trt_tpu_torch``'s commands, in
-    one process of their own (``cli_group``; its seconds are each record's):
-    ``run`` of DA-V2 vits on a seeded 480x640
-    PNG with ``--pointcloud --benchmark`` (its npz depth equal to this
+    """The command line's commands, in one process of their own
+    (``cli_group``; each record's seconds are its command's): ``run`` of
+    DA-V2 vits on a seeded 480x640 PNG with ``--pointcloud --benchmark``
+    (its npz depth equal to this
     process's pipeline on the same frame, bit for bit; the viz and the
     ``.ply`` written), ``views vggt`` on 4 PNGs, ``run depth_pro`` on
     weights saved from this process's (``_fov.json`` against its f_px),
@@ -2667,7 +2669,9 @@ def cli_phase(pipe, vggt, depth_pro, moge, unidepth, geocalib, align3r, rng):
     of every output, equal to the pipeline's) on this process's weights;
     ``pair align3r`` on two seeded PNGs (the PLY's points and colors and the
     pose JSON equal to this process's Align3R on the same seeded random
-    weights); then ``video_commands``."""
+    weights); then ``video_commands``. Meanwhile ``python -m
+    monocular_depth_estimation_trt_tpu_torch models``, as a user starts the
+    package, lists the registry with the video families."""
     import math
     import shutil
     import tempfile
@@ -2681,11 +2685,11 @@ def cli_phase(pipe, vggt, depth_pro, moge, unidepth, geocalib, align3r, rng):
     tmp = tempfile.mkdtemp(prefix="mdet_cli_")
     env = {**os.environ, "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
 
-    outputs, seconds = {}, None
+    outputs = {}
 
     def cli(*argv):
-        """A command's stdout and its process's seconds."""
-        return outputs[argv], seconds
+        """A command's stdout and its seconds."""
+        return outputs[argv]
 
     def only(directory, suffix):
         found = [f for f in os.listdir(directory) if f.endswith(suffix)]
@@ -2732,7 +2736,20 @@ def cli_phase(pipe, vggt, depth_pro, moge, unidepth, geocalib, align3r, rng):
         commands = [run_cmd_argv, views_argv, pair_argv, dp_argv, moge_argv,
                     *family_argv.values()]
         videos = video_commands(tmp)
-        outputs, rcs, seconds = cli_group(commands + videos, env)
+        listing = subprocess.Popen([sys.executable, "-m", "monocular_depth_estimation_trt_tpu_torch",
+                                    "models"], cwd=REPO, env=env, stdout=subprocess.PIPE,
+                                   stderr=subprocess.PIPE, text=True)
+        try:
+            outputs, rcs = cli_group(commands + videos, env)
+        finally:
+            listed, listing_err = listing.communicate(timeout=120)
+        names = [ln.split()[0] for ln in listed.splitlines() if ln.strip()]
+        emit({"phase": "cli", "command": "python -m monocular_depth_estimation_trt_tpu_torch "
+                                         "models", "exit_code": listing.returncode,
+              "models": len(names)})
+        check(listing.returncode == 0 and {"video_depth_anything", "flashdepth"} <= set(names),
+              f"python -m ... models exited {listing.returncode}: {listed[-800:]}"
+              f"{listing_err[-1500:]}")
         check(rcs[:len(commands)] == [0] * len(commands),
               f"cli {[c[:2] for c in commands]}: exit codes {rcs}")
 
@@ -2855,7 +2872,7 @@ def cli_phase(pipe, vggt, depth_pro, moge, unidepth, geocalib, align3r, rng):
               and rec["pose_equal_in_process"], "cli pair: PLY or pose differs from the "
                                                 "pipeline's")
         check(any(f.endswith((".jpg", ".png")) for f in rec["files"]), "cli pair: no depth image")
-        check_video_commands(tmp, [outputs[c] for c in videos], rcs[len(commands):], seconds)
+        check_video_commands(tmp, [outputs[c] for c in videos], rcs[len(commands):])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2877,11 +2894,11 @@ def video_commands(tmp):
              "--save", "--allow-random-weights")]
 
 
-def check_video_commands(tmp, stdout, rcs, seconds):
+def check_video_commands(tmp, outputs, rcs):
     """The video commands' results: where cv2 imports, each MP4 written with
     the source's frame count and size, and ``batch`` the depth of every
     extracted frame; where it does not, each command exited non-zero naming
-    the missing codec."""
+    the missing codec. ``outputs``: each command's stdout and seconds."""
     import numpy as np
 
     from monocular_depth_estimation_trt_tpu_torch.utils import imageio
@@ -2890,10 +2907,10 @@ def check_video_commands(tmp, stdout, rcs, seconds):
     out_video, out_batch = os.path.join(tmp, "video"), os.path.join(tmp, "batch")
     rec = {"phase": "cli", "command": "video video_depth_anything, video flashdepth, batch "
                                       "depth_anything_v2 --video (one process)",
-           "process_seconds": seconds, "exit_codes": rcs,
+           "seconds": [sec for _, sec in outputs], "exit_codes": rcs,
            "cv2_importable": imageio.jpeg_available()}
     if not imageio.jpeg_available():
-        named = "".join(stdout).count("video (MP4/mp4v) needs the cv2 (OpenCV) codec")
+        named = "".join(out for out, _ in outputs).count("video (MP4/mp4v) needs the cv2 (OpenCV) codec")
         emit({**rec, "codec_named": named})
         check(rcs == [1, 1, 1] and named == 3, f"cli video commands without cv2: {rcs}, the "
                                                f"codec named {named} times")
@@ -3009,6 +3026,11 @@ VDA_CLIP = (80, 288, 512)  # frames, height, width: windows at 0, 22, 44, 48
 VDA_ROUTE_FRAMES = 8  # the route comparisons' window (the model takes any T)
 VIDEO_CPU_DEPTH, VIDEO_CPU_TAPS, VIDEO_CPU_FRAMES = 2, (0, 0, 1, 1), 4
 FLASHDEPTH_STEPS = 16
+# the first frame stepped again after FLASHDEPTH_STEPS frames against its
+# step from a zero state, max rel: replays are deterministic (the step after
+# reset() equals the first bit for bit), so this is the carried state's
+# effect; a state that did not carry reads 0
+STATE_MOVED_MIN_REL = 1e-2
 INT8_STREAM_STEPS = 8
 # the stitched clip against the host stitching re-done here from the
 # windows' replays (float64 least squares against video_depth's float32)
@@ -3301,7 +3323,8 @@ def run_flashdepth_path(build_pipeline, wrappers, rng):
     steps = torch.stack([o["depth"] for o in outs])
     clip_rel = float((steps - clip).abs().max() / clip.abs().max())
     first_vs_single = float(np.abs(outs[0]["depth"].cpu().numpy() - single["depth"]).max())
-    last_vs_first = rel(outs[-1]["depth"].cpu().numpy(), outs[0]["depth"].cpu().numpy())
+    carried = sess.step(frames[0])
+    carried_vs_fresh = rel(carried["depth"].cpu().numpy(), outs[0]["depth"].cpu().numpy())
     sess.reset()
     after_reset = sess.step(frames[0])
     rec = {"phase": "video", "path": "flashdepth_vits_stream", "model": pipe.spec.artifact_name(),
@@ -3313,7 +3336,7 @@ def run_flashdepth_path(build_pipeline, wrappers, rng):
            "replay_vs_eager_max_rel": max(replay["max_rel"]),
            "steps_vs_flashdepth_video_rel": clip_rel,
            "first_step_vs_single_frame_max_abs": first_vs_single,
-           "last_step_vs_first_rel": last_vs_first,
+           "first_frame_carried_vs_fresh_rel": carried_vs_fresh,
            "reset_step_equal_to_first": bool(torch.equal(after_reset["depth"], outs[0]["depth"])),
            "card": torch.cuda.get_device_name(0)}
     emit(rec)
@@ -3323,7 +3346,8 @@ def run_flashdepth_path(build_pipeline, wrappers, rng):
           f"flashdepth: replay vs eager max rel {rec['replay_vs_eager_max_rel']}")
     check(clip_rel <= ENGINE_REL_TOL, f"flashdepth: steps vs flashdepth_video rel {clip_rel}")
     check(first_vs_single == 0.0, "flashdepth: a single frame is not a fresh sequence's step")
-    check(last_vs_first > 0, "flashdepth: the state did not move the depth")
+    check(carried_vs_fresh > STATE_MOVED_MIN_REL,
+          f"flashdepth: the carried state moved the first frame's depth by {carried_vs_fresh}")
     check(rec["reset_step_equal_to_first"], "flashdepth: reset did not start a new sequence")
     sess.reset()
     return pipe, launches, sess

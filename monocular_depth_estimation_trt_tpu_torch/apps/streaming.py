@@ -104,7 +104,7 @@ def _put_fps(cv2, bgr: np.ndarray, text: str, scale: float = 1.0) -> None:
     cv2.putText(bgr, text, (20, 40), cv2.FONT_HERSHEY_SIMPLEX, scale, (255, 255, 255), 2)
 
 
-def run_video(pipeline, video_path: str, out_path: str, *, overlay_fps: bool = True,
+def run_video(pipeline, video_path: str, out_path: str, *,
               max_frames: Optional[int] = None) -> str:
     """MP4 -> colorized depth MP4 with the frame rate overlaid (reference
     ``Depth_Pro/onnx2trt_video.py:41-85``). A pipeline with ``stream()``
@@ -130,8 +130,7 @@ def run_video(pipeline, video_path: str, out_path: str, *, overlay_fps: bool = T
         viz = cv2.cvtColor(np.asarray(out["viz"]), cv2.COLOR_RGB2BGR)
         if viz.shape[:2] != (h, w):
             viz = cv2.resize(viz, (w, h))
-        if overlay_fps:
-            _put_fps(cv2, viz, f"FPS: {1.0 / max(dt, 1e-9):.1f}")
+        _put_fps(cv2, viz, f"FPS: {1.0 / max(dt, 1e-9):.1f}")
         writer.write_bgr(viz)
 
     n = 0
@@ -153,23 +152,20 @@ def run_video(pipeline, video_path: str, out_path: str, *, overlay_fps: bool = T
     return out_path
 
 
-def extract_frames_from_video(video_path: str, out_dir: str, *, every: int = 1,
+def extract_frames_from_video(video_path: str, out_dir: str, *,
                               max_frames: Optional[int] = None) -> int:
     """MP4 -> numbered PNG frames (reference ``gen_video2imgs.py:4-35``)."""
     cap = imageio.open_video(video_path)
     os.makedirs(out_dir, exist_ok=True)
     saved = 0
-    for n, rgb in enumerate(imageio.iter_video(cap)):
-        if max_frames and saved >= max_frames:
-            break
-        if n % every == 0:
-            imageio.write_image(os.path.join(out_dir, f"frame_{saved:05d}.png"), rgb)
-            saved += 1
+    for rgb in imageio.iter_video(cap, max_frames):
+        imageio.write_image(os.path.join(out_dir, f"frame_{saved:05d}.png"), rgb)
+        saved += 1
     log(f"extracted {saved} frames -> {out_dir}")
     return saved
 
 
-def run_webcam(pipeline, camera=0, *, display: bool = True) -> None:
+def run_webcam(pipeline, camera=0) -> None:
     """Live webcam or IP-camera viewer (reference
     ``Depth_Pro/onnx2trt_webcam.py``; camera URLs at :195): capture here,
     the pipeline on a :class:`FrameWorker`."""
@@ -190,7 +186,7 @@ def run_webcam(pipeline, camera=0, *, display: bool = True) -> None:
             worker.submit(frame)
             result = worker.latest()
             frames += 1
-            if display and result is not None:
+            if result is not None:
                 view = result.copy()
                 cam_fps = frames / max(time.perf_counter() - t_start, 1e-9)
                 _put_fps(cv2, view, f"cam {cam_fps:.1f} fps / model {worker.model_fps:.1f} fps",
@@ -201,8 +197,7 @@ def run_webcam(pipeline, camera=0, *, display: bool = True) -> None:
     finally:
         worker.stop()
         cap.release()
-        if display:
-            cv2.destroyAllWindows()
+        cv2.destroyAllWindows()
 
 
 def depth_video_u8(depth: np.ndarray, metric: bool) -> np.ndarray:

@@ -15,7 +15,7 @@ state in static device buffers that its captured step overwrites in place.
 ``mamba_ssm`` is not a dependency: the selective scan is written out in
 torch. The SSM runs in fp32 as in the JAX package: :class:`MambaBlock`
 keeps its parameters in fp32 when the model is cast to bf16 (``dt`` feeds
-``exp``), and its matmuls run with TF32 off.
+``exp``), and its matmuls need TF32 off, which the pipeline's build checks.
 
 Module names follow the upstream layout of ``tests/torch_mirror_flashdepth.py``
 (``weights/manifests/flashdepth_vits.json``); the Mamba parameters are
@@ -25,7 +25,6 @@ Module names follow the upstream layout of ``tests/torch_mirror_flashdepth.py``
 
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -46,18 +45,6 @@ from monocular_depth_estimation_trt_tpu_torch.models.dpt import (
 from monocular_depth_estimation_trt_tpu_torch.models.vit import VIT_CONFIGS, DinoViT, ViTConfig
 
 State = Dict[str, torch.Tensor]
-
-
-@contextlib.contextmanager
-def _no_tf32():
-    """fp32 matmuls at full precision inside (the flag is read at each
-    launch, so a captured graph keeps it)."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 class MambaBlock(nn.Module):
@@ -99,20 +86,19 @@ class MambaBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, state: State) -> Tuple[torch.Tensor, State]:
         x = x.float()
-        with _no_tf32():
-            xi, z = self.in_proj(x).chunk(2, dim=-1)
-            # causal depthwise conv over time: d_conv - 1 cached steps + this one
-            window = torch.cat([state["conv"].float(), xi[:, :, None]], dim=2)
-            w = self.conv1d.weight[:, 0, :].t()  # (d_conv, d_inner)
-            xc = F.silu((window * w).sum(dim=2) + self.conv1d.bias)
-            dt, b, c = torch.split(self.x_proj(xc), [self.dt_rank, self.d_state, self.d_state],
-                                   dim=-1)
-            dt = F.softplus(self.dt_proj(dt))  # (B, N, d_inner)
-            a = -torch.exp(self.A_log)
-            h = torch.exp(dt[..., None] * a) * state["ssm"].float() \
-                + dt[..., None] * b[:, :, None, :] * xc[..., None]  # ZOH discretization
-            y = (h * c[:, :, None, :]).sum(dim=-1) + self.D * xc
-            out = self.out_proj(y * F.silu(z))
+        xi, z = self.in_proj(x).chunk(2, dim=-1)
+        # causal depthwise conv over time: d_conv - 1 cached steps + this one
+        window = torch.cat([state["conv"].float(), xi[:, :, None]], dim=2)
+        w = self.conv1d.weight[:, 0, :].t()  # (d_conv, d_inner)
+        xc = F.silu((window * w).sum(dim=2) + self.conv1d.bias)
+        dt, b, c = torch.split(self.x_proj(xc), [self.dt_rank, self.d_state, self.d_state],
+                               dim=-1)
+        dt = F.softplus(self.dt_proj(dt))  # (B, N, d_inner)
+        a = -torch.exp(self.A_log)
+        h = torch.exp(dt[..., None] * a) * state["ssm"].float() \
+            + dt[..., None] * b[:, :, None, :] * xc[..., None]  # ZOH discretization
+        y = (h * c[:, :, None, :]).sum(dim=-1) + self.D * xc
+        out = self.out_proj(y * F.silu(z))
         return out, {"conv": window[:, :, 1:], "ssm": h}
 
 

@@ -1281,6 +1281,9 @@ def flashdepth(encoder: str = "vits", input_size: int = 518, precision: str = "b
     from monocular_depth_estimation_trt_tpu_torch.ops.resize import resize
 
     device = resolve_device(device)
+    if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise ValueError("flashdepth: the Mamba SSM needs full fp32 matmuls (dt feeds exp); "
+                         "turn torch.backends.cuda.matmul.allow_tf32 off")
     spec = ModelSpec(model="flashdepth", encoder=encoder, input_hw=(input_size, input_size),
                      precision=precision)
     dtype = _plain_dtype(precision, device)

@@ -9,14 +9,13 @@ structure over named tensors: each :class:`Stage` is its own
 :class:`~monocular_depth_estimation_trt_tpu_torch.runtime.engine.Engine`
 per input signature (on the card a captured CUDA graph, whose input copy
 is the device-to-device chaining), so that heads can run or be skipped per
-request and each stage can be timed; :meth:`DevicePipeline.fused` gives the
-whole chain as one function, to capture as one engine.
+request; :meth:`DevicePipeline.fused` gives the whole chain as one
+function, to capture as one engine.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable, Dict, Sequence
 
 import torch
@@ -51,20 +50,13 @@ class DevicePipeline:
             Stage("camera_head", cam_fn, ["tokens"], ["pose_enc"]),
         ])
         out = pipe({"views": views})  # no host round trip
+    """
 
-    ``engines=False`` calls the stages eagerly instead (under
-    ``torch.inference_mode()``)."""
-
-    def __init__(self, stages: Sequence[Stage], *, engines: bool = True):
+    def __init__(self, stages: Sequence[Stage]):
         self.stages = list(stages)
-        self.engines = engines
         self._engines: Dict = {}
-        self.last_stage_ms: Dict[str, float] = {}
 
     def _run(self, stage: Stage, args: Sequence[torch.Tensor]):
-        if not self.engines:
-            with torch.inference_mode():
-                return stage.fn(*args)
         key = (stage.name, tuple((tuple(a.shape), a.dtype, a.device) for a in args))
         if key not in self._engines:
             shapes = "_".join("x".join(map(str, a.shape)) for a in args)
@@ -73,21 +65,11 @@ class DevicePipeline:
                 name=f"stage_{stage.name}_{shapes}", device=args[0].device)
         return self._engines[key](*args)
 
-    def __call__(self, feeds: Dict[str, torch.Tensor], *,
-                 profile: bool = False) -> Dict[str, torch.Tensor]:
-        """Run every stage in order on ``feeds``; returns every named tensor.
-        ``profile`` records each stage's wall time (after a device sync) in
-        ``last_stage_ms``."""
+    def __call__(self, feeds: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Run every stage in order on ``feeds``; returns every named tensor."""
         env = dict(feeds)
         for s in self.stages:
-            args = [env[k] for k in s.inputs]
-            t0 = time.perf_counter()
-            result = _as_tuple(self._run(s, args), s)
-            if profile:
-                if any(t.is_cuda for t in result):
-                    torch.cuda.synchronize()
-                self.last_stage_ms[s.name] = (time.perf_counter() - t0) * 1e3
-            env.update(zip(s.outputs, result))
+            env.update(zip(s.outputs, _as_tuple(self._run(s, [env[k] for k in s.inputs]), s)))
         return env
 
     def fused(self, output_names: Sequence[str]) -> Callable:

@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from monocular_depth_estimation_trt_tpu_torch.apps.server import DepthServer, make_handler
-from monocular_depth_estimation_trt_tpu_torch.models.vggt import VGGTConfig
+from monocular_depth_estimation_trt_tpu_torch.models.vggt import VGGTConfig, build_stage_pipeline
 from monocular_depth_estimation_trt_tpu_torch.models.vit import ViTConfig
 from monocular_depth_estimation_trt_tpu_torch.registry import build_pipeline
 from monocular_depth_estimation_trt_tpu_torch.runtime.engine import WARMUP_CALLS, Engine
@@ -94,6 +94,30 @@ def test_vggt_views_engine_replays_the_eager_forward(cuda):
     a1, b1 = _frames(2, (48, 64), seed=2)
     _check_engine(pipe.engine_for((48, 64)), lambda x: pipe._run(x, (48, 64), False), a1, b1,
                   {"flash_attention_packed": 2, "flash_attention": 4})
+
+
+def test_vggt_stage_pipeline_engines_equal_the_joint_model(cuda):
+    """``build_stage_pipeline`` on the card: each stage a captured engine of
+    its own, the tokens passed from one to the next on the device; depth,
+    depth_conf and pose_enc equal to the joint model's eager forward bit for
+    bit, at the capture's call and at a replay; the aggregator's engine
+    holds the kernels (K1 in the DINOv2 patch embed, K2 in the frame and
+    global blocks), the heads none."""
+    with allow_random_weights(True):
+        pipe = build_pipeline("vggt", input_size=70, vggt_cfg=SMALL_VGGT)
+    stages = build_stage_pipeline(pipe.model)
+    rng = np.random.default_rng(4)
+    for _ in range(2):
+        views = torch.from_numpy(rng.standard_normal((1, 3, 70, 70, 3)).astype(np.float32))
+        out = stages({"views": views.cuda()})
+        with torch.inference_mode():
+            joint = pipe.model(views.cuda())
+        for k in ("depth", "depth_conf", "pose_enc"):
+            assert out[k].is_cuda and torch.equal(out[k], joint[k]), k
+    launches = {name: {k: v for k, v in eng.captured_launches.items() if v}
+                for (name, _), eng in stages._engines.items()}
+    assert launches == {"aggregator": {"flash_attention_packed": 2, "flash_attention": 4},
+                        "depth_head": {}, "camera_head": {}}
 
 
 def test_int8_engine_replays_the_eager_forward(cuda, monkeypatch):

@@ -27,29 +27,39 @@ COMMON = dict(dim=64, depth=2, num_heads=4, head_layers=(0, 1, 0, 1), encoder="v
               head_features=16, head_out_channels=(8, 16, 32, 32))
 
 
-def _chain(engines):
+def _chain():
     return DevicePipeline([
         Stage("agg", lambda x: x + 1.0, ["images"], ["tokens"]),
         Stage("depth", lambda t: (t * 2.0, t * 3.0), ["tokens"], ["depth", "conf"]),
         Stage("camera", lambda t: t - 1.0, ["tokens"], ["pose"]),
-    ], engines=engines)
+    ])
 
 
-@pytest.mark.parametrize("engines", [True, False])
-def test_device_pipeline_chaining(engines):
+def test_device_pipeline_chaining():
     """The aggregator -> heads pattern, staged and fused."""
-    pipe = _chain(engines)
-    out = pipe({"images": torch.ones(2, 2)}, profile=True)
+    pipe = _chain()
+    out = pipe({"images": torch.ones(2, 2)})
     assert torch.equal(out["depth"], torch.full((2, 2), 4.0))
     assert torch.equal(out["conf"], torch.full((2, 2), 6.0))
     assert torch.equal(out["pose"], torch.ones(2, 2))
-    assert set(pipe.last_stage_ms) == {"agg", "depth", "camera"}
     fused = pipe.fused(["depth", "pose"])({"images": torch.ones(2, 2)})
     assert sorted(fused) == ["depth", "pose"] and torch.equal(fused["depth"], out["depth"])
-    bad = DevicePipeline([Stage("agg", lambda x: (x, x), ["images"], ["tokens"])],
-                         engines=engines)
+    bad = DevicePipeline([Stage("agg", lambda x: (x, x), ["images"], ["tokens"])])
     with pytest.raises(ValueError, match="returned 2 outputs, declared 1"):
         bad({"images": torch.ones(1)})
+
+
+def test_device_pipeline_builds_one_engine_per_stage_and_signature():
+    """Each stage its own engine per input signature: a repeated signature
+    reuses it, a new one builds one more per stage; release frees them."""
+    pipe = _chain()
+    for _ in range(2):
+        pipe({"images": torch.ones(2, 2)})
+    assert sorted(name for name, _ in pipe._engines) == ["agg", "camera", "depth"]
+    out = pipe({"images": torch.zeros(3, 5)})
+    assert len(pipe._engines) == 6 and torch.equal(out["pose"], torch.full((3, 5), 0.0))
+    pipe.release_engines()
+    assert not pipe._engines
 
 
 def test_vggt_stage_pipeline_equals_the_joint_model_and_jax():
@@ -62,7 +72,7 @@ def test_vggt_stage_pipeline_equals_the_joint_model_and_jax():
     tm.eval()
     x = torch.from_numpy(views)
     pipe = tvggt.build_stage_pipeline(tm)
-    out = pipe({"views": x}, profile=True)
+    out = pipe({"views": x})
     assert out["tokens"].shape == (4, 1, 2, 1 + 4 + 25, 128)
     with torch.no_grad():
         joint = tm(x)
@@ -71,7 +81,7 @@ def test_vggt_stage_pipeline_equals_the_joint_model_and_jax():
     for k in ("depth", "depth_conf", "pose_enc"):
         assert torch.equal(out[k], joint[k]), k
         assert rel_err(out[k].numpy(), np.asarray(jax.device_get(ref[k]))) < REL_TOL, k
-    assert set(pipe.last_stage_ms) == {"aggregator", "depth_head", "camera_head"}
+    assert sorted(name for name, _ in pipe._engines) == ["aggregator", "camera_head", "depth_head"]
     fused = pipe.fused(["depth", "pose_enc"])
     with torch.no_grad():
         one = fused({"views": x})

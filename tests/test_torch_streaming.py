@@ -183,7 +183,7 @@ def test_vggt_streaming_session(rng):
 
 def test_extract_frames_matches_jax(tmp_path):
     """The committed fixture (16 frames, 512x288) as numbered PNGs, the
-    JAX function's files byte for byte; ``every`` and ``max_frames``."""
+    JAX function's files byte for byte; ``max_frames`` keeps the first."""
     from monocular_depth_estimation_trt_tpu.apps.streaming import (
         extract_frames_from_video as jextract,
     )
@@ -195,8 +195,11 @@ def test_extract_frames_matches_jax(tmp_path):
     for name in names:
         a, b = (imageio.read_image(os.path.join(d, name)) for d in (ours, ref))
         assert a.shape == (288, 512, 3) and np.array_equal(a, b), name
-    assert extract_frames_from_video(FIXTURE, str(tmp_path / "e"), every=3, max_frames=4) == 4
-    assert sorted(os.listdir(tmp_path / "e")) == [f"frame_{i:05d}.png" for i in range(4)]
+    assert extract_frames_from_video(FIXTURE, str(tmp_path / "e"), max_frames=4) == 4
+    assert sorted(os.listdir(tmp_path / "e")) == names[:4]
+    for name in names[:4]:
+        assert np.array_equal(imageio.read_image(str(tmp_path / "e" / name)),
+                              imageio.read_image(os.path.join(ours, name))), name
 
 
 def test_video_without_cv2_names_the_codec(monkeypatch, tmp_path):
