@@ -111,7 +111,21 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    windows in frames/s, FlashDepth's frame in turns) and profile (the VDA
    windows' eager rows with the device time of the temporal blocks and of
    their attention, the FlashDepth and int8 stream steps' graphs), all
-   released before the int8 phases;
+   released before the int8 phases; then the optical-flow paths
+   (``flow``): ``raft`` (fp32, TF32 off from its build on), ``neuflow``,
+   ``meflow``, ``memfof`` and ``waft`` at their full default sizes
+   (288x512; WAFT vits 280x504, K1 at (2, 721, 6): 12 a pair), each with
+   its own counts set to 0 just before and read just after, on a 480x640
+   pair (MEMFOF a triplet) with the color wheel: shapes, finite values, a
+   replay against its eager forward; MEMFOF's video session over 8 frames
+   (the triplet's engine, then the cached step's, the two older feature
+   maps in), each step against the eager step on an eager cache; fp32 card
+   against CPU (2 refinement steps at 144x256, NeuFlow 8 + 8, WAFT
+   140x252); WAFT's bf16 kernel route against its plain and fp32 routes at
+   2 weight seeds; RAFT's correlation lookup alone at its shape in the
+   separable and the gather form; then each model's speed in turns and its
+   profile (graph, and eager with the device time of its lookup, warp or
+   plain attention), all released before the int8 phases;
 8. int8 paths: ``build_pipeline(name, precision="int8", calib_images=...)``
    for DA-V2 vitl, depth_pro, vggt, metric3d_v2 and unidepth_v2 at full
    size, each with its own counts set to 0 just before and read just after
@@ -144,7 +158,8 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    flashdepth`` and ``batch depth_anything_v2 --video`` on
    ``data/example_video.mp4`` (the MP4s' frame count and size, each
    extracted frame's depth; without cv2, each exits non-zero naming the
-   codec); meanwhile ``python -m monocular_depth_estimation_trt_tpu_torch
+   codec); ``flow raft`` on 3 seeded 288x512 PNGs (an MP4 of 2 frames at
+   512x288); meanwhile ``python -m monocular_depth_estimation_trt_tpu_torch
    models`` lists the registry;
 11. server: ``DepthServer`` over vits on port 0 with max_batch 4: 8
    concurrent PNG requests, 2 of another size, a bad body (400), an unknown
@@ -391,6 +406,8 @@ def check_flash_attention_packed(fa, dev):
         # Video Depth Anything: a 32-frame 518^2 window folded into the batch
         ("vda_vits_window32", 32, 1370, 6, torch.bfloat16),
         ("vda_vitl_window32", 32, 1370, 16, torch.bfloat16),
+        # WAFT: the ViT-S over both frames of a 280x504 pair (20x36 + cls)
+        ("waft_vits_280x504_pair", 2, 721, 6, torch.bfloat16),
         ("n1", 1, 1, 6, torch.bfloat16),
         ("n63", 1, 63, 6, torch.bfloat16),
         ("n64", 1, 64, 6, torch.bfloat16),
@@ -2736,18 +2753,20 @@ def cli_phase(pipe, vggt, depth_pro, moge, unidepth, geocalib, align3r, rng):
         commands = [run_cmd_argv, views_argv, pair_argv, dp_argv, moge_argv,
                     *family_argv.values()]
         videos = video_commands(tmp)
+        flows = flow_commands(tmp)
         listing = subprocess.Popen([sys.executable, "-m", "monocular_depth_estimation_trt_tpu_torch",
                                     "models"], cwd=REPO, env=env, stdout=subprocess.PIPE,
                                    stderr=subprocess.PIPE, text=True)
         try:
-            outputs, rcs = cli_group(commands + videos, env)
+            outputs, rcs = cli_group(commands + videos + flows, env)
         finally:
             listed, listing_err = listing.communicate(timeout=120)
         names = [ln.split()[0] for ln in listed.splitlines() if ln.strip()]
         emit({"phase": "cli", "command": "python -m monocular_depth_estimation_trt_tpu_torch "
                                          "models", "exit_code": listing.returncode,
               "models": len(names)})
-        check(listing.returncode == 0 and {"video_depth_anything", "flashdepth"} <= set(names),
+        check(listing.returncode == 0
+              and {"video_depth_anything", "flashdepth", *FLOW_MODELS} <= set(names),
               f"python -m ... models exited {listing.returncode}: {listed[-800:]}"
               f"{listing_err[-1500:]}")
         check(rcs[:len(commands)] == [0] * len(commands),
@@ -2872,7 +2891,9 @@ def cli_phase(pipe, vggt, depth_pro, moge, unidepth, geocalib, align3r, rng):
               and rec["pose_equal_in_process"], "cli pair: PLY or pose differs from the "
                                                 "pipeline's")
         check(any(f.endswith((".jpg", ".png")) for f in rec["files"]), "cli pair: no depth image")
-        check_video_commands(tmp, [outputs[c] for c in videos], rcs[len(commands):])
+        check_video_commands(tmp, [outputs[c] for c in videos],
+                             rcs[len(commands):len(commands) + len(videos)])
+        check_flow_command(tmp, outputs[flows[0]], rcs[-1])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2938,6 +2959,52 @@ def check_video_commands(tmp, outputs, rcs):
     check(rec["batch_frames"] == len(depths) == n
           and all(d.shape == (518, 518) and bool(np.isfinite(d).all()) for d in depths),
           f"cli batch --video: {rec['batch_frames']} frames, {len(depths)} depths")
+
+
+FLOW_CLI_FRAMES = 3  # 288x512 PNGs: 2 pairs
+
+
+def flow_commands(tmp):
+    """``flow raft`` on FLOW_CLI_FRAMES seeded 288x512 PNGs, on seeded random
+    weights: its argv, for ``cli_group``."""
+    import numpy as np
+
+    from monocular_depth_estimation_trt_tpu_torch.utils import imageio
+
+    frames_dir = os.path.join(tmp, "flow_frames")
+    os.makedirs(frames_dir)
+    gen = np.random.default_rng(19)
+    for i in range(FLOW_CLI_FRAMES):
+        imageio.write_image(os.path.join(frames_dir, f"frame_{i:05d}.png"),
+                            gen.integers(0, 256, (288, 512, 3), dtype=np.uint8))
+    return [("flow", "raft", "--frames", frames_dir, "--out", os.path.join(tmp, "flow"),
+             "--allow-random-weights")]
+
+
+def check_flow_command(tmp, output, rc):
+    """``flow raft``: where cv2 imports, ``raft_flow.mp4`` of one frame a
+    pair at 512x288; where it does not, exit 1 naming the codec."""
+    from monocular_depth_estimation_trt_tpu_torch.utils import imageio
+
+    stdout, seconds = output
+    rec = {"phase": "cli", "command": f"flow raft ({FLOW_CLI_FRAMES} frames)", "seconds": seconds,
+           "exit_code": rc, "cv2_importable": imageio.jpeg_available()}
+    if not imageio.jpeg_available():
+        named = "needs the cv2 (OpenCV) codec" in stdout
+        emit({**rec, "codec_named": named})
+        check(rc == 1 and named, f"cli flow without cv2: exit {rc}, codec named {named}")
+        return
+    cv2 = imageio.video_cv2("the flow MP4")
+    cap = cv2.VideoCapture(os.path.join(tmp, "flow", "raft_flow.mp4"))
+    frames = 0
+    while cap.read()[0]:
+        frames += 1
+    rec.update(mp4_frames=frames, width=int(cap.get(cv2.CAP_PROP_FRAME_WIDTH)),
+               height=int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT)))
+    cap.release()
+    emit(rec)
+    check(rc == 0 and (frames, rec["width"], rec["height"]) == (FLOW_CLI_FRAMES - 1, 512, 288),
+          f"cli flow raft: {rec}")
 
 
 def multi_view_serving(families, wrappers, card, power_limit, dev):
@@ -3504,6 +3571,418 @@ def video_phase(build_pipeline, wrappers, calib, card, power_limit, dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# optical flow: RAFT, NeuFlow, MeFlow, MEMFOF, WAFT
+# ---------------------------------------------------------------------------
+
+FLOW_MODELS = ("raft", "neuflow", "meflow", "memfof", "waft")
+FLOW_FRAME_HW = (480, 640)  # camera frames, resized on the card to each model's input
+# per model: (flow size, flow_low size or None), K3/K1/K2/K4 launches a forward
+FLOW_SHAPES = {"raft": ((288, 512), (36, 64)), "neuflow": ((288, 512), None),
+               "meflow": ((288, 512), (36, 64)), "memfof": ((288, 512), None),
+               "waft": ((280, 504), (40, 72))}
+FLOW_LAUNCHES = {name: [0, 12 if name == "waft" else 0, 0, 0] for name in FLOW_MODELS}
+MEMFOF_STEPS = 8
+# fp32 card against CPU: 2 refinement steps (NeuFlow its 8 + 8) at a quarter
+# of the input's pixels, full widths
+FLOW_CPU_HW = {"waft": (140, 252)}
+FLOW_CPU_ITERS = 2
+# WAFT's bf16 kernel route (K1) against its plain route (``attn_impl="xla"``),
+# max |a - b| / max |b| of the flow at 2 weight seeds: about twice the larger
+# of the first chip run's two readings (6.1e-3, 5.1e-3; each route 0.5-1.3e-2
+# from fp32 after 8 recurrent bf16 steps)
+WAFT_BF16_REL_TOL = 1.5e-2
+# the lookup at RAFT's shape: 36x64 pixels, a 4-level pyramid of 36x64
+# slabs, radius 4, 20 lookups a forward
+RAFT_LOOKUP = dict(hw=(36, 64), channels=256, levels=4, radius=4, per_forward=20)
+
+
+@contextlib.contextmanager
+def flow_ranges(name):
+    """The plain parts of a flow model each inside a ``record_function``
+    range while the context lasts: the correlation lookups (RAFT, NeuFlow,
+    MEMFOF: ``corr_lookup_separable``; MeFlow: ``meflow_corr``), WAFT's warp
+    (``bilinear_sample_nhwc``), and the plain attentions (NeuFlow's
+    ``CrossAttention.attend``, MeFlow's ``Window1DAttention.forward``,
+    MEMFOF's ``GMAAttention.forward``). Yields the range names."""
+    import torch
+
+    from monocular_depth_estimation_trt_tpu_torch.models.flow import meflow, memfof, neuflow
+    from monocular_depth_estimation_trt_tpu_torch.models.flow import raft, waft
+
+    targets = {
+        "raft": [(raft, "corr_lookup_separable")],
+        "neuflow": [(neuflow, "corr_lookup_separable"), (neuflow.CrossAttention, "attend")],
+        "meflow": [(meflow, "meflow_corr"), (meflow.Window1DAttention, "forward")],
+        "memfof": [(memfof, "corr_lookup_separable"), (memfof.GMAAttention, "forward")],
+        "waft": [(waft, "bilinear_sample_nhwc")],
+    }[name]
+
+    def wrap(fn, label):
+        def in_range(*args, **kw):
+            with torch.profiler.record_function(label):
+                return fn(*args, **kw)
+        return in_range
+
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr in targets]
+    labels = []
+    for owner, attr, fn in saved:
+        label = attr if not isinstance(owner, type) else f"{owner.__name__}.{attr}"
+        setattr(owner, attr, wrap(fn, label))
+        labels.append(label)
+    try:
+        yield tuple(labels)
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def flow_frames(name, rng, hw):
+    import numpy as np
+
+    return [rng.integers(0, 256, (*hw, 3), dtype=np.uint8)
+            for _ in range(3 if name == "memfof" else 2)]
+
+
+def flow_eager(pipe, name, frames):
+    """The pipeline's eager forward of host frames (no viz): what its engine
+    for their size captures."""
+    import torch
+
+    dev = [torch.from_numpy(f).to(pipe.device) for f in frames]
+    if name == "memfof":
+        return pipe._run(torch.stack(dev))
+    return pipe._run(*dev)
+
+
+def flow_outputs_equal(got, ref):
+    """Replay against eager: per output tensor (MEMFOF's cache maps
+    included), equal bit for bit, and the max rel."""
+    import torch
+
+    flat = lambda out: [(k, v) for k, v in out.items() if isinstance(v, torch.Tensor)] + [
+        (f"fmap_cache_{i}", v) for i, v in enumerate(out.get("fmap_cache", ()))]
+    res = {}
+    for (k, a), (_, b) in zip(flat(got), flat(ref)):
+        a, b = a.to(b.device), b
+        res[k] = {"equal": bool(torch.equal(a, b)),
+                  "max_rel": finite_or_none(float((a.float() - b.float()).abs().max()
+                                                  / b.float().abs().max().clamp_min(1e-12)))}
+    return res
+
+
+def run_flow_path(name, build_pipeline, wrappers, rng):
+    """One flow model at full size on the card with its own counts, set to 0
+    just before and read just after: a pair (MEMFOF a triplet) of 480x640
+    frames through a new engine, with the color wheel (MEMFOF: its flow and
+    cache); shapes and finiteness; then a replay of another input against
+    its eager forward. Returns the pipeline and the counts."""
+    import numpy as np
+    import torch
+
+    pipe = build_pipeline(name)
+    check(pipe.device.type == "cuda", f"{name}: default device {pipe.device}")
+    if name == "raft":  # fp32: full fp32 convolutions and matmuls from the build on
+        check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+              "raft fp32: TF32 is on")
+    want = FLOW_LAUNCHES[name]
+    hw = FLOW_FRAME_HW
+    frames = flow_frames(name, rng, hw)
+    torch.cuda.synchronize()
+    set_counts_to_zero(wrappers)
+    if name == "memfof":
+        out, per = run_counted(lambda: pipe(*frames), lambda: pipe.engine_for(hw), wrappers,
+                               "memfof triplet")
+    else:
+        out, per = run_counted(lambda: pipe(*frames, viz=True), lambda: pipe.engine_for(hw, True),
+                               wrappers, f"{name} pair")
+    torch.cuda.synchronize()
+    launches = launch_record(wrappers)
+    (fh, fw), low = FLOW_SHAPES[name]
+    flow = np.asarray(out["flow"])
+    rec = {"phase": "flow", "path": name, "model": pipe.spec.artifact_name(),
+           "frames": [len(frames), *hw], "launches_per_forward_k3_k1_k2_k4": per,
+           "launches": launches, "flow_shape": list(flow.shape),
+           "flow_abs_max": float(np.abs(flow).max()), "flow_finite": bool(np.isfinite(flow).all()),
+           "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                    "cudnn": torch.backends.cudnn.allow_tf32},
+           "dtype": str(next(pipe.model.parameters()).dtype).replace("torch.", "")}
+    if low:
+        rec["flow_low_shape"] = list(out["flow_low"].shape)
+    if "viz" in out:
+        rec.update(viz_shape=list(out["viz"].shape), viz_dtype=str(out["viz"].dtype),
+                   viz_colors=int(len(np.unique(out["viz"].reshape(-1, 3), axis=0))))
+    other = flow_frames(name, rng, hw)
+    engine = pipe.engine_for(hw) if name == "memfof" else pipe.engine_for(hw, False)
+    replay = engine(*(torch.from_numpy(f) for f in (
+        [np.stack(other)] if name == "memfof" else other)))
+    rec["replay_vs_eager"] = flow_outputs_equal(replay, flow_eager(pipe, name, other))
+    emit(rec)
+    check(per == want, f"{name}: launches a forward {per}, want {want}")
+    check(launches == {k: (WARMUP_CALLS + 1) * n for k, n in zip(KERNELS, want)},
+          f"launches on the {name} path {launches}")
+    want_flow = (2, fh, fw, 2) if name == "memfof" else (fh, fw, 2)
+    check(flow.shape == want_flow and rec["flow_finite"] and rec["flow_abs_max"] > 0,
+          f"{name}: flow {flow.shape} finite {rec['flow_finite']} max {rec['flow_abs_max']}")
+    if low:
+        check(tuple(out["flow_low"].shape) == (*low, 2) and bool(np.isfinite(out["flow_low"]).all()),
+              f"{name}: flow_low {out['flow_low'].shape}")
+    if "viz" in out:
+        check(out["viz"].shape == (fh, fw, 3) and out["viz"].dtype == np.uint8
+              and rec["viz_colors"] > 16, f"{name}: viz {out['viz'].shape} {out['viz'].dtype}")
+    if name == "memfof":
+        check([tuple(c.shape) for c in out["fmap_cache"]] == [(1, 256, fh // 16, fw // 16)] * 3,
+              "memfof: fmap_cache shapes")
+    for k, r in rec["replay_vs_eager"].items():
+        check(r["equal"] or (r["max_rel"] or math.inf) <= ENGINE_REL_TOL,
+              f"{name} {k}: replay vs eager {r}")
+    return pipe, launches
+
+
+def run_memfof_stream(pipe, wrappers, rng):
+    """MEMFOF's video session over MEMFOF_STEPS 480x640 frames, with the
+    counts set to 0 just before and read just after: the triplet's engine
+    at the first full window, then the cached step's engine (the two older
+    feature maps in) at every later frame; each step against the eager step
+    on an eager cache carried along. Returns the counts."""
+    import numpy as np
+    import torch
+
+    frames = [rng.integers(0, 256, (*FLOW_FRAME_HW, 3), dtype=np.uint8)
+              for _ in range(MEMFOF_STEPS)]
+    sess = pipe.stream()
+    torch.cuda.synchronize()
+    set_counts_to_zero(wrappers)
+    times, outs = [], []
+    for f in frames:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(sess.step(f))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = launch_record(wrappers)
+    prepared = [sess._prepare(f) for f in frames]
+    cache, equal, max_rel = None, [], []
+    with torch.inference_mode():
+        for i in range(2, MEMFOF_STEPS):
+            trip = prepared[i - 2:i + 1]
+            ref = (pipe._forward(torch.stack(trip)) if cache is None
+                   else pipe._cached_forward(*trip, cache[1], cache[2]))
+            cache = ref["fmap_cache"]
+            want = ref["flow"].float().cpu().numpy()
+            equal.append(bool(np.array_equal(outs[i], want)))
+            max_rel.append(rel(outs[i], want))
+    rec = {"phase": "flow", "path": "memfof_stream", "model": pipe.spec.artifact_name(),
+           "frames": MEMFOF_STEPS, "frame": list(FLOW_FRAME_HW), "launches": launches,
+           "outputs": [None if o is None else list(o.shape) for o in outs],
+           "step_ms": times, "cached_step_p50_ms": float(np.median(times[3:])),
+           "steps_equal_to_eager": equal, "steps_vs_eager_max_rel": max_rel,
+           "cached_engine": pipe.cached_engine().name}
+    emit(rec)
+    check(outs[0] is None and outs[1] is None
+          and all(o is not None and o.shape == (2, 288, 512, 2) and bool(np.isfinite(o).all())
+                  for o in outs[2:]), f"memfof stream outputs {rec['outputs']}")
+    check(all(e or r <= ENGINE_REL_TOL for e, r in zip(equal, max_rel)),
+          f"memfof stream: steps vs eager {max_rel}")
+    check(launches == {k: 0 for k in KERNELS}, f"memfof stream launches {launches}")
+    return launches
+
+
+def flow_cpu_parity(build_pipeline, rng):
+    """Each flow model in fp32 on the card against the CPU on the same
+    random weights (the CPU pipeline's), 2 refinement steps (NeuFlow its 8 +
+    8), at 144x256 (WAFT 140x252), full widths: max rel of the flow (and
+    flow_low) below PATH_FP32_REL_TOL, TF32 off."""
+    import numpy as np
+
+    readings = {}
+    for name in FLOW_MODELS:
+        kw = dict(precision="fp32", input_hw=FLOW_CPU_HW.get(name, (144, 256)))
+        if name != "neuflow":
+            kw["iters"] = FLOW_CPU_ITERS
+        cpu = build_pipeline(name, device="cpu", **kw)
+        card = build_pipeline(name, params=cpu.model.state_dict(), **kw)
+        frames = flow_frames(name, rng, (240, 320))
+        outs = [flow_eager(p, name, frames) for p in (card, cpu)]
+        readings[name] = {k: rel(outs[0][k].cpu().numpy(), outs[1][k].numpy())
+                          for k in ("flow", "flow_low") if k in outs[1]}
+        drop_engines(card, cpu)
+    emit({"phase": "flow_parity", "fp32_card_vs_cpu_rel": readings,
+          "cut": f"{FLOW_CPU_ITERS} refinement steps (NeuFlow 8 + 8) at 144x256 (WAFT 140x252)",
+          "fp32_tolerance": PATH_FP32_REL_TOL})
+    for name, r in readings.items():
+        check(all(v < PATH_FP32_REL_TOL for v in r.values()), f"{name} fp32 card vs cpu {r}")
+
+
+def waft_routes(build_pipeline, rng):
+    """WAFT's bf16 kernel route (K1 at (2, 721, 6)) against its plain route
+    and the fp32 route on the kernel route's own model, at 2 weight seeds on
+    one 480x640 pair: max rel of the flow below WAFT_BF16_REL_TOL, and,
+    averaged over the seeds, the kernel route's distance from fp32 at most
+    PATH_BF16_ROUTE_RATIO times the plain route's."""
+    import numpy as np
+    import torch
+
+    from monocular_depth_estimation_trt_tpu_torch.models.flow.waft import WAFT
+
+    frames = flow_frames("waft", rng, FLOW_FRAME_HW)
+    readings = []
+    for seed in PARITY_WEIGHT_SEEDS:
+        pipe = build_pipeline("waft", params=seeded(WAFT, seed).state_dict())
+        kernel = flow_eager(pipe, "waft", frames)["flow"].float().cpu().numpy()
+        set_attention_route([pipe.model], "xla")
+        plain = flow_eager(pipe, "waft", frames)["flow"].float().cpu().numpy()
+        set_attention_route([pipe.model], "auto")
+        pipe.model.float()
+        fp32 = flow_eager(pipe, "waft", frames)["flow"].float().cpu().numpy()
+        readings.append({"seed": seed, "kernel_vs_plain": rel(kernel, plain),
+                         "kernel_vs_fp32": rel(kernel, fp32), "plain_vs_fp32": rel(plain, fp32),
+                         "kernel_vs_fp32_mean_rel": mean_rel(kernel, fp32),
+                         "plain_vs_fp32_mean_rel": mean_rel(plain, fp32),
+                         "flow_abs_max": float(np.abs(fp32).max())})
+        drop_engines(pipe)
+        del pipe
+    ratio = (np.mean([r["kernel_vs_fp32_mean_rel"] for r in readings])
+             / np.mean([r["plain_vs_fp32_mean_rel"] for r in readings]))
+    emit({"phase": "flow_parity", "model": "waft", "routes": readings,
+          "kernel_over_plain_distance_from_fp32": float(ratio),
+          "bf16_tolerance": WAFT_BF16_REL_TOL, "route_ratio_bar": PATH_BF16_ROUTE_RATIO})
+    for r in readings:
+        check(r["kernel_vs_plain"] < WAFT_BF16_REL_TOL, f"waft routes {r}")
+    check(ratio <= PATH_BF16_ROUTE_RATIO,
+          f"waft: kernel route {ratio}x the plain route's distance from fp32")
+    torch.cuda.empty_cache()
+
+
+def flow_lookup_alone(dev):
+    """RAFT's correlation lookup timed alone at its shape, the separable
+    form (what RAFT runs) and the gather form, on the same pyramid and
+    coordinates (the two agree); device ms per lookup."""
+    import torch
+
+    from monocular_depth_estimation_trt_tpu_torch.models.flow.raft import coords_grid
+    from monocular_depth_estimation_trt_tpu_torch.ops import flow_sampler as fs
+
+    c = RAFT_LOOKUP
+    gen = torch.Generator(device=dev).manual_seed(0)
+    f1, f2 = (torch.randn((1, *c["hw"], c["channels"]), generator=gen, device=dev)
+              for _ in range(2))
+    pyr = fs.build_corr_pyramid(f1, f2, c["levels"])
+    coords = coords_grid(1, *c["hw"], device=dev) + 4.0 * torch.randn(
+        (1, *c["hw"], 2), generator=gen, device=dev)
+    with torch.inference_mode():
+        sep = fs.corr_lookup_separable(pyr, coords, c["radius"])
+        gat = fs.corr_lookup(pyr, coords, c["radius"])
+    agree = float((sep - gat).abs().max() / gat.abs().max())
+    rec = {"phase": "flow_lookup", "shape": c, "separable_vs_gather_rel": agree,
+           "separable_ms": device_ms(lambda: fs.corr_lookup_separable(pyr, coords, c["radius"])),
+           "gather_ms": device_ms(lambda: fs.corr_lookup(pyr, coords, c["radius"])),
+           "pyramid_ms": device_ms(lambda: fs.build_corr_pyramid(f1, f2, c["levels"]))}
+    check(agree < FP32_TOL, f"raft lookup: separable vs gather {agree}")
+    return rec
+
+
+def flow_timed_route(pipe, name, route, config):
+    """A flow model's step at its input size: ``benchmark`` through the
+    engine ("graph"), or the same step through the eager forward ("eager"):
+    pinned uint8 frames H2D, forward, the flow D2H into pinned memory."""
+    import numpy as np
+    import torch
+
+    from monocular_depth_estimation_trt_tpu_torch.runtime.benchmark import benchmark
+
+    if route == "graph":
+        return pipe.benchmark(None, config)
+    frames = [torch.from_numpy(f).pin_memory()
+              for f in flow_frames(name, np.random.default_rng(0), pipe.spec.input_hw)]
+    flow = flow_eager(pipe, name, [f.numpy() for f in frames])["flow"]
+    host_out = torch.empty(flow.shape, dtype=flow.dtype).pin_memory()
+
+    def step():
+        dev = [f.to(pipe.device, non_blocking=True) for f in frames]
+        out = pipe._run(torch.stack(dev)) if name == "memfof" else pipe._run(*dev)
+        host_out.copy_(out["flow"], non_blocking=True)
+
+    return benchmark(step, device=pipe.device, config=config, name=pipe.spec.artifact_name())
+
+
+def flow_serving(name, pipe, card, power_limit, dev, lookup=None):
+    """A flow model's speed in turns eager, graph, graph, eager, then its
+    profile: the graph replay, and the eager forward with the device time of
+    its plain parts (``flow_ranges``). RAFT's record adds the lookup's share
+    of the replay's device time, from its time alone in each form."""
+    import numpy as np
+    import torch
+
+    from monocular_depth_estimation_trt_tpu_torch.config import BenchmarkConfig
+
+    config = BenchmarkConfig(**FAMILY_BENCH)
+    hw = tuple(pipe.spec.input_hw)
+    n = 3 if name == "memfof" else 2
+    for turn, route in enumerate(ROUTE_TURNS):
+        rep = flow_timed_route(pipe, name, route, config)
+        emit({"phase": "speed", "path": name, "model": pipe.spec.artifact_name(), "route": route,
+              "turn": turn, "fps": rep.fps, "mean_ms": rep.avg_ms,
+              "p50_ms": rep.percentile_ms(50), "p99_ms": rep.percentile_ms(99),
+              "iterations": rep.iterations,
+              "includes": f"H2D uint8 {hw[0]}x{hw[1]} x {n} + forward + D2H flow",
+              "card": card, "power_limit": power_limit})
+    drop_engines(pipe)
+    frames = [torch.from_numpy(f).to(dev)
+              for f in flow_frames(name, np.random.default_rng(17), hw)]
+    args = (torch.stack(frames),) if name == "memfof" else tuple(frames)
+    eng = pipe.engine_for(hw) if name == "memfof" else pipe.engine_for(hw, False)
+    graph = profile_breakdown(lambda: eng(*args), pipe.spec.artifact_name(), 5)
+    if lookup is not None and "device_busy_ms_per_call" in graph:
+        busy = graph["device_busy_ms_per_call"]
+        for form in ("separable", "gather"):
+            lookup[f"{form}_share_of_raft_replay"] = (
+                RAFT_LOOKUP["per_forward"] * lookup[f"{form}_ms"] / busy)
+        lookup["raft_replay_busy_ms"] = busy
+        emit(lookup)
+    emit({**graph, "route": "graph"})
+
+    def eager_step():
+        with torch.inference_mode():
+            pipe._forward(*args)
+
+    with flow_ranges(name) as ranges:
+        emit({**profile_breakdown(eager_step, pipe.spec.artifact_name(), 3, ranges=ranges),
+              "route": "eager"})
+    drop_engines(pipe)
+
+
+def flow_phase(build_pipeline, wrappers, card, power_limit, dev):
+    """Every flow model's counted run and checks (MEMFOF's video session
+    too), fp32 card against CPU, WAFT's routes, RAFT's lookup alone, then
+    each model's speed and profile; everything released at the end. Returns
+    the counts of each counted run."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(18)
+    pipes, launches = {}, {}
+    for name in FLOW_MODELS:
+        pipes[name], launches[name] = run_flow_path(name, build_pipeline, wrappers, rng)
+        drop_engines(pipes[name])
+    launches["memfof_stream"] = run_memfof_stream(pipes["memfof"], wrappers, rng)
+    drop_engines(pipes["memfof"])
+    flow_cpu_parity(build_pipeline, rng)
+    waft_routes(build_pipeline, rng)
+    lookup = flow_lookup_alone(dev)
+    emit({"phase": "flow_summary", "seconds": time.perf_counter() - t0, "launches": launches})
+    for name in FLOW_MODELS:
+        flow_serving(name, pipes[name], card, power_limit, dev,
+                     lookup if name == "raft" else None)
+    del pipes
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def parse_smi(line: str):
     name, _, limit = line.partition(",")
     return name.strip(), limit.strip()
@@ -3711,6 +4190,9 @@ def main() -> None:
     # profile; released before the int8 phases
     calib = list(parity_frames(np.random.default_rng(7)).values())
     extra_launches.update(video_phase(build_pipeline, wrappers, calib, card, power_limit, dev))
+    # the optical-flow paths (each its own counted run), their comparisons,
+    # speed and profile; released before the int8 phases
+    extra_launches.update(flow_phase(build_pipeline, wrappers, card, power_limit, dev))
 
     # 8. the int8 paths (each its own counted run), then int8 against the bf16
     # and fp32 routes; calibration on three seeded frames (noise and a

@@ -8,7 +8,9 @@ worker thread calling the pipeline, and a ``deque(maxlen=1)`` result queue
 for display (:class:`FrameWorker`, :func:`run_webcam`). :func:`run_video`
 writes a colorized depth MP4 with the frame rate overlaid, one frame in
 flight on the card; :func:`write_depth_video` serves the windowed video
-models (Video Depth Anything) with one normalization over the whole video.
+models (Video Depth Anything) with one normalization over the whole video;
+:func:`run_flow_frames` and :func:`run_flow_triplets` write the flow
+models' color-wheel MP4s from a directory of frames.
 Video files go through ``utils/imageio.py`` (cv2; without it,
 ``CodecUnavailable`` names the missing codec).
 
@@ -149,6 +151,82 @@ def run_video(pipeline, video_path: str, out_path: str, *,
         emit(tree_get_chunked(pending[1]), time.perf_counter() - pending[0])
     writer.release()
     log(f"wrote {n} frames -> {out_path}")
+    return out_path
+
+
+FLOW_VIDEO_FPS = 15.0  # the flow MP4s' rate (reference RAFT/onnx2trt.py:150-196)
+
+
+def _frame_paths(frames_dir: str, need: int):
+    from monocular_depth_estimation_trt_tpu_torch.utils.files import list_images
+
+    paths = list_images(frames_dir)
+    if len(paths) < need:
+        raise FileNotFoundError(f"[MDET] need >={need} frames in {frames_dir}")
+    return paths
+
+
+def run_flow_frames(flow_pipeline, frames_dir: str, out_path: str, *,
+                    size_wh: Tuple[int, int] = (512, 288),
+                    max_pairs: Optional[int] = None) -> str:
+    """Optical flow of consecutive frames of an image directory -> a
+    color-wheel MP4 at ``size_wh`` (reference ``RAFT/onnx2trt.py:150-196``).
+    A pipeline that takes ``device_out`` is pipelined: pair N is queued on
+    the card before pair N-1 is fetched and written."""
+    paths = _frame_paths(frames_dir, 2)
+    cv2 = imageio.video_cv2(out_path)
+    writer = imageio.VideoWriter(out_path, FLOW_VIDEO_FPS, size_wh)
+    pipelined = supports_device_out(flow_pipeline)
+
+    def emit(out):
+        writer.write_bgr(cv2.cvtColor(np.asarray(out["viz"]), cv2.COLOR_RGB2BGR))
+
+    prev = imageio.read_image(paths[0])
+    n = 0
+    pending = None
+    for p in paths[1:]:
+        if max_pairs and n >= max_pairs:
+            break
+        cur = imageio.read_image(p)
+        if pipelined:
+            out_dev = flow_pipeline(prev, cur, viz=True, device_out=True)
+            if pending is not None:
+                emit(tree_get_chunked(pending))
+            pending = out_dev
+        else:
+            emit(flow_pipeline(prev, cur, viz=True))
+        prev = cur
+        n += 1
+    if pending is not None:
+        emit(tree_get_chunked(pending))
+    writer.release()
+    log(f"wrote {n} flow frames -> {out_path}")
+    return out_path
+
+
+def run_flow_triplets(triplet_pipeline, frames_dir: str, out_path: str, *,
+                      size_wh: Tuple[int, int] = (512, 288),
+                      max_triplets: Optional[int] = None) -> str:
+    """MEMFOF's three-frame bidirectional flow over an image directory: the
+    center -> next flow of each triplet, colored on the device, -> an MP4 at
+    ``size_wh`` (the JAX package's protocol: every triplet through the
+    pipeline)."""
+    from monocular_depth_estimation_trt_tpu_torch.ops.flow_viz import flow_to_color
+
+    paths = _frame_paths(frames_dir, 3)
+    cv2 = imageio.video_cv2(out_path)
+    writer = imageio.VideoWriter(out_path, FLOW_VIDEO_FPS, size_wh)
+    n = 0
+    for i in range(1, len(paths) - 1):
+        if max_triplets and n >= max_triplets:
+            break
+        out = triplet_pipeline(*(imageio.read_image(p) for p in paths[i - 1:i + 2]),
+                               device_out=True)
+        viz = flow_to_color(out["flow"][1]).cpu().numpy()  # center -> next
+        writer.write_bgr(cv2.cvtColor(viz, cv2.COLOR_RGB2BGR))
+        n += 1
+    writer.release()
+    log(f"wrote {n} flow frames -> {out_path}")
     return out_path
 
 

@@ -15,6 +15,8 @@ Replaces the reference's "edit constants at the top of the script" workflow
     python -m monocular_depth_estimation_trt_tpu_torch video flashdepth --video in.mp4
     python -m monocular_depth_estimation_trt_tpu_torch batch depth_anything_v2 --video in.mp4
     python -m monocular_depth_estimation_trt_tpu_torch webcam depth_anything_v2 --camera 0
+    python -m monocular_depth_estimation_trt_tpu_torch flow raft --frames frames/ --out results/
+    python -m monocular_depth_estimation_trt_tpu_torch flow memfof --video in.mp4
 
     python -m monocular_depth_estimation_trt_tpu_torch serve depth_anything_v2 --max-batch 4
     python -m monocular_depth_estimation_trt_tpu_torch bench depth_anything_v2 --encoder vits
@@ -38,12 +40,14 @@ overlaid, through the model's stream where it has one (``flashdepth``,
 ``streamvggt``); ``batch --video`` serves a video's frames as a directory
 of PNGs; ``webcam`` shows a camera's depth live. Video needs cv2: without it
 these commands exit non-zero naming the missing codec
-(``utils/imageio.py``).
+(``utils/imageio.py``). ``flow`` writes the color-wheel MP4 of an optical-flow
+model over a directory of frames or a video's frames (``raft``, ``neuflow``,
+``meflow``, ``waft`` on consecutive pairs, ``memfof`` on triplets).
 
 Not ported yet, so argparse rejects them: ``--engine`` (serialized
 artifacts), ``--device-mesh`` (multi-device sharding), ``--trace`` (the
 profiler), ``--colorbar`` (a matplotlib figure) and the
-``flow``/``track``/``export``/``slam``/``convert``/``distill``/``eval``/
+``track``/``export``/``slam``/``convert``/``distill``/``eval``/
 ``quantcheck``/``doctor`` commands.
 """
 
@@ -375,6 +379,47 @@ def cmd_webcam(args) -> int:
     return 0
 
 
+FLOW_MODELS = ("raft", "neuflow", "meflow", "memfof", "waft")
+
+
+def cmd_flow(args) -> int:
+    """Optical flow over consecutive frames of a directory or a video ->
+    ``<model>_flow.mp4`` (reference RAFT / NeuFlow / MeFlow ``onnx2trt.py``
+    video loops): pairs, or MEMFOF's triplets."""
+    import inspect
+
+    from monocular_depth_estimation_trt_tpu_torch import registry
+    from monocular_depth_estimation_trt_tpu_torch.apps.streaming import (
+        extract_frames_from_video,
+        run_flow_frames,
+        run_flow_triplets,
+    )
+    from monocular_depth_estimation_trt_tpu_torch.utils.imageio import video_cv2
+
+    if not args.model:
+        log("flow: give a model name", tag="ERROR")
+        return 2
+    video_cv2("the flow MP4")  # the codec, before the build
+    kw = {"device": args.device}
+    if args.iters:
+        if "iters" in inspect.signature(registry._REGISTRY[args.model]).parameters:
+            kw["iters"] = args.iters
+        else:
+            log(f"flow: {args.model} has no iterations to set; --iters ignored", tag="WARN")
+    pipe = registry.build_pipeline(args.model, **kw)
+    frames_dir = args.frames
+    if args.video:
+        frames_dir = os.path.join(args.out, "_frames")
+        extract_frames_from_video(args.video, frames_dir, max_frames=args.max_frames or None)
+    os.makedirs(args.out, exist_ok=True)
+    out_path = os.path.join(args.out, f"{args.model}_flow.mp4")
+    if args.model == "memfof":
+        run_flow_triplets(pipe, frames_dir, out_path, max_triplets=args.max_frames or None)
+    else:
+        run_flow_frames(pipe, frames_dir, out_path, max_pairs=args.max_frames or None)
+    return 0
+
+
 def cmd_bench(args) -> int:
     from monocular_depth_estimation_trt_tpu_torch.config import BenchmarkConfig
 
@@ -579,6 +624,17 @@ def build_parser() -> argparse.ArgumentParser:
     _add_precision_args(video)
     video.set_defaults(fn=cmd_video)
 
+    flow = sub.add_parser("flow", help="optical flow over a frame directory or a video")
+    flow.add_argument("model", nargs="?", default="", choices=[*FLOW_MODELS, ""])
+    flow.add_argument("--frames", default="video_frames", help="directory of frames")
+    flow.add_argument("--video", default="", help="a video whose frames to use instead")
+    flow.add_argument("--out", default="results")
+    flow.add_argument("--iters", type=int, default=0,
+                      help="refinement steps (default: the model's)")
+    flow.add_argument("--max-frames", type=int, default=0,
+                      help="at most this many pairs (triplets), and video frames")
+    flow.set_defaults(fn=cmd_flow)
+
     webcam = sub.add_parser("webcam", help="live depth viewer (webcam or IP camera)")
     webcam.add_argument("model", nargs="?", default="")
     webcam.add_argument("--encoder", default="")
@@ -616,7 +672,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     sub.add_parser("models", help="list registered models").set_defaults(fn=cmd_models)
     sub.add_parser("engines", help="list built engines").set_defaults(fn=cmd_engines)
-    for sp in (run, batch, views, pair, serve, video, webcam):
+    for sp in (run, batch, views, pair, serve, video, webcam, flow):
         # SUPPRESS: the subparser's default must not clobber the main
         # parser's flag when it is given before the subcommand
         sp.add_argument("--allow-random-weights", action="store_true",

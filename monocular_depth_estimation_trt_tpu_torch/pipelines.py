@@ -14,7 +14,8 @@ Public layouts follow the JAX package: uint8 ``(H, W, 3)`` in, depth
 leading frame axis. Other outputs of a forward (VGGT's confidence and
 camera, Depth Pro's focal) come back beside the depth. :class:`VGGTPipeline` adds the
 multi-view protocol; :class:`PairPipeline` serves a model of two frames
-(Align3R). The MoGe pair's forward (:func:`pointmap_forward_factory`)
+(Align3R), :class:`FlowPipeline` an optical-flow model of a frame pair.
+The MoGe pair's forward (:func:`pointmap_forward_factory`)
 holds the model and its focal/shift postprocess, so that one engine per
 (H, W) and batch bucket captures both: the JAX package splits them into two
 programs only because the fused one faulted a TPU worker.
@@ -37,6 +38,7 @@ from monocular_depth_estimation_trt_tpu_torch.ops.colormap import (
     spectral_colormap,
     turbo_colormap,
 )
+from monocular_depth_estimation_trt_tpu_torch.ops.flow_viz import flow_to_color
 from monocular_depth_estimation_trt_tpu_torch.ops.postprocess import (
     inverse_depth_normalize,
     normalize_depth_for_viz,
@@ -283,6 +285,8 @@ class PairPipeline:
     ``model`` and ``prior``: the modules it runs (Align3R and its frozen
     depth prior), kept for inspection."""
 
+    timed_output = "depth"  # what ``benchmark`` fetches
+
     def __init__(self, spec: ModelSpec, forward: Callable, *, device: torch.device,
                  model: Optional[torch.nn.Module] = None,
                  prior: Optional[torch.nn.Module] = None):
@@ -324,17 +328,66 @@ class PairPipeline:
     def benchmark(self, in_hw: Optional[Tuple[int, int]] = None,
                   config: Optional[BenchmarkConfig] = None) -> BenchmarkReport:
         """Time a pair on the card: two pinned uint8 frames in, the engine,
-        the depth D2H into a pinned buffer."""
+        the depth (a flow model's flow) D2H into a pinned buffer."""
         h, w = tuple(in_hw or self.spec.input_hw)
         eng = self.engine_for((h, w))
         rng = np.random.default_rng(0)
         frames = [torch.from_numpy(rng.integers(0, 255, (h, w, 3), dtype=np.uint8)).pin_memory()
                   for _ in range(2)]
-        depth = eng(*frames)["depth"]
-        host_out = torch.empty(depth.shape, dtype=depth.dtype).pin_memory()
+        out = eng(*frames)[self.timed_output]
+        host_out = torch.empty(out.shape, dtype=out.dtype).pin_memory()
 
         def step():
-            host_out.copy_(eng(*frames)["depth"], non_blocking=True)
+            host_out.copy_(eng(*frames)[self.timed_output], non_blocking=True)
 
         return benchmark(step, device=self.device, config=config,
                          name=self.spec.artifact_name())
+
+
+
+class FlowPipeline(PairPipeline):
+    """Two-frame optical flow (the JAX package's ``FlowPipeline``; the
+    RAFT / NeuFlow / MeFlow / WAFT template, reference
+    ``RAFT/onnx2trt.py:150-196``): a frame pair in, the flow at the model's
+    input size and, with ``viz``, its color-wheel image out, computed on the
+    card. One engine per (frame size, viz).
+
+    ``forward``: fn(frame1_u8, frame2_u8 (H, W, 3) on ``device``) -> dict
+    with ``flow`` (h, w, 2) (and ``flow_low``); ``model``: the module it
+    runs, kept for inspection."""
+
+    timed_output = "flow"
+
+    def _eager(self, frame1: torch.Tensor, frame2: torch.Tensor, with_viz: bool = False):
+        out = self._forward(frame1, frame2)
+        if with_viz:
+            out["viz"] = flow_to_color(out["flow"])
+        return out
+
+    def _run(self, frame1: torch.Tensor, frame2: torch.Tensor, with_viz: bool = False):
+        """The eager forward that the engines capture (one call, no graph)."""
+        with torch.inference_mode():
+            return self._eager(frame1, frame2, with_viz)
+
+    def engine_for(self, in_hw: Tuple[int, int], with_viz: bool = False) -> Engine:
+        """The engine for two frames of size ``in_hw``."""
+        key = (tuple(in_hw), bool(with_viz))
+        if key not in self._engines:
+            h, w = key[0]
+            example = torch.empty((h, w, 3), dtype=torch.uint8, device="meta")
+            name = f"{self.spec.artifact_name()}_in{h}x{w}" + ("_viz" if with_viz else "")
+            self._engines[key] = Engine(functools.partial(self._eager, with_viz=key[1]),
+                                        (example, example), name=name, device=self.device)
+        return self._engines[key]
+
+    def __call__(self, frame1, frame2, *, viz: bool = False,
+                 device_out: bool = False) -> Dict[str, Any]:
+        """frame1, frame2: (H, W, 3) RGB uint8 -> dict of host numpy outputs
+        (device tensors if ``device_out``): ``flow`` (h, w, 2) at the
+        model's input size, ``flow_low`` where the model has it, ``viz``."""
+        if tuple(frame1.shape) != tuple(frame2.shape):
+            raise ValueError(f"the two frames differ in size: {tuple(frame1.shape)} and "
+                             f"{tuple(frame2.shape)}")
+        eng = self.engine_for(tuple(frame1.shape[:2]), viz)
+        out = eng(DepthPipeline._as_tensor(frame1), DepthPipeline._as_tensor(frame2))
+        return out if device_out else tree_get_chunked(out)

@@ -12,8 +12,11 @@ metric and point-map families ``depth_anything_v3``, ``metric3d_v2``,
 ``unik3d``, ``sidepth``, ``geocalib`` and ``prior_depth_anything``, and the
 multi-view and rope families ``streamvggt`` (with its KV-cache stream),
 ``stream3r``, ``litevggt``, ``map_anything``, ``align3r`` (two frames) and
-``dinov3``, and the video families ``video_depth_anything`` (windows of
-frames, ``video_depth``) and ``flashdepth`` (a Mamba state, ``stream()``).
+``dinov3``, the video families ``video_depth_anything`` (windows of
+frames, ``video_depth``) and ``flashdepth`` (a Mamba state, ``stream()``),
+and the optical-flow models ``raft``, ``neuflow``, ``meflow``, ``waft`` (a
+frame pair, :class:`FlowPipeline`) and ``memfof`` (a triplet, with its
+cached video step, ``stream()``).
 Every factory takes ``device``;
 ``None`` means ``"cuda"``, and a missing card is an error, never a quiet
 move to the CPU. ``precision="int8"`` serves the bf16 graph with the
@@ -38,6 +41,7 @@ from monocular_depth_estimation_trt_tpu_torch.config import (
 )
 from monocular_depth_estimation_trt_tpu_torch.pipelines import (
     DepthPipeline,
+    FlowPipeline,
     PairPipeline,
     VGGTPipeline,
     depth_forward_factory,
@@ -1438,3 +1442,255 @@ def video_depth_anything(encoder: str = "vits", input_size: int = 518, metric: b
     return VDAPipeline(spec, forward, window_forward, window=window or WINDOW,
                        overlap=overlap or OVERLAP, device=device, model=model,
                        viz="metric" if metric else "relative")
+
+
+# ---------------------------------------------------------------------------
+# Optical flow (reference RAFT/, NeuFlow/, MeFlow/, MEMFOF/, later/WAFT/)
+# ---------------------------------------------------------------------------
+
+
+def _flow_model(make: Callable[[], torch.nn.Module], spec: ModelSpec, *, params, checkpoint,
+                device: torch.device) -> torch.nn.Module:
+    """A flow model of ``spec``'s precision on ``device``, its weights from
+    ``params``, ``checkpoint`` or random weights where allowed."""
+    return _params_for(_new_model(make), spec, params=params, checkpoint=checkpoint,
+                       device=device, dtype=_plain_dtype(spec.precision, device),
+                       make_sample=None, input_size=spec.input_hw)
+
+
+def _pair_flow_forward(model: torch.nn.Module, in_hw: Tuple[int, int]) -> Callable:
+    """The pair forward of the JAX flow factories: each frame resized
+    (linear) to ``in_hw`` on the device (the reference resizes on the host,
+    ``onnx2trt.py:100-111``), the model, batch 1 dropped: ``flow`` and, for a
+    model that returns both, ``flow_low``."""
+    from monocular_depth_estimation_trt_tpu_torch.ops.resize import resize
+
+    def forward(img1_u8: torch.Tensor, img2_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
+        x1, x2 = (resize(img.float(), in_hw, method="linear")[None] for img in (img1_u8, img2_u8))
+        out = model(x1, x2)
+        if isinstance(out, tuple):
+            return {"flow_low": out[0][0], "flow": out[1][0]}
+        return {"flow": out[0]}
+
+    return forward
+
+
+@register("raft", fidelity="converter-verified")
+def raft(iters: int = 20, input_hw: tuple = (288, 512), precision: str = "fp32",
+         params: Optional[Mapping[str, torch.Tensor]] = None, checkpoint: Optional[str] = None,
+         device=None) -> FlowPipeline:
+    """RAFT optical flow (reference ``RAFT/``): a frame pair at 288x512 ->
+    ``flow_low`` (1/8) and ``flow`` (full size). fp32 by default, as the
+    reference keeps its correlation volume (TF32 off)."""
+    from monocular_depth_estimation_trt_tpu_torch.models.flow.raft import RAFT
+
+    device = resolve_device(device)
+    spec = ModelSpec(model="raft", input_hw=tuple(input_hw), precision=precision,
+                     extra=(("iters", iters),))
+    model = _flow_model(lambda: RAFT(iters=iters), spec, params=params, checkpoint=checkpoint,
+                        device=device)
+    return FlowPipeline(spec, _pair_flow_forward(model, spec.input_hw), device=device,
+                        model=model)
+
+
+@register("waft", fidelity="converter-verified")
+def waft(iters: int = 8, input_hw: tuple = (280, 504), encoder: str = "vits",
+         precision: str = "bf16", attn_impl: str = "auto",
+         params: Optional[Mapping[str, torch.Tensor]] = None, checkpoint: Optional[str] = None,
+         device=None, model_kw: Optional[Dict[str, Any]] = None) -> FlowPipeline:
+    """WAFT warping-alone flow (reference ``later/WAFT/``): a frame pair ->
+    ``flow_low`` on a 1/7 grid and ``flow`` at full size, no correlation
+    volume; the DINOv2 backbone's attention on kernel K1. ``input_hw``:
+    multiples of 14 (the patch). ``model_kw``: overrides passed to ``WAFT``
+    (``vit_config``)."""
+    from monocular_depth_estimation_trt_tpu_torch.models.flow.waft import WAFT
+
+    device = resolve_device(device)
+    spec = ModelSpec(model="waft", encoder=encoder, input_hw=tuple(input_hw),
+                     precision=precision, extra=(("iters", iters),))
+    model = _flow_model(lambda: WAFT(iters=iters, encoder=encoder, attn_impl=attn_impl,
+                                     **(model_kw or {})),
+                        spec, params=params, checkpoint=checkpoint, device=device)
+    return FlowPipeline(spec, _pair_flow_forward(model, spec.input_hw), device=device,
+                        model=model)
+
+
+@register("neuflow", fidelity="converter-verified")
+def neuflow(input_hw: tuple = (288, 512), precision: str = "bf16",
+            params: Optional[Mapping[str, torch.Tensor]] = None, checkpoint: Optional[str] = None,
+            device=None) -> FlowPipeline:
+    """NeuFlow v2 (reference ``NeuFlow/``): global matching at 1/16 and
+    windowed refinement; one ``flow`` output."""
+    from monocular_depth_estimation_trt_tpu_torch.models.flow.neuflow import NeuFlow
+
+    device = resolve_device(device)
+    spec = ModelSpec(model="neuflow", input_hw=tuple(input_hw), precision=precision)
+    model = _flow_model(NeuFlow, spec, params=params, checkpoint=checkpoint, device=device)
+    return FlowPipeline(spec, _pair_flow_forward(model, spec.input_hw), device=device,
+                        model=model)
+
+
+@register("meflow", fidelity="converter-verified")
+def meflow(iters: int = 20, input_hw: tuple = (288, 512), precision: str = "bf16",
+           params: Optional[Mapping[str, torch.Tensor]] = None, use_scan: bool = False,
+           checkpoint: Optional[str] = None, device=None) -> FlowPipeline:
+    """MeFlow (reference ``MeFlow/``): alternating 1D correlations.
+    ``use_scan`` names the JAX package's scanned build (``scan1`` in the
+    artifact name); the port runs the same loop either way."""
+    from monocular_depth_estimation_trt_tpu_torch.models.flow.meflow import MeFlow
+
+    device = resolve_device(device)
+    spec = ModelSpec(model="meflow", input_hw=tuple(input_hw), precision=precision,
+                     extra=(("iters", iters),) + ((("scan", 1),) if use_scan else ()))
+    model = _flow_model(lambda: MeFlow(iters=iters, use_scan=use_scan), spec, params=params,
+                        checkpoint=checkpoint, device=device)
+    return FlowPipeline(spec, _pair_flow_forward(model, spec.input_hw), device=device,
+                        model=model)
+
+
+class TripletFlowPipeline:
+    """MEMFOF's three-frame pipeline (the JAX package's
+    ``TripletFlowPipeline``): ``pipe(f1, f2, f3)`` -> bidirectional ``flow``
+    (2, h, w, 2) at the model's input size (center -> previous, center ->
+    next) and the device-resident ``fmap_cache``; one engine per frame size.
+    ``stream()``: a :class:`MEMFOFSession`, whose steps after the first
+    encode only the newest frame through a second engine (``cached_engine``)
+    that takes the two cached feature maps as inputs.
+
+    ``forward``: fn(frames_u8 (3, H, W, 3) on ``device``) -> dict;
+    ``cached_forward``: fn(f1, f2, f3 (h, w, 3) uint8 at the input size,
+    c1, c2 cached maps of f1 and f2) -> dict."""
+
+    def __init__(self, spec: ModelSpec, forward: Callable, cached_forward: Callable, *,
+                 device: torch.device, model: torch.nn.Module):
+        self.spec = spec
+        self.device = torch.device(device)
+        self.model = model
+        self._forward = forward
+        self._cached_forward = cached_forward
+        self._engines: Dict[Any, Engine] = {}
+
+    def _run(self, frames_u8: torch.Tensor):
+        """The eager forward that the engines capture."""
+        with torch.inference_mode():
+            return self._forward(frames_u8)
+
+    def engine_for(self, in_hw: Tuple[int, int]) -> Engine:
+        """The engine for three frames of size ``in_hw``."""
+        h, w = tuple(in_hw)
+        if (h, w) not in self._engines:
+            example = torch.empty((3, h, w, 3), dtype=torch.uint8, device="meta")
+            self._engines[(h, w)] = Engine(self._forward, (example,),
+                                           name=f"{self.spec.artifact_name()}_in{h}x{w}",
+                                           device=self.device)
+        return self._engines[(h, w)]
+
+    def cached_engine(self) -> Engine:
+        """The video step's engine: three frames at the input size and the
+        first two frames' cached feature maps in."""
+        if "cached" not in self._engines:
+            h, w = self.spec.input_hw
+            frame = torch.empty((h, w, 3), dtype=torch.uint8, device="meta")
+            fmap = torch.empty((1, self.model.fnet.down.out_channels, h // 16, w // 16),
+                               dtype=self.model.init_conv.weight.dtype, device="meta")
+            self._engines["cached"] = Engine(
+                self._cached_forward, (frame, frame, frame, fmap, fmap),
+                name=f"{self.spec.artifact_name()}_stream", device=self.device)
+        return self._engines["cached"]
+
+    def release_engines(self) -> None:
+        for eng in self._engines.values():
+            eng.release()
+        self._engines.clear()
+
+    def __call__(self, f1, f2, f3, *, device_out: bool = False) -> Dict[str, Any]:
+        """Three (H, W, 3) RGB uint8 frames -> ``flow`` as host numpy (device
+        tensors if ``device_out``) and ``fmap_cache`` on the device."""
+        frames = torch.stack([DepthPipeline._as_tensor(f) for f in (f1, f2, f3)])
+        out = self.engine_for(tuple(frames.shape[1:3]))(frames)
+        if device_out:
+            return out
+        return {"flow": tree_get_chunked(out["flow"]), "fmap_cache": out["fmap_cache"]}
+
+    def benchmark(self, in_hw: Optional[Tuple[int, int]] = None,
+                  config: Optional[BenchmarkConfig] = None) -> BenchmarkReport:
+        """Time a triplet on the card: three pinned uint8 frames in, the
+        engine, the flow D2H into a pinned buffer."""
+        h, w = tuple(in_hw or self.spec.input_hw)
+        eng = self.engine_for((h, w))
+        rng = np.random.default_rng(0)
+        frames = torch.from_numpy(rng.integers(0, 255, (3, h, w, 3), dtype=np.uint8)).pin_memory()
+        flow = eng(frames)["flow"]
+        host_out = torch.empty(flow.shape, dtype=flow.dtype).pin_memory()
+
+        def step():
+            host_out.copy_(eng(frames)["flow"], non_blocking=True)
+
+        return benchmark(step, device=self.device, config=config, name=self.spec.artifact_name())
+
+    def stream(self) -> MEMFOFSession:
+        return MEMFOFSession(self)
+
+
+class MEMFOFSession:
+    """Video mode (the JAX package's ``MEMFOFSession``, reference
+    ``MEMFOF/wrapper.py:210-232,277-281``): each pushed frame is resized to
+    the input size and truncated to uint8 on the device; from the third
+    frame on, each step returns the bidirectional flow of the frame before
+    the newest. The first step runs the whole triplet; every later one
+    encodes only the newest frame, the two older maps coming from the
+    previous step's cache (cloned out of the graph, so the next replay does
+    not overwrite it)."""
+
+    def __init__(self, pipe: TripletFlowPipeline):
+        self.pipe = pipe
+        self._frames = []  # the last three frames at the input size, on the device
+        self._cache = None
+
+    def _prepare(self, frame_u8) -> torch.Tensor:
+        from monocular_depth_estimation_trt_tpu_torch.ops.resize import resize
+
+        x = DepthPipeline._as_tensor(frame_u8).to(self.pipe.device)
+        with torch.inference_mode():
+            return resize(x.float(), self.pipe.spec.input_hw, method="linear").to(torch.uint8)
+
+    def step(self, frame_u8) -> Optional[np.ndarray]:
+        """Push one (H, W, 3) RGB uint8 frame; the flow (2, h, w, 2) of the
+        previous frame as host numpy once three frames are in, else None."""
+        self._frames = (self._frames + [self._prepare(frame_u8)])[-3:]
+        if len(self._frames) < 3:
+            return None
+        if self._cache is None:
+            out = self.pipe(*self._frames, device_out=True)
+        else:
+            out = self.pipe.cached_engine()(*self._frames, *self._cache[1:])
+        self._cache = out["fmap_cache"]
+        return tree_get_chunked(out["flow"])
+
+
+@register("memfof", fidelity="converter-verified")
+def memfof(iters: int = 8, input_hw: tuple = (288, 512), precision: str = "bf16",
+           params: Optional[Mapping[str, torch.Tensor]] = None, checkpoint: Optional[str] = None,
+           device=None) -> TripletFlowPipeline:
+    """MEMFOF three-frame bidirectional flow with the encoder feature cache
+    (reference ``MEMFOF/``): call with three frames; ``stream()`` for a
+    video."""
+    from monocular_depth_estimation_trt_tpu_torch.models.flow.memfof import MEMFOF
+    from monocular_depth_estimation_trt_tpu_torch.ops.resize import resize
+
+    device = resolve_device(device)
+    in_hw = tuple(input_hw)
+    spec = ModelSpec(model="memfof", input_hw=in_hw, precision=precision,
+                     extra=(("iters", iters),))
+    model = _flow_model(lambda: MEMFOF(iters=iters), spec, params=params,
+                        checkpoint=checkpoint, device=device)
+
+    def forward(frames_u8: torch.Tensor) -> Dict[str, Any]:
+        out = model(resize(frames_u8.float(), in_hw, method="linear")[None])
+        return {"flow": out["flow"][0], "fmap_cache": out["fmap_cache"]}
+
+    def cached_forward(f1, f2, f3, c1, c2) -> Dict[str, Any]:
+        out = model(torch.stack([f1, f2, f3]).float()[None], fmap_cache=(c1, c2, None))
+        return {"flow": out["flow"][0], "fmap_cache": out["fmap_cache"]}
+
+    return TripletFlowPipeline(spec, forward, cached_forward, device=device, model=model)

@@ -6,14 +6,17 @@ The exact inverse of the JAX package's ``weights/convert.py``
 ``convert_metric3d_v2``, ``convert_moge2``, ``convert_geometric``,
 ``convert_sidepth``, ``convert_geocalib``, ``convert_prior_depth``,
 ``convert_map_anything``, ``convert_align3r``, ``convert_dinov3``,
-``convert_vda``, ``convert_flashdepth``), so that
-the parity tests can feed one set of weights to both packages:
+``convert_vda``, ``convert_flashdepth``, ``convert_raft``,
+``convert_neuflow``, ``convert_meflow``, ``convert_memfof``,
+``convert_waft``), so that the parity tests can feed one set of weights to
+both packages:
 
 * Dense kernel (in, out)                 -> Linear weight (out, in)
 * Conv kernel (kh, kw, in, out)          -> Conv2d weight (out, in, kh, kw)
 * ConvTranspose kernel (kh, kw, in, out) -> ConvTranspose2d weight (in, out, kh, kw)
 * Dense kernel (in, out) on tokens       -> Conv2d 1x1 weight (out, in, 1, 1) (MoGe's projections)
-* fused GRU ``convzr`` (.., 2*hidden)    -> ``convz`` and ``convr`` (Metric3D V2)
+* fused GRU ``convzr`` (.., 2*hidden)    -> ``convz`` and ``convr`` (Metric3D V2, the flow models)
+* folded BatchNorm scale / bias          -> weight / bias over unit running statistics (RAFT, MeFlow)
 * Mamba ``conv1d_kernel`` (k, d_inner)   -> depthwise Conv1d weight (d_inner, 1, k) (FlashDepth)
 * LayerNorm scale / bias                 -> weight / bias
 * q8 kernel_q (in, out) int8             -> QuantLinear weight_q (out, in) (:func:`q8_from_jax`)
@@ -502,6 +505,173 @@ def flashdepth_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
+# ---------------------------------------------------------------------------
+# optical flow (RAFT, NeuFlow, MeFlow, MEMFOF, WAFT)
+# ---------------------------------------------------------------------------
+
+BATCHNORM_EPS = 1e-5
+
+
+def _folded_batchnorm_from_jax(p: Mapping, prefix: str, out: Dict[str, torch.Tensor]) -> None:
+    """A folded ``FoldedBatchNorm`` (scale, bias) -> upstream's BatchNorm2d
+    keys: ``weight = scale``, ``bias``, ``running_mean = 0`` and a
+    ``running_var`` of ``1 - eps``, so that ``var + eps`` is 1."""
+    scale = _t(p["scale"])
+    out[f"{prefix}.weight"] = scale
+    out[f"{prefix}.bias"] = _t(p["bias"])
+    out[f"{prefix}.running_mean"] = torch.zeros_like(scale)
+    out[f"{prefix}.running_var"] = torch.full_like(scale, 1.0 - BATCHNORM_EPS)
+
+
+def _sep_gru_from_jax(p: Mapping, prefix: str, out: Dict[str, torch.Tensor]) -> None:
+    """A ``SepConvGRU``: each fused ``convzr{1,2}`` splits into upstream's
+    ``convz`` (the first ``hidden`` output channels) and ``convr``."""
+    for i in (1, 2):
+        zr = p[f"convzr{i}"]
+        kernel, bias = np.asarray(zr["kernel"]), np.asarray(zr["bias"])
+        hidden = kernel.shape[-1] // 2
+        _conv({"kernel": kernel[..., :hidden], "bias": bias[:hidden]}, f"{prefix}.convz{i}", out)
+        _conv({"kernel": kernel[..., hidden:], "bias": bias[hidden:]}, f"{prefix}.convr{i}", out)
+        _conv(p[f"convq{i}"], f"{prefix}.convq{i}", out)
+
+
+def _raft_encoder_from_jax(p: Mapping, prefix: str, out: Dict[str, torch.Tensor]) -> None:
+    """A ``BasicEncoder``: instance norms have no parameters; a batch-norm
+    encoder (its ``norm1`` present) gets upstream's BatchNorm keys, the
+    downsample's norm at ``downsample.1``."""
+    batch = "norm1" in p
+    _conv(p["conv1"], f"{prefix}.conv1", out)
+    _conv(p["conv2"], f"{prefix}.conv2", out)
+    if batch:
+        _folded_batchnorm_from_jax(p["norm1"], f"{prefix}.norm1", out)
+    for li in (1, 2, 3):
+        for bi in (0, 1):
+            blk = p[f"layer{li}_{bi}"]
+            b = f"{prefix}.layer{li}.{bi}"
+            _conv(blk["conv1"], f"{b}.conv1", out)
+            _conv(blk["conv2"], f"{b}.conv2", out)
+            if batch:
+                _folded_batchnorm_from_jax(blk["norm1"], f"{b}.norm1", out)
+                _folded_batchnorm_from_jax(blk["norm2"], f"{b}.norm2", out)
+            if "downsample" in blk:
+                _conv(blk["downsample"], f"{b}.downsample.0", out)
+                if batch:
+                    _folded_batchnorm_from_jax(blk["norm3"], f"{b}.downsample.1", out)
+
+
+def _motion_encoder_from_jax(p: Mapping, prefix: str, out: Dict[str, torch.Tensor]) -> None:
+    for name in ("convc1", "convc2", "convf1", "convf2", "conv"):
+        _conv(p[name], f"{prefix}.{name}", out)
+
+
+def _raft_update_block_from_jax(p: Mapping, prefix: str, out: Dict[str, torch.Tensor]) -> None:
+    """RAFT's ``BasicUpdateBlock`` (also MeFlow's)."""
+    _motion_encoder_from_jax(p["encoder"], f"{prefix}.encoder", out)
+    _sep_gru_from_jax(p["gru"], f"{prefix}.gru", out)
+    _conv(p["flow_head_conv1"], f"{prefix}.flow_head.conv1", out)
+    _conv(p["flow_head_conv2"], f"{prefix}.flow_head.conv2", out)
+    _conv(p["mask_conv0"], f"{prefix}.mask.0", out)
+    _conv(p["mask_conv2"], f"{prefix}.mask.2", out)
+
+
+def _unwrap(params: Mapping[str, Any]) -> Mapping[str, Any]:
+    return params["params"] if "params" in params else params
+
+
+def raft_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``RAFT`` params -> the port's state dict in the layout of
+    ``weights/manifests/raft.json``. The inverse of ``convert_raft`` up to
+    the BatchNorm fold: the folded scale and bias come back as
+    ``weight``/``bias`` over unit statistics."""
+    params = _unwrap(params)
+    out: Dict[str, torch.Tensor] = {}
+    _raft_encoder_from_jax(params["fnet"], "fnet", out)
+    _raft_encoder_from_jax(params["cnet"], "cnet", out)
+    _raft_update_block_from_jax(params["update_block"]["block"], "update_block", out)
+    return out
+
+
+def neuflow_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``NeuFlow`` params -> the layout of ``weights/manifests/neuflow.json``
+    (the inverse of ``convert_neuflow``; GroupNorm scale -> weight)."""
+    params = _unwrap(params)
+    out: Dict[str, torch.Tensor] = {}
+    for name, blk in params["backbone"].items():
+        for conv in ("conv1", "conv2"):
+            _conv(blk[conv], f"backbone.{name}.{conv}", out)
+        for norm in ("norm1", "norm2"):
+            _layernorm(blk[norm], f"backbone.{name}.{norm}", out)
+    for name in ("q", "k", "v", "proj"):
+        _linear(params["cross_attn"][name], f"cross_attn.{name}", out)
+    _layernorm(params["cross_attn"]["norm"], "cross_attn.norm", out)
+    for stage in ("refine16", "refine8"):
+        p = params[stage]
+        for name in ("init", "enc", "head1", "head2"):
+            _conv(p[name], f"{stage}.{name}", out)
+        _sep_gru_from_jax(p["gru"], f"{stage}.gru", out)
+    _conv(params["merge8"], "merge8", out)
+    _conv(params["mask8"], "mask8", out)
+    return out
+
+
+def meflow_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``MeFlow`` params (either ``use_scan`` setting: the same tree) ->
+    the layout of ``weights/manifests/meflow.json`` (the inverse of
+    ``convert_meflow`` up to the BatchNorm fold)."""
+    params = _unwrap(params)
+    out: Dict[str, torch.Tensor] = {}
+    _raft_encoder_from_jax(params["fnet"], "fnet", out)
+    _raft_encoder_from_jax(params["cnet"], "cnet", out)
+    for attn in ("attn_h", "attn_v"):
+        _conv(params[attn]["query"], f"{attn}.query_conv", out)
+        _conv(params[attn]["key"], f"{attn}.key_conv", out)
+    _raft_update_block_from_jax(params["step"]["update_block"], "update_block", out)
+    return out
+
+
+def memfof_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``MEMFOF`` params -> the layout of ``weights/manifests/memfof.json``
+    (the inverse of ``convert_memfof``)."""
+    params = _unwrap(params)
+    out: Dict[str, torch.Tensor] = {}
+    for enc in ("cnet", "fnet"):
+        _raft_encoder_from_jax(params[enc]["enc8"], f"{enc}.enc8", out)
+        _conv(params[enc]["down"], f"{enc}.down", out)
+    _conv(params["init_conv"], "init_conv", out)
+    _linear(params["att"]["to_q"], "att.to_q", out)
+    _linear(params["att"]["to_k"], "att.to_k", out)
+    ub = params["update_block"]
+    _motion_encoder_from_jax(ub["encoder"], "update_block.encoder", out)
+    _linear(ub["aggregator_to_v"], "update_block.aggregator_to_v", out)
+    out["update_block.aggregator_gamma"] = _t(ub["aggregator_gamma"])
+    _sep_gru_from_jax(ub["gru"], "update_block.gru", out)
+    for jax_name, port in (("flow_head_conv1", "flow_head.0"), ("flow_head_conv2", "flow_head.2"),
+                           ("upsample_weight_conv1", "upsample_weight.0"),
+                           ("upsample_weight_conv2", "upsample_weight.2")):
+        _conv(params[jax_name], port, out)
+    return out
+
+
+def waft_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``WAFT`` params -> the layout of ``weights/manifests/waft_vits.json``
+    (the inverse of ``convert_waft``): the backbone through
+    :func:`dinovit_from_jax`, the hoisted mask head back into
+    ``update_block``."""
+    params = _unwrap(params)
+    out = dinovit_from_jax(params["pretrained"], "pretrained")
+    _conv(params["feat_proj"], "feat_proj", out)
+    _conv_transpose(params["feat_up"], "feat_up", out)
+    _conv(params["ctx_proj"], "ctx_proj", out)
+    _conv_transpose(params["ctx_up"], "ctx_up", out)
+    blk = params["step"]["block"]
+    for name in ("enc_conv1", "enc_conv2", "flow_head_conv1", "flow_head_conv2"):
+        _conv(blk[name], f"update_block.{name}", out)
+    _sep_gru_from_jax(blk["gru"], "update_block.gru", out)
+    _conv(params["mask_conv0"], "update_block.mask_conv0", out)
+    _conv(params["mask_conv2"], "update_block.mask_conv2", out)
+    return out
+
+
 # the submodules whose Dense layers each family's int8 serving quantizes
 Q8_ROOTS = {
     "depth_anything_v2": ("pretrained",),
@@ -575,9 +745,15 @@ def state_dict_from_jax(params: Mapping[str, Any]):
     ``prior_depth_anything`` and ``{"align3r", "prior"}`` of ``align3r``
     give those two keys, each a state dict. ``pretrained`` with temporal
     blocks in its ``depth_head`` is Video Depth Anything, with a Mamba block
-    FlashDepth."""
+    FlashDepth. The flow models: ``cross_attn`` (NeuFlow), ``attn_h``
+    (MeFlow), ``att`` (MEMFOF), ``feat_proj`` (WAFT), ``fnet`` (RAFT)."""
     if "params" in params:
         params = params["params"]
+    for key, flow_family in (("cross_attn", neuflow_from_jax), ("attn_h", meflow_from_jax),
+                             ("att", memfof_from_jax), ("feat_proj", waft_from_jax),
+                             ("fnet", raft_from_jax)):
+        if key in params:
+            return flow_family(params)
     if "refiner" in params and "vggt" in params:
         return prior_depth_anything_from_jax(params)
     if "align3r" in params and "prior" in params:

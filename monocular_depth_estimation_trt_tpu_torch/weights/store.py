@@ -84,10 +84,14 @@ def resolve_checkpoint(path_or_uri: str) -> str:
 
 def load_state_dict(model: nn.Module, state_dict: Mapping[str, torch.Tensor],
                     allowed_unconsumed: Optional[str] = None) -> None:
-    """Strict load of an upstream-named state dict. The keys of
-    :data:`DROPPED_KEYS` are dropped, and so are keys the model does not hold
-    that match the regex ``allowed_unconsumed`` (with a warning); any other
-    extra or missing key raises."""
+    """Strict load of an upstream-named state dict. A ``module.`` prefix on
+    every key (a checkpoint saved from ``nn.DataParallel``, as RAFT's
+    released ones are) is removed; the keys of :data:`DROPPED_KEYS` are
+    dropped, and so are keys the model does not hold that match the regex
+    ``allowed_unconsumed`` (with a warning); any other extra or missing key
+    raises."""
+    if state_dict and all(k.startswith("module.") for k in state_dict):
+        state_dict = {k[len("module."):]: v for k, v in state_dict.items()}
     sd = {k: v for k, v in state_dict.items() if k not in DROPPED_KEYS}
     if allowed_unconsumed:
         held = set(model.state_dict())
@@ -111,7 +115,8 @@ def load_checkpoint(model: nn.Module, path_or_uri: str,
 def init_random_(model: nn.Module, seed: int = 0) -> None:
     """Deterministic random init from a seeded ``torch.Generator``:
     lecun-normal weights and zero biases for Linear/Conv layers, identity
-    LayerNorms, normal(0.02) position table, zero class and register tokens,
+    LayerNorms, GroupNorms and BatchNorms (the flow models' folded identity:
+    unit scale, zero mean, ``var + eps`` = 1), normal(0.02) position table, zero class and register tokens,
     normal(0.02) for the parameters a module lists in its ``normal_init``
     (VGGT's camera and register tokens), and a module's own
     ``init_constants_()`` (the Mamba block's A_log and D): the JAX modules'
@@ -143,6 +148,14 @@ def init_random_(model: nn.Module, seed: int = 0) -> None:
         elif isinstance(mod, nn.LayerNorm) and mod.elementwise_affine:
             mod.weight.fill_(1.0)
             mod.bias.zero_()
+        elif isinstance(mod, nn.GroupNorm) and mod.affine:
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+        elif isinstance(mod, nn.BatchNorm2d):  # the folded identity: var + eps = 1
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+            mod.running_mean.zero_()
+            mod.running_var.fill_(1.0 - mod.eps)
     for pname, p in model.named_parameters():
         if pname.endswith(("ls1.gamma", "ls2.gamma")):
             p.fill_(RANDOM_LAYERSCALE)

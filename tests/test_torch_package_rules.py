@@ -27,7 +27,8 @@ PORTED = tuple(sorted(DA_FAMILY + ("depth_pro", "vggt", "depth_anything_v3", "me
                                     "sidepth", "geocalib", "prior_depth_anything",
                                     "streamvggt", "litevggt", "stream3r", "map_anything",
                                     "align3r", "dinov3", "video_depth_anything",
-                                    "flashdepth")))
+                                    "flashdepth", "raft", "neuflow", "meflow", "memfof",
+                                    "waft")))
 
 
 def _forbidden(module: str) -> bool:
@@ -112,7 +113,8 @@ def test_build_pipeline_defaults_to_the_card_and_raises_without_one():
             treg.build_pipeline("depth_pro")
         for name in ("depth_anything_v3", "metric3d_v2", "moge2", "metric_anything",
                      "unidepth_v2", "unik3d", "sidepth", "geocalib", "prior_depth_anything",
-                     "video_depth_anything", "flashdepth"):
+                     "video_depth_anything", "flashdepth", "raft", "neuflow", "meflow",
+                     "memfof", "waft"):
             with pytest.raises(RuntimeError, match="CUDA"):
                 treg.build_pipeline(name)
     assert treg.resolve_device("cpu") == torch.device("cpu")
@@ -124,7 +126,7 @@ def test_registry_lists_the_da_family_with_the_jax_fidelity():
         assert treg.get_fidelity(name) == jreg.get_fidelity(name)
     assert treg.get_fidelity("vggt") == treg.get_fidelity("depth_pro") == "converter-verified"
     with pytest.raises(KeyError):
-        treg.build_pipeline("raft")
+        treg.build_pipeline("cotracker3")
 
 
 @pytest.mark.parametrize("name", DA_FAMILY)
