@@ -125,7 +125,24 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    2 weight seeds; RAFT's correlation lookup alone at its shape in the
    separable and the gather form; then each model's speed in turns and its
    profile (graph, and eager with the device time of its lookup, warp or
-   plain attention), all released before the int8 phases;
+   plain attention), all released before the int8 phases; then
+   ``tracking``: CoTracker3 (``cotracker3`` defaults: window 16, grid 10,
+   384x512, bf16) over a first window and a continuation with its counts
+   set to 0 just before and read just after (no kernel on its path), both
+   engines against their eager forwards, the bf16 route against the fp32
+   route, fp32 card against CPU (the model on 8 frames), each window
+   engine's p50 with its H2D and D2H and the whole call's, ``track_video``
+   over an 80-frame 480x640 clip, the first window's profile; then
+   ``slam``: MegaSaM's bundle adjustment on the analytic world of
+   ``tests/test_slam_recipes.py`` (its flows injected) on the card against
+   that test's bars and against the CPU, the solve engine's and the mapping
+   step's engine's replays against eager bit for bit (the mapping step at
+   144x256 with 32,768 slots, card against CPU), then ``megasam``,
+   ``wildgs_slam`` and ``vipe`` on a 24-frame 480x640 seeded clip over the
+   flow phase's RAFT and the DA-V2 vits, UniDepth V2 and GeoCalib pipelines
+   of the earlier phases, each with its own counts (36 K1 a depth network's
+   new 480x640 engine), the solve's p50 on the served path at the clip's K
+   and a mapping step's p50, and their replays' profiles;
 8. int8 paths: ``build_pipeline(name, precision="int8", calib_images=...)``
    for DA-V2 vitl, depth_pro, vggt, metric3d_v2 and unidepth_v2 at full
    size, each with its own counts set to 0 just before and read just after
@@ -159,8 +176,10 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    ``data/example_video.mp4`` (the MP4s' frame count and size, each
    extracted frame's depth; without cv2, each exits non-zero naming the
    codec); ``flow raft`` on 3 seeded 288x512 PNGs (an MP4 of 2 frames at
-   512x288); meanwhile ``python -m monocular_depth_estimation_trt_tpu_torch
-   models`` lists the registry;
+   512x288); ``track cotracker3`` (an MP4 of the fixture's 16 frames at
+   512x288) and ``slam megasam --cvd`` (the JAX CLI's npz keys and 16 frames
+   of disparity) on the fixture; meanwhile ``python -m
+   monocular_depth_estimation_trt_tpu_torch models`` lists the registry;
 11. server: ``DepthServer`` over vits on port 0 with max_batch 4: 8
    concurrent PNG requests, 2 of another size, a bad body (400), an unknown
    model (404), ``format=jpg`` (501 without a JPEG codec); each npz answer
@@ -2754,11 +2773,12 @@ def cli_phase(pipe, vggt, depth_pro, moge, unidepth, geocalib, align3r, rng):
                     *family_argv.values()]
         videos = video_commands(tmp)
         flows = flow_commands(tmp)
+        track_slam = track_slam_commands(tmp)
         listing = subprocess.Popen([sys.executable, "-m", "monocular_depth_estimation_trt_tpu_torch",
                                     "models"], cwd=REPO, env=env, stdout=subprocess.PIPE,
                                    stderr=subprocess.PIPE, text=True)
         try:
-            outputs, rcs = cli_group(commands + videos + flows, env)
+            outputs, rcs = cli_group(commands + videos + flows + track_slam, env)
         finally:
             listed, listing_err = listing.communicate(timeout=120)
         names = [ln.split()[0] for ln in listed.splitlines() if ln.strip()]
@@ -2766,7 +2786,8 @@ def cli_phase(pipe, vggt, depth_pro, moge, unidepth, geocalib, align3r, rng):
                                          "models", "exit_code": listing.returncode,
               "models": len(names)})
         check(listing.returncode == 0
-              and {"video_depth_anything", "flashdepth", *FLOW_MODELS} <= set(names),
+              and {"video_depth_anything", "flashdepth", *FLOW_MODELS, "cotracker3", "megasam",
+                   "vipe", "wildgs_slam"} <= set(names),
               f"python -m ... models exited {listing.returncode}: {listed[-800:]}"
               f"{listing_err[-1500:]}")
         check(rcs[:len(commands)] == [0] * len(commands),
@@ -2893,7 +2914,9 @@ def cli_phase(pipe, vggt, depth_pro, moge, unidepth, geocalib, align3r, rng):
         check(any(f.endswith((".jpg", ".png")) for f in rec["files"]), "cli pair: no depth image")
         check_video_commands(tmp, [outputs[c] for c in videos],
                              rcs[len(commands):len(commands) + len(videos)])
-        check_flow_command(tmp, outputs[flows[0]], rcs[-1])
+        flow_at = len(commands) + len(videos)
+        check_flow_command(tmp, outputs[flows[0]], rcs[flow_at])
+        check_track_slam_commands(tmp, [outputs[c] for c in track_slam], rcs[flow_at + 1:])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3955,8 +3978,9 @@ def flow_serving(name, pipe, card, power_limit, dev, lookup=None):
 def flow_phase(build_pipeline, wrappers, card, power_limit, dev):
     """Every flow model's counted run and checks (MEMFOF's video session
     too), fp32 card against CPU, WAFT's routes, RAFT's lookup alone, then
-    each model's speed and profile; everything released at the end. Returns
-    the counts of each counted run."""
+    each model's speed and profile; every engine released at the end.
+    Returns the counts of each counted run and the RAFT pipeline (the SLAM
+    phase's flow network)."""
     import gc
 
     import numpy as np
@@ -3977,10 +4001,535 @@ def flow_phase(build_pipeline, wrappers, card, power_limit, dev):
     for name in FLOW_MODELS:
         flow_serving(name, pipes[name], card, power_limit, dev,
                      lookup if name == "raft" else None)
+    raft = pipes["raft"]  # the SLAM phase's flow network
     del pipes
     gc.collect()
     torch.cuda.empty_cache()
+    return launches, raft
+
+
+# ---------------------------------------------------------------------------
+# point tracking (CoTracker3) and the SLAM recipes
+# ---------------------------------------------------------------------------
+
+# CoTracker3's bf16 route against the card's fp32 route on the same weights
+# at PARITY_WEIGHT_SEEDS, a first window and a continuation each
+# (``tracking_routes``), about twice the larger of the readings (seed 0 /
+# seed 1, first and continuation windows; PERF.md): the tracks' max
+# |a - b| / max |b| (2.7e-3, 1.8e-2 / 3.6e-3, 9.7e-3) and the visibility's
+# mean |a - b| (3.7e-3, 8.1e-3 / 1.3e-2, 3.3e-3). The visibility's max
+# |a - b| (6.2e-2, 0.37 / 7.2e-2, 0.22) has its bar too, but it is the
+# mean that discriminates: a few of the 1,600 probabilities of a random
+# model sit on the sigmoid's steep part, where bf16 moves them by tenths
+TRACK_BF16_REL_TOL = 4e-2
+TRACK_BF16_VIS_MEAN_TOL = 2.5e-2
+TRACK_BF16_VIS_TOL = 7.5e-1
+TRACK_CLIP = (80, 480, 640)  # frames, height, width: track_video's clip
+TRACK_CPU_FRAMES = 8  # fp32 card vs CPU: the model on 8 of a window's frames
+TRACK_STEPS = 20  # timed window steps (each synchronised, host clock)
+SLAM_CLIP = (24, 480, 640)
+# the analytic world's frontend and solver (tests/test_slam_recipes.py)
+SLAM_WORLD_FRONTEND = dict(grid_stride=8, kf_min_flow=2.5, kf_max_interval=4, kf_stride=1,
+                           sigma_consistency=50.0)
+SLAM_BENCH = dict(warmup=2, iterations=10, latency_iterations=10)
+
+
+def timed_p50(step, n):
+    """p50 (ms) of ``n`` calls of ``step``, each synchronised, host clock."""
+    import numpy as np
+    import torch
+
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def tracking_routes(build_pipeline, frames, q):
+    """CoTracker3's bf16 route against its fp32 route on the same weights,
+    at PARITY_WEIGHT_SEEDS: a first window on ``frames[0]`` and a
+    continuation on ``frames[1]`` from the fp32 first window's seed (both
+    routes take the same seed). One reading per seed and window: the
+    tracks' max rel and the visibility's max abs difference."""
+    import torch
+
+    from monocular_depth_estimation_trt_tpu_torch.models.cotracker3 import CoTracker3
+
+    readings = []
+    for wseed in PARITY_WEIGHT_SEEDS:
+        params = seeded(CoTracker3, wseed).state_dict()
+        bf16 = build_pipeline("cotracker3", params=params)
+        fp32 = build_pipeline("cotracker3", precision="fp32", params=params)
+        with torch.inference_mode():
+            fp32._keep(fp32._forward(frames[0], q))
+            for key, fr, args in (("first", frames[0], ()), ("cont", frames[1], fp32._seed())):
+                a, b = bf16._forward(fr, q, *args), fp32._forward(fr, q, *args)
+                tr_a, tr_b = a["tracks"].cpu().numpy(), b["tracks"].cpu().numpy()
+                dv = (a["visibility"] - b["visibility"]).abs()
+                readings.append({
+                    "seed": wseed, "window": key, "tracks_rel": rel(tr_a, tr_b),
+                    "tracks_mean_rel": mean_rel(tr_a, tr_b),
+                    "visibility_abs": float(dv.max()), "visibility_mean_abs": float(dv.mean())})
+        del bf16, fp32
+    return readings
+
+
+def tracking_phase(build_pipeline, wrappers, card, power_limit, dev):
+    """CoTracker3 at full width (``cotracker3`` defaults: window 16, grid 10,
+    384x512, bf16) with its counts set to 0 just before and read just after
+    a first window and a continuation; both engines' replays against their
+    eager forwards; the bf16 route against the card's fp32 route at 2
+    weight seeds (``tracking_routes``); fp32 card against CPU; each window
+    engine's p50 with its H2D and D2H, and the whole ``pipe(chunk)`` call's;
+    ``track_video`` over an 80-frame 480x640 clip; the first window's
+    profile. Returns the counts."""
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(21)
+    pipe = build_pipeline("cotracker3")
+    check(pipe.device.type == "cuda", f"cotracker3: default device {pipe.device}")
+    win, hw, n = pipe.window, tuple(pipe.spec.input_hw), pipe.num_queries
+    chunks = [rng.integers(0, 256, (win, *hw, 3), dtype=np.uint8) for _ in range(3)]
+    torch.cuda.synchronize()
+    set_counts_to_zero(wrappers)
+    pipe(None, is_first_step=True, grid_size=pipe.grid_size)
+    first, cont = pipe(chunks[0]), pipe(chunks[1])
+    torch.cuda.synchronize()
+    launches = launch_record(wrappers)
+    outs_ok = all(tr.shape == (1, win, n, 2) and vi.shape == (1, win, n, 1)
+                  and bool(np.isfinite(tr).all()) and bool(((vi >= 0) & (vi <= 1)).all())
+                  for tr, vi in (first, cont))
+
+    # each engine's replay against its eager forward, on a third window
+    fr = torch.from_numpy(pipe._prep(chunks[2])[None])
+    q = pipe._queries
+    seed = pipe._seed()
+    replay = {}
+    for key, args in (("first", ()), ("cont", seed)):
+        out = pipe.engine(key == "first")(fr, q, *args)
+        with torch.inference_mode():
+            ref = pipe._forward(fr.to(dev), q.to(dev), *args)
+        replay[key] = {k: bool(torch.equal(out[k], ref[k])) for k in out}
+
+    # the bf16 route against the fp32 route, at 2 weight seeds
+    routes = tracking_routes(build_pipeline, [torch.from_numpy(pipe._prep(c)[None]).to(dev)
+                                              for c in chunks[:2]], q.to(dev))
+    # fp32 card against CPU: the model alone on TRACK_CPU_FRAMES frames
+    fp32 = build_pipeline("cotracker3", precision="fp32")
+    cpu = build_pipeline("cotracker3", precision="fp32", device="cpu")
+    small = fr[:, :TRACK_CPU_FRAMES]
+    with torch.inference_mode():
+        a = fp32.model(small.to(dev), q.to(dev))
+        b = cpu.model(small, q)
+    card_vs_cpu = {"tracks_rel": rel(a["tracks"].cpu().numpy(), b["tracks"].numpy()),
+                   "visibility_abs": float((a["visibility"].cpu() - b["visibility"]).abs().max())}
+    del cpu
+
+    # speed: each window engine with pinned fp32 frames in and its outputs
+    # fetched into pinned buffers; then the whole call (host prep included)
+    fr_pinned = fr.pin_memory()
+    host = {k: torch.empty((1, win, n, c), dtype=torch.float32).pin_memory()
+            for k, c in (("tracks", 2), ("visibility", 1))}
+    speed = {}
+    for key, args in (("first", ()), ("cont", seed)):
+        eng = pipe.engine(key == "first")
+
+        def step(eng=eng, args=args):
+            res = eng(fr_pinned, q, *args)
+            for k, buf in host.items():
+                buf.copy_(res[k], non_blocking=True)
+
+        step()
+        speed[f"{key}_window_p50_ms"] = timed_p50(step, TRACK_STEPS)
+    speed["frames_per_s"] = pipe.step / (speed["cont_window_p50_ms"] / 1e3)
+    speed["call_p50_ms"] = timed_p50(lambda: pipe(chunks[2]), 5)
+
+    # track_video over a clip of camera frames (resized on the host)
+    clip = rng.integers(0, 256, (TRACK_CLIP[0], *TRACK_CLIP[1:], 3), dtype=np.uint8)
+    t0 = time.perf_counter()
+    tracks, vis = pipe.track_video(clip)
+    torch.cuda.synchronize()
+    video_s = time.perf_counter() - t0
+    rec = {"phase": "tracking", "model": pipe.spec.artifact_name(), "launches": launches,
+           "windows": [list(first[0].shape), list(cont[0].shape)], "outputs_ok": outs_ok,
+           "replay_vs_eager": replay, "bf16_vs_fp32": routes,
+           "bf16_tolerance": {"tracks_rel": TRACK_BF16_REL_TOL,
+                              "visibility_mean_abs": TRACK_BF16_VIS_MEAN_TOL,
+                              "visibility_abs": TRACK_BF16_VIS_TOL},
+           "fp32_card_vs_cpu": card_vs_cpu, "cpu_cut": f"the model on {TRACK_CPU_FRAMES} frames",
+           **speed, "includes": "H2D fp32 16x384x512 + window + tracks/visibility D2H",
+           "track_video": {"frames": list(TRACK_CLIP), "tracks": list(tracks.shape),
+                           "visibility": list(vis.shape), "seconds": video_s,
+                           "finite": bool(np.isfinite(tracks).all())},
+           "card": card, "power_limit": power_limit}
+    emit(rec)
+    check(outs_ok, "cotracker3: window outputs' shapes or values")
+    check(launches == {k: 0 for k in KERNELS}, f"cotracker3 launches {launches}")
+    for key, r in replay.items():
+        check(all(r.values()), f"cotracker3 {key} engine: replay differs from eager {r}")
+    for r in routes:
+        check(r["tracks_rel"] < TRACK_BF16_REL_TOL
+              and r["visibility_mean_abs"] < TRACK_BF16_VIS_MEAN_TOL
+              and r["visibility_abs"] < TRACK_BF16_VIS_TOL, f"cotracker3 bf16 vs fp32 {r}")
+    check(card_vs_cpu["tracks_rel"] < PATH_FP32_REL_TOL
+          and card_vs_cpu["visibility_abs"] < PATH_FP32_REL_TOL,
+          f"cotracker3 fp32 card vs cpu {card_vs_cpu}")
+    check(tracks.shape == (1, TRACK_CLIP[0], n, 2) and vis.shape == (1, TRACK_CLIP[0], n, 1)
+          and rec["track_video"]["finite"], f"cotracker3 track_video {rec['track_video']}")
+    eng = pipe.engine(True)
+    fr_dev = fr.to(dev)
+    emit({**profile_breakdown(lambda: eng(fr_dev, q), pipe.spec.artifact_name() + "_first", 3),
+          "route": "graph"})
+    drop_engines(pipe, fp32)
+    emit({"phase": "tracking_summary", "seconds": time.perf_counter() - t_phase})
+    return {"cotracker3": launches}
+
+
+class SyntheticWorld:
+    """``tests/test_slam_recipes.py``'s analytic world (copied: the script
+    imports nothing of the JAX package): a smooth surface seen by a moving
+    camera; each frame carries its index in a 12x12 corner block, and the
+    injected flow is the solver's own projection model between two frames'
+    poses."""
+
+    def __init__(self, n_frames=10, flow_hw=(48, 64), depth_hw=(96, 128), focal=80.0, seed=0):
+        import numpy as np
+        import torch
+
+        from monocular_depth_estimation_trt_tpu_torch.slam.lie import se3_exp
+
+        self.n, self.flow_hw, self.depth_hw, self.focal = n_frames, flow_hw, depth_hw, focal
+        rng = np.random.default_rng(seed)
+        xis = np.zeros((n_frames, 6), np.float32)
+        for i in range(1, n_frames):
+            xis[i] = xis[i - 1] + np.concatenate([
+                [0.05, 0.015, 0.07] + rng.normal(0, 0.01, 3),
+                rng.normal(0, 0.008, 3)]).astype(np.float32)
+        self.poses = se3_exp(torch.from_numpy(xis)).numpy()  # (N, 4, 4) c2w
+
+    def z_of(self, un, vn, i):
+        import numpy as np
+
+        return 3.0 + 0.8 * np.sin(un * 3.1) * np.cos(vn * 2.3) + 0.1 * np.sin(i + un * 5.0)
+
+    def frame(self, i):
+        import numpy as np
+
+        img = np.full((*self.flow_hw, 3), 40 + 13 * i, np.uint8)
+        img[:12, :12] = i * 25
+        return img
+
+    def _ident(self, img):
+        import numpy as np
+
+        return int(round(float(np.median(np.asarray(img)[:12, :12, 0].astype(np.float32))) / 25.0))
+
+    def depth_grid(self, i, hw):
+        import numpy as np
+
+        uu, vv = np.meshgrid(np.arange(hw[1], dtype=np.float32), np.arange(hw[0], dtype=np.float32))
+        return self.z_of(uu / hw[1], vv / hw[0], i).astype(np.float32)
+
+    def flow_fn(self, f1, f2):
+        import numpy as np
+
+        i, j = self._ident(f1), self._ident(f2)
+        h, w = self.flow_hw
+        f, cx, cy = self.focal, w / 2.0, h / 2.0
+        uu, vv = np.meshgrid(np.arange(w, dtype=np.float32), np.arange(h, dtype=np.float32))
+        z = self.depth_grid(i, self.flow_hw)
+        pts = np.stack([(uu - cx) / f * z, (vv - cy) / f * z, z], -1)
+        T = np.linalg.inv(self.poses[j]) @ self.poses[i]
+        pj = pts @ T[:3, :3].T + T[:3, 3]
+        zj = np.maximum(pj[..., 2], 1e-3)
+        return np.stack([f * pj[..., 0] / zj + cx - uu, f * pj[..., 1] / zj + cy - vv],
+                        -1).astype(np.float32)
+
+    def depth_fn_factory(self, affine=None):
+        def fn(img):
+            i = self._ident(img)
+            disp = 1.0 / self.depth_grid(i, self.depth_hw)
+            if affine is not None:
+                disp = affine[i][0] * disp + affine[i][1]
+            return disp.astype("float32")
+
+        return fn
+
+
+def slam_world(dev):
+    """MegaSaM on the analytic world (``test_megasam_recovers_trajectory``:
+    per-frame affine-corrupted disparity, a 10 % wrong focal prior, 30 LM
+    iterations with focal refinement) on the card and on the CPU: the card's
+    solve recovers the trajectory to the JAX test's bars and its poses
+    match the CPU's (rel < PATH_FP32_REL_TOL); then the solve engine's
+    replay against the eager solve, bit for bit."""
+    import numpy as np
+    import torch
+
+    from monocular_depth_estimation_trt_tpu_torch.slam.ba import BAConfig, init_state
+    from monocular_depth_estimation_trt_tpu_torch.slam.frontend import FrontendConfig
+    from monocular_depth_estimation_trt_tpu_torch.slam.lie import rotation_geodesic_deg
+    from monocular_depth_estimation_trt_tpu_torch.slam.recipes import (
+        MegaSaMPipeline,
+        ba_solve_fn,
+    )
+
+    world = SyntheticWorld()
+    affine = [(1.0 + 0.2 * np.sin(i), 0.01 * i) for i in range(world.n)]
+    frames = [world.frame(i) for i in range(world.n)]
+    results = {}
+    for device in ("cuda", "cpu"):
+        pipe = MegaSaMPipeline(flow_fn=world.flow_fn, depth_fn=world.depth_fn_factory(affine),
+                               frontend_cfg=FrontendConfig(**SLAM_WORLD_FRONTEND),
+                               ba_cfg=BAConfig(iters=30, optimize_focal=True, focal_prior=1e-4),
+                               device=device)
+        results[device] = (pipe, pipe.run(frames, focal=world.focal * 1.1))
+    card_pipe, res = results["cuda"]
+    gt = world.poses[res.keyframe_indices]
+    rot_err = float(rotation_geodesic_deg(torch.from_numpy(res.poses[:, :3, :3]),
+                                          torch.from_numpy(gt[:, :3, :3])).max())
+    t, t_gt = res.poses[:, :3, 3], gt[:, :3, 3]
+    s = float(np.sum(t * t_gt) / max(np.sum(t * t), 1e-12))
+    t_err = float(np.linalg.norm(s * t - t_gt) / np.linalg.norm(t_gt))
+    cpu_res = results["cpu"][1]
+    # the solve engine against the eager solve on the world's problem
+    fe = card_pipe._frontend()
+    prob, aux = fe.build_problem(frames, res.keyframe_indices)
+    k, (e, p) = len(res.keyframe_indices), prob.weight.shape
+    args = [*prob, *init_state(k), torch.tensor(world.focal * 1.1)]
+    eng = card_pipe.solve_engine(aux["flow_hw"], k, e, p)
+    out = eng(*args)
+    with torch.no_grad():
+        ref = ba_solve_fn(aux["flow_hw"], card_pipe.ba_cfg)(*(a.to(dev) for a in args))
+    replay = {n: bool(torch.equal(out[n], ref[n])) for n in out}
+    rec = {"phase": "slam", "path": "analytic_world", "keyframes": res.keyframe_indices,
+           "K_E_P": [k, e, p], "rms_px": res.rms_px,
+           "focal_rel_err": abs(res.focal - world.focal) / world.focal,
+           "rotation_err_deg": rot_err, "translation_rel_err_to_scale": t_err,
+           "card_vs_cpu_poses_rel": rel(res.poses, cpu_res.poses),
+           "same_keyframes_as_cpu": res.keyframe_indices == cpu_res.keyframe_indices,
+           "solve_replay_vs_eager": replay, "solve_engine_build_s": eng.build_seconds,
+           "bars": "rms < 0.3 px, focal 5 %, rotation 0.5 deg, translation 5 % "
+                   "(tests/test_slam_recipes.py)"}
+    emit(rec)
+    check(res.rms_px < 0.3 and rec["focal_rel_err"] < 0.05 and rot_err < 0.5 and t_err < 0.05,
+          f"slam analytic world: {rec}")
+    check(rec["same_keyframes_as_cpu"] and rec["card_vs_cpu_poses_rel"] < PATH_FP32_REL_TOL,
+          f"slam analytic world card vs cpu {rec['card_vs_cpu_poses_rel']}")
+    check(all(replay.values()), f"slam solve engine: replay differs from eager {replay}")
+    card_pipe.release_engines()
+
+
+def slam_mapping_engine(dev):
+    """WildGS-SLAM's mapping step at its full size (144x256, 32,768 slots
+    from a stride-2 seeding): the engine's replay against the eager step
+    bit for bit, and one step on the card against the CPU (loss and map,
+    rel < PATH_FP32_REL_TOL)."""
+    import torch
+
+    from monocular_depth_estimation_trt_tpu_torch.slam.gaussians import init_from_depth
+    from monocular_depth_estimation_trt_tpu_torch.slam.recipes import (
+        WildGSSLAMPipeline,
+        flatten_mapping_state,
+        unflatten_mapping_state,
+    )
+
+    outs = {}
+    for device in ("cuda", "cpu"):
+        pipe = WildGSSLAMPipeline(device=device)
+        gen = torch.Generator().manual_seed(0)
+        depth = (2.0 + torch.rand((144, 256), generator=gen)).to(device)
+        rgb = torch.rand((144, 256, 3), generator=gen).to(device)
+        pose = torch.eye(4, device=device)
+        focal = torch.tensor(230.4).to(device)
+        with torch.no_grad():
+            gmap = init_from_depth(rgb, depth, pose, focal, stride=2,
+                                   max_gaussians=pipe.max_gaussians)
+        net, (init_opt, step) = pipe._mapper()
+        unc = {n: v.detach().clone() for n, v in net.named_parameters()}
+        state = flatten_mapping_state(gmap, unc, init_opt(gmap, unc))
+        names = list(unc)
+        with torch.no_grad():
+            g2, u2, o2, loss, _ = step(*unflatten_mapping_state(state, names), rgb, depth, pose,
+                                       focal)
+        outs[device] = [t.cpu() for t in (*flatten_mapping_state(g2, u2, o2), loss)]
+        if device == "cuda":
+            eng = pipe.mapping_engine(step, state, names, pipe.map_hw)
+            replay = [t.cpu() for t in eng(*state, rgb, depth, pose, focal)]
+            equal = all(torch.equal(a, b) for a, b in zip(replay, outs["cuda"]))
+            build_s = eng.build_seconds
+            pipe.release_engines()
+    card, cpu = outs["cuda"], outs["cpu"]
+    rec = {"phase": "slam", "path": "mapping_step_engine", "map_hw": [144, 256],
+           "slots": card[0].shape[0], "replay_equals_eager": equal, "engine_build_s": build_s,
+           "card_vs_cpu_loss_rel": rel(card[-1].numpy(), cpu[-1].numpy()),
+           "card_vs_cpu_means_rel": rel(card[0].numpy(), cpu[0].numpy()),
+           "loss": float(card[-1])}
+    emit(rec)
+    check(equal, "slam mapping step engine: replay differs from eager")
+    check(rec["card_vs_cpu_loss_rel"] < PATH_FP32_REL_TOL
+          and rec["card_vs_cpu_means_rel"] < PATH_FP32_REL_TOL,
+          f"slam mapping step card vs cpu {rec}")
+
+
+def slam_phase(build_pipeline, wrappers, card, power_limit, dev, raft, vits, unidepth, geocalib):
+    """The SLAM recipes on the card: the analytic world (``slam_world``), the
+    mapping step's engine (``slam_mapping_engine``), then ``megasam`` and
+    ``wildgs_slam`` on a 24-frame 480x640 seeded clip with the default
+    networks (the RAFT and DA-V2 vits pipelines built by earlier phases,
+    through the recipes' injectable callables) and ``vipe`` (also UniDepth
+    V2 vitb and GeoCalib), each with its counts set to 0 just before and
+    read just after (each depth network's engines released before, so that
+    its new 480x640 engine is counted); the solve's p50 on the served path
+    at the clip's K and E, a mapping step's p50, and their replays'
+    profiles. Returns the counts."""
+    import numpy as np
+    import torch
+
+    from monocular_depth_estimation_trt_tpu_torch.config import BenchmarkConfig
+    from monocular_depth_estimation_trt_tpu_torch.slam.ba import init_state
+    from monocular_depth_estimation_trt_tpu_torch.slam.frontend import (
+        make_pipeline_depth_fn,
+        make_pipeline_flow_fn,
+    )
+
+    t_phase = time.perf_counter()
+    slam_world(dev)
+    slam_mapping_engine(dev)
+    rng = np.random.default_rng(23)
+    clip = [rng.integers(0, 256, SLAM_CLIP[1:] + (3,), dtype=np.uint8)
+            for _ in range(SLAM_CLIP[0])]
+    flow_fn, depth_fn = make_pipeline_flow_fn(raft), make_pipeline_depth_fn(vits)
+    bench = BenchmarkConfig(**SLAM_BENCH)
+    launches = {}
+    for name, kw in (("megasam", {}), ("wildgs_slam", {}),
+                     ("vipe", {"metric_depth_fn": make_pipeline_depth_fn(unidepth),
+                               "calib_fn": lambda f: float(geocalib(f)["focal"])})):
+        drop_engines(raft, vits, unidepth, geocalib)
+        recipe = build_pipeline(name, flow_fn=flow_fn, depth_fn=depth_fn, **kw)
+        torch.cuda.synchronize()
+        set_counts_to_zero(wrappers)
+        t0 = time.perf_counter()
+        res = recipe.run(clip)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches[name] = launch_record(wrappers)
+        k = len(res.keyframe_indices)
+        disp = np.stack(res.keyframe_disparity)
+        rec = {"phase": "slam", "path": name, "frames": list(SLAM_CLIP), "seconds": run_s,
+               "keyframes": res.keyframe_indices, "rms_px": res.rms_px, "focal_px": res.focal,
+               "poses_shape": list(res.poses.shape), "disparity_shape": list(disp.shape),
+               "finite": bool(np.isfinite(res.poses).all() and np.isfinite(disp).all()),
+               "launches": launches[name],
+               "engines": sorted(e.name for e in recipe._engines.values())}
+        if "metric_scale" in res.extras:
+            rec["metric_scale"] = res.extras["metric_scale"]
+        if "rendered_depth" in res.extras:
+            rd = np.stack(res.extras["rendered_depth"])
+            rec.update(rendered_depth_shape=list(rd.shape),
+                       rendered_finite=bool(np.isfinite(rd).all()),
+                       gaussians=int(res.extras["gaussians"].valid.sum()))
+        if name != "vipe":
+            # the served solve at the clip's K (E and P follow from K and the
+            # flow size), then its replay's profile
+            rep = recipe.benchmark_solve((288, 512), bench, k=k)
+            rec["solve_p50_ms"] = rep.percentile_ms(50)
+            rec["solve_mean_ms"] = rep.avg_ms
+            prob = recipe._synthetic_problem((288, 512), k)
+            e, p = prob.weight.shape
+            rec["solve_K_E_P_D_M"] = [k, e, p, 8 * k + 1, e * p * 2]
+            eng = recipe.solve_engine((288, 512), k, e, p)
+            args = [t.to(dev) for t in (*prob, *init_state(k), torch.tensor(460.8))]
+            emit({**profile_breakdown(lambda: eng(*args), f"{name}_solve_k{k}", 3),
+                  "route": "graph"})
+        if name == "wildgs_slam":
+            rep = recipe.benchmark((144, 256), bench)
+            rec["mapping_step_p50_ms"] = rep.percentile_ms(50)
+            rec["mapping_step_mean_ms"] = rep.avg_ms
+            rec["mapping_steps"] = recipe.mapping_iters * k
+            map_eng = next(e for key, e in recipe._engines.items() if key[0] == "map"
+                           and key[1] == (144, 256) and key[2] == recipe.max_gaussians)
+            emit({**profile_breakdown(lambda: map_eng(*map_eng._static_in), "wildgs_mapping_step",
+                                      3), "route": "graph"})
+        rec.update(card=card, power_limit=power_limit)
+        emit(rec)
+        check(rec["finite"] and res.poses.shape == (k, 4, 4) and disp.shape == (k, 480, 640),
+              f"slam {name}: {rec}")
+        want_k1 = 36 * (3 if name == "vipe" else 1)
+        check(launches[name] == {**{kk: 0 for kk in KERNELS},
+                                 "flash_attention_packed": want_k1},
+              f"slam {name}: launches {launches[name]}, want {want_k1} K1")
+        if name == "wildgs_slam":
+            check(rec["rendered_finite"] and rec["rendered_depth_shape"] == [k, 144, 256],
+                  f"slam wildgs_slam rendered depth {rec}")
+        recipe.release_engines()
+    drop_engines(raft, vits, unidepth, geocalib)
+    emit({"phase": "slam_summary", "seconds": time.perf_counter() - t_phase,
+          "launches": launches})
     return launches
+
+
+TRACK_SLAM_CLI = ("data/example_video.mp4", 16, 288, 512)  # the fixture: frames, height, width
+
+
+def track_slam_commands(tmp):
+    """``track cotracker3`` and ``slam megasam --cvd`` on the repository's
+    16-frame 512x288 MP4, on seeded random weights: their argvs, for
+    ``cli_group``."""
+    fixture = os.path.join(REPO, TRACK_SLAM_CLI[0])
+    return [("track", "cotracker3", "--video", fixture, "--out", os.path.join(tmp, "track"),
+             "--allow-random-weights"),
+            ("slam", "megasam", "--video", fixture, "--out", os.path.join(tmp, "slam"), "--cvd",
+             "--allow-random-weights")]
+
+
+def check_track_slam_commands(tmp, outputs, rcs):
+    """``track``: an MP4 of the source's frames and size; ``slam --cvd``: the
+    JAX CLI's npz keys and the per-frame disparity. Without cv2 each exits 1
+    naming the codec."""
+    import numpy as np
+
+    from monocular_depth_estimation_trt_tpu_torch.utils import imageio
+
+    _, n, h, w = TRACK_SLAM_CLI
+    rec = {"phase": "cli", "command": "track cotracker3, slam megasam --cvd (the video fixture)",
+           "seconds": [sec for _, sec in outputs], "exit_codes": rcs,
+           "cv2_importable": imageio.jpeg_available()}
+    if not imageio.jpeg_available():
+        named = "".join(out for out, _ in outputs).count("needs the cv2 (OpenCV) codec")
+        emit({**rec, "codec_named": named})
+        check(rcs == [1, 1] and named == 2, f"cli track/slam without cv2: {rcs}, named {named}")
+        return
+    cv2 = imageio.video_cv2("the tracks MP4")
+    (mp4,) = os.listdir(os.path.join(tmp, "track"))
+    cap = cv2.VideoCapture(os.path.join(tmp, "track", mp4))
+    frames = 0
+    while cap.read()[0]:
+        frames += 1
+    size = (int(cap.get(cv2.CAP_PROP_FRAME_WIDTH)), int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT)))
+    cap.release()
+    slam_dir = os.path.join(tmp, "slam")
+    npzs = sorted(os.listdir(slam_dir))
+    main_npz = np.load(os.path.join(slam_dir, npzs[0]))
+    cvd = np.load(os.path.join(slam_dir, npzs[1]))["disparity"]
+    rec.update(track_mp4=mp4, track_frames=frames, track_size=list(size), slam_files=npzs,
+               slam_keys=sorted(main_npz.files), keyframes=main_npz["keyframes"].tolist(),
+               cvd_shape=list(cvd.shape), cvd_finite=bool(np.isfinite(cvd).all()))
+    emit(rec)
+    check(rcs == [0, 0], f"cli track/slam: exit codes {rcs}")
+    check(mp4 == "example_video_cotracker3_384x512_win16_grid10_bf16.mp4" and frames == n
+          and size == (w, h), f"cli track: {rec}")
+    check(npzs == ["example_video_megasam_288x512_fp32.npz",
+                   "example_video_megasam_288x512_fp32_cvd.npz"]
+          and rec["slam_keys"] == sorted(["poses", "keyframes", "focal_px", "rms_px",
+                                          "keyframe_disparity"])
+          and cvd.shape == (n, h, w) and rec["cvd_finite"], f"cli slam: {rec}")
 
 
 def parse_smi(line: str):
@@ -4192,7 +4741,14 @@ def main() -> None:
     extra_launches.update(video_phase(build_pipeline, wrappers, calib, card, power_limit, dev))
     # the optical-flow paths (each its own counted run), their comparisons,
     # speed and profile; released before the int8 phases
-    extra_launches.update(flow_phase(build_pipeline, wrappers, card, power_limit, dev))
+    flow_launches, raft = flow_phase(build_pipeline, wrappers, card, power_limit, dev)
+    extra_launches.update(flow_launches)
+    # point tracking, then the SLAM recipes on the RAFT, DA-V2 vits, UniDepth V2
+    # and GeoCalib pipelines built above (each its own counted run)
+    extra_launches.update(tracking_phase(build_pipeline, wrappers, card, power_limit, dev))
+    extra_launches.update(slam_phase(build_pipeline, wrappers, card, power_limit, dev, raft, pipe,
+                                     families["unidepth_v2"], families["geocalib"]))
+    del raft
 
     # 8. the int8 paths (each its own counted run), then int8 against the bf16
     # and fp32 routes; calibration on three seeded frames (noise and a

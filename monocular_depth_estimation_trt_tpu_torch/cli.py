@@ -17,6 +17,8 @@ Replaces the reference's "edit constants at the top of the script" workflow
     python -m monocular_depth_estimation_trt_tpu_torch webcam depth_anything_v2 --camera 0
     python -m monocular_depth_estimation_trt_tpu_torch flow raft --frames frames/ --out results/
     python -m monocular_depth_estimation_trt_tpu_torch flow memfof --video in.mp4
+    python -m monocular_depth_estimation_trt_tpu_torch track cotracker3 --video in.mp4 --grid 10
+    python -m monocular_depth_estimation_trt_tpu_torch slam megasam --video in.mp4 --cvd
 
     python -m monocular_depth_estimation_trt_tpu_torch serve depth_anything_v2 --max-batch 4
     python -m monocular_depth_estimation_trt_tpu_torch bench depth_anything_v2 --encoder vits
@@ -43,12 +45,19 @@ these commands exit non-zero naming the missing codec
 (``utils/imageio.py``). ``flow`` writes the color-wheel MP4 of an optical-flow
 model over a directory of frames or a video's frames (``raft``, ``neuflow``,
 ``meflow``, ``waft`` on consecutive pairs, ``memfof`` on triplets).
+``track`` writes CoTracker3's grid tracks drawn on the video
+(``<stem>_<artifact>.mp4``, tracks rescaled to the source size); ``slam``
+runs a SLAM recipe (``megasam``, ``vipe``, ``wildgs_slam``) over a video or
+a directory of frames and writes the poses, keyframes, refined focal, BA
+residual and aligned keyframe disparity (and the recipe's metric scale or
+rendered depth) as ``<stem>_<artifact>.npz``, with ``--cvd`` also each
+frame's consistent disparity (``_cvd.npz``).
 
 Not ported yet, so argparse rejects them: ``--engine`` (serialized
 artifacts), ``--device-mesh`` (multi-device sharding), ``--trace`` (the
 profiler), ``--colorbar`` (a matplotlib figure) and the
-``track``/``export``/``slam``/``convert``/``distill``/``eval``/
-``quantcheck``/``doctor`` commands.
+``export``/``convert``/``distill``/``eval``/``quantcheck``/``doctor``
+commands.
 """
 
 from __future__ import annotations
@@ -420,6 +429,96 @@ def cmd_flow(args) -> int:
     return 0
 
 
+def cmd_track(args) -> int:
+    """Online point tracking over a video -> tracked-points MP4 (reference
+    ``later/CoTracker3/infer.py``)."""
+    from monocular_depth_estimation_trt_tpu_torch import registry
+    from monocular_depth_estimation_trt_tpu_torch.apps.tracking import visualize_tracks
+    from monocular_depth_estimation_trt_tpu_torch.utils.imageio import read_video
+
+    video, _ = read_video(args.video, max_frames=args.max_frames or None)
+    pipe = registry.build_pipeline(args.model, grid_size=args.grid, device=args.device)
+    tracks, vis = pipe.track_video(video)
+    # tracks are at the model's input size; rescale to the source video
+    ih, iw = pipe.spec.input_hw
+    tracks = tracks * np.asarray([video.shape[2] / iw, video.shape[1] / ih], np.float32)
+    os.makedirs(args.out, exist_ok=True)
+    stem = os.path.splitext(os.path.basename(args.video))[0]
+    visualize_tracks(video, tracks, vis,
+                     os.path.join(args.out, f"{stem}_{pipe.spec.artifact_name()}.mp4"))
+    return 0
+
+
+def _load_clip(args) -> list:
+    """Frames for the SLAM recipes: ``--video`` (with ``--stride`` /
+    ``--max-frames``) or a ``--frames`` directory of images."""
+    from monocular_depth_estimation_trt_tpu_torch.utils.imageio import (
+        iter_video,
+        open_video,
+        read_image,
+    )
+
+    stride = max(args.stride, 1)
+    frames = []
+    if args.video:
+        for n, rgb in enumerate(iter_video(open_video(args.video))):
+            if n % stride == 0:
+                frames.append(rgb)
+                if args.max_frames and len(frames) >= args.max_frames:
+                    break
+    else:
+        for nm in sorted(os.listdir(args.frames))[::stride]:
+            if os.path.splitext(nm)[1].lower() in (".jpg", ".jpeg", ".png"):
+                frames.append(read_image(os.path.join(args.frames, nm)))
+                if args.max_frames and len(frames) >= args.max_frames:
+                    break
+    if len(frames) < 2:
+        raise ValueError(f"[MDET] need >=2 frames, got {len(frames)}")
+    return frames
+
+
+def cmd_slam(args) -> int:
+    """Video SLAM recipes: the reference's three README-only staging dirs
+    (``later/MegaSaM/README.md``, ``later/VIPE/README.md``,
+    ``later/WildGS-SLAM/README.md``) as compositions of the port's own
+    engines. Writes poses + refined focal + aligned keyframe disparity (and,
+    with ``--cvd``, per-frame consistent video depth)."""
+    from monocular_depth_estimation_trt_tpu_torch import registry
+
+    frames = _load_clip(args)
+    pipe = registry.build_pipeline(args.model, device=args.device)
+    if not hasattr(pipe, "run"):
+        log(f"{args.model} is not a SLAM recipe", tag="ERROR")
+        return 2
+    res = pipe.run(frames, focal=args.focal or None)
+
+    os.makedirs(args.out, exist_ok=True)
+    src = args.video or args.frames
+    stem = os.path.splitext(os.path.basename(os.path.normpath(src)))[0]
+    name = pipe.spec.artifact_name()
+    payload = {
+        "poses": res.poses,
+        "keyframes": np.asarray(res.keyframe_indices, np.int32),
+        "focal_px": np.float32(res.focal),
+        "rms_px": np.float32(res.rms_px),
+        "keyframe_disparity": np.stack(res.keyframe_disparity),
+    }
+    if "metric_scale" in res.extras:
+        payload["metric_scale"] = np.float32(res.extras["metric_scale"])
+    if "rendered_depth" in res.extras:
+        payload["rendered_depth"] = np.stack(res.extras["rendered_depth"])
+    npz = os.path.join(args.out, f"{stem}_{name}.npz")
+    np.savez_compressed(npz, **payload)
+    log(f"wrote {npz} (K={len(res.keyframe_indices)}, rms {res.rms_px:.2f} px, "
+        f"focal {res.focal:.1f} px)")
+    if args.cvd:
+        cvd = pipe.consistent_video_depth(frames, res)
+        cvd_npz = os.path.join(args.out, f"{stem}_{name}_cvd.npz")
+        np.savez_compressed(cvd_npz, disparity=np.stack(cvd))
+        log(f"wrote {cvd_npz} ({len(cvd)} frames)")
+    return 0
+
+
 def cmd_bench(args) -> int:
     from monocular_depth_estimation_trt_tpu_torch.config import BenchmarkConfig
 
@@ -635,6 +734,29 @@ def build_parser() -> argparse.ArgumentParser:
                       help="at most this many pairs (triplets), and video frames")
     flow.set_defaults(fn=cmd_flow)
 
+    track = sub.add_parser("track", help="online point tracking over a video")
+    track.add_argument("model", nargs="?", default="cotracker3")
+    track.add_argument("--video", required=True)
+    track.add_argument("--grid", type=int, default=10,
+                       help="grid_size (reference later/CoTracker3/infer.py:23)")
+    track.add_argument("--out", default="results")
+    track.add_argument("--max-frames", type=int, default=0)
+    track.set_defaults(fn=cmd_track)
+
+    slam = sub.add_parser("slam", help="video SLAM recipes (megasam / vipe / wildgs_slam)")
+    slam.add_argument("model", nargs="?", default="megasam")
+    slam.add_argument("--video", default="")
+    slam.add_argument("--frames", default="", help="directory of frames (alternative to --video)")
+    slam.add_argument("--out", default="results")
+    slam.add_argument("--focal", type=float, default=0.0,
+                      help="known focal in flow-resolution px (default: recipe-specific prior / "
+                      "GeoCalib)")
+    slam.add_argument("--stride", type=int, default=1)
+    slam.add_argument("--max-frames", type=int, default=0)
+    slam.add_argument("--cvd", action="store_true",
+                      help="also write per-frame consistent video depth")
+    slam.set_defaults(fn=cmd_slam)
+
     webcam = sub.add_parser("webcam", help="live depth viewer (webcam or IP camera)")
     webcam.add_argument("model", nargs="?", default="")
     webcam.add_argument("--encoder", default="")
@@ -672,7 +794,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     sub.add_parser("models", help="list registered models").set_defaults(fn=cmd_models)
     sub.add_parser("engines", help="list built engines").set_defaults(fn=cmd_engines)
-    for sp in (run, batch, views, pair, serve, video, webcam, flow):
+    for sp in (run, batch, views, pair, serve, video, webcam, flow, track, slam):
         # SUPPRESS: the subparser's default must not clobber the main
         # parser's flag when it is given before the subcommand
         sp.add_argument("--allow-random-weights", action="store_true",

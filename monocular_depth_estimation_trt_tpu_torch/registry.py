@@ -4,9 +4,9 @@
     pipe = build_pipeline("depth_anything_v2", encoder="vits")
     out = pipe(image_rgb_u8)
 
-Ported so far: the Depth Anything family (``depth_anything_v2``,
-``distill_any_depth``, ``depth_anything_ac``, ``dkt``, ``bridge``), which
-shares one serving graph, ``vggt``, ``depth_pro``, the single-image
+The registry holds every name of the JAX package's: the Depth Anything
+family (``depth_anything_v2``, ``distill_any_depth``, ``depth_anything_ac``,
+``dkt``, ``bridge``), which shares one serving graph, ``vggt``, ``depth_pro``, the single-image
 metric and point-map families ``depth_anything_v3``, ``metric3d_v2``,
 ``moge2`` and ``metric_anything``, the camera-aware ``unidepth_v2`` and
 ``unik3d``, ``sidepth``, ``geocalib`` and ``prior_depth_anything``, and the
@@ -14,9 +14,11 @@ multi-view and rope families ``streamvggt`` (with its KV-cache stream),
 ``stream3r``, ``litevggt``, ``map_anything``, ``align3r`` (two frames) and
 ``dinov3``, the video families ``video_depth_anything`` (windows of
 frames, ``video_depth``) and ``flashdepth`` (a Mamba state, ``stream()``),
-and the optical-flow models ``raft``, ``neuflow``, ``meflow``, ``waft`` (a
+the optical-flow models ``raft``, ``neuflow``, ``meflow``, ``waft`` (a
 frame pair, :class:`FlowPipeline`) and ``memfof`` (a triplet, with its
-cached video step, ``stream()``).
+cached video step, ``stream()``), the point tracker ``cotracker3`` (the
+upstream online API, :class:`CoTrackerPipeline`), and the SLAM recipes
+``megasam``, ``vipe`` and ``wildgs_slam`` (``slam/recipes.py``).
 Every factory takes ``device``;
 ``None`` means ``"cuda"``, and a missing card is an error, never a quiet
 move to the CPU. ``precision="int8"`` serves the bf16 graph with the
@@ -1694,3 +1696,242 @@ def memfof(iters: int = 8, input_hw: tuple = (288, 512), precision: str = "bf16"
         return {"flow": out["flow"][0], "fmap_cache": out["fmap_cache"]}
 
     return TripletFlowPipeline(spec, forward, cached_forward, device=device, model=model)
+
+
+# ---------------------------------------------------------------------------
+# Point tracking (reference later/CoTracker3/)
+# ---------------------------------------------------------------------------
+
+
+def grid_queries(grid_size: int, h: int, w: int) -> np.ndarray:
+    """(1, grid_size^2, 2) pixel (x, y) queries on an interior grid, as
+    upstream ``get_points_on_a_grid``: margins of one cell on each side."""
+    ys = np.linspace(h / (grid_size + 1), h * grid_size / (grid_size + 1), grid_size,
+                     dtype=np.float32)
+    xs = np.linspace(w / (grid_size + 1), w * grid_size / (grid_size + 1), grid_size,
+                     dtype=np.float32)
+    gy, gx = np.meshgrid(ys, xs, indexing="ij")
+    return np.stack([gx.reshape(-1), gy.reshape(-1)], axis=-1)[None]
+
+
+class CoTrackerPipeline:
+    """CoTracker3's online session (the JAX package's ``CoTrackerPipeline``,
+    reference ``later/CoTracker3/infer.py:19-28``): the pipeline object IS
+    the online model. ``pipe(None, is_first_step=True, grid_size=...)``
+    starts a video; each later call takes a chunk of up to ``window`` frames
+    and returns the chunk's (tracks (1, T, N, 2), visibility (1, T, N, 1))
+    as host numpy. ``step = window // 2``: consecutive chunks overlap by
+    ``window - step`` frames.
+
+    Two engines: ``_first`` (frames, queries) and ``_cont`` (frames,
+    queries, and the window seed: the previous window's tracks shifted by
+    ``step`` and padded with its last estimate, the visibility as log-odds,
+    the track features). The seed is computed and kept on the device
+    between the engines. Frames are resized on the host to the model's
+    input size (``utils/imageio.resize_float``, cv2's INTER_LINEAR as in the
+    JAX package)."""
+
+    def __init__(self, spec: ModelSpec, model: torch.nn.Module, *, window: int, grid_size: int,
+                 device: torch.device):
+        self.spec = spec
+        self.model = model
+        self.device = torch.device(device)
+        self.window = window
+        self.step = window // 2
+        self.grid_size = grid_size
+        self._engines: Dict[str, Engine] = {}
+        self._queries: Optional[torch.Tensor] = None
+        self._state = None  # (tracks (1, W, N, 2), visibility log-odds (1, W, N), feat (1, N, C))
+
+    @property
+    def num_queries(self) -> int:
+        return self.grid_size * self.grid_size
+
+    def _prep(self, chunk) -> np.ndarray:
+        """(T, H, W, 3) frames -> float32 in [0, 1] at the model's input size."""
+        from monocular_depth_estimation_trt_tpu_torch.utils.imageio import resize_float
+
+        frames = np.asarray(chunk, dtype=np.float32)
+        if frames.max() > 1.5:
+            frames = frames / 255.0
+        if frames.shape[1:3] != tuple(self.spec.input_hw):
+            frames = np.stack([resize_float(f, self.spec.input_hw) for f in frames])
+        return frames
+
+    def _forward(self, frames, queries, coords=None, vis=None, feat=None) -> Dict[str, torch.Tensor]:
+        out = self.model(frames, queries, init_coords=coords, init_vis=vis, track_feat=feat)
+        return {**out, "track_feat": out["track_feat"].float()}
+
+    def engine(self, first: bool) -> Engine:
+        """The first window's engine, or the continuation's."""
+        key = "first" if first else "cont"
+        if key not in self._engines:
+            n, w = self.num_queries, self.window
+            meta = dict(dtype=torch.float32, device="meta")
+            example = [torch.empty((1, w, *self.spec.input_hw, 3), **meta),
+                       torch.empty((1, n, 2), **meta)]
+            if not first:
+                example += [torch.empty((1, w, n, 2), **meta), torch.empty((1, w, n), **meta),
+                            torch.empty((1, n, self.model.dim), **meta)]
+            self._engines[key] = Engine(self._forward, example,
+                                        name=f"{self.spec.artifact_name()}_{key}",
+                                        device=self.device)
+        return self._engines[key]
+
+    def release_engines(self) -> None:
+        for eng in self._engines.values():
+            eng.release()
+        self._engines.clear()
+
+    def _keep(self, out: Dict[str, torch.Tensor]) -> None:
+        """Keep a window's outputs for the next window's seed, the
+        visibility as its log-odds."""
+        v = out["visibility"][..., 0]
+        vis_logit = (torch.log(torch.clamp(v, 1e-6, 1 - 1e-6))
+                     - torch.log(torch.clamp(1 - v, 1e-6, 1 - 1e-6)))
+        self._state = (out["tracks"], vis_logit, out["track_feat"])
+
+    def _seed(self):
+        """The continuation's seed from the previous window, on the device:
+        the (window - step) overlap frames reuse its estimates, the ``step``
+        new frames start from its last one (``window`` frames in all)."""
+        tracks, vis_logit, feat = self._state
+        s = self.step
+        init_c = torch.cat([tracks[:, s:], tracks[:, -1:].expand(-1, s, -1, -1)], dim=1)
+        init_v = torch.cat([vis_logit[:, s:], vis_logit[:, -1:].expand(-1, s, -1)], dim=1)
+        return init_c, init_v, feat
+
+    def __call__(self, video_chunk=None, is_first_step: bool = False, grid_size: int = 0):
+        """The upstream online API (``later/CoTracker3/infer.py:24-28``)."""
+        if is_first_step:
+            if grid_size and grid_size != self.grid_size:
+                # the query count is fixed in the engines' shapes: refuse
+                # rather than answer for another grid
+                raise ValueError(
+                    f"[MDET] grid_size={grid_size} differs from the pipeline's compiled "
+                    f"grid_size={self.grid_size}; rebuild with build_pipeline('cotracker3', "
+                    f"grid_size={grid_size})")
+            self._queries = torch.from_numpy(grid_queries(self.grid_size, *self.spec.input_hw))
+            self._state = None
+            return None
+        chunk = np.asarray(video_chunk)
+        frames = self._prep(chunk[0] if chunk.ndim == 5 else chunk)
+        t = frames.shape[0]
+        if t < self.window:  # pad by repeating the last frame (static shapes)
+            frames = np.concatenate([frames, np.repeat(frames[-1:], self.window - t, axis=0)])
+        fr = torch.from_numpy(np.ascontiguousarray(frames[None]))
+        if self._state is None:
+            out = self.engine(True)(fr, self._queries)
+        else:
+            out = self.engine(False)(fr, self._queries, *self._seed())
+        self._keep(out)
+        tracks, vis = tree_get_chunked((out["tracks"], out["visibility"]))
+        return tracks[:, :t], vis[:, :t]
+
+    def track_video(self, video):
+        """Full-video convenience: video (T, H, W, 3) -> (tracks (1, T, N, 2),
+        visibility (1, T, N, 1)) over all frames (the reference's loop,
+        ``infer.py:27-28``)."""
+        video = self._prep(video)
+        self(None, is_first_step=True)
+        t_total = video.shape[0]
+        n = self.num_queries
+        all_tracks = np.zeros((1, t_total, n, 2), np.float32)
+        all_vis = np.zeros((1, t_total, n, 1), np.float32)
+        pos = 0
+        while pos < t_total:
+            chunk = video[pos: pos + self.window]
+            tr, vi = self(chunk)
+            t = chunk.shape[0]
+            all_tracks[:, pos: pos + t] = tr[:, :t]
+            all_vis[:, pos: pos + t] = vi[:, :t]
+            pos += self.step if pos + self.window < t_total else t
+        return all_tracks, all_vis
+
+    def benchmark(self, in_hw: Optional[Tuple[int, int]] = None,
+                  config: Optional[BenchmarkConfig] = None) -> BenchmarkReport:
+        """Time a first window on the card: pinned fp32 frames H2D, the
+        engine, tracks and visibility D2H into pinned buffers.
+        ``frames_per_iteration`` is ``step``, the new frames a window adds
+        in the online loop."""
+        eng = self.engine(True)
+        rng = np.random.default_rng(0)
+        fr = torch.from_numpy(rng.uniform(0, 1, (1, self.window, *self.spec.input_hw, 3))
+                              .astype(np.float32)).pin_memory()
+        q = torch.from_numpy(grid_queries(self.grid_size, *self.spec.input_hw))
+        out = eng(fr, q)
+        host = {k: torch.empty(out[k].shape, dtype=out[k].dtype).pin_memory()
+                for k in ("tracks", "visibility")}
+
+        def step():
+            res = eng(fr, q)
+            for k, buf in host.items():
+                buf.copy_(res[k], non_blocking=True)
+
+        rep = benchmark(step, device=self.device, config=config, name=self.spec.artifact_name())
+        rep.frames_per_iteration = self.step
+        return rep
+
+
+@register("cotracker3", fidelity="converter-verified")
+def cotracker3(window: int = 16, grid_size: int = 10, input_hw: tuple = (384, 512),
+               precision: str = "bf16", params: Optional[Mapping[str, torch.Tensor]] = None,
+               checkpoint: Optional[str] = None, model_kw: Optional[Dict[str, Any]] = None,
+               device=None) -> CoTrackerPipeline:
+    """CoTracker3 online point tracking (reference ``later/CoTracker3/
+    infer.py:19-28``): grid queries, sliding windows of ``2 * step`` frames
+    (``step = window // 2``); returns (tracks (B, T, N, 2), visibility (B,
+    T, N, 1)). ``model_kw``: overrides passed to ``CoTracker3``."""
+    from monocular_depth_estimation_trt_tpu_torch.models.cotracker3 import CoTracker3
+    from monocular_depth_estimation_trt_tpu_torch.weights.store import resolve_weights
+
+    device = resolve_device(device)
+    spec = ModelSpec(model="cotracker3", input_hw=tuple(input_hw), precision=precision,
+                     extra=(("win", window), ("grid", grid_size)))
+    dtype = _plain_dtype(precision, device)
+    model = _new_model(lambda: CoTracker3(**(model_kw or {})))
+    resolve_weights(model, spec.artifact_name(), checkpoint=checkpoint, state_dict=params)
+    return CoTrackerPipeline(spec, model.cast(device, dtype).eval(), window=window,
+                             grid_size=grid_size, device=device)
+
+
+# ---------------------------------------------------------------------------
+# SLAM recipes (reference later/MegaSaM, later/VIPE, later/WildGS-SLAM)
+# ---------------------------------------------------------------------------
+# The reference vendors no code for these three staging dirs: each README is
+# a clone-and-run recipe around networks served above. The systems live in
+# slam/ (dense-flow LM-BA, Gaussian-splat mapping); the registry entries wire
+# them to the port's flow, depth and calibration pipelines. Fidelity is
+# "approximated", as in the JAX package: there is no reference graph to
+# verify against, only the papers' problem definitions.
+
+
+@register("megasam", fidelity="approximated")
+def megasam(**kw):
+    """MegaSaM casual-video structure + motion (``later/MegaSaM/README.md``;
+    arXiv 2412.04463): DA disparity + RAFT flow -> keyframe LM bundle
+    adjustment with focal refinement -> consistent video depth. Use
+    ``slam megasam --video ...`` or ``pipe.run(frames)``."""
+    from monocular_depth_estimation_trt_tpu_torch.slam.recipes import MegaSaMPipeline
+
+    return MegaSaMPipeline(**kw)
+
+
+@register("vipe", fidelity="approximated")
+def vipe(**kw):
+    """ViPE video pose engine (``later/VIPE/README.md``): GeoCalib
+    intrinsics + flow BA + UniDepth metric promotion -> poses, intrinsics,
+    metric depth. Use ``slam vipe --video ...``."""
+    from monocular_depth_estimation_trt_tpu_torch.slam.recipes import ViPEPipeline
+
+    return ViPEPipeline(**kw)
+
+
+@register("wildgs_slam", fidelity="approximated")
+def wildgs_slam(**kw):
+    """WildGS-SLAM (``later/WildGS-SLAM/README.md``; arXiv 2504.03886):
+    flow-BA tracking + uncertainty-weighted Gaussian-splat mapping, robust to
+    dynamic scenes. Use ``slam wildgs_slam --video ...``."""
+    from monocular_depth_estimation_trt_tpu_torch.slam.recipes import WildGSSLAMPipeline
+
+    return WildGSSLAMPipeline(**kw)

@@ -430,3 +430,17 @@ def resize(img: np.ndarray, hw: Tuple[int, int], interpolation: str = "linear") 
         flag = cv2.INTER_LINEAR if interpolation == "linear" else cv2.INTER_AREA
         return cv2.resize(img, (hw[1], hw[0]), interpolation=flag)
     return (resize_linear if interpolation == "linear" else resize_area)(img, hw)
+
+
+def resize_float(img: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
+    """A float32 image (H, W, C) resized to ``hw`` with INTER_LINEAR sampling
+    and no rounding: ``cv2.resize`` where cv2 imports, else cv2's weights
+    (:func:`_linear_weights`) in float64."""
+    img = np.asarray(img, np.float32)
+    if tuple(img.shape[:2]) == tuple(hw):
+        return img
+    cv2 = _cv2()
+    if cv2 is not None:
+        return cv2.resize(img, (hw[1], hw[0]), interpolation=cv2.INTER_LINEAR)
+    y = np.einsum("oh,hwc->owc", _linear_weights(img.shape[0], hw[0]), img.astype(np.float64))
+    return np.einsum("pw,owc->opc", _linear_weights(img.shape[1], hw[1]), y).astype(np.float32)

@@ -8,8 +8,9 @@ The exact inverse of the JAX package's ``weights/convert.py``
 ``convert_map_anything``, ``convert_align3r``, ``convert_dinov3``,
 ``convert_vda``, ``convert_flashdepth``, ``convert_raft``,
 ``convert_neuflow``, ``convert_meflow``, ``convert_memfof``,
-``convert_waft``), so that the parity tests can feed one set of weights to
-both packages:
+``convert_waft``, ``convert_cotracker3``; and the SLAM mapper's
+``UncertaintyNet``, which no checkpoint holds), so that the parity tests
+can feed one set of weights to both packages:
 
 * Dense kernel (in, out)                 -> Linear weight (out, in)
 * Conv kernel (kh, kw, in, out)          -> Conv2d weight (out, in, kh, kw)
@@ -688,6 +689,35 @@ Q8_ROOTS = {
 }
 # Flax module names -> the port's module paths
 _Q8_NAMES = (("blocks_", "blocks."), ("frame_", "frame_blocks."), ("global_", "global_blocks."))
+
+
+def cotracker3_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``CoTracker3`` params -> the port's state dict, the 72 keys of
+    ``weights/manifests/cotracker3.json`` at the default config."""
+    params = _unwrap(params)
+    out: Dict[str, torch.Tensor] = {}
+    for i in range(1, 6):
+        _conv(params["encoder"][f"conv{i}"], f"encoder.conv{i}", out)
+    for name in ("in_proj", "head_coord", "head_vis", "head_feat"):
+        _linear(params[name], name, out)
+    blocks = sum(1 for k in params if k.startswith("block_"))
+    for i in range(blocks):
+        blk = params[f"block_{i}"]
+        for name in ("norm_time", "norm_track", "norm_mlp"):
+            _layernorm(blk[name], f"blocks.{i}.{name}", out)
+        for name in ("time_qkv", "time_proj", "track_qkv", "track_proj", "mlp_fc1", "mlp_fc2"):
+            _linear(blk[name], f"blocks.{i}.{name}", out)
+    return out
+
+
+def uncertainty_net_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``slam/mapping.py::UncertaintyNet`` params (``Conv_0``..``Conv_2``)
+    -> the port's ``UncertaintyNet`` state dict (``conv0``..``conv2``)."""
+    params = _unwrap(params)
+    out: Dict[str, torch.Tensor] = {}
+    for i in range(3):
+        _conv(params[f"Conv_{i}"], f"conv{i}", out)
+    return out
 
 
 def _q8_path(keys) -> str:

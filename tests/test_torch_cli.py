@@ -154,7 +154,8 @@ def test_parser_has_the_ported_commands_and_rejects_the_rest():
     for cmd in (["run", "x"], ["batch", "x", "--images-dir", "d"], ["views", "--images", "a"],
                 ["bench", "x"], ["build", "x"], ["serve", "x"], ["models"], ["engines"],
                 ["batch", "x", "--video", "v.mp4"], ["video", "x", "--video", "v.mp4"],
-                ["webcam", "x", "--camera", "1"], ["flow", "raft"]):
+                ["webcam", "x", "--camera", "1"], ["flow", "raft"], ["track", "--video", "v.mp4"],
+                ["slam", "megasam", "--video", "v.mp4"]):
         assert p.parse_args(cmd).fn.__name__ == f"cmd_{cmd[0]}"
     assert p.parse_args(["run", "x"]).device == "cuda"
     assert p.parse_args(["--device", "cpu", "run", "x"]).device == "cpu"
@@ -163,7 +164,8 @@ def test_parser_has_the_ported_commands_and_rejects_the_rest():
     assert (a.precision, a.calib_dir, a.compare, a.compare_tol) == ("int8", "c", "r", 0.5)
     for bad in (["--device", "tpu", "run", "x"], ["run", "x", "--engine", "e.mdeteng"],
                 ["bench", "x", "--device-mesh", "1x1"], ["bench", "x", "--trace", "t"],
-                ["run", "x", "--colorbar"], ["track", "x"], ["flow", "raft", "--engine", "e"]):
+                ["run", "x", "--colorbar"], ["track", "x"], ["flow", "raft", "--engine", "e"],
+                ["export", "x"], ["slam", "megasam", "--engine", "e"]):
         with pytest.raises(SystemExit):
             p.parse_args(bad)
 

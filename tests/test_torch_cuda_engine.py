@@ -249,3 +249,67 @@ def test_server_batches_answer_as_batch_call(cuda):
     for i, j in enumerate(jobs):
         assert np.array_equal(j.result["depth"], ref[i])
     assert np.array_equal(single["depth"], pipe(frames[0])["depth"])
+
+
+def test_ba_solve_engine_replays_the_eager_solve(cuda):
+    """The SLAM recipes' LM solve (``slam/recipes.py``) captured at K=4
+    keyframes on a 96x128 flow grid: the replay equals the eager solve bit
+    for bit, outputs poisoned with NaN before it, and a result outlives the
+    next call."""
+    from monocular_depth_estimation_trt_tpu_torch.slam.ba import init_state
+    from monocular_depth_estimation_trt_tpu_torch.slam.recipes import MegaSaMPipeline, ba_solve_fn
+
+    pipe = MegaSaMPipeline(device="cuda")
+    prob = pipe._synthetic_problem((96, 128), k=4)
+    k, (e, p) = 4, prob.weight.shape
+    args = [*prob, *init_state(k), torch.tensor(115.2)]
+    eng = pipe.solve_engine((96, 128), k, e, p)
+    eng.compile()
+    with torch.inference_mode():
+        for t in eng.static_outputs().values():
+            t.fill_(float("nan"))
+    out = eng(*args)
+    with torch.inference_mode():  # the solve leaves inference mode for jacfwd itself
+        ref = ba_solve_fn((96, 128), pipe.ba_cfg)(*(a.cuda() for a in args))
+    for name in ref:
+        assert torch.equal(out[name], ref[name]), name
+    kept = {n: v.clone() for n, v in out.items()}
+    other = [a.clone() for a in args]
+    other[3] = other[3] + 1.0  # another flow
+    second = eng(*other)
+    assert all(torch.equal(out[n], kept[n]) for n in out)
+    assert not torch.equal(second["poses"], out["poses"])
+    assert eng.captured_launches == {n: 0 for n in eng.captured_launches}
+
+
+def test_mapping_step_engine_replays_the_eager_step(cuda):
+    """WildGS-SLAM's mapping step (render, backward, Adam) captured at a
+    64x64 map of 1024 slots: the replay's new state equals the eager
+    step's bit for bit."""
+    from monocular_depth_estimation_trt_tpu_torch.slam.gaussians import init_from_depth
+    from monocular_depth_estimation_trt_tpu_torch.slam.recipes import (
+        WildGSSLAMPipeline,
+        flatten_mapping_state,
+        unflatten_mapping_state,
+    )
+
+    pipe = WildGSSLAMPipeline(device="cuda", map_hw=(64, 64), max_gaussians=1024, k_per_tile=16)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    depth = 2.0 + torch.rand((64, 64), generator=gen, device="cuda")
+    rgb = torch.rand((64, 64, 3), generator=gen, device="cuda")
+    pose, focal = torch.eye(4, device="cuda"), torch.tensor(60.0, device="cuda")
+    with torch.no_grad():
+        gmap = init_from_depth(rgb, depth, pose, focal, stride=2, max_gaussians=1024)
+    net, (init_opt, step) = pipe._mapper()
+    unc = {n: v.detach().clone() for n, v in net.named_parameters()}
+    state = flatten_mapping_state(gmap, unc, init_opt(gmap, unc))
+    names = list(unc)
+    eng = pipe.mapping_engine(step, state, names, (64, 64))
+    out = eng(*state, rgb, depth, pose, focal)
+    with torch.inference_mode():  # the step leaves inference mode for its gradients itself
+        g2, u2, o2, loss, _ = step(*unflatten_mapping_state(state, names), rgb, depth, pose, focal)
+    ref = [*flatten_mapping_state(g2, u2, o2), loss]
+    assert len(out) == len(ref)
+    for i, (a, b) in enumerate(zip(out, ref)):
+        assert torch.equal(a, b), i
+    assert not torch.equal(out[0], state[0])  # the step moved the means

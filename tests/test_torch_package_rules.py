@@ -28,7 +28,7 @@ PORTED = tuple(sorted(DA_FAMILY + ("depth_pro", "vggt", "depth_anything_v3", "me
                                     "streamvggt", "litevggt", "stream3r", "map_anything",
                                     "align3r", "dinov3", "video_depth_anything",
                                     "flashdepth", "raft", "neuflow", "meflow", "memfof",
-                                    "waft")))
+                                    "waft", "cotracker3", "megasam", "vipe", "wildgs_slam")))
 
 
 def _forbidden(module: str) -> bool:
@@ -73,7 +73,8 @@ def test_no_port_source_imports_jax_or_the_jax_package():
     sources = _port_sources()
     assert len(sources) > 15
     for new in ("models/depth_pro.py", "ops/cuda/flash_attention.py", "weights/from_jax.py",
-                "ops/quant.py", "ops/cuda/quant_matmul.py"):
+                "ops/quant.py", "ops/cuda/quant_matmul.py", "models/cotracker3.py",
+                "slam/ba.py", "slam/recipes.py", "apps/tracking.py"):
         assert os.path.join(PORT, new) in sources
     bad = [(os.path.relpath(p, REPO), m) for p in sources
            for m in _imported_modules(p) if _forbidden(m)]
@@ -114,19 +115,22 @@ def test_build_pipeline_defaults_to_the_card_and_raises_without_one():
         for name in ("depth_anything_v3", "metric3d_v2", "moge2", "metric_anything",
                      "unidepth_v2", "unik3d", "sidepth", "geocalib", "prior_depth_anything",
                      "video_depth_anything", "flashdepth", "raft", "neuflow", "meflow",
-                     "memfof", "waft"):
+                     "memfof", "waft", "cotracker3", "megasam", "vipe", "wildgs_slam"):
             with pytest.raises(RuntimeError, match="CUDA"):
                 treg.build_pipeline(name)
     assert treg.resolve_device("cpu") == torch.device("cpu")
 
 
 def test_registry_lists_the_da_family_with_the_jax_fidelity():
-    assert tuple(treg.list_models()) == PORTED
+    """The port's registry holds every name of the JAX registry, each with
+    the JAX fidelity; an unknown name raises."""
+    assert tuple(treg.list_models()) == PORTED == tuple(jreg.list_models())
     for name in PORTED:
         assert treg.get_fidelity(name) == jreg.get_fidelity(name)
     assert treg.get_fidelity("vggt") == treg.get_fidelity("depth_pro") == "converter-verified"
+    assert treg.get_fidelity("megasam") == "approximated"
     with pytest.raises(KeyError):
-        treg.build_pipeline("cotracker3")
+        treg.build_pipeline("no_such_model")
 
 
 @pytest.mark.parametrize("name", DA_FAMILY)
