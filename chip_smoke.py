@@ -196,7 +196,20 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    graph replay of each path (and of the eager forward of vits, vggt S=4,
    depth_pro, metric3d_v2, moge2, geocalib, unidepth_v2 and unik3d, with
    the device time of the last two's decoder attention), from
-   ``torch.profiler``.
+   ``torch.profiler``;
+14. export: serialized artifacts (``runtime/export.py``) of pipelines built
+   above: DA-V2 vits 518² as a serve bundle (b1, b2, both viz modes), vitl
+   int8 b1, VGGT's 4-view module and StreamVGGT's stream (window 4,
+   480x640, 8 steps); each exported, loaded and its first call counted with
+   the counts set to 0 just before (per forward 12 K1; 24 K1 + 96 K4; 24 K1
+   + 48 K2; 24 K1 + 24 K2), every loaded replay equal to the in-process
+   engine bit for bit (else within 1e-3, recorded with the first op that
+   differs), the loaded and in-process vits p50 in turns; then, in a process
+   where the model zoo cannot be imported, ``run --engine`` (its npz depth
+   against the in-process engine), ``bench --engine``, ``bench --engine
+   --trace`` (the trace names K1's kernel), ``doctor`` and ``serve --engine``
+   (four answers against in-process calls); the record says which host IO
+   (the native library or Python's) this machine takes.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -298,11 +311,13 @@ INT8_P999_TOL = {"vggt": {"depth_conf": 6e-2}}
 # replay against eager where a library call picks another algorithm under
 # capture (max |graph - eager| / max |eager|); equal bit for bit otherwise
 ENGINE_REL_TOL = 1e-3
-VGGT_BENCH = dict(warmup=3, iterations=20, latency_iterations=10)
-DEPTH_PRO_BENCH = dict(warmup=3, iterations=20, latency_iterations=10)
-# 30 timed and 10 synchronised iterations (50 and 20 until the video paths'
-# phases needed the card time)
-FAMILY_BENCH = dict(warmup=3, iterations=30, latency_iterations=10)
+# 14 timed and 8 synchronised iterations (20 and 10 until the export phase
+# needed the card time)
+VGGT_BENCH = dict(warmup=3, iterations=14, latency_iterations=8)
+DEPTH_PRO_BENCH = dict(warmup=3, iterations=14, latency_iterations=8)
+# 20 timed and 6 synchronised iterations (50 and 20 until the video paths'
+# phases needed the card time, 30 and 10 until the export phase's)
+FAMILY_BENCH = dict(warmup=3, iterations=20, latency_iterations=6)
 
 # the TMA + wgmma kernels (bf16 x) and their instantiations in the library
 # (K2 and K3 at head widths 64 and 128, K4 at tile widths 128 and 256),
@@ -4446,7 +4461,8 @@ def slam_phase(build_pipeline, wrappers, card, power_limit, dev, raft, vits, uni
             rec["solve_K_E_P_D_M"] = [k, e, p, 8 * k + 1, e * p * 2]
             eng = recipe.solve_engine((288, 512), k, e, p)
             args = [t.to(dev) for t in (*prob, *init_state(k), torch.tensor(460.8))]
-            emit({**profile_breakdown(lambda: eng(*args), f"{name}_solve_k{k}", 3),
+            # one solve (16,460 kernels; 3 until the export phase needed the card time)
+            emit({**profile_breakdown(lambda: eng(*args), f"{name}_solve_k{k}", 1),
                   "route": "graph"})
         if name == "wildgs_slam":
             rep = recipe.benchmark((144, 256), bench)
@@ -4530,6 +4546,326 @@ def check_track_slam_commands(tmp, outputs, rcs):
           and rec["slam_keys"] == sorted(["poses", "keyframes", "focal_px", "rms_px",
                                           "keyframe_disparity"])
           and cvd.shape == (n, h, w) and rec["cvd_finite"], f"cli slam: {rec}")
+
+
+# the loaded artifacts' modules: launches [K3, K1, K2, K4] of one forward
+EXPORT_PER_FORWARD = {"vits_b1": [0, 12, 0, 0], "vitl_int8_b1": [0, 24, 0, 96],
+                      "vggt_views_s4": [0, 24, 48, 0], "streamvggt_stream": [0, 24, 24, 0]}
+EXPORT_STREAM_STEPS = 8
+EXPORT_BENCH = dict(warmup=5, iterations=30, latency_iterations=20)
+# Python run first in the processes that serve the vits artifact: there the
+# port's model zoo cannot be imported
+NO_MODEL_ZOO = (
+    "import importlib.abc\nimport sys\n"
+    "class NoModelZoo(importlib.abc.MetaPathFinder):\n"
+    "    def find_spec(self, name, path, target=None):\n"
+    "        if name.startswith(('monocular_depth_estimation_trt_tpu_torch.models',\n"
+    "                            'monocular_depth_estimation_trt_tpu_torch.registry')):\n"
+    "            raise ImportError('the model zoo is not importable here: ' + name)\n"
+    "sys.meta_path.insert(0, NoModelZoo())\n")
+
+
+def op_trail(fn, args):
+    """The aten ops that ``fn(*args)`` dispatches, in order, each with its
+    output's shape and sum (run eagerly, outside any graph)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Trail(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if isinstance(out, torch.Tensor) and out.is_floating_point():
+                self.ops.append((str(func), tuple(out.shape), out.double().sum().item()))
+            return out
+
+    with torch.inference_mode(), Trail() as trail:
+        fn(*args)
+    return trail.ops
+
+
+def first_differing_op(here_fn, loaded_fn, args):
+    """Where an artifact's eager forward first departs from the in-process
+    eager forward on the same inputs: the index, and each side's op, shape
+    and output sum there (None if the two trails agree, when only the
+    captured graph differs)."""
+    here, loaded = op_trail(here_fn, args), op_trail(loaded_fn, args)
+    for i, (a, b) in enumerate(zip(here, loaded)):
+        if a != b:
+            return {"index": i, "in_process": a, "loaded": b}
+    if len(here) != len(loaded):
+        return {"index": min(len(here), len(loaded)), "in_process_ops": len(here),
+                "loaded_ops": len(loaded)}
+    return None
+
+
+def replay_vs_in_process(label, got, want, attribute=None):
+    """Each output of a loaded artifact against the in-process engine's:
+    equal bit for bit, or within ENGINE_REL_TOL (max |a - b| / max |b|)
+    and recorded with the first op that differs (``attribute()``)."""
+    import numpy as np
+    import torch
+
+    rec = {}
+    for k in want:
+        a, b = (torch.as_tensor(np.asarray(t)) for t in (got[k], want[k]))
+        equal = a.shape == b.shape and bool(torch.equal(a, b))
+        entry = {"equal": equal}
+        if not equal:
+            af, bf = a.double(), b.double()
+            entry["max_rel"] = finite_or_none(
+                ((af - bf).abs().max() / bf.abs().max().clamp_min(1e-12)).item())
+        rec[k] = entry
+    if not all(r["equal"] for r in rec.values()) and attribute is not None:
+        rec["first_differing_op"] = attribute()
+    for k, r in rec.items():
+        if k != "first_differing_op":
+            check(r["equal"] or (r["max_rel"] or math.inf) <= ENGINE_REL_TOL,
+                  f"export {label} {k}: loaded vs in-process {rec}")
+    return rec
+
+
+def artifact_process(path, commands, pipe, rng, env):
+    """One process of its own where the model zoo cannot be imported:
+    ``commands`` (argvs of the command line, each with its stdout and
+    seconds, as ``cli_group`` runs them), then ``serve --engine path`` on a
+    free local port with max batch 2, which the process serves until this
+    one sends SIGTERM (it drains and exits): four sequential requests at the
+    served size (each a batch of one, the b1 module), the last through
+    ``/v1/models/<name>/depth``, each answer against the in-process
+    engine. Returns the serve record, the commands' outputs by argv and
+    their exit codes."""
+    import io
+    import signal
+    import socket
+    import urllib.request
+
+    import numpy as np
+
+    from monocular_depth_estimation_trt_tpu_torch.utils import imageio
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    serve_argv = ["serve", "--engine", path, "--host", "127.0.0.1", "--port", str(port),
+                  "--max-batch", "2"]
+    code = (NO_MODEL_ZOO + "import time\n"
+            "from monocular_depth_estimation_trt_tpu_torch.cli import main\n"
+            f"for argv in {[list(c) for c in commands]!r}:\n"
+            "    print('@@ command', flush=True)\n"
+            "    t0 = time.perf_counter()\n"
+            "    rc = main(argv)\n"
+            "    print('@@ exit', rc, time.perf_counter() - t0, flush=True)\n"
+            "print('@@ serve', flush=True)\n"
+            f"sys.exit(main({serve_argv!r}))\n")
+    t0 = time.perf_counter()
+    server = subprocess.Popen([sys.executable, "-c", code], cwd=REPO, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    base = f"http://127.0.0.1:{port}"
+    answers = []
+    try:
+        while True:
+            check(server.poll() is None, "the artifact's process exited before serving")
+            check(time.perf_counter() - t0 < 600, "serve --engine not up in 600 s")
+            try:
+                urllib.request.urlopen(f"{base}/v1/health", timeout=5).read()
+                break
+            except OSError:
+                time.sleep(1.0)
+        up_s = time.perf_counter() - t0
+        hw = tuple(pipe.spec.input_hw)
+        for i, url in enumerate([f"{base}/v1/depth"] * 3
+                                + [f"{base}/v1/models/{pipe.spec.model}/depth"]):
+            sent = rng.integers(0, 256, (*hw, 3), dtype=np.uint8)
+            status, body = post(url, imageio.encode_png(sent))
+            check(status == 200, f"serve --engine request {i}: HTTP {status} {body[:200]!r}")
+            answers.append(replay_vs_in_process(
+                f"serve --engine request {i}", {"depth": np.load(io.BytesIO(body))["depth"]},
+                {"depth": pipe(sent)["depth"]}))
+    finally:
+        server.send_signal(signal.SIGTERM)
+        try:
+            out, err = server.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            server.kill()
+            out, err = server.communicate()
+    check(server.returncode == 0, f"serve --engine exited {server.returncode}: {err[-2000:]}")
+    parts = out.split("@@ serve\n")[0].split("@@ command\n")[1:]
+    check(len(parts) == len(commands), f"the artifact's commands: {out[-1500:]}{err[-1500:]}")
+    ends = [p.rsplit("@@ exit ", 1)[1].split() for p in parts]
+    outputs = {tuple(c): (p, float(e[1])) for c, p, e in zip(commands, parts, ends)}
+    return ({"up_seconds": up_s, "answers": answers, "exit_code": server.returncode},
+            outputs, [int(e[0]) for e in ends])
+
+
+def export_phase(pipe, vitl_int8, vggt, streamvggt, wrappers, card, power_limit):
+    """Serialized artifacts (``runtime/export.py``) of pipelines that earlier
+    phases built: DA-V2 vits 518² bf16 as a serve bundle (b1, b2, both viz
+    modes), DA-V2 vitl int8 b1, VGGT's 4-view module and StreamVGGT's stream
+    (window 4, 480x640, 8 steps). Each is exported, loaded, and its first
+    call counted (the counts set to 0 just before: WARMUP_CALLS + 1
+    forwards of EXPORT_PER_FORWARD); every loaded replay against the
+    in-process engine's output (``replay_vs_in_process``); the loaded and
+    in-process vits p50 in turns. Then the vits artifact in processes of its
+    own where the model zoo cannot be imported: ``run --engine`` (its npz
+    depth against the in-process engine), ``bench --engine``, ``bench
+    --engine --trace`` (the trace names K1's kernel) and ``serve --engine``
+    (answers to sequential requests against in-process calls). Returns the
+    counted launches of each module."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from monocular_depth_estimation_trt_tpu_torch.config import BenchmarkConfig
+    from monocular_depth_estimation_trt_tpu_torch.runtime import native
+    from monocular_depth_estimation_trt_tpu_torch.runtime.export import (
+        export_pipeline,
+        load_engine,
+    )
+    from monocular_depth_estimation_trt_tpu_torch.utils import imageio
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(14)
+    tmp = tempfile.mkdtemp(prefix="mdet_export_")
+    env = {**os.environ, "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    launches, artifacts = {}, {}
+
+    def made(label, source, **kw):
+        t0 = time.perf_counter()
+        path = export_pipeline(source, path=os.path.join(tmp, f"{label}.mdeteng"), **kw)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eng = load_engine(path)
+        rec = {"export_seconds": export_s, "artifact_mb": os.path.getsize(path) / 1e6,
+               "load_seconds": time.perf_counter() - t0, "modules": sorted(eng.meta["modules"]),
+               "weights": len(eng.meta["param_manifest"])}
+        artifacts[label] = rec
+        return path, eng, rec
+
+    def counted(label, eng, key, call):
+        """``call()`` builds the module's engine: its launches, counted."""
+        set_counts_to_zero(wrappers)
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        got, per = counts(wrappers), engine_launches(eng._engine(key))
+        launches[label] = launch_record(wrappers)
+        want = EXPORT_PER_FORWARD[label]
+        check(per == want and got == [(WARMUP_CALLS + 1) * n for n in want],
+              f"export {label}: launches {got} for a new engine whose forward launches {per}, "
+              f"want {want} a forward")
+        return out, {"first_call_seconds": first, "launches_per_forward": per}
+
+    try:
+        # DA-V2 vits, the serve bundle
+        frame = rng.integers(0, 256, (518, 518, 3), dtype=np.uint8)
+        frames2 = rng.integers(0, 256, (2, 518, 518, 3), dtype=np.uint8)
+        path_vits, vits, rec = made("vits", pipe, in_hw=(518, 518), with_viz="both",
+                                    batches=(1, 2))
+        out, counted_rec = counted("vits_b1", vits, "b1", lambda: vits(frame))
+        rec.update(counted_rec)
+        dev_frame = torch.from_numpy(frame).to(pipe.device)
+        rec["vs_in_process"] = {
+            "b1": replay_vs_in_process("vits b1", out, pipe(frame), lambda: first_differing_op(
+                p_eager(pipe, (518, 518)), lambda x: vits._programs["b1"](vits._weights, x),
+                (dev_frame,))),
+            "b1_viz": replay_vs_in_process("vits b1_viz", vits(frame, viz=True),
+                                           pipe(frame, viz=True)),
+            "b2": replay_vs_in_process("vits b2", vits.batch_call(frames2),
+                                       pipe.batch_call(frames2))}
+        cfg = BenchmarkConfig(**EXPORT_BENCH)
+        p50 = {"in_process": [], "loaded": []}
+        for route, p in (("in_process", pipe), ("loaded", vits), ("loaded", vits),
+                         ("in_process", pipe)):
+            p50[route].append(p.benchmark((518, 518), cfg).percentile_ms(50))
+        rec["p50_ms_in_turns"] = p50
+        vits.release_engines()
+        del vits
+
+        # DA-V2 vitl int8, b1
+        _, eng, rec = made("vitl_int8", vitl_int8, in_hw=(518, 518))
+        out, counted_rec = counted("vitl_int8_b1", eng, "b1", lambda: eng(frame))
+        rec.update(counted_rec, vs_in_process={"b1": replay_vs_in_process(
+            "vitl int8 b1", out, vitl_int8(frame))})
+        eng.release_engines()
+        del eng
+
+        # VGGT, the 4-view module alone
+        views4 = rng.integers(0, 256, (4, 518, 518, 3), dtype=np.uint8)
+        _, eng, rec = made("vggt", vggt, in_hw=(518, 518), batches=(), views=(4,))
+        out, counted_rec = counted("vggt_views_s4", eng, "views_s4",
+                                   lambda: eng.multi_view(views4))
+        rec.update(counted_rec, vs_in_process={"views_s4": replay_vs_in_process(
+            "vggt views_s4", out, vggt.multi_view(views4))})
+        eng.release_engines()
+        del eng
+
+        # StreamVGGT, the stream alone: 8 steps, the ring wraps after 4
+        clip = rng.integers(0, 256, (EXPORT_STREAM_STEPS, 480, 640, 3), dtype=np.uint8)
+        _, eng, rec = made("streamvggt", streamvggt, in_hw=(480, 640), batches=(),
+                           stream_window=4)
+        runner, here = eng.stream(), streamvggt.stream(window=4)
+        out, counted_rec = counted("streamvggt_stream", eng, "stream", lambda: runner(clip[0]))
+        steps = [replay_vs_in_process("streamvggt step 0", out, here(clip[0]))]
+        for i in range(1, EXPORT_STREAM_STEPS):
+            steps.append(replay_vs_in_process(f"streamvggt step {i}", runner(clip[i]),
+                                              here(clip[i])))
+        rec.update(counted_rec, vs_in_process={"steps": steps})
+        eng.release_engines()
+        here.session.release_engines()
+        del eng, runner, here
+        drop_engines(pipe, vitl_int8, vggt, streamvggt)
+
+        # the vits artifact in a process where the model zoo cannot be imported
+        png = os.path.join(tmp, "frame.png")
+        imageio.write_image(png, frame)
+        out_run, trace_dir = os.path.join(tmp, "run"), os.path.join(tmp, "trace")
+        run_argv = ("run", "--engine", path_vits, "--image", png, "--out", out_run)
+        bench_argv = ("bench", "--engine", path_vits, "--warmup", "5", "--iterations", "30")
+        trace_argv = ("bench", "--engine", path_vits, "--warmup", "2", "--iterations", "5",
+                      "--trace", trace_dir)
+        doctor_argv = ("doctor",)
+        serve, outputs, rcs = artifact_process(
+            path_vits, [run_argv, bench_argv, trace_argv, doctor_argv], pipe, rng, env)
+        check(rcs == [0, 0, 0, 0], f"export: the vits artifact's commands exited {rcs}")
+        doctor = [ln for ln in outputs[doctor_argv][0].splitlines() if " : " in ln]
+        npz = [f for f in os.listdir(out_run) if f.endswith(".npz")]
+        check(len(npz) == 1, f"export: run --engine wrote {sorted(os.listdir(out_run))}")
+        run_depth = np.load(os.path.join(out_run, npz[0]))["depth"]
+        traces = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
+        check(len(traces) == 1, f"export: bench --trace wrote {traces}")
+        with open(traces[0]) as f:
+            events = json.load(f)["traceEvents"]
+        k1_events = [e for e in events if "attn_packed_kernel" in str(e.get("name", ""))]
+        check(k1_events, "export: the bench --trace file names no K1 kernel")
+        processes = {
+            "run_vs_in_process": replay_vs_in_process("run --engine", {"depth": run_depth},
+                                                      {"depth": pipe(frame, viz=True)["depth"]}),
+            "seconds": {argv[0] + (" --trace" if "--trace" in argv else ""): outputs[argv][1]
+                        for argv in (run_argv, bench_argv, trace_argv)},
+            "bench_lines": [ln for ln in outputs[bench_argv][0].splitlines()
+                            if "FPS" in ln or "latency" in ln or "inference time" in ln],
+            "trace_k1_kernel_events": len(k1_events),
+            "trace_k1_kernel": k1_events[0]["name"],
+            "serve": serve,
+            "doctor": doctor,
+        }
+        # which host IO the offline batching and JPEG writes take here
+        native_io = "native" if native.native_available() else "python"
+        drop_engines(pipe)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "export", "card": card, "power_limit": power_limit,
+          "artifacts": artifacts, "processes": processes, "launches": launches,
+          "native_host_io": native_io,
+          "seconds": time.perf_counter() - t_phase})
+    return {f"export_{label}": counted_launches for label, counted_launches in launches.items()}
 
 
 def parse_smi(line: str):
@@ -4726,10 +5062,9 @@ def main() -> None:
     extra_launches = {"map_anything_reconstruct_s4": run_reconstruct(
         families["map_anything"], wrappers, multi_rng)}
     drop_engines(families["map_anything"])
-    streamvggt = build_pipeline("streamvggt")
+    streamvggt = build_pipeline("streamvggt")  # kept for the export phase
     extra_launches["stream"], stream_sess, stream_frame = run_stream_phase(
         families["stream3r"], streamvggt, wrappers, multi_rng)
-    del streamvggt
     drop_engines(families["stream3r"])
     profile_stream_step(stream_sess, stream_frame, dev)
     del stream_sess
@@ -4837,7 +5172,9 @@ def main() -> None:
     # 12. speed (the counts are read above; benchmark launches are not
     # counted): each path eager and through its engine, in turns eager,
     # graph, graph, eager
-    cfg = BenchmarkConfig(warmup=10, iterations=100, latency_iterations=50)
+    # 60 timed and 30 synchronised iterations (100 and 50 until the export
+    # phase needed the card time)
+    cfg = BenchmarkConfig(warmup=10, iterations=60, latency_iterations=30)
     vcfg = BenchmarkConfig(**VGGT_BENCH)
     dcfg = BenchmarkConfig(**DEPTH_PRO_BENCH)
     fcfg = BenchmarkConfig(**FAMILY_BENCH)
@@ -4921,6 +5258,11 @@ def main() -> None:
                 emit({**profile_breakdown(eager_step, p.spec.artifact_name() + suffix, iters,
                                           ranges=ranges), "route": "eager"})
         drop_engines(p)
+
+    # 14. serialized artifacts of pipelines built above, loaded and served
+    extra_launches.update(export_phase(pipe, int8_vitl, vggt, streamvggt, wrappers, card,
+                                       power_limit))
+    del streamvggt
 
     # kernels line: the main shape's numbers, every shape in "shapes"; the
     # launches of each path's counted run

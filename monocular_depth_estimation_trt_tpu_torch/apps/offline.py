@@ -6,8 +6,10 @@ and decode is single-threaded Python): a pool of decode threads reads and
 resizes frames ahead of the device (``utils/imageio.py``: cv2 where it
 imports, else the PNG / ``.npy`` codec), batches go to a (B, H, W, 3)
 engine while the previous batch computes, and results come back through
-pinned host memory. The native ``hostio`` decode ring of the JAX package is
-not ported yet.
+pinned host memory. Where the native host-IO library builds
+(``runtime/native.py``), its C++ decode ring (``FramePump``) reads the
+frames instead of the Python threads, as in the JAX package; the stats say
+which path ran (``decode``: ``native`` or ``python``).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ def process_images_batched(
     each batch's host outputs if given (otherwise outputs are discarded after
     the fetch: benchmark mode). The tail batch is padded with its last
     frame; the padded rows are passed on too, as in the JAX package."""
+    from monocular_depth_estimation_trt_tpu_torch.runtime import native
     from monocular_depth_estimation_trt_tpu_torch.utils.imageio import read_image, resize
 
     decode_hw = tuple(decode_hw or (pipeline.spec.height, pipeline.spec.width))
@@ -49,6 +52,7 @@ def process_images_batched(
 
     eng = pipeline.batch_engine_for(decode_hw, batch)
     eng.compile()
+    use_native = native.native_available()
 
     t0 = time.perf_counter()
     n_frames = 0
@@ -75,7 +79,14 @@ def process_images_batched(
 
     def decoded(pool):
         """Frames in order, with at most a ring of decodes ahead (the JAX
-        package's ring of ``batch * 2 + 2`` buffers)."""
+        package's ring of ``batch * 2 + 2`` buffers): the native pump's
+        where the library is available, else the pool's."""
+        if use_native:
+            with native.FramePump.from_images(paths, decode_hw, ring=batch * 2 + 2,
+                                              threads=max(int(decode_threads), 1)) as pump:
+                for _, frame in pump:
+                    yield np.copy(frame)  # the ring slot is reused after this step
+            return
         ahead, todo = deque(), iter(paths)
         for path in itertools.islice(todo, batch * 2 + 2):
             ahead.append(pool.submit(decode, path))
@@ -100,6 +111,7 @@ def process_images_batched(
 
     dt = time.perf_counter() - t0
     stats = {"frames": n_frames, "seconds": round(dt, 3),
-             "fps": round(n_frames / dt, 2) if dt > 0 else 0.0, "batch": batch}
+             "fps": round(n_frames / dt, 2) if dt > 0 else 0.0, "batch": batch,
+             "decode": "native" if use_native else "python"}
     log(f"offline: {n_frames} frames in {dt:.2f}s -> {stats['fps']} FPS (batch {batch})")
     return stats

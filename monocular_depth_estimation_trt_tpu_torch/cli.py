@@ -24,6 +24,11 @@ Replaces the reference's "edit constants at the top of the script" workflow
     python -m monocular_depth_estimation_trt_tpu_torch bench depth_anything_v2 --encoder vits
     python -m monocular_depth_estimation_trt_tpu_torch models
 
+    python -m monocular_depth_estimation_trt_tpu_torch export depth_anything_v2 --serve-bundle 4
+    python -m monocular_depth_estimation_trt_tpu_torch serve --engine a.mdeteng --engine b.mdeteng
+    python -m monocular_depth_estimation_trt_tpu_torch bench --engine a.mdeteng --trace traces/
+    python -m monocular_depth_estimation_trt_tpu_torch doctor
+
 Every command runs on the card (``--device cuda``, the default) unless
 ``--device cpu`` asks for the port's plain PyTorch path on the CPU; without
 a card the default raises. Artifacts mirror the reference's outputs and the
@@ -53,11 +58,18 @@ residual and aligned keyframe disparity (and the recipe's metric scale or
 rendered depth) as ``<stem>_<artifact>.npz``, with ``--cvd`` also each
 frame's consistent disparity (``_cvd.npz``).
 
-Not ported yet, so argparse rejects them: ``--engine`` (serialized
-artifacts), ``--device-mesh`` (multi-device sharding), ``--trace`` (the
-profiler), ``--colorbar`` (a matplotlib figure) and the
-``export``/``convert``/``distill``/``eval``/``quantcheck``/``doctor``
-commands.
+``export`` writes a serialized engine artifact (``.mdeteng``,
+``runtime/export.py``): the fused programs with the weights stored once;
+``--engine FILE`` serves one on ``run``, ``batch``, ``bench``, ``views``,
+``pair``, ``video``, ``flow``, ``webcam`` and ``serve`` (repeated on
+``serve``: several models behind one worker) with no model code, on the
+device type it was exported on (``--device`` does not apply). ``bench
+--trace DIR`` writes a ``torch.profiler`` Chrome trace of the timed loop;
+``doctor`` reports the installation.
+
+Not ported yet, so argparse rejects them: ``--device-mesh`` (multi-device
+sharding), ``--colorbar`` (a matplotlib figure) and the
+``convert``/``distill``/``eval``/``quantcheck`` commands.
 """
 
 from __future__ import annotations
@@ -144,6 +156,51 @@ def _build(args, *keys):
     return registry.build_pipeline(args.model, **_pipeline_kw(args, *keys))
 
 
+def _load_artifact(path, *, surface, need_viz=False, allow_stream_viz=False,
+                   need_images=(1,), need_views=None):
+    """Check an ``.mdeteng`` against what a surface needs from its meta
+    alone (a zip header read: a wrong artifact is refused before its weights
+    go to the device), then load it. None, after an error line, when the
+    artifact cannot serve the surface.
+
+    ``need_viz`` counts the per-call viz modules (the surfaces that call
+    ``pipe(frame, viz=True)``); ``allow_stream_viz`` also takes a stream
+    module (``video``, which goes through ``.stream()``)."""
+    from monocular_depth_estimation_trt_tpu_torch.runtime.export import (
+        check_meta,
+        load_engine,
+        read_meta,
+    )
+
+    meta = read_meta(path)
+    try:
+        check_meta(path, meta)
+    except (ValueError, RuntimeError) as e:
+        log(str(e), tag="ERROR")
+        return None
+    n = int(meta.get("n_image_args", 1))
+    if n not in need_images:
+        log(f"{surface} needs a {'/'.join(map(str, need_images))}-image artifact; {path} "
+            f"takes {n} image(s) per call", tag="ERROR")
+        return None
+    mods = list(meta["modules"].values())
+    call_viz = any(m["viz"] and not m.get("stream") for m in mods)
+    stream_viz = any(m.get("stream") for m in mods)
+    if need_viz and not (call_viz or (allow_stream_viz and stream_viz)):
+        log(f"{surface} needs a viz module; re-export with --viz or --serve-bundle",
+            tag="ERROR")
+        return None
+    if need_views is not None:
+        avail = sorted(m["views"] for m in mods if m.get("views"))
+        if need_views not in avail:
+            log(f"{surface}: no views module for S={need_views} (available: {avail}); "
+                "re-export with --views", tag="ERROR")
+            return None
+    eng = load_engine(path)
+    log(f"{surface} from artifact: {eng.describe()}")
+    return eng
+
+
 def cmd_run(args) -> int:
     from monocular_depth_estimation_trt_tpu_torch.utils.imageio import read_image, resize
 
@@ -151,8 +208,18 @@ def cmd_run(args) -> int:
     if args.resize:
         img = resize(img, (args.resize, args.resize))
     log(f"original shape : {img.shape}")
+    if args.engine:
+        # the deserialize-and-run consumer of a plan file (reference
+        # common_runtime.py): no model code, no checkpoint
+        eng = _load_artifact(args.engine, surface="run")
+        if eng is None:
+            return 2
+        # fitted here, so that the point cloud takes its colors from the
+        # frame the depth was computed on
+        img = eng.fit(img)
+        return _write_run_outputs(args, img, eng(img, viz=True), eng.meta["artifact"], pipe=eng)
     if not args.model:
-        log("run: give a model name", tag="ERROR")
+        log("run: give a model name (or --engine artifact)", tag="ERROR")
         return 2
     pipe = _build(args, "encoder", "checkpoint", "precision")
     out = pipe(img, viz=True)
@@ -271,10 +338,15 @@ def cmd_batch(args) -> int:
     if not paths:
         log("batch: no images found", tag="ERROR")
         return 1
-    if not args.model:
-        log("batch: give a model name", tag="ERROR")
+    if args.engine:
+        pipe = _load_artifact(args.engine, surface="batch")
+        if pipe is None:
+            return 2
+    elif not args.model:
+        log("batch: give a model name (or --engine artifact)", tag="ERROR")
         return 2
-    pipe = _build(args, "encoder", "checkpoint", "precision")
+    else:
+        pipe = _build(args, "encoder", "checkpoint", "precision")
     os.makedirs(args.out, exist_ok=True)
     name = pipe.spec.artifact_name()
 
@@ -294,7 +366,8 @@ def cmd_batch(args) -> int:
     stats = process_images_batched(pipe, paths, batch=args.batch, on_result=on_result,
                                    decode_threads=args.decode_threads)
     print(json.dumps({"metric": f"{name}_batched_fps", "value": stats["fps"], "unit": "fps",
-                      "batch": stats["batch"], "frames": stats["frames"]}))
+                      "batch": stats["batch"], "frames": stats["frames"],
+                      "decode": stats["decode"]}))
     return 0
 
 
@@ -304,13 +377,19 @@ def _write_inferno(path: str, depth) -> str:
     no JPEG codec imports). Returns the path written."""
     from monocular_depth_estimation_trt_tpu_torch.utils import imageio
 
+    from monocular_depth_estimation_trt_tpu_torch.runtime import native
+
     d = np.asarray(depth)
     norm = ((d - d.min()) / max(float(d.max() - d.min()), 1e-6) * 255).astype(np.uint8)
     cv2 = imageio._cv2()
     if cv2 is None:
         return imageio.write_gray(path, norm)
-    return imageio.write_image(path, cv2.cvtColor(cv2.applyColorMap(norm, cv2.COLORMAP_INFERNO),
-                                                  cv2.COLOR_BGR2RGB))
+    rgb = cv2.cvtColor(cv2.applyColorMap(norm, cv2.COLORMAP_INFERNO), cv2.COLOR_BGR2RGB)
+    # the native encoder where the library is available (the JAX CLI's
+    # batch writer); cv2 covers a failed native encode too
+    if path.endswith(".jpg") and native.native_available() and native.encode_jpg(path, rgb):
+        return path
+    return imageio.write_image(path, rgb)
 
 
 def cmd_pair(args) -> int:
@@ -322,7 +401,13 @@ def cmd_pair(args) -> int:
     from monocular_depth_estimation_trt_tpu_torch.utils.imageio import read_image, resize
 
     img1, img2 = read_image(args.image1), read_image(args.image2)
-    pipe = _build(args)
+    if args.engine:
+        pipe = _load_artifact(args.engine, surface="pair", need_images=(2,))
+        if pipe is None:
+            return 2
+        img1, img2 = pipe.fit(img1), pipe.fit(img2)
+    else:
+        pipe = _build(args)
     out = pipe(img1, img2)
 
     os.makedirs(args.out, exist_ok=True)
@@ -358,11 +443,18 @@ def cmd_video(args) -> int:
     )
     from monocular_depth_estimation_trt_tpu_torch.utils.imageio import open_video
 
-    if not args.model:
-        log("video: give a model name", tag="ERROR")
+    if args.engine:
+        pipe = _load_artifact(args.engine, surface="video", need_viz=True,
+                              allow_stream_viz=True)
+        if pipe is None:
+            return 2
+        open_video(args.video).release()
+    elif not args.model:
+        log("video: give a model name (or --engine artifact)", tag="ERROR")
         return 2
-    open_video(args.video).release()  # the codec and the file, before the build
-    pipe = _build(args, "encoder", "checkpoint", "precision")
+    else:
+        open_video(args.video).release()  # the codec and the file, before the build
+        pipe = _build(args, "encoder", "checkpoint", "precision")
     os.makedirs(args.out, exist_ok=True)
     stem = os.path.splitext(os.path.basename(args.video))[0]
     out_path = os.path.join(args.out, f"{stem}_{pipe.spec.artifact_name()}.mp4")
@@ -379,11 +471,17 @@ def cmd_webcam(args) -> int:
     from monocular_depth_estimation_trt_tpu_torch.apps.streaming import run_webcam
     from monocular_depth_estimation_trt_tpu_torch.utils.imageio import video_cv2
 
-    if not args.model:
-        log("webcam: give a model name", tag="ERROR")
+    if args.engine:
+        pipe = _load_artifact(args.engine, surface="webcam", need_viz=True)
+        if pipe is None:
+            return 2
+        video_cv2(f"camera {args.camera!r}")
+    elif not args.model:
+        log("webcam: give a model name (or --engine artifact)", tag="ERROR")
         return 2
-    video_cv2(f"camera {args.camera!r}")  # the codec, before the build
-    pipe = _build(args, "encoder", "checkpoint", "precision")
+    else:
+        video_cv2(f"camera {args.camera!r}")  # the codec, before the build
+        pipe = _build(args, "encoder", "checkpoint", "precision")
     run_webcam(pipe, int(args.camera) if args.camera.isdigit() else args.camera)
     return 0
 
@@ -405,24 +503,35 @@ def cmd_flow(args) -> int:
     )
     from monocular_depth_estimation_trt_tpu_torch.utils.imageio import video_cv2
 
-    if not args.model:
-        log("flow: give a model name", tag="ERROR")
+    if args.engine:
+        pipe = _load_artifact(args.engine, surface="flow", need_viz=True, need_images=(2, 3))
+        if pipe is None:
+            return 2
+        video_cv2("the flow MP4")
+        model_name = pipe.spec.model
+        triplets = int(pipe.meta["n_image_args"]) == 3
+    elif not args.model:
+        log("flow: give a model name (or --engine artifact)", tag="ERROR")
         return 2
-    video_cv2("the flow MP4")  # the codec, before the build
-    kw = {"device": args.device}
-    if args.iters:
-        if "iters" in inspect.signature(registry._REGISTRY[args.model]).parameters:
-            kw["iters"] = args.iters
-        else:
-            log(f"flow: {args.model} has no iterations to set; --iters ignored", tag="WARN")
-    pipe = registry.build_pipeline(args.model, **kw)
+    else:
+        video_cv2("the flow MP4")  # the codec, before the build
+        kw = {"device": args.device}
+        if args.iters:
+            if "iters" in inspect.signature(registry._REGISTRY[args.model]).parameters:
+                kw["iters"] = args.iters
+            else:
+                log(f"flow: {args.model} has no iterations to set; --iters ignored",
+                    tag="WARN")
+        pipe = registry.build_pipeline(args.model, **kw)
+        model_name = args.model
+        triplets = args.model == "memfof"
     frames_dir = args.frames
     if args.video:
         frames_dir = os.path.join(args.out, "_frames")
         extract_frames_from_video(args.video, frames_dir, max_frames=args.max_frames or None)
     os.makedirs(args.out, exist_ok=True)
-    out_path = os.path.join(args.out, f"{args.model}_flow.mp4")
-    if args.model == "memfof":
+    out_path = os.path.join(args.out, f"{model_name}_flow.mp4")
+    if triplets:
         run_flow_triplets(pipe, frames_dir, out_path, max_triplets=args.max_frames or None)
     else:
         run_flow_frames(pipe, frames_dir, out_path, max_pairs=args.max_frames or None)
@@ -519,22 +628,58 @@ def cmd_slam(args) -> int:
     return 0
 
 
+def _maybe_trace(args):
+    """``--trace DIR``: a ``torch.profiler`` trace of the timed loop (the
+    TensorRT DETAILED profiling role, ``Depth_Anything_V2/onnx2trt.py:40``),
+    else a context that does nothing."""
+    import contextlib
+
+    if not getattr(args, "trace", ""):
+        return contextlib.nullcontext()
+    from monocular_depth_estimation_trt_tpu_torch.runtime import profiler
+
+    return profiler.trace(args.trace)
+
+
 def cmd_bench(args) -> int:
     from monocular_depth_estimation_trt_tpu_torch.config import BenchmarkConfig
 
+    cfg = BenchmarkConfig(warmup=args.warmup, iterations=args.iterations)
+    if args.engine:
+        from monocular_depth_estimation_trt_tpu_torch.runtime.export import read_meta
+
+        meta = read_meta(args.engine)
+        if args.precision or args.encoder:
+            log("bench --engine: --precision/--encoder are baked into the artifact at export "
+                "time", tag="ERROR")
+            return 2
+        if args.size and (args.size, args.size) != tuple(meta["in_hw"]):
+            log(f"bench --engine: the artifact is fixed at {tuple(meta['in_hw'])}; --size "
+                f"{args.size} cannot apply (re-export at that size)", tag="ERROR")
+            return 2
+        pipe = _load_artifact(args.engine, surface="bench")
+        if pipe is None:
+            return 2
+        with _maybe_trace(args):
+            if args.views and args.views > 1:
+                report = pipe.benchmark_views(args.views, cfg)
+            else:
+                report = pipe.benchmark(config=cfg)
+        report.print()
+        return 0
     if not args.model:
-        log("bench: give a model name", tag="ERROR")
+        log("bench: give a model name (or --engine artifact)", tag="ERROR")
         return 2
     pipe = _build(args, "encoder", "precision")
-    cfg = BenchmarkConfig(warmup=args.warmup, iterations=args.iterations)
-    if args.views and args.views > 1:
-        if not hasattr(pipe, "benchmark_views"):
-            log(f"{args.model} has no multi-view protocol", tag="ERROR")
-            return 2
-        report = pipe.benchmark_views(args.views, cfg)
-    else:
-        in_hw = (args.size, args.size) if args.size else tuple(pipe.spec.input_hw)
-        report = pipe.benchmark(in_hw, cfg)
+    if args.views and args.views > 1 and not hasattr(pipe, "benchmark_views"):
+        log(f"{args.model} has no multi-view protocol", tag="ERROR")
+        return 2
+    with _maybe_trace(args):
+        if args.views and args.views > 1:
+            report = pipe.benchmark_views(args.views, cfg)
+        else:
+            in_hw = (args.size, args.size) if args.size else tuple(pipe.spec.input_hw)
+            report = pipe.benchmark(in_hw, cfg)
     report.print()
     return 0
 
@@ -557,13 +702,18 @@ def cmd_views(args) -> int:
 
     size = args.resize or 518
     imgs = [resize(read_image(p), (size, size)) for p in args.images]
-    if not args.model:
-        log("views: give a model name", tag="ERROR")
+    if args.engine:
+        pipe = _load_artifact(args.engine, surface="views", need_views=len(imgs))
+        if pipe is None:
+            return 2
+    elif not args.model:
+        log("views: give a model name (or --engine artifact)", tag="ERROR")
         return 2
-    pipe = _build(args, "precision")
-    if not hasattr(pipe, "multi_view"):
-        log(f"{args.model} has no multi-view protocol", tag="ERROR")
-        return 2
+    else:
+        pipe = _build(args, "precision")
+        if not hasattr(pipe, "multi_view"):
+            log(f"{args.model} has no multi-view protocol", tag="ERROR")
+            return 2
     out = pipe.multi_view(np.stack(imgs))
 
     os.makedirs(args.out, exist_ok=True)
@@ -582,15 +732,137 @@ def cmd_views(args) -> int:
 def cmd_serve(args) -> int:
     """HTTP model serving (``apps/server.py``): engines behind one
     device-worker thread and a bounded queue."""
-    from monocular_depth_estimation_trt_tpu_torch.apps.server import serve
+    from monocular_depth_estimation_trt_tpu_torch.apps import server
 
+    if args.engine:
+        # the deployment box needs the .mdeteng files alone (export with
+        # --serve-bundle for the batch buckets and both viz modes); several
+        # --engine flags serve several models behind one device worker
+        # (POST /v1/models/<name>/depth)
+        loaded = []
+        for path in args.engine:
+            eng = _load_artifact(path, surface="serve")
+            if eng is None:
+                return 2
+            loaded.append(eng)
+        families = [e.spec.model for e in loaded]
+        pipes = {}
+        for eng, family in zip(loaded, families):
+            # by family where it is unique, else by the full artifact name
+            key = family if families.count(family) == 1 else eng.spec.artifact_name()
+            if key in pipes:
+                log(f"serve: duplicate model {key!r} (the same artifact twice?)", tag="ERROR")
+                return 2
+            pipes[key] = eng
+        max_batch = args.max_batch
+        largest = max(max(e.batches) for e in loaded)
+        if max_batch > largest:
+            log(f"--max-batch {max_batch} exceeds every artifact's largest exported bucket "
+                f"({largest}); clamping", tag="WARN")
+            max_batch = largest
+        # a model whose artifact has smaller buckets is capped on its own by
+        # the server (DepthServer.max_batch_by)
+        server.serve(pipes, host=args.host, port=args.port, max_queue=args.max_queue,
+                     max_batch=max_batch, batch_window_ms=args.batch_window_ms)
+        return 0
     if not args.model:
-        log("serve: give a model name", tag="ERROR")
+        log("serve: give a model name (or --engine artifact)", tag="ERROR")
         return 2
     pipe = _build(args, "encoder", "checkpoint", "precision")
     hw = (args.size, args.size) if args.size else None
-    serve(pipe, host=args.host, port=args.port, input_hw=hw, max_queue=args.max_queue,
-          max_batch=args.max_batch, batch_window_ms=args.batch_window_ms)
+    server.serve(pipe, host=args.host, port=args.port, input_hw=hw, max_queue=args.max_queue,
+                 max_batch=args.max_batch, batch_window_ms=args.batch_window_ms)
+    return 0
+
+
+def cmd_export(args) -> int:
+    """Write a serialized engine artifact (``.mdeteng``,
+    ``runtime/export.py``): the fused programs and the weights, the port's
+    counterpart of the reference writing its TensorRT plan
+    (``Depth_Anything_V2/onnx2trt.py:60-68``). Serve it with ``--engine``."""
+    from monocular_depth_estimation_trt_tpu_torch.runtime.export import export_pipeline
+
+    pipe = _build(args, "encoder", "checkpoint", "precision")
+    if args.serve_bundle:
+        # what `serve --engine` needs: power-of-two buckets up to N, each in
+        # both viz modes
+        batches, b = [], 1
+        while b <= args.serve_bundle:
+            batches.append(b)
+            b *= 2
+        with_viz = "both"
+    else:
+        batches = [int(x) for x in args.batches.split(",") if x.strip()]
+        with_viz = args.viz
+    views = [int(x) for x in args.views.split(",") if x.strip()]
+    path = export_pipeline(pipe, (args.size, args.size), with_viz=with_viz, batches=batches,
+                           views=views, stream_window=args.stream_window,
+                           path=args.out or None)
+    print(path)
+    return 0
+
+
+def cmd_doctor(args) -> int:
+    """What this installation will use: torch and CUDA, nvcc and the kernel
+    library, the engine registry, exported artifacts, cached int8 bundles,
+    native host IO and, last (``--no-devices`` skips it), the card."""
+    import glob
+    import subprocess
+
+    import torch
+
+    from monocular_depth_estimation_trt_tpu_torch.config import cache_dir
+    from monocular_depth_estimation_trt_tpu_torch.ops.cuda import _build
+    from monocular_depth_estimation_trt_tpu_torch.runtime import native
+    from monocular_depth_estimation_trt_tpu_torch.runtime.engine import EngineRegistry
+    from monocular_depth_estimation_trt_tpu_torch.runtime.export import exported_dir, read_meta
+
+    print(f"torch              : {torch.__version__} (CUDA {torch.version.cuda})")
+    try:
+        nvcc = _build._nvcc()
+        version = subprocess.run([nvcc, "--version"], capture_output=True,
+                                 text=True).stdout.strip().splitlines()
+        print(f"nvcc               : {nvcc} ({version[-1] if version else '?'})")
+    except _build.KernelBuildError:
+        print("nvcc               : not found (kernels cannot build; CPU tensors run the "
+              "plain versions)")
+    lib = _build.library_path()
+    state = "built" if os.path.exists(lib) else "not built yet (builds at the first launch)"
+    print(f"kernel library     : {os.path.relpath(lib)} {state}")
+    print(f"mdet cache dir     : {cache_dir()}")
+    print(f"built engines      : {len(EngineRegistry().list())} registry entries")
+    port, other = [], []
+    for path in glob.glob(os.path.join(exported_dir(), "*.mdeteng")):
+        try:
+            (port if read_meta(path).get("runtime") == "torch" else other).append(path)
+        except (OSError, KeyError, ValueError):
+            other.append(path)
+    print(f"exported artifacts : {len(port)} of the port"
+          + (f" (and {len(other)} it cannot serve)" if other else ""))
+    bundles = glob.glob(os.path.join(cache_dir(), "params", "*_int8bundle_v2.pt"))
+    mirror = os.environ.get("MDET_HF_CACHE") or os.path.join(cache_dir(), "hf")
+    checkpoints = [f for f in glob.glob(os.path.join(mirror, "**", "*"), recursive=True)
+                   if os.path.isfile(f)]
+    print(f"cached weights     : {len(checkpoints)} checkpoint files in {mirror}, "
+          f"{len(bundles)} int8 bundles")
+    print("native host IO     : " + ("native (native/libmdet_hostio.so)"
+                                     if native.native_available()
+                                     else "python IO (the native library did not build "
+                                          "or load)"))
+    if args.no_devices:
+        print("devices            : skipped (--no-devices)")
+        return 0
+    if not torch.cuda.is_available():
+        print("devices            : no CUDA device")
+        return 0
+    try:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True).stdout.strip().splitlines()
+    except OSError:
+        smi = []
+    print(f"devices            : {torch.cuda.device_count()} x {torch.cuda.get_device_name(0)}"
+          + (f" ({smi[0]})" if smi else ""))
     return 0
 
 
@@ -612,11 +884,19 @@ def cmd_models(_args) -> int:
 def cmd_engines(_args) -> int:
     from monocular_depth_estimation_trt_tpu_torch.runtime.engine import EngineRegistry
 
+    from monocular_depth_estimation_trt_tpu_torch.runtime.export import exported_dir
+
     reg = EngineRegistry()
     for name in reg.list():
         entry = reg.load(name) or {}
         bt = entry.get("build_seconds")
         print(f"{name}  build={bt:.2f}s" if bt else name)
+    d = exported_dir()
+    arts = sorted(f for f in os.listdir(d) if f.endswith(".mdeteng"))
+    if arts:
+        print("-- serialized artifacts (export) --")
+        for f in arts:
+            print(f"{f}  {os.path.getsize(os.path.join(d, f)) / 1e6:.2f} MB")
     return 0
 
 
@@ -694,6 +974,9 @@ def build_parser() -> argparse.ArgumentParser:
     bench.add_argument("--views", type=int, default=0,
                        help="multi-view S axis (VGGT): benchmark the S-view engine, per-frame "
                        "FPS")
+    bench.add_argument("--trace", default="",
+                       help="also write a torch.profiler Chrome trace of the timed loop into "
+                       "this directory")
     bench.set_defaults(fn=cmd_bench)
 
     views = sub.add_parser("views", help="multi-view 3D reconstruction (S-view VGGT engine)")
@@ -774,10 +1057,39 @@ def build_parser() -> argparse.ArgumentParser:
     _add_precision_args(build, calib=False)
     build.set_defaults(fn=cmd_build)
 
+    exp = sub.add_parser("export", help="write a serialized engine artifact (.mdeteng): the "
+                         "fused programs, the weights stored once")
+    exp.add_argument("model")
+    exp.add_argument("--encoder", default="")
+    exp.add_argument("--size", type=int, default=518, help="square input size")
+    exp.add_argument("--metric", action="store_true")
+    exp.add_argument("--dataset", default="hypersim")
+    exp.add_argument("--checkpoint", default="")
+    exp.add_argument("--viz", action="store_true",
+                     help="fuse the colormap epilogue into the artifact")
+    exp.add_argument("--batches", default="1",
+                     help="comma-separated batch sizes to export modules for")
+    exp.add_argument("--views", default="",
+                     help="comma-separated S values: S-view joint modules (VGGT family)")
+    exp.add_argument("--stream-window", type=int, default=0, dest="stream_window",
+                     metavar="W", help="a causal KV-cache step module with a W-view window "
+                     "(streamvggt): `video --engine` then serves the stream")
+    exp.add_argument("--serve-bundle", type=int, default=0, dest="serve_bundle", metavar="N",
+                     help="power-of-two batch buckets up to N, both viz modes (what `serve "
+                     "--engine` needs)")
+    exp.add_argument("--out", default="",
+                     help="output path (default: <cache>/exported/<name>.mdeteng)")
+    _add_precision_args(exp)
+    exp.set_defaults(fn=cmd_export)
+
     serve = sub.add_parser("serve", help="HTTP depth serving (POST images to /v1/depth)")
     serve.add_argument("model", nargs="?", default="")
     serve.add_argument("--encoder", default="")
     serve.add_argument("--checkpoint", default="")
+    serve.add_argument("--engine", action="append", default=[],
+                       help="serve a serialized artifact (`export --serve-bundle N`); repeat "
+                       "to serve several models behind one server "
+                       "(POST /v1/models/<name>/depth)")
     _add_precision_args(serve)
     serve.add_argument("--host", default="0.0.0.0")
     serve.add_argument("--port", type=int, default=8000)
@@ -794,7 +1106,15 @@ def build_parser() -> argparse.ArgumentParser:
 
     sub.add_parser("models", help="list registered models").set_defaults(fn=cmd_models)
     sub.add_parser("engines", help="list built engines").set_defaults(fn=cmd_engines)
-    for sp in (run, batch, views, pair, serve, video, webcam, flow, track, slam):
+    doctor = sub.add_parser("doctor", help="report what this installation will use")
+    doctor.add_argument("--no-devices", action="store_true", dest="no_devices",
+                        help="skip the card query")
+    doctor.set_defaults(fn=cmd_doctor)
+    for sp in (run, batch, bench, views, pair, video, flow, webcam):
+        sp.add_argument("--engine", default="",
+                        help="serve from a serialized artifact (`export`): no model code or "
+                        "checkpoint")
+    for sp in (run, batch, views, pair, serve, video, webcam, flow, track, slam, exp):
         # SUPPRESS: the subparser's default must not clobber the main
         # parser's flag when it is given before the subcommand
         sp.add_argument("--allow-random-weights", action="store_true",

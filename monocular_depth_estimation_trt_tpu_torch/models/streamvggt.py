@@ -65,15 +65,19 @@ class CachedRopeAttention(RopeAttention):
     cache first; the queries attend to the cache's valid slots."""
 
     def step(self, x: torch.Tensor, grid_hw: Tuple[int, int], cache_k: torch.Tensor,
-             cache_v: torch.Tensor, rows: torch.Tensor, key_ok: torch.Tensor) -> torch.Tensor:
+             cache_v: torch.Tensor, rows: torch.Tensor, key_ok: torch.Tensor,
+             inplace: bool = True):
         """``rows``: the cache rows of this view's slot (n,) int64;
-        ``key_ok``: (C,) bool, the valid cache rows after the write."""
+        ``key_ok``: (C,) bool, the valid cache rows after the write. Returns
+        the output and the written cache (``cache_k`` and ``cache_v``
+        themselves, or new tensors where ``inplace`` is False)."""
         b, n, _ = x.shape
         q, k, v = self.rotated_qkv(x, grid_hw)
-        cache_k.index_copy_(2, rows, k.to(cache_k.dtype))
-        cache_v.index_copy_(2, rows, v.to(cache_v.dtype))
+        write = torch.Tensor.index_copy_ if inplace else torch.Tensor.index_copy
+        cache_k = write(cache_k, 2, rows, k.to(cache_k.dtype))
+        cache_v = write(cache_v, 2, rows, v.to(cache_v.dtype))
         o = masked_attention(q, cache_k.to(q.dtype), cache_v.to(v.dtype), key_ok)
-        return self.proj(o.transpose(1, 2).reshape(b, n, self.dim))
+        return self.proj(o.transpose(1, 2).reshape(b, n, self.dim)), cache_k, cache_v
 
 
 class CachedGlobalBlock(AASubBlock):
@@ -84,9 +88,12 @@ class CachedGlobalBlock(AASubBlock):
         super().__init__(dim, num_heads, num_special, attn_impl, attn_cls=CachedRopeAttention)
 
     def step(self, x: torch.Tensor, grid_hw: Tuple[int, int], cache_k: torch.Tensor,
-             cache_v: torch.Tensor, rows: torch.Tensor, key_ok: torch.Tensor) -> torch.Tensor:
-        x = x + self.ls1(self.attn.step(self.norm1(x), grid_hw, cache_k, cache_v, rows, key_ok))
-        return x + self.ls2(self.mlp(self.norm2(x)))
+             cache_v: torch.Tensor, rows: torch.Tensor, key_ok: torch.Tensor,
+             inplace: bool = True):
+        o, cache_k, cache_v = self.attn.step(self.norm1(x), grid_hw, cache_k, cache_v, rows,
+                                             key_ok, inplace)
+        x = x + self.ls1(o)
+        return x + self.ls2(self.mlp(self.norm2(x))), cache_k, cache_v
 
 
 class StreamingVGGT(VGGT):
@@ -126,6 +133,15 @@ class StreamingVGGT(VGGT):
         return init_stream_cache(self.cfg, batch, grid_hw, self.max_views, dtype, device)
 
     def step(self, view: torch.Tensor, cache: Dict) -> Dict[str, torch.Tensor]:
+        """One view's outputs; the cache advances in place."""
+        return self.advance(view, cache, inplace=True)[0]
+
+    def advance(self, view: torch.Tensor, cache: Dict,
+                inplace: bool = False) -> Tuple[Dict[str, torch.Tensor], Dict]:
+        """(outputs, cache'): one step. With ``inplace`` False a function of
+        its inputs, the cache left as it was and ``cache'`` new tensors (the
+        exported stream step, ``runtime/export.py``); with ``inplace`` the
+        cache's own buffers, written (the captured session)."""
         c, w = self.cfg, self.max_views
         b, H, W, _ = view.shape
         grid = (H // c.patch_size, W // c.patch_size)
@@ -139,12 +155,14 @@ class StreamingVGGT(VGGT):
         capacity = cache["kv"][0][0].shape[2]
         key_ok = torch.arange(capacity, device=view.device) < torch.clamp(t + 1, max=w) * n
 
-        saved = {}
+        saved, kv = {}, []
         for i in range(c.depth):
             x = agg.frame_blocks[i](x, grid, views=1)
             frame_out = x
             cache_k, cache_v = cache["kv"][i]
-            x = agg.global_blocks[i].step(x, grid, cache_k, cache_v, rows, key_ok)
+            x, cache_k, cache_v = agg.global_blocks[i].step(x, grid, cache_k, cache_v, rows,
+                                                            key_ok, inplace)
+            kv.append((cache_k, cache_v))
             if i in c.head_layers:
                 saved[i] = torch.cat([frame_out, x], dim=-1)[:, None]  # (B, 1, n, 2dim)
         outs = [saved[i] for i in c.head_layers]
@@ -156,12 +174,12 @@ class StreamingVGGT(VGGT):
             out["world_points"], out["world_points_conf"] = pts[:, 0], pconf[:, 0]
         # the camera-token ring: the camera head attends across the filled
         # slots, and this step's pose is read at its slot
-        cam = cache["cam"]
-        cam.index_copy_(1, slot[None], outs[-1][:, 0, :1].float())
+        write = torch.Tensor.index_copy_ if inplace else torch.Tensor.index_copy
+        cam = write(cache["cam"], 1, slot[None], outs[-1][:, 0, :1].float())
         if self.with_camera:
             valid = torch.arange(w, device=view.device) < torch.clamp(t + 1, max=w)
             poses = self.camera_head(cam.to(x.dtype), key_mask=valid)
             out["pose_enc"] = poses.index_select(1, slot[None])[:, 0]
-        t.add_(1)
-        return out
+        t = t.add_(1) if inplace else t + 1
+        return out, {"kv": kv, "cam": cam, "t": t}
 

@@ -5,7 +5,10 @@ matrices, the colormap table, rotary tables) from host data on every call
 would make a pageable host-to-device copy each time: a cost on every frame,
 and an operation that CUDA graph capture refuses. :func:`device_cached`
 keeps the first result of such a function per argument tuple instead. The
-cached tensors are shared by every caller: never write to one.
+cached tensors are shared by every caller: never write to one. A constant
+first asked for inside a ``torch.export`` trace is built outside the
+trace's modes, so that the cache holds a real tensor (which the exported
+graph keeps as a constant), never a traced one.
 """
 
 from __future__ import annotations
@@ -19,10 +22,19 @@ import torch
 def device_cached(make: Callable) -> Callable:
     """Decorator: memoize ``make(*args)`` (hashable arguments: sizes,
     dtypes, devices). The tensors are built outside inference mode, so that
-    code that records autograd may use them too."""
+    code that records autograd may use them too, and outside any tracing
+    mode."""
+    from torch.utils._python_dispatch import (
+        _disable_current_modes,
+        _get_current_dispatch_mode_stack,
+    )
 
     @functools.lru_cache(maxsize=None)
     def cached(*args):
+        if _get_current_dispatch_mode_stack():
+            # inside a trace: no grad-mode switch, which the trace would record
+            with _disable_current_modes():
+                return make(*args)
         with torch.inference_mode(False), torch.no_grad():
             return make(*args)
 

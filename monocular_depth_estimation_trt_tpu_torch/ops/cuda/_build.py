@@ -103,6 +103,14 @@ def _build(srcs, target: str) -> str:
     return "".join(logs)
 
 
+def library_path() -> str:
+    """Where the library of the current sources is, or will be, built."""
+    srcs = sources()
+    if not srcs:
+        raise KernelBuildError(f"no CUDA sources under {CSRC_DIR}")
+    return os.path.join(BUILD_DIR, f"libmdet_kernels_{_digest(srcs)}.so")
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if this source hash has none."""
     global _LIB, _INFO
@@ -110,9 +118,7 @@ def library() -> ctypes.CDLL:
         if _LIB is not None:
             return _LIB
         srcs = sources()
-        if not srcs:
-            raise KernelBuildError(f"no CUDA sources under {CSRC_DIR}")
-        target = os.path.join(BUILD_DIR, f"libmdet_kernels_{_digest(srcs)}.so")
+        target = library_path()
         t0 = time.perf_counter()
         built = not os.path.exists(target)
         log = _build(srcs, target) if built else ""

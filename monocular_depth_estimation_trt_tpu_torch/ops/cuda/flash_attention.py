@@ -27,6 +27,16 @@ kernel or raises; on a CPU tensor it runs its plain PyTorch version
 (:func:`flash_attention_packed_reference`, :func:`flash_attention_reference`
 for K2 and K3). :func:`attention_reference` is the plain attention of the
 JAX package's ``attention_reference`` (the ``attn_impl="xla"`` route).
+
+Each launch is an operator of the ``mdet`` namespace
+(``torch.ops.mdet.flash_attention_packed``, ``.flash_attention``,
+``.flash_attention_batched``), so that ``torch.export`` keeps the kernels
+in a graph (``runtime/export.py``): its CPU implementation is the plain
+version, its CUDA implementation the ctypes launch, which counts the
+wrapper's ``launches``, and its fake implementation gives the output's
+shape and type. The wrappers' checks and K2/K3's zero-padding stay outside
+the operators, as traced tensor code; the address checks, which a traced
+tensor cannot answer, are the CUDA implementation's.
 """
 
 from __future__ import annotations
@@ -84,15 +94,28 @@ def flash_attention_packed(
     head_dim = _check(qkv, num_heads)
     if scale is None:
         scale = 1.0 / math.sqrt(head_dim)
-    if qkv.device.type == "cpu":
-        return flash_attention_packed_reference(qkv, num_heads, scale)
-    if qkv.device.type != "cuda":
+    if qkv.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {qkv.device}")
+    return torch.ops.mdet.flash_attention_packed(qkv, num_heads, float(scale))
+
+
+@torch.library.custom_op("mdet::flash_attention_packed", mutates_args=(), device_types="cpu")
+def _k1_op(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
+    return flash_attention_packed_reference(qkv, num_heads, scale)
+
+
+@_k1_op.register_fake
+def _(qkv, num_heads, scale):
+    b, n, three_hd = qkv.shape
+    return qkv.new_empty((b, n, three_hd // 3))
+
+
+@_k1_op.register_kernel("cuda")
+def _(qkv, num_heads, scale):
     if qkv.data_ptr() % 16:
         raise ValueError("qkv must be 16-byte aligned")
-    b, n, _ = qkv.shape
-    out = torch.empty((b, n, num_heads * head_dim), dtype=qkv.dtype,
-                      device=qkv.device)
+    b, n, three_hd = qkv.shape
+    out = torch.empty((b, n, three_hd // 3), dtype=qkv.dtype, device=qkv.device)
     if out.numel() == 0:
         return out
 
@@ -101,8 +124,7 @@ def flash_attention_packed(
     fn = getattr(library(), _C_FUNCS[qkv.dtype])
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        err = fn(qkv.data_ptr(), out.data_ptr(), b, n, num_heads, float(scale),
-                 stream)
+        err = fn(qkv.data_ptr(), out.data_ptr(), b, n, num_heads, scale, stream)
     if err:
         raise RuntimeError(
             f"flash_attention_packed kernel launch failed: cudaError {err}"
@@ -165,35 +187,74 @@ def _kernel_head_dim(d: int) -> int:
     return -(-d // WIDE_HEAD_DIM) * WIDE_HEAD_DIM
 
 
-def _launch_bhnd(c_funcs, name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 scale: float) -> torch.Tensor:
-    """Launches K2 or K3 (their C entries share one signature) on CUDA
-    operands; returns the ``(B, N, H, d)`` output seen as ``(B, H, N, d)``."""
-    b, h, n, d = q.shape
+def _padded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """q, k, v zero-padded on d to the width K2 and K3 compute at."""
+    d = q.shape[-1]
     width = _kernel_head_dim(d)
     if d < width:
         q, k, v = (F.pad(t, (0, width - d)) for t in (q, k, v))
-    for label, t in (("q", q), ("k", k), ("v", v)):
-        if not _aligned(t):
-            raise ValueError(
-                f"{label} must have unit stride on d and 16-byte aligned rows, "
-                f"got strides {t.stride()}")
-    out = torch.empty((b, n, h, width), dtype=q.dtype, device=q.device)
-    if out.numel():
-        from monocular_depth_estimation_trt_tpu_torch.ops.cuda._build import library
+    return q, k, v
 
-        fn = getattr(library(), c_funcs[q.dtype])
-        strides = (ctypes.c_int64 * 12)(
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            out.stride(0), out.stride(2), out.stride(1))
-        with torch.cuda.device(q.device):
-            stream = torch.cuda.current_stream(q.device).cuda_stream
-            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-                     b, h, n, width, float(scale), stream)
-        if err:
-            raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    out = out.transpose(1, 2)
-    return out if d == width else out[..., :d]
+
+def _bhnd_op(name: str, c_funcs):
+    """The ``mdet`` operator of K2 or K3 (their C entries share one
+    signature): ``(B, H, N, w)`` operands, ``w`` a width the kernel takes on
+    a card, -> a fresh ``(B, N, H, w)`` buffer. The CPU implementation is
+    the plain version at any w; the CUDA one launches the kernel and counts
+    the wrapper ``name`` of this module."""
+
+    @torch.library.custom_op(f"mdet::{name}", mutates_args=(), device_types="cpu")
+    def op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+        return flash_attention_reference(q, k, v, scale).transpose(1, 2).contiguous()
+
+    @op.register_fake
+    def _(q, k, v, scale):
+        b, h, n, w = q.shape
+        return q.new_empty((b, n, h, w))
+
+    @op.register_kernel("cuda")
+    def _(q, k, v, scale):
+        b, h, n, width = q.shape
+        for label, t in (("q", q), ("k", k), ("v", v)):
+            if not _aligned(t):
+                raise ValueError(
+                    f"{label} must have unit stride on d and 16-byte aligned rows, "
+                    f"got strides {t.stride()}")
+        out = torch.empty((b, n, h, width), dtype=q.dtype, device=q.device)
+        if out.numel():
+            from monocular_depth_estimation_trt_tpu_torch.ops.cuda._build import library
+
+            fn = getattr(library(), c_funcs[q.dtype])
+            strides = (ctypes.c_int64 * 12)(
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                out.stride(0), out.stride(2), out.stride(1))
+            with torch.cuda.device(q.device):
+                stream = torch.cuda.current_stream(q.device).cuda_stream
+                err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
+                         b, h, n, width, scale, stream)
+            if err:
+                raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+            globals()[name].launches += 1
+        return out
+
+    return op
+
+
+_bhnd_op("flash_attention", _K2_C_FUNCS)
+_bhnd_op("flash_attention_batched", _K3_C_FUNCS)
+
+
+def _attend_bhnd(op, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 scale: float) -> torch.Tensor:
+    """K2 or K3's operator on CPU or CUDA operands (padded on a card);
+    returns its ``(B, N, H, d)`` output seen as ``(B, H, N, d)``."""
+    d = q.shape[-1]
+    if q.device.type == "cuda":
+        q, k, v = _padded(q, k, v)
+    elif q.device.type != "cpu":
+        raise ValueError(f"unsupported device {q.device}")
+    out = op(q, k, v, float(scale)).transpose(1, 2)
+    return out if out.shape[-1] == d else out[..., :d]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -211,14 +272,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_bhnd(q, k, v)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    out = _launch_bhnd(_K2_C_FUNCS, "flash_attention", q, k, v, scale)
-    if out.numel():
-        flash_attention.launches += 1
-    return out
+    return _attend_bhnd(torch.ops.mdet.flash_attention, q, k, v, scale)
 
 
 flash_attention.launches = 0
@@ -247,14 +301,7 @@ def flash_attention_batched(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"{tuple(q.shape)}; longer sequences go to flash_attention")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    out = _launch_bhnd(_K3_C_FUNCS, "flash_attention_batched", q, k, v, scale)
-    if out.numel():
-        flash_attention_batched.launches += 1
-    return out
+    return _attend_bhnd(torch.ops.mdet.flash_attention_batched, q, k, v, scale)
 
 
 flash_attention_batched.launches = 0

@@ -15,6 +15,14 @@ bf16 activations (int8 serving) run a persistent TMA + wgmma GEMM whose
 consumer warpgroups quantize each landed x tile straight into the register
 A operand of the int8 wgmma; fp32 activations (the parity route) run a wmma
 kernel.
+
+The launch is the operator ``torch.ops.mdet.w8a8_matmul`` on ``(M, K)``
+activations, so that ``torch.export`` keeps the kernel in a graph
+(``runtime/export.py``): its CPU implementation is the plain version, its
+CUDA implementation the ctypes launch (counted in the wrapper's
+``launches``), its fake implementation the output's shape and type. The
+wrapper's checks, the flattening to 2-D and the bf16 K padding stay outside
+it, as traced tensor code.
 """
 
 from __future__ import annotations
@@ -67,42 +75,61 @@ def w8a8_matmul(x: torch.Tensor, weight_q: torch.Tensor, qmul: torch.Tensor,
     zero-padded to one first. A CPU tensor goes to the plain version."""
     _check(x, weight_q, qmul, out_scale, bias)
     out_dtype = out_dtype or x.dtype
-    if x.device.type == "cpu":
-        return w8a8_matmul_reference(x, weight_q, qmul, out_scale, bias, out_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    if x.dtype not in _C_FUNCS:
-        raise TypeError(f"x must be bfloat16 or float32, got {x.dtype}")
-    if out_dtype != x.dtype:
-        raise TypeError(f"the kernel writes the type of x ({x.dtype}), not {out_dtype}")
     n, k = weight_q.shape
     lead = x.shape[:-1]
     x2 = x.reshape(-1, k)
-    if not x2.is_contiguous() or x2.data_ptr() % 16:
-        x2 = x2.contiguous() if not x2.is_contiguous() else x2.clone()
-    weight_q, qmul, out_scale = (t.contiguous() for t in (weight_q, qmul, out_scale))
-    if x.dtype == torch.bfloat16 and k % K_ALIGN:
-        # the bf16 kernel's TMA maps need rows of a multiple of 16 bytes: zero
-        # columns add nothing to the int32 sum (no model layer has such a K)
-        pad = K_ALIGN - k % K_ALIGN
-        x2, weight_q, qmul = (F.pad(t, (0, pad)) for t in (x2, weight_q, qmul))
-        k += pad
-    if bias is not None:
-        bias = bias.contiguous()
-    out = torch.empty((x2.shape[0], n), dtype=x.dtype, device=x.device)
+    if x.device.type == "cuda":
+        if x.dtype not in _C_FUNCS:
+            raise TypeError(f"x must be bfloat16 or float32, got {x.dtype}")
+        if out_dtype != x.dtype:
+            raise TypeError(f"the kernel writes the type of x ({x.dtype}), not {out_dtype}")
+        x2 = x2.contiguous()
+        weight_q, qmul, out_scale = (t.contiguous() for t in (weight_q, qmul, out_scale))
+        if x.dtype == torch.bfloat16 and k % K_ALIGN:
+            # the bf16 kernel's TMA maps need rows of a multiple of 16 bytes: zero
+            # columns add nothing to the int32 sum (no model layer has such a K)
+            pad = K_ALIGN - k % K_ALIGN
+            x2, weight_q, qmul = (F.pad(t, (0, pad)) for t in (x2, weight_q, qmul))
+        if bias is not None:
+            bias = bias.contiguous()
+    elif x.device.type != "cpu":
+        raise ValueError(f"unsupported device {x.device}")
+    out = torch.ops.mdet.w8a8_matmul(x2, weight_q, qmul, out_scale, bias, out_dtype)
+    return out.reshape(*lead, n)
+
+
+@torch.library.custom_op("mdet::w8a8_matmul", mutates_args=(), device_types="cpu")
+def _k4_op(x: torch.Tensor, weight_q: torch.Tensor, qmul: torch.Tensor,
+           out_scale: torch.Tensor, bias: Optional[torch.Tensor],
+           out_dtype: torch.dtype) -> torch.Tensor:
+    return w8a8_matmul_reference(x, weight_q, qmul, out_scale, bias, out_dtype)
+
+
+@_k4_op.register_fake
+def _(x, weight_q, qmul, out_scale, bias, out_dtype):
+    return x.new_empty((x.shape[0], weight_q.shape[0]), dtype=out_dtype)
+
+
+@_k4_op.register_kernel("cuda")
+def _(x, weight_q, qmul, out_scale, bias, out_dtype):
+    if x.data_ptr() % 16:
+        x = x.clone()
+    m, k = x.shape
+    n = weight_q.shape[0]
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if out.numel():
         from monocular_depth_estimation_trt_tpu_torch.ops.cuda._build import library
 
         fn = getattr(library(), _C_FUNCS[x.dtype])
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = fn(x2.data_ptr(), weight_q.data_ptr(), qmul.data_ptr(), out_scale.data_ptr(),
+            err = fn(x.data_ptr(), weight_q.data_ptr(), qmul.data_ptr(), out_scale.data_ptr(),
                      None if bias is None else bias.data_ptr(), out.data_ptr(),
-                     x2.shape[0], n, k, stream)
+                     m, n, k, stream)
         if err:
             raise RuntimeError(f"w8a8_matmul kernel launch failed: cudaError {err}")
         w8a8_matmul.launches += 1
-    return out.reshape(*lead, n)
+    return out
 
 
 w8a8_matmul.launches = 0

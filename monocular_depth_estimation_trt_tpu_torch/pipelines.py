@@ -126,6 +126,11 @@ class DepthPipeline:
             eng.release()
         self._engines.clear()
 
+    def export_modules(self) -> Dict[str, torch.nn.Module]:
+        """The modules that the forward runs, whose tensors an exported
+        artifact stores once (``runtime/export.py``)."""
+        return {"model": self.model} if self.model is not None else {}
+
     @staticmethod
     def _as_tensor(frames) -> torch.Tensor:
         if isinstance(frames, torch.Tensor):
@@ -156,11 +161,14 @@ class DepthPipeline:
         eng = self.engine_for(tuple(in_hw), False)
         rng = np.random.default_rng(0)
         frame = rng.integers(0, 255, size=(in_hw[0], in_hw[1], 3), dtype=np.uint8)
-        host_in = torch.from_numpy(frame).pin_memory()
+        pinned = self.device.type == "cuda"
+        host_in = torch.from_numpy(frame)
+        host_in = host_in.pin_memory() if pinned else host_in
         # the outputs' own sizes (the MoGe pair answers at its input size)
         out = eng(host_in)
         keys = ["depth"] if "depth" in out else sorted(out)
-        host_out = {k: torch.empty(out[k].shape, dtype=out[k].dtype).pin_memory() for k in keys}
+        host_out = {k: torch.empty(out[k].shape, dtype=out[k].dtype, pin_memory=pinned)
+                    for k in keys}
 
         def step():  # the engine queues the H2D copy into its static input
             res = eng(host_in)
@@ -316,6 +324,11 @@ class PairPipeline:
         for eng in self._engines.values():
             eng.release()
         self._engines.clear()
+
+    def export_modules(self) -> Dict[str, torch.nn.Module]:
+        """The modules that the forward runs (``runtime/export.py``)."""
+        return {k: m for k, m in (("model", self.model), ("prior", self.prior))
+                if m is not None}
 
     def __call__(self, frame1, frame2, *, device_out: bool = False) -> Dict[str, Any]:
         if tuple(frame1.shape) != tuple(frame2.shape):

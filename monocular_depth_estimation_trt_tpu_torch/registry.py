@@ -193,8 +193,7 @@ def _int8_bundle(model: torch.nn.Module, masters, make_sample: Callable, *,
     """Calibrate ``model`` (cast, on its device) on ``calib_images`` or the
     default set, each through ``make_sample`` (uint8 (H, W, 3) on the device
     -> the model's input), and swap in the quantized layers built from
-    ``masters`` (path -> full-precision weight and bias). No bundle is
-    cached on disk yet."""
+    ``masters`` (path -> full-precision weight and bias)."""
     from monocular_depth_estimation_trt_tpu_torch.ops.quant import quantize_model_bundle
 
     device = next(model.parameters()).device
@@ -205,6 +204,83 @@ def _int8_bundle(model: torch.nn.Module, masters, make_sample: Callable, *,
             yield make_sample(torch.from_numpy(np.ascontiguousarray(img)).to(device))
 
     quantize_model_bundle(model, masters, samples())
+
+
+INT8_BUNDLE_SUFFIX = "_int8bundle_v2"  # the JAX package's name (SmoothQuant scheme v2)
+
+
+def int8_bundle_path(spec: ModelSpec) -> str:
+    """Where the int8 serving bundle of ``spec`` is cached: beside the
+    weights, under the bf16 artifact's name (JAX ``registry.py:156-234``)."""
+    from monocular_depth_estimation_trt_tpu_torch.config import cache_dir
+
+    name = spec.with_(precision="bf16").artifact_name() + INT8_BUNDLE_SUFFIX
+    return os.path.join(cache_dir(), "params", name + ".pt")
+
+
+def _int8_bundle_key(model: torch.nn.Module, checkpoint: Optional[str],
+                     dtype: torch.dtype) -> Dict[str, Any]:
+    """What a cached bundle must have been made from: the checkpoint file
+    (path, size, modification time) or the seeded random weights, the
+    model's layout (every key, shape and type before the cast) and the
+    compute type."""
+    import hashlib
+
+    from monocular_depth_estimation_trt_tpu_torch.weights.store import resolve_checkpoint
+
+    if checkpoint:
+        path = os.path.realpath(resolve_checkpoint(checkpoint))
+        source = {"checkpoint": path, "size": os.path.getsize(path),
+                  "mtime_ns": os.stat(path).st_mtime_ns}
+    else:
+        source = {"random_seed": 0}
+    layout = hashlib.sha256(repr([(k, tuple(v.shape), str(v.dtype))
+                                  for k, v in model.state_dict().items()]).encode())
+    return {"source": source, "layout": layout.hexdigest(), "dtype": str(dtype)}
+
+
+def _load_int8_bundle(model: torch.nn.Module, path: str, key: Dict[str, Any], device,
+                      dtype) -> Optional[torch.nn.Module]:
+    """``model`` (built, weights not yet written) as the cached bundle at
+    ``path`` holds it: the quantized layers installed, every tensor loaded.
+    None when there is no bundle or it was made from other weights."""
+    from monocular_depth_estimation_trt_tpu_torch.ops.quant import install_q8
+    from monocular_depth_estimation_trt_tpu_torch.utils.logging import log
+
+    if not os.path.exists(path):
+        return None
+    try:
+        bundle = torch.load(path, map_location="cpu", weights_only=True)
+    except (OSError, RuntimeError) as e:
+        log(f"int8 bundle {path} unreadable ({e!r}); calibrating", tag="WARN")
+        return None
+    if bundle.get("key") != key:
+        return None
+    model = model.to(device=device, dtype=dtype).eval()
+    placeholders = {}
+    for path_ in model.int8_targets():
+        lin = model.get_submodule(path_)
+        n, k = lin.weight.shape
+        placeholders[path_] = {
+            "weight_q": torch.empty((n, k), dtype=torch.int8), "qmul": torch.empty(k),
+            "out_scale": torch.empty(n), "bias": None if lin.bias is None else torch.empty(n)}
+    install_q8(model, placeholders)
+    model.load_state_dict(bundle["state_dict"], strict=True)
+    log(f"int8: loaded cached serving bundle ({os.path.basename(path)})")
+    return model
+
+
+def _save_int8_bundle(model: torch.nn.Module, path: str, key: Dict[str, Any]) -> None:
+    """The calibrated int8 model's whole state (the quantized layers and
+    every other tensor, in the compute type), written to ``path``."""
+    from monocular_depth_estimation_trt_tpu_torch.utils.logging import log
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save({"key": key, "state_dict": {k: v.detach().cpu()
+                                           for k, v in model.state_dict().items()}}, tmp)
+    os.replace(tmp, path)
+    log(f"int8: cached the serving bundle -> {path}")
 
 
 def _new_model(make: Callable[[], torch.nn.Module]) -> torch.nn.Module:
@@ -231,6 +307,20 @@ def _params_for(model: torch.nn.Module, spec: ModelSpec, *, params, checkpoint, 
 
     quant = spec.precision == "int8"
     name = spec.with_(precision="bf16").artifact_name() if quant else spec.artifact_name()
+    # the int8 bundle is cached only for weights that a later build finds
+    # again (a checkpoint file, or the seeded random weights) calibrated on
+    # the default images: an int8 cold start that finds it never calibrates
+    cacheable = (quant and params is None and calib_images is None
+                 and torch.device(device).type in ("cuda", "cpu"))
+    if cacheable:
+        from monocular_depth_estimation_trt_tpu_torch.weights.store import random_weights_allowed
+
+        cacheable = bool(checkpoint) or random_weights_allowed()
+    if cacheable:
+        key, bundle = _int8_bundle_key(model, checkpoint, dtype), int8_bundle_path(spec)
+        loaded = _load_int8_bundle(model, bundle, key, device, dtype)
+        if loaded is not None:
+            return loaded
     resolve_weights(model, name, checkpoint=checkpoint, state_dict=params,
                     allowed_unconsumed=allowed_unconsumed)
     masters = full_precision(model, model.int8_targets()) if quant else None
@@ -238,6 +328,8 @@ def _params_for(model: torch.nn.Module, spec: ModelSpec, *, params, checkpoint, 
     if quant:
         _int8_bundle(model, masters, make_sample, calib_images=calib_images,
                      input_size=input_size)
+        if cacheable:
+            _save_int8_bundle(model, bundle, key)
     return model
 
 
@@ -524,6 +616,40 @@ class StreamVGGTPipeline(VGGTPipeline):
 
         runner.session = sess
         return runner
+
+    def stream_export_bundle(self, window: int = 4, in_hw=None):
+        """(step, state, modules) for the stream module of
+        ``runtime/export.py`` (the JAX ``stream_export_bundle``):
+        ``step(frame_u8 (H, W, 3), state) -> ({"depth", "viz"}, state')``,
+        one causal step as a function of its inputs (the cache left as it
+        was, ``state'`` new tensors), through a ``StreamingVGGT`` on this
+        pipeline's tensors, with the depth cropped, resampled and
+        colormapped as :meth:`stream` does; ``state``: the zero cache as a
+        list (each global layer's K and V rings, the camera ring, the step
+        count); ``modules``: the streaming model."""
+        from monocular_depth_estimation_trt_tpu_torch.models.streamvggt import StreamingVGGT
+        from monocular_depth_estimation_trt_tpu_torch.ops.preprocess import (
+            preprocess_pad_square,
+        )
+
+        size = self.spec.input_hw[0]
+        in_hw = tuple(in_hw or self.spec.input_hw)
+        model = StreamingVGGT.sharing(self.model, window)
+        param = next(self.model.parameters())
+        cache = model.init_cache(1, (size // model.cfg.patch_size,) * 2, param.dtype,
+                                 param.device)
+        depth = model.cfg.depth
+
+        def pack(c):
+            return [t for kv in c["kv"] for t in kv] + [c["cam"], c["t"]]
+
+        def step(frame_u8: torch.Tensor, state):
+            cache_in = {"kv": [(state[2 * i], state[2 * i + 1]) for i in range(depth)],
+                        "cam": state[-2], "t": state[-1]}
+            out, cache_out = model.advance(preprocess_pad_square(frame_u8[None], size), cache_in)
+            return self._stream_viz({k: v[0] for k, v in out.items()}, in_hw), pack(cache_out)
+
+        return step, pack(cache), {"stream": model}
 
 
 @register("streamvggt", fidelity="converter-verified")

@@ -41,6 +41,11 @@ def set_allow_random_weights(allow: bool) -> None:
     _ALLOW_RANDOM_DEFAULT = bool(allow)
 
 
+def random_weights_allowed() -> bool:
+    """The current random-weights fallback policy."""
+    return _ALLOW_RANDOM_DEFAULT
+
+
 @contextlib.contextmanager
 def allow_random_weights(allow: bool = True):
     """Scoped override of the random-weights fallback policy."""

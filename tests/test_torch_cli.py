@@ -155,17 +155,18 @@ def test_parser_has_the_ported_commands_and_rejects_the_rest():
                 ["bench", "x"], ["build", "x"], ["serve", "x"], ["models"], ["engines"],
                 ["batch", "x", "--video", "v.mp4"], ["video", "x", "--video", "v.mp4"],
                 ["webcam", "x", "--camera", "1"], ["flow", "raft"], ["track", "--video", "v.mp4"],
-                ["slam", "megasam", "--video", "v.mp4"]):
+                ["slam", "megasam", "--video", "v.mp4"], ["export", "x"], ["doctor"],
+                ["run", "x", "--engine", "e.mdeteng"], ["bench", "x", "--trace", "t"],
+                ["flow", "raft", "--engine", "e"], ["serve", "--engine", "a", "--engine", "b"]):
         assert p.parse_args(cmd).fn.__name__ == f"cmd_{cmd[0]}"
     assert p.parse_args(["run", "x"]).device == "cuda"
     assert p.parse_args(["--device", "cpu", "run", "x"]).device == "cpu"
     a = p.parse_args(["run", "x", "--precision", "int8", "--calib-dir", "c", "--compare", "r",
                       "--compare-tol", "0.5", "--allow-random-weights"])
     assert (a.precision, a.calib_dir, a.compare, a.compare_tol) == ("int8", "c", "r", 0.5)
-    for bad in (["--device", "tpu", "run", "x"], ["run", "x", "--engine", "e.mdeteng"],
-                ["bench", "x", "--device-mesh", "1x1"], ["bench", "x", "--trace", "t"],
-                ["run", "x", "--colorbar"], ["track", "x"], ["flow", "raft", "--engine", "e"],
-                ["export", "x"], ["slam", "megasam", "--engine", "e"]):
+    for bad in (["--device", "tpu", "run", "x"], ["bench", "x", "--device-mesh", "1x1"],
+                ["run", "x", "--colorbar"], ["track", "x"], ["slam", "megasam", "--engine", "e"],
+                ["convert", "x"], ["eval", "x"], ["quantcheck", "x"], ["distill", "x"]):
         with pytest.raises(SystemExit):
             p.parse_args(bad)
 

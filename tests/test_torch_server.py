@@ -428,13 +428,15 @@ def test_multi_model_batching_groups_by_model(server_factory):
 
 
 def test_cli_serve_has_no_engine_artifacts():
-    """Serialized artifacts (``--engine``) are not ported: argparse rejects
-    the flag."""
+    """Serialized artifacts are ported now: ``--engine`` repeats, one model
+    each (``tests/test_torch_export.py`` serves them), and no artifact is
+    taken when a model name is given."""
     from monocular_depth_estimation_trt_tpu_torch.cli import build_parser
 
-    with pytest.raises(SystemExit):
-        build_parser().parse_args(["serve", "--engine", "a.mdeteng"])
-    assert build_parser().parse_args(["serve", "x"]).model == "x"
+    args = build_parser().parse_args(["serve", "--engine", "a.mdeteng", "--engine", "b"])
+    assert args.engine == ["a.mdeteng", "b"] and args.model == ""
+    args = build_parser().parse_args(["serve", "x"])
+    assert args.model == "x" and args.engine == []
 
 
 def test_per_model_batch_cap(server_factory):
