@@ -44,14 +44,14 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    alternating blocks): one 480x640 frame with the viz epilogue, 4 views,
    then 8 views, with the counts set to 0 just before and read just after
    (24 K1 + 48 K2 per captured forward); then its bf16 outputs against
-   plain attention and the fp32 path for two weight seeds and three frames,
+   plain attention and the fp32 path for one weight seed and three frames,
    and the fp32 path on the card against the CPU (2 of 24 ViT and 2 of 24
    alternating blocks);
 6. Depth Pro path: ``build_pipeline("depth_pro")`` at full size (two
    ViT-L/16@384 encoders, 1536 input): a 480x640 frame with the viz
    epilogue and a 1536x1536 frame, with the counts set to 0 just before and
    read just after (24 K3 + 24 K1 per captured forward); then its bf16
-   outputs against plain attention and the fp32 path for two weight seeds
+   outputs against plain attention and the fp32 path for one weight seed
    and two frames, and the fp32 path on the card against the CPU with the
    ViT depth cut to 2 blocks (hooks at blocks 0 and 1);
 7. metric_families_path: ``depth_anything_v3`` (vitl 518²),
@@ -62,7 +62,7 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    K2/K3/K4), two frames each (a 480x640 frame with the viz epilogue, then
    one at the model's input size), outputs finite where they must be (the
    MoGe pair: inf off its mask); then the bf16 kernel route against plain
-   attention and the fp32 path for two weight seeds and the two frames (the
+   attention and the fp32 path for one weight seed and the two frames (the
    MoGe pair on its model's outputs), and the fp32 path on the card against
    the CPU, the ViT-L families cut to 2 blocks; then single_image_families_path:
    ``unidepth_v2`` and ``unik3d`` (vitb 518², 4 registers), ``sidepth`` (two
@@ -93,7 +93,7 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    StreamVGGT's ``stream`` runner, 24 K1 + 24 K2 a step, and the step's
    profile (graph; eager with the device time of its masked cached
    attention); then each multi-view family's engine against its eager
-   forward, its speed in turns eager, graph, graph, eager, and its profile
+   forward, its speed in turns eager, graph, and its profile
    (Align3R's eager forward with the device time of its plain decoder
    attention); then the video paths (``video``): Video Depth Anything vits
    and vitl at 518², a 32-frame window each (K1 at (32, 1370, 6 or 16); 12
@@ -106,7 +106,7 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    reset; the int8 StreamVGGT stream, window 4, 8 steps at 480x640 (288 K4
    + 24 K1 + 24 K2 a step) against the eager steps; each with its own counts
    set to 0 just before and read just after; the bf16 kernel route against
-   the plain and fp32 routes at 2 weight seeds (``video_parity``) and fp32
+   the plain and fp32 routes at one weight seed (``video_parity``) and fp32
    card against CPU with the ViT cut to 2 blocks; then their speed (the VDA
    windows in frames/s, FlashDepth's frame in turns) and profile (the VDA
    windows' eager rows with the device time of the temporal blocks and of
@@ -122,7 +122,7 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    maps in), each step against the eager step on an eager cache; fp32 card
    against CPU (2 refinement steps at 144x256, NeuFlow 8 + 8, WAFT
    140x252); WAFT's bf16 kernel route against its plain and fp32 routes at
-   2 weight seeds; RAFT's correlation lookup alone at its shape in the
+   one weight seed; RAFT's correlation lookup alone at its shape in the
    separable and the gather form; then each model's speed in turns and its
    profile (graph, and eager with the device time of its lookup, warp or
    plain attention), all released before the int8 phases; then
@@ -149,7 +149,7 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    (per captured forward: 96 K4 + 24 K1; 192 K4 + 24 K3 + 24 K1; 288 K4 + 24
    K1 + 48 K2; 96 K4 + 24 K1; 48 K4 + 12 K1), two frames each (the first
    with the viz epilogue) and 4 views for vggt; then the int8 outputs
-   against the bf16 and fp32 routes for two weight seeds and two frames
+   against the bf16 and fp32 routes for one weight seed and two frames
    (VGGT's confidence on its 99.9th percentile and its route ratio); and
    the counted runs alone of unik3d int8 (48 K4 + 12 K1 a forward) and
    map_anything int8 (288 K4 + 24 K1 + 48 K2);
@@ -163,7 +163,8 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    replay, the replay's outputs finite and equal to the eager forward's bit
    for bit (else within ENGINE_REL_TOL, recorded), a result that survives
    the next call; build seconds per engine;
-10. cli: the commands in one process of their own, each timed: ``run
+10. cli: the commands in one process of their own, started before the
+   int8 phases and read after the engines, each timed: ``run
    depth_anything_v2 --encoder vits --pointcloud --benchmark`` on a seeded
    480x640 PNG (npz depth equal to this process's
    pipeline bit for bit; viz and ``.ply`` written), ``views vggt`` on 4
@@ -187,29 +188,55 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    single-frame call, bit for bit; ``/v1/stats``;
 12. speed: ``DepthPipeline.benchmark`` (through the engine, "graph") and
    the same step through the eager forward ("eager") in turns eager,
-   graph, graph, eager for vits, vitl, int8 vitl, vggt S=1 and S=4
+   graph for vits, vitl, int8 vitl, vggt S=1 and S=4
    (``benchmark_views``), depth_pro 1536² and the nine single-image
    families at their input sizes; int8 depth_pro, vggt, metric3d_v2 and
    unidepth_v2 through their engines; vits int8 (forced) against vits bf16
    in alternating turns;
 13. profile: device time by kernel, device busy time and idle share of a
-   graph replay of each path (and of the eager forward of vits, vggt S=4,
+   graph replay of each path (3 calls each; 5 for the 518² and single-image
+   paths until the training phase needed the card time) (and of the eager forward of vits, vggt S=4,
    depth_pro, metric3d_v2, moge2, geocalib, unidepth_v2 and unik3d, with
    the device time of the last two's decoder attention), from
    ``torch.profiler``;
 14. export: serialized artifacts (``runtime/export.py``) of pipelines built
-   above: DA-V2 vits 518² as a serve bundle (b1, b2, both viz modes), vitl
-   int8 b1, VGGT's 4-view module and StreamVGGT's stream (window 4,
-   480x640, 8 steps); each exported, loaded and its first call counted with
-   the counts set to 0 just before (per forward 12 K1; 24 K1 + 96 K4; 24 K1
-   + 48 K2; 24 K1 + 24 K2), every loaded replay equal to the in-process
-   engine bit for bit (else within 1e-3, recorded with the first op that
-   differs), the loaded and in-process vits p50 in turns; then, in a process
-   where the model zoo cannot be imported, ``run --engine`` (its npz depth
+   above: DA-V2 vits 518² as a serve bundle (b1, b2, both viz modes) before
+   the int8 phases, then vitl int8 b1, VGGT's 4-view module and StreamVGGT's
+   stream (window 4, 480x640, 8 steps), these two at full widths with 2
+   blocks (``EXPORT_VGGT_DEPTH``); each exported, loaded and its first call
+   counted with the counts set to 0 just before (per forward 12 K1; 24 K1 +
+   96 K4; 2 K1 + 4 K2; 2 K1 + 2 K2), every loaded replay equal to the
+   in-process engine bit for bit (else within 1e-3, recorded with the first
+   op that differs), the loaded and in-process vits p50 in turns; then, in a
+   process where the model zoo cannot be imported, at work from the int8
+   phases on, ``run --engine`` (its npz depth
    against the in-process engine), ``bench --engine``, ``bench --engine
    --trace`` (the trace names K1's kernel), ``doctor`` and ``serve --engine``
    (four answers against in-process calls); the record says which host IO
-   (the native library or Python's) this machine takes.
+   (the native library or Python's) this machine takes;
+15. training: the ``distill`` command's student (DA-V2 vits, fp32, plain
+   attention, 266², batch 4) taught by the vitl bf16 teacher's captured
+   engine (its labelling run counted: 24 K1 a forward); 3 steps on the card
+   against the same 3 steps on the CPU, each from the card's state (losses
+   and gradient norms at rel 1e-4, the parameters to the bar of
+   ``tests/test_torch_training.py``), one QAT step the same way (its
+   gradient norm and its parameters at the bars of activation rounding,
+   ``QAT_GRAD_NORM_REL_TOL``); the step's p50 over 20 steps after 3 warm-up
+   steps, images/s, the teacher's labelling time per batch, the step's
+   device busy time and idle share with its top kernels; then ``distill
+   --steps 20 --promote`` (a temporary params cache; its student in full
+   fp32, TF32 off, by its own log line) and ``run`` serving the
+   promoted weights (its npz depth equal to this process's pipeline on them,
+   bit for bit), ``convert --verify-manifest`` of a seeded vits ``.pth``
+   (exit 0, and 2 with a key renamed), ``quantcheck`` of DA-V2 vitl (its
+   JSON equal to the metrics of this process's bf16 and int8 pipelines, the
+   int8 run counted: 96 K4 + 24 K1 a forward; its exit code by the report's
+   delta1), ``eval`` of the untrained student's depth against the
+   teacher's, two npz files (its JSON equal to this process's metrics) and
+   ``run --colorbar`` (the figure, or exit 1 naming
+   matplotlib), in one process of their own that starts before the export
+   phase's last artifacts and runs while this one exports them and holds
+   the card against the CPU.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -225,6 +252,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 from monocular_depth_estimation_trt_tpu_torch.runtime.engine import WARMUP_CALLS
@@ -257,7 +285,10 @@ PATH_FP32_REL_TOL = 1e-3
 # (1 + exp of a logit) turns the logit's absolute bf16 error into a
 # relative one, and pose_enc has 9 values a view.
 PATH_BF16_VGGT_REL_TOL = {"depth": 1e-1, "depth_conf": 7.5e-2, "pose_enc": 1.5e-1}
-PARITY_WEIGHT_SEEDS = (0, 1)
+# The route comparisons' weight seeds (0 and 1 until the script outgrew its
+# time limit: the second seed's models cost about 160 s on an H100 host; its
+# readings had never decided a check, PERF.md §6)
+PARITY_WEIGHT_SEEDS = (0,)
 # ... and, averaged over the readings, the kernel route's distance from fp32
 # is at most this multiple of the plain route's: it adds no error beyond the
 # bf16 rounding that the plain route already has (readings 0.88 to 1.06; one
@@ -311,13 +342,14 @@ INT8_P999_TOL = {"vggt": {"depth_conf": 6e-2}}
 # replay against eager where a library call picks another algorithm under
 # capture (max |graph - eager| / max |eager|); equal bit for bit otherwise
 ENGINE_REL_TOL = 1e-3
-# 14 timed and 8 synchronised iterations (20 and 10 until the export phase
-# needed the card time)
-VGGT_BENCH = dict(warmup=3, iterations=14, latency_iterations=8)
-DEPTH_PRO_BENCH = dict(warmup=3, iterations=14, latency_iterations=8)
-# 20 timed and 6 synchronised iterations (50 and 20 until the video paths'
-# phases needed the card time, 30 and 10 until the export phase's)
-FAMILY_BENCH = dict(warmup=3, iterations=20, latency_iterations=6)
+# 10 timed and 6 synchronised iterations (20 and 10 until the export phase
+# needed the card time, 14 and 8 until the training phase's)
+VGGT_BENCH = dict(warmup=3, iterations=10, latency_iterations=6)
+DEPTH_PRO_BENCH = dict(warmup=3, iterations=10, latency_iterations=6)
+# 12 timed and 5 synchronised iterations (50 and 20 until the video paths'
+# phases needed the card time, 30 and 10 until the export phase's, 20 and 6
+# until the training phase's)
+FAMILY_BENCH = dict(warmup=3, iterations=12, latency_iterations=5)
 
 # the TMA + wgmma kernels (bf16 x) and their instantiations in the library
 # (K2 and K3 at head widths 64 and 128, K4 at tile widths 128 and 256),
@@ -2292,17 +2324,17 @@ def run_int8_path(name, fam, wrappers, frames, views4=None):
     """One family's int8 path on seed-0 weights, with the counts set to 0
     just before and read just after: each frame through ``__call__`` (the
     first with the viz epilogue), then 4 views where the family has them.
-    Returns the pipeline and the counts."""
+    Returns the pipeline and the counts; the seed-0 state dict stays in
+    ``fam`` for ``int8_parity`` (the load copies it)."""
     import numpy as np
     import torch
 
     from monocular_depth_estimation_trt_tpu_torch.ops.quant import QuantLinear
 
-    model = seeded(fam["make"], 0)
+    fam["weights_seed_0"] = seeded(fam["make"], 0).state_dict()
     t0 = time.perf_counter()
-    pipe = fam["build"]("int8", model.state_dict())
+    pipe = fam["build"]("int8", fam["weights_seed_0"])
     build_s = time.perf_counter() - t0
-    del model
     check(pipe.device.type == "cuda" and pipe.spec.precision == "int8",
           f"{name} int8 on {pipe.device}, {pipe.spec.precision}")
     swapped = sum(isinstance(m, QuantLinear) for m in pipe.model.modules())
@@ -2357,9 +2389,8 @@ def int8_parity(name, fam, path_pipe, frames):
 
     readings = []
     for seed in PARITY_WEIGHT_SEEDS:
-        model = seeded(fam["make"], seed)
-        sd = model.state_dict()
-        del model
+        # seed 0: the path's own weights, made once
+        sd = fam.pop("weights_seed_0") if seed == 0 else seeded(fam["make"], seed).state_dict()
         int8 = path_pipe if seed == 0 else fam["build"]("int8", sd)
         bf16, fp32 = fam["build"]("bf16", sd), fam["build"]("fp32", sd)
         for frame_name, frame in frames.items():
@@ -2415,7 +2446,13 @@ def int8_parity(name, fam, path_pipe, frames):
               f"{len(readings)} readings")
 
 
-ROUTE_TURNS = ("eager", "graph", "graph", "eager")
+# the speed readings' turns (eager, graph, graph, eager until the script
+# outgrew its time limit)
+ROUTE_TURNS = ("eager", "graph")
+# calls of each eager forward that torch.profiler reads (2 or 3 until the
+# script outgrew its time limit: the profiler's own host time grows with
+# the eager forward's events)
+EAGER_PROFILE_CALLS = 1
 
 
 def p_eager(pipe, in_hw):
@@ -2677,12 +2714,11 @@ def server_phase(pipe, rng):
           "server: no request was batched")
 
 
-def cli_group(commands, env):
-    """Each argv of ``commands`` through the command line's ``main``, in
-    order, in one process of its own (the commands of one process share its
-    start-up: importing torch and loading the kernels' library). Returns
-    each command's stdout and its seconds (the process's clock around its
-    ``main``) by its argv tuple, and the exit codes."""
+def cli_group_start(commands, env):
+    """Start one process of its own that runs each argv of ``commands``
+    through the command line's ``main``, in order (the commands of one
+    process share its start-up: importing torch and loading the kernels'
+    library); its ``subprocess.Popen``, for ``cli_group_result``."""
     # each command's pipeline and graphs are freed before the next command
     code = ("import gc\nimport time\nimport torch\n"
             "from monocular_depth_estimation_trt_tpu_torch.cli import main\n"
@@ -2693,20 +2729,56 @@ def cli_group(commands, env):
             "    print('@@ exit', rc, time.perf_counter() - t0, flush=True)\n"
             "    gc.collect()\n"
             "    torch.cuda.empty_cache()\n")
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
-                          text=True, timeout=900)
-    parts = proc.stdout.split("@@ command\n")[1:]
+    # files, not pipes: nothing reads the output until the commands end, and
+    # a full pipe would stall them
+    logs = tuple(tempfile.TemporaryFile("w+") for _ in range(2))
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=REPO, env=env,
+                            stdout=logs[0], stderr=logs[1], text=True)
+    proc.logs = logs
+    return proc
+
+
+def cli_group_result(proc, commands):
+    """Wait for a process of ``cli_group_start`` (killed after 900 s).
+    Returns each command's stdout and its seconds (the process's clock
+    around its ``main``) by its argv tuple, and the exit codes."""
+    try:
+        proc.wait(timeout=900)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    for log in proc.logs:
+        log.seek(0)
+    stdout, stderr = (log.read() for log in proc.logs)
+    parts = stdout.split("@@ command\n")[1:]
     check(proc.returncode == 0 and len(parts) == len(commands),
-          f"cli {[c[:2] for c in commands]} exited {proc.returncode}: {proc.stdout[-1500:]}"
-          f"{proc.stderr[-2500:]}")
+          f"cli {[c[:2] for c in commands]} exited {proc.returncode}: {stdout[-1500:]}"
+          f"{stderr[-2500:]}")
     ends = [p.rsplit("@@ exit ", 1)[1].split() for p in parts]
     return ({tuple(c): (p, float(e[1])) for c, p, e in zip(commands, parts, ends)},
             [int(e[0]) for e in ends])
 
 
-def cli_phase(pipe, vggt, depth_pro, moge, unidepth, geocalib, align3r, rng):
-    """The command line's commands, in one process of their own
-    (``cli_group``; each record's seconds are its command's): ``run`` of
+CLI_SEED = 10  # the cli phase's frames: a generator of their own
+
+
+def stop_process(proc) -> None:
+    """Kill ``proc`` where it still runs (registered with ``atexit`` for a
+    process that outlives the phase that started it, when a check fails in
+    between)."""
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def cli_phase(pipe, vggt, depth_pro, moge, unidepth, geocalib, align3r):
+    """A generator in two parts. The first ``next`` writes the inputs and
+    starts the processes; the int8 phases run while they work (correctness
+    only, no timing: the commands' bit-for-bit checks hold under any load).
+    The second reads and checks what they wrote.
+
+    The command line's commands, in one process of their own
+    (``cli_group_start``; each record's seconds are its command's): ``run`` of
     DA-V2 vits on a seeded 480x640 PNG with ``--pointcloud --benchmark``
     (its npz depth equal to this
     process's pipeline on the same frame, bit for bit; the viz and the
@@ -2725,7 +2797,6 @@ def cli_phase(pipe, vggt, depth_pro, moge, unidepth, geocalib, align3r, rng):
     package, lists the registry with the video families."""
     import math
     import shutil
-    import tempfile
 
     import numpy as np
     import torch
@@ -2733,8 +2804,11 @@ def cli_phase(pipe, vggt, depth_pro, moge, unidepth, geocalib, align3r, rng):
     from monocular_depth_estimation_trt_tpu_torch.apps.ply import read_ply
     from monocular_depth_estimation_trt_tpu_torch.utils import imageio
 
+    import atexit
+
     tmp = tempfile.mkdtemp(prefix="mdet_cli_")
     env = {**os.environ, "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    rng = np.random.default_rng(CLI_SEED)
 
     outputs = {}
 
@@ -2792,8 +2866,13 @@ def cli_phase(pipe, vggt, depth_pro, moge, unidepth, geocalib, align3r, rng):
         listing = subprocess.Popen([sys.executable, "-m", "monocular_depth_estimation_trt_tpu_torch",
                                     "models"], cwd=REPO, env=env, stdout=subprocess.PIPE,
                                    stderr=subprocess.PIPE, text=True)
+        group_argvs = commands + videos + flows + track_slam
+        group = cli_group_start(group_argvs, env)
+        for proc in (listing, group):
+            atexit.register(stop_process, proc)
+        yield
         try:
-            outputs, rcs = cli_group(commands + videos + flows + track_slam, env)
+            outputs, rcs = cli_group_result(group, group_argvs)
         finally:
             listed, listing_err = listing.communicate(timeout=120)
         names = [ln.split()[0] for ln in listed.splitlines() if ln.strip()]
@@ -2942,7 +3021,7 @@ VIDEO_FIXTURE = ("data/example_video.mp4", 16, 288, 512)  # path, frames, height
 def video_commands(tmp):
     """``video video_depth_anything``, ``video flashdepth`` and ``batch
     depth_anything_v2 --video`` on the repository's 16-frame 512x288 MP4, on
-    seeded random weights: their argvs, for ``cli_group``."""
+    seeded random weights: their argvs, for ``cli_group_start``."""
     fixture = os.path.join(REPO, VIDEO_FIXTURE[0])
     out_video, out_batch = os.path.join(tmp, "video"), os.path.join(tmp, "batch")
     return [("video", "video_depth_anything", "--video", fixture, "--out", out_video,
@@ -3004,7 +3083,7 @@ FLOW_CLI_FRAMES = 3  # 288x512 PNGs: 2 pairs
 
 def flow_commands(tmp):
     """``flow raft`` on FLOW_CLI_FRAMES seeded 288x512 PNGs, on seeded random
-    weights: its argv, for ``cli_group``."""
+    weights: its argv, for ``cli_group_start``."""
     import numpy as np
 
     from monocular_depth_estimation_trt_tpu_torch.utils import imageio
@@ -3047,7 +3126,7 @@ def check_flow_command(tmp, output, rc):
 
 def multi_view_serving(families, wrappers, card, power_limit, dev):
     """The multi-view families' engines against their eager forwards, their
-    speed in turns eager, graph, graph, eager, and their profile (graph, and
+    speed in turns eager, graph, and their profile (graph, and
     Align3R's eager forward with the device time of its plain decoder
     attention), right after their route comparisons, so that their models
     (DINOv3 vit7b16's 16 GB among them) are released before the int8 phases;
@@ -3089,8 +3168,9 @@ def multi_view_serving(families, wrappers, card, power_limit, dev):
                     p._forward(*args)
 
             with annotated(align3r_mod, "decoder_attention"):
-                emit({**profile_breakdown(eager_step, p.spec.artifact_name(), 3,
-                                          ranges=("decoder_attention",)), "route": "eager"})
+                emit({**profile_breakdown(eager_step, p.spec.artifact_name(),
+                                          EAGER_PROFILE_CALLS, ranges=("decoder_attention",)),
+                      "route": "eager"})
         drop_engines(p)
         if not pair:
             del families[name]
@@ -3117,7 +3197,7 @@ def profile_stream_step(sess, frame, dev):
             sess.pure_step(on_card, cache)
 
     with annotated(stream_mod, "masked_attention"):
-        emit({**profile_breakdown(eager_step, sess.name + "_step", 3,
+        emit({**profile_breakdown(eager_step, sess.name + "_step", EAGER_PROFILE_CALLS,
                                   ranges=("masked_attention",)), "route": "eager"})
     sess.release_engines()
 
@@ -3291,7 +3371,7 @@ def video_route_readings(name, pipe, frames):
 
 def video_parity(build_pipeline, rng):
     """For each video family: the bf16 kernel route against the plain route
-    and the fp32 route at 2 weight seeds (max rel < PATH_BF16_REL_TOL at
+    and the fp32 route at PARITY_WEIGHT_SEEDS (max rel < PATH_BF16_REL_TOL at
     every reading; averaged over them, the kernel route's distance from
     fp32 at most PATH_BF16_ROUTE_RATIO times the plain route's), then fp32
     on the card against the CPU on the same weights, the ViT cut to 2 blocks
@@ -3524,7 +3604,7 @@ def video_serving(vda, flashdepth, fd_sess, stream_sess, stream_frame, card, pow
     """The video paths' speed and profile right after their checks, so that
     their graphs are released before the int8 phases: each VDA window
     engine (``VDAPipeline.benchmark``: frames/s; vits in turns eager, graph,
-    graph, eager, vitl graph twice), FlashDepth's single frame in turns
+    vitl graph once), FlashDepth's single frame in turns
     (its stream step's p50 is the video record's), then the profile of each
     VDA window (graph, and eager with the device time of the temporal blocks
     and of their attention), of the FlashDepth step and of the int8 stream
@@ -3545,7 +3625,7 @@ def video_serving(vda, flashdepth, fd_sess, stream_sess, stream_frame, card, pow
             with torch.inference_mode():
                 p._window_forward(window)
 
-        for turn, route in enumerate(ROUTE_TURNS if label == "vits" else ("graph", "graph")):
+        for turn, route in enumerate(ROUTE_TURNS if label == "vits" else ("graph",)):
             if route == "graph":
                 rep = p.benchmark((518, 518), cfg)
             else:
@@ -3560,8 +3640,8 @@ def video_serving(vda, flashdepth, fd_sess, stream_sess, stream_frame, card, pow
         emit({**profile_breakdown(lambda: eng(window), p.spec.artifact_name() + "_win32", 3),
               "route": "graph"})
         with temporal_ranges() as ranges:
-            emit({**profile_breakdown(eager_step, p.spec.artifact_name() + "_win32", 2,
-                                      ranges=ranges), "route": "eager"})
+            emit({**profile_breakdown(eager_step, p.spec.artifact_name() + "_win32",
+                                      EAGER_PROFILE_CALLS, ranges=ranges), "route": "eager"})
         drop_engines(p)
     fcfg = BenchmarkConfig(**FAMILY_BENCH)
     for turn, route in enumerate(ROUTE_TURNS):
@@ -3854,7 +3934,7 @@ def flow_cpu_parity(build_pipeline, rng):
 
 def waft_routes(build_pipeline, rng):
     """WAFT's bf16 kernel route (K1 at (2, 721, 6)) against its plain route
-    and the fp32 route on the kernel route's own model, at 2 weight seeds on
+    and the fp32 route on the kernel route's own model, at PARITY_WEIGHT_SEEDS on
     one 480x640 pair: max rel of the flow below WAFT_BF16_REL_TOL, and,
     averaged over the seeds, the kernel route's distance from fp32 at most
     PATH_BF16_ROUTE_RATIO times the plain route's."""
@@ -3945,7 +4025,7 @@ def flow_timed_route(pipe, name, route, config):
 
 
 def flow_serving(name, pipe, card, power_limit, dev, lookup=None):
-    """A flow model's speed in turns eager, graph, graph, eager, then its
+    """A flow model's speed in turns eager, graph, then its
     profile: the graph replay, and the eager forward with the device time of
     its plain parts (``flow_ranges``). RAFT's record adds the lookup's share
     of the replay's device time, from its time alone in each form."""
@@ -3985,8 +4065,8 @@ def flow_serving(name, pipe, card, power_limit, dev, lookup=None):
             pipe._forward(*args)
 
     with flow_ranges(name) as ranges:
-        emit({**profile_breakdown(eager_step, pipe.spec.artifact_name(), 3, ranges=ranges),
-              "route": "eager"})
+        emit({**profile_breakdown(eager_step, pipe.spec.artifact_name(), EAGER_PROFILE_CALLS,
+                                  ranges=ranges), "route": "eager"})
     drop_engines(pipe)
 
 
@@ -4132,7 +4212,7 @@ def tracking_phase(build_pipeline, wrappers, card, power_limit, dev):
             ref = pipe._forward(fr.to(dev), q.to(dev), *args)
         replay[key] = {k: bool(torch.equal(out[k], ref[k])) for k in out}
 
-    # the bf16 route against the fp32 route, at 2 weight seeds
+    # the bf16 route against the fp32 route, at PARITY_WEIGHT_SEEDS
     routes = tracking_routes(build_pipeline, [torch.from_numpy(pipe._prep(c)[None]).to(dev)
                                               for c in chunks[:2]], q.to(dev))
     # fp32 card against CPU: the model alone on TRACK_CPU_FRAMES frames
@@ -4497,7 +4577,7 @@ TRACK_SLAM_CLI = ("data/example_video.mp4", 16, 288, 512)  # the fixture: frames
 def track_slam_commands(tmp):
     """``track cotracker3`` and ``slam megasam --cvd`` on the repository's
     16-frame 512x288 MP4, on seeded random weights: their argvs, for
-    ``cli_group``."""
+    ``cli_group_start``."""
     fixture = os.path.join(REPO, TRACK_SLAM_CLI[0])
     return [("track", "cotracker3", "--video", fixture, "--out", os.path.join(tmp, "track"),
              "--allow-random-weights"),
@@ -4548,9 +4628,16 @@ def check_track_slam_commands(tmp, outputs, rcs):
           and cvd.shape == (n, h, w) and rec["cvd_finite"], f"cli slam: {rec}")
 
 
+# VGGT's and StreamVGGT's artifacts: full widths, their ViT and aggregator
+# cut to this many blocks (the whole models, whose export and load took
+# about 50 s, until the script outgrew its time limit)
+EXPORT_VGGT_DEPTH = 2
 # the loaded artifacts' modules: launches [K3, K1, K2, K4] of one forward
+# (VGGT's: one K1 per ViT block, one K2 per frame and per global block;
+# StreamVGGT's step: its global attention over the cache is plain)
 EXPORT_PER_FORWARD = {"vits_b1": [0, 12, 0, 0], "vitl_int8_b1": [0, 24, 0, 96],
-                      "vggt_views_s4": [0, 24, 48, 0], "streamvggt_stream": [0, 24, 24, 0]}
+                      "vggt_views_s4": [0, EXPORT_VGGT_DEPTH, 2 * EXPORT_VGGT_DEPTH, 0],
+                      "streamvggt_stream": [0, EXPORT_VGGT_DEPTH, EXPORT_VGGT_DEPTH, 0]}
 EXPORT_STREAM_STEPS = 8
 EXPORT_BENCH = dict(warmup=5, iterations=30, latency_iterations=20)
 # Python run first in the processes that serve the vits artifact: there the
@@ -4628,24 +4715,15 @@ def replay_vs_in_process(label, got, want, attribute=None):
     return rec
 
 
-def artifact_process(path, commands, pipe, rng, env):
-    """One process of its own where the model zoo cannot be imported:
+def artifact_process_start(path, commands, env):
+    """Start one process of its own where the model zoo cannot be imported:
     ``commands`` (argvs of the command line, each with its stdout and
-    seconds, as ``cli_group`` runs them), then ``serve --engine path`` on a
-    free local port with max batch 2, which the process serves until this
-    one sends SIGTERM (it drains and exits): four sequential requests at the
-    served size (each a batch of one, the b1 module), the last through
-    ``/v1/models/<name>/depth``, each answer against the in-process
-    engine. Returns the serve record, the commands' outputs by argv and
-    their exit codes."""
-    import io
-    import signal
+    seconds, as ``cli_group_start`` runs them), then ``serve --engine path``
+    on a free local port with max batch 2, which the process serves until
+    ``artifact_process`` sends SIGTERM (it drains and exits). Returns what
+    ``artifact_process`` reads."""
+    import atexit
     import socket
-    import urllib.request
-
-    import numpy as np
-
-    from monocular_depth_estimation_trt_tpu_torch.utils import imageio
 
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
@@ -4664,6 +4742,26 @@ def artifact_process(path, commands, pipe, rng, env):
     t0 = time.perf_counter()
     server = subprocess.Popen([sys.executable, "-c", code], cwd=REPO, env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    atexit.register(stop_process, server)
+    return server, port, t0
+
+
+def artifact_process(started, commands, pipe, rng):
+    """The process of ``artifact_process_start`` once its commands have
+    run: four sequential requests to its server at the served size (each a
+    batch of one, the b1 module), the last through
+    ``/v1/models/<name>/depth``, each answer against the in-process engine;
+    then SIGTERM. Returns the serve record, the commands' outputs by argv
+    and their exit codes."""
+    import io
+    import signal
+    import urllib.request
+
+    import numpy as np
+
+    from monocular_depth_estimation_trt_tpu_torch.utils import imageio
+
+    server, port, t0 = started
     base = f"http://127.0.0.1:{port}"
     answers = []
     try:
@@ -4675,6 +4773,8 @@ def artifact_process(path, commands, pipe, rng, env):
                 break
             except OSError:
                 time.sleep(1.0)
+        # from the start to the first answer asked for (the process is up
+        # well before: it starts during the int8 phases)
         up_s = time.perf_counter() - t0
         hw = tuple(pipe.spec.input_hw)
         for i, url in enumerate([f"{base}/v1/depth"] * 3
@@ -4697,26 +4797,31 @@ def artifact_process(path, commands, pipe, rng, env):
     check(len(parts) == len(commands), f"the artifact's commands: {out[-1500:]}{err[-1500:]}")
     ends = [p.rsplit("@@ exit ", 1)[1].split() for p in parts]
     outputs = {tuple(c): (p, float(e[1])) for c, p, e in zip(commands, parts, ends)}
-    return ({"up_seconds": up_s, "answers": answers, "exit_code": server.returncode},
+    return ({"healthy_when_asked_after_seconds": up_s, "answers": answers,
+             "exit_code": server.returncode},
             outputs, [int(e[0]) for e in ends])
 
 
-def export_phase(pipe, vitl_int8, vggt, streamvggt, wrappers, card, power_limit):
+def export_phase(pipe, build_pipeline, wrappers, card, power_limit):
     """Serialized artifacts (``runtime/export.py``) of pipelines that earlier
     phases built: DA-V2 vits 518² bf16 as a serve bundle (b1, b2, both viz
-    modes), DA-V2 vitl int8 b1, VGGT's 4-view module and StreamVGGT's stream
-    (window 4, 480x640, 8 steps). Each is exported, loaded, and its first
-    call counted (the counts set to 0 just before: WARMUP_CALLS + 1
-    forwards of EXPORT_PER_FORWARD); every loaded replay against the
-    in-process engine's output (``replay_vs_in_process``); the loaded and
-    in-process vits p50 in turns. Then the vits artifact in processes of its
-    own where the model zoo cannot be imported: ``run --engine`` (its npz
+    modes), DA-V2 vitl int8 b1 (sent in); and of VGGT's 4-view module and
+    StreamVGGT's stream (window 4, 480x640, 8 steps), both at full widths
+    with EXPORT_VGGT_DEPTH blocks (seeded random weights). Each is exported,
+    loaded, and its first call counted (the counts set to 0 just before:
+    WARMUP_CALLS + 1 forwards of EXPORT_PER_FORWARD); every loaded replay
+    against the in-process engine's output (``replay_vs_in_process``); the
+    loaded and in-process vits p50 in turns. From the vits artifact's turns
+    on, the vits artifact in a process of its own where the model zoo
+    cannot be imported: ``run --engine`` (its npz
     depth against the in-process engine), ``bench --engine``, ``bench
     --engine --trace`` (the trace names K1's kernel) and ``serve --engine``
-    (answers to sequential requests against in-process calls). Returns the
-    counted launches of each module."""
+    (answers to sequential requests against in-process calls). A generator
+    in two parts: the first ``next`` exports the vits artifact, reads its
+    turns and starts its process, which works through the int8 phases
+    (correctness only: its bench lines share the card); ``send(vitl_int8)``
+    runs the rest and yields the counted launches of each module."""
     import shutil
-    import tempfile
 
     import numpy as np
     import torch
@@ -4788,6 +4893,23 @@ def export_phase(pipe, vitl_int8, vggt, streamvggt, wrappers, card, power_limit)
         vits.release_engines()
         del vits
 
+        # the vits artifact in a process where the model zoo cannot be
+        # imported, at work from the int8 phases on (its bench lines share
+        # the card with them)
+        png = os.path.join(tmp, "frame.png")
+        imageio.write_image(png, frame)
+        out_run, trace_dir = os.path.join(tmp, "run"), os.path.join(tmp, "trace")
+        run_argv = ("run", "--engine", path_vits, "--image", png, "--out", out_run)
+        bench_argv = ("bench", "--engine", path_vits, "--warmup", "5", "--iterations", "30")
+        trace_argv = ("bench", "--engine", path_vits, "--warmup", "2", "--iterations", "5",
+                      "--trace", trace_dir)
+        doctor_argv = ("doctor",)
+        artifact_argvs = [run_argv, bench_argv, trace_argv, doctor_argv]
+        started = artifact_process_start(path_vits, artifact_argvs, env)
+        first_part_s = time.perf_counter() - t_phase
+        vitl_int8 = yield
+        t_phase = time.perf_counter()
+
         # DA-V2 vitl int8, b1
         _, eng, rec = made("vitl_int8", vitl_int8, in_hw=(518, 518))
         out, counted_rec = counted("vitl_int8_b1", eng, "b1", lambda: eng(frame))
@@ -4797,6 +4919,8 @@ def export_phase(pipe, vitl_int8, vggt, streamvggt, wrappers, card, power_limit)
         del eng
 
         # VGGT, the 4-view module alone
+        cut = family_cut_kw("litevggt", EXPORT_VGGT_DEPTH)  # VGGT's graph
+        vggt = build_pipeline("vggt", **cut)
         views4 = rng.integers(0, 256, (4, 518, 518, 3), dtype=np.uint8)
         _, eng, rec = made("vggt", vggt, in_hw=(518, 518), batches=(), views=(4,))
         out, counted_rec = counted("vggt_views_s4", eng, "views_s4",
@@ -4804,9 +4928,11 @@ def export_phase(pipe, vitl_int8, vggt, streamvggt, wrappers, card, power_limit)
         rec.update(counted_rec, vs_in_process={"views_s4": replay_vs_in_process(
             "vggt views_s4", out, vggt.multi_view(views4))})
         eng.release_engines()
-        del eng
+        drop_engines(vggt)
+        del eng, vggt
 
         # StreamVGGT, the stream alone: 8 steps, the ring wraps after 4
+        streamvggt = build_pipeline("streamvggt", **cut)
         clip = rng.integers(0, 256, (EXPORT_STREAM_STEPS, 480, 640, 3), dtype=np.uint8)
         _, eng, rec = made("streamvggt", streamvggt, in_hw=(480, 640), batches=(),
                            stream_window=4)
@@ -4819,20 +4945,10 @@ def export_phase(pipe, vitl_int8, vggt, streamvggt, wrappers, card, power_limit)
         rec.update(counted_rec, vs_in_process={"steps": steps})
         eng.release_engines()
         here.session.release_engines()
-        del eng, runner, here
-        drop_engines(pipe, vitl_int8, vggt, streamvggt)
+        drop_engines(pipe, vitl_int8, streamvggt)
+        del eng, runner, here, streamvggt
 
-        # the vits artifact in a process where the model zoo cannot be imported
-        png = os.path.join(tmp, "frame.png")
-        imageio.write_image(png, frame)
-        out_run, trace_dir = os.path.join(tmp, "run"), os.path.join(tmp, "trace")
-        run_argv = ("run", "--engine", path_vits, "--image", png, "--out", out_run)
-        bench_argv = ("bench", "--engine", path_vits, "--warmup", "5", "--iterations", "30")
-        trace_argv = ("bench", "--engine", path_vits, "--warmup", "2", "--iterations", "5",
-                      "--trace", trace_dir)
-        doctor_argv = ("doctor",)
-        serve, outputs, rcs = artifact_process(
-            path_vits, [run_argv, bench_argv, trace_argv, doctor_argv], pipe, rng, env)
+        serve, outputs, rcs = artifact_process(started, artifact_argvs, pipe, rng)
         check(rcs == [0, 0, 0, 0], f"export: the vits artifact's commands exited {rcs}")
         doctor = [ln for ln in outputs[doctor_argv][0].splitlines() if " : " in ln]
         npz = [f for f in os.listdir(out_run) if f.endswith(".npz")]
@@ -4863,9 +4979,357 @@ def export_phase(pipe, vitl_int8, vggt, streamvggt, wrappers, card, power_limit)
         shutil.rmtree(tmp, ignore_errors=True)
     emit({"phase": "export", "card": card, "power_limit": power_limit,
           "artifacts": artifacts, "processes": processes, "launches": launches,
-          "native_host_io": native_io,
+          "native_host_io": native_io, "first_part_seconds": first_part_s,
           "seconds": time.perf_counter() - t_phase})
-    return {f"export_{label}": counted_launches for label, counted_launches in launches.items()}
+    yield {f"export_{label}": counted_launches for label, counted_launches in launches.items()}
+
+
+TRAIN_SIZE, TRAIN_BATCH, TRAIN_LR = 266, 4, 3e-4  # the distill command's defaults
+TRAIN_FRAMES = 8  # seeded 480x640 PNGs: two batch positions
+TRAIN_STEPS = 3  # card against CPU, each from the card's state; warmup 1: rates 0, lr, lr / 2
+TRAIN_TIMED = (3, 20)  # warm-up and timed steps of the speed reading
+TRAIN_REL_TOL = 1e-4  # losses and gradient norms, fp32 card against CPU
+# the parameters after the steps, |card - CPU| in units of lr: the 99.9th
+# percentile and the largest (tests/test_torch_training.py's bar for the
+# port against JAX: Adam turns fp32 differences of a near-zero gradient into
+# a part of a step)
+TRAIN_PARAM_P999, TRAIN_PARAM_MAX = 0.02, 0.5
+# The QAT step: fake quantization rounds each of some 70 M activations, and
+# card and CPU activations differ by fp32 rounding, so a few roundings fall
+# the other way: the loss moves little (rel 4.5e-7 on an H100, PERF.md §6),
+# the gradient more (its norm 6.6e-3), and Adam's first step moves an
+# element by +-lr whatever its gradient's size, so an element whose gradient
+# changes sign lands 2 lr away (99.9th percentile 1.86 lr, 1.9 % of the
+# elements more than half a step apart). Held: the loss at TRAIN_REL_TOL,
+# the gradient norm and that share at about 2.5 times their readings.
+QAT_GRAD_NORM_REL_TOL, QAT_SPLIT_SHARE = 2e-2, 5e-2
+QUANTCHECK_IMAGES = 2
+VITS_ARTIFACT = "depth_anything_v2_vits_518x518_bf16"
+
+
+def student_on_host(seed: int = 0):
+    """The ``distill`` command's student before it moves: a fresh fp32 DA-V2
+    vits on the plain attention route, seeded random weights made on the
+    host."""
+    import torch
+
+    from monocular_depth_estimation_trt_tpu_torch.models.depth_anything_v2 import (
+        DepthAnythingV2,
+    )
+    from monocular_depth_estimation_trt_tpu_torch.weights.store import init_random_
+
+    with torch.device("meta"):
+        model = DepthAnythingV2("vits", attn_impl="xla")
+    model = model.to_empty(device="cpu")
+    init_random_(model, seed)
+    return model
+
+
+def synced_steps(model, card_batches, cpu_batches, steps, tx, dev, qat=False):
+    """``steps`` distillation steps of copies of ``model`` (QAT layers
+    installed where asked) on the card and on the CPU over the batches in
+    turn, the CPU's parameters, moments and schedule position set to the
+    card's before each step, so that each step starts from the same state on
+    both: per step the two losses and gradient norms and the parameters'
+    difference after it (``param_readings``)."""
+    import copy
+
+    import torch
+
+    from monocular_depth_estimation_trt_tpu_torch.ops.quant import install_qat
+    from monocular_depth_estimation_trt_tpu_torch.training import (
+        create_train_state,
+        make_distill_step,
+    )
+    from monocular_depth_estimation_trt_tpu_torch.training.distill import depth_student
+
+    sides = []
+    for batches, where in ((card_batches, dev), (cpu_batches, torch.device("cpu"))):
+        m = copy.deepcopy(model).to(where)
+        if qat:
+            install_qat(m, m.int8_targets())
+        sides.append((make_distill_step(depth_student(m, TRAIN_SIZE)),
+                      create_train_state(dict(m.named_parameters()), tx()), batches))
+    (card_step, card, card_b), (cpu_step, cpu, cpu_b) = sides
+    readings = []
+    for i in range(steps):
+        with torch.no_grad():
+            for k, p in cpu.params.items():
+                p.copy_(card.params[k])
+        # a copy: on one device the load would share the card's moments
+        cpu.optimizer.load_state_dict(copy.deepcopy(card.optimizer.state_dict()))
+        cpu.scheduler.load_state_dict(card.scheduler.state_dict())
+        card, mc = card_step(card, card_b[i % len(card_b)])
+        cpu, mp = cpu_step(cpu, cpu_b[i % len(cpu_b)])
+        got = {k: (float(mc[k]), float(mp[k])) for k in ("loss", "grad_norm")}
+        readings.append({**{f"{k}_card_cpu": v for k, v in got.items()},
+                         **{f"{k}_rel": abs(v[0] - v[1]) / abs(v[1]) for k, v in got.items()},
+                         **param_readings(card, cpu, TRAIN_LR)})
+    return readings
+
+
+def param_readings(card_state, cpu_state, lr):
+    """|card - CPU| of every parameter in units of ``lr``: the 99.9th
+    percentile and the largest."""
+    import numpy as np
+
+    diff = np.concatenate([(p.detach().cpu() - cpu_state.params[k].detach()).abs().flatten()
+                           .numpy() for k, p in card_state.params.items()]) / lr
+    return {"params_p999_lr": float(np.quantile(diff, 0.999)),
+            "params_max_lr": float(diff.max()),
+            "params_frac_over_half_lr": float(np.mean(diff > 0.5))}
+
+
+def training_commands(tmp, images, png, pth, renamed, pred_npz, gt_npz):
+    """The accuracy and training commands, in one process (``cli_group_start``):
+    ``distill --promote``, ``run`` on the promoted weights, ``convert`` of a
+    good and a renamed ``.pth``, ``quantcheck``, ``eval``, ``run
+    --colorbar``."""
+    return [("--allow-random-weights", "distill", "--images-dir", images, "--steps", "20",
+             "--promote", "--out", os.path.join(tmp, "distill")),
+            ("run", "depth_anything_v2", "--encoder", "vits", "--image", png, "--out",
+             os.path.join(tmp, "run")),
+            ("convert", "depth_anything_v2", "--encoder", "vits", "--checkpoint", pth,
+             "--verify-manifest"),
+            ("convert", "depth_anything_v2", "--encoder", "vits", "--checkpoint", renamed,
+             "--verify-manifest"),
+            ("--allow-random-weights", "quantcheck", "depth_anything_v2", "--encoder", "vitl",
+             "--images", images, "--max-images", str(QUANTCHECK_IMAGES)),
+            ("eval", "--pred", pred_npz, "--gt", gt_npz, "--align", "affine"),
+            ("--allow-random-weights", "run", "depth_anything_v2", "--encoder", "vits",
+             "--metric", "--image", png, "--out", os.path.join(tmp, "bar"), "--colorbar")]
+
+
+def quantcheck_report(bf16, int8, images):
+    """``quantcheck``'s report computed in this process."""
+    import numpy as np
+    import torch
+
+    from monocular_depth_estimation_trt_tpu_torch.training.metrics import depth_metrics
+    from monocular_depth_estimation_trt_tpu_torch.utils.imageio import read_image
+
+    sums, corr = {}, []
+    for path in images:
+        img = read_image(path)
+        df = np.asarray(bf16(img)["depth"], np.float32)
+        dq = np.asarray(int8(img)["depth"], np.float32)
+        m = depth_metrics(torch.from_numpy(dq)[None], torch.from_numpy(df)[None])
+        for k, v in m.items():
+            sums[k] = sums.get(k, 0.0) + float(v)
+        corr.append(float(np.corrcoef(dq.ravel(), df.ravel())[0, 1]))
+    n = len(images)
+    return {"metric": f"{int8.spec.artifact_name()}_vs_bf16", "images": n,
+            "corr": round(float(np.mean(corr)), 5),
+            **{k: round(v / n, 5) for k, v in sums.items()}}
+
+
+def training_phase(teacher, build_pipeline, wrappers, card, power_limit, dev):
+    """Phase 15 (see the module docstring). ``teacher``: the default vitl bf16
+    pipeline, seed-0 random weights, as ``distill`` builds its teacher. A
+    generator in two parts: the first ``next`` labels the frames, writes the
+    commands' inputs and starts their process (during the export phase); the
+    second runs the rest and yields the launches of its counted runs."""
+    import atexit
+    import copy
+    import json as json_
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from monocular_depth_estimation_trt_tpu_torch.training import (
+        create_train_state,
+        depth_metrics,
+        make_distill_step,
+    )
+    from monocular_depth_estimation_trt_tpu_torch.training.distill import depth_student
+    from monocular_depth_estimation_trt_tpu_torch.training.trainer import (
+        adamw,
+        warmup_cosine_decay_schedule,
+    )
+    from monocular_depth_estimation_trt_tpu_torch.utils import imageio
+    from monocular_depth_estimation_trt_tpu_torch.utils.files import list_images
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="mdet_train_")
+    rng = np.random.default_rng(15)
+    size, b = TRAIN_SIZE, TRAIN_BATCH
+    try:
+        images = os.path.join(tmp, "frames")
+        os.makedirs(images)
+        for i in range(TRAIN_FRAMES):
+            coarse = rng.integers(0, 256, (480 // 16, 640 // 16, 3), dtype=np.uint8)
+            imageio.write_image(os.path.join(images, f"f{i}.png"),
+                                np.repeat(np.repeat(coarse, 16, 0), 16, 1))
+        paths = list_images(images)
+        # as the command loads them: read, resized to the training size
+        frames = np.stack([imageio.resize(imageio.read_image(p), (size, size)) for p in paths])
+        chunks = [frames[i:i + b] for i in range(0, len(frames), b)]
+
+        # the teacher's labelling run, counted: a new (266, 266) batch-4 engine
+        set_counts_to_zero(wrappers)
+        first, per = run_counted(lambda: teacher.batch_call(chunks[0], device_out=True),
+                                 lambda: teacher.batch_engine_for((size, size), b, False),
+                                 wrappers, "teacher labels")
+        launches = launch_record(wrappers)
+        check(per == [0, 24, 0, 0], f"teacher launches per forward {per}, want 24 K1")
+        labels = [first["depth"]] + [teacher.batch_call(c, device_out=True)["depth"]
+                                     for c in chunks[1:]]
+        check(all(bool(torch.isfinite(lb).all()) and lb.shape == (b, size, size)
+                  for lb in labels), "teacher labels")
+        card_batches = [(torch.from_numpy(c).to(dev), lb.clone()) for c, lb in zip(chunks, labels)]
+        cpu_batches = [(torch.from_numpy(c), lb.cpu()) for c, lb in zip(chunks, labels)]
+
+        # eval's inputs: the untrained student's depth against the teacher's
+        host = student_on_host()
+        card_model = copy.deepcopy(host).to(dev)
+        with torch.no_grad():
+            eval_pred = depth_student(card_model, size)(
+                dict(card_model.named_parameters()), card_batches[0][0])[0].cpu().numpy()
+        eval_gt = labels[0][0].cpu().numpy()
+
+        # the commands start in a process of their own, on a temporary
+        # cache, while this process exports artifacts and then runs the
+        # card-vs-CPU steps (mostly the host's time); the speed readings
+        # wait until they have ended
+        cache = os.path.join(tmp, "cache")
+        env = {**os.environ, "MDET_CACHE_DIR": cache,
+               "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
+        seeded = {k: v.detach() for k, v in student_on_host(3).state_dict().items()}
+        pth, renamed = os.path.join(tmp, "vits.pth"), os.path.join(tmp, "renamed.pth")
+        torch.save(seeded, pth)
+        torch.save({("pretrained.blocks.3.attn.qkv2.weight"
+                     if k == "pretrained.blocks.3.attn.qkv.weight" else k): v
+                    for k, v in seeded.items()}, renamed)
+        pred_npz, gt_npz = os.path.join(tmp, "pred.npz"), os.path.join(tmp, "gt.npz")
+        np.savez(pred_npz, depth=eval_pred)
+        np.savez(gt_npz, depth=eval_gt)
+        commands = training_commands(tmp, images, paths[0], pth, renamed, pred_npz, gt_npz)
+        proc = cli_group_start(commands, env)
+        atexit.register(stop_process, proc)
+        start_s = time.perf_counter() - t0
+        try:
+            yield
+            t0 = time.perf_counter()
+            # 3 steps on the card against the same 3 on the CPU, each from
+            # the card's state; one QAT step
+            parity = {}
+            for label, steps, tx, qat in (
+                    ("fp32", TRAIN_STEPS, lambda: adamw(warmup_cosine_decay_schedule(
+                        0.0, TRAIN_LR, 1, TRAIN_STEPS)), False),
+                    ("qat", 1, lambda: adamw(TRAIN_LR), True)):
+                parity[label] = synced_steps(host, card_batches, cpu_batches, steps, tx, dev,
+                                             qat)
+                for i, r in enumerate(parity[label]):
+                    if qat:
+                        held = (r["grad_norm_rel"] < QAT_GRAD_NORM_REL_TOL
+                                and r["params_frac_over_half_lr"] <= QAT_SPLIT_SHARE)
+                    else:
+                        held = (r["grad_norm_rel"] < TRAIN_REL_TOL
+                                and r["params_p999_lr"] <= TRAIN_PARAM_P999
+                                and r["params_max_lr"] <= TRAIN_PARAM_MAX)
+                    check(r["loss_rel"] < TRAIN_REL_TOL and held,
+                          f"training {label} step {i}: card vs CPU {r}")
+            outputs, rcs = cli_group_result(proc, commands)
+        finally:
+            if proc.poll() is None:  # a failed check: stop the commands' process
+                proc.kill()
+                proc.wait()
+        out = [outputs[tuple(c)][0] for c in commands]
+        seconds = [outputs[tuple(c)][1] for c in commands]
+        check(rcs[:4] == [0, 0, 0, 2] and rcs[4] in (0, 3) and rcs[5] == 0
+              and rcs[6] in (0, 1), f"training commands' exit codes {rcs}")
+
+        # speed: the card's step, the teacher's labelling of a batch
+        step = make_distill_step(depth_student(card_model, size))
+        state = create_train_state(dict(card_model.named_parameters()), adamw(TRAIN_LR))
+        warm, timed = TRAIN_TIMED
+        for i in range(warm):
+            step(state, card_batches[i % 2])
+        step_ms = timed_p50(lambda: step(state, card_batches[0]), timed)
+        teacher_ms = timed_p50(lambda: teacher.batch_call(chunks[0], device_out=True), 10)
+        prof = profile_breakdown(lambda: step(state, card_batches[0]),
+                                 f"distill_student_vits_{size}_b{b}_fp32", iters=3)
+        emit({**prof, "route": "eager (training step)"})
+        del state, step, card_model, host
+
+        # run serves the promoted weights
+        promoted = torch.load(os.path.join(tmp, "distill", "distill_depth_anything_v2_vits.pt"),
+                              map_location="cpu", weights_only=True)["params"]
+        served = np.load(os.path.join(tmp, "run", f"f0_{VITS_ARTIFACT}.npz"))["depth"]
+        in_process = build_pipeline("depth_anything_v2", encoder="vits", params=promoted)
+        want = in_process(imageio.read_image(paths[0]))["depth"]
+        check(np.array_equal(served, want), "run: the promoted weights' depth differs")
+        drop_engines(in_process)
+        del in_process
+        cached = torch.load(os.path.join(cache, "params", f"{VITS_ARTIFACT}.pt"),
+                            map_location="cpu", weights_only=True)
+        check(sorted(cached) == sorted(seeded)
+              and all(torch.equal(cached[k], seeded[k]) for k in seeded),
+              "convert: the params cache does not hold the checkpoint's tensors")
+        distill_losses = [ln for ln in out[0].splitlines() if "distill step" in ln]
+        # the command's student runs in full fp32, as this process's steps do
+        student_line = [ln for ln in out[0].splitlines() if " as fp32 on cuda" in ln]
+        check(len(student_line) == 1
+              and student_line[0].endswith("TF32 matmul=False cudnn=False"),
+              f"distill: the student is not in full fp32 on the card: {student_line}")
+
+        # quantcheck against this process's pipelines, on the subprocess's
+        # int8 bundle (the same temporary cache); the int8 run counted
+        report = json_.loads([ln for ln in out[4].splitlines() if ln.startswith("{")][-1])
+        prev_cache = os.environ.get("MDET_CACHE_DIR")
+        os.environ["MDET_CACHE_DIR"] = cache
+        try:
+            int8 = build_pipeline("depth_anything_v2", encoder="vitl", precision="int8")
+        finally:
+            if prev_cache is None:
+                os.environ.pop("MDET_CACHE_DIR")
+            else:
+                os.environ["MDET_CACHE_DIR"] = prev_cache
+        first_img = imageio.read_image(paths[0])
+        set_counts_to_zero(wrappers)
+        _, per8 = run_counted(lambda: int8(first_img), lambda: int8.engine_for(
+            first_img.shape[:2], False), wrappers, "quantcheck int8")
+        int8_launches = launch_record(wrappers)
+        check(per8 == [0, 24, 0, 96], f"quantcheck int8 launches per forward {per8}")
+        mine = quantcheck_report(teacher, int8, paths[:QUANTCHECK_IMAGES])
+        check(report == mine, f"quantcheck: {report} vs this process's {mine}")
+        check(rcs[4] == (0 if report["delta1"] > 0.95 else 3),
+              f"quantcheck exit {rcs[4]} for delta1 {report['delta1']}")
+        drop_engines(int8)
+        del int8
+
+        # eval against this process's metrics
+        got = json_.loads([ln for ln in out[5].splitlines() if ln.startswith("{")][-1])
+        m = depth_metrics(torch.from_numpy(eval_pred)[None], torch.from_numpy(eval_gt)[None],
+                          align="affine")
+        want_eval = {**{k: round(float(v), 5) for k, v in m.items()}, "n_images": 1,
+                     "align": "affine"}
+        check(got == want_eval, f"eval: {got} vs this process's {want_eval}")
+
+        bar_files = sorted(os.listdir(os.path.join(tmp, "bar"))) if os.path.isdir(
+            os.path.join(tmp, "bar")) else []
+        colorbar = ("written" if rcs[6] == 0 and any(f.endswith("_depth_bar.jpg")
+                                                     for f in bar_files)
+                    else "exit 1 naming matplotlib" if rcs[6] == 1
+                    and "--colorbar needs matplotlib" in out[6] else None)
+        check(colorbar is not None, f"run --colorbar: exit {rcs[6]}, files {bar_files}")
+        emit({"phase": "training", "card": card, "power_limit_w": power_limit,
+              "student": f"depth_anything_v2 vits fp32 {size}x{size} batch {b}, plain attention",
+              "teacher": teacher.spec.artifact_name(), "teacher_launches": launches,
+              "teacher_launches_per_forward": per, "parity": parity,
+              "step_p50_ms": step_ms, "images_per_s": b / (step_ms / 1e3),
+              "teacher_label_ms_per_batch": teacher_ms,
+              "device_idle_share": prof.get("device_idle_share"),
+              "commands": [" ".join(c[:3]) for c in commands], "exit_codes": rcs,
+              "seconds": seconds, "distill_student": student_line[0].split("] ")[-1],
+              "distill_log": distill_losses[-2:],
+              "quantcheck": report, "quantcheck_int8_launches_per_forward": per8,
+              "eval": got, "colorbar": colorbar,
+              "start_seconds": start_s, "phase_seconds": time.perf_counter() - t0})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    yield {"training_teacher": launches, "quantcheck_int8": int8_launches}
 
 
 def parse_smi(line: str):
@@ -5062,10 +5526,11 @@ def main() -> None:
     extra_launches = {"map_anything_reconstruct_s4": run_reconstruct(
         families["map_anything"], wrappers, multi_rng)}
     drop_engines(families["map_anything"])
-    streamvggt = build_pipeline("streamvggt")  # kept for the export phase
+    streamvggt = build_pipeline("streamvggt")
     extra_launches["stream"], stream_sess, stream_frame = run_stream_phase(
         families["stream3r"], streamvggt, wrappers, multi_rng)
-    drop_engines(families["stream3r"])
+    drop_engines(families["stream3r"], streamvggt)
+    del streamvggt
     profile_stream_step(stream_sess, stream_frame, dev)
     del stream_sess
     multi_view_serving(families, wrappers, card, power_limit, dev)
@@ -5084,6 +5549,14 @@ def main() -> None:
     extra_launches.update(slam_phase(build_pipeline, wrappers, card, power_limit, dev, raft, pipe,
                                      families["unidepth_v2"], families["geocalib"]))
     del raft
+
+    # 14 and 10 start here: the vits artifact's exports, turns and process,
+    # then the command line's processes, which work during 8 and 9
+    export = export_phase(pipe, build_pipeline, wrappers, card, power_limit)
+    next(export)
+    cli = cli_phase(pipe, vggt, depth_pro, families["moge2"], families["unidepth_v2"],
+                    families["geocalib"], families["align3r"])
+    next(cli)
 
     # 8. the int8 paths (each its own counted run), then int8 against the bf16
     # and fp32 routes; calibration on three seeded frames (noise and a
@@ -5160,8 +5633,12 @@ def main() -> None:
         drop_engines(p)
 
     # 10. the command line, as a user starts it, in processes of its own
-    cli_phase(pipe, vggt, depth_pro, families["moge2"], families["unidepth_v2"],
-              families["geocalib"], families["align3r"], rng)
+    # (started before 8); the shared generator advances by the frames the
+    # phase drew from it before they had a generator of their own, so that
+    # every later phase reads the frames it read before
+    rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)
+    rng.integers(0, 256, (4, 518, 518, 3), dtype=np.uint8)
+    next(cli, None)
     drop_engines(pipe, vggt, depth_pro, families["moge2"], families["unidepth_v2"],
                  families["geocalib"], families["align3r"])
 
@@ -5171,10 +5648,10 @@ def main() -> None:
 
     # 12. speed (the counts are read above; benchmark launches are not
     # counted): each path eager and through its engine, in turns eager,
-    # graph, graph, eager
-    # 60 timed and 30 synchronised iterations (100 and 50 until the export
-    # phase needed the card time)
-    cfg = BenchmarkConfig(warmup=10, iterations=60, latency_iterations=30)
+    # graph
+    # 30 timed and 15 synchronised iterations (100 and 50 until the export
+    # phase needed the card time, 60 and 30 until the training phase's)
+    cfg = BenchmarkConfig(warmup=5, iterations=30, latency_iterations=15)
     vcfg = BenchmarkConfig(**VGGT_BENCH)
     dcfg = BenchmarkConfig(**DEPTH_PRO_BENCH)
     fcfg = BenchmarkConfig(**FAMILY_BENCH)
@@ -5200,9 +5677,9 @@ def main() -> None:
                                         (616, 1064), 0, fcfg),
                                        ("unidepth_v2_int8", int8_pipes["unidepth_v2"],
                                         (518, 518), 0, fcfg)):
-        for repeat in range(2):
-            rep = timed_route(p, "graph", in_hw, views, c)
-            emit(speed_record(rep, p, label, "graph", repeat, views, in_hw, card, power_limit))
+        # once (twice until the script outgrew its time limit)
+        rep = timed_route(p, "graph", in_hw, views, c)
+        emit(speed_record(rep, p, label, "graph", 0, views, in_hw, card, power_limit))
         drop_engines(p)
     os.environ["MDET_FORCE_INT8"] = "1"
     vits8 = build_pipeline("depth_anything_v2", encoder="vits", precision="int8",
@@ -5226,22 +5703,22 @@ def main() -> None:
         0, 256, (*families[name].spec.input_hw, 3), dtype=np.uint8)).to(dev)
         for name in SINGLE_FAMILIES}
     for p, arg, in_hw, suffix, iters, with_eager in (
-            (pipe, dev_frame, (518, 518), "", 5, True),
-            (vitl, dev_frame, (518, 518), "", 5, False),
-            (int8_vitl, dev_frame, (518, 518), "", 5, False),
-            (vits8, dev_frame, (518, 518), "", 5, False),
+            (pipe, dev_frame, (518, 518), "", 3, True),
+            (vitl, dev_frame, (518, 518), "", 3, False),
+            (int8_vitl, dev_frame, (518, 518), "", 3, False),
+            (vits8, dev_frame, (518, 518), "", 3, False),
             (vggt, dev_frame, (518, 518), "_s1", 3, False),
             (vggt, views4, None, "_s4", 3, True),
             (int8_pipes["vggt"], dev_frame, (518, 518), "_s1", 3, False),
             (int8_pipes["vggt"], views4, None, "_s4", 3, False),
             (depth_pro, dev_dp, (1536, 1536), "", 3, True),
             (int8_pipes["depth_pro"], dev_dp, (1536, 1536), "", 3, False),
-            *((families[name], family_args[name], tuple(families[name].spec.input_hw), "", 5,
+            *((families[name], family_args[name], tuple(families[name].spec.input_hw), "", 3,
                name in ("metric3d_v2", "moge2", "geocalib", *GEOMETRIC))
               for name in SINGLE_FAMILIES),
-            (int8_pipes["metric3d_v2"], family_args["metric3d_v2"], (616, 1064), "", 5,
+            (int8_pipes["metric3d_v2"], family_args["metric3d_v2"], (616, 1064), "", 3,
              False),
-            (int8_pipes["unidepth_v2"], family_args["unidepth_v2"], (518, 518), "", 5,
+            (int8_pipes["unidepth_v2"], family_args["unidepth_v2"], (518, 518), "", 3,
              False)):
         eng = p.engine_for(in_hw) if in_hw else p.views_engine(4)
         emit({**profile_breakdown(lambda: eng(arg), p.spec.artifact_name() + suffix, iters),
@@ -5255,14 +5732,25 @@ def main() -> None:
                     eager(arg)
 
             with annotated(geometric, "decoder_attention"):
-                emit({**profile_breakdown(eager_step, p.spec.artifact_name() + suffix, iters,
-                                          ranges=ranges), "route": "eager"})
+                emit({**profile_breakdown(eager_step, p.spec.artifact_name() + suffix,
+                                          EAGER_PROFILE_CALLS, ranges=ranges),
+                      "route": "eager"})
         drop_engines(p)
 
-    # 14. serialized artifacts of pipelines built above, loaded and served
-    extra_launches.update(export_phase(pipe, int8_vitl, vggt, streamvggt, wrappers, card,
-                                       power_limit))
-    del streamvggt
+    # 14. serialized artifacts of pipelines built above (and of VGGT and
+    # StreamVGGT at cut depth), loaded and served (the vits artifact's
+    # process started before 8); 15 starts its commands' process first, so
+    # that they run while the artifacts are exported
+    drop_engines(vggt, depth_pro, vits8, *(p for p in int8_pipes.values() if p is not int8_vitl),
+                 *families.values())
+    training = training_phase(vitl, build_pipeline, wrappers, card, power_limit, dev)
+    next(training)
+    extra_launches.update(export.send(int8_vitl))
+
+    # 15. training and the accuracy commands, with the vitl pipeline built
+    # above as the teacher (each counted run its own)
+    drop_engines(pipe, int8_vitl)
+    extra_launches.update(next(training))
 
     # kernels line: the main shape's numbers, every shape in "shapes"; the
     # launches of each path's counted run

@@ -4,8 +4,9 @@
 The reference unprojects on the host with numpy and writes via open3d
 (``Depth_Anything_V2/onnx2trt_pointcloud.py:60-84``); here the
 unprojection is ``ops/camera.py`` on the host array's tensor and the
-PLY/GLB write is dependency-free (``apps/ply.py``). The colorbar figure of
-the JAX module (matplotlib) is not ported.
+PLY/GLB write is dependency-free (``apps/ply.py``).
+:func:`save_metric_colorbar_figure` draws with matplotlib, where it
+imports.
 """
 
 from __future__ import annotations
@@ -92,3 +93,34 @@ def points_to_mesh_file(points: np.ndarray, image_rgb: Optional[np.ndarray], pat
     if path.endswith(".glb"):
         return write_glb_mesh(path, flat, faces, colors)
     return write_ply_mesh(path, flat, faces, colors)
+
+
+def save_metric_colorbar_figure(depth: np.ndarray, path: str, *,
+                                clip: tuple = (0.1, 250.0)) -> str:
+    """Colorbar-in-meters figure for metric models (reference
+    ``Depth_Anything_V2/onnx2trt.py:249-262``): turbo-mapped inverse depth
+    with a 5-tick colorbar labeled from ``depth.max()`` down to
+    ``depth.min()``. Needs matplotlib: without it the import raises
+    ``ImportError``."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    d = np.clip(np.asarray(depth, dtype=np.float32), clip[0], clip[1])
+    inv = 1.0 / d
+    inv_norm = (inv - inv.min()) / max(inv.max() - inv.min(), 1e-8)
+
+    plt.figure(figsize=(8, 6))
+    img = plt.imshow(inv_norm, cmap="turbo")
+    plt.axis("off")
+    cbar = plt.colorbar(img, fraction=0.046, pad=0.04)
+    num_ticks = 5
+    cbar.set_ticks(np.linspace(0, 1, num_ticks))
+    labels = np.linspace(d.max(), d.min(), num_ticks)
+    cbar.set_ticklabels([f"{v:.2f} m" for v in labels])
+    cbar.set_label("Depth (m)", fontsize=12)
+    plt.tight_layout()
+    plt.savefig(path, bbox_inches="tight", pad_inches=0.1, dpi=150)
+    plt.close()
+    return path

@@ -29,6 +29,12 @@ Replaces the reference's "edit constants at the top of the script" workflow
     python -m monocular_depth_estimation_trt_tpu_torch bench --engine a.mdeteng --trace traces/
     python -m monocular_depth_estimation_trt_tpu_torch doctor
 
+    python -m monocular_depth_estimation_trt_tpu_torch convert depth_anything_v2 --encoder vits \
+        --checkpoint depth_anything_v2_vits.pth --verify-manifest
+    python -m monocular_depth_estimation_trt_tpu_torch distill --images-dir frames/ --promote
+    python -m monocular_depth_estimation_trt_tpu_torch eval --pred results/ --gt gt/ --align affine
+    python -m monocular_depth_estimation_trt_tpu_torch quantcheck depth_anything_v2 --encoder vitl
+
 Every command runs on the card (``--device cuda``, the default) unless
 ``--device cpu`` asks for the port's plain PyTorch path on the CPU; without
 a card the default raises. Artifacts mirror the reference's outputs and the
@@ -67,9 +73,18 @@ device type it was exported on (``--device`` does not apply). ``bench
 --trace DIR`` writes a ``torch.profiler`` Chrome trace of the timed loop;
 ``doctor`` reports the installation.
 
-Not ported yet, so argparse rejects them: ``--device-mesh`` (multi-device
-sharding), ``--colorbar`` (a matplotlib figure) and the
-``convert``/``distill``/``eval``/``quantcheck`` commands.
+``convert`` checks an upstream checkpoint (``--verify-manifest`` against
+the family's key manifest, ``--report`` for the load's audit) and installs
+it in the params cache that ``run`` and the other commands read without a
+``--checkpoint``; ``distill`` trains a DA-V2-family student against a frozen
+teacher (``--qat`` for int8 serving, ``--promote`` into the params cache);
+``eval`` scores predictions against ground truth and ``quantcheck`` an int8
+pipeline against its bf16 twin, each in one JSON line. ``run --colorbar``
+also writes the colorbar-in-meters figure (matplotlib; without it the
+command exits 1 naming it).
+
+Not ported yet, so argparse rejects it: ``--device-mesh`` (multi-device
+sharding).
 """
 
 from __future__ import annotations
@@ -273,6 +288,19 @@ def _write_run_outputs(args, img, out, name, pipe) -> int:
         with open(fov_path, "w") as f:
             json.dump({"fov_x": round(fov[0], 2), "fov_y": round(fov[1], 2)}, f)
         log(f"wrote {fov_path} (fov_x {fov[0]:.2f}°, fov_y {fov[1]:.2f}°)")
+
+    if args.colorbar:
+        from monocular_depth_estimation_trt_tpu_torch.apps.pointcloud import (
+            save_metric_colorbar_figure,
+        )
+
+        bar = os.path.join(args.out, f"{stem}_{name}_depth_bar.jpg")
+        try:
+            save_metric_colorbar_figure(depth, bar)
+        except ImportError as e:
+            log(f"--colorbar needs matplotlib, which is not importable here ({e})", tag="ERROR")
+            return 1
+        log(f"wrote {bar}")
 
     if args.pointcloud or args.mesh:
         from monocular_depth_estimation_trt_tpu_torch.apps.pointcloud import (
@@ -900,6 +928,322 @@ def cmd_engines(_args) -> int:
     return 0
 
 
+def cmd_convert(args) -> int:
+    """Check an upstream checkpoint and install it in the params cache.
+
+    Computes on the CPU whatever ``--device`` says: a strict load is host
+    work (the JAX package forces its CPU platform here too). Exit 0 on
+    success, with the fp32 state dict written to the params cache under the
+    artifact's name (``weights/store.py``); 1 when the strict load finds
+    missing, extra or misshapen tensors; 2 when ``--verify-manifest`` finds
+    the layout differs from the family's manifest, or there is no manifest;
+    3 when the checkpoint cannot be found. ``--report`` prints the load's
+    audit (consumed, missing, extra) and writes nothing."""
+    import torch
+
+    from monocular_depth_estimation_trt_tpu_torch import registry
+    from monocular_depth_estimation_trt_tpu_torch.weights.store import (
+        MissingCheckpointError,
+        StateDictMismatchError,
+        checkpoint_loads,
+        resolve_checkpoint,
+        save_params,
+    )
+
+    kw = {"encoder": args.encoder} if args.encoder else {}
+    try:
+        path = resolve_checkpoint(args.checkpoint)
+        log(f"checkpoint resolves to {path}")
+        if args.verify_manifest:
+            from monocular_depth_estimation_trt_tpu_torch.weights.manifest import (
+                format_report,
+                load_manifest,
+                manifest_key,
+                verify_state_dict,
+            )
+
+            key = manifest_key(args.model, args.encoder)
+            manifest = load_manifest(key) or load_manifest(manifest_key(args.model))
+            if manifest is None:
+                log(f"no manifest for {key!r} (weights/manifests/)", tag="ERROR")
+                return 2
+            rep = verify_state_dict(torch.load(path, map_location="cpu", weights_only=True),
+                                    manifest)
+            log("\n" + format_report(rep))
+            if not rep["ok"]:
+                return 2
+        with checkpoint_loads(report_only=args.report) as loads:
+            registry.build_pipeline(args.model, checkpoint=args.checkpoint, device="cpu", **kw)
+    except StateDictMismatchError as e:
+        log(str(e), tag="ERROR")
+        return 1
+    except MissingCheckpointError as e:
+        log(str(e), tag="ERROR")
+        return 3
+    for entry in loads:
+        a = entry["audit"]
+        log(f"load audit ({entry['name']}): consumed {a['consumed']}/{a['total']} checkpoint "
+            f"tensors; {len(a['missing'])} missing, {len(a['extra'])} extra, "
+            f"{len(a['shape_mismatch'])} of another shape")
+        for k in a["missing"]:
+            log(f"  MISSING {k}", tag="WARN")
+        for k in a["extra"]:
+            log(f"  UNCONSUMED {k}", tag="WARN")
+        for k, v in a["shape_mismatch"].items():
+            log(f"  SHAPE {k}: checkpoint {v['checkpoint']} vs model {v['model']}", tag="WARN")
+        if not args.report:
+            save_params(entry["name"], entry["state_dict"])
+    log("conversion OK")
+    return 0
+
+
+# the relative-depth DA-V2-family graphs, whose serving spec is ModelSpec's
+# defaults at their name: the students distill can train
+DISTILL_STUDENTS = ("depth_anything_v2", "distill_any_depth", "depth_anything_ac", "bridge")
+
+
+def cmd_distill(args) -> int:
+    """Teacher-to-student depth distillation on an image directory.
+
+    A frozen bf16 teacher pipeline (its captured engine, kernel K1 on the
+    card) labels each batch once; a DA-V2-family student trains in fp32
+    against the labels with the SSI + gradient-matching objective
+    (``training/``), through the plain attention route, as the kernels have
+    no backward. The student starts from the weights its serving pipeline
+    would load (the params cache, else seeded random weights where
+    allowed), as fp32 weights. The train state is written to
+    ``<out>/distill_<student>_<encoder>.pt``; ``--promote`` also installs
+    the weights in the params cache under the student's artifact name (an
+    entry there is moved aside to ``.pre-distill-bak``), so that ``run``
+    serves them."""
+    import shutil
+
+    import torch
+
+    from monocular_depth_estimation_trt_tpu_torch import registry
+    from monocular_depth_estimation_trt_tpu_torch.config import ModelSpec
+    from monocular_depth_estimation_trt_tpu_torch.models import depth_anything_v2 as da
+    from monocular_depth_estimation_trt_tpu_torch.ops.quant import install_qat
+    from monocular_depth_estimation_trt_tpu_torch.training import distill, save_train_state
+    from monocular_depth_estimation_trt_tpu_torch.training.distill import depth_student
+    from monocular_depth_estimation_trt_tpu_torch.utils.files import list_images
+    from monocular_depth_estimation_trt_tpu_torch.utils.imageio import read_image, resize
+    from monocular_depth_estimation_trt_tpu_torch.weights.store import (
+        params_path,
+        resolve_weights,
+        save_params,
+    )
+
+    if args.steps < 1:
+        log("--steps must be >= 1", tag="ERROR")
+        return 1
+    size = args.size - args.size % 14  # ViT patch grid
+    paths = list_images(args.images_dir)
+    if len(paths) < args.batch:
+        log(f"need at least --batch={args.batch} images in {args.images_dir}; found "
+            f"{len(paths)}", tag="ERROR")
+        return 1
+    if len(paths) > args.max_images:
+        # frames and teacher labels stay resident for the run: cap them
+        log(f"capping at --max-images={args.max_images} of {len(paths)} images (raise the "
+            "flag to use more)", tag="WARN")
+        paths = paths[: args.max_images]
+    tail = len(paths) % args.batch
+    if tail:
+        log(f"dropping {tail} tail image(s) that don't fill a --batch={args.batch} chunk "
+            "(static shapes, one engine)")
+    frames = np.stack([resize(read_image(p), (size, size)) for p in paths])
+    log(f"distilling from {len(frames) - tail} images @ {size}x{size}")
+
+    device = registry.resolve_device(args.device)
+    teacher = registry.build_pipeline(
+        args.teacher, device=device,
+        **({"encoder": args.teacher_encoder} if args.teacher_encoder else {}))
+
+    def teacher_fn(imgs_u8):
+        return teacher.batch_call(imgs_u8, device_out=True)["depth"]
+
+    # the student: the weights its bf16 serving pipeline would load (named by
+    # that pipeline's spec; seeded random weights are the CPU generator's),
+    # filled into a fresh fp32 model on the host, then moved to the device
+    # in full fp32 (TF32 off for the process, as a precision="fp32" build)
+    name = ModelSpec(model=args.student, encoder=args.student_encoder).artifact_name()
+    model = registry._new_model(
+        lambda: da.DepthAnythingV2(encoder=args.student_encoder, attn_impl="xla"))
+    resolve_weights(model, name)
+    registry._full_fp32(torch.float32, device)
+    model = model.to(device)
+    log(f"student {name} as fp32 on {device}: TF32 matmul="
+        f"{torch.backends.cuda.matmul.allow_tf32} cudnn={torch.backends.cudnn.allow_tf32}")
+    if args.qat:
+        # fake-quant (STE) forward so that the weights serve well at int8;
+        # the parameter names stay, so promotion and calibration work as-is
+        install_qat(model, model.int8_targets())
+
+    def batches():
+        for i in range(0, len(frames) - tail, args.batch):
+            yield frames[i: i + args.batch]
+
+    state, history = distill(teacher_fn, depth_student(model, size),
+                             dict(model.named_parameters()), batches(), steps=args.steps,
+                             learning_rate=args.lr, accum_steps=args.accum_steps)
+    log(f"distillation done: loss {history[0]:.4f} -> {history[-1]:.4f}")
+
+    os.makedirs(args.out, exist_ok=True)
+    save_train_state(os.path.join(os.path.abspath(args.out),
+                                  f"distill_{args.student}_{args.student_encoder}.pt"), state)
+    if args.promote:
+        existing = params_path(name)
+        if os.path.exists(existing):
+            # never clobber the installed weights irreversibly
+            bak = existing + ".pre-distill-bak"
+            shutil.move(existing, bak)
+            log(f"previous params cached at {bak} (move it back to undo the promotion)")
+        save_params(name, state.params)
+        log(f"promoted distilled params into the params cache as {name!r}; `run "
+            f"{args.student} --encoder {args.student_encoder}` now serves them")
+    return 0
+
+
+def cmd_quantcheck(args) -> int:
+    """The int8 accuracy gate: the same configuration at bf16 and at int8
+    (one set of weights) on the given images, and one JSON line of the
+    int8-vs-bf16 metric suite (delta1, AbsRel, ..., corr). Exit 3 when
+    delta1 does not exceed ``--min-delta1``."""
+    import torch
+
+    from monocular_depth_estimation_trt_tpu_torch import registry
+    from monocular_depth_estimation_trt_tpu_torch.training.metrics import depth_metrics
+    from monocular_depth_estimation_trt_tpu_torch.utils.files import list_images
+    from monocular_depth_estimation_trt_tpu_torch.utils.imageio import read_image
+
+    if args.images:
+        paths = list_images(args.images)[: args.max_images]
+    else:
+        paths = [os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                              "data", "example.jpg")]
+    if not paths:
+        log(f"quantcheck: no images under {args.images}", tag="ERROR")
+        return 1
+
+    kw = _pipeline_kw(args, "encoder", "checkpoint")
+    calib = {"calib_images": kw.pop("calib_images")} if "calib_images" in kw else {}
+    pipe_f = registry.build_pipeline(args.model, precision="bf16", **kw)
+    pipe_q = registry.build_pipeline(args.model, precision="int8", **kw, **calib)
+
+    sums, corr = {}, []
+    for p in paths:
+        img = read_image(p)
+        df = np.asarray(pipe_f(img)["depth"], np.float32)
+        dq = np.asarray(pipe_q(img)["depth"], np.float32)
+        m = depth_metrics(torch.from_numpy(dq)[None], torch.from_numpy(df)[None], align="none")
+        for k, v in m.items():
+            sums[k] = sums.get(k, 0.0) + float(v)
+        corr.append(float(np.corrcoef(dq.ravel(), df.ravel())[0, 1]))
+    n = len(paths)
+    report = {
+        "metric": f"{pipe_q.spec.artifact_name()}_vs_bf16",
+        "images": n,
+        "corr": round(float(np.mean(corr)), 5),
+        **{k: round(v / n, 5) for k, v in sums.items()},
+    }
+    print(json.dumps(report))
+    return 0 if report.get("delta1", 0.0) > args.min_delta1 else 3
+
+
+_EVAL_EXTS = (".npz", ".npy", ".png", ".pgm", ".tif", ".tiff")
+
+
+def _load_eval_array(path: str, key: str, scale: float = 0.0) -> np.ndarray:
+    """A prediction or ground-truth array: ``.npy``, ``key`` of an ``.npz``
+    (else its first array), or a depth image (16-bit PNG without cv2) divided
+    by ``scale``; a uint16 image defaults to 256 (KITTI's meters * 256).
+    ``.npy``/``.npz`` are metric already: ``scale`` is for images only."""
+    from monocular_depth_estimation_trt_tpu_torch.utils.imageio import read_unchanged
+
+    if path.endswith(".npy"):
+        arr, scale = np.load(path), 0.0
+    elif path.endswith(".npz"):
+        z = np.load(path)
+        arr, scale = (z[key] if key in z else z[list(z.files)[0]]), 0.0
+    else:
+        arr = read_unchanged(path)
+        if arr.ndim == 3:
+            arr = arr[..., 0]
+        if arr.dtype == np.uint16 and scale == 0.0:
+            scale = 256.0
+    arr = np.squeeze(np.asarray(arr)).astype(np.float32)
+    return arr / scale if scale else arr
+
+
+def _load_eval_set(path: str, key: str, scale: float = 0.0) -> dict:
+    if os.path.isdir(path):
+        files = sorted(f for f in os.listdir(path) if f.lower().endswith(_EVAL_EXTS))
+        return {os.path.splitext(f)[0]: _load_eval_array(os.path.join(path, f), key, scale)
+                for f in files}
+    return {os.path.splitext(os.path.basename(path))[0]: _load_eval_array(path, key, scale)}
+
+
+def cmd_eval(args) -> int:
+    """Score predictions against ground truth with the standard metric
+    suites (``training/metrics.py``): AbsRel, RMSE, SiLog and the delta
+    thresholds for depth (optionally affine- or median-aligned), EPE and
+    n-px accuracies for flow (``--flow``); one JSON line. Computes on the
+    CPU whatever ``--device`` says: host arithmetic on host arrays (the JAX
+    package forces its CPU platform here too)."""
+    import torch
+
+    from monocular_depth_estimation_trt_tpu_torch.training.metrics import (
+        depth_metrics,
+        flow_metrics,
+    )
+
+    preds = _load_eval_set(args.pred, args.key)
+    gts = _load_eval_set(args.gt, args.key, scale=args.gt_scale)
+    if len(preds) == 1 and len(gts) == 1:
+        pairs = [(next(iter(preds.values())), next(iter(gts.values())))]
+    else:
+        common = sorted(set(preds) & set(gts))
+        if not common:
+            log("no matching prediction/ground-truth stems", tag="ERROR")
+            return 1
+        pairs = [(preds[k], gts[k]) for k in common]
+
+    sums: dict = {}
+    for pred, gt in pairs:
+        if not args.flow and pred.shape != gt.shape and pred.ndim == 2:
+            # score at the ground truth's resolution (the benchmark
+            # protocol), nearest-neighbour: no depth invented at edges
+            yi = np.minimum((np.arange(gt.shape[0]) + 0.5) * pred.shape[0] // gt.shape[0],
+                            pred.shape[0] - 1).astype(np.int64)
+            xi = np.minimum((np.arange(gt.shape[1]) + 0.5) * pred.shape[1] // gt.shape[1],
+                            pred.shape[1] - 1).astype(np.int64)
+            pred = pred[yi][:, xi]
+        if pred.ndim == 2:
+            pred, gt = pred[None], gt[None]
+        pred_t, gt_t = torch.from_numpy(np.ascontiguousarray(pred)), torch.from_numpy(
+            np.ascontiguousarray(gt))
+        if args.flow:
+            m = flow_metrics(pred_t, gt_t)
+        else:
+            # the Eigen protocol's valid range: gt > 0 always (depth_metrics),
+            # the caps bound the scored range (KITTI: 80 m)
+            mask = None
+            if args.min_depth > 0 or args.max_depth > 0:
+                valid = np.isfinite(gt) & (gt > args.min_depth)
+                if args.max_depth > 0:
+                    valid &= gt <= args.max_depth
+                mask = torch.from_numpy(valid.astype(np.float32))
+            m = depth_metrics(pred_t, gt_t, mask, align=args.align)
+        for k, v in m.items():
+            sums[k] = sums.get(k, 0.0) + float(v)
+    out = {k: round(v / len(pairs), 5) for k, v in sums.items()}
+    out["n_images"] = len(pairs)
+    out["align"] = args.align if not args.flow else None
+    print(json.dumps(out))
+    return 0
+
+
 def _add_precision_args(p, calib: bool = True) -> None:
     """Shared --precision/--calib-dir flags."""
     p.add_argument("--precision", default="", choices=["", "bf16", "fp16", "fp32", "int8"],
@@ -940,6 +1284,9 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--mesh", action="store_true",
                      help="write a triangulated image-grid mesh of the model's point map "
                      "(moge2, metric_anything) instead of points; implies --pointcloud")
+    run.add_argument("--colorbar", action="store_true",
+                     help="also save the colorbar-in-meters figure (metric models; needs "
+                     "matplotlib)")
     run.add_argument("--benchmark", action="store_true")
     run.add_argument("--compare", default="",
                      help="compare the depth against a stored .npz and fail on drift")
@@ -1104,6 +1451,78 @@ def build_parser() -> argparse.ArgumentParser:
                        "(only with --max-batch > 1)")
     serve.set_defaults(fn=cmd_serve)
 
+    convert = sub.add_parser("convert", help="check an upstream checkpoint and install it in "
+                             "the params cache (on the CPU)")
+    convert.add_argument("model")
+    convert.add_argument("--checkpoint", required=True)
+    convert.add_argument("--encoder", default="")
+    convert.add_argument("--report", action="store_true",
+                         help="print the strict load's audit (consumed, missing, extra) and "
+                         "write nothing")
+    convert.add_argument("--verify-manifest", action="store_true", dest="verify_manifest",
+                         help="diff the checkpoint's tensor names and shapes against the "
+                         "family's key manifest (weights/manifests/) first; exit 2 on a "
+                         "mismatch")
+    convert.set_defaults(fn=cmd_convert)
+
+    dist = sub.add_parser("distill", help="teacher-to-student depth distillation on an image "
+                          "directory")
+    dist.add_argument("--teacher", default="depth_anything_v2")
+    dist.add_argument("--teacher-encoder", default="vitl")
+    dist.add_argument("--student", default="depth_anything_v2", choices=DISTILL_STUDENTS,
+                      help="student registry name: a relative-depth DA-V2-family graph")
+    dist.add_argument("--student-encoder", default="vits")
+    dist.add_argument("--images-dir", required=True)
+    dist.add_argument("--size", type=int, default=266,
+                      help="training resolution (rounded down to /14)")
+    dist.add_argument("--batch", type=int, default=4)
+    dist.add_argument("--steps", type=int, default=200)
+    dist.add_argument("--lr", type=float, default=3e-4)
+    dist.add_argument("--accum-steps", type=int, default=1)
+    dist.add_argument("--max-images", type=int, default=2048,
+                      help="cap on images held in memory (frames and teacher labels stay "
+                      "resident for the run)")
+    dist.add_argument("--out", default="results/distill")
+    dist.add_argument("--qat", action="store_true",
+                      help="quantization-aware training: fake-quant (STE) student forward, so "
+                      "that the result serves well at --precision int8")
+    dist.add_argument("--promote", action="store_true",
+                      help="install the distilled weights in the params cache under the "
+                      "student's artifact name")
+    dist.set_defaults(fn=cmd_distill)
+
+    ev = sub.add_parser("eval", help="depth/flow metrics between prediction and ground-truth "
+                        "npz/npy/image files or directories (on the CPU)")
+    ev.add_argument("--pred", required=True)
+    ev.add_argument("--gt", required=True)
+    ev.add_argument("--key", default="depth", help="array key inside npz files")
+    ev.add_argument("--align", default="none", choices=["none", "affine", "median"],
+                    help="per-image alignment before scoring (relative-depth protocols)")
+    ev.add_argument("--flow", action="store_true",
+                    help="score (H, W, 2) flow fields with EPE/n-px instead")
+    ev.add_argument("--gt-scale", type=float, default=0.0,
+                    help="divide image-file ground truth by this (default 256 for uint16: "
+                    "KITTI's meters * 256)")
+    ev.add_argument("--min-depth", type=float, default=0.0,
+                    help="ignore ground truth below this depth (Eigen protocol)")
+    ev.add_argument("--max-depth", type=float, default=0.0,
+                    help="ignore ground truth beyond this depth (e.g. 80 for KITTI)")
+    ev.set_defaults(fn=cmd_eval)
+
+    qc = sub.add_parser("quantcheck", help="int8-vs-bf16 accuracy report for one "
+                        "configuration (one JSON line; exit 3 if delta1 falls below "
+                        "--min-delta1)")
+    qc.add_argument("model")
+    qc.add_argument("--encoder", default="")
+    qc.add_argument("--checkpoint", default="")
+    qc.add_argument("--images", default="", help="image directory (default: the bundled "
+                    "example)")
+    qc.add_argument("--max-images", type=int, default=8)
+    qc.add_argument("--min-delta1", type=float, default=0.95, dest="min_delta1")
+    qc.add_argument("--calib-dir", default="", dest="calib_dir",
+                    help="directory of domain images for int8 calibration")
+    qc.set_defaults(fn=cmd_quantcheck)
+
     sub.add_parser("models", help="list registered models").set_defaults(fn=cmd_models)
     sub.add_parser("engines", help="list built engines").set_defaults(fn=cmd_engines)
     doctor = sub.add_parser("doctor", help="report what this installation will use")
@@ -1114,7 +1533,7 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--engine", default="",
                         help="serve from a serialized artifact (`export`): no model code or "
                         "checkpoint")
-    for sp in (run, batch, views, pair, serve, video, webcam, flow, track, slam, exp):
+    for sp in (run, batch, views, pair, serve, video, webcam, flow, track, slam, exp, dist, qc):
         # SUPPRESS: the subparser's default must not clobber the main
         # parser's flag when it is given before the subcommand
         sp.add_argument("--allow-random-weights", action="store_true",

@@ -15,8 +15,9 @@ model stays as it is and two passes act on its ``nn.Linear`` layers:
   (``ops/cuda/quant_matmul.py``). The bf16 weight goes with the swapped
   layer: one copy of each quantized weight stays on the card.
 
-:func:`quantize_model_bundle` chains the three. The JAX ``qat`` mode waits
-for the training port.
+:func:`quantize_model_bundle` chains the three. :func:`install_qat` is the
+JAX ``qat`` mode: quantization-aware training through fake quantization
+(:class:`QATLinear`).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from typing import Dict, Iterable, Mapping, Optional, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from monocular_depth_estimation_trt_tpu_torch.ops.cuda.quant_matmul import QMAX, w8a8_matmul
 
@@ -183,3 +185,47 @@ def full_precision(model: nn.Module, paths: Iterable[str]):
         lin = model.get_submodule(path)
         out[path] = (lin.weight.detach(), None if lin.bias is None else lin.bias.detach())
     return out
+
+
+def _ste(real: torch.Tensor, quantized: torch.Tensor) -> torch.Tensor:
+    """The forward sees ``quantized``, the backward the identity (a
+    straight-through estimator)."""
+    return real + (quantized - real).detach()
+
+
+class QATLinear(nn.Linear):
+    """Quantization-aware training ``nn.Linear`` (the JAX ``QuantDense``
+    ``qat`` mode): the weight fake-quantized per output channel
+    (:func:`quantize_weight`, then back to fp32), the input per tensor with
+    a dynamic absmax, ``a = max(absmax, 1e-8) / 127``, both with
+    straight-through gradients; the product in fp32, the bias added after,
+    the output in the weight's type. Its parameters are ``weight`` and
+    ``bias``, so a QAT model's state dict is the plain model's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight.float()
+        weight_q, w_scale = quantize_weight(w.detach())
+        w_fq = _ste(w, weight_q.float() * w_scale[:, None])
+        xf = x.float()
+        a = torch.clamp(xf.detach().abs().amax(), min=1e-8) / QMAX
+        x_fq = _ste(xf, torch.clamp(torch.round(xf / a), -QMAX, QMAX) * a)
+        y = F.linear(x_fq, w_fq)
+        if self.bias is not None:
+            y = y + self.bias.float()
+        return y.to(self.weight.dtype)
+
+
+def install_qat(model: nn.Module, paths: Iterable[str]) -> nn.Module:
+    """Replace each ``nn.Linear`` at ``paths`` (a model's
+    ``int8_targets()``) by a :class:`QATLinear` holding the same parameter
+    tensors. In place; returns ``model``."""
+    for path in paths:
+        lin = model.get_submodule(path)
+        if type(lin) is not nn.Linear:
+            raise TypeError(f"{path} is a {type(lin).__name__}, not an nn.Linear")
+        q = QATLinear(lin.in_features, lin.out_features, bias=lin.bias is not None,
+                      device="meta")
+        q.weight, q.bias = lin.weight, lin.bias
+        parent, _, child = path.rpartition(".")
+        setattr(model.get_submodule(parent) if parent else model, child, q)
+    return model

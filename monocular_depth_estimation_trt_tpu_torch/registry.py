@@ -218,20 +218,28 @@ def int8_bundle_path(spec: ModelSpec) -> str:
     return os.path.join(cache_dir(), "params", name + ".pt")
 
 
-def _int8_bundle_key(model: torch.nn.Module, checkpoint: Optional[str],
+def _int8_bundle_key(model: torch.nn.Module, checkpoint: Optional[str], name: str,
                      dtype: torch.dtype) -> Dict[str, Any]:
-    """What a cached bundle must have been made from: the checkpoint file
-    (path, size, modification time) or the seeded random weights, the
-    model's layout (every key, shape and type before the cast) and the
-    compute type."""
+    """What a cached bundle must have been made from: the checkpoint file,
+    else the params cache file of ``name`` (path, size, modification time),
+    else the seeded random weights; the model's layout (every key, shape
+    and type before the cast) and the compute type."""
     import hashlib
 
-    from monocular_depth_estimation_trt_tpu_torch.weights.store import resolve_checkpoint
+    from monocular_depth_estimation_trt_tpu_torch.weights.store import (
+        params_path,
+        resolve_checkpoint,
+    )
+
+    def file_source(kind, path):
+        path = os.path.realpath(path)
+        return {kind: path, "size": os.path.getsize(path),
+                "mtime_ns": os.stat(path).st_mtime_ns}
 
     if checkpoint:
-        path = os.path.realpath(resolve_checkpoint(checkpoint))
-        source = {"checkpoint": path, "size": os.path.getsize(path),
-                  "mtime_ns": os.stat(path).st_mtime_ns}
+        source = file_source("checkpoint", resolve_checkpoint(checkpoint))
+    elif os.path.exists(params_path(name)):
+        source = file_source("params_cache", params_path(name))
     else:
         source = {"random_seed": 0}
     layout = hashlib.sha256(repr([(k, tuple(v.shape), str(v.dtype))
@@ -308,16 +316,21 @@ def _params_for(model: torch.nn.Module, spec: ModelSpec, *, params, checkpoint, 
     quant = spec.precision == "int8"
     name = spec.with_(precision="bf16").artifact_name() if quant else spec.artifact_name()
     # the int8 bundle is cached only for weights that a later build finds
-    # again (a checkpoint file, or the seeded random weights) calibrated on
+    # again (a checkpoint file, the params cache, or the seeded random
+    # weights) calibrated on
     # the default images: an int8 cold start that finds it never calibrates
     cacheable = (quant and params is None and calib_images is None
                  and torch.device(device).type in ("cuda", "cpu"))
     if cacheable:
-        from monocular_depth_estimation_trt_tpu_torch.weights.store import random_weights_allowed
+        from monocular_depth_estimation_trt_tpu_torch.weights.store import (
+            params_path,
+            random_weights_allowed,
+        )
 
-        cacheable = bool(checkpoint) or random_weights_allowed()
+        cacheable = (bool(checkpoint) or os.path.exists(params_path(name))
+                     or random_weights_allowed())
     if cacheable:
-        key, bundle = _int8_bundle_key(model, checkpoint, dtype), int8_bundle_path(spec)
+        key, bundle = _int8_bundle_key(model, checkpoint, name, dtype), int8_bundle_path(spec)
         loaded = _load_int8_bundle(model, bundle, key, device, dtype)
         if loaded is not None:
             return loaded

@@ -6,7 +6,8 @@ BGR <-> RGB swaps). Where it does not, as on a machine with only the port's
 dependencies, the module falls back to codecs of its own:
 
 * 8-bit PNG (gray, gray + alpha, RGB, RGBA, palette; not interlaced), read
-  and written with ``zlib`` and the five row filters of the PNG standard;
+  and written with ``zlib`` and the five row filters of the PNG standard,
+  and 16-bit PNG read (depth ground truth, :func:`read_unchanged`);
 * ``.npy`` arrays through numpy;
 * bilinear resize with cv2's ``INTER_LINEAR`` sampling and area resize with
   cv2's ``INTER_AREA`` rule, both within one uint8 step of cv2.
@@ -130,8 +131,9 @@ def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
 
 
 def decode_png(data: bytes) -> np.ndarray:
-    """The pixels of an 8-bit, non-interlaced PNG: (H, W) for gray, (H, W, 2)
-    gray + alpha, (H, W, 3) RGB (palette images too), (H, W, 4) RGBA."""
+    """The pixels of a non-interlaced PNG: (H, W) for gray, (H, W, 2)
+    gray + alpha, (H, W, 3) RGB (palette images too), (H, W, 4) RGBA;
+    uint8, or uint16 for a 16-bit image (depth ground truth)."""
     if not data.startswith(PNG_SIGNATURE):
         raise ValueError("not a PNG")
     pos, header, palette, idat = len(PNG_SIGNATURE), None, None, []
@@ -150,11 +152,16 @@ def decode_png(data: bytes) -> np.ndarray:
     if header is None:
         raise ValueError("PNG without IHDR")
     w, h, depth, color, _, _, interlace = header
-    if depth != 8 or color not in _CHANNELS or interlace:
+    if depth not in (8, 16) or (depth == 16 and color == 3) or color not in _CHANNELS \
+            or interlace:
         raise ValueError(f"unsupported PNG: bit depth {depth}, color type {color}, "
-                         f"interlace {interlace} (8-bit, not interlaced only)")
+                         f"interlace {interlace} (8- or 16-bit, not interlaced only)")
     c = _CHANNELS[color]
-    px = _unfilter(zlib.decompress(b"".join(idat)), h, w * c, c).reshape(h, w, c)
+    bpp = c * depth // 8
+    px = _unfilter(zlib.decompress(b"".join(idat)), h, w * bpp, bpp)
+    if depth == 16:  # big-endian samples
+        px = px.view(">u2").astype(np.uint16)
+    px = px.reshape(h, w, c)
     if color == 3:
         if palette is None:
             raise ValueError("palette PNG without PLTE")
@@ -163,7 +170,10 @@ def decode_png(data: bytes) -> np.ndarray:
 
 
 def _to_rgb(px: np.ndarray) -> np.ndarray:
-    """cv2.IMREAD_COLOR's view of decoded pixels: 3 channels, no alpha."""
+    """cv2.IMREAD_COLOR's view of decoded pixels: 3 channels, no alpha,
+    8 bits (a 16-bit sample's high byte)."""
+    if px.dtype == np.uint16:
+        px = (px >> 8).astype(np.uint8)
     if px.ndim == 2:
         return np.repeat(px[..., None], 3, axis=-1)
     if px.shape[-1] == 2:
@@ -217,6 +227,26 @@ def read_image(path: str) -> np.ndarray:
     if img is None:
         raise ValueError(f"{path}: not a PNG this codec reads (8-bit, not interlaced)")
     return img
+
+
+def read_unchanged(path: str) -> np.ndarray:
+    """An image file's samples as stored (``cv2.IMREAD_UNCHANGED``): a
+    16-bit depth PNG as uint16, color channels in cv2's BGR order. Without
+    cv2, PNG only."""
+    cv2 = _cv2()
+    if cv2 is not None:
+        arr = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+        if arr is None:
+            raise IOError(f"unreadable image {path}")
+        return arr
+    with open(path, "rb") as f:
+        data = f.read()
+    if not data.startswith(PNG_SIGNATURE):
+        raise CodecUnavailable(f"{path}: only PNG reads without the cv2 (OpenCV) codec")
+    px = decode_png(data)
+    if px.ndim == 3 and px.shape[-1] >= 3:  # RGB(A) -> BGR(A), as cv2 stores it
+        px = np.concatenate([px[..., 2::-1], px[..., 3:]], axis=-1)
+    return px
 
 
 def encode_image(img: np.ndarray, ext: str = ".png") -> bytes:

@@ -157,16 +157,22 @@ def test_parser_has_the_ported_commands_and_rejects_the_rest():
                 ["webcam", "x", "--camera", "1"], ["flow", "raft"], ["track", "--video", "v.mp4"],
                 ["slam", "megasam", "--video", "v.mp4"], ["export", "x"], ["doctor"],
                 ["run", "x", "--engine", "e.mdeteng"], ["bench", "x", "--trace", "t"],
-                ["flow", "raft", "--engine", "e"], ["serve", "--engine", "a", "--engine", "b"]):
+                ["flow", "raft", "--engine", "e"], ["serve", "--engine", "a", "--engine", "b"],
+                ["convert", "x", "--checkpoint", "c", "--verify-manifest", "--report"],
+                ["eval", "--pred", "p", "--gt", "g", "--align", "median", "--flow"],
+                ["quantcheck", "x", "--images", "d", "--min-delta1", "0.9"],
+                ["distill", "--images-dir", "d", "--qat", "--promote"]):
         assert p.parse_args(cmd).fn.__name__ == f"cmd_{cmd[0]}"
+    assert p.parse_args(["run", "x", "--colorbar"]).colorbar
     assert p.parse_args(["run", "x"]).device == "cuda"
     assert p.parse_args(["--device", "cpu", "run", "x"]).device == "cpu"
     a = p.parse_args(["run", "x", "--precision", "int8", "--calib-dir", "c", "--compare", "r",
                       "--compare-tol", "0.5", "--allow-random-weights"])
     assert (a.precision, a.calib_dir, a.compare, a.compare_tol) == ("int8", "c", "r", 0.5)
     for bad in (["--device", "tpu", "run", "x"], ["bench", "x", "--device-mesh", "1x1"],
-                ["run", "x", "--colorbar"], ["track", "x"], ["slam", "megasam", "--engine", "e"],
-                ["convert", "x"], ["eval", "x"], ["quantcheck", "x"], ["distill", "x"]):
+                ["serve", "x", "--device-mesh", "1x8"], ["track", "x"],
+                ["slam", "megasam", "--engine", "e"], ["convert", "x"], ["eval", "x"],
+                ["quantcheck"], ["distill", "x"]):
         with pytest.raises(SystemExit):
             p.parse_args(bad)
 

@@ -20,7 +20,7 @@ from monocular_depth_estimation_trt_tpu_torch.weights import store
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "monocular_depth_estimation_trt_tpu_torch")
 JAX_PKG = "monocular_depth_estimation_trt_tpu"
-FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "orbax")
+FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "orbax", "optax")
 DA_FAMILY = ("bridge", "depth_anything_ac", "depth_anything_v2", "distill_any_depth", "dkt")
 PORTED = tuple(sorted(DA_FAMILY + ("depth_pro", "vggt", "depth_anything_v3", "metric3d_v2",
                                     "moge2", "metric_anything", "unidepth_v2", "unik3d",
@@ -65,6 +65,7 @@ def _imported_modules(path):
 def test_forbidden_matcher_tells_the_two_packages_apart():
     assert _forbidden(JAX_PKG) and _forbidden(JAX_PKG + ".ops.resize")
     assert _forbidden("jax.numpy") and _forbidden("flax.linen") and _forbidden("orbax")
+    assert _forbidden("optax") and _forbidden("optax.schedules")
     assert not _forbidden(JAX_PKG + "_torch") and not _forbidden(JAX_PKG + "_torch.ops")
     assert not _forbidden("jaxtyping_like") and not _forbidden("torch")
 
@@ -74,7 +75,9 @@ def test_no_port_source_imports_jax_or_the_jax_package():
     assert len(sources) > 15
     for new in ("models/depth_pro.py", "ops/cuda/flash_attention.py", "weights/from_jax.py",
                 "ops/quant.py", "ops/cuda/quant_matmul.py", "models/cotracker3.py",
-                "slam/ba.py", "slam/recipes.py", "apps/tracking.py"):
+                "slam/ba.py", "slam/recipes.py", "apps/tracking.py", "training/__init__.py",
+                "training/losses.py", "training/metrics.py", "training/trainer.py",
+                "training/distill.py", "weights/manifest.py"):
         assert os.path.join(PORT, new) in sources
     bad = [(os.path.relpath(p, REPO), m) for p in sources
            for m in _imported_modules(p) if _forbidden(m)]
