@@ -238,6 +238,27 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    phase's last artifacts and runs while this one exports them and holds
    the card against the CPU.
 
+16. mesh (after the VGGT path): the one-device mesh of ``--device-mesh 1x1``
+   (``cli._apply_device_mesh``) applied to the DA-V2 vits and VGGT pipelines
+   built above, in a counted run: the main path's 518² frame with its viz (12
+   K1) and the VGGT path's 4 views (24 K1 + 48 K2 a forward), each bit-equal
+   to those paths' outputs; ``run
+   --device-mesh 2x1`` in a process of its own exits non-zero with "needs 2
+   devices; 1 available"; 2 ``distill`` steps of the vits student through
+   ``shard_train_state`` and ``shard_batch_tree`` on the 1x1 mesh against 2
+   plain steps (the JAX sharded-training bars). ``run --device-mesh 1x1``,
+   ``views --device-mesh 1x1`` and ``bench --device-mesh 1x1`` join the
+   cli phase's process, their npz files bit-equal to the plain commands';
+17. autotune: the tile tuner (role K5, ``ops/cuda/autotune.py``) in a
+   process of its own with ``MDET_AUTOTUNE=1`` and a temporary
+   ``MDET_CACHE_DIR``: K1 at (1, 1370, 6) and (1, 3349, 16), K2 at (1, 16,
+   5496, 64) and (1, 32, 4101, 128), K3 at Depth Pro's patch shape (35, 16,
+   577, 64), K4 at ViT-L fc2 (M = 1370) and Depth Pro fc1 (M = 20,195): each
+   candidate's time, its error against the plain version and its bar, the
+   default's and the winner's times beside the bound; then a second process
+   on the same cache, run during the Depth Pro path, resolves every winner
+   with no measurement.
+
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -352,10 +373,11 @@ DEPTH_PRO_BENCH = dict(warmup=3, iterations=10, latency_iterations=6)
 FAMILY_BENCH = dict(warmup=3, iterations=12, latency_iterations=5)
 
 # the TMA + wgmma kernels (bf16 x) and their instantiations in the library
-# (K2 and K3 at head widths 64 and 128, K4 at tile widths 128 and 256),
+# (the tile candidates of csrc/attention_sm90.cuh: K1 two at head width 64,
+# K2 and K3 two at 64 and two at 128; K4 at tile widths 128 and 256),
 # with the wgmma's SASS name: HGMMA for bf16 operands, IGMMA for int8
-SM90_KERNELS = {"attn_packed_kernel_sm90": (1, "HGMMA"), "attn_bhnd_kernel_sm90": (2, "HGMMA"),
-                "attn_batched_kernel_sm90": (2, "HGMMA"), "w8a8_kernel_sm90": (2, "IGMMA")}
+SM90_KERNELS = {"attn_packed_kernel_sm90": (2, "HGMMA"), "attn_bhnd_kernel_sm90": (4, "HGMMA"),
+                "attn_batched_kernel_sm90": (4, "HGMMA"), "w8a8_kernel_sm90": (2, "IGMMA")}
 
 PEAK_BF16_OPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate
@@ -849,7 +871,7 @@ def run_vggt_path(build_pipeline, wrappers, rng):
           "depth_range_480x640": [float(d.min()), float(d.max())],
           "pose_enc_480x640": [float(x) for x in one["pose_enc"]],
           "focal_px_480x640": float(one["focal_px"])})
-    return pipe, launches
+    return pipe, launches, (views4, outs["views_s4"])
 
 
 def parity_frames(rng):
@@ -2860,13 +2882,14 @@ def cli_phase(pipe, vggt, depth_pro, moge, unidepth, geocalib, align3r):
                               "--checkpoint", ckpts[name]) for name in ("unidepth_v2", "geocalib")}
         commands = [run_cmd_argv, views_argv, pair_argv, dp_argv, moge_argv,
                     *family_argv.values()]
+        meshes = mesh_commands(tmp, png, pngs)
         videos = video_commands(tmp)
         flows = flow_commands(tmp)
         track_slam = track_slam_commands(tmp)
         listing = subprocess.Popen([sys.executable, "-m", "monocular_depth_estimation_trt_tpu_torch",
                                     "models"], cwd=REPO, env=env, stdout=subprocess.PIPE,
                                    stderr=subprocess.PIPE, text=True)
-        group_argvs = commands + videos + flows + track_slam
+        group_argvs = commands + videos + flows + track_slam + meshes
         group = cli_group_start(group_argvs, env)
         for proc in (listing, group):
             atexit.register(stop_process, proc)
@@ -3010,7 +3033,9 @@ def cli_phase(pipe, vggt, depth_pro, moge, unidepth, geocalib, align3r):
                              rcs[len(commands):len(commands) + len(videos)])
         flow_at = len(commands) + len(videos)
         check_flow_command(tmp, outputs[flows[0]], rcs[flow_at])
-        check_track_slam_commands(tmp, [outputs[c] for c in track_slam], rcs[flow_at + 1:])
+        check_track_slam_commands(tmp, [outputs[c] for c in track_slam],
+                                  rcs[flow_at + 1:flow_at + 1 + len(track_slam)])
+        check_mesh_commands(tmp, [outputs[c] for c in meshes], rcs[-len(meshes):])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -5332,6 +5357,294 @@ def training_phase(teacher, build_pipeline, wrappers, card, power_limit, dev):
     yield {"training_teacher": launches, "quantcheck_int8": int8_launches}
 
 
+MESH_SEED = 16  # the mesh phase's frames: a generator of their own
+PACKAGE = "monocular_depth_estimation_trt_tpu_torch"
+
+
+def mesh_phase(pipe, vggt, wrappers, dev, vits_run, vggt_run):
+    """``--device-mesh 1x1`` on the one card: every placement collapses to the
+    plain tensor, so the served path keeps its kernels, launches and bits.
+    The DA-V2 vits and VGGT pipelines (their engines dropped) take the mesh
+    as the command line gives it, and run the main path's 518² frame (with
+    its viz) and the VGGT path's 4 views, with the counts set to 0 just
+    before and read just after, against those paths' outputs (``vits_run``,
+    ``vggt_run``: (input, output)); ``run --device-mesh 2x1`` must exit
+    naming the devices; 2 distillation steps through ``shard_train_state``
+    on the mesh against 2 plain steps. Returns the launches of the counted
+    run."""
+    import atexit
+
+    import numpy as np
+    import torch
+
+    from monocular_depth_estimation_trt_tpu_torch import cli
+    from monocular_depth_estimation_trt_tpu_torch.parallel import (
+        single_device_mesh,
+        vit_tp_rules,
+    )
+    from monocular_depth_estimation_trt_tpu_torch.training import (
+        create_train_state,
+        make_distill_step,
+        shard_batch_tree,
+        shard_train_state,
+    )
+    from monocular_depth_estimation_trt_tpu_torch.training.distill import depth_student
+    from monocular_depth_estimation_trt_tpu_torch.training.trainer import adamw
+
+    t0 = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    too_large = subprocess.Popen([sys.executable, "-m", PACKAGE, "run", "depth_anything_v2",
+                                  "--encoder", "vits", "--device-mesh", "2x1",
+                                  "--allow-random-weights"], cwd=REPO, env=env,
+                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    atexit.register(stop_process, too_large)
+    rng = np.random.default_rng(MESH_SEED)
+    (frame, vits_plain), (views4, vggt_plain) = vits_run, vggt_run
+    for p in (pipe, vggt):
+        cli._apply_device_mesh(p, "1x1")
+    from torch.distributed.tensor import DTensor
+
+    plain_tensors = not any(isinstance(t, DTensor) for p in (pipe, vggt)
+                            for t in (*p.model.parameters(), *p.model.buffers()))
+
+    set_counts_to_zero(wrappers)
+    vits_out, vits_per = run_counted(lambda: pipe(frame, viz=True),
+                                     lambda: pipe.engine_for((518, 518), True), wrappers,
+                                     "vits on the 1x1 mesh")
+    vggt_out, vggt_per = run_counted(lambda: vggt.multi_view(views4),
+                                     lambda: vggt.views_engine(4), wrappers,
+                                     "vggt S=4 on the 1x1 mesh")
+    torch.cuda.synchronize()
+    launches = launch_record(wrappers)
+    drop_engines(pipe, vggt)
+    check(plain_tensors, "the 1x1 mesh placed a tensor as a DTensor")
+    check(vits_per == [0, 12, 0, 0], f"vits on the 1x1 mesh: launches {vits_per} a frame")
+    check(vggt_per == [0, 24, 48, 0], f"vggt on the 1x1 mesh: launches {vggt_per} a forward")
+    check(sorted(vits_out) == sorted(vits_plain)
+          and all(np.array_equal(vits_out[k], vits_plain[k]) for k in vits_plain),
+          "vits on the 1x1 mesh differs")
+    check(sorted(vggt_out) == sorted(vggt_plain)
+          and all(np.array_equal(vggt_out[k], vggt_plain[k]) for k in vggt_plain),
+          "vggt on the 1x1 mesh differs")
+
+    # the trainer's sharding on the mesh: 2 distillation steps, plain and sharded
+    mesh = single_device_mesh("cuda")
+    student = student_on_host(0).to(dev)
+    imgs = torch.from_numpy(rng.integers(0, 256, (TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3),
+                                         dtype=np.uint8)).to(dev)
+    labels = torch.from_numpy(rng.random((TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE),
+                                         dtype=np.float32) + 0.5).to(dev)
+    step = make_distill_step(depth_student(student, TRAIN_SIZE))
+    plain_state = create_train_state(dict(student.named_parameters()), adamw(TRAIN_LR))
+    sharded = shard_train_state(mesh, vit_tp_rules(),
+                                create_train_state(dict(student.named_parameters()),
+                                                   adamw(TRAIN_LR)))
+    losses = []
+    for _ in range(2):
+        plain_state, mp = step(plain_state, (imgs, labels))
+        sharded, ms = step(sharded, shard_batch_tree(mesh, (imgs, labels)))
+        losses.append((float(mp["loss"]), float(ms["loss"])))
+    with torch.no_grad():
+        worst = max(float(((a - b).abs() - 5e-2 * b.abs()).max())
+                    for a, b in zip(sharded.params.values(), plain_state.params.values()))
+        bit_equal = all(torch.equal(a, b) for a, b in zip(sharded.params.values(),
+                                                           plain_state.params.values()))
+    del student, plain_state, sharded
+    torch.cuda.empty_cache()
+    check(all(abs(a - b) <= 1e-4 * abs(a) for a, b in losses),
+          f"distill on the 1x1 mesh: losses {losses}")
+    check(worst <= 5e-4, f"distill on the 1x1 mesh: parameters {worst} past rtol 5e-2")
+
+    out, err = too_large.communicate(timeout=300)
+    message = "--device-mesh 2x1 needs 2 devices; 1 available"
+    emit({"phase": "mesh", "launches": launches,
+          "launches_per_forward": {"vits_518": vits_per, "vggt_s4": vggt_per},
+          "outputs_bit_equal": True, "plain_tensors": plain_tensors,
+          "distill_losses_plain_sharded": losses, "distill_params_bit_equal": bit_equal,
+          "distill_params_past_rtol": worst,
+          "run_2x1": {"exit_code": too_large.returncode,
+                      "message": [ln for ln in (out + err).splitlines() if "device-mesh" in ln]},
+          "elapsed_s": time.perf_counter() - t0})
+    check(too_large.returncode != 0 and message in out + err,
+          f"run --device-mesh 2x1 exited {too_large.returncode}: {out[-500:]}{err[-800:]}")
+    return launches
+
+
+def mesh_commands(tmp, png, pngs):
+    """The mesh's commands for the cli phase's process: ``run`` (vits, the
+    cli phase's frame), ``views vggt`` (its 4 views) and ``bench`` (vits,
+    518²), each with ``--device-mesh 1x1``."""
+    return [("run", "depth_anything_v2", "--encoder", "vits", "--image", png, "--out",
+             os.path.join(tmp, "run_mesh"), "--allow-random-weights", "--device-mesh", "1x1"),
+            ("views", "vggt", "--images", *pngs, "--out", os.path.join(tmp, "views_mesh"),
+             "--allow-random-weights", "--device-mesh", "1x1"),
+            ("bench", "depth_anything_v2", "--encoder", "vits", "--warmup", "3",
+             "--iterations", "10", "--device-mesh", "1x1")]
+
+
+def check_mesh_commands(tmp, outputs, rcs):
+    """Each ``--device-mesh 1x1`` command's npz equal, file for file and
+    array for array, to the plain command's; ``bench`` printed its report."""
+    import numpy as np
+
+    rec = {"phase": "cli", "command": "run / views / bench --device-mesh 1x1",
+           "exit_codes": rcs, "seconds": [o[1] for o in outputs]}
+    for plain, meshed in (("run", "run_mesh"), ("views", "views_mesh")):
+        a, b = (sorted(f for f in os.listdir(os.path.join(tmp, d)) if f.endswith(".npz"))
+                for d in (plain, meshed))
+        check(a == b and len(a) == 1, f"cli {meshed}: npz files {b}, plain {a}")
+        x, y = (np.load(os.path.join(tmp, d, a[0])) for d in (plain, meshed))
+        rec[f"{meshed}_bit_equal"] = sorted(x.files) == sorted(y.files) and all(
+            np.array_equal(x[k], y[k]) for k in x.files)
+    fps = [ln for ln in outputs[2][0].splitlines() if "FPS" in ln]
+    rec["bench_line"] = fps[-1] if fps else None
+    emit(rec)
+    check(rcs == [0, 0, 0], f"cli --device-mesh 1x1: exit codes {rcs}")
+    check(rec["run_mesh_bit_equal"] and rec["views_mesh_bit_equal"],
+          "cli --device-mesh 1x1: npz differs from the plain command's")
+    check(bool(fps), "cli bench --device-mesh 1x1 printed no FPS line")
+
+
+# K5's shapes: kernel, label, shape as the wrapper takes it, the bound's arguments
+AUTOTUNE_SHAPES = (
+    ("flash_attention_packed", "vits_518", (1, 1370, 6)),
+    ("flash_attention_packed", "metric3d_616x1064", (1, 3349, 16)),
+    ("flash_attention", "vggt_global_s4", (1, 16, 5496, 64)),
+    ("flash_attention", "dinov3_vit7b16_1024", (1, 32, 4101, 128)),
+    ("flash_attention_batched", "depth_pro_patch", (35, 16, 577, 64)),
+    ("w8a8_matmul", "vitl_fc2", (1370, 4096, 1024)),
+    ("w8a8_matmul", "depth_pro_fc1", (20195, 1024, 4096)),
+)
+
+
+def autotune_child() -> None:
+    """The autotune phase's process (``MDET_AUTOTUNE`` and ``MDET_CACHE_DIR``
+    set by the parent): its start-up (imports, the kernels' library, the CUDA
+    context), then, once a line arrives on its standard input, one call of
+    each kernel at each shape of AUTOTUNE_SHAPES; prints one line with the
+    tuner's reports, its count of measurements and the tile each shape
+    resolved to."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from monocular_depth_estimation_trt_tpu_torch.ops.cuda import _build, autotune
+    from monocular_depth_estimation_trt_tpu_torch.ops.cuda import flash_attention as fa
+    from monocular_depth_estimation_trt_tpu_torch.ops.cuda import quant_matmul as qm
+
+    _build.library()
+    torch.cuda.init()
+    sys.stdin.readline()  # the parent's card is idle from here
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(dev).manual_seed(5)
+    bf16 = torch.bfloat16
+    tiles = {}
+    for kernel, label, shape in AUTOTUNE_SHAPES:
+        if kernel == "flash_attention_packed":
+            b, n, h = shape
+            qkv = torch.randn((b, n, 3 * h * 64), generator=gen, device=dev, dtype=bf16)
+            fa.flash_attention_packed(qkv, h)
+            key, width = (b, n, h, 64), 64
+        elif kernel == "w8a8_matmul":
+            m, k, n = shape
+            x, wq, qmul, scale, bias = w8a8_operands(m, k, n, bf16, dev,
+                                                     torch.Generator().manual_seed(4))
+            qm.w8a8_matmul(x, wq, qmul, scale, bias)
+            key, width = (m, n, k), k
+        else:
+            q, k, v = (torch.randn(shape, generator=gen, device=dev, dtype=bf16)
+                       for _ in range(3))
+            getattr(fa, kernel)(q, k, v)
+            key, width = shape, shape[-1]
+        torch.cuda.synchronize()
+        tiles[label] = autotune.persisted_tile(kernel, bf16, key, torch.cuda.get_device_name(0),
+                                               width)
+    print("@@autotune " + json.dumps({"reports": autotune.reports,
+                                      "measurements": autotune.measurements, "tiles": tiles,
+                                      "cache": sorted(os.listdir(os.path.dirname(
+                                          autotune.cache_path())))}), flush=True)
+
+
+def _autotune_run(proc):
+    """Let an ``autotune_child`` process measure; its record (waited for)."""
+    out, err = proc.communicate("go\n", timeout=600)
+    lines = [ln for ln in out.splitlines() if ln.startswith("@@autotune ")]
+    check(proc.returncode == 0 and len(lines) == 1,
+          f"autotune process exited {proc.returncode}: {out[-800:]}{err[-2500:]}")
+    return json.loads(lines[0].split(" ", 1)[1])
+
+
+def autotune_phase(card, power_limit):
+    """A generator in three parts. The first ``next`` starts the tile tuner's
+    process on a temporary cache, which starts up while the mesh phase runs;
+    the second lets it measure (the card otherwise idle), records it, and
+    starts a second process on that cache; the third checks that it
+    resolved every winner with no measurement (it times nothing, so other
+    phases run meanwhile)."""
+    import atexit
+    import shutil
+
+    cache = tempfile.mkdtemp(prefix="mdet_tune_")
+    env = {**os.environ, "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
+           "MDET_CACHE_DIR": cache, "MDET_AUTOTUNE": "1"}
+
+    def start():
+        proc = subprocess.Popen([sys.executable, "-c",
+                                 "import chip_smoke\nchip_smoke.autotune_child()\n"],
+                                cwd=REPO, env=env, stdin=subprocess.PIPE,
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        atexit.register(stop_process, proc)
+        return proc
+
+    try:
+        tuner = start()
+        yield
+        t0 = time.perf_counter()
+        first = _autotune_run(tuner)
+        tuned_s = time.perf_counter() - t0
+        check(len(first["reports"]) == len(AUTOTUNE_SHAPES),
+              f"autotune: {len(first['reports'])} reports for {len(AUTOTUNE_SHAPES)} shapes")
+        for (kernel, label, shape), report in zip(AUTOTUNE_SHAPES, first["reports"]):
+            check(report["kernel"] == kernel, f"autotune: report {report['kernel']} for {kernel}")
+            if kernel == "w8a8_matmul":
+                m, k, n = shape
+                bound_ms, bound_by = w8a8_bound(m, k, n, 2)
+            elif kernel == "flash_attention_packed":
+                b, n, h = shape
+                bound_ms, bound_by = attention_bound(b, n, h, 64, 2, PEAK_BF16_OPS)
+            else:
+                b, h, n, d = shape
+                bound_ms, bound_by = attention_bound(b, n, h, d, 2, PEAK_BF16_OPS)
+            by_tile = {r["tile"]: r for r in report["candidates"]}
+            emit({"phase": "autotune", "kernel": kernel, "shape": label, "dims": list(shape),
+                  "card": card, "power_limit": power_limit, "chain": report["chain"],
+                  "bar": report["bar"], "candidates": report["candidates"],
+                  "default_tile": report["default"],
+                  "default_ms": by_tile[report["default"]]["ms"],
+                  "winner_tile": report["winner"], "winner_ms": by_tile[report["winner"]]["ms"],
+                  "bound_ms": bound_ms, "bound_by": bound_by})
+            check(all(r["ok"] for r in report["candidates"]),
+                  f"autotune {kernel} {label}: a candidate misses its bar {report['candidates']}")
+            check(first["tiles"][label] == report["winner"],
+                  f"autotune {kernel} {label}: winner {report['winner']}, persisted "
+                  f"{first['tiles'][label]}")
+        check(first["cache"] == ["cuda_tuning.json"], f"autotune: the cache holds {first['cache']}")
+        reader = start()
+        reader.stdin.write("go\n")  # it times nothing: no need to wait for an idle card
+        reader.stdin.flush()
+        yield
+        second = _autotune_run(reader)
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    emit({"phase": "autotune_summary", "measurements": first["measurements"],
+          "winners": first["tiles"], "fresh_process_measurements": second["measurements"],
+          "fresh_process_tiles": second["tiles"], "tuning_process_s": tuned_s})
+    check(second["measurements"] == 0 and not second["reports"],
+          f"autotune: the fresh process measured {second['measurements']} candidates")
+    check(second["tiles"] == first["tiles"],
+          f"autotune: a fresh process read {second['tiles']}, the tuner persisted "
+          f"{first['tiles']}")
+
+
 def parse_smi(line: str):
     name, _, limit = line.partition(",")
     return name.strip(), limit.strip()
@@ -5495,15 +5808,25 @@ def main() -> None:
     del plain, card32, cpu32, metric
 
     # 5. the VGGT path (its own counted run), then its route comparisons
-    vggt, vggt_launches = run_vggt_path(build_pipeline, wrappers, rng)
+    vggt, vggt_launches, vggt_views4 = run_vggt_path(build_pipeline, wrappers, rng)
     vggt_parity(build_pipeline, vggt, parity_frames(rng))
     drop_engines(vggt)
+
+    # 16. the one-device mesh on the vits and VGGT pipelines (its own counted
+    # run, against the main path's and the VGGT path's outputs), then 17. the
+    # tile tuner in a process of its own, started before 16; the second
+    # process, which reads the winners back, runs during the Depth Pro path
+    autotune = autotune_phase(card, power_limit)
+    next(autotune)  # the tuner's process starts up meanwhile
+    mesh_launches = mesh_phase(pipe, vggt, wrappers, dev, (frame_b, outs["b"]), vggt_views4)
+    next(autotune)
 
     # 6. the Depth Pro path (its own counted run), then its route comparisons
     depth_pro, depth_pro_launches, depth_pro_frames = run_depth_pro_path(build_pipeline, wrappers,
                                                                          rng)
     depth_pro_parity(build_pipeline, depth_pro, depth_pro_frames)
     drop_engines(depth_pro)
+    next(autotune, None)
 
     # 7. the single-image metric and point-map families, then the last
     # single-image families (each its own counted run), then their route
@@ -5524,7 +5847,7 @@ def main() -> None:
     # then the KV-cache stream (STream3R's session, StreamVGGT's runner)
     multi_rng = np.random.default_rng(11)
     extra_launches = {"map_anything_reconstruct_s4": run_reconstruct(
-        families["map_anything"], wrappers, multi_rng)}
+        families["map_anything"], wrappers, multi_rng), "mesh_1x1": mesh_launches}
     drop_engines(families["map_anything"])
     streamvggt = build_pipeline("streamvggt")
     extra_launches["stream"], stream_sess, stream_frame = run_stream_phase(

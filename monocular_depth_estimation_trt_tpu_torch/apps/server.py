@@ -29,6 +29,13 @@ Endpoints:
   POST /v1/depth?format=jpg -> colorized depth JPEG
   POST /v1/models/<name>/depth -> same, explicit model (multi-model serving)
 
+Multi-device serving (a pipeline sharded over a mesh of more than one
+rank, ``serve --device-mesh DxM`` under ``torchrun``): rank 0 runs the HTTP
+server and its one device-worker thread; each call the worker makes is
+broadcast (:func:`lockstep`) to the other ranks, which make the same call
+in lock-step (:func:`follow`), so that every rank enters the sharded
+layers' collectives together. A one-device mesh changes nothing.
+
 Multi-model serving (``DepthServer({name: pipeline, ...})``): one server
 process hosts several pipelines behind one device-worker thread; requests
 for different models are grouped per model before each launch, and every
@@ -609,13 +616,101 @@ def make_handler(server: DepthServer):
     return Handler
 
 
+# -- lock-step serving over a process group ---------------------------------
+
+_STOP = "stop"
+
+
+def _broadcast(msg=None):
+    """Rank 0's ``msg`` on every rank."""
+    import torch.distributed as dist
+
+    box = [msg]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+class _Lockstep:
+    """A pipeline on rank 0 whose every call is first broadcast to the
+    other ranks (:func:`follow`)."""
+
+    def __init__(self, name: str, pipe):
+        self._name = name
+        self._pipe = pipe
+
+    def __getattr__(self, attr):
+        return getattr(self._pipe, attr)
+
+    def __call__(self, frame, *, viz: bool = False, device_out: bool = False):
+        _broadcast(("__call__", self._name, np.asarray(frame), viz))
+        return self._pipe(frame, viz=viz, device_out=device_out)
+
+    def batch_call(self, frames, *, viz: bool = False, device_out: bool = False):
+        _broadcast(("batch_call", self._name, np.asarray(frames), viz))
+        return self._pipe.batch_call(frames, viz=viz, device_out=device_out)
+
+
+def lockstep(pipeline):
+    """Rank 0's side of lock-step serving: ``pipeline`` (one, or a
+    ``{name: pipeline}`` dict) with every call broadcast first. Release the
+    other ranks with :func:`release_followers` when done."""
+    if isinstance(pipeline, dict):
+        return {name: _Lockstep(name, p) for name, p in pipeline.items()}
+    return _Lockstep("", pipeline)
+
+
+def follow(pipeline) -> int:
+    """The other ranks' side: make each call rank 0 broadcasts, until it
+    releases them. Returns the number of calls made."""
+    from monocular_depth_estimation_trt_tpu_torch.parallel.mesh import rank
+
+    pipes = pipeline if isinstance(pipeline, dict) else {"": pipeline}
+    calls = 0
+    while True:
+        msg = _broadcast()
+        if msg == _STOP:
+            return calls
+        kind, name, frames, viz = msg
+        try:
+            getattr(pipes[name], kind)(frames, viz=viz)
+        except Exception as e:  # rank 0 answers it with a 500 and serves on: follow on
+            log(f"serve: rank {rank()} call failed as rank 0's will: {type(e).__name__}: {e}",
+                tag="WARN")
+        calls += 1
+
+
+def release_followers() -> None:
+    _broadcast(_STOP)
+
+
 def serve(pipeline, host: str = "0.0.0.0", port: int = 8000,
           input_hw: Optional[Tuple[int, int]] = None,
           max_queue: int = 32, warmup: bool = True,
           max_batch: int = 1, batch_window_ms: float = 2.0) -> None:
     """Blocking entry point for ``mdet serve`` (``python -m
     monocular_depth_estimation_trt_tpu_torch serve``). ``pipeline`` may be one
-    pipeline or an ordered ``{name: pipeline}`` dict (multi-model)."""
+    pipeline or an ordered ``{name: pipeline}`` dict (multi-model). Under a
+    process group of more than one rank, rank 0 serves and the other ranks
+    follow its calls (:func:`lockstep`)."""
+    from monocular_depth_estimation_trt_tpu_torch.parallel.mesh import rank, world_size
+
+    multi = world_size() > 1
+    if multi and rank() != 0:
+        log(f"serve: rank {rank()} follows rank 0's calls")
+        follow(pipeline)
+        return
+    if multi:
+        pipeline = lockstep(pipeline)
+    try:
+        _serve_http(pipeline, host, port, input_hw, max_queue, warmup, max_batch,
+                    batch_window_ms)
+    finally:
+        if multi:
+            release_followers()
+
+
+def _serve_http(pipeline, host, port, input_hw, max_queue, warmup, max_batch,
+                batch_window_ms) -> None:
     ds = DepthServer(pipeline, input_hw=input_hw, max_queue=max_queue,
                      max_batch=max_batch, batch_window_ms=batch_window_ms)
     if warmup:

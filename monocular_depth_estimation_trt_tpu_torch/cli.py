@@ -83,8 +83,13 @@ pipeline against its bf16 twin, each in one JSON line. ``run --colorbar``
 also writes the colorbar-in-meters figure (matplotlib; without it the
 command exits 1 naming it).
 
-Not ported yet, so argparse rejects it: ``--device-mesh`` (multi-device
-sharding).
+``--device-mesh DxM`` on ``run``, ``bench``, ``views`` and ``serve`` shards
+the model over a data x model mesh (``parallel/``): ``1x1`` is the one
+device and changes nothing; a larger mesh needs one process per device,
+``torchrun --nproc-per-node D*M -m monocular_depth_estimation_trt_tpu_torch
+... --device-mesh DxM``, in which every rank computes and rank 0 alone
+writes files and prints results (``serve``: rank 0 answers HTTP, the other
+ranks follow its calls).
 """
 
 from __future__ import annotations
@@ -129,6 +134,67 @@ def _fov_from_outputs(out, depth_hw):
         return (math.degrees(2 * math.atan(0.5 * w / K[0, 0])),
                 math.degrees(2 * math.atan(0.5 * h / K[1, 1])))
     return None
+
+
+def _device_mesh_shape(mesh_str: str):
+    try:
+        shape = tuple(int(s) for s in mesh_str.lower().split("x"))
+    except ValueError:
+        raise SystemExit(f"[MDET] bad --device-mesh {mesh_str!r}; want DxM")
+    if len(shape) != 2 or min(shape) < 1:
+        raise SystemExit(f"[MDET] bad --device-mesh {mesh_str!r}; want DxM")
+    return shape
+
+
+def _join_device_mesh(args) -> None:
+    """Before a build: check ``--device-mesh`` and, for more than one
+    device, join the process group the launcher describes (one process per
+    device), so that this rank's pipeline is built on its own card."""
+    mesh_str = getattr(args, "device_mesh", "")
+    if not mesh_str:
+        return
+    from monocular_depth_estimation_trt_tpu_torch.parallel.mesh import init_process_group
+
+    d, m = _device_mesh_shape(mesh_str)
+    if d * m > 1:
+        available = init_process_group(args.device)
+        if d * m > available:
+            raise SystemExit(f"[MDET] --device-mesh {mesh_str} needs {d * m} devices; "
+                             f"{available} available")
+        if d * m < available:
+            raise SystemExit(f"[MDET] --device-mesh {mesh_str} needs {d * m} devices; the "
+                             f"process group holds {available}: start {d * m} processes")
+
+
+def _apply_device_mesh(pipe, mesh_str: str):
+    """Shard a pipeline over ``--device-mesh DxM`` (data x model axes).
+
+    ``1x1`` (or an absent flag) is the one-device case: every placement
+    collapses to the plain tensor and the same program runs unchanged (see
+    parallel/sharding.py). More devices take the process group that
+    :func:`_join_device_mesh` joined."""
+    if not mesh_str:
+        return pipe
+    from monocular_depth_estimation_trt_tpu_torch.parallel.mesh import (
+        get_mesh,
+        single_device_mesh,
+        world_size,
+    )
+
+    shape = _device_mesh_shape(mesh_str)
+    need = shape[0] * shape[1]
+    if need == 1:
+        return pipe.apply_mesh(single_device_mesh(pipe.device.type))
+    if need != world_size():
+        raise SystemExit(f"[MDET] --device-mesh {mesh_str} needs {need} devices; "
+                         f"{world_size()} available")
+    return pipe.apply_mesh(get_mesh(shape, ("data", "model"), device_type=pipe.device.type))
+
+
+def _is_rank0() -> bool:
+    from monocular_depth_estimation_trt_tpu_torch.parallel.mesh import rank
+
+    return rank() == 0
 
 
 def _calib_images_from(args):
@@ -236,8 +302,13 @@ def cmd_run(args) -> int:
     if not args.model:
         log("run: give a model name (or --engine artifact)", tag="ERROR")
         return 2
-    pipe = _build(args, "encoder", "checkpoint", "precision")
+    pipe = _apply_device_mesh(_build(args, "encoder", "checkpoint", "precision"),
+                              args.device_mesh)
     out = pipe(img, viz=True)
+    if not _is_rank0():  # every rank computes, rank 0 writes
+        if args.benchmark:
+            pipe.benchmark((img.shape[0], img.shape[1]))
+        return 0
     return _write_run_outputs(args, img, out, pipe.spec.artifact_name(), pipe=pipe)
 
 
@@ -677,9 +748,9 @@ def cmd_bench(args) -> int:
         from monocular_depth_estimation_trt_tpu_torch.runtime.export import read_meta
 
         meta = read_meta(args.engine)
-        if args.precision or args.encoder:
-            log("bench --engine: --precision/--encoder are baked into the artifact at export "
-                "time", tag="ERROR")
+        if args.precision or args.encoder or args.device_mesh:
+            log("bench --engine: --device-mesh/--precision/--encoder are baked into the "
+                "artifact at export time", tag="ERROR")
             return 2
         if args.size and (args.size, args.size) != tuple(meta["in_hw"]):
             log(f"bench --engine: the artifact is fixed at {tuple(meta['in_hw'])}; --size "
@@ -698,7 +769,7 @@ def cmd_bench(args) -> int:
     if not args.model:
         log("bench: give a model name (or --engine artifact)", tag="ERROR")
         return 2
-    pipe = _build(args, "encoder", "precision")
+    pipe = _apply_device_mesh(_build(args, "encoder", "precision"), args.device_mesh)
     if args.views and args.views > 1 and not hasattr(pipe, "benchmark_views"):
         log(f"{args.model} has no multi-view protocol", tag="ERROR")
         return 2
@@ -708,7 +779,8 @@ def cmd_bench(args) -> int:
         else:
             in_hw = (args.size, args.size) if args.size else tuple(pipe.spec.input_hw)
             report = pipe.benchmark(in_hw, cfg)
-    report.print()
+    if _is_rank0():
+        report.print()
     return 0
 
 
@@ -738,11 +810,13 @@ def cmd_views(args) -> int:
         log("views: give a model name (or --engine artifact)", tag="ERROR")
         return 2
     else:
-        pipe = _build(args, "precision")
+        pipe = _apply_device_mesh(_build(args, "precision"), args.device_mesh)
         if not hasattr(pipe, "multi_view"):
             log(f"{args.model} has no multi-view protocol", tag="ERROR")
             return 2
     out = pipe.multi_view(np.stack(imgs))
+    if not _is_rank0():
+        return 0
 
     os.makedirs(args.out, exist_ok=True)
     stem = os.path.splitext(os.path.basename(args.images[0]))[0]
@@ -767,6 +841,9 @@ def cmd_serve(args) -> int:
         # --serve-bundle for the batch buckets and both viz modes); several
         # --engine flags serve several models behind one device worker
         # (POST /v1/models/<name>/depth)
+        if args.device_mesh:
+            log("serve --engine: shardings are baked into the artifact at export time; "
+                "--device-mesh ignored", tag="WARN")
         loaded = []
         for path in args.engine:
             eng = _load_artifact(path, surface="serve")
@@ -796,7 +873,8 @@ def cmd_serve(args) -> int:
     if not args.model:
         log("serve: give a model name (or --engine artifact)", tag="ERROR")
         return 2
-    pipe = _build(args, "encoder", "checkpoint", "precision")
+    pipe = _apply_device_mesh(_build(args, "encoder", "checkpoint", "precision"),
+                              args.device_mesh)
     hw = (args.size, args.size) if args.size else None
     server.serve(pipe, host=args.host, port=args.port, input_hw=hw, max_queue=args.max_queue,
                  max_batch=args.max_batch, batch_window_ms=args.batch_window_ms)
@@ -1529,6 +1607,11 @@ def build_parser() -> argparse.ArgumentParser:
     doctor.add_argument("--no-devices", action="store_true", dest="no_devices",
                         help="skip the card query")
     doctor.set_defaults(fn=cmd_doctor)
+    for sp in (run, bench, views, serve):
+        sp.add_argument("--device-mesh", default="", dest="device_mesh",
+                        help="shard the model over a DxM (data x model) device mesh, e.g. "
+                        "1x4; 1x1 or absent = one device. More than one device: start one "
+                        "process per device (torchrun --nproc-per-node D*M)")
     for sp in (run, batch, bench, views, pair, video, flow, webcam):
         sp.add_argument("--engine", default="",
                         help="serve from a serialized artifact (`export`): no model code or "
@@ -1559,6 +1642,8 @@ def main(argv=None) -> int:
         set_allow_random_weights(True)
     from monocular_depth_estimation_trt_tpu_torch.utils.imageio import CodecUnavailable
 
+    if not getattr(args, "engine", ""):
+        _join_device_mesh(args)
     try:
         return args.fn(args)
     except CodecUnavailable as e:  # JPEG or video without cv2: name the codec

@@ -8,6 +8,16 @@
 // one consumer warpgroup of 64 query rows; two CTAs are resident on an SM,
 // and setmaxnreg moves registers from the producer (24 a thread) to the
 // consumer (232). Grid (ceil(N / 64), H, B).
+//
+// Tiles. Each head width has a default instantiation (tile 0, below) and
+// other candidates of the per-shape tuner (ops/cuda/autotune.py, role K5),
+// which the C entries take by index (dispatch_tile):
+//   d = 64:  0 Head64 (128 keys x 3 stages, two CTAs an SM),
+//            1 Head64Keys64 (64 keys x 4 stages, two CTAs an SM);
+//   d = 128: 0 Head128 (64 keys x 2 stages, two CTAs an SM),
+//            1 Head128Keys128 (128 keys x 3 stages, one CTA an SM).
+// A one-CTA instantiation runs no setmaxnreg: every thread keeps the
+// registers of its launch (up to 255).
 // * d = 64 (Head64): K/V tiles of 128 keys in a ring of three stages. This
 //   measured 9 to 14 % faster on the H100 than one CTA an SM with two
 //   consumer warpgroups sharing its ring (scripts/torch_kernel_ab.py,
@@ -75,8 +85,8 @@ namespace {
 namespace sm90 {
 
 // One instantiation of the mainloop: head width D, keys per K/V tile BlockK,
-// stages of the ring.
-template <int D, int BlockK, int Stages>
+// stages of the ring, CTAs resident on an SM.
+template <int D, int BlockK, int Stages, int MinCtas = 2>
 struct Config {
   static_assert(D == 64 || D == 128, "head width 64 or 128");
   static_assert(BlockK == 64 || BlockK == 128, "64- or 128-key tiles");
@@ -85,13 +95,16 @@ struct Config {
   static constexpr int kBlockK = BlockK;
   static constexpr int kStages = Stages;
   static constexpr int kThreads = 256;  // the consumer warpgroup, then the producer warpgroup
-  static constexpr int kMinCtas = 2;  // CTAs resident on an SM
+  static_assert(MinCtas == 1 || MinCtas == 2, "one or two CTAs an SM");
+  static constexpr int kMinCtas = MinCtas;  // CTAs resident on an SM
   static constexpr int kHalves = D / 64;  // 64-column regions of a tile
   static constexpr int kS = BlockK / 2;   // scores a consumer thread holds
   static constexpr int kO = D / 2;        // outputs a consumer thread holds
-  // setmaxnreg: a CTA holds the registers of its launch (the largest
-  // multiple of 8 a thread that lets kMinCtas CTAs share the SM's 64K: 128);
-  // the producer keeps 24 a thread and the consumer takes the rest (232).
+  // setmaxnreg (two CTAs an SM only): a CTA holds the registers of its
+  // launch (the largest multiple of 8 a thread that lets two CTAs share the
+  // SM's 64K: 128); the producer keeps 24 a thread and the consumer takes the
+  // rest (232).
+  static constexpr bool kSetMaxNReg = kMinCtas == 2;
   static constexpr int kLaunchRegs = 65536 / (kMinCtas * kThreads) / 8 * 8;
   static constexpr int kProducerRegs = 24;
   static constexpr int kConsumerRegs = (2 * kLaunchRegs - kProducerRegs) / 8 * 8;
@@ -108,10 +121,32 @@ struct Config {
   static constexpr uint32_t kSmemBytes = kOffBar + 8 * (1 + 2 * kStages) + 1024;  // + alignment
   static_assert(kMinCtas * (kSmemBytes + 1024) <= 233472,
                 "kMinCtas CTAs must fit the SM's 228 KB of shared memory");
+  static_assert(kSmemBytes <= 232448, "a CTA takes at most 227 KB of shared memory");
 };
 
 using Head64 = Config<64, 128, 3>;
+using Head64Keys64 = Config<64, 64, 4>;
 using Head128 = Config<128, 64, 2>;
+using Head128Keys128 = Config<128, 128, 3, 1>;
+
+// Calls launch_fn(Cfg{}) with the instantiation of tile `tile` at head width
+// D (the table above); an index that width lacks is cudaErrorInvalidValue.
+template <int D, typename F>
+int dispatch_tile(int tile, F&& launch_fn) {
+  static_assert(D == 64 || D == 128, "head width 64 or 128");
+  if constexpr (D == 64) {
+    switch (tile) {
+      case 0: return launch_fn(Head64{});
+      case 1: return launch_fn(Head64Keys64{});
+    }
+  } else {
+    switch (tile) {
+      case 0: return launch_fn(Head128{});
+      case 1: return launch_fn(Head128Keys128{});
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 // --- wgmma -----------------------------------------------------------------------
 
@@ -371,7 +406,9 @@ __device__ __forceinline__ void attention(const CUtensorMap& tq, const CUtensorM
 
   if (threadIdx.x >= 128) {
     // The producer: one thread issues every copy.
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(Cfg::kProducerRegs));
+    if constexpr (Cfg::kSetMaxNReg) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(Cfg::kProducerRegs));
+    }
     if (threadIdx.x == 128) {
       mbar_expect_tx(bar_q, Cfg::kQBytes);
 #pragma unroll
@@ -398,7 +435,9 @@ __device__ __forceinline__ void attention(const CUtensorMap& tq, const CUtensorM
     }
   } else {
     // The consumer warpgroup: query rows [q0, q0 + 64).
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(Cfg::kConsumerRegs));
+    if constexpr (Cfg::kSetMaxNReg) {
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(Cfg::kConsumerRegs));
+    }
     const int tid = threadIdx.x;
     const int lane = tid % 32;
 

@@ -91,26 +91,30 @@ extern "C" {
 // widths); o: any layout
 // given by its strides. strides: 12 element strides, (batch, head, token) of
 // q, k, v, then o. Pointers and strides (times the element size) are
-// multiples of 16 bytes. Launches on `stream`, allocates nothing, does not
-// synchronise. Returns the cudaError_t of the launch (0 on success).
+// multiples of 16 bytes. tile: the mainloop's instantiation at head_dim 64
+// or 128 (attention_sm90.cuh, dispatch_tile; 0 is the default); every other
+// width, and the fp32 entry, take 0 only. Launches on `stream`, allocates
+// nothing, does not synchronise. Returns the cudaError_t of the launch (0 on
+// success).
 int mdet_flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
                               const int64_t* strides, int batch, int heads, int n, int head_dim,
-                              float scale, void* stream) {
-  if (head_dim == 64) {
-    return sm90::launch<sm90::Head64>(attn_bhnd_kernel_sm90<sm90::Head64>, q, k, v, o, strides,
-                                      batch, heads, n, scale, stream);
-  }
-  if (head_dim == 128) {
-    return sm90::launch<sm90::Head128>(attn_bhnd_kernel_sm90<sm90::Head128>, q, k, v, o, strides,
-                                       batch, heads, n, scale, stream);
-  }
+                              float scale, int tile, void* stream) {
+  const auto launch_fn = [&](auto cfg) {
+    using Cfg = decltype(cfg);
+    return sm90::launch<Cfg>(attn_bhnd_kernel_sm90<Cfg>, q, k, v, o, strides, batch, heads, n,
+                             scale, stream);
+  };
+  if (head_dim == 64) return sm90::dispatch_tile<64>(tile, launch_fn);
+  if (head_dim == 128) return sm90::dispatch_tile<128>(tile, launch_fn);
+  if (tile != 0) return static_cast<int>(cudaErrorInvalidValue);
   return wide::launch<__nv_bfloat16>(attn_bhnd_wide_kernel<__nv_bfloat16>, q, k, v, o, strides,
                                      batch, heads, n, head_dim, scale, stream);
 }
 
 int mdet_flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                              const int64_t* strides, int batch, int heads, int n, int head_dim,
-                             float scale, void* stream) {
+                             float scale, int tile, void* stream) {
+  if (tile != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (head_dim == 64) return launch_bhnd_f32<64>(q, k, v, o, strides, batch, heads, n, scale, stream);
   if (head_dim == 128) {
     return launch_bhnd_f32<128>(q, k, v, o, strides, batch, heads, n, scale, stream);

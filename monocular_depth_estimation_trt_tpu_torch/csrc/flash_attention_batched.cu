@@ -327,27 +327,31 @@ extern "C" {
 // other widths); o:
 // any layout given by its strides. strides: 12 element strides, (batch,
 // head, token) of q, k, v, then o. Pointers and strides (times the element
-// size) are multiples of 16 bytes. Launches on `stream`, allocates nothing,
-// does not synchronise. Returns the cudaError_t of the launch (0 on success).
+// size) are multiples of 16 bytes. tile: the mainloop's instantiation at
+// head_dim 64 or 128 (attention_sm90.cuh, dispatch_tile; 0 is the default);
+// every other width, and the fp32 entry, take 0 only. Launches on `stream`,
+// allocates nothing, does not synchronise. Returns the cudaError_t of the
+// launch (0 on success).
 int mdet_flash_attention_batched_bf16(const void* q, const void* k, const void* v, void* o,
                                       const int64_t* strides, int batch, int heads, int n,
-                                      int head_dim, float scale, void* stream) {
+                                      int head_dim, float scale, int tile, void* stream) {
   if (n < 1 || n > kMaxKeys) return static_cast<int>(cudaErrorInvalidValue);
-  if (head_dim == 64) {
-    return sm90::launch<sm90::Head64>(attn_batched_kernel_sm90<sm90::Head64>, q, k, v, o, strides,
-                                      batch, heads, n, scale, stream);
-  }
-  if (head_dim == 128) {
-    return sm90::launch<sm90::Head128>(attn_batched_kernel_sm90<sm90::Head128>, q, k, v, o,
-                                       strides, batch, heads, n, scale, stream);
-  }
+  const auto launch_fn = [&](auto cfg) {
+    using Cfg = decltype(cfg);
+    return sm90::launch<Cfg>(attn_batched_kernel_sm90<Cfg>, q, k, v, o, strides, batch, heads, n,
+                             scale, stream);
+  };
+  if (head_dim == 64) return sm90::dispatch_tile<64>(tile, launch_fn);
+  if (head_dim == 128) return sm90::dispatch_tile<128>(tile, launch_fn);
+  if (tile != 0) return static_cast<int>(cudaErrorInvalidValue);
   return wide::launch<__nv_bfloat16>(attn_batched_wide_kernel<__nv_bfloat16>, q, k, v, o,
                                      strides, batch, heads, n, head_dim, scale, stream);
 }
 
 int mdet_flash_attention_batched_f32(const void* q, const void* k, const void* v, void* o,
                                      const int64_t* strides, int batch, int heads, int n,
-                                     int head_dim, float scale, void* stream) {
+                                     int head_dim, float scale, int tile, void* stream) {
+  if (tile != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n < 1 || n > kMaxKeys) return static_cast<int>(cudaErrorInvalidValue);
   if (head_dim == 64) {
     return launch_batched_f32<64>(q, k, v, o, strides, batch, heads, n, scale, stream);

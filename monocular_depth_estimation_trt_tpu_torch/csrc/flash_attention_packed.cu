@@ -37,12 +37,13 @@ __global__ void __launch_bounds__(kThreads)
   attn_tile(a);
 }
 
-__global__ void __launch_bounds__(sm90::Head64::kThreads, sm90::Head64::kMinCtas)
+template <typename Cfg>
+__global__ void __launch_bounds__(Cfg::kThreads, Cfg::kMinCtas)
     attn_packed_kernel_sm90(const __grid_constant__ CUtensorMap q,
                             const __grid_constant__ CUtensorMap k,
                             const __grid_constant__ CUtensorMap v,
                             const __grid_constant__ CUtensorMap o, int n, float scale_log2) {
-  sm90::attention<sm90::Head64, /*kExact=*/false>(q, k, v, o, n, scale_log2);
+  sm90::attention<Cfg, /*kExact=*/false>(q, k, v, o, n, scale_log2);
 }
 
 }  // namespace
@@ -50,22 +51,28 @@ __global__ void __launch_bounds__(sm90::Head64::kThreads, sm90::Head64::kMinCtas
 extern "C" {
 
 // qkv: (batch, n, 3*heads*64) contiguous, 16-byte aligned; out: (batch, n,
-// heads*64) contiguous. Launches on `stream`, allocates nothing, does not
+// heads*64) contiguous. tile: the mainloop's instantiation at d = 64
+// (attention_sm90.cuh, dispatch_tile; 0 is the default); the fp32 entry
+// takes 0 only. Launches on `stream`, allocates nothing, does not
 // synchronise. Returns the cudaError_t of the launch (0 on success).
 int mdet_flash_attention_packed_bf16(const void* qkv, void* out, int batch, int n, int heads,
-                                     float scale, void* stream) {
+                                     float scale, int tile, void* stream) {
   const int64_t hd = static_cast<int64_t>(heads) * 64;
   const int64_t row = 3 * hd;
   // (batch, head, token) element strides of q, k, v, then o
   const int64_t strides[12] = {n * row, 64, row, n * row, 64, row,
                                n * row, 64, row, n * hd,  64, hd};
   const __nv_bfloat16* base = static_cast<const __nv_bfloat16*>(qkv);
-  return sm90::launch<sm90::Head64>(attn_packed_kernel_sm90, base, base + hd, base + 2 * hd, out,
-                                    strides, batch, heads, n, scale, stream);
+  return sm90::dispatch_tile<64>(tile, [&](auto cfg) {
+    using Cfg = decltype(cfg);
+    return sm90::launch<Cfg>(attn_packed_kernel_sm90<Cfg>, base, base + hd, base + 2 * hd, out,
+                             strides, batch, heads, n, scale, stream);
+  });
 }
 
 int mdet_flash_attention_packed_f32(const void* qkv, void* out, int batch, int n, int heads,
-                                    float scale, void* stream) {
+                                    float scale, int tile, void* stream) {
+  if (tile != 0) return static_cast<int>(cudaErrorInvalidValue);
   return launch_attention<64>(
       attn_packed_kernel_f32, n, batch, heads, stream,
       PackedLayout<64>{static_cast<const float*>(qkv), static_cast<float*>(out), n, heads, scale});

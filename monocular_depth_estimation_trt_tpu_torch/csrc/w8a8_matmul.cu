@@ -27,8 +27,10 @@
 // Design (bf16 x, what int8 serving runs): a persistent, warp-specialised
 // TMA + wgmma GEMM. One CTA an SM walks the 128 x BN output tiles (tile t,
 // t + gridDim.x, ...; n fastest, so that consecutive tiles share x rows and
-// the weight stays in L2), BN = 256 where that leaves no more SMs idle than
-// BN = 128 would by a wave (tile_width), with three warpgroups:
+// the weight stays in L2), BN = 128 or 256 as the caller asks (by default
+// 256 where that leaves no more SMs idle than 128 would by a wave: the waves
+// rule of ops/cuda/autotune.py, whose tuner may measure the other), with
+// three warpgroups:
 // * a producer, two of whose threads issue the TMA loads of each 128-wide
 //   K step, each into a ring of its own behind full and empty mbarriers (3
 //   stages each at BN = 256, 4 at 128): the bf16 x tile (128 rows x 128
@@ -423,22 +425,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-// The tile width: 256 columns halve the quantize work and the x traffic per
-// operation (each x tile is quantized once per tile), 128 give twice the
-// tiles where 256 would leave SMs idle. The one with the smaller waves x
-// time per tile wins, a 256-wide tile taking kWide256Cost / 4 of a 128-wide
-// one's time (1.2 to 1.45 measured on the H100 at the paths' shapes). At
-// M = 1370, N = 1024 it picks 128 (1.11x and 1.04x faster than 256 there),
-// elsewhere 256 (1.16 to 1.55x faster than 128): PERF.md.
-constexpr int kWide256Cost = 5;
-
-int tile_width(int m, int n, int sms) {
-  const int64_t rows = (m + kBM - 1) / kBM;
-  const int64_t waves128 = (rows * ((n + 127) / 128) + sms - 1) / sms;
-  const int64_t waves256 = (rows * ((n + 255) / 256) + sms - 1) / sms;
-  return waves256 * kWide256Cost < waves128 * 4 ? 256 : 128;
-}
-
 template <int BN>
 int launch_tiles(const CUtensorMap& tx, sm90::EncodeTiledFn encode, const void* wq,
                  const void* qmul, const void* out_scale, const void* bias, void* out, int m,
@@ -465,9 +451,9 @@ int launch_tiles(const CUtensorMap& tx, sm90::EncodeTiledFn encode, const void* 
 }
 
 int launch_sm90(const void* x, const void* wq, const void* qmul, const void* out_scale,
-                const void* bias, void* out, int m, int n, int k, void* stream) {
+                const void* bias, void* out, int m, int n, int k, int tile_n, void* stream) {
   if (m <= 0 || n <= 0) return 0;
-  if (k <= 0 || k % 16 != 0 || !aligned16(x) || !aligned16(wq) || !aligned16(qmul) ||
+  if ((tile_n != 128 && tile_n != 256) || k <= 0 || k % 16 != 0 || !aligned16(x) || !aligned16(wq) || !aligned16(qmul) ||
       !aligned16(out)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -487,7 +473,7 @@ int launch_sm90(const void* x, const void* wq, const void* qmul, const void* out
   const cudaError_t err = sm90::sm_count(&sms);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return tile_width(m, n, sms) == 256
+  return tile_n == 256
              ? launch_tiles<256>(tx, encode, wq, qmul, out_scale, bias, out, m, n, k, sms, s)
              : launch_tiles<128>(tx, encode, wq, qmul, out_scale, bias, out, m, n, k, sms, s);
 }
@@ -678,17 +664,21 @@ extern "C" {
 // x: (m, k) contiguous, bf16 or fp32; weight_q: (n, k) int8 contiguous;
 // qmul: (k,), out_scale: (n,), bias: (n,) or null, all fp32; out: (m, n)
 // contiguous, the type of x. bf16 takes k > 0, k % 16 == 0 and 16-byte aligned x,
-// weight_q, qmul and out. Launches on `stream`, allocates nothing, does not
-// synchronise. Returns the cudaError_t of the launch (0 on success).
+// weight_q, qmul and out. tile_n: the bf16 kernel's output tile width, 128 or
+// 256 (ops/cuda/autotune.py picks it: by the waves rule unless a tuned entry
+// says otherwise); the fp32 entry takes 128, its one width. Launches on
+// `stream`, allocates nothing, does not synchronise. Returns the cudaError_t
+// of the launch (0 on success).
 int mdet_w8a8_matmul_bf16(const void* x, const void* weight_q, const void* qmul,
                           const void* out_scale, const void* bias, void* out, int m, int n, int k,
-                          void* stream) {
-  return gemm::launch_sm90(x, weight_q, qmul, out_scale, bias, out, m, n, k, stream);
+                          int tile_n, void* stream) {
+  return gemm::launch_sm90(x, weight_q, qmul, out_scale, bias, out, m, n, k, tile_n, stream);
 }
 
 int mdet_w8a8_matmul_f32(const void* x, const void* weight_q, const void* qmul,
                          const void* out_scale, const void* bias, void* out, int m, int n, int k,
-                         void* stream) {
+                         int tile_n, void* stream) {
+  if (tile_n != kBN) return static_cast<int>(cudaErrorInvalidValue);
   return launch_w8a8_f32(x, weight_q, qmul, out_scale, bias, out, m, n, k, stream);
 }
 

@@ -136,16 +136,17 @@ def build_info() -> Optional[BuildInfo]:
 def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     bhnd = (ptr, ptr, ptr, ptr, ctypes.POINTER(ctypes.c_int64), i32, i32, i32, i32,
-            ctypes.c_float, ptr)
+            ctypes.c_float, i32, ptr)
     signatures = {
-        # K1: qkv, out, batch, n, heads, scale, stream
-        "mdet_flash_attention_packed": (ptr, ptr, i32, i32, i32, ctypes.c_float, ptr),
+        # K1: qkv, out, batch, n, heads, scale, tile, stream
+        "mdet_flash_attention_packed": (ptr, ptr, i32, i32, i32, ctypes.c_float, i32, ptr),
         # K2 and K3: q, k, v, out, 12 int64 strides, batch, heads, n, head_dim, scale,
-        # stream
+        # tile, stream
         "mdet_flash_attention": bhnd,
         "mdet_flash_attention_batched": bhnd,
-        # K4: x, weight_q, qmul, out_scale, bias (or null), out, m, n, k, stream
-        "mdet_w8a8_matmul": (ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr),
+        # K4: x, weight_q, qmul, out_scale, bias (or null), out, m, n, k, tile width,
+        # stream
+        "mdet_w8a8_matmul": (ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr),
     }
     for stem, argtypes in signatures.items():
         for suffix in ("_bf16", "_f32"):

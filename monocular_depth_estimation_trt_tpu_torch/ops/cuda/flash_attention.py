@@ -48,6 +48,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from monocular_depth_estimation_trt_tpu_torch.ops.cuda import autotune
+
 HEAD_DIM = 64  # K1's one head width: every DINOv2 encoder and VGGT
 WIDE_HEAD_DIM = 128  # K2 and K3 pad a wider head to a multiple of this (the JAX entry's d_pad)
 BATCHED_MAX_N = 1024  # K3's regime: the TPU kernel's many short heads
@@ -115,20 +117,28 @@ def _(qkv, num_heads, scale):
     if qkv.data_ptr() % 16:
         raise ValueError("qkv must be 16-byte aligned")
     b, n, three_hd = qkv.shape
-    out = torch.empty((b, n, three_hd // 3), dtype=qkv.dtype, device=qkv.device)
-    if out.numel() == 0:
-        return out
+    if b * n * three_hd == 0:
+        return torch.empty((b, n, three_hd // 3), dtype=qkv.dtype, device=qkv.device)
 
     from monocular_depth_estimation_trt_tpu_torch.ops.cuda._build import library
 
     fn = getattr(library(), _C_FUNCS[qkv.dtype])
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        err = fn(qkv.data_ptr(), out.data_ptr(), b, n, num_heads, scale, stream)
-    if err:
-        raise RuntimeError(
-            f"flash_attention_packed kernel launch failed: cudaError {err}"
-        )
+
+    def launch(tile):
+        out = torch.empty((b, n, three_hd // 3), dtype=qkv.dtype, device=qkv.device)
+        with torch.cuda.device(qkv.device):
+            stream = torch.cuda.current_stream(qkv.device).cuda_stream
+            err = fn(qkv.data_ptr(), out.data_ptr(), b, n, num_heads, scale, tile, stream)
+        if err:
+            raise RuntimeError(
+                f"flash_attention_packed kernel launch failed (tile {tile}): cudaError {err}"
+            )
+        return out
+
+    tile = autotune.tile_for(
+        "flash_attention_packed", qkv.dtype, (b, n, num_heads, HEAD_DIM), qkv.device, HEAD_DIM,
+        launch, lambda: flash_attention_packed_reference(qkv, num_heads, scale))
+    out = launch(tile)
     flash_attention_packed.launches += 1
     return out
 
@@ -220,21 +230,31 @@ def _bhnd_op(name: str, c_funcs):
                 raise ValueError(
                     f"{label} must have unit stride on d and 16-byte aligned rows, "
                     f"got strides {t.stride()}")
-        out = torch.empty((b, n, h, width), dtype=q.dtype, device=q.device)
-        if out.numel():
-            from monocular_depth_estimation_trt_tpu_torch.ops.cuda._build import library
+        if b * h * n * width == 0:
+            return torch.empty((b, n, h, width), dtype=q.dtype, device=q.device)
 
-            fn = getattr(library(), c_funcs[q.dtype])
+        from monocular_depth_estimation_trt_tpu_torch.ops.cuda._build import library
+
+        fn = getattr(library(), c_funcs[q.dtype])
+
+        def launch(tile):
+            out = torch.empty((b, n, h, width), dtype=q.dtype, device=q.device)
             strides = (ctypes.c_int64 * 12)(
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 out.stride(0), out.stride(2), out.stride(1))
             with torch.cuda.device(q.device):
                 stream = torch.cuda.current_stream(q.device).cuda_stream
                 err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-                         b, h, n, width, scale, stream)
+                         b, h, n, width, scale, tile, stream)
             if err:
-                raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-            globals()[name].launches += 1
+                raise RuntimeError(f"{name} kernel launch failed (tile {tile}): cudaError {err}")
+            return out
+
+        tile = autotune.tile_for(
+            name, q.dtype, (b, h, n, width), q.device, width, launch,
+            lambda: flash_attention_reference(q, k, v, scale).transpose(1, 2))
+        out = launch(tile)
+        globals()[name].launches += 1
         return out
 
     return op

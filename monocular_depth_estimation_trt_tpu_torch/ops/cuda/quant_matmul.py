@@ -32,6 +32,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from monocular_depth_estimation_trt_tpu_torch.ops.cuda import autotune
+
 QMAX = 127.0
 K_ALIGN = 16  # the bf16 kernel's K granule: one 16-byte row of int8 weight
 
@@ -116,19 +118,30 @@ def _(x, weight_q, qmul, out_scale, bias, out_dtype):
         x = x.clone()
     m, k = x.shape
     n = weight_q.shape[0]
-    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    if out.numel():
-        from monocular_depth_estimation_trt_tpu_torch.ops.cuda._build import library
+    if m * n == 0:
+        return torch.empty((m, n), dtype=x.dtype, device=x.device)
 
-        fn = getattr(library(), _C_FUNCS[x.dtype])
+    from monocular_depth_estimation_trt_tpu_torch.ops.cuda._build import library
+
+    fn = getattr(library(), _C_FUNCS[x.dtype])
+
+    def launch(tile_n):
+        out = torch.empty((m, n), dtype=x.dtype, device=x.device)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             err = fn(x.data_ptr(), weight_q.data_ptr(), qmul.data_ptr(), out_scale.data_ptr(),
                      None if bias is None else bias.data_ptr(), out.data_ptr(),
-                     m, n, k, stream)
+                     m, n, k, tile_n, stream)
         if err:
-            raise RuntimeError(f"w8a8_matmul kernel launch failed: cudaError {err}")
-        w8a8_matmul.launches += 1
+            raise RuntimeError(f"w8a8_matmul kernel launch failed (tile width {tile_n}): "
+                               f"cudaError {err}")
+        return out
+
+    tile_n = autotune.tile_for(
+        "w8a8_matmul", x.dtype, (m, n, k), x.device, k, launch,
+        lambda: w8a8_matmul_reference(x, weight_q, qmul, out_scale, bias, out_dtype))
+    out = launch(tile_n)
+    w8a8_matmul.launches += 1
     return out
 
 

@@ -75,6 +75,35 @@ class DepthPipeline:
         self.viz = viz
         self._engines: Dict[str, Engine] = {}
 
+    # -- multi-device -------------------------------------------------------
+    def apply_mesh(self, mesh, rules=None) -> "DepthPipeline":
+        """Shard this pipeline's modules over a device mesh (in place).
+
+        ``rules`` defaults to this family's table
+        (``parallel/sharding.py::rules_for_family``): ViT tensor parallelism
+        (column-parallel qkv/fc1, row-parallel proj/fc2 over the ``model``
+        axis) plus the family's decoder rules; everything else replicated.
+        On a one-device mesh every placement collapses to the plain tensor:
+        the same engines, graphs and kernel launches as without a mesh. With
+        more devices each tensor-parallel layer, or pair of layers, takes a
+        replicated input and gives a replicated output (the collectives run
+        inside it), so the engines capture as usual. Engines built before
+        are dropped."""
+        if mesh is None:
+            return self
+        from monocular_depth_estimation_trt_tpu_torch.parallel.sharding import (
+            rules_for_family,
+        )
+        from monocular_depth_estimation_trt_tpu_torch.utils.logging import log
+
+        rules = rules or rules_for_family(getattr(self.spec, "model", None))
+        for module in self.export_modules().values():
+            rules.apply(mesh, module)
+        self.release_engines()
+        self.mesh = mesh
+        log(f"params sharded over mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+        return self
+
     def _with_viz_epilogue(self, out: Dict[str, torch.Tensor], with_viz: bool):
         """Colormap epilogue shared by single-frame and batched calls; the
         normalizations work frame by frame."""

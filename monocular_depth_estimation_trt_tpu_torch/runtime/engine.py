@@ -209,8 +209,10 @@ class EngineRegistry:
             "timestamp": time.time(),
         }
         p = self.path(engine.name)
-        with open(p, "w") as f:
+        tmp = f"{p}.{os.getpid()}.tmp"
+        with open(tmp, "w") as f:
             json.dump(entry, f, indent=2)
+        os.replace(tmp, p)  # atomic: a concurrent reader sees all or nothing
         return p
 
     def load(self, name: str):

@@ -18,6 +18,8 @@ from monocular_depth_estimation_trt_tpu_torch.training.trainer import (
     load_train_state,
     make_train_step,
     save_train_state,
+    shard_batch_tree,
+    shard_train_state,
 )
 from monocular_depth_estimation_trt_tpu_torch.training.distill import (
     distill,
@@ -41,6 +43,8 @@ __all__ = [
     "make_distill_step",
     "make_train_step",
     "save_train_state",
+    "shard_batch_tree",
+    "shard_train_state",
     "silog_loss",
     "ssi_loss",
 ]

@@ -18,20 +18,25 @@ rematerialization, save and resume (counterpart of the JAX package's
   incrementing it: 0 for the first update).
 * :func:`save_train_state` / :func:`load_train_state` use ``torch.save``: a
   resumed run continues bit for bit.
-
-Multi-device sharding of the state and the batch (the JAX package's
-``shard_train_state`` / ``shard_batch_tree``) is not ported yet.
+* :func:`shard_train_state` lays the state out over a mesh (the serving
+  rules place the parameters, AdamW's moments follow their parameter) and
+  :func:`shard_batch_tree` splits a batch over the ``data`` axis. A step on
+  a split batch runs each rank's rows and averages the loss and the
+  gradients over ``data``, as the JAX step's mean over the global batch.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import math
 import os
 from typing import Any, Callable, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from monocular_depth_estimation_trt_tpu_torch.utils.logging import log
@@ -108,8 +113,15 @@ def _split_micro(batch, accum_steps: int):
 def global_norm(tensors) -> torch.Tensor:
     """The L2 norm of all tensors together (``optax.global_norm``), from
     per-tensor norms taken by ``foreach`` kernels: a few launches, not two a
-    tensor."""
-    return torch.nn.utils.get_total_norm(list(tensors), 2.0)
+    tensor. A sharded (DTensor) tensor counts with all its shards."""
+    tensors = list(tensors)
+    sharded = [torch.linalg.vector_norm(t).full_tensor() for t in tensors
+               if isinstance(t, DTensor)]
+    plain = [t for t in tensors if not isinstance(t, DTensor)]
+    if not sharded:
+        return torch.nn.utils.get_total_norm(plain, 2.0)
+    parts = sharded + ([torch.nn.utils.get_total_norm(plain, 2.0)] if plain else [])
+    return torch.linalg.vector_norm(torch.stack(parts))
 
 
 def make_train_step(loss_fn: Callable[[Dict[str, torch.Tensor], Any], torch.Tensor], *,
@@ -138,6 +150,12 @@ def make_train_step(loss_fn: Callable[[Dict[str, torch.Tensor], Any], torch.Tens
         return loss.detach(), torch.autograd.grad(loss, leaves, allow_unused=True)
 
     def step_fn(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        data_group = None
+        if any(isinstance(t, DTensor) for t in batch):  # split over "data" (shard_batch_tree)
+            mesh = next(t for t in batch if isinstance(t, DTensor)).device_mesh
+            if mesh.size(mesh.mesh_dim_names.index("data")) > 1:
+                data_group = mesh.get_group("data")
+            batch = tuple(t.to_local() if isinstance(t, DTensor) else t for t in batch)
         if accum_steps == 1:
             loss, grads = value_and_grad(state.params, batch)
         else:
@@ -149,6 +167,9 @@ def make_train_step(loss_fn: Callable[[Dict[str, torch.Tensor], Any], torch.Tens
                                                  for a, b in zip(grads, g)]
             loss = loss / accum_steps
             grads = [None if g is None else g / accum_steps for g in grads]
+        if data_group is not None:
+            loss, grads = _mean_over(data_group, loss, grads)
+        grads = [_like_param(p, g) for p, g in zip(state.params.values(), grads)]
         for p, g in zip(state.params.values(), grads):
             p.grad = g
         state.optimizer.step()
@@ -158,6 +179,69 @@ def make_train_step(loss_fn: Callable[[Dict[str, torch.Tensor], Any], torch.Tens
         return state, {"loss": loss, "grad_norm": global_norm(g for g in grads if g is not None)}
 
     return step_fn
+
+
+def _mean_over(group, loss, grads):
+    """The loss and the gradients averaged over the ranks of ``group``
+    (each rank's from its rows of the batch)."""
+    n = dist.get_world_size(group)
+    dist.all_reduce(loss, group=group)
+    for g in grads:
+        if g is not None:  # a sharded gradient's local part is the same part on every rank
+            dist.all_reduce(g.to_local() if isinstance(g, DTensor) else g, group=group)
+    return loss / n, [None if g is None else g / n for g in grads]
+
+
+def _like_param(p: torch.Tensor, g):
+    """A DTensor gradient in its parameter's placements (autograd may give
+    a row-split weight a replicated gradient)."""
+    if isinstance(g, DTensor) and isinstance(p, DTensor) and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def shard_train_state(mesh, rules, state: TrainState) -> TrainState:
+    """The state laid out over ``mesh``: parameters placed by the serving
+    ``ShardingRules`` (``parallel/sharding.py``), AdamW's moments
+    (``exp_avg``, ``exp_avg_sq``) in their parameter's placements, the step
+    and the schedule position kept. On a one-device mesh the state is
+    returned as it is.
+
+    The model the loss runs must have its layers prepared by
+    ``rules.apply(mesh, model)``: ``functional_call`` then hands the
+    sharded parameters to their tensor-parallel forwards. The optimizer is
+    rebuilt with the sharded and the replicated parameters in two groups, so
+    that each multi-tensor update sees one kind of tensor."""
+    if mesh.size() == 1:
+        return state
+    old_opt = state.optimizer
+    params = {k: rules.place(mesh, k, v.detach().clone()).requires_grad_(True)
+              for k, v in state.params.items()}
+    sharded = [p for p in params.values() if isinstance(p, DTensor)]
+    plain = [p for p in params.values() if not isinstance(p, DTensor)]
+    accepted = inspect.signature(type(old_opt)).parameters
+    hyper = {k: v for k, v in old_opt.defaults.items() if k in accepted and k != "lr"}
+    opt = type(old_opt)([g for g in ({"params": sharded}, {"params": plain}) if g["params"]],
+                        lr=1.0, **hyper)
+    for old_p, (name, p) in zip(state.params.values(), params.items()):
+        moments = old_opt.state.get(old_p)
+        if moments:
+            opt.state[p] = {k: (rules.place(mesh, name, v) if torch.is_tensor(v)
+                                and v.shape == old_p.shape else v)
+                            for k, v in moments.items()}
+    for group in opt.param_groups:
+        group["initial_lr"] = 1.0  # the schedule's base rate (adamw)
+    sched = torch.optim.lr_scheduler.LambdaLR(opt, state.scheduler.lr_lambdas[0],
+                                              last_epoch=state.scheduler.last_epoch - 1)
+    return TrainState(step=state.step, params=params, optimizer=opt, scheduler=sched)
+
+
+def shard_batch_tree(mesh, batch, axis: str = "data"):
+    """Every tensor's leading (batch) axis split over ``axis`` (the batch
+    as it is on a one-device mesh)."""
+    from monocular_depth_estimation_trt_tpu_torch.parallel.sharding import shard_batch
+
+    return tuple(shard_batch(mesh, t, axis) for t in batch)
 
 
 def save_train_state(path: str, state: TrainState) -> str:

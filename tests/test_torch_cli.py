@@ -161,7 +161,8 @@ def test_parser_has_the_ported_commands_and_rejects_the_rest():
                 ["convert", "x", "--checkpoint", "c", "--verify-manifest", "--report"],
                 ["eval", "--pred", "p", "--gt", "g", "--align", "median", "--flow"],
                 ["quantcheck", "x", "--images", "d", "--min-delta1", "0.9"],
-                ["distill", "--images-dir", "d", "--qat", "--promote"]):
+                ["distill", "--images-dir", "d", "--qat", "--promote"],
+                ["bench", "x", "--device-mesh", "1x1"], ["serve", "x", "--device-mesh", "1x8"]):
         assert p.parse_args(cmd).fn.__name__ == f"cmd_{cmd[0]}"
     assert p.parse_args(["run", "x", "--colorbar"]).colorbar
     assert p.parse_args(["run", "x"]).device == "cuda"
@@ -169,8 +170,8 @@ def test_parser_has_the_ported_commands_and_rejects_the_rest():
     a = p.parse_args(["run", "x", "--precision", "int8", "--calib-dir", "c", "--compare", "r",
                       "--compare-tol", "0.5", "--allow-random-weights"])
     assert (a.precision, a.calib_dir, a.compare, a.compare_tol) == ("int8", "c", "r", 0.5)
-    for bad in (["--device", "tpu", "run", "x"], ["bench", "x", "--device-mesh", "1x1"],
-                ["serve", "x", "--device-mesh", "1x8"], ["track", "x"],
+    assert p.parse_args(["serve", "x", "--device-mesh", "1x8"]).device_mesh == "1x8"
+    for bad in (["--device", "tpu", "run", "x"], ["track", "x"],
                 ["slam", "megasam", "--engine", "e"], ["convert", "x"], ["eval", "x"],
                 ["quantcheck"], ["distill", "x"]):
         with pytest.raises(SystemExit):

@@ -77,7 +77,8 @@ def test_no_port_source_imports_jax_or_the_jax_package():
                 "ops/quant.py", "ops/cuda/quant_matmul.py", "models/cotracker3.py",
                 "slam/ba.py", "slam/recipes.py", "apps/tracking.py", "training/__init__.py",
                 "training/losses.py", "training/metrics.py", "training/trainer.py",
-                "training/distill.py", "weights/manifest.py"):
+                "training/distill.py", "weights/manifest.py", "parallel/mesh.py",
+                "parallel/sharding.py", "ops/cuda/autotune.py"):
         assert os.path.join(PORT, new) in sources
     bad = [(os.path.relpath(p, REPO), m) for p in sources
            for m in _imported_modules(p) if _forbidden(m)]
