@@ -2743,6 +2743,7 @@ def cli_group_start(commands, env):
     library); its ``subprocess.Popen``, for ``cli_group_result``."""
     # each command's pipeline and graphs are freed before the next command
     code = ("import gc\nimport time\nimport torch\n"
+            "print('@@ cuda', torch.cuda.is_available(), torch.cuda.device_count(), flush=True)\n"
             "from monocular_depth_estimation_trt_tpu_torch.cli import main\n"
             f"for argv in {[list(c) for c in commands]!r}:\n"
             "    print('@@ command', flush=True)\n"
@@ -2763,7 +2764,9 @@ def cli_group_start(commands, env):
 def cli_group_result(proc, commands):
     """Wait for a process of ``cli_group_start`` (killed after 900 s).
     Returns each command's stdout and its seconds (the process's clock
-    around its ``main``) by its argv tuple, and the exit codes."""
+    around its ``main``) by its argv tuple, and the exit codes; what the
+    process printed before its first command (``@@ cuda <available>
+    <count>``) is left in ``proc.preamble``."""
     try:
         proc.wait(timeout=900)
     except subprocess.TimeoutExpired:
@@ -2772,7 +2775,7 @@ def cli_group_result(proc, commands):
     for log in proc.logs:
         log.seek(0)
     stdout, stderr = (log.read() for log in proc.logs)
-    parts = stdout.split("@@ command\n")[1:]
+    proc.preamble, *parts = stdout.split("@@ command\n")
     check(proc.returncode == 0 and len(parts) == len(commands),
           f"cli {[c[:2] for c in commands]} exited {proc.returncode}: {stdout[-1500:]}"
           f"{stderr[-2500:]}")
@@ -4661,10 +4664,59 @@ EXPORT_VGGT_DEPTH = 2
 # (VGGT's: one K1 per ViT block, one K2 per frame and per global block;
 # StreamVGGT's step: its global attention over the cache is plain)
 EXPORT_PER_FORWARD = {"vits_b1": [0, 12, 0, 0], "vitl_int8_b1": [0, 24, 0, 96],
+                      "vits_nocard_b1_viz": [0, 12, 0, 0],
                       "vggt_views_s4": [0, EXPORT_VGGT_DEPTH, 2 * EXPORT_VGGT_DEPTH, 0],
-                      "streamvggt_stream": [0, EXPORT_VGGT_DEPTH, EXPORT_VGGT_DEPTH, 0]}
+                      "streamvggt_stream": [0, EXPORT_VGGT_DEPTH, EXPORT_VGGT_DEPTH, 0],
+                      # one K3 a patch-encoder block, one K1 an image-encoder block
+                      "depth_pro_b1": [24, 24, 0, 0]}
 EXPORT_STREAM_STEPS = 8
 EXPORT_BENCH = dict(warmup=5, iterations=30, latency_iterations=20)
+# Depth Pro's artifact, for the card alone: the whole model, bf16, from the
+# pipeline of the Depth Pro path (its export, load and first call take about
+# 18 s of this phase on an H100 host; a fresh model cut to 2 blocks an
+# encoder would save little, as its build and capture cost time too)
+EXPORT_DEPTH_PRO_HW = (1536, 1536)
+
+
+def nocard_commands(tmp, png):
+    """The artifact built where no card is visible, and served on the CPU:
+    DA-V2 vits 518² with its viz (the pipeline built on the CPU) exported
+    for ``cpu,cuda``, for ``cpu`` alone and for ``cuda`` alone; then the
+    two-platform file's CPU program on the frame (``run --engine --device
+    cpu``) and the CPU pipeline on the same weights (``run
+    depth_anything_v2``). Returns (the argvs, the paths by name)."""
+    paths = {name: os.path.join(tmp, f"nocard_{name}.mdeteng")
+             for name in ("cpu_cuda", "cpu", "cuda")}
+    paths.update(run=os.path.join(tmp, "nocard_run"), pipeline=os.path.join(tmp, "nocard_pipe"))
+    export = ["--device", "cpu", "--allow-random-weights", "export", "depth_anything_v2",
+              "--encoder", "vits", "--size", "518", "--viz"]
+    commands = [(*export, "--platforms", name.replace("_", ","), "--out", paths[name])
+                for name in ("cpu_cuda", "cpu", "cuda")]
+    commands += [("--device", "cpu", "run", "--engine", paths["cpu_cuda"], "--image", png,
+                  "--out", paths["run"]),
+                 ("--device", "cpu", "--allow-random-weights", "run", "depth_anything_v2",
+                  "--encoder", "vits", "--image", png, "--out", paths["pipeline"])]
+    return commands, paths
+
+
+def npz_depth(out_dir):
+    import numpy as np
+
+    files = [f for f in os.listdir(out_dir) if f.endswith(".npz")]
+    check(len(files) == 1, f"{out_dir}: npz files {sorted(os.listdir(out_dir))}")
+    return np.load(os.path.join(out_dir, files[0]))["depth"]
+
+
+def cli_in_process(argv):
+    """The command line's ``main`` in this process: (exit code, stdout)."""
+    import io
+
+    from monocular_depth_estimation_trt_tpu_torch.cli import main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(list(argv))
+    return rc, out.getvalue()
 # Python run first in the processes that serve the vits artifact: there the
 # port's model zoo cannot be imported
 NO_MODEL_ZOO = (
@@ -4841,11 +4893,23 @@ def export_phase(pipe, build_pipeline, wrappers, card, power_limit):
     cannot be imported: ``run --engine`` (its npz
     depth against the in-process engine), ``bench --engine``, ``bench
     --engine --trace`` (the trace names K1's kernel) and ``serve --engine``
-    (answers to sequential requests against in-process calls). A generator
-    in two parts: the first ``next`` exports the vits artifact, reads its
-    turns and starts its process, which works through the int8 phases
-    (correctness only: its bench lines share the card); ``send(vitl_int8)``
-    runs the rest and yields the counted launches of each module."""
+    (answers to sequential requests against in-process calls). These are
+    exported for the card alone. Beside them, DA-V2 vits 518² with its viz
+    exported in a process that sees no card (``CUDA_VISIBLE_DEVICES=""``,
+    ``nocard_commands``) for ``cpu,cuda``, ``cpu`` and ``cuda``: its cuda
+    program loaded here and counted, its replay and p50 against the
+    in-process engine, its cpu program's depth against the CPU pipeline's;
+    ``run --engine`` of the cpu-only file on the card exits 2 naming
+    ``--platforms``, and the cpu,cuda file serves ``--device cuda``; and
+    the whole Depth Pro 1536² bf16 (K3; sent in) exported, loaded, counted
+    and released with its file. A generator in two parts: the first
+    ``next`` exports the vits artifact, reads its turns and starts its
+    process and the card-less one, which work through the int8 phases
+    (correctness only: the bench lines share the card); ``send((vitl_int8,
+    depth_pro))`` runs the rest and yields the counted launches of each
+    module."""
+    import atexit
+    import gc
     import shutil
 
     import numpy as np
@@ -4856,6 +4920,7 @@ def export_phase(pipe, build_pipeline, wrappers, card, power_limit):
     from monocular_depth_estimation_trt_tpu_torch.runtime.export import (
         export_pipeline,
         load_engine,
+        read_meta,
     )
     from monocular_depth_estimation_trt_tpu_torch.utils import imageio
 
@@ -4897,7 +4962,7 @@ def export_phase(pipe, build_pipeline, wrappers, card, power_limit):
         frame = rng.integers(0, 256, (518, 518, 3), dtype=np.uint8)
         frames2 = rng.integers(0, 256, (2, 518, 518, 3), dtype=np.uint8)
         path_vits, vits, rec = made("vits", pipe, in_hw=(518, 518), with_viz="both",
-                                    batches=(1, 2))
+                                    batches=(1, 2), platforms=("cuda",))
         out, counted_rec = counted("vits_b1", vits, "b1", lambda: vits(frame))
         rec.update(counted_rec)
         dev_frame = torch.from_numpy(frame).to(pipe.device)
@@ -4923,6 +4988,12 @@ def export_phase(pipe, build_pipeline, wrappers, card, power_limit):
         # the card with them)
         png = os.path.join(tmp, "frame.png")
         imageio.write_image(png, frame)
+        # the artifact built with no card visible: its process works on the
+        # host's cores from here on, through the int8 phases
+        nocard_argvs, nocard = nocard_commands(tmp, png)
+        nocard_proc = cli_group_start(nocard_argvs, {**env, "CUDA_VISIBLE_DEVICES": "",
+                                                     "OMP_NUM_THREADS": "4"})
+        atexit.register(stop_process, nocard_proc)
         out_run, trace_dir = os.path.join(tmp, "run"), os.path.join(tmp, "trace")
         run_argv = ("run", "--engine", path_vits, "--image", png, "--out", out_run)
         bench_argv = ("bench", "--engine", path_vits, "--warmup", "5", "--iterations", "30")
@@ -4932,11 +5003,71 @@ def export_phase(pipe, build_pipeline, wrappers, card, power_limit):
         artifact_argvs = [run_argv, bench_argv, trace_argv, doctor_argv]
         started = artifact_process_start(path_vits, artifact_argvs, env)
         first_part_s = time.perf_counter() - t_phase
-        vitl_int8 = yield
+        vitl_int8, depth_pro = yield
         t_phase = time.perf_counter()
 
+        # the artifact built with no card: its process's records, then its
+        # cuda program loaded here, counted, against the in-process engine
+        outputs, rcs = cli_group_result(nocard_proc, nocard_argvs)
+        check(rcs == [0] * len(nocard_argvs), f"export: the card-less commands exited {rcs}")
+        check(nocard_proc.preamble.split() == ["@@", "cuda", "False", "0"],
+              f"export: the card-less process saw {nocard_proc.preamble!r}")
+        metas = {name: read_meta(nocard[name]) for name in ("cpu_cuda", "cpu", "cuda")}
+        t0 = time.perf_counter()
+        eng = load_engine(nocard["cpu_cuda"], "cuda")
+        rec = {"process_saw": nocard_proc.preamble.strip(),
+               "platforms": {name: m["platforms"] for name, m in metas.items()},
+               "export_seconds_by_platform": {
+                   name: m["export_seconds_by_platform"] for name, m in metas.items()},
+               "export_command_seconds": {name: outputs[argv][1] for name, argv in
+                                          zip(("cpu_cuda", "cpu", "cuda"), nocard_argvs)},
+               "artifact_mb": {name: os.path.getsize(nocard[name]) / 1e6 for name in metas},
+               "load_seconds": time.perf_counter() - t0,
+               "modules": sorted(eng.meta["modules"])}
+        artifacts["vits_nocard"] = rec
+        out, counted_rec = counted("vits_nocard_b1_viz", eng, "b1_viz",
+                                   lambda: eng(frame, viz=True))
+        dev_frame = torch.from_numpy(frame).to(pipe.device)
+        rec.update(counted_rec, vs_in_process={"b1_viz": replay_vs_in_process(
+            "vits (exported with no card) b1_viz", out, pipe(frame, viz=True),
+            lambda: first_differing_op(
+                lambda x: pipe._eager(x, (518, 518), True),
+                lambda x: eng._programs["b1_viz"](eng._weights, x), (dev_frame,)))})
+        p50 = {"in_process": [], "loaded": []}
+        cfg = BenchmarkConfig(**EXPORT_BENCH)
+        for route, p in (("in_process", pipe), ("loaded", eng), ("loaded", eng),
+                         ("in_process", pipe)):
+            p50[route].append(p.benchmark((518, 518), cfg).percentile_ms(50))
+        rec["p50_ms_in_turns"] = p50
+        eng.release_engines()
+        del eng
+        # the CPU program against the CPU pipeline, both in the card-less process
+        cpu_run, cpu_pipe = npz_depth(nocard["run"]), npz_depth(nocard["pipeline"])
+        check(np.array_equal(cpu_run, cpu_pipe),
+              "export: the card-less artifact's cpu program differs from the CPU pipeline "
+              f"(max |a - b| {np.abs(cpu_run.astype(np.float64) - cpu_pipe).max()})")
+        # --device picks the program: a cpu-only file under the default
+        # --device cuda exits 2 naming --platforms; the cpu,cuda file serves
+        # the card's program (the card pipeline's depth)
+        rc, refused = cli_in_process(("run", "--engine", nocard["cpu"], "--image", png,
+                                      "--out", os.path.join(tmp, "refused")))
+        check(rc == 2 and "--platforms including cuda" in refused,
+              f"export: run --engine of a cpu-only artifact on the card exited {rc}: {refused}")
+        card_run = os.path.join(tmp, "nocard_card_run")
+        rc, text = cli_in_process(("--device", "cuda", "run", "--engine", nocard["cpu_cuda"],
+                                   "--image", png, "--out", card_run))
+        check(rc == 0 and "device=cuda" in text, f"export: run --engine --device cuda: {text}")
+        rec["device_flag"] = {
+            "cpu_only_on_the_card": {"exit_code": 2, "hint": [
+                ln for ln in refused.splitlines() if "--platforms" in ln][:1]},
+            "cpu_program_vs_cpu_pipeline_equal": True,
+            "cuda_program_vs_card_pipeline": replay_vs_in_process(
+                "run --engine --device cuda", {"depth": npz_depth(card_run)},
+                {"depth": pipe(frame, viz=True)["depth"]})}
+        gc.collect()
+
         # DA-V2 vitl int8, b1
-        _, eng, rec = made("vitl_int8", vitl_int8, in_hw=(518, 518))
+        _, eng, rec = made("vitl_int8", vitl_int8, in_hw=(518, 518), platforms=("cuda",))
         out, counted_rec = counted("vitl_int8_b1", eng, "b1", lambda: eng(frame))
         rec.update(counted_rec, vs_in_process={"b1": replay_vs_in_process(
             "vitl int8 b1", out, vitl_int8(frame))})
@@ -4947,7 +5078,8 @@ def export_phase(pipe, build_pipeline, wrappers, card, power_limit):
         cut = family_cut_kw("litevggt", EXPORT_VGGT_DEPTH)  # VGGT's graph
         vggt = build_pipeline("vggt", **cut)
         views4 = rng.integers(0, 256, (4, 518, 518, 3), dtype=np.uint8)
-        _, eng, rec = made("vggt", vggt, in_hw=(518, 518), batches=(), views=(4,))
+        _, eng, rec = made("vggt", vggt, in_hw=(518, 518), batches=(), views=(4,),
+                           platforms=("cuda",))
         out, counted_rec = counted("vggt_views_s4", eng, "views_s4",
                                    lambda: eng.multi_view(views4))
         rec.update(counted_rec, vs_in_process={"views_s4": replay_vs_in_process(
@@ -4960,7 +5092,7 @@ def export_phase(pipe, build_pipeline, wrappers, card, power_limit):
         streamvggt = build_pipeline("streamvggt", **cut)
         clip = rng.integers(0, 256, (EXPORT_STREAM_STEPS, 480, 640, 3), dtype=np.uint8)
         _, eng, rec = made("streamvggt", streamvggt, in_hw=(480, 640), batches=(),
-                           stream_window=4)
+                           stream_window=4, platforms=("cuda",))
         runner, here = eng.stream(), streamvggt.stream(window=4)
         out, counted_rec = counted("streamvggt_stream", eng, "stream", lambda: runner(clip[0]))
         steps = [replay_vs_in_process("streamvggt step 0", out, here(clip[0]))]
@@ -4972,6 +5104,25 @@ def export_phase(pipe, build_pipeline, wrappers, card, power_limit):
         here.session.release_engines()
         drop_engines(pipe, vitl_int8, streamvggt)
         del eng, runner, here, streamvggt
+
+        # Depth Pro, for the card alone (K3's first artifact): exported,
+        # loaded, its first call counted, its replay against the in-process
+        # engine; both engines and the file released at once
+        dp_frame = rng.integers(0, 256, (*EXPORT_DEPTH_PRO_HW, 3), dtype=np.uint8)
+        path_dp, eng, rec = made("depth_pro", depth_pro, in_hw=EXPORT_DEPTH_PRO_HW,
+                                 platforms=("cuda",))
+        out, counted_rec = counted("depth_pro_b1", eng, "b1", lambda: eng(dp_frame))
+        eng.release_engines()  # one 1536² graph pool at a time
+        want = depth_pro(dp_frame)
+        drop_engines(depth_pro)
+        dev_frame = torch.from_numpy(dp_frame).to(depth_pro.device)
+        rec.update(counted_rec, platforms=eng.meta["platforms"],
+                   vs_in_process={"b1": replay_vs_in_process(
+                       "depth_pro b1", out, want, lambda: first_differing_op(
+                           p_eager(depth_pro, EXPORT_DEPTH_PRO_HW),
+                           lambda x: eng._programs["b1"](eng._weights, x), (dev_frame,)))})
+        os.remove(path_dp)
+        del eng, depth_pro, dev_frame
 
         serve, outputs, rcs = artifact_process(started, artifact_argvs, pipe, rng)
         check(rcs == [0, 0, 0, 0], f"export: the vits artifact's commands exited {rcs}")
@@ -6068,7 +6219,7 @@ def main() -> None:
                  *families.values())
     training = training_phase(vitl, build_pipeline, wrappers, card, power_limit, dev)
     next(training)
-    extra_launches.update(export.send(int8_vitl))
+    extra_launches.update(export.send((int8_vitl, depth_pro)))
 
     # 15. training and the accuracy commands, with the vitl pipeline built
     # above as the teacher (each counted run its own)

@@ -65,11 +65,14 @@ rendered depth) as ``<stem>_<artifact>.npz``, with ``--cvd`` also each
 frame's consistent disparity (``_cvd.npz``).
 
 ``export`` writes a serialized engine artifact (``.mdeteng``,
-``runtime/export.py``): the fused programs with the weights stored once;
-``--engine FILE`` serves one on ``run``, ``batch``, ``bench``, ``views``,
-``pair``, ``video``, ``flow``, ``webcam`` and ``serve`` (repeated on
-``serve``: several models behind one worker) with no model code, on the
-device type it was exported on (``--device`` does not apply). ``bench
+``runtime/export.py``): the fused programs of each platform that
+``--platforms`` names (default ``cpu,cuda``) with the weights stored once;
+``--device`` is where the pipeline is built, so a host with no card
+exports the CUDA programs under ``--device cpu``. ``--engine FILE`` serves
+one on ``run``, ``batch``, ``bench``, ``views``, ``pair``, ``video``,
+``flow``, ``webcam`` and ``serve`` (repeated on ``serve``: several models
+behind one worker) with no model code, on ``--device``: its program for
+that device is loaded, and an artifact without one exits 2. ``bench
 --trace DIR`` writes a ``torch.profiler`` Chrome trace of the timed loop;
 ``doctor`` reports the installation.
 
@@ -237,12 +240,14 @@ def _build(args, *keys):
     return registry.build_pipeline(args.model, **_pipeline_kw(args, *keys))
 
 
-def _load_artifact(path, *, surface, need_viz=False, allow_stream_viz=False,
+def _load_artifact(path, *, surface, device, need_viz=False, allow_stream_viz=False,
                    need_images=(1,), need_views=None):
     """Check an ``.mdeteng`` against what a surface needs from its meta
     alone (a zip header read: a wrong artifact is refused before its weights
-    go to the device), then load it. None, after an error line, when the
-    artifact cannot serve the surface.
+    go to the device), then load its program for ``device`` (``--device``).
+    None, after an error line, when the artifact cannot serve the surface:
+    it lacks that platform (the line names ``--platforms``), or the device
+    is a card and there is none.
 
     ``need_viz`` counts the per-call viz modules (the surfaces that call
     ``pipe(frame, viz=True)``); ``allow_stream_viz`` also takes a stream
@@ -255,7 +260,7 @@ def _load_artifact(path, *, surface, need_viz=False, allow_stream_viz=False,
 
     meta = read_meta(path)
     try:
-        check_meta(path, meta)
+        check_meta(path, meta, device)
     except (ValueError, RuntimeError) as e:
         log(str(e), tag="ERROR")
         return None
@@ -277,7 +282,7 @@ def _load_artifact(path, *, surface, need_viz=False, allow_stream_viz=False,
             log(f"{surface}: no views module for S={need_views} (available: {avail}); "
                 "re-export with --views", tag="ERROR")
             return None
-    eng = load_engine(path)
+    eng = load_engine(path, device)
     log(f"{surface} from artifact: {eng.describe()}")
     return eng
 
@@ -292,7 +297,7 @@ def cmd_run(args) -> int:
     if args.engine:
         # the deserialize-and-run consumer of a plan file (reference
         # common_runtime.py): no model code, no checkpoint
-        eng = _load_artifact(args.engine, surface="run")
+        eng = _load_artifact(args.engine, device=args.device, surface="run")
         if eng is None:
             return 2
         # fitted here, so that the point cloud takes its colors from the
@@ -438,7 +443,7 @@ def cmd_batch(args) -> int:
         log("batch: no images found", tag="ERROR")
         return 1
     if args.engine:
-        pipe = _load_artifact(args.engine, surface="batch")
+        pipe = _load_artifact(args.engine, device=args.device, surface="batch")
         if pipe is None:
             return 2
     elif not args.model:
@@ -501,7 +506,7 @@ def cmd_pair(args) -> int:
 
     img1, img2 = read_image(args.image1), read_image(args.image2)
     if args.engine:
-        pipe = _load_artifact(args.engine, surface="pair", need_images=(2,))
+        pipe = _load_artifact(args.engine, device=args.device, surface="pair", need_images=(2,))
         if pipe is None:
             return 2
         img1, img2 = pipe.fit(img1), pipe.fit(img2)
@@ -543,7 +548,7 @@ def cmd_video(args) -> int:
     from monocular_depth_estimation_trt_tpu_torch.utils.imageio import open_video
 
     if args.engine:
-        pipe = _load_artifact(args.engine, surface="video", need_viz=True,
+        pipe = _load_artifact(args.engine, device=args.device, surface="video", need_viz=True,
                               allow_stream_viz=True)
         if pipe is None:
             return 2
@@ -571,7 +576,7 @@ def cmd_webcam(args) -> int:
     from monocular_depth_estimation_trt_tpu_torch.utils.imageio import video_cv2
 
     if args.engine:
-        pipe = _load_artifact(args.engine, surface="webcam", need_viz=True)
+        pipe = _load_artifact(args.engine, device=args.device, surface="webcam", need_viz=True)
         if pipe is None:
             return 2
         video_cv2(f"camera {args.camera!r}")
@@ -603,7 +608,8 @@ def cmd_flow(args) -> int:
     from monocular_depth_estimation_trt_tpu_torch.utils.imageio import video_cv2
 
     if args.engine:
-        pipe = _load_artifact(args.engine, surface="flow", need_viz=True, need_images=(2, 3))
+        pipe = _load_artifact(args.engine, device=args.device, surface="flow", need_viz=True,
+                              need_images=(2, 3))
         if pipe is None:
             return 2
         video_cv2("the flow MP4")
@@ -756,7 +762,7 @@ def cmd_bench(args) -> int:
             log(f"bench --engine: the artifact is fixed at {tuple(meta['in_hw'])}; --size "
                 f"{args.size} cannot apply (re-export at that size)", tag="ERROR")
             return 2
-        pipe = _load_artifact(args.engine, surface="bench")
+        pipe = _load_artifact(args.engine, device=args.device, surface="bench")
         if pipe is None:
             return 2
         with _maybe_trace(args):
@@ -803,7 +809,8 @@ def cmd_views(args) -> int:
     size = args.resize or 518
     imgs = [resize(read_image(p), (size, size)) for p in args.images]
     if args.engine:
-        pipe = _load_artifact(args.engine, surface="views", need_views=len(imgs))
+        pipe = _load_artifact(args.engine, device=args.device, surface="views",
+                              need_views=len(imgs))
         if pipe is None:
             return 2
     elif not args.model:
@@ -846,7 +853,7 @@ def cmd_serve(args) -> int:
                 "--device-mesh ignored", tag="WARN")
         loaded = []
         for path in args.engine:
-            eng = _load_artifact(path, surface="serve")
+            eng = _load_artifact(path, device=args.device, surface="serve")
             if eng is None:
                 return 2
             loaded.append(eng)
@@ -883,11 +890,21 @@ def cmd_serve(args) -> int:
 
 def cmd_export(args) -> int:
     """Write a serialized engine artifact (``.mdeteng``,
-    ``runtime/export.py``): the fused programs and the weights, the port's
-    counterpart of the reference writing its TensorRT plan
-    (``Depth_Anything_V2/onnx2trt.py:60-68``). Serve it with ``--engine``."""
-    from monocular_depth_estimation_trt_tpu_torch.runtime.export import export_pipeline
+    ``runtime/export.py``): the fused programs of each of ``--platforms``
+    and the weights, the port's counterpart of the reference writing its
+    TensorRT plan (``Depth_Anything_V2/onnx2trt.py:60-68``). The pipeline
+    is built on ``--device``; the programs need no card. Serve it with
+    ``--engine``."""
+    from monocular_depth_estimation_trt_tpu_torch.runtime.export import (
+        export_pipeline,
+        parse_platforms,
+    )
 
+    try:
+        platforms = parse_platforms(args.platforms)
+    except ValueError as e:
+        log(f"export --platforms: {e}", tag="ERROR")
+        return 2
     pipe = _build(args, "encoder", "checkpoint", "precision")
     if args.serve_bundle:
         # what `serve --engine` needs: power-of-two buckets up to N, each in
@@ -903,7 +920,7 @@ def cmd_export(args) -> int:
     views = [int(x) for x in args.views.split(",") if x.strip()]
     path = export_pipeline(pipe, (args.size, args.size), with_viz=with_viz, batches=batches,
                            views=views, stream_window=args.stream_window,
-                           path=args.out or None)
+                           path=args.out or None, platforms=platforms)
     print(path)
     return 0
 
@@ -921,7 +938,11 @@ def cmd_doctor(args) -> int:
     from monocular_depth_estimation_trt_tpu_torch.ops.cuda import _build
     from monocular_depth_estimation_trt_tpu_torch.runtime import native
     from monocular_depth_estimation_trt_tpu_torch.runtime.engine import EngineRegistry
-    from monocular_depth_estimation_trt_tpu_torch.runtime.export import exported_dir, read_meta
+    from monocular_depth_estimation_trt_tpu_torch.runtime.export import (
+        artifact_platforms,
+        exported_dir,
+        read_meta,
+    )
 
     print(f"torch              : {torch.__version__} (CUDA {torch.version.cuda})")
     try:
@@ -937,14 +958,21 @@ def cmd_doctor(args) -> int:
     print(f"kernel library     : {os.path.relpath(lib)} {state}")
     print(f"mdet cache dir     : {cache_dir()}")
     print(f"built engines      : {len(EngineRegistry().list())} registry entries")
-    port, other = [], []
-    for path in glob.glob(os.path.join(exported_dir(), "*.mdeteng")):
+    port, other = {}, []
+    for path in sorted(glob.glob(os.path.join(exported_dir(), "*.mdeteng"))):
         try:
-            (port if read_meta(path).get("runtime") == "torch" else other).append(path)
+            meta = read_meta(path)
         except (OSError, KeyError, ValueError):
+            other.append(path)
+            continue
+        if meta.get("runtime") == "torch":
+            port[path] = artifact_platforms(meta)
+        else:
             other.append(path)
     print(f"exported artifacts : {len(port)} of the port"
           + (f" (and {len(other)} it cannot serve)" if other else ""))
+    for path, platforms in port.items():
+        print(f"  {os.path.basename(path)}: platforms {','.join(platforms)}")
     bundles = glob.glob(os.path.join(cache_dir(), "params", "*_int8bundle_v2.pt"))
     mirror = os.environ.get("MDET_HF_CACHE") or os.path.join(cache_dir(), "hf")
     checkpoints = [f for f in glob.glob(os.path.join(mirror, "**", "*"), recursive=True)
@@ -1504,6 +1532,9 @@ def build_parser() -> argparse.ArgumentParser:
                      "--engine` needs)")
     exp.add_argument("--out", default="",
                      help="output path (default: <cache>/exported/<name>.mdeteng)")
+    exp.add_argument("--platforms", default="cpu,cuda",
+                     help="comma-separated device types to trace a program for (cpu, cuda); "
+                     "a host with no card traces cuda too (run it with --device cpu)")
     _add_precision_args(exp)
     exp.set_defaults(fn=cmd_export)
 

@@ -11,27 +11,40 @@ into one ``.mdeteng`` zip, and :func:`load_engine` reads it back into a
 and imports none of the model zoo. The kernels K1 to K4 are ``mdet``
 operators (``ops/cuda/``), so an exported graph holds them.
 
+One artifact holds a program for each platform it names (``cpu``,
+``cuda``; by default both, as the JAX package's holds ``cpu`` and ``tpu``):
+each module is traced once per platform on fake tensors of that platform's
+device, so a host with no card builds the CUDA programs, and each platform
+is traced along its own branches (the wrappers pad K2/K3's heads and K4's
+columns on a card only). The pipeline may live on either device.
+
 Container (``MDETENG`` v2, the JAX package's layout):
 
 * ``meta.json``: model, artifact, in_hw, precision, viz, metric, inputs,
   ``n_image_args``, ``output_names``, the module table keyed
   ``b<batch>[_viz]``, ``views_s<S>`` and ``stream``, the weight manifest,
-  and ``runtime: "torch"`` with ``torch_version`` and the ``device`` type it
-  was exported on (an artifact serves on that device type; a JAX artifact,
-  which has none of these, is refused);
-* ``modules/<key>.bin``: one ``torch.export.save``d program per module,
-  each a function of ``(weights, *images)`` (the stream module
-  ``(weights, frame, state) -> (outputs, state')``);
+  ``platforms`` (the JAX key) and ``runtime: "torch"`` with
+  ``torch_version`` (a JAX artifact, which has no runtime, is refused);
+* ``modules/<platform>/<key>.bin``: one ``torch.export.save``d program per
+  module and platform, each a function of ``(weights, *images)`` (the
+  stream module ``(weights, frame, state) -> (outputs, state')``); a
+  constant that a forward builds (``ops/constants.py``) is stored on the
+  host and goes to the platform's device at load;
 * ``params/<i>.bin``: the weights, stored once, uncompressed, and shared by
-  every module: each distinct tensor storage of the pipeline's modules is
-  one entry (a streaming model that shares the joint model's tensors adds
-  none);
+  every module and platform: each distinct tensor storage of the pipeline's
+  modules is one entry (a streaming model that shares the joint model's
+  tensors adds none);
 * ``state/<i>.bin``: the stream's initial state, where it is not zero; a
   zero tensor is a manifest entry only and is made on the device at load.
 
+:func:`load_engine` reads the programs of one platform, the device its
+caller asks for (``cuda`` unless told otherwise), and raises where the
+artifact lacks that platform or the device is a card and none is present.
 On the card each loaded module is served through
 ``runtime/engine.py::Engine``: the first call at a module captures a CUDA
-graph, later calls replay it. A CUDA artifact loaded without a card raises.
+graph, later calls replay it. An artifact of the single-device layout
+(``device`` in its meta, ``modules/<key>.bin``) loads as one of that
+platform.
 """
 
 from __future__ import annotations
@@ -55,6 +68,8 @@ from monocular_depth_estimation_trt_tpu_torch.utils.logging import log
 _META_NAME = "meta.json"
 FORMAT_VERSION = 2
 RUNTIME = "torch"  # tells the port's artifacts from the JAX package's
+PLATFORMS = ("cpu", "cuda")  # the device types a program can be traced for
+DEFAULT_PLATFORMS: Tuple[str, ...] = PLATFORMS
 
 
 def exported_dir() -> str:
@@ -69,6 +84,35 @@ def _module_key(batch: int, viz: bool) -> str:
 
 def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).replace("torch.", "")
+
+
+def parse_platforms(platforms) -> Tuple[str, ...]:
+    """The platform names of ``platforms`` (a sequence, or a comma-separated
+    string) in order, duplicates dropped; raises on an empty list or a name
+    other than ``cpu`` and ``cuda``."""
+    if isinstance(platforms, str):
+        platforms = platforms.split(",")
+    names = tuple(dict.fromkeys(str(p).strip().lower() for p in platforms if str(p).strip()))
+    bad = [p for p in names if p not in PLATFORMS]
+    if bad or not names:
+        raise ValueError(f"platforms must be a non-empty subset of {list(PLATFORMS)}, got "
+                         f"{list(platforms)!r}" + (" (a TPU program is the JAX package's)"
+                                                   if "tpu" in bad else ""))
+    return names
+
+
+def artifact_platforms(meta: Dict[str, Any]) -> List[str]:
+    """The platforms an artifact's programs were traced for (an artifact of
+    the single-device layout names its one device type)."""
+    if "platforms" in meta:
+        return list(meta["platforms"])
+    return [meta["device"]] if meta.get("device") else []
+
+
+def _module_name(meta: Dict[str, Any], platform: str, key: str) -> str:
+    if "platforms" in meta:
+        return f"modules/{platform}/{key}.bin"
+    return f"modules/{key}.bin"
 
 
 def _write_tensors(z: zipfile.ZipFile, tensors, prefix: str,
@@ -149,16 +193,95 @@ class _Program(nn.Module):
     so that the weights are inputs of the graph and not constants of it.
     The snapshot is not a submodule: the program holds no parameter."""
 
-    def __init__(self, snapshot: _Snapshot, names, fn: Callable):
+    def __init__(self, snapshot: _Snapshot, names, fn: Callable, platform: str):
         super().__init__()
         object.__setattr__(self, "_snapshot", snapshot)
         self._names = names
         self._fn = fn
+        self._platform = platform
 
     def forward(self, weights: List[torch.Tensor], *inputs):
         self._snapshot.fn = self._fn
         tensors = {name: weights[i] for name, i in self._names}
-        return torch.func.functional_call(self._snapshot, tensors, inputs)
+        if self._platform not in DISPATCHED_INDEXING:
+            return torch.func.functional_call(self._snapshot, tensors, inputs)
+        with _DispatchedIndexing():
+            return torch.func.functional_call(self._snapshot, tensors, inputs)
+
+
+# The platforms whose traces index through the dispatcher: a CPU-only build
+# cannot index a fake CUDA tensor through Tensor.__getitem__ (its binding
+# holds a CUDA device guard, which such a build lacks), so every CUDA program
+# is traced this way, on any host, and is the same program wherever it is
+# exported.
+DISPATCHED_INDEXING = {"cuda"}
+_INT64_MAX = 2 ** 63 - 1
+
+
+def _basic_index(x: torch.Tensor, index):
+    """``at::indexing::applySlicing``: the view of ``x`` that ``index``'s
+    ints, slices, None and Ellipsis select, and its tensor indices placed
+    on the view's dimensions (None where a dimension is not indexed)."""
+    if not isinstance(index, tuple):
+        index = (index,)
+    index = tuple(torch.tensor(i) if isinstance(i, list) else i for i in index)
+    specified = sum(i.dim() if isinstance(i, torch.Tensor) and i.dtype in (torch.bool, torch.uint8)
+                    else 1 for i in index if i is not None and i is not Ellipsis)
+    out, dim, tensors = x, 0, []
+    for i in index:
+        if i is Ellipsis:
+            dim += x.dim() - specified
+        elif i is None:
+            out = out.unsqueeze(dim)
+            dim += 1
+        elif isinstance(i, slice):
+            step = 1 if i.step is None else int(i.step)
+            start = 0 if i.start is None else int(i.start)
+            stop = _INT64_MAX if i.stop is None else int(i.stop)
+            if (start, stop, step) != (0, _INT64_MAX, 1):
+                out = torch.ops.aten.slice.Tensor(out, dim, start, stop, step)
+            dim += 1
+        elif isinstance(i, torch.Tensor):
+            tensors += [None] * (dim - len(tensors)) + [i]
+            dim += i.dim() if i.dtype in (torch.bool, torch.uint8) else 1
+        elif isinstance(i, (int, np.integer)) and not isinstance(i, bool):
+            out = out.select(dim, int(i))
+        else:
+            raise TypeError(f"unsupported index {i!r} in a traced CUDA program")
+    return out, tensors
+
+
+class _DispatchedIndexing(torch.overrides.TorchFunctionMode):
+    """``Tensor.__getitem__``, ``__setitem__``, ``copy_``, ``contiguous``
+    and ``__invert__`` as the aten operators their bindings run (``slice``,
+    ``select``, ``unsqueeze``, ``index``, ``index_put_``, ``copy_``,
+    ``fill_``, ``contiguous``, ``bitwise_not``), which a fake CUDA tensor
+    takes on any host."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func is torch.Tensor.__getitem__:
+            view, tensors = _basic_index(*args)
+            return torch.ops.aten.index.Tensor(view, tensors) if tensors else view
+        if func is torch.Tensor.__setitem__:
+            x, index, value = args
+            view, tensors = _basic_index(x, index)
+            if tensors:
+                if not isinstance(value, torch.Tensor):
+                    value = torch.full((), value, dtype=x.dtype, device=x.device)
+                torch.ops.aten.index_put_.default(view, tensors, value)
+            elif isinstance(value, torch.Tensor):
+                torch.ops.aten.copy_.default(view, value)
+            else:
+                view.fill_(value)
+            return None
+        if func is torch.Tensor.copy_:
+            return torch.ops.aten.copy_.default(*args, **kwargs)
+        if func is torch.Tensor.contiguous:
+            return torch.ops.aten.contiguous.default(*args, **kwargs)
+        if func is torch.Tensor.__invert__:
+            return torch.ops.aten.bitwise_not.default(*args)
+        return func(*args, **kwargs)
 
 
 def _engine_of(pipe, in_hw, viz: bool) -> Engine:
@@ -191,6 +314,62 @@ def _signature(tree) -> list:
             for t in _pytree.tree_leaves(tree) if isinstance(t, torch.Tensor)]
 
 
+_MOVES = (torch.ops.aten.to.dtype_layout, torch.ops.aten.to.device,
+          torch.ops.aten._to_copy.default)
+
+
+def _fold_constant_moves(ep) -> None:
+    """In place: a constant that the trace built on the host and moved to
+    the traced device (``ops/constants.py`` inside a trace) becomes a
+    constant of that device, as one built there would be. Its placeholder
+    takes the moved value's device and its users read it straight; the
+    stored tensor stays on the host and goes to the device at load
+    (:func:`_load_program`), so that a card-less host can write it."""
+    from torch.export.graph_signature import InputKind
+
+    constants = {spec.arg.name for spec in ep.graph_signature.input_specs
+                 if spec.kind == InputKind.CONSTANT_TENSOR}
+    graph = ep.graph
+    assert_meta = torch.ops.aten._assert_tensor_metadata.default
+    for node in list(graph.nodes):
+        if node.op != "placeholder" or node.name not in constants:
+            continue
+        val = node.meta.get("val")
+        moves = [u for u in node.users
+                 if u.op == "call_function" and u.target in _MOVES
+                 and isinstance(u.meta.get("val"), torch.Tensor)
+                 and u.meta["val"].dtype == val.dtype and u.meta["val"].device != val.device]
+        checks = [u for u in node.users if u.target is assert_meta]
+        if not moves or len(moves) + len(checks) != len(node.users):
+            continue
+        if len({m.meta["val"].device for m in moves}) != 1:
+            continue
+        node.meta["val"] = moves[0].meta["val"]
+        for m in moves:
+            m.replace_all_uses_with(node)
+            graph.erase_node(m)
+        for c in checks:
+            graph.erase_node(c)
+    ep.graph_module.recompile()
+
+
+def _load_program(blob: bytes, device: torch.device) -> nn.Module:
+    """A saved program as a module, with its constants on the devices its
+    graph reads them on (``device`` for those of ``device``'s type)."""
+    from torch.export.graph_signature import InputKind
+
+    ep = torch.export.load(io.BytesIO(blob))
+    vals = {n.name: n.meta.get("val") for n in ep.graph.nodes if n.op == "placeholder"}
+    for spec in ep.graph_signature.input_specs:
+        if spec.kind != InputKind.CONSTANT_TENSOR:
+            continue
+        want = getattr(vals.get(spec.arg.name), "device", None)
+        if want is not None:
+            ep.constants[spec.target] = ep.constants[spec.target].to(
+                device if want.type == device.type else want)
+    return ep.module()
+
+
 def export_pipeline(
     pipe,
     in_hw: Tuple[int, int],
@@ -200,6 +379,7 @@ def export_pipeline(
     views: Sequence[int] = (),
     stream_window: int = 0,
     path: Optional[str] = None,
+    platforms: Sequence[str] = DEFAULT_PLATFORMS,
 ) -> str:
     """Export a pipeline's fused programs and its weights as one
     ``.mdeteng`` file; returns its path.
@@ -210,8 +390,12 @@ def export_pipeline(
     needed where ``views`` or ``stream_window`` gives a module).
     ``views``: one S-view module per S (the VGGT family). ``stream_window``:
     the causal KV-cache step (StreamVGGT, through the pipeline's
-    ``stream_export_bundle``). The artifact serves on the device type the
-    pipeline lives on."""
+    ``stream_export_bundle``). ``platforms``: the device types to trace
+    each module for (``cpu``, ``cuda``), whatever device the pipeline lives
+    on; the weights are stored once for all of them."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    platforms = parse_platforms(platforms)
     viz_modes = (False, True) if with_viz == "both" else (bool(with_viz),)
     batches = tuple(sorted({int(b) for b in batches}))
     views = tuple(sorted({int(s) for s in views}))
@@ -237,7 +421,6 @@ def export_pipeline(
     if path is None:
         path = os.path.join(exported_dir(), f"{name}.mdeteng")
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    device = pipe.device
 
     modules = dict(pipe.export_modules())
     stream = None
@@ -248,59 +431,79 @@ def export_pipeline(
     snapshot = _Snapshot(modules)
     names, weights = _distinct_tensors(snapshot)
 
-    begin = time.perf_counter()
-    table: Dict[str, Dict[str, Any]] = {}
-    blobs: Dict[str, bytes] = {}
-    output_names: List[str] = []
-
-    def export_module(key, fn, example, entry):
-        # under no_grad, so that a forward's own no_grad regions (the
-        # constants' cache) leave no grad-mode switch in the graph
-        with torch.no_grad():
-            ep = torch.export.export(_Program(snapshot, names, fn), (weights, *example),
-                                     strict=False)
-        ep._example_inputs = None  # the weights are stored once, beside
-        buf = io.BytesIO()
-        torch.export.save(ep, buf)
-        blobs[key] = buf.getvalue()
-        outputs = _user_outputs(ep)
-        entry["outputs"] = _signature(outputs)
-        table[key] = entry
-        return outputs
-
-    def zeros(shape):
-        return torch.zeros(shape, dtype=torch.uint8, device=device)
-
+    # (key, function, example shapes and types, table entry), traced per platform
+    plan: List[Tuple[str, Callable, list, Dict[str, Any]]] = []
     for batch in batches:
         for viz in viz_modes:
             if batch == 1:
                 eng = _engine_of(pipe, in_hw, viz)
-                example = [zeros(a.shape) for a in eng._example]
+                shapes = [tuple(a.shape) for a in eng._example]
             else:
                 eng = pipe.batch_engine_for(in_hw, batch, viz)
-                example = [zeros((batch, *in_hw, 3))]
-            outputs = export_module(_module_key(batch, viz), eng._fn, example,
-                                    {"batch": batch, "viz": viz})
-            if isinstance(outputs, dict) and (not viz or not output_names):
-                output_names[:] = sorted(outputs)
+                shapes = [(batch, *in_hw, 3)]
+            plan.append((_module_key(batch, viz), eng._fn,
+                         [(s, torch.uint8) for s in shapes], {"batch": batch, "viz": viz}))
     for s in views:
         # at the requested size, which need not be the pipeline's own
         eng = pipe.views_engine(s, in_hw)
-        export_module(f"views_s{s}", eng._fn, [zeros((s, *in_hw, 3))],
-                      {"batch": 1, "viz": False, "views": s})
+        plan.append((f"views_s{s}", eng._fn, [((s, *in_hw, 3), torch.uint8)],
+                     {"batch": 1, "viz": False, "views": s}))
     if stream is not None:
         step, state0 = stream
-        export_module("stream", step, [zeros((*in_hw, 3)), list(state0)],
-                      {"batch": 1, "viz": True, "stream": True, "window": stream_window})
+        plan.append(("stream", step,
+                     [((*in_hw, 3), torch.uint8), [(tuple(t.shape), t.dtype) for t in state0]],
+                     {"batch": 1, "viz": True, "stream": True, "window": stream_window}))
+
+    table: Dict[str, Dict[str, Any]] = {}
+    blobs: Dict[str, bytes] = {}
+    output_names: List[str] = []
+    seconds: Dict[str, float] = {}
+    for platform in platforms:
+        begin = time.perf_counter()
+        # the weights and inputs as fake tensors on the platform's device:
+        # nothing is allocated there, so a host with no card traces for one
+        mode = FakeTensorMode(allow_non_fake_inputs=True)
+
+        def fake(shape, dtype):
+            with mode:
+                return torch.empty(shape, dtype=dtype, device=platform)
+
+        fake_weights = [fake(w.shape, w.dtype) for w in weights]
+        for key, fn, example, entry in plan:
+            args = [[fake(*a) for a in x] if isinstance(x, list) else fake(*x)
+                    for x in example]
+            try:
+                # under no_grad, so that a forward's own no_grad regions
+                # leave no grad-mode switch in the graph
+                with torch.no_grad():
+                    ep = torch.export.export(_Program(snapshot, names, fn, platform),
+                                             (fake_weights, *args), strict=False)
+            except Exception as e:
+                raise RuntimeError(f"{pipe.spec.model}: module {key} cannot be traced for "
+                                   f"platform {platform}: {e}") from e
+            _fold_constant_moves(ep)
+            ep._example_inputs = None  # the weights are stored once, beside
+            buf = io.BytesIO()
+            torch.export.save(ep, buf)
+            blobs[f"modules/{platform}/{key}.bin"] = buf.getvalue()
+            outputs = _user_outputs(ep)
+            signature = _signature(outputs)
+            if key in table and table[key]["outputs"] != signature:
+                raise RuntimeError(
+                    f"{pipe.spec.model}: module {key} has outputs {signature} for platform "
+                    f"{platform}, {table[key]['outputs']} for {platforms[0]}")
+            table[key] = {**entry, "outputs": signature}
+            if (isinstance(outputs, dict) and not entry.get("views")
+                    and not entry.get("stream") and (not entry["viz"] or not output_names)):
+                output_names[:] = sorted(outputs)
+        seconds[platform] = round(time.perf_counter() - begin, 3)
 
     meta = {
         "format": "MDETENG",
         "format_version": FORMAT_VERSION,
         "runtime": RUNTIME,
         "torch_version": torch.__version__,
-        "device": device.type,
-        "device_name": (torch.cuda.get_device_name(device) if device.type == "cuda"
-                        else "cpu"),
+        "platforms": list(platforms),
         "model": pipe.spec.model,
         "artifact": name,
         "in_hw": list(in_hw),
@@ -311,7 +514,8 @@ def export_pipeline(
         "n_image_args": n_images,
         "output_names": output_names,
         "modules": table,
-        "export_seconds": round(time.perf_counter() - begin, 3),
+        "export_seconds": round(sum(seconds.values()), 3),
+        "export_seconds_by_platform": seconds,
         "timestamp": time.time(),
     }
     with zipfile.ZipFile(path, "w", compression=zipfile.ZIP_DEFLATED) as z:
@@ -319,10 +523,12 @@ def export_pipeline(
         if stream is not None:
             meta["state_manifest"] = _write_tensors(z, stream[1], "state", skip_zeros=True)
         z.writestr(_META_NAME, json.dumps(meta, indent=2))
-        for key, blob in blobs.items():
-            z.writestr(f"modules/{key}.bin", blob)
+        for name_in_zip, blob in blobs.items():
+            z.writestr(name_in_zip, blob)
     log(f"exported engine -> {path} ({os.path.getsize(path) / 1e6:.2f} MB, "
-        f"modules {sorted(table)}, device {device.type})")
+        f"modules {sorted(table)}, platforms {','.join(platforms)}"
+        + ("" if torch.cuda.is_available() else ", traced on a host with no CUDA device")
+        + ")")
     return path
 
 
@@ -332,8 +538,10 @@ def read_meta(path: str) -> Dict[str, Any]:
         return json.loads(z.read(_META_NAME))
 
 
-def check_meta(path: str, meta: Dict[str, Any]) -> None:
-    """Raise unless ``meta`` is a port artifact this process can serve."""
+def check_meta(path: str, meta: Dict[str, Any], device=None) -> torch.device:
+    """The device to serve ``meta``'s artifact on (``device``, default
+    ``cuda``); raises unless it is a port artifact with a program for that
+    device's type, and that device is present."""
     if meta.get("format") != "MDETENG":
         raise ValueError(f"{path}: not an MDETENG artifact")
     if meta.get("runtime") != RUNTIME:
@@ -341,8 +549,17 @@ def check_meta(path: str, meta: Dict[str, Any]) -> None:
         raise ValueError(
             f"{path}: exported by the JAX package{made}; the PyTorch port cannot run a "
             "JAX artifact. Re-export it with the port's export command")
-    if meta.get("device") == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"{path} was exported for a CUDA device and none is available")
+    device = torch.device(device if device is not None else "cuda")
+    platforms = artifact_platforms(meta)
+    if device.type not in platforms:
+        raise ValueError(f"{path} was exported for {platforms}; re-export with --platforms "
+                         f"including {device.type}")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{path}: its cuda program needs a CUDA device and there is no "
+                           "CUDA device (--device cpu serves its cpu program)"
+                           if "cpu" in platforms else
+                           f"{path}: no CUDA device is available to serve it")
+    return device
 
 
 class LoadedEngine:
@@ -352,11 +569,13 @@ class LoadedEngine:
     ``run``, ``batch``, ``video``, the server and the other serving surfaces
     take it where they take a pipeline. Imports no model code.
 
-    The weights go to the device once, at load. Each module is served by
-    an :class:`~monocular_depth_estimation_trt_tpu_torch.runtime.engine.Engine`
+    ``device`` (default ``cuda``) picks the programs: only that platform's
+    are read, and the weights go to that device once, at load. Each module
+    is served by an
+    :class:`~monocular_depth_estimation_trt_tpu_torch.runtime.engine.Engine`
     (one CUDA graph per module on the card), built at its first call."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, device=None):
         # the operators a graph may hold must be registered before a load
         from monocular_depth_estimation_trt_tpu_torch.ops.cuda import (  # noqa: F401
             flash_attention,
@@ -366,16 +585,16 @@ class LoadedEngine:
         begin = time.perf_counter()
         with zipfile.ZipFile(path) as z, open(path, "rb") as raw_file:
             self.meta = json.loads(z.read(_META_NAME))
-            check_meta(path, self.meta)
+            self.device = check_meta(path, self.meta, device)
             if self.meta["torch_version"] != torch.__version__:
                 log(f"{os.path.basename(path)}: exported with torch "
                     f"{self.meta['torch_version']}, running {torch.__version__}; re-export "
                     "if loading fails", tag="WARN")
-            self.device = torch.device(self.meta["device"])
             self._weights = [_read_tensor(z, raw_file, f"params/{i}.bin", e, self.device)
                              for i, e in enumerate(self.meta["param_manifest"])]
             self._programs = {
-                key: torch.export.load(io.BytesIO(z.read(f"modules/{key}.bin"))).module()
+                key: _load_program(
+                    z.read(_module_name(self.meta, self.device.type, key)), self.device)
                 for key in self.meta["modules"]}
             self._state0 = [_read_tensor(z, raw_file, f"state/{i}.bin", e, self.device)
                             for i, e in enumerate(self.meta.get("state_manifest", ()))]
@@ -406,7 +625,7 @@ class LoadedEngine:
         ins = ", ".join(f"{i['dtype']}{tuple(i['shape'])}" for i in m["inputs"])
         return (f"{m.get('model', '?')} [{m.get('artifact', '')}] in=({ins}) "
                 f"outputs={m.get('output_names', [])} modules={sorted(m['modules'])} "
-                f"device={m['device']}")
+                f"platforms={artifact_platforms(m)} device={self.device.type}")
 
     # -- engines ------------------------------------------------------------
     def _engine(self, key: str) -> Engine:
@@ -592,5 +811,6 @@ class LoadedEngine:
         return DepthPipeline.benchmark(self, tuple(in_hw or self.meta["in_hw"]), config)
 
 
-def load_engine(path: str) -> LoadedEngine:
-    return LoadedEngine(path)
+def load_engine(path: str, device=None) -> LoadedEngine:
+    """The artifact at ``path`` served on ``device`` (default ``cuda``)."""
+    return LoadedEngine(path, device)

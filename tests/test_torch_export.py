@@ -137,7 +137,7 @@ def artifacts(tmp_path_factory):
 
 
 def test_roundtrip_matches_pipeline(artifacts):
-    eng = load_engine(artifacts["paths"]["raw"])
+    eng = load_engine(artifacts["paths"]["raw"], "cpu")
     img = _img()
     got, want = eng(img), artifacts["pipe"](img)
     assert set(got) == set(want) == {"depth"}
@@ -146,7 +146,7 @@ def test_roundtrip_matches_pipeline(artifacts):
 
 def test_viz_epilogue_is_fused_into_artifact(artifacts):
     path = artifacts["paths"]["viz"]
-    out = load_engine(path)(_img(), viz=True)
+    out = load_engine(path, "cpu")(_img(), viz=True)
     want = artifacts["pipe"](_img(), viz=True)
     assert out["viz"].dtype == np.uint8
     np.testing.assert_array_equal(out["viz"], want["viz"])
@@ -159,10 +159,10 @@ def test_weights_are_snapshotted(tmp_path):
     pipe = _toy_pipeline()
     path = export_pipeline(pipe, (16, 16), path=str(tmp_path / "s.mdeteng"))
     img = _img()
-    before = load_engine(path)(img)["depth"]
+    before = load_engine(path, "cpu")(img)["depth"]
     with torch.no_grad():
         pipe.model.w.zero_()
-    np.testing.assert_array_equal(before, load_engine(path)(img)["depth"])
+    np.testing.assert_array_equal(before, load_engine(path, "cpu")(img)["depth"])
     assert not np.allclose(before, pipe(img)["depth"])
 
 
@@ -174,7 +174,8 @@ def test_weights_stored_once_across_modules(artifacts):
         names = z.namelist()
         infos = {i.filename: i for i in z.infolist()}
     assert sum(n.startswith("params/") for n in names) == 2  # w and b, once
-    assert sum(n.startswith("modules/") for n in names) == 6
+    assert sum(n.startswith("modules/cpu/") for n in names) == 6  # one program a platform
+    assert sum(n.startswith("modules/cuda/") for n in names) == 6
     assert all(infos[n].compress_type == zipfile.ZIP_STORED for n in names
                if n.startswith("params/"))
 
@@ -191,7 +192,7 @@ def test_weights_shared_by_two_modules_are_stored_once(tmp_path):
 
 
 def test_serve_bundle_batch_call_buckets_and_pads(artifacts):
-    eng = load_engine(artifacts["paths"]["bundle"])
+    eng = load_engine(artifacts["paths"]["bundle"], "cpu")
     assert eng.batches == [1, 2, 4]
     frames = np.stack([_img(seed=s) for s in range(3)])  # 3 -> bucket 4
     got = eng.batch_call(frames)
@@ -202,7 +203,7 @@ def test_serve_bundle_batch_call_buckets_and_pads(artifacts):
 
 
 def test_missing_bucket_raises_with_hint(artifacts):
-    eng = load_engine(artifacts["paths"]["raw"])
+    eng = load_engine(artifacts["paths"]["raw"], "cpu")
     with pytest.raises(ValueError, match="serve-bundle"):
         eng.batch_call(np.stack([_img(), _img()]))
     with pytest.raises(ValueError, match="serve-bundle"):
@@ -210,12 +211,12 @@ def test_missing_bucket_raises_with_hint(artifacts):
 
 
 def test_viz_falls_back_to_raw_module(artifacts):
-    out = load_engine(artifacts["paths"]["raw"])(_img(), viz=True)
+    out = load_engine(artifacts["paths"]["raw"], "cpu")(_img(), viz=True)
     assert "depth" in out and "viz" not in out
 
 
 def test_raw_falls_back_to_viz_module(artifacts):
-    eng = load_engine(artifacts["paths"]["viz"])
+    eng = load_engine(artifacts["paths"]["viz"], "cpu")
     out = eng(_img(), viz=False)
     assert "depth" in out and "viz" in out
     assert eng.engine_for((16, 16), False).name.endswith("_b1_viz")
@@ -229,13 +230,14 @@ def test_export_rejects_empty_batches(tmp_path):
 def test_meta_describes_signature(artifacts):
     path = artifacts["paths"]["raw"]
     meta = read_meta(path)
-    assert (meta["format"], meta["runtime"], meta["device"]) == ("MDETENG", "torch", "cpu")
+    assert (meta["format"], meta["runtime"], meta["platforms"]) == ("MDETENG", "torch",
+                                                                    ["cpu", "cuda"])
     assert meta["torch_version"] == torch.__version__
     assert meta["model"] == "toy_export" and meta["in_hw"] == [16, 16]
     assert meta["inputs"] == [{"shape": [16, 16, 3], "dtype": "uint8"}]
     assert meta["n_image_args"] == 1 and meta["output_names"] == ["depth"]
     assert meta["modules"]["b1"]["outputs"] == [{"shape": [16, 16], "dtype": "float32"}]
-    eng = load_engine(path)
+    eng = load_engine(path, "cpu")
     assert eng.in_shapes == [(16, 16, 3)]
     assert "toy_export" in eng.describe()
     assert eng.spec.artifact_name().startswith("toy_export")
@@ -246,7 +248,7 @@ def test_load_rejects_non_engine_zip(tmp_path):
     with zipfile.ZipFile(p, "w") as z:
         z.writestr("meta.json", "{}")
     with pytest.raises(ValueError, match="not an MDETENG artifact"):
-        load_engine(p)
+        load_engine(p, "cpu")
 
 
 def test_load_refuses_a_jax_artifact(tmp_path):
@@ -268,13 +270,13 @@ def test_load_refuses_a_jax_artifact(tmp_path):
     path = jexport_pipeline(jpipe, (16, 16), path=str(tmp_path / "jax.mdeteng"),
                             platforms=("cpu",))
     with pytest.raises(ValueError, match="exported by the JAX package"):
-        load_engine(path)
+        load_engine(path, "cpu")
     assert cli.main([*CPU, "run", "--engine", path, "--image", _png(tmp_path / "i.png", _img()),
                      "--out", str(tmp_path / "o")]) == 2
 
 
 def test_flow_pipeline_exports_two_image_artifact(artifacts, tmp_path):
-    eng = load_engine(artifacts["paths"]["flow_both"])
+    eng = load_engine(artifacts["paths"]["flow_both"], "cpu")
     assert eng.meta["n_image_args"] == 2
     f1, f2 = _img(seed=1), _img(seed=2)
     np.testing.assert_array_equal(eng(f1, f2)["flow"], artifacts["flow"](f1, f2)["flow"])
@@ -290,7 +292,7 @@ def test_flow_pipeline_exports_two_image_artifact(artifacts, tmp_path):
 
 def test_views_module_exports_and_roundtrips(artifacts):
     path = artifacts["paths"]["views"]
-    eng = load_engine(path)
+    eng = load_engine(path, "cpu")
     assert "views_s2" in read_meta(path)["modules"]
     views = np.stack([_img(seed=s) for s in range(2)])
     got, want = eng.multi_view(views), artifacts["views"].multi_view(views)
@@ -307,7 +309,7 @@ def test_views_export_honors_requested_size(tmp_path):
     pipe = _toy_views_pipeline()
     path = export_pipeline(pipe, (8, 8), views=(2,), path=str(tmp_path / "mv8.mdeteng"))
     assert read_meta(path)["modules"]["views_s2"]["outputs"][0]["shape"] == [2, 8, 8]
-    out = load_engine(path).multi_view(np.stack([_img((8, 8, 3), seed=s) for s in range(2)]))
+    out = load_engine(path, "cpu").multi_view(np.stack([_img((8, 8, 3), seed=s) for s in range(2)]))
     assert out["depth"].shape == (2, 8, 8)
 
 
@@ -318,7 +320,7 @@ def test_stream_module_exports_causal_state(artifacts):
     meta = read_meta(path)
     assert meta["modules"]["stream"]["stream"] is True
     assert meta["modules"]["stream"]["window"] == 2
-    runner = load_engine(path).stream()
+    runner = load_engine(path, "cpu").stream()
     f = _img()
     step, state, _ = artifacts["stream"].stream_export_bundle(2, (16, 16))
     for _ in range(2):
@@ -327,7 +329,7 @@ def test_stream_module_exports_causal_state(artifacts):
         got = runner(f, viz=True)
         np.testing.assert_array_equal(got["depth"], want["depth"].numpy())
         assert "viz" in got
-    assert load_engine(path)(_img())["depth"].shape == (16, 16)  # b1, not the stream
+    assert load_engine(path, "cpu")(_img())["depth"].shape == (16, 16)  # b1, not the stream
 
 
 def test_stream_zero_state_ships_as_manifest_only(artifacts):
@@ -340,7 +342,7 @@ def test_stream_zero_state_ships_as_manifest_only(artifacts):
 
 
 def test_stream_window_mismatch_and_rejections(artifacts, tmp_path):
-    eng = load_engine(artifacts["paths"]["stream"])
+    eng = load_engine(artifacts["paths"]["stream"], "cpu")
     with pytest.raises(ValueError, match="stream-window 2"):
         eng.stream(window=4)
     assert callable(eng.stream(window=2))
@@ -355,7 +357,7 @@ def test_stream_window_mismatch_and_rejections(artifacts, tmp_path):
 def test_stream_fallback_for_plain_artifacts(artifacts):
     from monocular_depth_estimation_trt_tpu_torch.runtime.transfer import supports_device_out
 
-    runner = load_engine(artifacts["paths"]["viz"]).stream()
+    runner = load_engine(artifacts["paths"]["viz"], "cpu").stream()
     out = runner(_img(), viz=True)
     assert "depth" in out and "viz" in out
     assert supports_device_out(runner)
@@ -370,7 +372,7 @@ def test_cli_export_then_run_engine(tmp_path, monkeypatch):
     monkeypatch.setattr(treg, "build_pipeline", lambda name, **kw: pipe)
     path = str(tmp_path / "cli.mdeteng")
     assert cli.main([*CPU, "export", "toy_export", "--size", "16", "--viz", "--out", path]) == 0
-    assert read_meta(path)["device"] == "cpu"
+    assert read_meta(path)["platforms"] == ["cpu", "cuda"]
     img = _img((20, 24, 3))
     out_dir = tmp_path / "out"
     assert cli.main([*CPU, "run", "--engine", path, "--image", _png(tmp_path / "img.png", img),
@@ -380,6 +382,63 @@ def test_cli_export_then_run_engine(tmp_path, monkeypatch):
     depth = np.load(out_dir / npz)["depth"]
     np.testing.assert_array_equal(depth, pipe(imageio.resize(img, (16, 16)))["depth"])
     assert any(f.endswith((".jpg", ".png")) for f in files)
+
+
+def _surface_argv(surface, path, tmp_path):
+    """The argv of one ``--engine`` surface that takes a single-image artifact."""
+    frames = tmp_path / "frames"
+    if not frames.exists():
+        frames.mkdir()
+        _png(frames / "f0.png", _img())
+        _png(frames / "f1.png", _img(seed=8))
+    out = str(tmp_path / f"{surface}_out")
+    return {
+        "run": ["run", "--engine", path, "--image", str(frames / "f0.png"), "--out", out],
+        "batch": ["batch", "--engine", path, "--images-dir", str(frames), "--batch", "2",
+                  "--out", out, "--save"],
+        "bench": ["bench", "--engine", path, "--warmup", "1", "--iterations", "2"],
+        "video": ["video", "--engine", path, "--video", str(tmp_path / "x.mp4"), "--out", out],
+        "webcam": ["webcam", "--engine", path],
+        "serve": ["serve", "--engine", path, "--port", "0"],
+    }[surface]
+
+
+@pytest.fixture(scope="module")
+def platform_artifacts(tmp_path_factory):
+    """The toy pipeline with its viz, exported for the CPU alone and for both."""
+    d = tmp_path_factory.mktemp("platform_artifacts")
+    pipe = _toy_pipeline()
+    return pipe, {platforms: export_pipeline(pipe, (16, 16), with_viz=True, batches=(1, 2),
+                                             platforms=platforms,
+                                             path=str(d / f"{'_'.join(platforms)}.mdeteng"))
+                  for platforms in (("cpu",), ("cpu", "cuda"))}
+
+
+@pytest.mark.parametrize("surface", ["batch", "bench", "run", "serve", "video", "webcam"])
+def test_engine_surfaces_serve_on_the_device_asked_for(surface, platform_artifacts, tmp_path,
+                                                       monkeypatch, cpu_benchmark):
+    """``--device`` picks the program: a cpu-only artifact under ``--device
+    cuda`` exits 2 naming ``--platforms`` (it used to serve on the CPU); a
+    cpu,cuda one exits non-zero on this card-less host; ``--device cpu``
+    serves the CPU program (the pipeline's outputs)."""
+    pipe, paths = platform_artifacts
+    lines = []
+    monkeypatch.setattr(cli, "log", lambda msg, *a, tag="MDET": lines.append(f"[{tag}] {msg}"))
+    argv = _surface_argv(surface, paths[("cpu",)], tmp_path)
+    assert cli.main(["--device", "cuda", *argv]) == 2
+    assert [ln for ln in lines if ln.startswith("[ERROR]") and "--platforms including cuda" in ln]
+    lines.clear()
+    argv = _surface_argv(surface, paths[("cpu", "cuda")], tmp_path)
+    assert cli.main(["--device", "cuda", *argv]) != 0
+    assert [ln for ln in lines if ln.startswith("[ERROR]") and "no CUDA device" in ln]
+    if surface in ("run", "batch", "bench"):  # the others need a codec, a camera or a socket
+        lines.clear()
+        assert cli.main(["--device", "cpu", *argv]) == 0
+        assert [ln for ln in lines if "platforms=['cpu', 'cuda'] device=cpu" in ln]
+        if surface != "bench":
+            out = tmp_path / f"{surface}_out"
+            npz = sorted(f for f in os.listdir(out) if f.endswith(".npz"))
+            np.testing.assert_array_equal(np.load(out / npz[0])["depth"], pipe(_img())["depth"])
 
 
 def test_cli_export_takes_the_bundle_flags(tmp_path, monkeypatch):
@@ -432,15 +491,15 @@ def test_cli_bench_engine_and_trace(artifacts, tmp_path, cpu_benchmark):
     assert json.load(open(trace_dir / trace))["traceEvents"]
     assert cli.main([*CPU, "bench", "--engine", views, "--views", "2"]) == 0
     assert cpu_benchmark == ["toy_export_16x16_bf16", "toy_views_16x16_bf16_in16x16_s2"]
-    rep = load_engine(views).benchmark_views(2, BenchmarkConfig(warmup=1, iterations=2))
+    rep = load_engine(views, "cpu").benchmark_views(2, BenchmarkConfig(warmup=1, iterations=2))
     assert rep.frames_per_iteration == 2
     with pytest.raises(ValueError, match="re-export with --views"):
-        load_engine(views).benchmark_views(4)
+        load_engine(views, "cpu").benchmark_views(4)
     # what the artifact fixed cannot be asked again
     assert cli.main([*CPU, "bench", "--engine", raw, "--precision", "int8"]) == 2
     assert cli.main([*CPU, "bench", "--engine", raw, "--size", "32"]) == 2
     with pytest.raises(ValueError, match="single-image"):
-        load_engine(artifacts["paths"]["flow_viz"]).benchmark()
+        load_engine(artifacts["paths"]["flow_viz"], "cpu").benchmark()
 
 
 def test_cli_batch_from_artifact(tmp_path):
@@ -556,7 +615,7 @@ def test_http_server_from_artifact(artifacts):
     frames and dynamic batches, each answer equal to the pipeline's."""
     from monocular_depth_estimation_trt_tpu_torch.apps.server import DepthServer
 
-    eng = load_engine(artifacts["paths"]["bundle"])
+    eng = load_engine(artifacts["paths"]["bundle"], "cpu")
     ds = DepthServer(eng, max_batch=2).start()
     try:
         ds.warmup()

@@ -50,10 +50,11 @@ def _frames(n, hw, seed):
     return [rng.integers(0, 256, (*hw, 3), dtype=np.uint8) for _ in range(n)]
 
 
-def _ops(path, key):
-    """Counts of the ``mdet`` operators in one module of a port artifact."""
+def _ops(path, key, platform="cpu"):
+    """Counts of the ``mdet`` operators in one module and platform of a port
+    artifact."""
     with zipfile.ZipFile(path) as z:
-        ep = torch.export.load(z.open(f"modules/{key}.bin"))
+        ep = torch.export.load(z.open(f"modules/{platform}/{key}.bin"))
     counts = {}
     for node in ep.graph.nodes:
         name = str(node.target)
@@ -67,7 +68,7 @@ def _both(tmp_path, name, jpipe, tpipe, in_hw, **kw):
     jpath = jexport(jpipe, in_hw, path=str(tmp_path / f"{name}_jax.mdeteng"),
                     platforms=("cpu",), **kw)
     tpath = export_pipeline(tpipe, in_hw, path=str(tmp_path / f"{name}.mdeteng"), **kw)
-    return jload(jpath), tpath, load_engine(tpath)
+    return jload(jpath), tpath, load_engine(tpath, "cpu")
 
 
 def _check(got, ref, here, keys=None):
@@ -141,7 +142,7 @@ class Block(importlib.abc.MetaPathFinder):
             raise ImportError("blocked: " + name)
 sys.meta_path.insert(0, Block())
 from monocular_depth_estimation_trt_tpu_torch.runtime.export import load_engine
-out = load_engine({tpath!r})(np.load({str(tmp_path / 'frame.npy')!r}), viz=True)
+out = load_engine({tpath!r}, "cpu")(np.load({str(tmp_path / 'frame.npy')!r}), viz=True)
 np.savez({str(tmp_path / 'out.npz')!r}, **out)
 assert not [m for m in sys.modules if m.startswith(BLOCKED[:2])]
 """
