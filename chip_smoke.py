@@ -9,13 +9,16 @@ Phases, each printed as one JSON line; any failure exits non-zero:
 2. build: compiles ``monocular_depth_estimation_trt_tpu_torch/csrc/*.cu``
    with nvcc into the package's ``_build/`` directory and loads it, with
    ptxas's registers and spills per kernel; then ``sass``: the HGMMA (bf16
-   wgmma; IGMMA for K4's int8) and UTMALDG (TMA load) instructions of each
-   kernel in ``cuobjdump -sass`` (the bf16 K1, K2 (both head widths), K3
-   (both) and K4 (both tile widths) must have both);
+   and TF32 wgmma; IGMMA for K4's int8) and UTMALDG (TMA load) instructions
+   of each kernel in ``cuobjdump -sass`` (the bf16 K1, K2 (both head
+   widths), K3 (both) and K4 (both tile widths), and the fp32 K1 and K2
+   (split TF32, both head widths), must have both);
 3. kernel checks: each kernel's wrapper (K1 packed-qkv attention, K2
    (B, H, N, d) attention and K3 exact-softmax attention of many short
    heads, all three on the TMA + wgmma mainloop of
-   ``csrc/attention_sm90.cuh`` in bf16, K2 and K3 at head widths 64 and 128,
+   ``csrc/attention_sm90.cuh`` in bf16, K1 and K2 in fp32 on the split TF32
+   mainloop of ``csrc/attention_sm90_f32.cuh``, K2 and K3 at head widths 64
+   and 128,
    and above 128 on the simple loop of ``csrc/attention_wide.cuh``;
    K4 the fused w8a8 matmul, a TMA + wgmma int8 GEMM in bf16) against its
    plain PyTorch version on the card, at the main paths' shapes and edge
@@ -192,7 +195,9 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    (``benchmark_views``), depth_pro 1536² and the nine single-image
    families at their input sizes; int8 depth_pro, vggt, metric3d_v2 and
    unidepth_v2 through their engines; vits int8 (forced) against vits bf16
-   in alternating turns;
+   in alternating turns; DA-V2 vitl with ``precision="fp32"`` through its
+   engine (a counted run first: 24 fp32 K1 a forward; VGGT's fp32 route,
+   counted in its parity phase, launches 24 K1 and 48 K2 a forward);
 13. profile: device time by kernel, device busy time and idle share of a
    graph replay of each path (3 calls each; 5 for the 518² and single-image
    paths until the training phase needed the card time) (and of the eager forward of vits, vggt S=4,
@@ -372,16 +377,23 @@ DEPTH_PRO_BENCH = dict(warmup=3, iterations=10, latency_iterations=6)
 # until the training phase's)
 FAMILY_BENCH = dict(warmup=3, iterations=12, latency_iterations=5)
 
-# the TMA + wgmma kernels (bf16 x) and their instantiations in the library
-# (the tile candidates of csrc/attention_sm90.cuh: K1 two at head width 64,
-# K2 and K3 two at 64 and two at 128; K4 at tile widths 128 and 256),
-# with the wgmma's SASS name: HGMMA for bf16 operands, IGMMA for int8
+# the TMA + wgmma kernels and their instantiations in the library (the tile
+# candidates of csrc/attention_sm90.cuh: K1 two at head width 64, K2 and K3
+# two at 64 and two at 128; K4 at tile widths 128 and 256; the fp32 K1 and K2
+# of csrc/attention_sm90_f32.cuh, one tile a head width), with the wgmma's
+# SASS name: HGMMA for bf16 and TF32 operands, IGMMA for int8
 SM90_KERNELS = {"attn_packed_kernel_sm90": (2, "HGMMA"), "attn_bhnd_kernel_sm90": (4, "HGMMA"),
-                "attn_batched_kernel_sm90": (4, "HGMMA"), "w8a8_kernel_sm90": (2, "IGMMA")}
+                "attn_batched_kernel_sm90": (4, "HGMMA"), "w8a8_kernel_sm90": (2, "IGMMA"),
+                "attn_packed_kernel_f32_sm90": (1, "HGMMA"),
+                "attn_bhnd_kernel_f32_sm90": (2, "HGMMA")}
 
 PEAK_BF16_OPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate
 PEAK_FP32_OPS = 67e12  # H100 SXM fp32 outside the tensor cores
+PEAK_TF32_OPS = 495e12  # H100 SXM dense TF32 tensor-core rate
+# fp32-accurate products on the TF32 tensor cores take three TF32 products
+# each (split TF32: lo.hi + hi.lo + hi.hi; csrc/attention_sm90_f32.cuh)
+TF32_SPLIT_PRODUCTS = 3
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 
 
@@ -412,8 +424,8 @@ def run_cmd(cmd) -> str:
 
 
 def sass_counts(lib_path: str):
-    """HGMMA (bf16 wgmma), IGMMA (int8 wgmma), UTMALDG (TMA load) and UTMASTG
-    (TMA store) instructions per kernel of the built library, from
+    """HGMMA (bf16 and TF32 wgmma), IGMMA (int8 wgmma), UTMALDG (TMA load) and
+    UTMASTG (TMA store) instructions per kernel of the built library, from
     ``cuobjdump -sass``; None if the toolkit has no cuobjdump."""
     import shutil
 
@@ -436,6 +448,24 @@ def attention_bound(b: int, n: int, h: int, d: int, itemsize: int, peak_ops: flo
     nbytes = float(b * n * 4 * h * d * itemsize)  # qkv read once, out written once
     t_ops, t_bytes = ops / peak_ops, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def attention_bounds(b: int, n: int, h: int, d: int, dtype):
+    """The bound of an attention row: bf16 on the bf16 tensor cores; fp32 the
+    lesser of its two ways to fp32 accuracy, ops / 67 TFLOP/s on the fp32
+    pipes and 3 ops / 495 TFLOP/s on the TF32 tensor cores (split TF32), each
+    against the bytes. Returns (bound_ms, bound_by, fields of the record)."""
+    import torch
+
+    if dtype == torch.bfloat16:
+        ms, by = attention_bound(b, n, h, d, 2, PEAK_BF16_OPS)
+        return ms, by, {"bound_of": "bf16 tensor cores"}
+    fma = attention_bound(b, n, h, d, 4, PEAK_FP32_OPS)
+    tf32 = attention_bound(b, n, h, d, 4, PEAK_TF32_OPS / TF32_SPLIT_PRODUCTS)
+    fields = {"bound_fp32_fma_ms": fma[0], "bound_split_tf32_ms": tf32[0]}
+    if tf32[0] <= fma[0]:
+        return (*tf32, {**fields, "bound_of": "3 x ops on the TF32 tensor cores (split TF32)"})
+    return (*fma, {**fields, "bound_of": "ops on the fp32 pipes"})
 
 
 def bf16_ulp(x: float) -> float:
@@ -503,6 +533,7 @@ def check_flash_attention_packed(fa, dev):
         ("n1024", 1, 1024, 6, torch.bfloat16),
         ("h3_n1370", 1, 1370, 3, torch.bfloat16),
         ("vits_518_fp32", 1, 1370, 6, torch.float32),
+        ("vitl_518_fp32", 1, 1370, 16, torch.float32),
         ("h3_n65_fp32", 2, 65, 3, torch.float32),
     ]
     gen = torch.Generator().manual_seed(0)
@@ -539,8 +570,7 @@ def check_flash_attention_packed(fa, dev):
             check(kernel_vs_fp32 <= plain_vs_fp32,
                   f"K1 {label}: kernel vs fp32 {kernel_vs_fp32} > plain bf16 attention vs "
                   f"fp32 {plain_vs_fp32}")
-        peak = PEAK_BF16_OPS if dtype == torch.bfloat16 else PEAK_FP32_OPS
-        bound_ms, bound_by = attention_bound(b, n, h, d, qkv.element_size(), peak)
+        bound_ms, bound_by, bound_fields = attention_bounds(b, n, h, d, dtype)
         rec = {
             "shape": label, "B": b, "N": n, "H": h, "d": d,
             "dtype": str(dtype).replace("torch.", ""),
@@ -555,7 +585,7 @@ def check_flash_attention_packed(fa, dev):
             "plain_ms": event_ms(lambda: fa.flash_attention_packed_reference(qkv, h),
                                  iters=10, warmup=2),
             "library_ms": device_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
-            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms": bound_ms, "bound_by": bound_by, **bound_fields,
         }
         emit({"phase": "kernel_check", "kernel": "flash_attention_packed", **rec})
         records.append(rec)
@@ -586,6 +616,7 @@ def check_flash_attention(fa, dev):
         ("d16_padded", 1, 16, 1374, 16, torch.bfloat16, False),
         ("global_s4_strided", 1, 16, 5496, 64, torch.bfloat16, True),
         ("frame_s1_fp32", 1, 16, 1374, 64, torch.float32, False),
+        ("global_s4_fp32", 1, 16, 5496, 64, torch.float32, False),
         ("n65_fp32", 2, 3, 65, 64, torch.float32, False),
         # DINOv3 at 1024^2 (64x64 + cls + 4 registers): vitl16, and vit7b16's 32
         # heads of head_dim 128, as the rope attention reads them (strided views)
@@ -598,6 +629,7 @@ def check_flash_attention(fa, dev):
         ("d80_padded", 2, 16, 257, 80, torch.bfloat16, False),
         ("d96_padded", 2, 16, 255, 96, torch.bfloat16, True),
         ("d128_vit7b_fp32", 1, 32, 1029, 128, torch.float32, False),
+        ("dinov3_vit7b16_1024_fp32", 1, 32, 4101, 128, torch.float32, True),
         ("d96_fp32", 2, 3, 65, 96, torch.float32, False),
         # heads wider than 128, zero-padded to a multiple of 128: the wide loop
         ("d192_wide", 1, 16, 1029, 192, torch.bfloat16, False),
@@ -704,8 +736,7 @@ def check_bhnd_kernel(fa, dev, name, shapes, seed, k1_at=None):
             check(kernel_vs_fp32 <= plain_vs_fp32,
                   f"{name} {label}: kernel vs fp32 {kernel_vs_fp32} > plain bf16 attention "
                   f"vs fp32 {plain_vs_fp32}")
-        peak = PEAK_BF16_OPS if dtype == torch.bfloat16 else PEAK_FP32_OPS
-        bound_ms, bound_by = attention_bound(b, n, h, d, q.element_size(), peak)
+        bound_ms, bound_by, bound_fields = attention_bounds(b, n, h, d, dtype)
         long = n > 4096
         rec = {
             "shape": label, "B": b, "H": h, "N": n, "d": d, "strided": strided,
@@ -723,7 +754,7 @@ def check_bhnd_kernel(fa, dev, name, shapes, seed, k1_at=None):
                                  iters=3 if long else 10, warmup=1 if long else 2),
             "library_ms": device_ms(lambda: F.scaled_dot_product_attention(q, k, v),
                                     iters=5 if long else 20),
-            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms": bound_ms, "bound_by": bound_by, **bound_fields,
         }
         if label == k1_at:  # K1 on the same problem, read from the packed qkv
             packed = qkv.reshape(b, n, 3 * h * d)
@@ -887,12 +918,14 @@ def parity_frames(rng):
             "smooth_518x518": (smooth * 255).round().astype(np.uint8)}
 
 
-def vggt_parity(build_pipeline, pipe, frames):
+def vggt_parity(build_pipeline, pipe, frames, wrappers):
     """For each weight seed and frame (S=1), on weights rounded to bf16 and
     shared by every route: the bf16 kernel route against plain attention
     and against the fp32 card path, on depth, confidence and pose; and, for
     seed 0 and the first frame, the fp32 card path against the fp32 CPU
-    path. Every reading is emitted before any is checked."""
+    path. Every reading is emitted before any is checked. The fp32 card
+    path's first forward (its engine's build) is a counted run of the fp32
+    K1 and K2 (24 + 48 a forward): its launch record is returned."""
     import torch
     from monocular_depth_estimation_trt_tpu_torch.models.vggt import VGGT
 
@@ -902,7 +935,7 @@ def vggt_parity(build_pipeline, pipe, frames):
         out = p(frame)
         return {k: out[k] for k in keys}
 
-    readings, cpu_rec = [], None
+    readings, cpu_rec, fp32_launches = [], None, None
     for seed in PARITY_WEIGHT_SEEDS:
         kernel_pipe = pipe
         if seed != 0:  # the path's pipeline holds seed 0
@@ -914,7 +947,20 @@ def vggt_parity(build_pipeline, pipe, frames):
         card32_pipe = build_pipeline("vggt", precision="fp32", params=sd)
         for name, frame in frames.items():
             kernel, plain = run(kernel_pipe, frame), run(plain_pipe, frame)
-            card32 = run(card32_pipe, frame)
+            if fp32_launches is None:  # the fp32 path's own counts
+                set_counts_to_zero(wrappers)
+                card32, per = run_counted(lambda: run(card32_pipe, frame),
+                                          lambda: card32_pipe.engine_for(frame.shape[:2]),
+                                          wrappers, f"vggt fp32 {name}")
+                torch.cuda.synchronize()
+                fp32_launches = launch_record(wrappers)
+                check(per == [0, 24, 48, 0],
+                      f"vggt fp32: K3, K1, K2, K4 launches {per}, want [0, 24, 48, 0]")
+                emit({"phase": "fp32_path", "model": card32_pipe.spec.artifact_name(),
+                      "frame": name, "launches_per_forward": per, "launches": fp32_launches,
+                      "counted": f"{WARMUP_CALLS} warm-up + 1 captured"})
+            else:
+                card32 = run(card32_pipe, frame)
             rec = {"phase": "vggt_parity", "weights_seed": seed, "frame": name}
             for k in keys:
                 rec[k] = {
@@ -978,6 +1024,7 @@ def vggt_parity(build_pipeline, pipe, frames):
     for k in keys:
         got = cpu_rec[k]["fp32_card_vs_cpu_rel"]
         check(got < PATH_FP32_REL_TOL, f"vggt fp32 {k} card vs cpu {got}")
+    return fp32_launches
 
 
 def seeded(make, seed):
@@ -2545,6 +2592,36 @@ def speed_record(rep, pipe, label, route, turn, views, in_hw, card, power_limit)
                               + " + forward + D2H "
                               + ("every output" if pipe.spec.model == "geocalib" else "depth")),
             "card": card, "power_limit": power_limit}
+
+
+def fp32_vitl_speed(build_pipeline, vitl, wrappers, frame, config, card, power_limit):
+    """DA-V2 vitl at 518^2 with precision="fp32" (TF32 off), on the bf16
+    ``vitl`` pipeline's weights (no second random build): one forward
+    through a new engine with the counts set to 0 just before and read just
+    after (24 fp32 K1 a forward), then the captured graph's speed and its
+    device time by kernel. Returns the launch record."""
+    import torch
+
+    sd = {k: v.float().cpu() for k, v in vitl.model.state_dict().items()}
+    pipe = build_pipeline("depth_anything_v2", encoder="vitl", precision="fp32", params=sd)
+    del sd
+    check(pipe.spec.precision == "fp32", f"vitl fp32 built {pipe.spec.precision}")
+    set_counts_to_zero(wrappers)
+    _, per = run_counted(lambda: pipe(frame), lambda: pipe.engine_for(frame.shape[:2]), wrappers,
+                         "vitl fp32")
+    torch.cuda.synchronize()
+    launches = launch_record(wrappers)
+    check(per == [0, 24, 0, 0], f"vitl fp32: K3, K1, K2, K4 launches {per}, want [0, 24, 0, 0]")
+    emit({"phase": "fp32_path", "model": pipe.spec.artifact_name(), "frame": "518x518",
+          "launches_per_forward": per, "launches": launches,
+          "counted": f"{WARMUP_CALLS} warm-up + 1 captured"})
+    rep = timed_route(pipe, "graph", (518, 518), 0, config)
+    emit({**speed_record(rep, pipe, "vitl_fp32", "graph", 0, 0, (518, 518), card, power_limit),
+          "launches_per_forward": per})
+    eng, arg = pipe.engine_for((518, 518)), torch.from_numpy(frame).to(pipe.device)
+    emit({**profile_breakdown(lambda: eng(arg), pipe.spec.artifact_name(), 3), "route": "graph"})
+    drop_engines(pipe)
+    return launches
 
 
 def finite_or_none(x: float):
@@ -5844,8 +5921,9 @@ def main() -> None:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": info.built, "library": os.path.relpath(info.path, REPO),
           "ptxas": ptxas})
-    # every bf16 kernel runs on wgmma and TMA (K2 and K3 in two head widths);
-    # the fp32 kernels (fp32 FMAs, and K4's fp32 wmma loop) on neither
+    # every bf16 kernel, and the fp32 K1 and K2 (split TF32), runs on wgmma and
+    # TMA (K2 and K3 in two head widths); the other fp32 kernels (K3's fp32
+    # FMAs, the wide loop, K4's fp32 wmma loop) on neither
     sass = sass_counts(info.path)
     if sass is None:
         emit({"phase": "sass", "counts": "not measured (no cuobjdump in the toolkit)"})
@@ -5960,7 +6038,8 @@ def main() -> None:
 
     # 5. the VGGT path (its own counted run), then its route comparisons
     vggt, vggt_launches, vggt_views4 = run_vggt_path(build_pipeline, wrappers, rng)
-    vggt_parity(build_pipeline, vggt, parity_frames(rng))
+    # the fp32 route's counted runs (the fp32 K1 and K2), each path's own
+    fp32_launches = {"vggt_fp32": vggt_parity(build_pipeline, vggt, parity_frames(rng), wrappers)}
     drop_engines(vggt)
 
     # 16. the one-device mesh on the vits and VGGT pipelines (its own counted
@@ -6155,6 +6234,10 @@ def main() -> None:
         rep = timed_route(p, "graph", in_hw, views, c)
         emit(speed_record(rep, p, label, "graph", 0, views, in_hw, card, power_limit))
         drop_engines(p)
+    # the fp32 route (--precision fp32) of DA-V2 vitl: its counted run on the
+    # fp32 K1, then its captured graph's p50 beside the bf16 rows above
+    fp32_launches["depth_anything_v2_vitl_fp32"] = fp32_vitl_speed(
+        build_pipeline, vitl, wrappers, frame_b, cfg, card, power_limit)
     os.environ["MDET_FORCE_INT8"] = "1"
     vits8 = build_pipeline("depth_anything_v2", encoder="vits", precision="int8",
                            calib_images=calib)
@@ -6230,7 +6313,7 @@ def main() -> None:
     # launches of each path's counted run
     def kernel_entry(name, source, replaces, function, records, main_shape,
                      library_call="torch.nn.functional.scaled_dot_product_attention",
-                     head_dim_128=None):
+                     head_dim_128=None, wrapper=None, paths=None):
         keys = ("shape", "B", "H", "N", "d", "dtype", "max_abs_err", "err_bf16_steps",
                 "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                 "host_us_per_call")
@@ -6243,16 +6326,21 @@ def main() -> None:
             d128 = next(r for r in records if r["shape"] == head_dim_128)
             extra["head_dim_128"] = {k: d128[k] for k in keys}
             # the wide loop (d > 128, csrc/attention_wide.cuh), on no ported path
-            extra["wide_heads"] = [{k: r[k] for k in keys} for r in records
-                                   if "_wide" in r["shape"]]
-        by_path = {"depth_anything_v2": launches[name], "vggt": vggt_launches[name],
-                   "depth_pro": depth_pro_launches[name],
-                   **{k: v[name] for k, v in family_launches.items()},
-                   **{k: v[name] for k, v in extra_launches.items()},
-                   **{f"{k}_int8": v[name] for k, v in int8_launches.items()}}
+            wide = [{k: r[k] for k in keys} for r in records if "_wide" in r["shape"]]
+            if wide:
+                extra["wide_heads"] = wide
+        if paths is None:
+            by_path = {"depth_anything_v2": launches[name], "vggt": vggt_launches[name],
+                       "depth_pro": depth_pro_launches[name],
+                       **{k: v[name] for k, v in family_launches.items()},
+                       **{k: v[name] for k, v in extra_launches.items()},
+                       **{f"{k}_int8": v[name] for k, v in int8_launches.items()}}
+        else:  # a wrapper's fp32 form: the fp32 paths' counted runs
+            by_path = {k: v[wrapper] for k, v in paths.items()}
         pallas_file = replaces.partition(":")[0]
         return {
             "name": name,
+            "wrapper": wrapper or name,
             "route": "cuda",
             "source": f"monocular_depth_estimation_trt_tpu_torch/csrc/{source}",
             "replaces": f"monocular_depth_estimation_trt_tpu/ops/pallas/{replaces}",
@@ -6266,6 +6354,8 @@ def main() -> None:
             "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"],
+            **{k: main[k] for k in main if k.startswith("bound_") and k != "bound_ms"
+               and k != "bound_by"},
             "library_ms": main["library_ms"],
             "library_call": library_call,
             "at_shape": main["shape"],
@@ -6283,7 +6373,19 @@ def main() -> None:
                      head_dim_128="d128"),
         kernel_entry("w8a8_matmul", "w8a8_matmul.cu", "quant_matmul.py:43", "_w8a8_kernel", k4,
                      "vitl_qkv", library_call="quantize + torch._int_mm + rescale"),
+        # the fp32 forms of K1 and K2 (precision="fp32"): the split TF32 mainloop
+        kernel_entry("flash_attention_packed_fp32", "attention_sm90_f32.cuh",
+                     "flash_attention.py:272", "_attn_kernel_packed",
+                     [r for r in k1 if r["dtype"] == "float32"], "vits_518_fp32",
+                     wrapper="flash_attention_packed", paths=fp32_launches),
+        kernel_entry("flash_attention_fp32", "attention_sm90_f32.cuh", "flash_attention.py:38",
+                     "_attn_kernel", [r for r in k2 if r["dtype"] == "float32"
+                                      and "_wide" not in r["shape"]],
+                     "global_s4_fp32", head_dim_128="dinov3_vit7b16_1024_fp32",
+                     wrapper="flash_attention", paths=fp32_launches),
     ]
+    for entry in kernels:
+        check(entry["launches"] > 0, f"{entry['name']}: no launch on its paths' counted runs")
 
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -43,8 +43,10 @@
 // pads d > 64 to a multiple of 128. Wider heads, padded to a multiple of 128,
 // run the simple fp32-math loop of attention_wide.cuh in either type.
 //
-// fp32 (precision="fp32") keeps fp32 FMAs, not TF32, on the tile loop of
-// attention_tile.cuh (64-key tiles, no TMA), at either width.
+// fp32 (precision="fp32") runs the fp32 Hopper mainloop of
+// attention_sm90_f32.cuh at either width: split TF32 ("3xTF32") wgmma, which
+// keeps fp32 accuracy on the tensor cores, fed by a TMA ring through the same
+// four tensor maps (fp32 boxes) and written (B, N, H, d) by a TMA store.
 //
 // Left on the table (later work, attention_sm90.cuh): ping-pong scheduling
 // of consumer warpgroups and overlap of the softmax with the next tile's
@@ -52,14 +54,17 @@
 // RoPE fused into the Q/K tile load.
 
 #include "attention_sm90.cuh"
-#include "attention_tile.cuh"
+#include "attention_sm90_f32.cuh"
 #include "attention_wide.cuh"
 
 namespace {
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) attn_bhnd_kernel_f32(const StridedLayout<D> a) {
-  attn_tile(a);
+template <typename Cfg>
+__global__ void __launch_bounds__(Cfg::kThreads, 1) attn_bhnd_kernel_f32_sm90(
+    const __grid_constant__ CUtensorMap q, const __grid_constant__ CUtensorMap k,
+    const __grid_constant__ CUtensorMap v, const __grid_constant__ CUtensorMap o, int n,
+    float scale_log2) {
+  sm90f32::attention<Cfg>(q, k, v, o, n, scale_log2);
 }
 
 template <typename Cfg>
@@ -75,11 +80,11 @@ __global__ void __launch_bounds__(wide::kThreads) attn_bhnd_wide_kernel(const wi
   wide::attention<T>(a);
 }
 
-template <int D>
+template <typename Cfg>
 int launch_bhnd_f32(const void* q, const void* k, const void* v, void* o, const int64_t* strides,
                     int batch, int heads, int n, float scale, void* stream) {
-  return launch_attention<D>(attn_bhnd_kernel_f32<D>, n, batch, heads, stream,
-                             strided_layout<D>(q, k, v, o, strides, n, scale));
+  return sm90f32::launch<Cfg>(attn_bhnd_kernel_f32_sm90<Cfg>, q, k, v, o, strides, batch, heads, n,
+                              scale, stream);
 }
 
 }  // namespace
@@ -93,7 +98,8 @@ extern "C" {
 // q, k, v, then o. Pointers and strides (times the element size) are
 // multiples of 16 bytes. tile: the mainloop's instantiation at head_dim 64
 // or 128 (attention_sm90.cuh, dispatch_tile; 0 is the default); every other
-// width, and the fp32 entry, take 0 only. Launches on `stream`, allocates
+// width, and the fp32 entry (one tile a width, attention_sm90_f32.cuh), take 0
+// only. Launches on `stream`, allocates
 // nothing, does not synchronise. Returns the cudaError_t of the launch (0 on
 // success).
 int mdet_flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
@@ -115,9 +121,11 @@ int mdet_flash_attention_f32(const void* q, const void* k, const void* v, void* 
                              const int64_t* strides, int batch, int heads, int n, int head_dim,
                              float scale, int tile, void* stream) {
   if (tile != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (head_dim == 64) return launch_bhnd_f32<64>(q, k, v, o, strides, batch, heads, n, scale, stream);
+  if (head_dim == 64) {
+    return launch_bhnd_f32<sm90f32::Head64>(q, k, v, o, strides, batch, heads, n, scale, stream);
+  }
   if (head_dim == 128) {
-    return launch_bhnd_f32<128>(q, k, v, o, strides, batch, heads, n, scale, stream);
+    return launch_bhnd_f32<sm90f32::Head128>(q, k, v, o, strides, batch, heads, n, scale, stream);
   }
   return wide::launch<float>(attn_bhnd_wide_kernel<float>, q, k, v, o, strides, batch, heads, n,
                              head_dim, scale, stream);

@@ -41,8 +41,10 @@
 // attention_wide.cuh, as K2's do (its online softmax never rounds P, so it
 // is no further from the exact softmax than the two passes).
 //
-// Design (fp32, precision="fp32": fp32 FMAs, as K1 and K2, since TF32 would
-// round): one CTA of 8 warps per (query tile, head, batch item). Pass 1
+// Design (fp32, precision="fp32": fp32 FMAs, since one TF32 pass would round;
+// K1 and K2 keep fp32 accuracy on split TF32 wgmma instead,
+// attention_sm90_f32.cuh): one CTA of 8 warps per (query tile, head, batch
+// item). Pass 1
 // computes S = Q.K^T over 64-key tiles into a shared-memory score block
 // that holds the query tile's whole rows (N <= 1024, padded to 64); then
 // each warp takes its rows through max, exp, sum and the division, and
@@ -58,10 +60,77 @@
 // fp32, no TMA and no double-buffered K/V tiles.
 
 #include "attention_sm90.cuh"
-#include "attention_tile.cuh"
 #include "attention_wide.cuh"
 
 namespace {
+
+constexpr int kBlockK = 64;  // keys per K/V tile
+
+// Row stride (floats) of the Q and K/V tiles: 16 bytes of padding per row
+// spreads rows over the banks.
+template <int D>
+__host__ __device__ constexpr int tile_ld() { return D + 4; }
+
+// The operands of a head: each through its own (batch, head, token) strides,
+// in elements, with a unit stride along head_dim. Every pointer and every row
+// stride times 4 bytes is a multiple of 16 bytes (the wrapper checks it), so
+// rows load as 16-byte vectors.
+template <int D>
+struct StridedLayout {
+  static constexpr int kD = D;
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
+  int64_t q_b, q_h, q_n;
+  int64_t k_b, k_h, k_n;
+  int64_t v_b, v_h, v_n;
+  int64_t o_b, o_h, o_n;
+  int n;
+  float scale;
+
+  __device__ __forceinline__ const float* q_ptr(int64_t b, int h) const {
+    return q + b * q_b + h * q_h;
+  }
+  __device__ __forceinline__ const float* k_ptr(int64_t b, int h) const {
+    return k + b * k_b + h * k_h;
+  }
+  __device__ __forceinline__ const float* v_ptr(int64_t b, int h) const {
+    return v + b * v_b + h * v_h;
+  }
+  __device__ __forceinline__ float* o_ptr(int64_t b, int h) const { return o + b * o_b + h * o_h; }
+  __device__ __forceinline__ int64_t q_row() const { return q_n; }
+  __device__ __forceinline__ int64_t k_row() const { return k_n; }
+  __device__ __forceinline__ int64_t v_row() const { return v_n; }
+  __device__ __forceinline__ int64_t o_row() const { return o_n; }
+};
+
+// The layout of K2's and K3's C entries: 12 element strides, (batch, head,
+// token) of q, k, v, then o.
+template <int D>
+StridedLayout<D> strided_layout(const void* q, const void* k, const void* v, void* o,
+                                const int64_t* strides, int n, float scale) {
+  StridedLayout<D> a;
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.o = static_cast<float*>(o);
+  a.q_b = strides[0];
+  a.q_h = strides[1];
+  a.q_n = strides[2];
+  a.k_b = strides[3];
+  a.k_h = strides[4];
+  a.k_n = strides[5];
+  a.v_b = strides[6];
+  a.v_h = strides[7];
+  a.v_n = strides[8];
+  a.o_b = strides[9];
+  a.o_h = strides[10];
+  a.o_n = strides[11];
+  a.n = n;
+  a.scale = scale;
+  return a;
+}
 
 constexpr int kMaxKeys = 1024;  // the wrapper's contract
 constexpr int kBWarps = 8;

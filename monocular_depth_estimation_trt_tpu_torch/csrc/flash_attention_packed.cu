@@ -25,16 +25,23 @@
 // (ceil(N/64), H, B): 22 x 6 = 132 CTAs at ViT-S, one wave at two CTAs an SM
 // of which only one is filled, so the prologue shows.
 //
-// fp32 (precision="fp32") runs the fp32 tile loop of attention_tile.cuh.
+// fp32 (precision="fp32") runs the fp32 Hopper mainloop of
+// attention_sm90_f32.cuh over the same three strided views (four tensor maps a
+// call, fp32 boxes): split TF32 wgmma, which keeps fp32 accuracy on the
+// tensor cores, fed by a TMA ring.
 
 #include "attention_sm90.cuh"
-#include "attention_tile.cuh"
+#include "attention_sm90_f32.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(kThreads)
-    attn_packed_kernel_f32(const PackedLayout<64> a) {
-  attn_tile(a);
+template <typename Cfg>
+__global__ void __launch_bounds__(Cfg::kThreads, 1)
+    attn_packed_kernel_f32_sm90(const __grid_constant__ CUtensorMap q,
+                                const __grid_constant__ CUtensorMap k,
+                                const __grid_constant__ CUtensorMap v,
+                                const __grid_constant__ CUtensorMap o, int n, float scale_log2) {
+  sm90f32::attention<Cfg>(q, k, v, o, n, scale_log2);
 }
 
 template <typename Cfg>
@@ -73,9 +80,14 @@ int mdet_flash_attention_packed_bf16(const void* qkv, void* out, int batch, int 
 int mdet_flash_attention_packed_f32(const void* qkv, void* out, int batch, int n, int heads,
                                     float scale, int tile, void* stream) {
   if (tile != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_attention<64>(
-      attn_packed_kernel_f32, n, batch, heads, stream,
-      PackedLayout<64>{static_cast<const float*>(qkv), static_cast<float*>(out), n, heads, scale});
+  const int64_t hd = static_cast<int64_t>(heads) * 64;
+  const int64_t row = 3 * hd;
+  const int64_t strides[12] = {n * row, 64, row, n * row, 64, row,
+                               n * row, 64, row, n * hd,  64, hd};
+  const float* base = static_cast<const float*>(qkv);
+  using Cfg = sm90f32::Head64;
+  return sm90f32::launch<Cfg>(attn_packed_kernel_f32_sm90<Cfg>, base, base + hd, base + 2 * hd, out,
+                              strides, batch, heads, n, scale, stream);
 }
 
 }  // extern "C"

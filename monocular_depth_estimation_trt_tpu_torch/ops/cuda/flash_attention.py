@@ -18,9 +18,11 @@ In bf16, K1, K2 and K3 run the Hopper mainloop of
 ``csrc/attention_sm90.cuh`` (TMA loads through one tensor map per operand,
 wgmma, warp specialisation): K1 and K2 with an online softmax, K3 with two
 passes over the keys, at head widths 64 and 128 (narrower heads are
-zero-padded to one of them). The fp32 K1 and K2 share the tile loop of
-``csrc/attention_tile.cuh``; the fp32 K3 holds a query tile's whole score
-rows. K2 and K3 zero-pad a head wider than 128 to a multiple of 128, as the
+zero-padded to one of them). The fp32 K1 and K2 share the fp32 Hopper
+mainloop of ``csrc/attention_sm90_f32.cuh``: the same TMA loads (fp32 boxes),
+a ring of K/V tiles, both products on the TF32 tensor cores as split
+("3xTF32") wgmma products, accurate to fp32; the fp32 K3 holds a query tile's
+whole score rows. K2 and K3 zero-pad a head wider than 128 to a multiple of 128, as the
 JAX entry does, and run it in either type on the simple loop of
 ``csrc/attention_wide.cuh``. On a CUDA tensor each wrapper launches its
 kernel or raises; on a CPU tensor it runs its plain PyTorch version

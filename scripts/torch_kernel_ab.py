@@ -5,15 +5,30 @@
 
 Each argument is the root of a checkout of this repository. For each one in
 the order given, a fresh process puts that root first on ``sys.path``,
-builds its kernels from its own ``csrc/`` and times, all bf16 on random
-inputs from a fixed seed: K1 (packed-qkv attention) at the DA-V2, VGGT and
-Depth Pro shapes, beside ``scaled_dot_product_attention`` at ViT-S and ViT-L
-(``*_sdpa_ms``); K2 ((B, H, N, d) attention) at VGGT's frame and global
-shapes and K3 (many short heads) at Depth Pro's patch shape, and both at
-head_dim 128 where the checkout takes it; K4 (the w8a8 matmul) at the int8
-paths' seven layer shapes, beside the bf16 ``torch.matmul`` of the same
-(M, K, N) (``*_matmul_ms``, the yardstick int8 serving has to beat). It
-prints one JSON line per checkout, beside the card's name and power
+builds its kernels from its own ``csrc/`` and times, on random inputs from
+a fixed seed:
+
+- bf16: K1 (packed-qkv attention) at the DA-V2, VGGT and Depth Pro shapes,
+  beside ``scaled_dot_product_attention`` at ViT-S and ViT-L
+  (``*_sdpa_ms``); K2 ((B, H, N, d) attention) at VGGT's frame and global
+  shapes and K3 (many short heads) at Depth Pro's patch shape, and both at
+  head_dim 128 where the checkout takes it; K4 (the w8a8 matmul) at the
+  int8 paths' seven layer shapes, beside the bf16 ``torch.matmul`` of the
+  same (M, K, N) (``*_matmul_ms``, the yardstick int8 serving has to beat);
+- fp32 (``precision="fp32"``, TF32 off): K1 at ViT-S and ViT-L, K2 at
+  VGGT's frame (S=1) and global (S=4) shapes and at DINOv3 vit7b16's
+  head_dim-128 shapes, each beside fp32 ``scaled_dot_product_attention``
+  on the same q, k, v (``*_sdpa_ms``); K3 at Depth Pro's patch shape and
+  K4 at ViT-L's qkv; and the fp32 route end to end, DA-V2 vitl at 518²
+  through its engine (``DepthPipeline.benchmark``, seeded random weights;
+  ``vitl_fp32_graph_*``).
+
+Every timed call's output also gets a digest (``*_digest``: the first 16
+hex digits of the SHA-256 of its bytes), and a last line names the timings
+whose digest differs between the checkouts: a kernel that a change leaves
+alone gives the same bits on the same inputs.
+
+It prints one JSON line per checkout, beside the card's name and power
 limit: the median of ``REPEATS`` CUDA-event timings of ``ITERS``
 back-to-back launches each, in ms per launch (``*_ms``), which follows the
 host where a call's host time exceeds its kernel's; the device time per
@@ -30,6 +45,7 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import hashlib
 import importlib.util
 import json
 import math
@@ -54,6 +70,16 @@ K4_SHAPES = {"vitl_qkv": (1370, 1024, 3072), "vitl_proj": (1370, 1024, 1024),
              "depth_pro_fc1": (20195, 1024, 4096), "depth_pro_fc2": (20195, 4096, 1024),
              "vggt_s4_fc1": (5496, 1024, 4096)}  # (M, K, N)
 K4_HOST_SHAPE = (64, 256, 256)
+K1_FP32_SHAPES = {"vits_518": (1, 1370, 6), "vitl_518": (1, 1370, 16)}  # (B, N, H)
+# (B, H, N, d, strided: q, k, v as views of one qkv tensor, as the rope path reads them)
+K2_FP32_SHAPES = {"frame_s1": (1, 16, 1374, 64, False), "global_s4": (1, 16, 5496, 64, False),
+                  "d128_vit7b": (1, 32, 1029, 128, False),
+                  "dinov3_vit7b16_1024": (1, 32, 4101, 128, True)}
+K3_FP32_SHAPES = {"depth_pro_patch": (35, 16, 577, 64)}  # (B, H, N, d)
+K4_FP32_SHAPES = {"vitl_qkv": (1370, 1024, 3072)}  # (M, K, N)
+LONG_N = 4096  # fp32 shapes above this take LONG_ITERS calls a timing
+LONG_ITERS = 5
+E2E_BENCH = dict(warmup=5, iterations=30, latency_iterations=15)
 TIMING = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                       "monocular_depth_estimation_trt_tpu_torch", "runtime", "kernel_timing.py")
 
@@ -80,9 +106,13 @@ def child(root: str) -> dict:
     gen = torch.Generator().manual_seed(0)
     d = fa.HEAD_DIM
 
-    def timed(key, fn) -> None:
-        rec[f"{key}_ms"] = timing.event_ms(fn, iters=ITERS, repeats=REPEATS)
-        rec[f"{key}_dev_ms"] = timing.device_ms(fn, iters=ITERS, repeats=REPEATS)
+    def timed(key, fn, iters=ITERS) -> None:
+        out = fn().contiguous()
+        torch.cuda.synchronize()
+        rec[f"{key}_digest"] = hashlib.sha256(
+            out.view(torch.uint8).cpu().numpy().tobytes()).hexdigest()[:16]
+        rec[f"{key}_ms"] = timing.event_ms(fn, iters=iters, repeats=REPEATS)
+        rec[f"{key}_dev_ms"] = timing.device_ms(fn, iters=iters, repeats=REPEATS)
 
     def host_us(fn) -> float:
         return timing.host_us(fn, calls=HOST_CALLS)
@@ -114,6 +144,37 @@ def child(root: str) -> dict:
         w = wq.to(torch.bfloat16)
         timed(f"k4_{label}_matmul", lambda: torch.matmul(x, w.t()))
         del x, wq, w
+    # fp32, from a generator of its own (the bf16 inputs above stay as they were)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen32 = torch.Generator().manual_seed(1)
+    for label, (b, n, h) in K1_FP32_SHAPES.items():
+        qkv = torch.randn((b, n, 3 * h * d), generator=gen32).to(dev)
+        q, k, v = qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4)
+        timed(f"k1_{label}_fp32", lambda: fa.flash_attention_packed(qkv, h))
+        timed(f"k1_{label}_fp32_sdpa", lambda: F.scaled_dot_product_attention(q, k, v))
+    for label, (b, h, n, hd, strided) in K2_FP32_SHAPES.items():
+        if strided:
+            qkv = torch.randn((b, n, 3, h, hd), generator=gen32).to(dev)
+            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        else:
+            q, k, v = (torch.randn((b, h, n, hd), generator=gen32).to(dev) for _ in range(3))
+        iters = LONG_ITERS if n > LONG_N else ITERS
+        timed(f"k2_{label}_fp32", lambda: fa.flash_attention(q, k, v), iters)
+        timed(f"k2_{label}_fp32_sdpa", lambda: F.scaled_dot_product_attention(q, k, v), iters)
+        del q, k, v
+    for label, shape in K3_FP32_SHAPES.items():
+        q, k, v = (torch.randn(shape, generator=gen32).to(dev) for _ in range(3))
+        timed(f"k3_{label}_fp32", lambda: fa.flash_attention_batched(q, k, v))
+        del q, k, v
+    for label, (m, kk, n) in K4_FP32_SHAPES.items():
+        x = torch.randn((m, kk), generator=gen32).to(dev)
+        wq = torch.randint(-127, 128, (n, kk), generator=gen32, dtype=torch.int8).to(dev)
+        qmul = (10.0 + 50.0 * torch.rand(kk, generator=gen32)).to(dev)
+        scale = (1e-5 + 1e-3 * torch.rand(n, generator=gen32)).to(dev)
+        bias = torch.randn(n, generator=gen32).to(dev)
+        timed(f"k4_{label}_fp32", lambda: qm.w8a8_matmul(x, wq, qmul, scale, bias))
+        del x, wq
     b, h, n = HOST_SHAPE
     qkv = torch.randn((b, n, 3 * h * d), generator=gen).to(dev, torch.bfloat16)
     rec["k1_host_us"] = host_us(lambda: fa.flash_attention_packed(qkv, h))
@@ -125,6 +186,18 @@ def child(root: str) -> dict:
     wq = torch.randint(-127, 128, (n, kk), generator=gen, dtype=torch.int8).to(dev)
     qmul, scale, bias = (torch.rand(size, generator=gen).to(dev) for size in (kk, n, n))
     rec["k4_host_us"] = host_us(lambda: qm.w8a8_matmul(x, wq, qmul, scale, bias))
+    from monocular_depth_estimation_trt_tpu_torch.config import BenchmarkConfig
+    from monocular_depth_estimation_trt_tpu_torch.registry import build_pipeline
+    from monocular_depth_estimation_trt_tpu_torch.weights.store import set_allow_random_weights
+
+    set_allow_random_weights(True)
+    torch.manual_seed(0)
+    pipe = build_pipeline("depth_anything_v2", encoder="vitl", precision="fp32")
+    bench = pipe.benchmark((518, 518), BenchmarkConfig(**E2E_BENCH))
+    rec["vitl_fp32_graph_p50_ms"] = bench.percentile_ms(50)
+    rec["vitl_fp32_graph_mean_ms"] = bench.avg_ms
+    pipe.release_engines()
+    del pipe
     from monocular_depth_estimation_trt_tpu_torch.ops.cuda import _build
 
     rec["ptxas"] = [ln.strip() for ln in _build.build_info().log.splitlines()
@@ -142,6 +215,7 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.splitlines()[0]
+    digests = {}
     for i, root in enumerate(roots):
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", root],
                               capture_output=True, text=True)
@@ -149,6 +223,14 @@ def main() -> None:
             sys.exit(f"{root}: exited {proc.returncode}\n{proc.stderr}")
         rec = json.loads(proc.stdout.strip().splitlines()[-1])
         print(json.dumps({"run": i + 1, "card": smi, **rec}), flush=True)
+        for key, value in rec.items():
+            if key.endswith("_digest"):
+                digests.setdefault(key[:-len("_digest")], {})[i] = value
+    both = {k: set(v.values()) for k, v in digests.items() if len(v) == len(roots)}
+    print(json.dumps({"digests_differ": sorted(k for k, v in both.items() if len(v) > 1),
+                      "digests_equal": sorted(k for k, v in both.items() if len(v) == 1),
+                      "timed_in_some_runs_only": sorted(set(digests) - set(both))}),
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -18,6 +18,17 @@ does, so the two differ only by the rounding of a few fp32 values before a
 cast: 1 step. K2's online model casts the unnormalised exponentials and
 divides at the end: K2_BF16_ULPS steps, the bar ``chip_smoke.py`` holds the
 kernel to. A model that skips one key tile must fail both.
+
+The fp32 K1 and K2 (``csrc/attention_sm90_f32.cuh``) keep fp32 accuracy on
+the TF32 tensor cores by the split "3xTF32" products: each operand x as
+hi = x truncated to TF32 (the tensor core drops a raw fp32 word's low 13
+mantissa bits) and lo = x - hi, truncated in turn, each product as
+lo.hi + hi.lo + hi.hi in fp32. Their model repeats that arithmetic, the
+kernel's tiles (64 query rows; 64-key tiles at d = 64, 32-key tiles at d =
+128) and its online softmax (exp2, the row sum dividing once after P.V),
+held against the JAX kernels' fp32 forms at ``FP32_TOL``, the bar
+``chip_smoke.py`` holds the fp32 kernels to. One TF32 pass, or a skipped
+key tile, must fail it.
 """
 
 import math
@@ -38,6 +49,8 @@ BLOCK_K = 128  # keys per K/V tile of the ring
 LOG2E = 1.4426950408889634
 K2_BF16_ULPS = 4  # chip_smoke.py's bar for K2 against its plain version
 K3_BF16_ULPS = 1
+FP32_TOL = 1e-4  # chip_smoke.py's bar for the fp32 kernels against their plain versions
+F32_BLOCK_K = {64: 64, 128: 32}  # keys per K/V tile of the fp32 loop (Head64, Head128)
 
 
 def _blocks(n, size):
@@ -211,3 +224,94 @@ def test_k1_tile_model_matches_the_packed_jax_kernel(rng, n, heads):
     if n > BLOCK_K:
         skipped = k1_model(x, heads, 0.125, skip_tile=n // BLOCK_K // 2).float().numpy()
         assert np.abs(skipped - ref).max() > bar
+
+
+def _tf32(x):
+    """x truncated to TF32: the low 13 of fp32's 23 mantissa bits dropped, as
+    the tensor core reads a raw fp32 word."""
+    return (x.view(torch.int32) & -(1 << 13)).view(torch.float32)
+
+
+def _tf32_product(a, b, passes=3):
+    """a @ b as the fp32 loop's wgmma chains take it: lo.hi + hi.lo + hi.hi
+    with hi = tf32(x), lo = tf32(x - hi), fp32 sums (products of two TF32
+    values are exact in fp32). ``passes=1`` is a single TF32 pass, hi.hi."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    if passes == 1:
+        return a_hi @ b_hi
+    return _tf32(a - a_hi) @ b_hi + a_hi @ _tf32(b - b_hi) + a_hi @ b_hi
+
+
+def f32_model(q, k, v, scale, skip_tile=None, passes=3):
+    """The fp32 K2 (and K1 over its views): per 64-row query tile, one pass
+    over key tiles of F32_BLOCK_K[d] keys; S = Q.K^T and O += P.V each as
+    the split TF32 products; a running row max m and sum l in fp32, O
+    rescaled by exp2((m_old - m_new) * c) on every tile, P = exp2(s*c -
+    m*c) split like any operand (hi is p itself), the row sum dividing once
+    at the end. The kernel masks the ragged last tile's keys past N to
+    -inf; here the tile is cut at N, which is the same sum."""
+    c = scale * LOG2E
+    block_k = F32_BLOCK_K[q.shape[-1]]
+    out = torch.empty(q.shape)
+    for r0, r1 in _blocks(q.shape[2], BLOCK_Q):
+        rows = q[:, :, r0:r1]
+        m = torch.full(rows.shape[:-1], -math.inf)
+        l = torch.zeros(rows.shape[:-1])
+        o = torch.zeros(rows.shape)
+        for t, (k0, k1) in enumerate(_blocks(k.shape[2], block_k)):
+            if t == skip_tile:
+                continue
+            s = _tf32_product(rows, k[:, :, k0:k1].transpose(-1, -2), passes)
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp2((m - m_new) * c)  # 0 on the first tile
+            p = torch.exp2(s * c - (m_new * c)[..., None])
+            l = l * alpha + p.sum(-1)
+            o = o * alpha[..., None] + _tf32_product(p, v[:, :, k0:k1], passes)
+            m = m_new
+        out[:, :, r0:r1] = o / l[..., None]
+    return out
+
+
+def _f32_case(rng, layout, n, d, **kw):
+    """(the fp32 model's output, the JAX kernel's in interpret mode, the
+    port's plain version's) on one seeded input: K2's (1, 2, n, d) operands,
+    or K1's packed (1, n, 3*2*64) tensor through its strided views."""
+    scale = 1.0 / math.sqrt(d)
+    if layout == "k1":
+        heads = 2
+        qkv = rng.standard_normal((1, n, 3 * heads * d)).astype(np.float32)
+        ref = np.asarray(jax_flash_attention_packed(jnp.asarray(qkv), heads, interpret=True))
+        x = torch.from_numpy(qkv)
+        q, k, v = (t.transpose(1, 2) for t in x.view(1, n, 3, heads, d).unbind(2))
+        got = f32_model(q, k, v, scale, **kw).transpose(1, 2).reshape(1, n, heads * d)
+        plain = fa.flash_attention_packed_reference(x, heads)
+    else:
+        q, k, v = _inputs(rng, n, d)
+        ref = np.asarray(jax_flash_attention(*(jnp.asarray(t) for t in (q, k, v)),
+                                             interpret=True))
+        args = [torch.from_numpy(t) for t in (q, k, v)]
+        got = f32_model(*args, scale, **kw)
+        plain = fa.flash_attention_reference(*args)
+    assert ref.dtype == np.float32 and got.dtype == torch.float32
+    return got.numpy(), ref, plain.numpy()
+
+
+@pytest.mark.parametrize("layout,d", [("k2", 64), ("k2", 128), ("k1", 64)])
+@pytest.mark.parametrize("n", [65, 200, 300])
+def test_fp32_tile_model_matches_the_jax_kernel(rng, layout, n, d):
+    """The split TF32 model against the JAX kernels' fp32 forms (interpret
+    mode) and the port's plain version, at FP32_TOL."""
+    got, ref, plain = _f32_case(rng, layout, n, d)
+    assert np.abs(got - ref).max() <= FP32_TOL, np.abs(got - ref).max()
+    assert np.abs(got - plain).max() <= FP32_TOL, np.abs(got - plain).max()
+
+
+@pytest.mark.parametrize("cut", ["one_tf32_pass", "skipped_key_tile"])
+@pytest.mark.parametrize("layout,d", [("k2", 64), ("k2", 128), ("k1", 64)])
+def test_fp32_models_that_cut_a_corner_fail_the_bar(rng, cut, layout, d):
+    """A single TF32 pass (operands rounded to about 11 bits) and a model
+    that skips one key tile both miss FP32_TOL against the JAX kernel: the
+    split is needed, and the bar catches a dropped tile."""
+    kw = {"passes": 1} if cut == "one_tf32_pass" else {"skip_tile": 1}
+    got, ref, _ = _f32_case(rng, layout, 200, d, **kw)
+    assert np.abs(got - ref).max() > FP32_TOL, np.abs(got - ref).max()

@@ -48,6 +48,10 @@ def test_candidates_are_the_instantiations_of_each_width():
     assert all(len(at.ATTENTION_TILES[d]) == len(at.candidates("flash_attention", BF16, d))
                for d in (64, 128))
     assert at.ATTENTION_TILES == {64: ("128k3s2c", "64k4s2c"), 128: ("64k2s2c", "128k3s1c")}
+    # the fp32 K1 and K2: the split TF32 loop's one instantiation a head width
+    assert at.ATTENTION_FP32_TILES == {64: ("64k3s1c",), 128: ("32k2s1c",)}
+    assert at.candidates("flash_attention", torch.float32, 128) == (0,)
+    assert at.candidates("flash_attention_packed", torch.float32, 64) == (0,)
 
 
 @pytest.mark.parametrize("m,n,want", [(1370, 1024, 128), (1370, 3072, 256), (1370, 4096, 256),
