@@ -8,23 +8,27 @@ Phases, each printed as one JSON line; any failure exits non-zero:
 1. device: card name and power limit, torch/CUDA versions, ``nvcc --version``;
 2. build: compiles ``monocular_depth_estimation_trt_tpu_torch/csrc/*.cu``
    with nvcc into the package's ``_build/`` directory and loads it, with
-   ptxas's registers and spills per kernel; then ``sass``: the HGMMA (bf16
+   ptxas's registers and spills per kernel (the wide and fp32 mainloops,
+   ``*_wide_kernel_sm90`` and ``*_f32_sm90``, must spill nothing and keep
+   their wgmma unserialized: no warning C7512); then ``sass``: the HGMMA (bf16
    and TF32 wgmma; IGMMA for K4's int8) and UTMALDG (TMA load) instructions
    of each kernel in ``cuobjdump -sass`` (the bf16 K1, K2 (both head
-   widths), K3 (both) and K4 (both tile widths), and the fp32 K1 and K2
-   (split TF32, both head widths), must have both);
+   widths and the wide form), K3 (the same) and K4 (both tile widths), and
+   the fp32 K1, K2 and K3 (split TF32, both head widths), must have both);
 3. kernel checks: each kernel's wrapper (K1 packed-qkv attention, K2
    (B, H, N, d) attention and K3 exact-softmax attention of many short
    heads, all three on the TMA + wgmma mainloop of
-   ``csrc/attention_sm90.cuh`` in bf16, K1 and K2 in fp32 on the split TF32
-   mainloop of ``csrc/attention_sm90_f32.cuh``, K2 and K3 at head widths 64
-   and 128,
-   and above 128 on the simple loop of ``csrc/attention_wide.cuh``;
+   ``csrc/attention_sm90.cuh`` in bf16, K1, K2 and K3 in fp32 on the split
+   TF32 mainloop of ``csrc/attention_sm90_f32.cuh``, K2 and K3 at head widths
+   64 and 128, and above 128 on the mainloop's wide form in bf16 (up to
+   d = 1536, where Q is streamed beside K) and on the simple loop of
+   ``csrc/attention_wide.cuh`` in fp32;
    K4 the fused w8a8 matmul, a TMA + wgmma int8 GEMM in bf16) against its
    plain PyTorch version on the card, at the main paths' shapes and edge
    shapes (for the attention kernels the ends of the 64-row query tiles and
    128-key tiles: N = 1, 63, 65, 127, 128, 129, 255, 257, 577, and head
-   widths 16, 80, 96, 128, 192, 256, 320; K4 bit for bit), with timings of the kernel and
+   widths 16, 80, 96, 128, 192, 256, 320, 1024, 1536; K4 bit for bit), with timings of the
+   kernel and
    one library call (for K4 the chain quantize, ``torch._int_mm``, rescale,
    and the bf16 ``torch.matmul`` of the same shape) as device time
    (``kernel_ms``, ``library_ms``: CUDA events around calls queued behind a
@@ -55,8 +59,10 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    epilogue and a 1536x1536 frame, with the counts set to 0 just before and
    read just after (24 K3 + 24 K1 per captured forward); then its bf16
    outputs against plain attention and the fp32 path for one weight seed
-   and two frames, and the fp32 path on the card against the CPU with the
-   ViT depth cut to 2 blocks (hooks at blocks 0 and 1);
+   and two frames (the fp32 pipeline's first forward a counted run,
+   ``fp32_path``: 24 fp32 K3 + 24 fp32 K1 a forward, then its 1536² graph
+   p50 and device time by kernel), and the fp32 path on the card against
+   the CPU with the ViT depth cut to 2 blocks (hooks at blocks 0 and 1);
 7. metric_families_path: ``depth_anything_v3`` (vitl 518²),
    ``metric3d_v2`` (vitl on the 616x1064 canvas, ``iters=4``), ``moge2``
    (vits 291x518, 1800 tokens) and ``metric_anything`` (vitl 518², 3600
@@ -379,13 +385,17 @@ FAMILY_BENCH = dict(warmup=3, iterations=12, latency_iterations=5)
 
 # the TMA + wgmma kernels and their instantiations in the library (the tile
 # candidates of csrc/attention_sm90.cuh: K1 two at head width 64, K2 and K3
-# two at 64 and two at 128; K4 at tile widths 128 and 256; the fp32 K1 and K2
-# of csrc/attention_sm90_f32.cuh, one tile a head width), with the wgmma's
-# SASS name: HGMMA for bf16 and TF32 operands, IGMMA for int8
+# two at 64 and two at 128, and one of its wide form (d > 128) each; K4 at
+# tile widths 128 and 256; the fp32 K1, K2 and K3 of
+# csrc/attention_sm90_f32.cuh, one tile a head width), with the wgmma's SASS
+# name: HGMMA for bf16 and TF32 operands, IGMMA for int8
 SM90_KERNELS = {"attn_packed_kernel_sm90": (2, "HGMMA"), "attn_bhnd_kernel_sm90": (4, "HGMMA"),
                 "attn_batched_kernel_sm90": (4, "HGMMA"), "w8a8_kernel_sm90": (2, "IGMMA"),
+                "attn_bhnd_wide_kernel_sm90": (1, "HGMMA"),
+                "attn_batched_wide_kernel_sm90": (1, "HGMMA"),
                 "attn_packed_kernel_f32_sm90": (1, "HGMMA"),
-                "attn_bhnd_kernel_f32_sm90": (2, "HGMMA")}
+                "attn_bhnd_kernel_f32_sm90": (2, "HGMMA"),
+                "attn_batched_kernel_f32_sm90": (2, "HGMMA")}
 
 PEAK_BF16_OPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate
@@ -441,6 +451,53 @@ def sass_counts(lib_path: str):
             for op in counts[func]:
                 counts[func][op] += op in line
     return counts
+
+
+# kernels whose design rests on ptxas keeping every value in registers and
+# the wgmma chain asynchronous: the wide form (one CTA an SM, about 240
+# registers a consumer thread) and the fp32 split-TF32 mainloop
+PTXAS_CLEAN = ("_wide_kernel_sm90", "_f32_sm90")
+
+
+def ptxas_report(log: str):
+    """Per kernel entry of an ``nvcc -Xptxas -v`` log: its registers, spill
+    stores and loads (bytes), and whether ptxas serialized its wgmma (warning
+    C7512, which names the function)."""
+    report, entry = {}, None
+
+    def of(name):  # the warning may come before or after its entry's lines
+        return report.setdefault(name, {"registers": None, "spill_stores": None,
+                                        "spill_loads": None, "serialized": False})
+
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+            of(entry)
+        elif "(C7512)" in line:
+            of(line.rsplit("'", 2)[-2])["serialized"] = True
+        elif entry is not None and "spill stores" in line:
+            for part in line.split(","):
+                words = part.split()
+                if part.strip().endswith("spill stores"):
+                    report[entry]["spill_stores"] = int(words[0])
+                elif part.strip().endswith("spill loads"):
+                    report[entry]["spill_loads"] = int(words[0])
+        elif entry is not None and "Used" in line and "registers" in line:
+            words = line.split()
+            report[entry]["registers"] = int(words[words.index("Used") + 1])
+    return report
+
+
+def ptxas_faults(report):
+    """The PTXAS_CLEAN kernels that spill, serialize their wgmma, or whose
+    spill line is missing; every PTXAS_CLEAN pattern must match an entry."""
+    faults = [f"no kernel matching {pat} in the ptxas log" for pat in PTXAS_CLEAN
+              if not any(pat in name for name in report)]
+    for name, r in report.items():
+        if any(pat in name for pat in PTXAS_CLEAN) and (
+                r["serialized"] or r["spill_stores"] != 0 or r["spill_loads"] != 0):
+            faults.append(f"{name}: {r}")
+    return faults
 
 
 def attention_bound(b: int, n: int, h: int, d: int, itemsize: int, peak_ops: float):
@@ -631,10 +688,14 @@ def check_flash_attention(fa, dev):
         ("d128_vit7b_fp32", 1, 32, 1029, 128, torch.float32, False),
         ("dinov3_vit7b16_1024_fp32", 1, 32, 4101, 128, torch.float32, True),
         ("d96_fp32", 2, 3, 65, 96, torch.float32, False),
-        # heads wider than 128, zero-padded to a multiple of 128: the wide loop
+        # heads wider than 128: in bf16 the mainloop's wide form (d zero-padded
+        # to a multiple of 64; Q streamed beside K past d = 1280), in fp32 the
+        # wide loop (a multiple of 128)
         ("d192_wide", 1, 16, 1029, 192, torch.bfloat16, False),
         ("d256_wide", 1, 16, 1029, 256, torch.bfloat16, False),
         ("d320_wide_strided", 2, 8, 577, 320, torch.bfloat16, True),
+        ("d1024_wide", 1, 2, 129, 1024, torch.bfloat16, False),
+        ("d1536_wide_qstream", 1, 2, 129, 1536, torch.bfloat16, False),
         ("d192_wide_fp32", 1, 4, 257, 192, torch.float32, False),
         ("d320_wide_fp32", 1, 4, 129, 320, torch.float32, False),
     ])
@@ -675,10 +736,12 @@ def check_flash_attention_batched(fa, dev):
         ("d96_padded", 35, 8, 257, 96, torch.bfloat16, False),
         ("d128_fp32", 16, 16, 577, 128, torch.float32, False),
         ("d128_n1024_fp32", 2, 8, 1024, 128, torch.float32, False),
-        # heads wider than 128, zero-padded to a multiple of 128: the wide loop
+        # heads wider than 128, as K2's
         ("d192_wide", 16, 16, 577, 192, torch.bfloat16, True),
         ("d256_wide", 8, 16, 577, 256, torch.bfloat16, False),
         ("d320_wide", 8, 8, 257, 320, torch.bfloat16, False),
+        ("d1024_wide", 4, 2, 129, 1024, torch.bfloat16, False),
+        ("d1536_wide_qstream", 4, 2, 129, 1536, torch.bfloat16, False),
         ("d256_wide_fp32", 4, 8, 577, 256, torch.float32, False),
     ])
 
@@ -1167,7 +1230,7 @@ def run_depth_pro_path(build_pipeline, wrappers, rng):
     return pipe, launches, frames
 
 
-def depth_pro_parity(build_pipeline, pipe, frames):
+def depth_pro_parity(build_pipeline, pipe, frames, wrappers, config, card, power_limit):
     """For each weight seed and frame, on weights rounded to bf16 and shared
     by every route: the bf16 kernel route (K3 + K1) against plain attention
     and against the fp32 card path, on the inverse depth (the model's
@@ -1175,10 +1238,13 @@ def depth_pro_parity(build_pipeline, pipe, frames):
     error of the depth itself) and f_px. The kernel route is held to
     PATH_BF16_REL_TOL of the plain route at every reading, and, averaged
     over the readings, to PATH_BF16_ROUTE_RATIO times the plain route's
-    distance from fp32. Then the
+    distance from fp32. The fp32 pipeline's first forward is the fp32
+    path's counted run (``fp32_path``: 24 fp32 K3 + 24 fp32 K1 a forward);
+    its 1536² engine is then timed (``config``) and profiled. Then the
     fp32 path on the card against the CPU at the full 1536 geometry and
     widths, the ViT depth cut to DEPTH_PRO_CPU_VIT_DEPTH blocks. Every
-    reading is emitted before any is checked."""
+    reading is emitted before any is checked. Returns the fp32 counted
+    run's launch record."""
     import numpy as np
     import torch
     from monocular_depth_estimation_trt_tpu_torch.models.depth_pro import (
@@ -1193,7 +1259,7 @@ def depth_pro_parity(build_pipeline, pipe, frames):
         out = p(frame)
         return {"inverse_depth": 1.0 / out["depth"], "f_px": np.asarray(out["f_px"])}
 
-    readings = []
+    readings, fp32_launches = [], None
     for seed in PARITY_WEIGHT_SEEDS:
         kernel_pipe = pipe
         if seed != 0:  # the path's pipeline holds seed 0
@@ -1206,7 +1272,20 @@ def depth_pro_parity(build_pipeline, pipe, frames):
         card32_pipe = build_pipeline("depth_pro", precision="fp32", params=sd)
         for name, frame in frames.items():
             kernel, plain = run(kernel_pipe, frame), run(plain_pipe, frame)
-            card32 = run(card32_pipe, frame)
+            if fp32_launches is None:  # the fp32 path's own counts
+                set_counts_to_zero(wrappers)
+                card32, per = run_counted(lambda: run(card32_pipe, frame),
+                                          lambda: card32_pipe.engine_for(frame.shape[:2]),
+                                          wrappers, f"depth_pro fp32 {name}")
+                torch.cuda.synchronize()
+                fp32_launches = launch_record(wrappers)
+                check(per == [24, 24, 0, 0],
+                      f"depth_pro fp32: K3, K1, K2, K4 launches {per}, want [24, 24, 0, 0]")
+                emit({"phase": "fp32_path", "model": card32_pipe.spec.artifact_name(),
+                      "frame": name, "launches_per_forward": per, "launches": fp32_launches,
+                      "counted": f"{WARMUP_CALLS} warm-up + 1 captured"})
+            else:
+                card32 = run(card32_pipe, frame)
             rec = {"phase": "depth_pro_parity", "weights_seed": seed, "frame": name,
                    "f_px": {"kernel": float(kernel["f_px"]), "plain": float(plain["f_px"]),
                             "fp32": float(card32["f_px"])}}
@@ -1219,6 +1298,16 @@ def depth_pro_parity(build_pipeline, pipe, frames):
                 }
             emit(rec)
             readings.append(rec)
+        if seed == PARITY_WEIGHT_SEEDS[0]:  # the fp32 path's speed at 1536^2, its engine built
+            hw = (1536, 1536)
+            rep = timed_route(card32_pipe, "graph", hw, 0, config)
+            emit({**speed_record(rep, card32_pipe, "depth_pro_fp32", "graph", 0, 0, hw, card,
+                                 power_limit), "launches_per_forward": per})
+            eng = card32_pipe.engine_for(hw)
+            arg = torch.from_numpy(frames["frame_1536x1536"]).to(card32_pipe.device)
+            emit({**profile_breakdown(lambda: eng(arg), card32_pipe.spec.artifact_name(), 3),
+                  "route": "graph"})
+            del eng, arg
         drop_engines(plain_pipe, card32_pipe, kernel_pipe)
         del kernel_pipe, plain_pipe, card32_pipe, sd
 
@@ -1273,6 +1362,7 @@ def depth_pro_parity(build_pipeline, pipe, frames):
               f"route, over {len(readings)} readings")
         got = cpu_rec[k]["fp32_card_vs_cpu_rel"]
         check(got < PATH_FP32_REL_TOL, f"depth_pro fp32 {k} card vs cpu {got}")
+    return fp32_launches
 
 
 # The single-image families at full width, in two groups (the phases'
@@ -5917,13 +6007,19 @@ def main() -> None:
     _build.library()
     info = _build.build_info()
     ptxas = [ln.strip() for ln in info.log.splitlines()
-             if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
+             if "Compiling entry" in ln or "registers" in ln or "spill" in ln
+             or "C7512" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": info.built, "library": os.path.relpath(info.path, REPO),
           "ptxas": ptxas})
-    # every bf16 kernel, and the fp32 K1 and K2 (split TF32), runs on wgmma and
-    # TMA (K2 and K3 in two head widths); the other fp32 kernels (K3's fp32
-    # FMAs, the wide loop, K4's fp32 wmma loop) on neither
+    # the wide and fp32 mainloops neither spill nor serialize their wgmma
+    # (a library built earlier left no log to read)
+    if info.built:
+        faults = ptxas_faults(ptxas_report(info.log))
+        check(not faults, f"ptxas: {faults}")
+    # every bf16 kernel, and the fp32 K1, K2 and K3 (split TF32), runs on wgmma
+    # and TMA (K2 and K3 in two head widths and the wide form); the other fp32
+    # kernels (the fp32 wide loop, K4's fp32 wmma loop) on neither
     sass = sass_counts(info.path)
     if sass is None:
         emit({"phase": "sass", "counts": "not measured (no cuobjdump in the toolkit)"})
@@ -6054,7 +6150,9 @@ def main() -> None:
     # 6. the Depth Pro path (its own counted run), then its route comparisons
     depth_pro, depth_pro_launches, depth_pro_frames = run_depth_pro_path(build_pipeline, wrappers,
                                                                          rng)
-    depth_pro_parity(build_pipeline, depth_pro, depth_pro_frames)
+    fp32_launches["depth_pro_fp32"] = depth_pro_parity(
+        build_pipeline, depth_pro, depth_pro_frames, wrappers,
+        BenchmarkConfig(**DEPTH_PRO_BENCH), card, power_limit)
     drop_engines(depth_pro)
     next(autotune, None)
 
@@ -6325,8 +6423,13 @@ def main() -> None:
         if head_dim_128:  # the d = 128 instantiation (K2: DINOv3 vit7b16's path)
             d128 = next(r for r in records if r["shape"] == head_dim_128)
             extra["head_dim_128"] = {k: d128[k] for k in keys}
-            # the wide loop (d > 128, csrc/attention_wide.cuh), on no ported path
-            wide = [{k: r[k] for k in keys} for r in records if "_wide" in r["shape"]]
+            # the heads wider than 128, on no ported path: bf16 on the mainloop's
+            # wide form, fp32 on the simple wide loop
+            wide = [{**{k: r[k] for k in keys},
+                     "source": "monocular_depth_estimation_trt_tpu_torch/csrc/"
+                               + ("attention_sm90.cuh" if r["dtype"] == "bfloat16"
+                                  else "attention_wide.cuh")}
+                    for r in records if "_wide" in r["shape"]]
             if wide:
                 extra["wide_heads"] = wide
         if paths is None:
@@ -6383,6 +6486,12 @@ def main() -> None:
                                       and "_wide" not in r["shape"]],
                      "global_s4_fp32", head_dim_128="dinov3_vit7b16_1024_fp32",
                      wrapper="flash_attention", paths=fp32_launches),
+        # the fp32 K3 (Depth Pro's fp32 path) on the same split TF32 mainloop
+        kernel_entry("flash_attention_batched_fp32", "attention_sm90_f32.cuh",
+                     "flash_attention.py:68", "_attn_kernel_batched",
+                     [r for r in k3 if r["dtype"] == "float32" and "_wide" not in r["shape"]],
+                     "depth_pro_patch_fp32", head_dim_128="d128_fp32",
+                     wrapper="flash_attention_batched", paths=fp32_launches),
     ]
     for entry in kernels:
         check(entry["launches"] > 0, f"{entry['name']}: no launch on its paths' counted runs")

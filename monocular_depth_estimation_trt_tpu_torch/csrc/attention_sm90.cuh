@@ -2,7 +2,20 @@
 // K2 (flash_attention.cu) and K3 (flash_attention_batched.cu), bf16 only:
 // non-causal softmax(q k^T * scale) v over (B, H, N, d) operands that are
 // read through their own strides, with the output written as (B, N, H, d),
-// for a head width d of 64 or 128 (a template parameter, Config::kD).
+// for a head width d of 64 or 128 (a template parameter, Config::kD) and,
+// in its wide form (attention_wide, below), any multiple of 64 above 128.
+//
+// Replaces the bf16 forms of the TPU kernels
+//   monocular_depth_estimation_trt_tpu/ops/pallas/flash_attention.py::_attn_kernel_packed (K1)
+//   monocular_depth_estimation_trt_tpu/ops/pallas/flash_attention.py::_attn_kernel (K2)
+//   monocular_depth_estimation_trt_tpu/ops/pallas/flash_attention.py::_attn_kernel_batched (K3)
+// at every head width the JAX entry takes (it pads d > 128 to a multiple of
+// 128, d_pad). What bounds it on the H100: 4*B*H*N^2*d operations at 989
+// TFLOP/s against 4*B*H*N*d*2 bytes at 3.35 TB/s; operations at every path
+// shape but Depth Pro's patch (35, 16, 577, 64), where the two meet. Its
+// answer: TMA keeps the tiles coming without the consumer's registers, wgmma
+// keeps S, P and O in registers, and one CTA's softmax overlaps another's
+// wgmma where two fit an SM.
 //
 // CTA: one producer warpgroup, whose first thread issues every copy, and
 // one consumer warpgroup of 64 query rows; two CTAs are resident on an SM,
@@ -68,8 +81,9 @@
 //   before P.V; O accumulates with no rescaling and the epilogue only casts.
 //
 // Left for later: ping-pong scheduling of two consumer warpgroups and
-// overlap of the softmax with the next tile's wgmma inside a warpgroup; a
-// persistent tile scheduler; RoPE fused into the Q/K tile load.
+// overlap of the softmax with the next tile's wgmma inside a warpgroup (the
+// wide form, at one CTA an SM, gains most from it); a persistent tile
+// scheduler; RoPE fused into the Q/K tile load.
 
 #pragma once
 
@@ -558,6 +572,367 @@ __device__ __forceinline__ void attention(const CUtensorMap& tq, const CUtensorM
   }
 }
 
+// --- the wide form: head widths above 128 ------------------------------------------
+
+// K2's and K3's bf16 heads wider than 128 (the JAX entry's d_pad > 128) on the
+// same TMA + wgmma mainloop, at a head width d that is a runtime multiple of
+// 64 (the wrapper zero-pads to it; zero columns change no result). The head
+// splits into two widths:
+// * the width of the S reduction, d: Q and K are d / 64 swizzle regions, and
+//   S = Q.K^T sums m64n64k16 wgmma over all of them;
+// * the output chunk, at most 256 columns (kORegions regions): O of 64 rows x
+//   256 fp32 is 128 registers a consumer thread. A head of at most 256
+//   columns computes S once; a wider one recomputes it for each chunk.
+// CTA: one producer warpgroup (its first thread issues every copy) and one
+// consumer warpgroup of 64 query rows, one CTA an SM with no setmaxnreg: the
+// consumer holds O, S and P in about 200 registers, which neither two CTAs
+// an SM (128 a thread) nor two consumer
+// warpgroups (168 a thread at 384 threads: ptxas allocates the whole kernel
+// at the launch's count, setmaxnreg or not) leave it: both spilled and
+// serialized their wgmma. Grid (ceil(N / 64), H * chunks, B), chunks =
+// ceil(d / 256).
+// The ring's items are slots of min(d / 64, 4) regions of 64 keys: a K piece
+// (up to kPieceRegions regions of a key tile; a key tile is ceil(d / 256)
+// pieces) or the V chunk of a key tile (up to kORegions regions); an empty
+// slot takes one arrival per consumer warp. Q stays resident for the whole
+// loop where it fits beside two slots (d <= 1280), with as many slots as
+// fit, up to kMaxStages (6 at d = 192 and 256, 3 at 1024); a wider Q is
+// streamed: each K piece's slot carries Q's regions of the same columns
+// beside it (three 64 KB slots), read again from L2 for every key tile. A
+// chunk's regions past d are neither loaded, computed nor stored. Modes as
+// above: online for K2, exact (two passes) for K3. Each wgmma group is one
+// whole instantiation of wide_scores / wide_pv picked by a switch on the
+// region count, so that no wgmma sits under a condition (ptxas serializes
+// such a chain). The epilogue stages the output chunk in the first slot,
+// which every consumed item has left.
+struct Wide {
+  static constexpr int kBlockQ = 64;    // query rows of a CTA: the consumer warpgroup's wgmma M
+  static constexpr int kBlockK = 64;
+  static constexpr int kThreads = 256;  // the consumer warpgroup, then the producer warpgroup
+  static constexpr int kPieceRegions = 4;  // 64-column regions of K in one ring item
+  static constexpr int kORegions = 4;      // 64-column regions of an output chunk
+  static constexpr int kMaxStages = 6;
+  static constexpr int kS = kBlockK / 2;   // scores a consumer thread holds
+  static constexpr uint32_t kRegion = 64 * 128;  // 64 rows of one 64-column region: 8 KB
+  static constexpr uint32_t kBarBytes = 8 * (1 + 2 * kMaxStages);
+  static constexpr uint32_t kSmemLimit = 232448;  // a CTA's 227 KB
+  static_assert(kORegions <= kPieceRegions, "the epilogue stages a chunk in one slot");
+  static_assert(kBlockQ == kBlockK, "a region of Q and of a key tile are both 8 KB");
+};
+
+// What a wide launch computes at: the head's regions and chunks, the ring.
+struct WideArgs {
+  int n;
+  float scale_log2;
+  int regions;     // d / 64
+  int chunks;      // ceil(regions / kORegions)
+  int stages;      // slots of the ring
+  int q_streamed;  // 1: Q rides in each K piece's slot
+  uint32_t piece;  // bytes of a K piece or a V chunk: min(regions, 4) regions
+};
+
+// Shared memory of a wide CTA: Q (resident) or nothing, the ring, the
+// mbarriers q_full, full[kMaxStages], empty[kMaxStages], 1024 for alignment.
+__host__ __device__ inline uint32_t wide_q_bytes(const WideArgs& a) {
+  return a.q_streamed ? 0u : static_cast<uint32_t>(a.regions) * Wide::kRegion;
+}
+__host__ __device__ inline uint32_t wide_stage_bytes(const WideArgs& a) {
+  return a.q_streamed ? 2 * a.piece : a.piece;  // the K piece, then Q's
+}
+inline uint32_t wide_smem_bytes(const WideArgs& a) {
+  return wide_q_bytes(a) + a.stages * wide_stage_bytes(a) + Wide::kBarBytes + 1024;
+}
+
+inline WideArgs wide_args(int d, int n, float scale) {
+  WideArgs a;
+  a.n = n;
+  a.scale_log2 = scale * 1.4426950408889634f;
+  a.regions = d / 64;
+  a.chunks = (a.regions + Wide::kORegions - 1) / Wide::kORegions;
+  a.piece = (a.regions < Wide::kPieceRegions ? a.regions : Wide::kPieceRegions) * Wide::kRegion;
+  uint32_t left = Wide::kSmemLimit - Wide::kBarBytes - 1024;
+  const uint32_t q_bytes = a.regions * Wide::kRegion;
+  a.q_streamed = q_bytes + 2 * a.piece > left;
+  if (!a.q_streamed) left -= q_bytes;
+  a.stages = static_cast<int>(left / wide_stage_bytes(a));
+  if (a.stages > Wide::kMaxStages) a.stages = Wide::kMaxStages;
+  return a;
+}
+
+// S (+)= Q . K^T over the N regions of one K piece at ka (Q's at qa) as one
+// wgmma group, region j in 4 k16 steps (step kk at byte 32 * kk of the
+// region); first: S is overwritten. The loop picks the instantiation of a
+// piece's region count in a switch, so that no wgmma sits under a condition.
+template <int N>
+__device__ __forceinline__ void wide_scores(float (&s)[Wide::kS], uint32_t qa, uint32_t ka,
+                                            bool first) {
+  fence_regs(s);
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_m64n64k16_ss(s, smem_desc(qa + j * Wide::kRegion + 32 * kk, 16),
+                         smem_desc(ka + j * Wide::kRegion + 32 * kk, 16), !first || j || kk);
+    }
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(s);
+}
+
+// O += P . V over the N regions of a V chunk at va as one wgmma group, one
+// 64-column region after the other (region j is one swizzle atom wide:
+// MN-major, no leading offset), 4 k16 steps of 16 key rows each; N as above.
+template <int N>
+__device__ __forceinline__ void wide_pv(float (&o)[Wide::kORegions][32],
+                                        uint32_t (&p)[Wide::kS / 2], uint32_t va) {
+#pragma unroll
+  for (int j = 0; j < Wide::kORegions; ++j) fence_regs(o[j]);
+  fence_regs(p);
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+#pragma unroll
+    for (int kk = 0; kk < Wide::kBlockK / 16; ++kk) {
+      wgmma_m64n64k16_rs(o[j], p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+                         smem_desc(va + j * Wide::kRegion + kk * 16 * 128, 1024));
+    }
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+#pragma unroll
+  for (int j = 0; j < Wide::kORegions; ++j) fence_regs(o[j]);
+  fence_regs(p);
+}
+
+// One CTA of Wide::kThreads threads per (64-row query tile, head x chunk,
+// batch item), grid (ceil(n / 64), heads * a.chunks, batch),
+// wide_smem_bytes(a) of dynamic shared memory.
+template <bool kExact>
+__device__ __forceinline__ void attention_wide(const CUtensorMap& tq, const CUtensorMap& tk,
+                                               const CUtensorMap& tv, const CUtensorMap& to,
+                                               const WideArgs& a) {
+  constexpr uint32_t kRegion = Wide::kRegion;
+  constexpr int kORegions = Wide::kORegions, kPieceRegions = Wide::kPieceRegions;
+
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t q_bytes = wide_q_bytes(a);
+  const uint32_t stage_bytes = wide_stage_bytes(a);
+  const uint32_t q_s = base;  // region r at + r * kRegion
+  const uint32_t ring = base + q_bytes;
+  const uint32_t bar_q = ring + a.stages * stage_bytes;
+  const uint32_t bar_full = bar_q + 8;                         // + 8 * stage
+  const uint32_t bar_empty = bar_full + 8 * Wide::kMaxStages;  // + 8 * stage
+
+  const int n = a.n, regions = a.regions;
+  const int q0 = blockIdx.x * Wide::kBlockQ;
+  const int head = blockIdx.y / a.chunks;
+  const int col0 = (blockIdx.y % a.chunks) * kORegions * 64;  // this CTA's first output column
+  const int o_regions = min(kORegions, regions - col0 / 64);  // the chunk's regions inside d
+  const int batch = blockIdx.z;
+  const int tiles = (n + Wide::kBlockK - 1) / Wide::kBlockK;
+  const int pieces = (regions + kPieceRegions - 1) / kPieceRegions;  // K pieces a key tile
+  const int passes = kExact ? 2 : 1;  // (exact) K tiles, then K and V tiles
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int st = 0; st < a.stages; ++st) {
+      mbar_init(bar_full + 8 * st, 1);
+      mbar_init(bar_empty + 8 * st, 4);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // The producer: one thread issues every copy, item after item.
+    if (threadIdx.x != 128) return;
+    if (!a.q_streamed) {
+      mbar_expect_tx(bar_q, regions * kRegion);
+      for (int r = 0; r < regions; ++r) {
+        tma_load_4d(q_s + r * kRegion, tq, bar_q, 64 * r, q0, head, batch);
+      }
+    }
+    int st = 0;
+    uint32_t phase = 0;
+    for (int pass = 0; pass < passes; ++pass) {
+      const bool with_v = !kExact || pass == 1;
+      for (int t = 0; t < tiles; ++t) {
+        const int key0 = t * Wide::kBlockK;
+        for (int pc = 0; pc <= pieces; ++pc) {
+          const bool v_item = pc == pieces;
+          if (v_item && !with_v) break;
+          const uint32_t slot = ring + st * stage_bytes;
+          const uint32_t full = bar_full + 8 * st;
+          mbar_wait(bar_empty + 8 * st, phase ^ 1);  // the first round passes
+          if (v_item) {
+            mbar_expect_tx(full, o_regions * kRegion);
+            for (int j = 0; j < o_regions; ++j) {
+              tma_load_4d(slot + j * kRegion, tv, full, col0 + 64 * j, key0, head, batch);
+            }
+          } else {
+            const int r0 = pc * kPieceRegions;
+            const int nr = min(kPieceRegions, regions - r0);
+            mbar_expect_tx(full, nr * kRegion * (a.q_streamed ? 2 : 1));
+            for (int j = 0; j < nr; ++j) {
+              tma_load_4d(slot + j * kRegion, tk, full, 64 * (r0 + j), key0, head, batch);
+              if (a.q_streamed) {
+                tma_load_4d(slot + a.piece + j * kRegion, tq, full, 64 * (r0 + j), q0, head,
+                            batch);
+              }
+            }
+          }
+          if (++st == a.stages) {
+            st = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // The consumer warpgroup: query rows [q0, q0 + 64), output columns
+    // [col0, col0 + 64 * o_regions).
+    const int tid = threadIdx.x;
+    const int lane = tid % 32;
+
+    float o[kORegions][32];
+#pragma unroll
+    for (int j = 0; j < kORegions; ++j) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[j][i] = 0.0f;
+    }
+    float l0 = 0.0f, l1 = 0.0f;  // this thread's parts of its two rows' sums
+
+    if (!a.q_streamed) mbar_wait(bar_q, 0);
+    float s[Wide::kS];
+    uint32_t p[Wide::kS / 2];
+#pragma unroll
+    for (int i = 0; i < Wide::kS; ++i) s[i] = 0.0f;
+    float m0 = -INFINITY, m1 = -INFINITY, bias0 = 0.0f, bias1 = 0.0f;
+    int st = 0;
+    uint32_t phase = 0;
+    for (int pass = 0; pass < passes; ++pass) {
+      const bool pass2 = !kExact || pass == 1;
+      for (int t = 0; t < tiles; ++t) {
+        const int key0 = t * Wide::kBlockK;
+        // S = Q . K^T over d, piece after piece of the key tile.
+        for (int pc = 0; pc < pieces; ++pc) {
+          const uint32_t slot = ring + st * stage_bytes;
+          const uint32_t qa = a.q_streamed ? slot + a.piece : q_s + pc * kPieceRegions * kRegion;
+          const bool first = pc == 0;
+          mbar_wait(bar_full + 8 * st, phase);
+          switch (min(kPieceRegions, regions - pc * kPieceRegions)) {
+            case 1: wide_scores<1>(s, qa, slot, first); break;
+            case 2: wide_scores<2>(s, qa, slot, first); break;
+            case 3: wide_scores<3>(s, qa, slot, first); break;
+            default: wide_scores<4>(s, qa, slot, first); break;
+          }
+          if (lane == 0) mbar_arrive(bar_empty + 8 * st);
+          if (++st == a.stages) {
+            st = 0;
+            phase ^= 1;
+          }
+        }
+
+        if (key0 + Wide::kBlockK > n) mask_keys(s, key0, n, lane);
+
+        if (!pass2) {
+          // Exact pass 1: the row max and the rescaled row sum.
+          float mx0, mx1, sum0, sum1;
+          row_max(s, mx0, mx1);
+          const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+          l0 *= ex2((m0 - mn0) * a.scale_log2);
+          l1 *= ex2((m1 - mn1) * a.scale_log2);
+          exp_rows(s, a.scale_log2, mn0 * a.scale_log2, mn1 * a.scale_log2, sum0, sum1);
+          l0 += sum0;
+          l1 += sum1;
+          m0 = mn0;
+          m1 = mn1;
+          continue;
+        }
+
+        if (kExact) {
+          if (t == 0) {  // the first tile of pass 2: m and l are final
+            bias0 = m0 * a.scale_log2 + log2f(quad_sum(l0));
+            bias1 = m1 * a.scale_log2 + log2f(quad_sum(l1));
+          }
+          float sum0, sum1;
+          exp_rows(s, a.scale_log2, bias0, bias1, sum0, sum1);  // P = exp(s*scale - m) / l
+        } else {
+          float mx0, mx1, sum0, sum1;
+          row_max(s, mx0, mx1);
+          const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+          const float alpha0 = ex2((m0 - mn0) * a.scale_log2);  // 0 on the first tile
+          const float alpha1 = ex2((m1 - mn1) * a.scale_log2);
+          exp_rows(s, a.scale_log2, mn0 * a.scale_log2, mn1 * a.scale_log2, sum0, sum1);
+          l0 = l0 * alpha0 + sum0;
+          l1 = l1 * alpha1 + sum1;
+          m0 = mn0;
+          m1 = mn1;
+#pragma unroll
+          for (int j = 0; j < kORegions; ++j) scale_rows(o[j], alpha0, alpha1);
+        }
+
+        // O += P . V over the tile's keys and the chunk's regions.
+#pragma unroll
+        for (int i = 0; i < Wide::kS / 2; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+        const uint32_t slot = ring + st * stage_bytes;
+        mbar_wait(bar_full + 8 * st, phase);
+        switch (o_regions) {
+          case 1: wide_pv<1>(o, p, slot); break;
+          case 2: wide_pv<2>(o, p, slot); break;
+          case 3: wide_pv<3>(o, p, slot); break;
+          default: wide_pv<4>(o, p, slot); break;
+        }
+        if (lane == 0) mbar_arrive(bar_empty + 8 * st);
+        if (++st == a.stages) {
+          st = 0;
+          phase ^= 1;
+        }
+      }
+    }
+
+    if (!kExact) {  // deferred division
+      const float inv0 = 1.0f / quad_sum(l0), inv1 = 1.0f / quad_sum(l1);
+#pragma unroll
+      for (int j = 0; j < kORegions; ++j) scale_rows(o[j], inv0, inv1);
+    }
+
+    // Epilogue: the chunk as bf16 into the ring's first slot in the output
+    // map's swizzle, region after region, then one TMA store per region
+    // (rows >= n clipped).
+    const uint32_t out_s = ring;
+    uint8_t* out = smem + q_bytes;
+    const int row = (tid / 32) * 16 + lane / 4;  // and row + 8; row % 8 == lane / 4
+#pragma unroll
+    for (int j = 0; j < kORegions; ++j) {
+      if (j < o_regions) {
+        uint8_t* region = out + j * kRegion;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int chunk = (c ^ (lane / 4)) * 16 + 4 * (lane % 4);
+          *reinterpret_cast<uint32_t*>(region + row * 128 + chunk) =
+              pack_bf16(o[j][4 * c], o[j][4 * c + 1]);
+          *reinterpret_cast<uint32_t*>(region + (row + 8) * 128 + chunk) =
+              pack_bf16(o[j][4 * c + 2], o[j][4 * c + 3]);
+        }
+      }
+    }
+    fence_proxy_async();
+    asm volatile("bar.sync 1, 128;\n" ::: "memory");  // the consumer warpgroup alone
+    if (tid == 0) {
+      for (int j = 0; j < o_regions; ++j) {
+        tma_store_4d(to, out_s + j * kRegion, col0 + 64 * j, q0, head, batch);
+      }
+      tma_store_wait();
+    }
+  }
+}
+
 // --- host side -----------------------------------------------------------------
 
 // A rank-4 map over one bf16 operand's (d, N, H, B) with element strides
@@ -608,6 +983,39 @@ int launch(Kernel kernel, const void* q, const void* k, const void* v, void* o,
   const dim3 grid((n + Cfg::kBlockQ - 1) / Cfg::kBlockQ, heads, batch);
   kernel<<<grid, Cfg::kThreads, Cfg::kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       maps[0], maps[1], maps[2], maps[3], n, scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+typedef void (*WideKernel)(const CUtensorMap, const CUtensorMap, const CUtensorMap,
+                           const CUtensorMap, const WideArgs);
+
+// The same for `kernel`, a __global__ wrapper of attention_wide<...>, at a
+// head width d above 128 that is a multiple of 64.
+inline int launch_wide(WideKernel kernel, const void* q, const void* k, const void* v, void* o,
+                       const int64_t* strides, int batch, int heads, int n, int d, float scale,
+                       void* stream) {
+  if (d <= 128 || d % 64 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap maps[4];
+  const void* ptrs[4] = {q, k, v, o};
+  for (int i = 0; i < 4; ++i) {
+    const int64_t* st = strides + 3 * i;
+    if (!encode_operand(encode, &maps[i], ptrs[i], d, n, heads, batch, st[2], st[1], st[0],
+                        Wide::kBlockK)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  const WideArgs a = wide_args(d, n, scale);
+  if (static_cast<int64_t>(heads) * a.chunks > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // the largest a wide launch takes, raised once; each launch asks for its own
+  const cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), Wide::kSmemLimit);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n + Wide::kBlockQ - 1) / Wide::kBlockQ, heads * a.chunks, batch);
+  kernel<<<grid, Wide::kThreads, wide_smem_bytes(a), static_cast<cudaStream_t>(stream)>>>(
+      maps[0], maps[1], maps[2], maps[3], a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,14 +1,21 @@
-// The fp32 Hopper attention mainloop of kernels K1 (flash_attention_packed.cu)
-// and K2 (flash_attention.cu), precision="fp32": non-causal
-// softmax(q k^T * scale) v over (B, H, N, d) fp32 operands read through their
-// own strides, the output written as (B, N, H, d), for a head width d of 64
-// or 128 (Config::kD). The bf16 forms run attention_sm90.cuh.
+// The fp32 Hopper attention mainloop of kernels K1 (flash_attention_packed.cu),
+// K2 (flash_attention.cu) and K3 (flash_attention_batched.cu),
+// precision="fp32": non-causal softmax(q k^T * scale) v over (B, H, N, d)
+// fp32 operands read through their own strides, the output written as
+// (B, N, H, d), for a head width d of 64 or 128 (Config::kD). The bf16 forms
+// run attention_sm90.cuh; fp32 heads wider than 128 run attention_wide.cuh.
 //
 // Replaces the fp32 forms of the TPU kernels
 //   monocular_depth_estimation_trt_tpu/ops/pallas/flash_attention.py::_attn_kernel_packed (K1)
 //   monocular_depth_estimation_trt_tpu/ops/pallas/flash_attention.py::_attn_kernel (K2)
+//   monocular_depth_estimation_trt_tpu/ops/pallas/flash_attention.py::_attn_kernel_batched (K3)
 // whose two products take fp32 operands with preferred_element_type=fp32:
-// full fp32 accuracy, which this loop keeps on the tensor cores.
+// full fp32 accuracy, which this loop keeps on the tensor cores. K3's TPU
+// kernel divides P by the row sum before P.V, to cast P to the operand type
+// first; in fp32 there is no cast to stand before, so K3 runs this loop's
+// online mode as K1 and K2 do: moving the division changes only fp32
+// rounding (tests/test_torch_attention_tiling.py holds the model against
+// _attn_kernel_batched at 1e-4). K3 keeps its entry's N <= 1024.
 //
 // Numerics: split TF32 ("3xTF32"). Each fp32 operand x is taken as hi + lo
 // with hi = x truncated to TF32 (the tensor core reads a raw fp32 register or
@@ -26,7 +33,11 @@
 // What bounds it on the H100: 4*B*H*N^2*d operations, taken three times on the
 // TF32 tensor cores (495 TFLOP/s): 3 * ops / 495 TFLOP/s, below ops / 67
 // TFLOP/s on the fp32 pipes; B*N*4*H*d*4 bytes are far below either at the
-// paths' shapes. At ViT-S 518^2 (1, 1370, 6 heads) 0.0175 ms.
+// paths' shapes. At ViT-S 518^2 (1, 1370, 6 heads) 0.0175 ms; at Depth Pro's
+// patch shape (K3, 35 windows x 16 heads of 577 tokens) 0.2893 ms, where
+// N = 577 pads to 640 rows and keys (at most 81 % of the bound is reachable
+// with 64-row tiles) and 5,600 CTAs each pay Q's load, Q lo's conversion and
+// the ring's fill.
 //
 // Design. One CTA per (64-row query tile, head, batch item), grid
 // (ceil(N / 64), H, B), one CTA an SM (shared memory), three roles:

@@ -1,20 +1,23 @@
 // Attention at head widths above 128 for kernels K2 (flash_attention.cu) and
-// K3 (flash_attention_batched.cu), bf16 and fp32.
+// K3 (flash_attention_batched.cu), fp32 only (precision="fp32"). The bf16
+// forms of those heads run the wide form of the Hopper mainloop
+// (attention_sm90.cuh, attention_wide).
 //
-// Replaces the part of the TPU entry
+// Replaces the fp32 form of the part of the TPU entry
 //   monocular_depth_estimation_trt_tpu/ops/pallas/flash_attention.py::flash_attention
 // that pads a head wider than 128 to a multiple of 128 (d_pad) and computes
 // it on _attn_kernel / _attn_kernel_batched. The wrapper zero-pads d to that
 // multiple here too; this loop takes any multiple of 128.
 //
-// Numerics: scores, softmax and both products in fp32 (bf16 operands are
-// widened on load; P is never rounded), keys >= N masked to -inf, an online
-// softmax (running row max and sum, O rescaled per key tile), the division
-// by the row sum once at the end, one rounding to the output type.
+// Numerics: scores, softmax and both products in fp32 (P is never rounded),
+// keys >= N masked to -inf, an online softmax (running row max and sum, O
+// rescaled per key tile), the division by the row sum once at the end.
 //
 // What bounds it: no model of the zoo has such a head, so this loop is
 // written to be simple and right, not fast. It does 4*B*H*N^2*d operations
-// on the fp32 pipes, plus the scores recomputed once per output chunk.
+// on the fp32 pipes (67 TFLOP/s), plus the scores recomputed once per output
+// chunk; split TF32 on the tensor cores (attention_sm90_f32.cuh, 3 x ops at
+// 495 TFLOP/s) would bound it lower, and is the next step for these heads.
 //
 // Design: one CTA of 128 threads per (16 query rows, head, 128-column chunk
 // of the output, batch item); grid (ceil(N/16), H * d/128, B). A key tile
@@ -28,7 +31,6 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -45,25 +47,13 @@ constexpr int kColsPerThread = kChunk / kLanesPerRow;  // 16
 constexpr int kLd = kChunk + 4;   // row stride (floats) of the Q, K and V tiles
 constexpr int kLdS = kKeys + 1;   // row stride (floats) of P
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T>
-__device__ __forceinline__ T narrow(float x);
-template <>
-__device__ __forceinline__ float narrow<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
 // K2's and K3's C entries: 12 element strides, (batch, head, token) of q,
 // k, v, then o; head_dim (a multiple of 128) has stride 1.
-template <typename T>
 struct Args {
-  const T* q;
-  const T* k;
-  const T* v;
-  T* o;
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
   int64_t s[12];
   int n;
   int d;
@@ -71,23 +61,21 @@ struct Args {
 };
 
 // Columns [c0, c0 + 128) of tokens [row0, row0 + rows) of one head into a
-// shared tile of floats; tokens >= n become zeros.
-template <typename T>
-__device__ __forceinline__ void load_chunk(float* dst, const T* src, int64_t row_stride,
+// shared tile; tokens >= n become zeros.
+__device__ __forceinline__ void load_chunk(float* dst, const float* src, int64_t row_stride,
                                            int row0, int rows, int n, int c0) {
   for (int i = threadIdx.x; i < rows * kChunk; i += kThreads) {
     const int r = i / kChunk;
     const int c = i % kChunk;
     float x = 0.0f;
-    if (row0 + r < n) x = widen(src[static_cast<int64_t>(row0 + r) * row_stride + c0 + c]);
+    if (row0 + r < n) x = src[static_cast<int64_t>(row0 + r) * row_stride + c0 + c];
     dst[r * kLd + c] = x;
   }
 }
 
 // The body of a kernel (each of K2 and K3 wraps it in a __global__ of its
 // own name): grid (ceil(n / 16), heads * d / 128, batch), kThreads threads.
-template <typename T>
-__device__ __forceinline__ void attention(const Args<T>& a) {
+__device__ __forceinline__ void attention(const Args& a) {
   __shared__ __align__(16) float q_s[kRows * kLd];
   __shared__ __align__(16) float kv_s[kKeys * kLd];  // a K chunk, then the V chunk
   __shared__ float p_s[kRows * kLdS];
@@ -98,9 +86,9 @@ __device__ __forceinline__ void attention(const Args<T>& a) {
   const int h = blockIdx.y / chunks;
   const int oc = (blockIdx.y % chunks) * kChunk;  // first output column of this CTA
   const int64_t b = blockIdx.z;
-  const T* q = a.q + b * a.s[0] + h * a.s[1];
-  const T* k = a.k + b * a.s[3] + h * a.s[4];
-  const T* v = a.v + b * a.s[6] + h * a.s[7];
+  const float* q = a.q + b * a.s[0] + h * a.s[1];
+  const float* k = a.k + b * a.s[3] + h * a.s[4];
+  const float* v = a.v + b * a.s[6] + h * a.s[7];
   const int r = threadIdx.x / kLanesPerRow;
   const int j0 = threadIdx.x % kLanesPerRow;
 
@@ -171,23 +159,22 @@ __device__ __forceinline__ void attention(const Args<T>& a) {
 
   const int row = q0 + r;
   if (row < n) {
-    T* dst = a.o + b * a.s[9] + h * a.s[10] + static_cast<int64_t>(row) * a.s[11] + oc;
+    float* dst = a.o + b * a.s[9] + h * a.s[10] + static_cast<int64_t>(row) * a.s[11] + oc;
     const float inv = 1.0f / l;
 #pragma unroll
     for (int i = 0; i < kColsPerThread; ++i) {
-      dst[j0 + kLanesPerRow * i] = narrow<T>(acc[i] * inv);
+      dst[j0 + kLanesPerRow * i] = acc[i] * inv;
     }
   }
 }
 
-template <typename T>
-Args<T> make_args(const void* q, const void* k, const void* v, void* o, const int64_t* strides,
-                  int n, int d, float scale) {
-  Args<T> a;
-  a.q = static_cast<const T*>(q);
-  a.k = static_cast<const T*>(k);
-  a.v = static_cast<const T*>(v);
-  a.o = static_cast<T*>(o);
+inline Args make_args(const void* q, const void* k, const void* v, void* o, const int64_t* strides,
+                      int n, int d, float scale) {
+  Args a;
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.o = static_cast<float*>(o);
   for (int i = 0; i < 12; ++i) a.s[i] = strides[i];
   a.n = n;
   a.d = d;
@@ -195,16 +182,15 @@ Args<T> make_args(const void* q, const void* k, const void* v, void* o, const in
   return a;
 }
 
-// Launches `kernel` (a __global__ wrapper of attention<T>) on `stream`;
+// Launches `kernel` (a __global__ wrapper of attention) on `stream`;
 // returns the cudaError_t of the launch (0 on success).
-template <typename T>
-int launch(void (*kernel)(const Args<T>), const void* q, const void* k, const void* v, void* o,
-           const int64_t* strides, int batch, int heads, int n, int head_dim, float scale,
-           void* stream) {
+inline int launch(void (*kernel)(const Args), const void* q, const void* k, const void* v, void* o,
+                  const int64_t* strides, int batch, int heads, int n, int head_dim, float scale,
+                  void* stream) {
   if (head_dim <= 0 || head_dim % kChunk || n < 1) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((n + kRows - 1) / kRows, heads * (head_dim / kChunk), batch);
   kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      make_args<T>(q, k, v, o, strides, n, head_dim, scale));
+      make_args(q, k, v, o, strides, n, head_dim, scale));
   return static_cast<int>(cudaGetLastError());
 }
 

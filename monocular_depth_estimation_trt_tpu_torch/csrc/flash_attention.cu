@@ -40,8 +40,15 @@
 //
 // Head widths: 64 and 128 (Head64 and Head128 of attention_sm90.cuh); the
 // wrapper zero-pads d < 64 to 64 and 64 < d < 128 to 128, as the JAX entry
-// pads d > 64 to a multiple of 128. Wider heads, padded to a multiple of 128,
-// run the simple fp32-math loop of attention_wide.cuh in either type.
+// pads d > 64 to a multiple of 128. A wider bf16 head, zero-padded to a
+// multiple of 64 (not 128: zero columns change no result, and d = 192
+// computes 25 % less), runs the mainloop's wide form (attention_wide: the S
+// reduction over every 64-column region, the output in 256-column chunks,
+// one CTA an SM, Q streamed beside K past d = 1280). It replaced a loop on
+// the fp32 pipes (attention_wide.cuh, 16 query rows a CTA, no TMA or wgmma)
+// that took 2.66 ms at (1, 16, 1029, 192) on the H100, about 37x the wide
+// form's time (PERF.md). A wider fp32 head, padded to a multiple of 128,
+// still runs that loop.
 //
 // fp32 (precision="fp32") runs the fp32 Hopper mainloop of
 // attention_sm90_f32.cuh at either width: split TF32 ("3xTF32") wgmma, which
@@ -75,9 +82,15 @@ __global__ void __launch_bounds__(Cfg::kThreads, Cfg::kMinCtas) attn_bhnd_kernel
   sm90::attention<Cfg, /*kExact=*/false>(q, k, v, o, n, scale_log2);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(wide::kThreads) attn_bhnd_wide_kernel(const wide::Args<T> a) {
-  wide::attention<T>(a);
+__global__ void __launch_bounds__(sm90::Wide::kThreads, 1) attn_bhnd_wide_kernel_sm90(
+    const __grid_constant__ CUtensorMap q, const __grid_constant__ CUtensorMap k,
+    const __grid_constant__ CUtensorMap v, const __grid_constant__ CUtensorMap o,
+    const sm90::WideArgs a) {
+  sm90::attention_wide</*kExact=*/false>(q, k, v, o, a);
+}
+
+__global__ void __launch_bounds__(wide::kThreads) attn_bhnd_wide_kernel(const wide::Args a) {
+  wide::attention(a);
 }
 
 template <typename Cfg>
@@ -113,8 +126,8 @@ int mdet_flash_attention_bf16(const void* q, const void* k, const void* v, void*
   if (head_dim == 64) return sm90::dispatch_tile<64>(tile, launch_fn);
   if (head_dim == 128) return sm90::dispatch_tile<128>(tile, launch_fn);
   if (tile != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return wide::launch<__nv_bfloat16>(attn_bhnd_wide_kernel<__nv_bfloat16>, q, k, v, o, strides,
-                                     batch, heads, n, head_dim, scale, stream);
+  return sm90::launch_wide(attn_bhnd_wide_kernel_sm90, q, k, v, o, strides, batch, heads, n,
+                           head_dim, scale, stream);
 }
 
 int mdet_flash_attention_f32(const void* q, const void* k, const void* v, void* o,
@@ -127,8 +140,8 @@ int mdet_flash_attention_f32(const void* q, const void* k, const void* v, void* 
   if (head_dim == 128) {
     return launch_bhnd_f32<sm90f32::Head128>(q, k, v, o, strides, batch, heads, n, scale, stream);
   }
-  return wide::launch<float>(attn_bhnd_wide_kernel<float>, q, k, v, o, strides, batch, heads, n,
-                             head_dim, scale, stream);
+  return wide::launch(attn_bhnd_wide_kernel, q, k, v, o, strides, batch, heads, n, head_dim,
+                      scale, stream);
 }
 
 }  // extern "C"

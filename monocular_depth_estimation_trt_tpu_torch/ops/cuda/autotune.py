@@ -43,9 +43,10 @@ kernel, type, shape and device; a measurement's write drops the memo, and
 The candidates: the bf16 attention mainloop's instantiations at head width
 64 and 128 (:data:`ATTENTION_TILES`, in the order of the C entries' tile
 index) and K4's two output tile widths (:data:`W8A8_WIDTHS`). The fp32
-kernels and K2/K3's wide loop (d > 128) have one tile each: for the fp32 K1
-and K2 the split TF32 mainloop's one instantiation a head width
-(:data:`ATTENTION_FP32_TILES`), their default under the fp32 keys.
+kernels and K2/K3's wide heads (d > 128: the bf16 mainloop's wide form, the
+fp32 simple loop) have one tile each: for the fp32 K1, K2 and K3 the split
+TF32 mainloop's one instantiation a head width (:data:`ATTENTION_FP32_TILES`),
+their default under the fp32 keys.
 """
 
 from __future__ import annotations
@@ -71,10 +72,10 @@ ATTENTION_TILES = {
     64: ("128k3s2c", "64k4s2c"),
     128: ("64k2s2c", "128k3s1c"),
 }
-# csrc/attention_sm90_f32.cuh::Head64 / Head128: the fp32 K1 and K2's one
+# csrc/attention_sm90_f32.cuh::Head64 / Head128: the fp32 K1, K2 and K3's one
 # instantiation a head width (keys per K/V tile, stages, CTAs an SM)
 ATTENTION_FP32_TILES = {64: ("64k3s1c",), 128: ("32k2s1c",)}
-FP32_TILED = ("flash_attention_packed", "flash_attention")
+FP32_TILED = ("flash_attention_packed", "flash_attention", "flash_attention_batched")
 W8A8_WIDTHS = (128, 256)  # K4's bf16 output tile widths
 W8A8_FP32_WIDTH = 128  # the fp32 wmma kernel's one width
 W8A8_ROWS = 128  # K4's output rows per tile
@@ -155,7 +156,7 @@ def candidates(kernel: str, dtype: torch.dtype, width: int) -> Tuple[int, ...]:
     if dtype != torch.bfloat16:
         tiles = ATTENTION_FP32_TILES if kernel in FP32_TILED else {}
         return tuple(range(len(tiles.get(width, ("one loop",)))))
-    return tuple(range(len(ATTENTION_TILES.get(width, ("wide loop",)))))
+    return tuple(range(len(ATTENTION_TILES.get(width, ("wide form",)))))
 
 
 @functools.lru_cache(maxsize=None)

@@ -18,12 +18,15 @@ In bf16, K1, K2 and K3 run the Hopper mainloop of
 ``csrc/attention_sm90.cuh`` (TMA loads through one tensor map per operand,
 wgmma, warp specialisation): K1 and K2 with an online softmax, K3 with two
 passes over the keys, at head widths 64 and 128 (narrower heads are
-zero-padded to one of them). The fp32 K1 and K2 share the fp32 Hopper
-mainloop of ``csrc/attention_sm90_f32.cuh``: the same TMA loads (fp32 boxes),
-a ring of K/V tiles, both products on the TF32 tensor cores as split
-("3xTF32") wgmma products, accurate to fp32; the fp32 K3 holds a query tile's
-whole score rows. K2 and K3 zero-pad a head wider than 128 to a multiple of 128, as the
-JAX entry does, and run it in either type on the simple loop of
+zero-padded to one of them); K2 and K3 zero-pad a head wider than 128 to a
+multiple of 64 (the JAX entry pads to 128: zero columns change no result)
+and run it on the same mainloop's wide form, the S reduction over every
+64-column region and the output in chunks of 256 columns. The fp32 K1, K2
+and K3 share the fp32 Hopper mainloop of ``csrc/attention_sm90_f32.cuh``:
+the same TMA loads (fp32 boxes), a ring of K/V tiles, both products on the
+TF32 tensor cores as split ("3xTF32") wgmma products, accurate to fp32, in
+the online mode. An fp32 head wider than 128 is zero-padded to a multiple
+of 128, as the JAX entry does, and runs the simple loop of
 ``csrc/attention_wide.cuh``. On a CUDA tensor each wrapper launches its
 kernel or raises; on a CPU tensor it runs its plain PyTorch version
 (:func:`flash_attention_packed_reference`, :func:`flash_attention_reference`
@@ -53,7 +56,8 @@ import torch.nn.functional as F
 from monocular_depth_estimation_trt_tpu_torch.ops.cuda import autotune
 
 HEAD_DIM = 64  # K1's one head width: every DINOv2 encoder and VGGT
-WIDE_HEAD_DIM = 128  # K2 and K3 pad a wider head to a multiple of this (the JAX entry's d_pad)
+WIDE_HEAD_DIM = 128  # K2 and K3 pad a wider fp32 head to a multiple of this (the JAX entry's d_pad)
+WIDE_BF16_STEP = 64  # and a wider bf16 head to a multiple of this: one swizzle region
 BATCHED_MAX_N = 1024  # K3's regime: the TPU kernel's many short heads
 
 _C_FUNCS = {
@@ -191,18 +195,20 @@ def _aligned(t: torch.Tensor) -> bool:
             and all(st * size % 16 == 0 for st in t.stride()[:3]))
 
 
-def _kernel_head_dim(d: int) -> int:
-    """The head width K2 and K3 compute ``d`` at: 64 where d <= 64, else the
-    next multiple of 128 (the JAX entry's ``d_pad``)."""
+def _kernel_head_dim(d: int, dtype: torch.dtype) -> int:
+    """The head width K2 and K3 compute ``d`` at: 64 where d <= 64, 128 where
+    d <= 128, else the next multiple of 64 in bf16 (the mainloop's wide form)
+    and of 128 in fp32 (the JAX entry's ``d_pad``, the simple wide loop)."""
     if d <= HEAD_DIM:
         return HEAD_DIM
-    return -(-d // WIDE_HEAD_DIM) * WIDE_HEAD_DIM
+    step = WIDE_BF16_STEP if dtype == torch.bfloat16 and d > WIDE_HEAD_DIM else WIDE_HEAD_DIM
+    return -(-d // step) * step
 
 
 def _padded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """q, k, v zero-padded on d to the width K2 and K3 compute at."""
     d = q.shape[-1]
-    width = _kernel_head_dim(d)
+    width = _kernel_head_dim(d, q.dtype)
     if d < width:
         q, k, v = (F.pad(t, (0, width - d)) for t in (q, k, v))
     return q, k, v
@@ -287,10 +293,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     unpadded d, as the JAX entry does. The operands may be strided views
     (unit stride on d, 16-byte aligned rows). A CUDA tensor launches the
     kernel on the current stream (counted in ``flash_attention.launches``)
-    at any d (d < 64 zero-padded to 64, any other d to a multiple of 128)
-    and returns a ``(B, N, H, d)`` buffer seen as
-    ``(B, H, N, d)``, so that the reshape before the proj matmul is free; a
-    CPU tensor goes to the plain version at any d."""
+    at any d (d < 64 zero-padded to 64, 64 < d < 128 to 128, a wider d to a
+    multiple of 64 in bf16 and of 128 in fp32) and returns a ``(B, N, H, d)``
+    buffer seen as ``(B, H, N, d)``, so that the reshape before the proj
+    matmul is free; a CPU tensor goes to the plain version at any d."""
     _check_bhnd(q, k, v)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
@@ -304,11 +310,10 @@ def flash_attention_batched(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             scale: Optional[float] = None) -> torch.Tensor:
     """K3: non-causal multi-head attention, ``(B, H, N, d)`` ->
     ``(B, H, N, d)``, for many short heads: N <= 1024 (the TPU kernel's
-    regime; the fp32 kernel holds a query tile's whole score rows), any B
-    and H.
+    regime), any B and H.
 
     K2's signature and layout rules: bf16 or fp32, any d >= 1 with the
-    scale of the unpadded d (on a card zero-padded to 64 or a multiple of 128),
+    scale of the unpadded d (on a card zero-padded as K2 pads it),
     strided views with unit stride on d and 16-byte aligned rows, output
     written ``(B, N, H, d)`` and returned as a ``(B, H, N, d)`` view. N > 1024 raises on every device: that bound is
     the kernel's regime. A CUDA tensor launches the kernel on the current

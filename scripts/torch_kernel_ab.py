@@ -12,16 +12,20 @@ a fixed seed:
   beside ``scaled_dot_product_attention`` at ViT-S and ViT-L
   (``*_sdpa_ms``); K2 ((B, H, N, d) attention) at VGGT's frame and global
   shapes and K3 (many short heads) at Depth Pro's patch shape, and both at
-  head_dim 128 where the checkout takes it; K4 (the w8a8 matmul) at the
-  int8 paths' seven layer shapes, beside the bf16 ``torch.matmul`` of the
+  head_dim 128 where the checkout takes it; K2 and K3 at head widths above
+  128 (192, 256, 320: three shapes each, from a generator of their own)
+  beside ``scaled_dot_product_attention`` on the same q, k, v; K4 (the w8a8
+  matmul) at the int8 paths' seven layer shapes, beside the bf16 ``torch.matmul`` of the
   same (M, K, N) (``*_matmul_ms``, the yardstick int8 serving has to beat);
 - fp32 (``precision="fp32"``, TF32 off): K1 at ViT-S and ViT-L, K2 at
   VGGT's frame (S=1) and global (S=4) shapes and at DINOv3 vit7b16's
   head_dim-128 shapes, each beside fp32 ``scaled_dot_product_attention``
-  on the same q, k, v (``*_sdpa_ms``); K3 at Depth Pro's patch shape and
-  K4 at ViT-L's qkv; and the fp32 route end to end, DA-V2 vitl at 518²
-  through its engine (``DepthPipeline.benchmark``, seeded random weights;
-  ``vitl_fp32_graph_*``).
+  on the same q, k, v (``*_sdpa_ms``); K3 at Depth Pro's patch shape, at
+  N = 1024 and at head_dim 128, each beside fp32 SDPA, and K4 at ViT-L's
+  qkv; and the fp32 route end to end through its engine
+  (``DepthPipeline.benchmark``, seeded random weights): DA-V2 vitl at 518²
+  (``vitl_fp32_graph_*``) and Depth Pro at 1536² (``depth_pro_fp32_graph_*``;
+  24 fp32 K3 and 24 fp32 K1 a forward).
 
 Every timed call's output also gets a digest (``*_digest``: the first 16
 hex digits of the SHA-256 of its bytes), and a last line names the timings
@@ -65,6 +69,12 @@ K2_SHAPES = {"frame_s4": (4, 16, 1374, 64), "global_s4": (1, 16, 5496, 64),
              "d128_vit7b": (1, 32, 1029, 128), "d128": (16, 16, 577, 128)}  # (B, H, N, d)
 K3_SHAPES = {"depth_pro_patch": (35, 16, 577, 64), "n1024": (16, 16, 1024, 64),
              "d128": (16, 16, 577, 128)}
+# heads wider than 128 (B, H, N, d, strided), timed WIDE_ITERS calls a timing
+K2_WIDE_SHAPES = {"d192_wide": (1, 16, 1029, 192, False), "d256_wide": (1, 16, 1029, 256, False),
+                  "d320_wide_strided": (2, 8, 577, 320, True)}
+K3_WIDE_SHAPES = {"d192_wide": (16, 16, 577, 192, True), "d256_wide": (8, 16, 577, 256, False),
+                  "d320_wide": (8, 8, 257, 320, False)}
+WIDE_ITERS = 10
 K4_SHAPES = {"vitl_qkv": (1370, 1024, 3072), "vitl_proj": (1370, 1024, 1024),
              "vitl_fc1": (1370, 1024, 4096), "vitl_fc2": (1370, 4096, 1024),
              "depth_pro_fc1": (20195, 1024, 4096), "depth_pro_fc2": (20195, 4096, 1024),
@@ -75,11 +85,13 @@ K1_FP32_SHAPES = {"vits_518": (1, 1370, 6), "vitl_518": (1, 1370, 16)}  # (B, N,
 K2_FP32_SHAPES = {"frame_s1": (1, 16, 1374, 64, False), "global_s4": (1, 16, 5496, 64, False),
                   "d128_vit7b": (1, 32, 1029, 128, False),
                   "dinov3_vit7b16_1024": (1, 32, 4101, 128, True)}
-K3_FP32_SHAPES = {"depth_pro_patch": (35, 16, 577, 64)}  # (B, H, N, d)
+K3_FP32_SHAPES = {"depth_pro_patch": (35, 16, 577, 64), "n1024": (2, 8, 1024, 64),
+                  "d128": (16, 16, 577, 128)}  # (B, H, N, d)
 K4_FP32_SHAPES = {"vitl_qkv": (1370, 1024, 3072)}  # (M, K, N)
 LONG_N = 4096  # fp32 shapes above this take LONG_ITERS calls a timing
 LONG_ITERS = 5
 E2E_BENCH = dict(warmup=5, iterations=30, latency_iterations=15)
+DEPTH_PRO_BENCH = dict(warmup=3, iterations=10, latency_iterations=5)
 TIMING = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                       "monocular_depth_estimation_trt_tpu_torch", "runtime", "kernel_timing.py")
 
@@ -144,6 +156,21 @@ def child(root: str) -> dict:
         w = wq.to(torch.bfloat16)
         timed(f"k4_{label}_matmul", lambda: torch.matmul(x, w.t()))
         del x, wq, w
+    # the wide heads, from a generator of their own (the rows above keep their inputs)
+    gen_wide = torch.Generator().manual_seed(2)
+    for key, name, shapes in (("k2", "flash_attention", K2_WIDE_SHAPES),
+                              ("k3", "flash_attention_batched", K3_WIDE_SHAPES)):
+        for label, (b, h, n, hd, strided) in shapes.items():
+            if strided:
+                qkv = torch.randn((b, n, 3, h, hd), generator=gen_wide).to(dev, torch.bfloat16)
+                q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+            else:
+                q, k, v = (torch.randn((b, h, n, hd), generator=gen_wide).to(dev, torch.bfloat16)
+                           for _ in range(3))
+            timed(f"{key}_{label}", lambda: getattr(fa, name)(q, k, v), WIDE_ITERS)
+            timed(f"{key}_{label}_sdpa", lambda: F.scaled_dot_product_attention(q, k, v),
+                  WIDE_ITERS)
+            del q, k, v
     # fp32, from a generator of its own (the bf16 inputs above stay as they were)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -166,6 +193,7 @@ def child(root: str) -> dict:
     for label, shape in K3_FP32_SHAPES.items():
         q, k, v = (torch.randn(shape, generator=gen32).to(dev) for _ in range(3))
         timed(f"k3_{label}_fp32", lambda: fa.flash_attention_batched(q, k, v))
+        timed(f"k3_{label}_fp32_sdpa", lambda: F.scaled_dot_product_attention(q, k, v))
         del q, k, v
     for label, (m, kk, n) in K4_FP32_SHAPES.items():
         x = torch.randn((m, kk), generator=gen32).to(dev)
@@ -196,6 +224,13 @@ def child(root: str) -> dict:
     bench = pipe.benchmark((518, 518), BenchmarkConfig(**E2E_BENCH))
     rec["vitl_fp32_graph_p50_ms"] = bench.percentile_ms(50)
     rec["vitl_fp32_graph_mean_ms"] = bench.avg_ms
+    pipe.release_engines()
+    del pipe
+    torch.manual_seed(0)
+    pipe = build_pipeline("depth_pro", precision="fp32")
+    bench = pipe.benchmark((1536, 1536), BenchmarkConfig(**DEPTH_PRO_BENCH))
+    rec["depth_pro_fp32_graph_p50_ms"] = bench.percentile_ms(50)
+    rec["depth_pro_fp32_graph_mean_ms"] = bench.avg_ms
     pipe.release_engines()
     del pipe
     from monocular_depth_estimation_trt_tpu_torch.ops.cuda import _build

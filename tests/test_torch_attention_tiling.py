@@ -28,7 +28,18 @@ kernel's tiles (64 query rows; 64-key tiles at d = 64, 32-key tiles at d =
 128) and its online softmax (exp2, the row sum dividing once after P.V),
 held against the JAX kernels' fp32 forms at ``FP32_TOL``, the bar
 ``chip_smoke.py`` holds the fp32 kernels to. One TF32 pass, or a skipped
-key tile, must fail it.
+key tile, must fail it. The fp32 K3 runs the same loop in the same online
+mode (its division after P.V changes only fp32 rounding, since in fp32 the
+TPU kernel's division has no cast to stand before): the model is held
+against the batched JAX kernel ``_attn_kernel_batched`` too.
+
+K2's and K3's bf16 heads wider than 128 run the mainloop's wide form: d
+zero-padded to a multiple of 64, S summed over every 64-column region of
+the head, 64-key tiles, the output computed in chunks of 256 columns (each
+chunk's CTA recomputing S), K2 online and K3 exact, P cast to bf16 before
+P.V. Its model is held to the same bars against the JAX kernels, which pad
+d to a multiple of 128; a model that leaves out the last 64-column region
+of the S reduction must fail them.
 """
 
 import math
@@ -37,6 +48,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from monocular_depth_estimation_trt_tpu.ops.pallas.flash_attention import (
     flash_attention as jax_flash_attention,
@@ -51,6 +63,8 @@ K2_BF16_ULPS = 4  # chip_smoke.py's bar for K2 against its plain version
 K3_BF16_ULPS = 1
 FP32_TOL = 1e-4  # chip_smoke.py's bar for the fp32 kernels against their plain versions
 F32_BLOCK_K = {64: 64, 128: 32}  # keys per K/V tile of the fp32 loop (Head64, Head128)
+WIDE_BLOCK_K = 64  # keys per K/V tile of the wide form (d > 128)
+WIDE_CHUNK = 256  # output columns of one wide CTA
 
 
 def _blocks(n, size):
@@ -62,9 +76,11 @@ def _regions(d):
     return [slice(c, c + 64) for c in range(0, d, 64)]
 
 
-def _scores(rows, keys):
-    """Q . K^T summed over the 64-column regions of d."""
-    return sum(rows[..., r] @ keys[..., r].transpose(-1, -2) for r in _regions(rows.shape[-1]))
+def _scores(rows, keys, width=None):
+    """Q . K^T summed over the 64-column regions of d (of its first
+    ``width`` columns where given)."""
+    return sum(rows[..., r] @ keys[..., r].transpose(-1, -2)
+               for r in _regions(width or rows.shape[-1]))
 
 
 def _pv(p, values):
@@ -72,23 +88,24 @@ def _pv(p, values):
     return torch.cat([p @ values[..., r] for r in _regions(values.shape[-1])], dim=-1)
 
 
-def k2_model(q, k, v, scale, skip_tile=None):
+def k2_model(q, k, v, scale, skip_tile=None, block_k=BLOCK_K, s_width=None):
     """K2 (online mode): per query tile, one pass over the key tiles with a
     running row max m and sum l; O rescaled by exp(m_old - m_new) on every
     tile; the unnormalised exponentials cast to bf16 before P.V; the row
-    sum divides once at the end."""
+    sum divides once at the end. ``v`` may be a chunk of the head's columns
+    (the wide form's); ``s_width`` cuts the S reduction."""
     c = scale * LOG2E
     qf, kf, vf = q.float(), k.float(), v.float()
-    out = torch.empty(qf.shape)
+    out = torch.empty((*q.shape[:-1], v.shape[-1]))
     for r0, r1 in _blocks(q.shape[2], BLOCK_Q):
         rows = qf[:, :, r0:r1]
         m = torch.full(rows.shape[:-1], -math.inf)
         l = torch.zeros(rows.shape[:-1])
-        o = torch.zeros(rows.shape)
-        for t, (k0, k1) in enumerate(_blocks(k.shape[2], BLOCK_K)):
+        o = torch.zeros((*rows.shape[:-1], v.shape[-1]))
+        for t, (k0, k1) in enumerate(_blocks(k.shape[2], block_k)):
             if t == skip_tile:
                 continue
-            s = _scores(rows, kf[:, :, k0:k1])
+            s = _scores(rows, kf[:, :, k0:k1], s_width)
             m_new = torch.maximum(m, s.amax(-1))
             alpha = torch.exp2((m - m_new) * c)  # 0 on the first tile
             p = torch.exp2(s * c - (m_new * c)[..., None])
@@ -99,29 +116,30 @@ def k2_model(q, k, v, scale, skip_tile=None):
     return out.to(q.dtype)
 
 
-def k3_model(q, k, v, scale, skip_tile=None):
+def k3_model(q, k, v, scale, skip_tile=None, block_k=BLOCK_K, s_width=None):
     """K3 (exact mode): per query tile, pass 1 over the key tiles keeps the
     row max m and the rescaled row sum l; pass 2 recomputes the scores and
     forms P = exp(s*scale - m) / l as exp2(s*c - (m*c + log2 l)), cast to
-    bf16 before P.V; O accumulates with no rescaling and is only cast."""
+    bf16 before P.V; O accumulates with no rescaling and is only cast.
+    ``v`` and ``s_width`` as for :func:`k2_model`."""
     c = scale * LOG2E
     qf, kf, vf = q.float(), k.float(), v.float()
-    out = torch.empty(qf.shape)
-    key_tiles = [kt for t, kt in enumerate(_blocks(k.shape[2], BLOCK_K)) if t != skip_tile]
+    out = torch.empty((*q.shape[:-1], v.shape[-1]))
+    key_tiles = [kt for t, kt in enumerate(_blocks(k.shape[2], block_k)) if t != skip_tile]
     for r0, r1 in _blocks(q.shape[2], BLOCK_Q):
         rows = qf[:, :, r0:r1]
         m = torch.full(rows.shape[:-1], -math.inf)
         l = torch.zeros(rows.shape[:-1])
         for k0, k1 in key_tiles:  # pass 1: K tiles only
-            s = _scores(rows, kf[:, :, k0:k1])
+            s = _scores(rows, kf[:, :, k0:k1], s_width)
             m_new = torch.maximum(m, s.amax(-1))
             p = torch.exp2(s * c - (m_new * c)[..., None])
             l = l * torch.exp2((m - m_new) * c) + p.sum(-1)
             m = m_new
         bias = (m * c + torch.log2(l))[..., None]
-        o = torch.zeros(rows.shape)
+        o = torch.zeros((*rows.shape[:-1], v.shape[-1]))
         for k0, k1 in key_tiles:  # pass 2: K and V tiles
-            s = _scores(rows, kf[:, :, k0:k1])
+            s = _scores(rows, kf[:, :, k0:k1], s_width)
             p = torch.exp2(s * c - bias)
             o = o + _pv(p.to(q.dtype).float(), vf[:, :, k0:k1])
         out[:, :, r0:r1] = o
@@ -129,6 +147,20 @@ def k3_model(q, k, v, scale, skip_tile=None):
 
 
 MODELS = {"k2": k2_model, "k3": k3_model}
+
+
+def wide_model(kernel, q, k, v, scale, drop_last_region=False):
+    """The wide form (d > 128) of K2 or K3: d zero-padded to a multiple of
+    64; 64-key tiles; the output in chunks of WIDE_CHUNK columns, each
+    chunk's CTA computing S over the whole padded head (all but its last
+    64-column region with ``drop_last_region``) in the kernel's mode."""
+    d = q.shape[-1]
+    width = -(-d // 64) * 64
+    q, k, v = (F.pad(t, (0, width - d)) for t in (q, k, v))
+    s_width = width - 64 if drop_last_region else width
+    chunks = [MODELS[kernel](q, k, v[..., c:c + WIDE_CHUNK], scale, block_k=WIDE_BLOCK_K,
+                             s_width=s_width) for c in range(0, width, WIDE_CHUNK)]
+    return torch.cat(chunks, dim=-1)[..., :d]
 
 
 def _inputs(rng, n, d):
@@ -147,6 +179,14 @@ def _jax_kernel(kernel, q, k, v):
 def _model(kernel, q, k, v, skip_tile=None):
     args = [torch.from_numpy(t).to(torch.bfloat16) for t in (q, k, v)]
     out = MODELS[kernel](*args, 1.0 / math.sqrt(q.shape[-1]), skip_tile=skip_tile)
+    assert out.dtype == torch.bfloat16 and out.shape == args[0].shape
+    return out.float().numpy()
+
+
+def _wide(kernel, q, k, v, drop_last_region=False):
+    args = [torch.from_numpy(t).to(torch.bfloat16) for t in (q, k, v)]
+    out = wide_model(kernel, *args, 1.0 / math.sqrt(q.shape[-1]),
+                     drop_last_region=drop_last_region)
     assert out.dtype == torch.bfloat16 and out.shape == args[0].shape
     return out.float().numpy()
 
@@ -196,6 +236,32 @@ def test_tile_models_match_the_plain_version(rng, kernel, n):
     bar = {"k2": K2_BF16_ULPS, "k3": K3_BF16_ULPS}[kernel]
     err = np.abs(_model(kernel, q, k, v) - plain).max()
     assert err <= bar * _bf16_step(plain), (err, _bf16_step(plain))
+
+
+@pytest.mark.parametrize("kernel", ["k2", "k3"])
+@pytest.mark.parametrize("d", [192, 320])
+@pytest.mark.parametrize("n", [65, 200])
+def test_wide_tile_model_matches_the_jax_kernel(rng, kernel, n, d):
+    """The wide form against ``_attn_kernel`` (K2) and ``_attn_kernel_batched``
+    (K3), which pad d to 256 and 384, at each kernel's bar: one output
+    chunk at d = 192, two (256 + 64 columns) at d = 320."""
+    q, k, v = _inputs(rng, n, d)
+    ref = _jax_kernel(kernel, q, k, v)
+    bar = {"k2": K2_BF16_ULPS, "k3": K3_BF16_ULPS}[kernel] * _bf16_step(ref)
+    err = np.abs(_wide(kernel, q, k, v) - ref).max()
+    assert err <= bar, (err, _bf16_step(ref))
+
+
+@pytest.mark.parametrize("kernel", ["k2", "k3"])
+@pytest.mark.parametrize("d", [192, 320])
+def test_a_wide_model_that_drops_the_last_region_fails_both_bars(rng, kernel, d):
+    """Leaving the last 64-column region out of the S reduction moves the
+    output past both bars (what a kernel that stepped one region short of d
+    would compute)."""
+    q, k, v = _inputs(rng, 200, d)
+    ref = _jax_kernel(kernel, q, k, v)
+    err = np.abs(_wide(kernel, q, k, v, drop_last_region=True) - ref).max()
+    assert err > max(K2_BF16_ULPS, K3_BF16_ULPS) * _bf16_step(ref), (err, _bf16_step(ref))
 
 
 def k1_model(qkv, heads, scale, skip_tile=None):
@@ -275,7 +341,9 @@ def f32_model(q, k, v, scale, skip_tile=None, passes=3):
 def _f32_case(rng, layout, n, d, **kw):
     """(the fp32 model's output, the JAX kernel's in interpret mode, the
     port's plain version's) on one seeded input: K2's (1, 2, n, d) operands,
-    or K1's packed (1, n, 3*2*64) tensor through its strided views."""
+    K3's the same against the batched JAX kernel (both heads in one
+    program), or K1's packed (1, n, 3*2*64) tensor through its strided
+    views."""
     scale = 1.0 / math.sqrt(d)
     if layout == "k1":
         heads = 2
@@ -287,8 +355,9 @@ def _f32_case(rng, layout, n, d, **kw):
         plain = fa.flash_attention_packed_reference(x, heads)
     else:
         q, k, v = _inputs(rng, n, d)
+        kw_jax = {"blk_b": 2} if layout == "k3" else {}
         ref = np.asarray(jax_flash_attention(*(jnp.asarray(t) for t in (q, k, v)),
-                                             interpret=True))
+                                             interpret=True, **kw_jax))
         args = [torch.from_numpy(t) for t in (q, k, v)]
         got = f32_model(*args, scale, **kw)
         plain = fa.flash_attention_reference(*args)
@@ -306,8 +375,21 @@ def test_fp32_tile_model_matches_the_jax_kernel(rng, layout, n, d):
     assert np.abs(got - plain).max() <= FP32_TOL, np.abs(got - plain).max()
 
 
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("n", [65, 200, 577])
+def test_fp32_k3_tile_model_matches_the_batched_jax_kernel(rng, n, d):
+    """The fp32 K3 (the split TF32 loop in its online mode) against
+    ``_attn_kernel_batched`` in fp32 (interpret mode), which divides P by
+    the row sum before P.V, and the port's plain version, at FP32_TOL: 577
+    tokens pad to 640 keys, 10 key tiles at d = 64 and 19 at d = 128."""
+    got, ref, plain = _f32_case(rng, "k3", n, d)
+    assert np.abs(got - ref).max() <= FP32_TOL, np.abs(got - ref).max()
+    assert np.abs(got - plain).max() <= FP32_TOL, np.abs(got - plain).max()
+
+
 @pytest.mark.parametrize("cut", ["one_tf32_pass", "skipped_key_tile"])
-@pytest.mark.parametrize("layout,d", [("k2", 64), ("k2", 128), ("k1", 64)])
+@pytest.mark.parametrize("layout,d", [("k2", 64), ("k2", 128), ("k1", 64), ("k3", 64),
+                                      ("k3", 128)])
 def test_fp32_models_that_cut_a_corner_fail_the_bar(rng, cut, layout, d):
     """A single TF32 pass (operands rounded to about 11 bits) and a model
     that skips one key tile both miss FP32_TOL against the JAX kernel: the

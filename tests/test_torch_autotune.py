@@ -52,6 +52,10 @@ def test_candidates_are_the_instantiations_of_each_width():
     assert at.ATTENTION_FP32_TILES == {64: ("64k3s1c",), 128: ("32k2s1c",)}
     assert at.candidates("flash_attention", torch.float32, 128) == (0,)
     assert at.candidates("flash_attention_packed", torch.float32, 64) == (0,)
+    # the fp32 K3 runs the same split TF32 loop, one tile a head width
+    assert at.FP32_TILED == ("flash_attention_packed", "flash_attention",
+                             "flash_attention_batched")
+    assert at.candidates("flash_attention_batched", torch.float32, 128) == (0,)
 
 
 @pytest.mark.parametrize("m,n,want", [(1370, 1024, 128), (1370, 3072, 256), (1370, 4096, 256),
