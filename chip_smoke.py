@@ -14,15 +14,15 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    and TF32 wgmma; IGMMA for K4's int8) and UTMALDG (TMA load) instructions
    of each kernel in ``cuobjdump -sass`` (the bf16 K1, K2 (both head
    widths and the wide form), K3 (the same) and K4 (both tile widths), and
-   the fp32 K1, K2 and K3 (split TF32, both head widths), must have both);
+   the fp32 K1, K2 and K3 (split TF32, both head widths; K2 and K3 also the
+   wide form), must have both);
 3. kernel checks: each kernel's wrapper (K1 packed-qkv attention, K2
    (B, H, N, d) attention and K3 exact-softmax attention of many short
    heads, all three on the TMA + wgmma mainloop of
    ``csrc/attention_sm90.cuh`` in bf16, K1, K2 and K3 in fp32 on the split
    TF32 mainloop of ``csrc/attention_sm90_f32.cuh``, K2 and K3 at head widths
-   64 and 128, and above 128 on the mainloop's wide form in bf16 (up to
-   d = 1536, where Q is streamed beside K) and on the simple loop of
-   ``csrc/attention_wide.cuh`` in fp32;
+   64 and 128, and above 128 on each mainloop's wide form (up to d = 1536,
+   where Q is streamed beside K);
    K4 the fused w8a8 matmul, a TMA + wgmma int8 GEMM in bf16) against its
    plain PyTorch version on the card, at the main paths' shapes and edge
    shapes (for the attention kernels the ends of the 64-row query tiles and
@@ -387,15 +387,18 @@ FAMILY_BENCH = dict(warmup=3, iterations=12, latency_iterations=5)
 # candidates of csrc/attention_sm90.cuh: K1 two at head width 64, K2 and K3
 # two at 64 and two at 128, and one of its wide form (d > 128) each; K4 at
 # tile widths 128 and 256; the fp32 K1, K2 and K3 of
-# csrc/attention_sm90_f32.cuh, one tile a head width), with the wgmma's SASS
-# name: HGMMA for bf16 and TF32 operands, IGMMA for int8
+# csrc/attention_sm90_f32.cuh, one tile a head width, and one of its wide
+# form (d > 128) each), with the wgmma's SASS name: HGMMA for bf16 and TF32
+# operands, IGMMA for int8
 SM90_KERNELS = {"attn_packed_kernel_sm90": (2, "HGMMA"), "attn_bhnd_kernel_sm90": (4, "HGMMA"),
                 "attn_batched_kernel_sm90": (4, "HGMMA"), "w8a8_kernel_sm90": (2, "IGMMA"),
                 "attn_bhnd_wide_kernel_sm90": (1, "HGMMA"),
                 "attn_batched_wide_kernel_sm90": (1, "HGMMA"),
                 "attn_packed_kernel_f32_sm90": (1, "HGMMA"),
                 "attn_bhnd_kernel_f32_sm90": (2, "HGMMA"),
-                "attn_batched_kernel_f32_sm90": (2, "HGMMA")}
+                "attn_batched_kernel_f32_sm90": (2, "HGMMA"),
+                "attn_bhnd_wide_kernel_f32_sm90": (1, "HGMMA"),
+                "attn_batched_wide_kernel_f32_sm90": (1, "HGMMA")}
 
 PEAK_BF16_OPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate
@@ -454,8 +457,9 @@ def sass_counts(lib_path: str):
 
 
 # kernels whose design rests on ptxas keeping every value in registers and
-# the wgmma chain asynchronous: the wide form (one CTA an SM, about 240
-# registers a consumer thread) and the fp32 split-TF32 mainloop
+# the wgmma chain asynchronous: the bf16 wide form (one CTA an SM, about 240
+# registers a consumer thread) and the fp32 split-TF32 mainloop, its wide
+# form included
 PTXAS_CLEAN = ("_wide_kernel_sm90", "_f32_sm90")
 
 
@@ -688,9 +692,9 @@ def check_flash_attention(fa, dev):
         ("d128_vit7b_fp32", 1, 32, 1029, 128, torch.float32, False),
         ("dinov3_vit7b16_1024_fp32", 1, 32, 4101, 128, torch.float32, True),
         ("d96_fp32", 2, 3, 65, 96, torch.float32, False),
-        # heads wider than 128: in bf16 the mainloop's wide form (d zero-padded
-        # to a multiple of 64; Q streamed beside K past d = 1280), in fp32 the
-        # wide loop (a multiple of 128)
+        # heads wider than 128, zero-padded to a multiple of 64: in bf16 the
+        # mainloop's wide form (Q streamed beside K past d = 1280), in fp32 the
+        # split TF32 mainloop's (Q streamed past d = 192)
         ("d192_wide", 1, 16, 1029, 192, torch.bfloat16, False),
         ("d256_wide", 1, 16, 1029, 256, torch.bfloat16, False),
         ("d320_wide_strided", 2, 8, 577, 320, torch.bfloat16, True),
@@ -698,6 +702,8 @@ def check_flash_attention(fa, dev):
         ("d1536_wide_qstream", 1, 2, 129, 1536, torch.bfloat16, False),
         ("d192_wide_fp32", 1, 4, 257, 192, torch.float32, False),
         ("d320_wide_fp32", 1, 4, 129, 320, torch.float32, False),
+        ("d1024_wide_fp32", 1, 2, 129, 1024, torch.float32, False),
+        ("d1536_wide_qstream_fp32", 1, 2, 129, 1536, torch.float32, False),
     ])
 
 
@@ -743,6 +749,8 @@ def check_flash_attention_batched(fa, dev):
         ("d1024_wide", 4, 2, 129, 1024, torch.bfloat16, False),
         ("d1536_wide_qstream", 4, 2, 129, 1536, torch.bfloat16, False),
         ("d256_wide_fp32", 4, 8, 577, 256, torch.float32, False),
+        ("d1024_wide_fp32", 4, 2, 129, 1024, torch.float32, False),
+        ("d1536_wide_qstream_fp32", 4, 2, 129, 1536, torch.float32, False),
     ])
 
 
@@ -6018,8 +6026,8 @@ def main() -> None:
         faults = ptxas_faults(ptxas_report(info.log))
         check(not faults, f"ptxas: {faults}")
     # every bf16 kernel, and the fp32 K1, K2 and K3 (split TF32), runs on wgmma
-    # and TMA (K2 and K3 in two head widths and the wide form); the other fp32
-    # kernels (the fp32 wide loop, K4's fp32 wmma loop) on neither
+    # and TMA (K2 and K3 in two head widths and the wide form, in either type);
+    # K4's fp32 wmma loop, the one other kernel, on neither
     sass = sass_counts(info.path)
     if sass is None:
         emit({"phase": "sass", "counts": "not measured (no cuobjdump in the toolkit)"})
@@ -6423,12 +6431,12 @@ def main() -> None:
         if head_dim_128:  # the d = 128 instantiation (K2: DINOv3 vit7b16's path)
             d128 = next(r for r in records if r["shape"] == head_dim_128)
             extra["head_dim_128"] = {k: d128[k] for k in keys}
-            # the heads wider than 128, on no ported path: bf16 on the mainloop's
-            # wide form, fp32 on the simple wide loop
+            # the heads wider than 128, on no ported path: each type on its
+            # mainloop's wide form
             wide = [{**{k: r[k] for k in keys},
                      "source": "monocular_depth_estimation_trt_tpu_torch/csrc/"
                                + ("attention_sm90.cuh" if r["dtype"] == "bfloat16"
-                                  else "attention_wide.cuh")}
+                                  else "attention_sm90_f32.cuh")}
                     for r in records if "_wide" in r["shape"]]
             if wide:
                 extra["wide_heads"] = wide

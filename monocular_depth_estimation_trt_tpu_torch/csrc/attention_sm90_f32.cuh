@@ -2,8 +2,9 @@
 // K2 (flash_attention.cu) and K3 (flash_attention_batched.cu),
 // precision="fp32": non-causal softmax(q k^T * scale) v over (B, H, N, d)
 // fp32 operands read through their own strides, the output written as
-// (B, N, H, d), for a head width d of 64 or 128 (Config::kD). The bf16 forms
-// run attention_sm90.cuh; fp32 heads wider than 128 run attention_wide.cuh.
+// (B, N, H, d), for a head width d of 64 or 128 (Config::kD) and, in its
+// wide form (attention_wide, below), any multiple of 64 above 128. The bf16
+// forms run attention_sm90.cuh.
 //
 // Replaces the fp32 forms of the TPU kernels
 //   monocular_depth_estimation_trt_tpu/ops/pallas/flash_attention.py::_attn_kernel_packed (K1)
@@ -77,7 +78,7 @@
 // (PERF.md), and was taken out.
 // Tiles: d = 64 (Head64) 64 keys x 3 stages; d = 128 (Head128) 32 keys x 2
 // stages. A stage holds K, K lo, V (then V^T) and V^T lo: 64 KB, beside Q and
-// Q lo (32 or 64 KB).
+// Q lo (32 or 64 KB). Heads wider than 128 run the wide form below.
 //
 // Left on the table: one consumer warpgroup an SM (no ping-pong of two,
 // no overlap of the softmax with wgmma); Q read from shared memory by each of
@@ -513,6 +514,423 @@ __device__ __forceinline__ void attention(const CUtensorMap& tq, const CUtensorM
   }
 }
 
+// --- the wide form: head widths above 128 ------------------------------------------
+
+// K2's and K3's fp32 heads wider than 128, with the arithmetic above (split
+// TF32 on both products, the online softmax, the division after P.V), at a
+// head width d that is a runtime multiple of 64 (the wrapper zero-pads to it;
+// zero columns change no result). As the bf16 wide form (attention_sm90.cuh,
+// attention_wide), the head splits into two widths:
+// * the S reduction over all of d: Q and K are d / 32 regions of 32 columns
+//   (one 128-byte swizzle atom), and the ring carries a key tile's K in
+//   pieces of up to kPieceRegions regions, S summing the three TF32 chains
+//   over each piece's regions in turn;
+// * the output chunk of kD = 128 columns: O of 64 rows x 128 fp32 is 64
+//   registers a consumer thread, in two 64-column groups. A head wider than
+//   the chunk recomputes S for each chunk: grid (ceil(N / 64), H * chunks, B).
+// Key tiles of 64 keys: the S wgmma (m64n64k8) reads Q once for twice the keys
+// of a 32-key tile (m64n32k8, as Head128), which reads A and B faster than
+// shared memory delivers. A chunk's V (then V^T) and V^T lo are 64 KB.
+// Shared memory is the hard part: in fp32 every operand has a lo copy, so a
+// column costs four times its bf16 bytes. Q and Q lo of 64 rows stay resident
+// where they fit beside two ring slots (d <= 192); a wider head streams Q:
+// each K piece's slot carries Q's regions of the same columns beside it, read
+// again from L2 for every key tile, and the converter makes their lo copies
+// per piece. A slot holds the larger of a K piece (K and K lo, with Q and Q lo
+// when streamed) and a V chunk; the ring has as many slots as fit, up to
+// kMaxStages; a streamed piece narrows until two slots fit (3 regions).
+// Roles as in attention() above: the producer (warp 8) issues every TMA load,
+// item after item (a key tile's K pieces, then its V chunk); the converter
+// warpgroup makes K lo (and Q lo) of a K piece and transposes a V chunk into
+// V^T and V^T lo; the consumer warpgroup runs S piece by piece, the softmax,
+// and O += P.V over the chunk's groups. 288 threads give a thread at most 168
+// registers (ptxas and the launch count registers by whole warpgroups); the
+// consumer takes about 155 (O 64, S 32, P lo 32). A 256-column chunk would
+// need about 195: its CTA must drop the producer warp and issue from the
+// consumer, and it measured slower (PERF.md, PR 20). Each wgmma group is one
+// whole instantiation of wide_scores / wide_pv picked by the region or group
+// count, so that no wgmma sits under a runtime condition (ptxas serializes
+// such a chain). A chunk's columns past d are neither loaded, computed nor
+// stored (the V^T rows past them hold stale bytes no wgmma reads). The
+// epilogue stages the chunk in the ring, which every consumed item has left.
+struct Wide {
+  static constexpr int kBlockQ = 64;  // query rows per CTA: the consumer warpgroup's wgmma M
+  static constexpr int kBlockK = 64;
+  static constexpr int kThreads = 288;  // consumer warpgroup, converter warpgroup, producer warp
+  static constexpr int kOGroups = 2;             // 64-column groups of an output chunk
+  static constexpr int kD = 64 * kOGroups;       // columns of an output chunk (transpose_v's kD)
+  static constexpr int kPieceRegions = kD / 32;  // 32-column regions of the widest K piece
+  static constexpr int kS = kBlockK / 2;         // scores a consumer thread holds
+  static constexpr int kMaxStages = 6;
+  static constexpr uint32_t kQRegion = kBlockQ * 128;  // 32 columns of the query tile
+  static constexpr uint32_t kKRegion = kBlockK * 128;  // 32 columns of a key tile
+  static constexpr uint32_t kVtRegion = kD * 128;      // 32 keys of a chunk's V^T
+  static constexpr uint32_t kVtBytes = kD * kBlockK * 4;  // a chunk's V^T; V^T lo follows
+  static constexpr uint32_t kBarBytes = 8 * (2 + 3 * kMaxStages);
+  static constexpr uint32_t kSmemLimit = 232448;  // a CTA's 227 KB
+};
+
+// What a wide launch computes at: the head's regions and chunks, the ring.
+struct WideArgs {
+  int n;
+  float scale_log2;
+  int regions;        // d / 32
+  int chunks;         // ceil(d / Wide::kD)
+  int piece_regions;  // regions of a K piece (the last piece of a key tile may hold fewer)
+  int stages;         // slots of the ring
+  int q_streamed;     // 1: Q and Q lo ride in each K piece's slot
+  uint32_t slot;      // bytes of a slot
+};
+
+// Shared memory of a wide CTA: Q and Q lo (resident) or nothing, the ring,
+// the mbarriers q_full, q_ready, full[kMaxStages], ready[kMaxStages],
+// empty[kMaxStages], 1024 for alignment.
+__host__ __device__ inline uint32_t wide_q_bytes(const WideArgs& a) {
+  return a.q_streamed ? 0u : 2u * static_cast<uint32_t>(a.regions) * Wide::kQRegion;
+}
+
+inline uint32_t wide_smem_bytes(const WideArgs& a) {
+  return wide_q_bytes(a) + a.stages * a.slot + Wide::kBarBytes + 1024;
+}
+
+inline WideArgs wide_args(int d, int n, float scale) {
+  const auto slot_of = [](int p, bool q_streamed) {
+    const uint32_t piece = 2u * p * (Wide::kKRegion + (q_streamed ? Wide::kQRegion : 0u));
+    return piece > 2 * Wide::kVtBytes ? piece : 2 * Wide::kVtBytes;
+  };
+  WideArgs a;
+  a.n = n;
+  a.scale_log2 = scale * 1.4426950408889634f;
+  a.regions = d / 32;
+  a.chunks = (d + Wide::kD - 1) / Wide::kD;
+  uint32_t room = Wide::kSmemLimit - Wide::kBarBytes - 1024;
+  const uint32_t q_bytes = 2u * a.regions * Wide::kQRegion;
+  int p = a.regions < Wide::kPieceRegions ? a.regions : Wide::kPieceRegions;
+  a.q_streamed = q_bytes + 2 * slot_of(p, false) > room;
+  if (a.q_streamed) {
+    while (p > 1 && 2 * slot_of(p, true) > room) --p;  // the widest piece that leaves two slots
+  } else {
+    room -= q_bytes;
+  }
+  a.piece_regions = p;
+  a.slot = slot_of(p, a.q_streamed);
+  a.stages = static_cast<int>(room / a.slot);
+  if (a.stages > Wide::kMaxStages) a.stages = Wide::kMaxStages;
+  return a;
+}
+
+// dst = lo(src) over `bytes` (a multiple of 2048) of shared memory, by the 128
+// converter threads (ct).
+__device__ __forceinline__ void split_lo_n(const uint8_t* src, uint8_t* dst, uint32_t bytes,
+                                           int ct) {
+  for (uint32_t off = ct * 16; off < bytes; off += 128 * 16) {
+    *reinterpret_cast<float4*>(dst + off) = tf32_lo(*reinterpret_cast<const float4*>(src + off));
+  }
+}
+
+// S (+)= Qlo.Khi + Qhi.Klo + Qhi.Khi over the N regions of one K piece (K at
+// kh, K lo at kl, Q's regions of the same columns at qh and ql) as one wgmma
+// group, region j in 4 k8 steps (step kk at byte 32 * kk of the region);
+// first: S is overwritten.
+template <int N>
+__device__ __forceinline__ void wide_scores(float (&s)[Wide::kS], uint32_t qh, uint32_t ql,
+                                            uint32_t kh, uint32_t kl, bool first) {
+  fence_regs(s);
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t qa = j * Wide::kQRegion + 32 * kk;
+      const uint32_t ka = j * Wide::kKRegion + 32 * kk;
+      wgmma_scores<Wide::kBlockK>(s, smem_desc(ql + qa, 16), smem_desc(kh + ka, 16),
+                                  (!first || j || kk) ? 1 : 0);
+      wgmma_scores<Wide::kBlockK>(s, smem_desc(qh + qa, 16), smem_desc(kl + ka, 16), 1);
+      wgmma_scores<Wide::kBlockK>(s, smem_desc(qh + qa, 16), smem_desc(kh + ka, 16), 1);
+    }
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(s);
+}
+
+// wide_scores at the piece's region count nr (1 to N), one instantiation a count.
+template <int N>
+__device__ __forceinline__ void wide_scores_of(int nr, float (&s)[Wide::kS], uint32_t qh,
+                                               uint32_t ql, uint32_t kh, uint32_t kl, bool first) {
+  if constexpr (N > 1) {
+    if (nr < N) {
+      wide_scores_of<N - 1>(nr, s, qh, ql, kh, kl, first);
+      return;
+    }
+  }
+  wide_scores<N>(s, qh, ql, kh, kl, first);
+}
+
+// O += Plo.Vhi + Phi.Vlo + Phi.Vhi over the tile's keys and the first N
+// 64-column groups of the chunk (V^T at vh, V^T lo at vl) as one wgmma group;
+// P's hi is the score register itself, its A fragment in V^T's key order as in
+// attention() above.
+template <int N>
+__device__ __forceinline__ void wide_pv(float (&o)[Wide::kOGroups][32], float (&s)[Wide::kS],
+                                        uint32_t (&p_lo)[Wide::kS], uint32_t vh, uint32_t vl) {
+#pragma unroll
+  for (int j = 0; j < Wide::kOGroups; ++j) fence_regs(o[j]);
+  fence_regs(s);
+  fence_regs(p_lo);
+  wgmma_fence();
+#pragma unroll
+  for (int c = 0; c < Wide::kBlockK / 8; ++c) {
+    const uint32_t h0 = __float_as_uint(s[4 * c]), h1 = __float_as_uint(s[4 * c + 2]);
+    const uint32_t h2 = __float_as_uint(s[4 * c + 1]), h3 = __float_as_uint(s[4 * c + 3]);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const uint32_t vb = (c / 4) * Wide::kVtRegion + j * 64 * 128 + 32 * (c % 4);
+      wgmma_m64n64k8_rs(o[j], p_lo[4 * c], p_lo[4 * c + 2], p_lo[4 * c + 1], p_lo[4 * c + 3],
+                        smem_desc(vh + vb, 16));
+      wgmma_m64n64k8_rs(o[j], h0, h1, h2, h3, smem_desc(vl + vb, 16));
+      wgmma_m64n64k8_rs(o[j], h0, h1, h2, h3, smem_desc(vh + vb, 16));
+    }
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+#pragma unroll
+  for (int j = 0; j < Wide::kOGroups; ++j) fence_regs(o[j]);
+  fence_regs(s);
+  fence_regs(p_lo);
+}
+
+// One CTA of Wide::kThreads threads per (64-row query tile, head x chunk,
+// batch item), grid (ceil(n / 64), heads * a.chunks, batch),
+// wide_smem_bytes(a) of dynamic shared memory.
+__device__ __forceinline__ void attention_wide(const CUtensorMap& tq, const CUtensorMap& tk,
+                                               const CUtensorMap& tv, const CUtensorMap& to,
+                                               const WideArgs& a) {
+  constexpr int kBlockK = Wide::kBlockK, kOGroups = Wide::kOGroups;
+  constexpr uint32_t kQRegion = Wide::kQRegion, kKRegion = Wide::kKRegion;
+  constexpr int kMaxStages = Wide::kMaxStages;
+
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t q_bytes = wide_q_bytes(a);
+  const uint32_t q_hi = base;               // resident: region r at + r * kQRegion
+  const uint32_t q_lo = base + q_bytes / 2;
+  const uint32_t ring = base + q_bytes;
+  const uint32_t bar_q_full = ring + a.stages * a.slot;
+  const uint32_t bar_q_ready = bar_q_full + 8;
+  const uint32_t bar_full = bar_q_ready + 8;             // + 8 * stage
+  const uint32_t bar_ready = bar_full + 8 * kMaxStages;  // + 8 * stage
+  const uint32_t bar_empty = bar_ready + 8 * kMaxStages;  // + 8 * stage
+
+  const int n = a.n, regions = a.regions, pr = a.piece_regions, stages = a.stages;
+  const bool q_streamed = a.q_streamed;
+  const int q0 = blockIdx.x * Wide::kBlockQ;
+  const int head = blockIdx.y / a.chunks;
+  const int col0 = (blockIdx.y % a.chunks) * Wide::kD;  // this CTA's first output column
+  const int o_regions = min(Wide::kD / 32, regions - col0 / 32);  // the chunk's regions inside d
+  const int batch = blockIdx.z;
+  const int tiles = (n + kBlockK - 1) / kBlockK;
+  const int pieces = (regions + pr - 1) / pr;  // K pieces a key tile
+  // a K piece's slot: K (pr regions), K lo, then (streamed) Q and Q lo
+  const uint32_t k_lo_off = pr * kKRegion;
+  const uint32_t q_off = 2 * pr * kKRegion;
+  const uint32_t q_lo_off = q_off + pr * kQRegion;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q_full, 1);
+    mbar_init(bar_q_ready, 128);  // every converter thread
+    for (int st = 0; st < stages; ++st) {
+      mbar_init(bar_full + 8 * st, 1);
+      mbar_init(bar_ready + 8 * st, 128);
+      mbar_init(bar_empty + 8 * st, 4);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // The producer: one thread issues every copy, item after item.
+    if (threadIdx.x != 256) return;
+    if (!q_streamed) {
+      mbar_expect_tx(bar_q_full, regions * kQRegion);
+      for (int r = 0; r < regions; ++r) {
+        tma_load_4d(q_hi + r * kQRegion, tq, bar_q_full, 32 * r, q0, head, batch);
+      }
+    }
+    int st = 0;
+    uint32_t phase = 0;
+    for (int t = 0; t < tiles; ++t) {
+      const int key0 = t * kBlockK;
+      for (int pc = 0; pc <= pieces; ++pc) {
+        const uint32_t slot = ring + st * a.slot;
+        const uint32_t full = bar_full + 8 * st;
+        mbar_wait(bar_empty + 8 * st, phase ^ 1);  // the first round passes
+        if (pc == pieces) {  // the V chunk
+          mbar_expect_tx(full, o_regions * kKRegion);
+          for (int j = 0; j < o_regions; ++j) {
+            tma_load_4d(slot + j * kKRegion, tv, full, col0 + 32 * j, key0, head, batch);
+          }
+        } else {
+          const int r0 = pc * pr;
+          const int nr = min(pr, regions - r0);
+          mbar_expect_tx(full, nr * (kKRegion + (q_streamed ? kQRegion : 0u)));
+          for (int j = 0; j < nr; ++j) {
+            tma_load_4d(slot + j * kKRegion, tk, full, 32 * (r0 + j), key0, head, batch);
+            if (q_streamed) {
+              tma_load_4d(slot + q_off + j * kQRegion, tq, full, 32 * (r0 + j), q0, head, batch);
+            }
+          }
+        }
+        if (++st == stages) {
+          st = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+  if (threadIdx.x >= 128) {
+    // The converter warpgroup: the lo copies of every K piece (and streamed Q),
+    // V^T and V^T lo of every V chunk, item after item.
+    const int ct = threadIdx.x - 128;
+    if (!q_streamed) {
+      mbar_wait(bar_q_full, 0);
+      split_lo_n(smem, smem + q_bytes / 2, q_bytes / 2, ct);
+      fence_proxy_async();
+      mbar_arrive(bar_q_ready);
+    }
+    int st = 0;
+    uint32_t phase = 0;
+    for (int t = 0; t < tiles; ++t) {
+      for (int pc = 0; pc <= pieces; ++pc) {
+        uint8_t* slot = smem + q_bytes + st * a.slot;
+        mbar_wait(bar_full + 8 * st, phase);
+        if (pc == pieces) {
+          transpose_v<Wide>(slot, slot + Wide::kVtBytes, ct);
+        } else {
+          const int nr = min(pr, regions - pc * pr);
+          split_lo_n(slot, slot + k_lo_off, nr * kKRegion, ct);
+          if (q_streamed) split_lo_n(slot + q_off, slot + q_lo_off, nr * kQRegion, ct);
+        }
+        fence_proxy_async();
+        mbar_arrive(bar_ready + 8 * st);
+        if (++st == stages) {
+          st = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // The consumer warpgroup: query rows [q0, q0 + 64), output columns
+  // [col0, col0 + 32 * o_regions).
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int o_groups = o_regions / 2;  // d is a multiple of 64
+
+  float o[kOGroups][32];
+#pragma unroll
+  for (int j = 0; j < kOGroups; ++j) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[j][i] = 0.0f;
+  }
+  float s[Wide::kS];
+  uint32_t p_lo[Wide::kS];
+#pragma unroll
+  for (int i = 0; i < Wide::kS; ++i) s[i] = 0.0f;
+  // per row (this thread's two rows): the running max (raw scores) and this
+  // thread's part of the running sum
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
+
+  if (!q_streamed) mbar_wait(bar_q_ready, 0);
+  int st = 0;
+  uint32_t phase = 0;
+  for (int t = 0; t < tiles; ++t) {
+    const int key0 = t * kBlockK;
+    // S = Q . K^T over d, piece after piece of the key tile.
+    for (int pc = 0; pc < pieces; ++pc) {
+      const uint32_t slot = ring + st * a.slot;
+      const int r0 = pc * pr;
+      const uint32_t qh = q_streamed ? slot + q_off : q_hi + r0 * kQRegion;
+      const uint32_t ql = q_streamed ? slot + q_lo_off : q_lo + r0 * kQRegion;
+      mbar_wait(bar_ready + 8 * st, phase);
+      wide_scores_of<Wide::kPieceRegions>(min(pr, regions - r0), s, qh, ql, slot,
+                                          slot + k_lo_off, pc == 0);
+      if (lane == 0) mbar_arrive(bar_empty + 8 * st);
+      if (++st == stages) {
+        st = 0;
+        phase ^= 1;
+      }
+    }
+
+    if (key0 + kBlockK > n) sm90::mask_keys(s, key0, n, lane);
+
+    float mx0, mx1, sum0, sum1;
+    sm90::row_max(s, mx0, mx1);
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);  // finite: key0 < n
+    const float alpha0 = sm90::ex2((m0 - mn0) * a.scale_log2);  // 0 on the first tile
+    const float alpha1 = sm90::ex2((m1 - mn1) * a.scale_log2);
+    sm90::exp_rows(s, a.scale_log2, mn0 * a.scale_log2, mn1 * a.scale_log2, sum0, sum1);
+    l0 = l0 * alpha0 + sum0;
+    l1 = l1 * alpha1 + sum1;
+    m0 = mn0;
+    m1 = mn1;
+#pragma unroll
+    for (int j = 0; j < kOGroups; ++j) sm90::scale_rows(o[j], alpha0, alpha1);
+
+    // O += P . V over the tile's keys and the chunk's groups, one instantiation
+    // a group count.
+#pragma unroll
+    for (int i = 0; i < Wide::kS; ++i) p_lo[i] = __float_as_uint(tf32_lo(s[i]));
+    const uint32_t slot = ring + st * a.slot;
+    mbar_wait(bar_ready + 8 * st, phase);
+    if (o_groups == kOGroups) {
+      wide_pv<kOGroups>(o, s, p_lo, slot, slot + Wide::kVtBytes);
+    } else {
+      wide_pv<1>(o, s, p_lo, slot, slot + Wide::kVtBytes);
+    }
+    if (lane == 0) mbar_arrive(bar_empty + 8 * st);
+    if (++st == stages) {
+      st = 0;
+      phase ^= 1;
+    }
+  }
+
+  // Epilogue: O / l into the ring (every item consumed, none in flight) in the
+  // 128-byte swizzle of the output map, 32 columns a region, then one TMA
+  // store per region inside d (rows >= n clipped).
+  const float inv0 = 1.0f / sm90::quad_sum(l0), inv1 = 1.0f / sm90::quad_sum(l1);
+  const int row = (tid / 32) * 16 + lane / 4;  // and row + 8; row % 8 == lane / 4
+  const int t4 = lane % 4;
+  uint8_t* out = smem + q_bytes;
+#pragma unroll
+  for (int j = 0; j < kOGroups; ++j) {
+    if (j < o_groups) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int c = 8 * j + i;  // 8-column group of the chunk
+        uint8_t* region = out + (c / 4) * kQRegion;
+        const int chunk = ((2 * (c % 4) + t4 / 2) ^ (lane / 4)) * 16 + 8 * (t4 % 2);
+        *reinterpret_cast<float2*>(region + row * 128 + chunk) =
+            make_float2(o[j][4 * i] * inv0, o[j][4 * i + 1] * inv0);
+        *reinterpret_cast<float2*>(region + (row + 8) * 128 + chunk) =
+            make_float2(o[j][4 * i + 2] * inv1, o[j][4 * i + 3] * inv1);
+      }
+    }
+  }
+  fence_proxy_async();
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");  // the consumer warpgroup alone
+  if (tid == 0) {
+    for (int r = 0; r < o_regions; ++r) {
+      tma_store_4d(to, ring + r * kQRegion, col0 + 32 * r, q0, head, batch);
+    }
+    tma_store_wait();
+  }
+}
+
 // --- host side -------------------------------------------------------------------
 
 // A rank-4 map over one fp32 operand's (d, N, H, B) with element strides
@@ -560,6 +978,41 @@ int launch(sm90::Kernel kernel, const void* q, const void* k, const void* v, voi
   const dim3 grid((n + Cfg::kBlockQ - 1) / Cfg::kBlockQ, heads, batch);
   kernel<<<grid, Cfg::kThreads, Cfg::kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       maps[0], maps[1], maps[2], maps[3], n, scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+typedef void (*WideKernel)(const CUtensorMap, const CUtensorMap, const CUtensorMap,
+                           const CUtensorMap, const WideArgs);
+
+// The same for `kernel`, a __global__ wrapper of attention_wide, at a head
+// width d above 128 that is a multiple of 64.
+inline int launch_wide(WideKernel kernel, const void* q, const void* k, const void* v, void* o,
+                       const int64_t* strides, int batch, int heads, int n, int d, float scale,
+                       void* stream) {
+  if (d <= 128 || d % 64 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const sm90::EncodeTiledFn encode = sm90::encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap maps[4];
+  const void* ptrs[4] = {q, k, v, o};
+  const int box_rows[4] = {Wide::kBlockQ, Wide::kBlockK, Wide::kBlockK, Wide::kBlockQ};
+  for (int i = 0; i < 4; ++i) {
+    const int64_t* st = strides + 3 * i;
+    if (!encode_operand(encode, &maps[i], ptrs[i], d, n, heads, batch, st[2], st[1], st[0],
+                        box_rows[i])) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  const WideArgs a = wide_args(d, n, scale);
+  if (a.stages < 2 || static_cast<int64_t>(heads) * a.chunks > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // the largest a wide launch takes, raised once; each launch asks for its own
+  const cudaError_t err = sm90::allow_smem(reinterpret_cast<const void*>(kernel),
+                                           Wide::kSmemLimit);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n + Wide::kBlockQ - 1) / Wide::kBlockQ, heads * a.chunks, batch);
+  kernel<<<grid, Wide::kThreads, wide_smem_bytes(a), static_cast<cudaStream_t>(stream)>>>(
+      maps[0], maps[1], maps[2], maps[3], a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -45,15 +45,19 @@
 // computes 25 % less), runs the mainloop's wide form (attention_wide: the S
 // reduction over every 64-column region, the output in 256-column chunks,
 // one CTA an SM, Q streamed beside K past d = 1280). It replaced a loop on
-// the fp32 pipes (attention_wide.cuh, 16 query rows a CTA, no TMA or wgmma)
-// that took 2.66 ms at (1, 16, 1029, 192) on the H100, about 37x the wide
-// form's time (PERF.md). A wider fp32 head, padded to a multiple of 128,
-// still runs that loop.
+// the fp32 pipes (16 query rows a CTA, no TMA or wgmma) that took 2.66 ms at
+// (1, 16, 1029, 192) on the H100, about 37x the wide form's time (PERF.md).
 //
 // fp32 (precision="fp32") runs the fp32 Hopper mainloop of
 // attention_sm90_f32.cuh at either width: split TF32 ("3xTF32") wgmma, which
 // keeps fp32 accuracy on the tensor cores, fed by a TMA ring through the same
-// four tensor maps (fp32 boxes) and written (B, N, H, d) by a TMA store.
+// four tensor maps (fp32 boxes) and written (B, N, H, d) by a TMA store. A
+// wider fp32 head, zero-padded to a multiple of 64 as in bf16, runs that
+// mainloop's wide form (attention_wide: the S reduction over every 32-column
+// region in K pieces, the output in 128-column chunks, 64-key tiles, Q
+// resident beside the ring where it fits and streamed beside each K piece
+// where it does not, one CTA an SM). It replaced the same loop on the fp32
+// pipes (PERF.md).
 //
 // Left on the table (later work, attention_sm90.cuh): ping-pong scheduling
 // of consumer warpgroups and overlap of the softmax with the next tile's
@@ -62,7 +66,6 @@
 
 #include "attention_sm90.cuh"
 #include "attention_sm90_f32.cuh"
-#include "attention_wide.cuh"
 
 namespace {
 
@@ -89,8 +92,11 @@ __global__ void __launch_bounds__(sm90::Wide::kThreads, 1) attn_bhnd_wide_kernel
   sm90::attention_wide</*kExact=*/false>(q, k, v, o, a);
 }
 
-__global__ void __launch_bounds__(wide::kThreads) attn_bhnd_wide_kernel(const wide::Args a) {
-  wide::attention(a);
+__global__ void __launch_bounds__(sm90f32::Wide::kThreads, 1) attn_bhnd_wide_kernel_f32_sm90(
+    const __grid_constant__ CUtensorMap q, const __grid_constant__ CUtensorMap k,
+    const __grid_constant__ CUtensorMap v, const __grid_constant__ CUtensorMap o,
+    const sm90f32::WideArgs a) {
+  sm90f32::attention_wide(q, k, v, o, a);
 }
 
 template <typename Cfg>
@@ -105,7 +111,7 @@ int launch_bhnd_f32(const void* q, const void* k, const void* v, void* o, const 
 extern "C" {
 
 // q, k, v: (batch, heads, n, head_dim) with unit stride on the last axis,
-// head_dim 64, 128 or a multiple of 128 (the wrapper zero-pads other
+// head_dim 64, 128 or a multiple of 64 above 128 (the wrapper zero-pads other
 // widths); o: any layout
 // given by its strides. strides: 12 element strides, (batch, head, token) of
 // q, k, v, then o. Pointers and strides (times the element size) are
@@ -140,8 +146,8 @@ int mdet_flash_attention_f32(const void* q, const void* k, const void* v, void* 
   if (head_dim == 128) {
     return launch_bhnd_f32<sm90f32::Head128>(q, k, v, o, strides, batch, heads, n, scale, stream);
   }
-  return wide::launch(attn_bhnd_wide_kernel, q, k, v, o, strides, batch, heads, n, head_dim,
-                      scale, stream);
+  return sm90f32::launch_wide(attn_bhnd_wide_kernel_f32_sm90, q, k, v, o, strides, batch, heads,
+                              n, head_dim, scale, stream);
 }
 
 }  // extern "C"

@@ -49,8 +49,10 @@
 // 32 keys x 2 stages (d = 128). It replaced a loop on the fp32 pipes that
 // held a query tile's whole score rows in shared memory (no TMA, 0 wgmma):
 // 6.88 against 0.73 ms at the patch shape on the H100 (PERF.md). An fp32
-// head wider than 128, zero-padded to a multiple of 128, runs the simple
-// loop of attention_wide.cuh.
+// head wider than 128, zero-padded to a multiple of 64, runs that mainloop's
+// wide form in the same online mode, as K2's (128-column output chunks,
+// 64-key tiles, Q streamed beside each K piece where it does not fit
+// resident).
 //
 // Left on the table (later work): those of the two mainloops (ping-pong
 // consumers, softmax/wgmma overlap, a persistent scheduler: each of the
@@ -58,7 +60,6 @@
 
 #include "attention_sm90.cuh"
 #include "attention_sm90_f32.cuh"
-#include "attention_wide.cuh"
 
 namespace {
 
@@ -87,8 +88,11 @@ __global__ void __launch_bounds__(Cfg::kThreads, 1) attn_batched_kernel_f32_sm90
   sm90f32::attention<Cfg>(q, k, v, o, n, scale_log2);
 }
 
-__global__ void __launch_bounds__(wide::kThreads) attn_batched_wide_kernel(const wide::Args a) {
-  wide::attention(a);
+__global__ void __launch_bounds__(sm90f32::Wide::kThreads, 1) attn_batched_wide_kernel_f32_sm90(
+    const __grid_constant__ CUtensorMap q, const __grid_constant__ CUtensorMap k,
+    const __grid_constant__ CUtensorMap v, const __grid_constant__ CUtensorMap o,
+    const sm90f32::WideArgs a) {
+  sm90f32::attention_wide(q, k, v, o, a);
 }
 
 template <typename Cfg>
@@ -104,15 +108,15 @@ int launch_batched_f32(const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // q, k, v: (batch, heads, n, head_dim) with unit stride on the last axis,
-// n <= 1024, head_dim 64, 128, or in bf16 a multiple of 64 above 128 and in
-// fp32 a multiple of 128 (the wrapper zero-pads other widths); o: any layout
-// given by its strides. strides: 12 element strides, (batch, head, token) of
-// q, k, v, then o. Pointers and strides (times the element size) are
-// multiples of 16 bytes. tile: the mainloop's instantiation at head_dim 64
-// or 128 (attention_sm90.cuh, dispatch_tile; 0 is the default); every other
-// width, and the fp32 entry (one tile a width, attention_sm90_f32.cuh), take
-// 0 only. Launches on `stream`, allocates nothing, does not synchronise.
-// Returns the cudaError_t of the launch (0 on success).
+// n <= 1024, head_dim 64, 128 or a multiple of 64 above 128 (the wrapper
+// zero-pads other widths); o: any layout given by its strides. strides: 12
+// element strides, (batch, head, token) of q, k, v, then o. Pointers and
+// strides (times the element size) are multiples of 16 bytes. tile: the
+// mainloop's instantiation at head_dim 64 or 128 (attention_sm90.cuh,
+// dispatch_tile; 0 is the default); every other width, and the fp32 entry
+// (one tile a width, attention_sm90_f32.cuh), take 0 only. Launches on
+// `stream`, allocates nothing, does not synchronise. Returns the cudaError_t
+// of the launch (0 on success).
 int mdet_flash_attention_batched_bf16(const void* q, const void* k, const void* v, void* o,
                                       const int64_t* strides, int batch, int heads, int n,
                                       int head_dim, float scale, int tile, void* stream) {
@@ -141,8 +145,8 @@ int mdet_flash_attention_batched_f32(const void* q, const void* k, const void* v
     return launch_batched_f32<sm90f32::Head128>(q, k, v, o, strides, batch, heads, n, scale,
                                                 stream);
   }
-  return wide::launch(attn_batched_wide_kernel, q, k, v, o, strides, batch, heads, n, head_dim,
-                      scale, stream);
+  return sm90f32::launch_wide(attn_batched_wide_kernel_f32_sm90, q, k, v, o, strides, batch,
+                              heads, n, head_dim, scale, stream);
 }
 
 }  // extern "C"

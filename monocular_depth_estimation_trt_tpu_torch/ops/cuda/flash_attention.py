@@ -18,16 +18,15 @@ In bf16, K1, K2 and K3 run the Hopper mainloop of
 ``csrc/attention_sm90.cuh`` (TMA loads through one tensor map per operand,
 wgmma, warp specialisation): K1 and K2 with an online softmax, K3 with two
 passes over the keys, at head widths 64 and 128 (narrower heads are
-zero-padded to one of them); K2 and K3 zero-pad a head wider than 128 to a
-multiple of 64 (the JAX entry pads to 128: zero columns change no result)
-and run it on the same mainloop's wide form, the S reduction over every
-64-column region and the output in chunks of 256 columns. The fp32 K1, K2
-and K3 share the fp32 Hopper mainloop of ``csrc/attention_sm90_f32.cuh``:
-the same TMA loads (fp32 boxes), a ring of K/V tiles, both products on the
-TF32 tensor cores as split ("3xTF32") wgmma products, accurate to fp32, in
-the online mode. An fp32 head wider than 128 is zero-padded to a multiple
-of 128, as the JAX entry does, and runs the simple loop of
-``csrc/attention_wide.cuh``. On a CUDA tensor each wrapper launches its
+zero-padded to one of them). The fp32 K1, K2 and K3 share the fp32 Hopper
+mainloop of ``csrc/attention_sm90_f32.cuh``: the same TMA loads (fp32
+boxes), a ring of K/V tiles, both products on the TF32 tensor cores as split
+("3xTF32") wgmma products, accurate to fp32, in the online mode. In either
+type K2 and K3 zero-pad a head wider than 128 to a multiple of 64 (the JAX
+entry pads to 128: zero columns change no result) and run it on their
+mainloop's wide form: the S reduction over every region of the head, the
+output in chunks (256 columns in bf16, 128 in fp32), S recomputed for
+each chunk. On a CUDA tensor each wrapper launches its
 kernel or raises; on a CPU tensor it runs its plain PyTorch version
 (:func:`flash_attention_packed_reference`, :func:`flash_attention_reference`
 for K2 and K3). :func:`attention_reference` is the plain attention of the
@@ -56,8 +55,7 @@ import torch.nn.functional as F
 from monocular_depth_estimation_trt_tpu_torch.ops.cuda import autotune
 
 HEAD_DIM = 64  # K1's one head width: every DINOv2 encoder and VGGT
-WIDE_HEAD_DIM = 128  # K2 and K3 pad a wider fp32 head to a multiple of this (the JAX entry's d_pad)
-WIDE_BF16_STEP = 64  # and a wider bf16 head to a multiple of this: one swizzle region
+WIDE_STEP = 64  # K2 and K3 pad a head wider than 128 to a multiple of this, in either type
 BATCHED_MAX_N = 1024  # K3's regime: the TPU kernel's many short heads
 
 _C_FUNCS = {
@@ -195,20 +193,21 @@ def _aligned(t: torch.Tensor) -> bool:
             and all(st * size % 16 == 0 for st in t.stride()[:3]))
 
 
-def _kernel_head_dim(d: int, dtype: torch.dtype) -> int:
-    """The head width K2 and K3 compute ``d`` at: 64 where d <= 64, 128 where
-    d <= 128, else the next multiple of 64 in bf16 (the mainloop's wide form)
-    and of 128 in fp32 (the JAX entry's ``d_pad``, the simple wide loop)."""
+def _kernel_head_dim(d: int) -> int:
+    """The head width K2 and K3 compute ``d`` at, in either type: 64 where
+    d <= 64, 128 where d <= 128, else the next multiple of 64 (their
+    mainloop's wide form)."""
     if d <= HEAD_DIM:
         return HEAD_DIM
-    step = WIDE_BF16_STEP if dtype == torch.bfloat16 and d > WIDE_HEAD_DIM else WIDE_HEAD_DIM
-    return -(-d // step) * step
+    if d <= 2 * HEAD_DIM:
+        return 2 * HEAD_DIM
+    return -(-d // WIDE_STEP) * WIDE_STEP
 
 
 def _padded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """q, k, v zero-padded on d to the width K2 and K3 compute at."""
     d = q.shape[-1]
-    width = _kernel_head_dim(d, q.dtype)
+    width = _kernel_head_dim(d)
     if d < width:
         q, k, v = (F.pad(t, (0, width - d)) for t in (q, k, v))
     return q, k, v
@@ -294,7 +293,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (unit stride on d, 16-byte aligned rows). A CUDA tensor launches the
     kernel on the current stream (counted in ``flash_attention.launches``)
     at any d (d < 64 zero-padded to 64, 64 < d < 128 to 128, a wider d to a
-    multiple of 64 in bf16 and of 128 in fp32) and returns a ``(B, N, H, d)``
+    multiple of 64) and returns a ``(B, N, H, d)``
     buffer seen as ``(B, H, N, d)``, so that the reshape before the proj
     matmul is free; a CPU tensor goes to the plain version at any d."""
     _check_bhnd(q, k, v)

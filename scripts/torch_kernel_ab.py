@@ -22,7 +22,9 @@ a fixed seed:
   head_dim-128 shapes, each beside fp32 ``scaled_dot_product_attention``
   on the same q, k, v (``*_sdpa_ms``); K3 at Depth Pro's patch shape, at
   N = 1024 and at head_dim 128, each beside fp32 SDPA, and K4 at ViT-L's
-  qkv; and the fp32 route end to end through its engine
+  qkv; K2 and K3 at the six wide shapes above (``*_wide_fp32``, from a
+  generator of their own) beside fp32 SDPA; and
+  the fp32 route end to end through its engine
   (``DepthPipeline.benchmark``, seeded random weights): DA-V2 vitl at 518²
   (``vitl_fp32_graph_*``) and Depth Pro at 1536² (``depth_pro_fp32_graph_*``;
   24 fp32 K3 and 24 fp32 K1 a forward).
@@ -136,8 +138,10 @@ def child(root: str) -> dict:
         if label in K1_SDPA:
             q, k, v = qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4)
             timed(f"k1_{label}_sdpa", lambda: F.scaled_dot_product_attention(q, k, v))
-    # a tree with WIDE_HEAD_DIM takes every head width; older trees name their widest
-    widest = math.inf if hasattr(fa, "WIDE_HEAD_DIM") else getattr(fa, "BHND_MAX_HEAD_DIM", d)
+    # a tree with WIDE_HEAD_DIM or WIDE_STEP takes every head width; older trees name their
+    # widest
+    widest = (math.inf if hasattr(fa, "WIDE_HEAD_DIM") or hasattr(fa, "WIDE_STEP")
+              else getattr(fa, "BHND_MAX_HEAD_DIM", d))
     for key, name, shapes in (("k2", "flash_attention", K2_SHAPES),
                               ("k3", "flash_attention_batched", K3_SHAPES)):
         for label, (b, h, n, hd) in shapes.items():
@@ -203,6 +207,21 @@ def child(root: str) -> dict:
         bias = torch.randn(n, generator=gen32).to(dev)
         timed(f"k4_{label}_fp32", lambda: qm.w8a8_matmul(x, wq, qmul, scale, bias))
         del x, wq
+    # the fp32 wide heads, from a generator of their own
+    gen_wide32 = torch.Generator().manual_seed(4)
+    for key, name, shapes in (("k2", "flash_attention", K2_WIDE_SHAPES),
+                              ("k3", "flash_attention_batched", K3_WIDE_SHAPES)):
+        for label, (b, h, n, hd, strided) in shapes.items():
+            if strided:
+                qkv = torch.randn((b, n, 3, h, hd), generator=gen_wide32).to(dev)
+                q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+            else:
+                q, k, v = (torch.randn((b, h, n, hd), generator=gen_wide32).to(dev)
+                           for _ in range(3))
+            timed(f"{key}_{label}_fp32", lambda: getattr(fa, name)(q, k, v), WIDE_ITERS)
+            timed(f"{key}_{label}_fp32_sdpa", lambda: F.scaled_dot_product_attention(q, k, v),
+                  WIDE_ITERS)
+            del q, k, v
     b, h, n = HOST_SHAPE
     qkv = torch.randn((b, n, 3 * h * d), generator=gen).to(dev, torch.bfloat16)
     rec["k1_host_us"] = host_us(lambda: fa.flash_attention_packed(qkv, h))

@@ -33,6 +33,16 @@ mode (its division after P.V changes only fp32 rounding, since in fp32 the
 TPU kernel's division has no cast to stand before): the model is held
 against the batched JAX kernel ``_attn_kernel_batched`` too.
 
+The fp32 K2's and K3's heads wider than 128 run the fp32 mainloop's wide
+form: d zero-padded to a multiple of 64, 64-key tiles, S summed region by
+region (32 columns, one swizzle atom) over the K pieces the ring carries,
+with Q's regions resident or streamed beside each piece (the same values,
+another order of loads), and the output in chunks of 128 columns, each
+chunk's CTA recomputing S. Its model is held to
+``FP32_TOL`` against both JAX kernels; one TF32 pass, a skipped key tile,
+the last region left out of S or the last chunk left out of the output must
+fail it.
+
 K2's and K3's bf16 heads wider than 128 run the mainloop's wide form: d
 zero-padded to a multiple of 64, S summed over every 64-column region of
 the head, 64-key tiles, the output computed in chunks of 256 columns (each
@@ -63,6 +73,10 @@ K2_BF16_ULPS = 4  # chip_smoke.py's bar for K2 against its plain version
 K3_BF16_ULPS = 1
 FP32_TOL = 1e-4  # chip_smoke.py's bar for the fp32 kernels against their plain versions
 F32_BLOCK_K = {64: 64, 128: 32}  # keys per K/V tile of the fp32 loop (Head64, Head128)
+F32_WIDE_CHUNK = 128  # output columns of one fp32 wide CTA (d > 128)
+F32_WIDE_BLOCK_K = 64  # keys per K/V tile of the fp32 wide form
+F32_REGION = 32  # fp32 columns of one 128-byte swizzle region
+SMEM_BYTES = 232448  # the shared memory of one CTA
 WIDE_BLOCK_K = 64  # keys per K/V tile of the wide form (d > 128)
 WIDE_CHUNK = 256  # output columns of one wide CTA
 
@@ -308,34 +322,87 @@ def _tf32_product(a, b, passes=3):
     return _tf32(a - a_hi) @ b_hi + a_hi @ _tf32(b - b_hi) + a_hi @ b_hi
 
 
-def f32_model(q, k, v, scale, skip_tile=None, passes=3):
-    """The fp32 K2 (and K1 over its views): per 64-row query tile, one pass
-    over key tiles of F32_BLOCK_K[d] keys; S = Q.K^T and O += P.V each as
-    the split TF32 products; a running row max m and sum l in fp32, O
-    rescaled by exp2((m_old - m_new) * c) on every tile, P = exp2(s*c -
-    m*c) split like any operand (hi is p itself), the row sum dividing once
-    at the end. The kernel masks the ragged last tile's keys past N to
-    -inf; here the tile is cut at N, which is the same sum."""
+def f32_wide_plan(d, chunk=F32_WIDE_CHUNK, block_k=F32_WIDE_BLOCK_K):
+    """The fp32 wide form's ring at a padded head width ``d`` (a multiple of
+    64 above 128) (``csrc/attention_sm90_f32.cuh``, ``wide_args``): the
+    regions of a K piece, whether Q is streamed beside each piece, the slots
+    of the ring and the CTA's shared memory. A slot holds the larger of a K
+    piece (K and K lo, with Q and Q lo when streamed) and a chunk's V^T and
+    V^T lo; Q and Q lo stay resident where they fit beside two slots, else a
+    piece narrows until two slots fit."""
+    regions = d // F32_REGION
+    q_region, k_region = BLOCK_Q * 128, block_k * 128
+    vt = 2 * chunk * block_k * 4
+    bars, max_stages = 8 * (2 + 3 * 6), 6
+    room = SMEM_BYTES - bars - 1024
+
+    def slot(p, streamed):
+        return max(vt, 2 * p * (k_region + (q_region if streamed else 0)))
+
+    p = min(regions, chunk // F32_REGION)
+    q_bytes = 2 * regions * q_region
+    streamed = q_bytes + 2 * slot(p, False) > room
+    if streamed:
+        while p > 1 and 2 * slot(p, True) > room:
+            p -= 1
+        q_bytes = 0
+    stages = min(max_stages, (room - q_bytes) // slot(p, streamed))
+    return {"piece_regions": p, "q_streamed": streamed, "stages": stages,
+            "smem": q_bytes + stages * slot(p, streamed) + bars + 1024}
+
+
+def f32_model(q, k, v, scale, skip_tile=None, passes=3, cut=None):
+    """The fp32 K2 and K3 (and K1 over its views): per 64-row query tile and
+    output chunk, one pass over the key tiles; S = Q.K^T and O += P.V each as
+    the split TF32 products, S summed region by region over the K pieces of
+    the head; a running row max m and sum l in fp32, O rescaled by
+    exp2((m_old - m_new) * c) on every tile, P = exp2(s*c - m*c) split like
+    any operand (hi is p itself), the row sum dividing once at the end. At
+    d <= 128 the loop's tiles: F32_BLOCK_K[d] keys, one piece, one chunk of
+    d columns. Above 128 the wide form's: d zero-padded to a multiple of 64,
+    F32_WIDE_BLOCK_K keys, chunks of F32_WIDE_CHUNK columns (each
+    recomputing S) and the pieces of :func:`f32_wide_plan`. ``cut``:
+    "last_region" leaves the
+    last region out of S, "chunk" the last chunk out of the output (zeros).
+    The kernel masks the ragged last tile's keys past N to -inf; here the
+    tile is cut at N, which is the same sum."""
     c = scale * LOG2E
-    block_k = F32_BLOCK_K[q.shape[-1]]
-    out = torch.empty(q.shape)
-    for r0, r1 in _blocks(q.shape[2], BLOCK_Q):
-        rows = q[:, :, r0:r1]
-        m = torch.full(rows.shape[:-1], -math.inf)
-        l = torch.zeros(rows.shape[:-1])
-        o = torch.zeros(rows.shape)
-        for t, (k0, k1) in enumerate(_blocks(k.shape[2], block_k)):
-            if t == skip_tile:
-                continue
-            s = _tf32_product(rows, k[:, :, k0:k1].transpose(-1, -2), passes)
-            m_new = torch.maximum(m, s.amax(-1))
-            alpha = torch.exp2((m - m_new) * c)  # 0 on the first tile
-            p = torch.exp2(s * c - (m_new * c)[..., None])
-            l = l * alpha + p.sum(-1)
-            o = o * alpha[..., None] + _tf32_product(p, v[:, :, k0:k1], passes)
-            m = m_new
-        out[:, :, r0:r1] = o / l[..., None]
-    return out
+    d = q.shape[-1]
+    if d > 128:
+        width = -(-d // 64) * 64
+        q, k, v = (F.pad(t, (0, width - d)) for t in (q, k, v))
+        chunk, block_k = F32_WIDE_CHUNK, F32_WIDE_BLOCK_K
+        piece = f32_wide_plan(width)["piece_regions"]
+    else:
+        width, block_k, chunk = d, F32_BLOCK_K[d], d
+        piece = -(-d // F32_REGION)
+    regions = -(-width // F32_REGION) - (cut == "last_region")
+    pieces = [range(r0, min(r0 + piece, regions)) for r0 in range(0, regions, piece)]
+    chunks = _blocks(width, chunk)[:-1 if cut == "chunk" else None]
+    out = torch.zeros(q.shape)
+    for c0, c1 in chunks:
+        for r0, r1 in _blocks(q.shape[2], BLOCK_Q):
+            rows = q[:, :, r0:r1]
+            m = torch.full(rows.shape[:-1], -math.inf)
+            l = torch.zeros(rows.shape[:-1])
+            o = torch.zeros((*rows.shape[:-1], c1 - c0))
+            for t, (k0, k1) in enumerate(_blocks(k.shape[2], block_k)):
+                if t == skip_tile:
+                    continue
+                s = 0
+                for regs in pieces:
+                    for r in regs:
+                        cols = slice(F32_REGION * r, F32_REGION * (r + 1))
+                        s = s + _tf32_product(rows[..., cols],
+                                              k[:, :, k0:k1, cols].transpose(-1, -2), passes)
+                m_new = torch.maximum(m, s.amax(-1))
+                alpha = torch.exp2((m - m_new) * c)  # 0 on the first tile
+                p = torch.exp2(s * c - (m_new * c)[..., None])
+                l = l * alpha + p.sum(-1)
+                o = o * alpha[..., None] + _tf32_product(p, v[:, :, k0:k1, c0:c1], passes)
+                m = m_new
+            out[:, :, r0:r1, c0:c1] = o / l[..., None]
+    return out[..., :d]
 
 
 def _f32_case(rng, layout, n, d, **kw):
@@ -365,35 +432,55 @@ def _f32_case(rng, layout, n, d, **kw):
     return got.numpy(), ref, plain.numpy()
 
 
-@pytest.mark.parametrize("layout,d", [("k2", 64), ("k2", 128), ("k1", 64)])
+@pytest.mark.parametrize("layout,d", [("k2", 64), ("k2", 128), ("k1", 64), ("k2", 192),
+                                      ("k2", 320)])
 @pytest.mark.parametrize("n", [65, 200, 300])
 def test_fp32_tile_model_matches_the_jax_kernel(rng, layout, n, d):
     """The split TF32 model against the JAX kernels' fp32 forms (interpret
-    mode) and the port's plain version, at FP32_TOL."""
+    mode) and the port's plain version, at FP32_TOL; above 128 the wide form
+    (d = 192: Q resident, two chunks; d = 320: Q streamed in 3-region
+    pieces, three chunks of 128 + 128 + 64)."""
     got, ref, plain = _f32_case(rng, layout, n, d)
     assert np.abs(got - ref).max() <= FP32_TOL, np.abs(got - ref).max()
     assert np.abs(got - plain).max() <= FP32_TOL, np.abs(got - plain).max()
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 192, 320])
 @pytest.mark.parametrize("n", [65, 200, 577])
 def test_fp32_k3_tile_model_matches_the_batched_jax_kernel(rng, n, d):
     """The fp32 K3 (the split TF32 loop in its online mode) against
     ``_attn_kernel_batched`` in fp32 (interpret mode), which divides P by
     the row sum before P.V, and the port's plain version, at FP32_TOL: 577
-    tokens pad to 640 keys, 10 key tiles at d = 64 and 19 at d = 128."""
+    tokens pad to 640 keys, 10 key tiles at d = 64 and 19 at d = 128 and in
+    the wide form (d = 192, 320)."""
     got, ref, plain = _f32_case(rng, "k3", n, d)
     assert np.abs(got - ref).max() <= FP32_TOL, np.abs(got - ref).max()
     assert np.abs(got - plain).max() <= FP32_TOL, np.abs(got - plain).max()
 
 
-@pytest.mark.parametrize("cut", ["one_tf32_pass", "skipped_key_tile"])
+@pytest.mark.parametrize("cut", ["one_tf32_pass", "skipped_key_tile", "dropped_last_region",
+                                 "dropped_chunk"])
 @pytest.mark.parametrize("layout,d", [("k2", 64), ("k2", 128), ("k1", 64), ("k3", 64),
-                                      ("k3", 128)])
+                                      ("k3", 128), ("k2", 192), ("k2", 320), ("k3", 192),
+                                      ("k3", 320)])
 def test_fp32_models_that_cut_a_corner_fail_the_bar(rng, cut, layout, d):
-    """A single TF32 pass (operands rounded to about 11 bits) and a model
-    that skips one key tile both miss FP32_TOL against the JAX kernel: the
-    split is needed, and the bar catches a dropped tile."""
-    kw = {"passes": 1} if cut == "one_tf32_pass" else {"skip_tile": 1}
+    """A single TF32 pass (operands rounded to about 11 bits), a model that
+    skips one key tile, one that stops one 32-column region short of d in S
+    and one that leaves the last output chunk out (at d <= 128 the only one)
+    all miss FP32_TOL against the JAX kernel: the split is needed, and the
+    bar catches a dropped tile, region or chunk."""
+    kw = {"one_tf32_pass": {"passes": 1}, "skipped_key_tile": {"skip_tile": 1},
+          "dropped_last_region": {"cut": "last_region"}, "dropped_chunk": {"cut": "chunk"}}[cut]
     got, ref, _ = _f32_case(rng, layout, 200, d, **kw)
     assert np.abs(got - ref).max() > FP32_TOL, np.abs(got - ref).max()
+
+
+@pytest.mark.parametrize("d", [192, 256, 320, 384, 1024, 1536, 2048])
+def test_fp32_wide_plan_fits_a_cta_and_streams_q_where_it_must(d):
+    """The fp32 wide form's ring at every width: at least two slots in the
+    227 KB of a CTA; Q resident up to d = 192 and streamed above, in pieces
+    of 3 regions (a piece at most one chunk wide)."""
+    plan = f32_wide_plan(d)
+    assert plan["stages"] >= 2 and plan["smem"] <= SMEM_BYTES, plan
+    assert plan["q_streamed"] == (d > 192), plan
+    assert plan["piece_regions"] == (F32_WIDE_CHUNK // F32_REGION if d == 192 else 3), plan

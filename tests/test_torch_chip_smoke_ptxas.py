@@ -1,5 +1,6 @@
 """chip_smoke.py's gate on ptxas's report: the wide bf16 and the fp32 split-TF32
-mainloops (``*_wide_kernel_sm90``, ``*_f32_sm90``) must spill nothing and
+mainloops (``*_wide_kernel_sm90``, ``*_f32_sm90``, the fp32 wide form's
+``*_wide_kernel_f32_sm90`` included) must spill nothing and
 keep their wgmma unserialized (no warning C7512). The log is nvcc's
 ``-Xptxas -v`` output, in the form the card's toolkit prints it; the gate
 runs there, this holds its parser to that form on the CPU."""
@@ -17,6 +18,7 @@ import chip_smoke  # noqa: E402
 WIDE = "_ZN4anon26attn_bhnd_wide_kernel_sm90E14CUtensorMap_stS0_S0_S0_NS_4sm908WideArgsE"
 F32 = "_ZN4anon28attn_batched_kernel_f32_sm90INS_7sm90f326ConfigILi64ELi64ELi3EEEEEvif"
 K4 = "_ZN4anon4gemm16w8a8_kernel_sm90INS0_6ConfigILi128EEEEEvPKfiii"
+WIDE_F32 = "_ZN4anon30attn_bhnd_wide_kernel_f32_sm90E14CUtensorMap_stS0_S0_S0_NS_7sm90f328WideArgsE"
 
 
 def _entry(name, registers, stores=0, loads=0, stack=0):
@@ -51,8 +53,9 @@ def test_ptxas_report_reads_registers_spills_and_serialization():
     (_serialized(WIDE) + CLEAN, WIDE),
     (CLEAN + _serialized(F32), F32),
     (_entry(WIDE, 254) + _entry(K4, 168), "_f32_sm90"),
+    (CLEAN + _entry(WIDE_F32, 224, stores=64, loads=64), WIDE_F32),
 ], ids=["wide-spills", "f32-spill-loads", "wide-serialized", "f32-serialized",
-        "f32-missing"])
+        "f32-missing", "f32-wide-spills"])
 def test_ptxas_gate_refuses_spills_serialization_and_missing_kernels(log, culprit):
     faults = chip_smoke.ptxas_faults(chip_smoke.ptxas_report(log))
     assert len(faults) == 1 and culprit in faults[0]

@@ -262,10 +262,10 @@ def test_head_dim_128_reads_each_64_column_half_of_v(cuda, name):
 @pytest.mark.parametrize("d", [192, 200, 256, 320, 1024, 1536])
 @pytest.mark.parametrize("n,strided", [(1, False), (129, True), (577, False)])
 def test_k2_and_k3_compute_heads_wider_than_128_on_a_card(cuda, name, dtype, d, n, strided):
-    """d > 128 runs, in bf16, the mainloop's wide form (zero-padded to a
-    multiple of 64: d = 200 to 256; Q resident up to d = 1280, streamed
-    beside K at d = 1536) and, in fp32, the wide loop (csrc/attention_wide.cuh,
-    a multiple of 128), with K2's bar and the dropped-tile check."""
+    """d > 128 runs the wide form of its type's mainloop, zero-padded to a
+    multiple of 64 (d = 200 to 256): in bf16 Q resident up to d = 1280 and
+    streamed beside K at d = 1536; in fp32 (split TF32) Q resident up to
+    d = 192 and streamed above; with K2's bar and the dropped-tile check."""
     q, k, v = _bhnd(2, 3, n, d, dtype, cuda, seed=d, strided=strided)
     kernel = getattr(fa, name)
     before = kernel.launches

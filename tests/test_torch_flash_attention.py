@@ -134,8 +134,8 @@ def test_plain_k2_takes_strided_views_and_a_scale(rng):
 def test_k2_computes_head_dims_above_64_as_jax_does(rng, d):
     """Widths that used to raise: on the CPU the plain version computes them
     with the scale of the unpadded d, as the JAX entry does (on a card K2
-    pads them to 128 or, above 128, to the next multiple of 64 in bf16 and
-    of 128 in fp32)."""
+    pads them to 128 or, above 128, to the next multiple of 64 in either
+    type)."""
     q, k, v = (rng.standard_normal((1, 2, 10, d)).astype(np.float32) for _ in range(3))
     ref = jax_flash_attention(*(jnp.asarray(t) for t in (q, k, v)), interpret=True)
     out = fa.flash_attention(*(torch.from_numpy(t) for t in (q, k, v)))
@@ -147,15 +147,16 @@ def test_k2_computes_head_dims_above_64_as_jax_does(rng, d):
     (16, torch.bfloat16, 64), (64, torch.float32, 64), (80, torch.bfloat16, 128),
     (128, torch.float32, 128), (130, torch.bfloat16, 192), (192, torch.bfloat16, 192),
     (200, torch.bfloat16, 256), (320, torch.bfloat16, 320), (1000, torch.bfloat16, 1024),
-    (130, torch.float32, 256), (192, torch.float32, 256), (320, torch.float32, 384),
+    (130, torch.float32, 192), (192, torch.float32, 192), (320, torch.float32, 320),
+    (1000, torch.float32, 1024),
 ])
 def test_k2_and_k3_pad_a_head_to_the_width_their_kernel_takes(rng, d, dtype, width):
     """On a card the wrapper zero-pads d: to 64, to 128, and above 128 to a
-    multiple of 64 in bf16 (the mainloop's wide form; the JAX entry pads to
-    128) or of 128 in fp32 (the simple wide loop). Zero columns change no
-    result: the plain version on the padded operands, cut back to d, is the
+    multiple of 64 in either type (the wide forms of the bf16 and the fp32
+    mainloops; the JAX entry pads to 128). Zero columns change no result:
+    the plain version on the padded operands, cut back to d, is the
     unpadded one."""
-    assert fa._kernel_head_dim(d, dtype) == width
+    assert fa._kernel_head_dim(d) == width
     q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 33, d)).astype(np.float32))
                for _ in range(3))
     padded = fa._padded(q.to(dtype), k.to(dtype), v.to(dtype))
