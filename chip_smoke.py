@@ -8,14 +8,15 @@ Phases, each printed as one JSON line; any failure exits non-zero:
 1. device: card name and power limit, torch/CUDA versions, ``nvcc --version``;
 2. build: compiles ``monocular_depth_estimation_trt_tpu_torch/csrc/*.cu``
    with nvcc into the package's ``_build/`` directory and loads it, with
-   ptxas's registers and spills per kernel (the wide and fp32 mainloops,
+   ptxas's registers and spills per kernel (the wide and fp32 kernels,
    ``*_wide_kernel_sm90`` and ``*_f32_sm90``, must spill nothing and keep
    their wgmma unserialized: no warning C7512); then ``sass``: the HGMMA (bf16
-   and TF32 wgmma; IGMMA for K4's int8) and UTMALDG (TMA load) instructions
-   of each kernel in ``cuobjdump -sass`` (the bf16 K1, K2 (both head
-   widths and the wide form), K3 (the same) and K4 (both tile widths), and
-   the fp32 K1, K2 and K3 (split TF32, both head widths; K2 and K3 also the
-   wide form), must have both);
+   and TF32 wgmma; IGMMA for K4's int8), UTMALDG (TMA load) and UTMASTG (TMA
+   store) instructions of each kernel in ``cuobjdump -sass`` (the bf16 K1, K2
+   (both head widths and the wide form), K3 (the same) and K4 (both tile
+   widths), and the fp32 K1, K2 and K3 (split TF32, both head widths; K2 and
+   K3 also the wide form) and K4 (its one tile width, with TMA stores), must
+   have both, and the library must hold no other kernel);
 3. kernel checks: each kernel's wrapper (K1 packed-qkv attention, K2
    (B, H, N, d) attention and K3 exact-softmax attention of many short
    heads, all three on the TMA + wgmma mainloop of
@@ -23,7 +24,7 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    TF32 mainloop of ``csrc/attention_sm90_f32.cuh``, K2 and K3 at head widths
    64 and 128, and above 128 on each mainloop's wide form (up to d = 1536,
    where Q is streamed beside K);
-   K4 the fused w8a8 matmul, a TMA + wgmma int8 GEMM in bf16) against its
+   K4 the fused w8a8 matmul, a TMA + wgmma int8 GEMM in bf16 and fp32) against its
    plain PyTorch version on the card, at the main paths' shapes and edge
    shapes (for the attention kernels the ends of the 64-row query tiles and
    128-key tiles: N = 1, 63, 65, 127, 128, 129, 255, 257, 577, and head
@@ -383,15 +384,16 @@ DEPTH_PRO_BENCH = dict(warmup=3, iterations=10, latency_iterations=6)
 # until the training phase's)
 FAMILY_BENCH = dict(warmup=3, iterations=12, latency_iterations=5)
 
-# the TMA + wgmma kernels and their instantiations in the library (the tile
-# candidates of csrc/attention_sm90.cuh: K1 two at head width 64, K2 and K3
-# two at 64 and two at 128, and one of its wide form (d > 128) each; K4 at
-# tile widths 128 and 256; the fp32 K1, K2 and K3 of
-# csrc/attention_sm90_f32.cuh, one tile a head width, and one of its wide
-# form (d > 128) each), with the wgmma's SASS name: HGMMA for bf16 and TF32
-# operands, IGMMA for int8
+# every kernel of the library, each a TMA + wgmma kernel, and its
+# instantiations (the tile candidates of csrc/attention_sm90.cuh: K1 two at
+# head width 64, K2 and K3 two at 64 and two at 128, and one of its wide form
+# (d > 128) each; K4 at tile widths 128 and 256 with bf16 x, at 128 with fp32 x;
+# the fp32 K1, K2 and K3 of csrc/attention_sm90_f32.cuh, one tile a head
+# width, and one of its wide form (d > 128) each), with the wgmma's SASS
+# name: HGMMA for bf16 and TF32 operands, IGMMA for int8
 SM90_KERNELS = {"attn_packed_kernel_sm90": (2, "HGMMA"), "attn_bhnd_kernel_sm90": (4, "HGMMA"),
                 "attn_batched_kernel_sm90": (4, "HGMMA"), "w8a8_kernel_sm90": (2, "IGMMA"),
+                "w8a8_kernel_f32_sm90": (1, "IGMMA"),
                 "attn_bhnd_wide_kernel_sm90": (1, "HGMMA"),
                 "attn_batched_wide_kernel_sm90": (1, "HGMMA"),
                 "attn_packed_kernel_f32_sm90": (1, "HGMMA"),
@@ -399,6 +401,8 @@ SM90_KERNELS = {"attn_packed_kernel_sm90": (2, "HGMMA"), "attn_bhnd_kernel_sm90"
                 "attn_batched_kernel_f32_sm90": (2, "HGMMA"),
                 "attn_bhnd_wide_kernel_f32_sm90": (1, "HGMMA"),
                 "attn_batched_wide_kernel_f32_sm90": (1, "HGMMA")}
+# the kernels that write their output with TMA stores (UTMASTG in the SASS)
+TMA_STORE_KERNELS = ("w8a8_kernel_f32_sm90",)
 
 PEAK_BF16_OPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate
@@ -456,10 +460,26 @@ def sass_counts(lib_path: str):
     return counts
 
 
+def sass_faults(counts):
+    """What the SASS counts lack: each SM90_KERNELS entry with its number of
+    instantiations, each with its wgmma and TMA loads (and TMA stores where
+    TMA_STORE_KERNELS names it), and no kernel outside SM90_KERNELS."""
+    faults = []
+    for entry, (count, mma) in SM90_KERNELS.items():
+        ops = (mma, "UTMALDG", *(("UTMASTG",) if entry in TMA_STORE_KERNELS else ()))
+        found = [c for f, c in counts.items() if entry in f]
+        if len(found) != count or not all(c[op] > 0 for c in found for op in ops):
+            faults.append(f"{entry}: want {count} instantiations with {', '.join(ops)}, "
+                          f"SASS {found}")
+    faults += [f"{f}: a kernel outside SM90_KERNELS" for f in counts
+               if not any(entry in f for entry in SM90_KERNELS)]
+    return faults
+
+
 # kernels whose design rests on ptxas keeping every value in registers and
 # the wgmma chain asynchronous: the bf16 wide form (one CTA an SM, about 240
-# registers a consumer thread) and the fp32 split-TF32 mainloop, its wide
-# form included
+# registers a consumer thread), the fp32 split-TF32 mainloop, its wide
+# form included, and the fp32 K4
 PTXAS_CLEAN = ("_wide_kernel_sm90", "_f32_sm90")
 
 
@@ -2332,7 +2352,8 @@ def check_w8a8_matmul(qm, dev):
     """K4 against its plain version, bit for bit (torch.equal), at the int8
     paths' shapes (DA-V2 ViT-L's four layers at M = 1370; Depth Pro's patch
     encoder at M = 35 x 577 = 20,195; VGGT S=4 at M = 4 x 1374 = 5,496) in
-    bf16 and fp32, and at edge shapes M in (1, 17, 130), K in (32, 40, 96),
+    bf16, at ViT-L's qkv and fc2 and Depth Pro's fc1 and fc2 in fp32, and
+    at edge shapes M in (1, 17, 130), K in (32, 40, 96),
     N in (8, 136, 1000); timings of the kernel, the plain version and the
     library chain (quantize, torch._int_mm, rescale) at the main shapes."""
     import torch
@@ -2357,7 +2378,9 @@ def check_w8a8_matmul(qm, dev):
         ("vitb_fc1", 1374, 768, 3072, torch.bfloat16),
         ("vitb_fc2", 1374, 3072, 768, torch.bfloat16),
         ("vitl_qkv_fp32", 1370, 1024, 3072, torch.float32),
+        ("vitl_fc2_fp32", 1370, 4096, 1024, torch.float32),
         ("depth_pro_fc1_fp32", 20195, 1024, 4096, torch.float32),
+        ("depth_pro_fc2_fp32", 20195, 4096, 1024, torch.float32),
     ]
     records = []
     for label, m, k, n, dtype in main:
@@ -6025,21 +6048,15 @@ def main() -> None:
     if info.built:
         faults = ptxas_faults(ptxas_report(info.log))
         check(not faults, f"ptxas: {faults}")
-    # every bf16 kernel, and the fp32 K1, K2 and K3 (split TF32), runs on wgmma
-    # and TMA (K2 and K3 in two head widths and the wide form, in either type);
-    # K4's fp32 wmma loop, the one other kernel, on neither
+    # every kernel runs on wgmma and TMA, in either type (K2 and K3 in two head
+    # widths and the wide form; K4 in bf16 and fp32, the fp32 form with TMA
+    # stores), and the library holds no kernel outside SM90_KERNELS
     sass = sass_counts(info.path)
     if sass is None:
         emit({"phase": "sass", "counts": "not measured (no cuobjdump in the toolkit)"})
     else:
         emit({"phase": "sass", "counts": sass})
-        for entry, (count, mma) in SM90_KERNELS.items():
-            found = [c for f, c in sass.items() if entry in f]
-            check(len(found) == count and all(c[mma] > 0 and c["UTMALDG"] > 0 for c in found),
-                  f"{entry}: want {count} instantiations with {mma} and UTMALDG, SASS {found}")
-        fp32 = {f: c for f, c in sass.items() if "_sm90" not in f}
-        check(fp32 and all(c["HGMMA"] + c["IGMMA"] + c["UTMALDG"] == 0 for c in fp32.values()),
-              f"fp32 kernels' SASS {fp32}")
+        check(not sass_faults(sass), f"sass: {sass_faults(sass)}")
 
     # 3. kernel checks (their launches are not the main paths')
     k1 = check_flash_attention_packed(fa, dev)

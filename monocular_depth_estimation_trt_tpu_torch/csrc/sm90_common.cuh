@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels: the
 // attention mainloop of K1 to K3 (attention_sm90.cuh) and the w8a8 GEMM K4
 // (w8a8_matmul.cu). mbarriers, TMA loads and stores, wgmma fences and the
-// shared-memory matrix descriptor of 128-byte-swizzled tiles; on the host,
+// shared-memory matrix descriptors of 128- and 64-byte-swizzled tiles; on the host,
 // the lookup of cuTensorMapEncodeTiled and the per-device facts a launch
 // needs, each queried once.
 
@@ -93,6 +93,17 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap& map, uint32_t sr
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 
+// Shared memory at `src` to the box at (c0, c1) of a rank-2 `map`, committed
+// as a bulk group (wait with tma_store_wait).
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap& map, uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(&map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
 // Waits until every committed TMA store has read shared memory.
 __device__ __forceinline__ void tma_store_wait() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
@@ -117,6 +128,14 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lead_bytes
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lead_bytes >> 4) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+// The same for a K-major tile of 64-byte rows under the 64-byte swizzle
+// (layout type 2), from a 512-byte aligned atom: stride byte offset 512 (8
+// rows of 64 bytes); a step along K adds 32 bytes to the start address.
+__device__ __forceinline__ uint64_t smem_desc_sw64(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(16 >> 4) << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32) | (static_cast<uint64_t>(2) << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {

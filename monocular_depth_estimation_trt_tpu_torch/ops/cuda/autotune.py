@@ -42,11 +42,12 @@ kernel, type, shape and device; a measurement's write drops the memo, and
 
 The candidates: the bf16 attention mainloop's instantiations at head width
 64 and 128 (:data:`ATTENTION_TILES`, in the order of the C entries' tile
-index) and K4's two output tile widths (:data:`W8A8_WIDTHS`). The fp32
-kernels and K2/K3's wide heads (d > 128: the bf16 mainloop's wide form, the
-fp32 simple loop) have one tile each: for the fp32 K1, K2 and K3 the split
-TF32 mainloop's one instantiation a head width (:data:`ATTENTION_FP32_TILES`),
-their default under the fp32 keys.
+index) and K4's two output tile widths in bf16 (:data:`W8A8_WIDTHS`). The
+fp32 kernels and K2/K3's wide heads (d > 128, on each mainloop's wide
+form) have one tile each: for the fp32 K1, K2 and K3 the split TF32
+mainloop's one instantiation a head width (:data:`ATTENTION_FP32_TILES`),
+their default under the fp32 keys; for the fp32 K4 the GEMM's 128-column
+tile (:data:`W8A8_FP32_WIDTH`).
 """
 
 from __future__ import annotations
@@ -77,7 +78,9 @@ ATTENTION_TILES = {
 ATTENTION_FP32_TILES = {64: ("64k3s1c",), 128: ("32k2s1c",)}
 FP32_TILED = ("flash_attention_packed", "flash_attention", "flash_attention_batched")
 W8A8_WIDTHS = (128, 256)  # K4's bf16 output tile widths
-W8A8_FP32_WIDTH = 128  # the fp32 wmma kernel's one width
+# the fp32 K4's one width: at 256 columns ptxas serializes the GEMM's wgmma
+# chain within the 168 registers a thread its 384-thread CTA gets
+W8A8_FP32_WIDTH = 128
 W8A8_ROWS = 128  # K4's output rows per tile
 # The waves rule: a 256-wide tile takes WIDE_256_COST / 4 of a 128-wide one's
 # time (1.2 to 1.45 measured on the H100 at the paths' shapes, PERF.md)
@@ -179,7 +182,7 @@ def default_tile(kernel: str, dtype: torch.dtype, shape: Sequence[int],
                  device: torch.device, sms: Optional[int] = None) -> int:
     """The tile every launch took before the tuner: 0 for K1 to K3, the
     waves rule for K4 in bf16 (``shape`` = (M, N, K); ``sms`` defaults to
-    the card's)."""
+    the card's), its one width in fp32."""
     if kernel != "w8a8_matmul":
         return 0
     if dtype != torch.bfloat16:

@@ -11,18 +11,18 @@
 with ``weight_q`` in ``nn.Linear``'s ``(N, K)`` layout. On a CUDA tensor it
 launches the kernel or raises; on a CPU tensor it runs the plain version,
 :func:`w8a8_matmul_reference`, which computes the same numbers bit for bit.
-bf16 activations (int8 serving) run a persistent TMA + wgmma GEMM whose
-consumer warpgroups quantize each landed x tile straight into the register
-A operand of the int8 wgmma; fp32 activations (the parity route) run a wmma
-kernel.
+Both activation types (bf16 for int8 serving, fp32 for the parity route)
+run one persistent TMA + wgmma GEMM whose consumer warpgroups quantize each
+landed x tile straight into the register A operand of the int8 wgmma; the
+fp32 form writes its output with TMA stores.
 
 The launch is the operator ``torch.ops.mdet.w8a8_matmul`` on ``(M, K)``
 activations, so that ``torch.export`` keeps the kernel in a graph
 (``runtime/export.py``): its CPU implementation is the plain version, its
 CUDA implementation the ctypes launch (counted in the wrapper's
 ``launches``), its fake implementation the output's shape and type. The
-wrapper's checks, the flattening to 2-D and the bf16 K padding stay outside
-it, as traced tensor code.
+wrapper's checks, the flattening to 2-D and the K padding stay outside it,
+as traced tensor code.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ import torch.nn.functional as F
 from monocular_depth_estimation_trt_tpu_torch.ops.cuda import autotune
 
 QMAX = 127.0
-K_ALIGN = 16  # the bf16 kernel's K granule: one 16-byte row of int8 weight
+K_ALIGN = 16  # the kernel's K granule: one 16-byte row of int8 weight
 
 _C_FUNCS = {
     torch.bfloat16: "mdet_w8a8_matmul_bf16",
@@ -73,7 +73,7 @@ def w8a8_matmul(x: torch.Tensor, weight_q: torch.Tensor, qmul: torch.Tensor,
 
     A CUDA tensor launches K4 on the current stream (counted in
     ``w8a8_matmul.launches``); its output type is the type of ``x``, and
-    another ``out_dtype`` raises. In bf16 a K that is no multiple of 16 is
+    another ``out_dtype`` raises. A K that is no multiple of 16 is
     zero-padded to one first. A CPU tensor goes to the plain version."""
     _check(x, weight_q, qmul, out_scale, bias)
     out_dtype = out_dtype or x.dtype
@@ -87,8 +87,8 @@ def w8a8_matmul(x: torch.Tensor, weight_q: torch.Tensor, qmul: torch.Tensor,
             raise TypeError(f"the kernel writes the type of x ({x.dtype}), not {out_dtype}")
         x2 = x2.contiguous()
         weight_q, qmul, out_scale = (t.contiguous() for t in (weight_q, qmul, out_scale))
-        if x.dtype == torch.bfloat16 and k % K_ALIGN:
-            # the bf16 kernel's TMA maps need rows of a multiple of 16 bytes: zero
+        if k % K_ALIGN:
+            # the weight's TMA map needs rows of a multiple of 16 bytes: zero
             # columns add nothing to the int32 sum (no model layer has such a K)
             pad = K_ALIGN - k % K_ALIGN
             x2, weight_q, qmul = (F.pad(t, (0, pad)) for t in (x2, weight_q, qmul))
@@ -114,8 +114,8 @@ def _(x, weight_q, qmul, out_scale, bias, out_dtype):
 
 @_k4_op.register_kernel("cuda")
 def _(x, weight_q, qmul, out_scale, bias, out_dtype):
-    if x.data_ptr() % 16:
-        x = x.clone()
+    # the kernel reads x, weight_q and qmul from 16-byte aligned addresses
+    x, weight_q, qmul = (t.clone() if t.data_ptr() % 16 else t for t in (x, weight_q, qmul))
     m, k = x.shape
     n = weight_q.shape[0]
     if m * n == 0:

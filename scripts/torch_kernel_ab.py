@@ -22,7 +22,9 @@ a fixed seed:
   head_dim-128 shapes, each beside fp32 ``scaled_dot_product_attention``
   on the same q, k, v (``*_sdpa_ms``); K3 at Depth Pro's patch shape, at
   N = 1024 and at head_dim 128, each beside fp32 SDPA, and K4 at ViT-L's
-  qkv; K2 and K3 at the six wide shapes above (``*_wide_fp32``, from a
+  qkv and fc2 and Depth Pro's fc1 and fc2, each beside the fp32 library
+  chain (quantize, ``torch._int_mm``, rescale: ``*_chain_ms``); K2 and K3
+  at the six wide shapes above (``*_wide_fp32``, from a
   generator of their own) beside fp32 SDPA; and
   the fp32 route end to end through its engine
   (``DepthPipeline.benchmark``, seeded random weights): DA-V2 vitl at 518²
@@ -89,7 +91,9 @@ K2_FP32_SHAPES = {"frame_s1": (1, 16, 1374, 64, False), "global_s4": (1, 16, 549
                   "dinov3_vit7b16_1024": (1, 32, 4101, 128, True)}
 K3_FP32_SHAPES = {"depth_pro_patch": (35, 16, 577, 64), "n1024": (2, 8, 1024, 64),
                   "d128": (16, 16, 577, 128)}  # (B, H, N, d)
-K4_FP32_SHAPES = {"vitl_qkv": (1370, 1024, 3072)}  # (M, K, N)
+K4_FP32_SHAPES = {"vitl_qkv": (1370, 1024, 3072), "vitl_fc2": (1370, 4096, 1024),
+                  "depth_pro_fc1": (20195, 1024, 4096),
+                  "depth_pro_fc2": (20195, 4096, 1024)}  # (M, K, N)
 LONG_N = 4096  # fp32 shapes above this take LONG_ITERS calls a timing
 LONG_ITERS = 5
 E2E_BENCH = dict(warmup=5, iterations=30, latency_iterations=15)
@@ -105,6 +109,15 @@ def _yardstick():
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def k4_chain(x, wq, qmul, scale, bias):
+    """K4's function through PyTorch calls: quantize, ``torch._int_mm``,
+    rescale (the yardstick of ``chip_smoke.py::w8a8_library``)."""
+    import torch
+
+    xq = torch.clamp(torch.round(x.float() * qmul), -127, 127).to(torch.int8)
+    return (torch._int_mm(xq, wq.t()).float() * scale + bias).to(x.dtype)
 
 
 def child(root: str) -> dict:
@@ -206,6 +219,7 @@ def child(root: str) -> dict:
         scale = (1e-5 + 1e-3 * torch.rand(n, generator=gen32)).to(dev)
         bias = torch.randn(n, generator=gen32).to(dev)
         timed(f"k4_{label}_fp32", lambda: qm.w8a8_matmul(x, wq, qmul, scale, bias))
+        timed(f"k4_{label}_fp32_chain", lambda: k4_chain(x, wq, qmul, scale, bias))
         del x, wq
     # the fp32 wide heads, from a generator of their own
     gen_wide32 = torch.Generator().manual_seed(4)

@@ -44,6 +44,8 @@ def test_candidates_are_the_instantiations_of_each_width():
         assert at.candidates(name, BF16, 256) == (0,)  # the wide loop
         assert at.candidates(name, torch.float32, 64) == (0,)
     assert at.candidates("w8a8_matmul", BF16, 1024) == (128, 256)
+    # the fp32 K4 runs the same GEMM at 128 columns alone: at 256 ptxas
+    # serializes its wgmma chain (csrc/w8a8_matmul.cu)
     assert at.candidates("w8a8_matmul", torch.float32, 1024) == (128,)
     assert all(len(at.ATTENTION_TILES[d]) == len(at.candidates("flash_attention", BF16, d))
                for d in (64, 128))

@@ -75,16 +75,18 @@ def test_every_k2_and_k3_tile_holds_the_bar(cuda, name, shape):
         assert ok, (tile, err)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("m,k,n", K4_SHAPES)
-def test_every_k4_width_equals_the_plain_version(cuda, m, k, n):
+def test_every_k4_width_equals_the_plain_version(cuda, m, k, n, dtype):
+    """Every tile width of each type: 128 and 256 in bf16, 128 in fp32."""
     gen = torch.Generator().manual_seed(4)
-    x = torch.randn((m, k), generator=gen).to(cuda, torch.bfloat16)
+    x = torch.randn((m, k), generator=gen).to(cuda, dtype)
     wq = torch.randint(-127, 128, (n, k), generator=gen, dtype=torch.int8).to(cuda)
     qmul = (torch.rand(k, generator=gen) * 40 + 20).to(cuda)
     scale = (torch.rand(n, generator=gen) * 1e-4).to(cuda)
     bias = torch.randn(n, generator=gen).to(cuda)
     ref = qm.w8a8_matmul_reference(x, wq, qmul, scale, bias)
-    for width in autotune.W8A8_WIDTHS:
+    for width in autotune.candidates("w8a8_matmul", dtype, k):
         with autotune.use_tile(width):
             out = qm.w8a8_matmul(x, wq, qmul, scale, bias)
         torch.cuda.synchronize()

@@ -366,14 +366,16 @@ def _w8a8(m, k, n, dtype, device, lead=(), seed=0):
     (130, 96, 1000, torch.bfloat16), (300, 1040, 520, torch.bfloat16),
     (1370, 1040, 3000, torch.bfloat16), (1370, 64, 3066, torch.bfloat16),
     (1370, 1024, 1024, torch.float32), (5, 40, 8, torch.float32), (130, 96, 136, torch.float32),
+    (1370, 1040, 3066, torch.float32), (20195, 1024, 4096, torch.float32),
 ])
 def test_k4_equals_its_plain_version(cuda, m, k, n, dtype):
     """Bit for bit: an exact int32 product and the same fp32 roundings; in
-    bf16 (the persistent kernel) every output tile written exactly: where
-    the wrapper allocates nothing else, the output lands in the block the
-    allocator held NaN in just before. The bf16 shapes take both tile
+    both types (the persistent kernel) every output tile written exactly:
+    where the wrapper allocates nothing else, the output lands in the block
+    the allocator held NaN in just before. The bf16 shapes take both tile
     widths, ragged N on each (3000 and 3066 on 256-column tiles, 3066 with
-    rows no multiple of 16 bytes) and K tails (1040, 64)."""
+    rows no multiple of 16 bytes), the fp32 ones its 128 columns, with rows
+    that no TMA store takes at N = 3066; both take K tails (1040, 64)."""
     x, wq, qmul, scale, bias = _w8a8(m, k, n, dtype, cuda)
     ref = qm.w8a8_matmul_reference(x, wq, qmul, scale, bias)
     poisoned = torch.full((m, n), float("nan"), dtype=dtype, device=cuda).data_ptr()
@@ -383,7 +385,7 @@ def test_k4_equals_its_plain_version(cuda, m, k, n, dtype):
     assert qm.w8a8_matmul.launches == before + 1
     assert out.shape == (m, n) and out.dtype == dtype and out.is_cuda
     assert torch.equal(out, ref)
-    assert dtype != torch.bfloat16 or k % 16 or out.data_ptr() == poisoned
+    assert k % 16 or out.data_ptr() == poisoned
 
 
 def test_k4_equals_its_plain_version_at_the_edge_shapes(cuda):

@@ -302,6 +302,41 @@ def test_cuda_program_was_traced_along_the_card_branch(name, tmp_path):
     assert any(w != on_card(w) for w in cpu_widths)  # the card branch pads here
 
 
+class _QuantLayer(torch.nn.Module):
+    def __init__(self, k, n, device):
+        super().__init__()
+        self.register_buffer("weight_q", torch.ones((n, k), dtype=torch.int8, device=device))
+        self.register_buffer("qmul", torch.ones(k, device=device))
+        self.register_buffer("out_scale", torch.ones(n, device=device))
+
+    def forward(self, x):
+        from monocular_depth_estimation_trt_tpu_torch.ops.cuda.quant_matmul import w8a8_matmul
+
+        return w8a8_matmul(x, self.weight_q, self.qmul, self.out_scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("platform,k,want", [("cuda", 40, 48), ("cuda", 48, 48),
+                                             ("cpu", 40, 40)])
+def test_k4_card_branch_pads_k_in_both_types(platform, k, want, dtype):
+    """The int8 pipelines run bf16, so no exported model hands K4 fp32
+    activations; traced alone on fake tensors of each platform, the
+    wrapper's card branch zero-pads x, weight_q and qmul to K % 16 == 0 in
+    fp32 as in bf16 (the fp32 kernel's weight map needs 16-byte rows), and
+    the CPU branch hands the operator the layer's own K."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        layer = _QuantLayer(k, 24, platform)
+        x = torch.empty((2, 5, k), dtype=dtype, device=platform)
+        ep = torch.export.export(layer, (x,), strict=False)
+    (node,) = _calls(ep, K4)
+    vals = _vals(node.args[:3])
+    assert [v.shape[-1] for v in vals] == [want] * 3
+    assert vals[0].dtype == dtype and {v.device.type for v in vals} == {platform}
+    assert node.meta["val"].shape == (10, 24) and node.meta["val"].dtype == dtype
+
+
 def _streamvggt():
     vit = dict(dim=128, depth=1, num_heads=2, pretrain_img_size=SIZE)
     cfg = tvggt.VGGTConfig(vit_config=TViTConfig(**vit), dim=128, depth=2, num_heads=2,

@@ -40,6 +40,8 @@ def _forbidden(module: str) -> bool:
 def _port_sources():
     paths = [os.path.join(REPO, "chip_smoke.py"),
              os.path.join(REPO, "scripts", "torch_kernel_ab.py"),
+             os.path.join(REPO, "scripts", "torch_k4_store_ab.py"),
+             os.path.join(REPO, "scripts", "torch_k4_width_ab.py"),
              os.path.join(REPO, "scripts", "torch_int8_vggt_frames.py")]
     for root, _, files in os.walk(PORT):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]

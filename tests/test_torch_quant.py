@@ -132,6 +132,111 @@ def test_plain_version_matches_the_jax_pallas_kernel(m, k, n):
     np.testing.assert_allclose(ours.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
 
 
+# csrc/w8a8_matmul.cu's fp32 form: 128 x 128 output tiles, K steps of 64
+TILE_M, TILE_N32, K_STEP32 = 128, 128, 64
+ROUNDER = np.float32(12582912.0)  # 1.5 * 2^23
+
+
+def _kernel_quantize(x, qmul, rounding="even"):
+    """The fp32 kernel's quantize in numpy float32: x * qmul with one
+    rounding, the clamp, then the add of 1.5 * 2^23, whose own rounding at a
+    spacing of 1 rounds half to even, and the low byte of the sum.
+    ``rounding="away"`` is a cut model that rounds half away from zero."""
+    v = np.clip(x.astype(np.float32) * qmul.astype(np.float32), np.float32(-127),
+                np.float32(127))
+    if rounding == "away":
+        return (np.sign(v) * np.floor(np.abs(v) + np.float32(0.5))).astype(np.int8)
+    bits = (v + ROUNDER).astype(np.float32).view(np.uint32)
+    return (bits & 0xFF).astype(np.uint8).view(np.int8)
+
+
+def _kernel_model(x, kq, qmul, scale, bias, rounding="even", k_tail=True):
+    """The fp32 kernel's arithmetic and tile walk: each 128 x 128 output
+    tile sums K steps of 64 over x and weight tiles zero-filled past
+    M, N and K (as TMA fills them; qmul reads zero past K), int32 exact, then
+    rescales float32(acc) * out_scale, then + bias, two float32 roundings,
+    and writes only the rows and columns inside (M, N). ``k_tail=False`` is
+    a cut model that drops the last K step where it is partial."""
+    m, k = x.shape
+    n = kq.shape[1]
+    steps = -(-k // K_STEP32) if k_tail else k // K_STEP32
+    kp = -(-k // K_STEP32) * K_STEP32
+    xp = np.zeros((-(-m // TILE_M) * TILE_M, kp), np.float32)
+    xp[:m, :k] = x
+    wp = np.zeros((kp, -(-n // TILE_N32) * TILE_N32), np.int32)
+    wp[:k, :n] = kq
+    qp = np.zeros(kp, np.float32)
+    qp[:k] = qmul
+    out = np.full((m, n), np.nan, np.float32)
+    for m0 in range(0, m, TILE_M):
+        for n0 in range(0, n, TILE_N32):
+            acc = np.zeros((TILE_M, TILE_N32), np.int32)
+            for ks in range(steps):
+                cols = slice(ks * K_STEP32, (ks + 1) * K_STEP32)
+                xq = _kernel_quantize(xp[m0:m0 + TILE_M, cols], qp[cols], rounding)
+                acc += xq.astype(np.int32) @ wp[cols, n0:n0 + TILE_N32]
+            rows, width = min(TILE_M, m - m0), min(TILE_N32, n - n0)
+            y = acc[:rows, :width].astype(np.float32) * scale[n0:n0 + width]
+            if bias is not None:
+                y = y + bias[n0:n0 + width]
+            out[m0:m0 + rows, n0:n0 + width] = y
+    return out
+
+
+def _tie_operands(m, k, n, seed):
+    """fp32 operands on which the quantize meets exact ties (x * qmul = j +
+    0.5, qmul a power of two), values that clip at +-127, and ordinary
+    values."""
+    x, kq, _, scale, bias = _operands(m, k, n, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    qmul = (2.0 ** rng.integers(-2, 4, k)).astype(np.float32)
+    j = rng.integers(-140, 140, (m, k)).astype(np.float32)
+    kind = rng.integers(0, 3, (m, k))
+    x = np.where(kind == 0, (j + np.float32(0.5)) / qmul, x * 60 / qmul).astype(np.float32)
+    x[0, :] = 200.0 / qmul  # a row that clips at +127
+    return x, kq, qmul, scale, bias
+
+
+@pytest.mark.parametrize("k", [40, 96])
+@pytest.mark.parametrize("model,holds", [
+    ("kernel", True), ("round_half_away", False), ("drop_k_tail", False)])
+def test_fp32_kernel_model_matches_the_jax_pallas_kernel(model, holds, k):
+    """The fp32 kernel's arithmetic and tile walk (ragged M = 130 and N =
+    136) against the Pallas kernel in interpret mode with fp32 x and fp32
+    out, on exact ties and clipped values. Bit for bit on the int32 sums
+    (out_scale 1 and bias 0 make the output float32(acc), exactly); the cut
+    models (half away from zero, the K tail dropped) must miss that bar.
+    With the scales and the bias, the model equals the plain version bit for
+    bit and the JAX kernel within its existing 1e-6: on the CPU the JAX
+    kernel fuses the rescale and the bias into one FMA, where the kernel and
+    the plain version round twice."""
+    x, kq, qmul, scale, bias = _tie_operands(130, k, 136, seed=k)
+    assert np.any(np.abs(np.modf(x * qmul)[0]) == 0.5) and np.any(np.abs(x * qmul) > 127)
+    rounding = "away" if model == "round_half_away" else "even"
+
+    def jax_out(s, b):
+        return np.asarray(jax_w8a8(jnp.asarray(x), jnp.asarray(kq), jnp.asarray(qmul),
+                                   jnp.asarray(s), jnp.asarray(b), out_dtype=jnp.float32))
+
+    one, zero = np.ones(136, np.float32), np.zeros(136, np.float32)
+    sums = _kernel_model(x, kq, qmul, one, zero, rounding, k_tail=model != "drop_k_tail")
+    assert np.array_equal(sums, jax_out(one, zero)) == holds
+    if holds:
+        got = _kernel_model(x, kq, qmul, scale, bias)
+        np.testing.assert_array_equal(got, _port(x, kq, qmul, scale, bias).numpy())
+        np.testing.assert_allclose(got, jax_out(scale, bias), rtol=1e-6, atol=1e-6)
+
+
+def test_fp32_kernel_quantize_is_rint_then_clip():
+    """The add of 1.5 * 2^23 gives the integer of rint followed by the clamp
+    at every tie from -130.5 to 130.5 and at values between."""
+    v = np.arange(-130.5, 131.0, 0.25, dtype=np.float32)
+    one = np.ones_like(v)
+    want = np.clip(np.rint(v), -127, 127).astype(np.int8)
+    np.testing.assert_array_equal(_kernel_quantize(v, one), want)
+    assert not np.array_equal(_kernel_quantize(v, one, "away"), want)
+
+
 @pytest.mark.parametrize("m,k,n,lead,with_bias", [
     (1, 40, 136, (), True), (7, 40, 136, (2, 3), True), (24, 64, 128, (), False)])
 def test_plain_version_matches_the_jax_serve_path(m, k, n, lead, with_bias):
